@@ -2,7 +2,12 @@
 //
 // Replaces flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel (K1)
 // and, because K/V always stream through shared memory here, also its
-// VMEM-overflow twin _flash_stream_kernel (K2). The TPU kernel's
+// VMEM-overflow twin _flash_stream_kernel (K2). Instantiated with kLse it
+// is K3, the training forward, which also writes the base-2 log-sum-exp
+// rows lse = m + log2(l) in fp32 (replaces
+// flexdiffuse_tpu/ops/flash_backward.py::_fwd_lse_kernel, :62); the
+// backward kernels K4/K5 (flash_backward.cu) recompute P from them. The
+// kLse = false instantiation is K1 unchanged. The TPU kernel's
 // transposed [d, s] operands and its ones-row sum fold answer the TPU's
 // 128-lane width and its vector unit; neither is carried over.
 //
@@ -26,111 +31,16 @@
 // cores or device memory. wgmma, TMA, cp.async pipelining and warp
 // specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // q rows per block (16 per warp)
-constexpr int kBlockN = 64;   // kv rows per streamed tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // shared-memory row padding, in elements
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 cast(float x) {
-    return __float2bfloat16(x);
-  }
-};
-
-template <>
-struct Ops<__half> {
-  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ __half cast(float x) {
-    return __float2half_rn(x);
-  }
-};
-
-// Two transposed 8x8 b16 matrices from shared memory: rows k0..k0+15 of a
-// row-major [k][n] tile give the m16n8k16 B fragment (k = kv row, n = d).
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
-                                                  const void* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(const void* smem) {
-  return *reinterpret_cast<const uint32_t*>(smem);
-}
-
-// Stage rows [r0, r0 + 64) x cols [0, DP) of a [rows, d] matrix into a
-// shared tile with row stride DP + kPad; rows >= `rows` and cols >= d are
-// zero, so padded columns add nothing to Q·Kᵀ and padded V rows stay finite.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
-                                          int rows, int d, bool vec) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kStride = DP + kPad;
-  const T zero = Ops<T>::cast(0.f);
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const int gr = r0 + r;
-    T* out = dst + r * kStride + c;
-    if (vec && gr < rows && c + 8 <= d) {
-      *reinterpret_cast<uint4*>(out) =
-          *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        out[e] = (gr < rows && c + e < d) ? src[(size_t)gr * d + c + e] : zero;
-      }
-    }
-  }
-}
-
-template <typename T, int DP>
+template <typename T, int DP, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int sq,
-                     int skv, int d, float scale_log2, int vec) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int sq, int skv, int d,
+                     float scale_log2, int vec) {
   static_assert(DP % 16 == 0 && DP <= 128, "head dim tile");
   static_assert(kBlockM == kBlockN, "load_tile stages 64-row tiles");
   constexpr int kStride = DP + kPad;
@@ -272,6 +182,10 @@ __global__ void __launch_bounds__(kThreads)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    if constexpr (kLse) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (tq == 0 && row < sq) lse[bh * sq + row] = m_run[r] + log2f(l);
+    }
   }
   const int row0 = q0 + warp * 16 + g;
   const int row1 = row0 + 8;
@@ -289,61 +203,80 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kLse>
 int launch_dp(const void* q, const void* k, const void* v, void* o,
-              int batch_heads, int sq, int skv, int d, float scale, int vec,
-              cudaStream_t stream) {
+              float* lse, int batch_heads, int sq, int skv, int d,
+              float scale, int vec, cudaStream_t stream) {
   const int smem = (kBlockM + 2 * kBlockN) * (DP + kPad) * (int)sizeof(T);
   // Above 48 KB (DP = 128) dynamic shared memory needs the opt-in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<T, DP, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, batch_heads);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DP, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, d,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, d,
       scale * kLog2e, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
+template <typename T, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch_heads, int sq, int skv, int d, float scale, int vec,
            cudaStream_t stream) {
+#define FLASH_CASE(n) \
+  case n / 16: \
+    return launch_dp<T, n, kLse>(q, k, v, o, lse, batch_heads, sq, skv, d, \
+                                 scale, vec, stream);
   switch ((d + 15) / 16) {
-    case 1: return launch_dp<T, 16>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 2: return launch_dp<T, 32>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 3: return launch_dp<T, 48>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 4: return launch_dp<T, 64>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 5: return launch_dp<T, 80>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 6: return launch_dp<T, 96>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 7: return launch_dp<T, 112>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
-    case 8: return launch_dp<T, 128>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, stream);
+    FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64)
+    FLASH_CASE(80) FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_CASE
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes). dtype: 0 = bf16, 1 = fp16.
-// vec != 0 promises 16-byte aligned rows (d % 8 == 0, aligned pointers).
-// Launches on `stream` and returns cudaGetLastError() after the launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int batch_heads,
-                                   int sq, int skv, int d, float scale,
-                                   int dtype, int vec, void* stream) {
+template <bool kLse>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int batch_heads, int sq, int skv, int d,
+             float scale, int dtype, int vec, void* stream) {
   if (batch_heads < 1 || batch_heads > 65535 || sq < 1 || skv < 1 || d < 1 ||
       d > 128) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<__nv_bfloat16>(q, k, v, o, batch_heads, sq, skv, d, scale,
-                                 vec, s);
+    return launch<__nv_bfloat16, kLse>(q, k, v, o, lse, batch_heads, sq, skv,
+                                       d, scale, vec, s);
   }
   if (dtype == 1) {
-    return launch<__half>(q, k, v, o, batch_heads, sq, skv, d, scale, vec, s);
+    return launch<__half, kLse>(q, k, v, o, lse, batch_heads, sq, skv, d,
+                                scale, vec, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). dtype: 0 = bf16, 1 = fp16.
+// vec != 0 promises 16-byte aligned rows (d % 8 == 0, aligned pointers).
+// Each launches on `stream` and returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int batch_heads,
+                                   int sq, int skv, int d, float scale,
+                                   int dtype, int vec, void* stream) {
+  return dispatch<false>(q, k, v, o, nullptr, batch_heads, sq, skv, d, scale,
+                         dtype, vec, stream);
+}
+
+// K3: as flash_attention_fwd, and also writes lse[batch_heads, sq] (fp32,
+// base 2: the row max of q·kᵀ·scale·log2(e) plus log2 of the row sum).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
+                                       const void* v, void* o, float* lse,
+                                       int batch_heads, int sq, int skv,
+                                       int d, float scale, int dtype, int vec,
+                                       void* stream) {
+  return dispatch<true>(q, k, v, o, lse, batch_heads, sq, skv, d, scale,
+                        dtype, vec, stream);
 }

@@ -2,14 +2,17 @@
 
 Mirrors ``flexdiffuse_tpu/ops/attention.py:100-150``. Self-attention whose
 both sequences are ≥1024 tokens and divisible by 128, with heads ≤128 wide,
-is eligible for the flash kernel (K1, ``ops/flash_attention.py``); at 512²
-that is the UNet's 4096- and 1024-token levels. Everything else — cross
-attention over 77 context tokens, the 256-token level, the VAE's single
-512-wide head — runs :func:`plain_attention`.
+is eligible for the flash kernels; at 512² that is the UNet's 4096- and
+1024-token levels. Everything else — cross attention over 77 context
+tokens, the 256-token level, the VAE's single 512-wide head — runs
+:func:`plain_attention`.
 
-Routing: an eligible CUDA tensor goes to the kernel, which launches or
-raises; a CPU tensor goes to the plain version. There is no fallback from
-the kernel to the plain version.
+Routing: an eligible call that needs a gradient (grad mode on and any of
+q, k, v requiring grad) goes to :class:`FlashAttentionFn` (K3 forward,
+K4/K5 backward, ``ops/flash_backward.py``); any other eligible call goes to
+the inference kernel K1 (``ops/flash_attention.py``), whose output carries
+no gradient. On CUDA tensors the kernels launch or raise; CPU tensors take
+the plain twins. There is no fallback from a kernel to a plain version.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
                                                        plain_attention)
+from flexdiffuse_tpu_torch.ops.flash_backward import FlashAttentionFn
 
 FLASH_MIN_SEQ = 1024
 
@@ -77,6 +81,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif backend == 'flash' and not eligible:
         backend = 'plain'
     if backend == 'flash':
-        return flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), scale)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, scale)
+        return flash_attention(q, k, v, scale)
     return plain_attention(q, k, v, scale)

@@ -5,15 +5,20 @@ contiguous ``[B, H, S, D]`` bf16/fp16 tensors, written by hand for sm_90a
 (see the note at the top of the source). It replaces the JAX package's
 Pallas kernel ``flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel``.
 
-The source is compiled at first use with ``nvcc`` into a shared library with
-a plain C entry point and bound with ``ctypes``. The library lands in
-``flexdiffuse_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash
-of the source and the flags, so a fresh checkout builds it once and an
-edited source rebuilds. Nothing is compiled or loaded at import time.
+Every kernel source in ``csrc/`` is compiled at first use with ``nvcc``
+into a shared library with plain C entry points and bound with ``ctypes``
+(:func:`build`, :func:`load`; ``ops/flash_backward.py`` loads the training
+kernels the same way, and K3, the lse instantiation of this source, through
+:data:`SIGNATURES`). A library lands in ``flexdiffuse_tpu_torch/_build/``
+(git-ignored) under a name keyed by a hash of its source, the shared
+``csrc/*.cuh`` headers and the flags, so a fresh checkout builds it once and
+an edited source rebuilds. Nothing is compiled or loaded at import time.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; only a CPU tensor takes
-:func:`plain_attention`, the same math in plain PyTorch.
+:func:`plain_attention`, the same math in plain PyTorch. Its output carries
+no gradient: ``ops/attention.py`` routes calls that need one to
+``ops/flash_backward.FlashAttentionFn``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Sequence
 
 import torch
 
@@ -35,9 +40,9 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 MAX_HEAD_DIM = 128
-_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[Path, ctypes.CDLL] = {}
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,18 +68,22 @@ def _nvcc() -> str:
                        'attention kernel cannot be built')
 
 
-def library_path() -> Path:
-    """Where the build for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the build of ``source`` for the current sources and flags lives:
+    the name carries a hash of the source, the shared headers in ``csrc/``
+    and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob('*.cuh')):
+        h.update(header.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f'flash_attention-{h.hexdigest()[:16]}.so'
+    return BUILD_DIR / f'{source.stem}-{h.hexdigest()[:16]}.so'
 
 
-def build() -> float:
-    """Compile the kernel if its build is missing; returns the seconds the
+def build(source: Path = SOURCE) -> float:
+    """Compile ``source`` if its build is missing; returns the seconds the
     compile took (0.0 when the build already existed). Raises when nvcc is
     missing or the compile fails."""
-    out = library_path()
+    out = library_path(source)
     if out.exists():
         return 0.0
     nvcc = _nvcc()
@@ -83,11 +92,12 @@ def build() -> float:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, str(SOURCE)],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, str(source)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stdout}\n{proc.stderr}')
+            raise RuntimeError(f'nvcc failed on {source.name} '
+                               f'({proc.returncode}):\n{proc.stdout}\n'
+                               f'{proc.stderr}')
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -95,28 +105,52 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        fn = lib.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def load(source: Path, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The library built from ``source`` (built first if missing), with the
+    argument types of each entry point in ``signatures`` declared; every C
+    entry point returns a CUDA error code. Loaded once per source."""
+    lib = _libs.get(source)
+    if lib is None:
+        build(source)
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _libs[source] = lib
+    return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (q, k, v, o[, lse], batch_heads, sq, skv, d, scale, dtype, vec, stream)
+SIGNATURES = {
+    'flash_attention_fwd': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    'flash_attention_fwd_lse': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                _I, _P),
+}
+
+
+def vec_ok(*tensors: torch.Tensor) -> int:
+    """1 when the kernels may load rows 16 bytes at a time: the head dim is
+    a multiple of 8 and every pointer is 16-byte aligned."""
+    return int(tensors[0].shape[-1] % 8 == 0 and
+               all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def raise_on_error(rc: int, name: str, q: torch.Tensor,
+                   k: torch.Tensor) -> None:
+    if rc != 0:
+        raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc} at '
+                           f'q {tuple(q.shape)}, k {tuple(k.shape)}')
+
+
+def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError('flash_attention: q, k and v must all be CUDA '
                          'tensors (or all CPU tensors)')
     if not (q.device == k.device == v.device):
         raise ValueError('flash_attention: q, k, v on different devices')
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError('flash_attention takes bf16 or fp16 q/k/v of one '
                          f'dtype, got {q.dtype}/{k.dtype}/{v.dtype}')
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -146,22 +180,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == 'cpu' and k.device.type == 'cpu' \
             and v.device.type == 'cpu':
         return plain_attention(q, k, v, scale)
-    _check(q, k, v)
-    lib = _library()
+    check(q, k, v)
+    lib = load(SOURCE, SIGNATURES)
     out = torch.empty_like(q)
     b, h, sq, d = q.shape
-    vec = int(d % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (q, k, v, out)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(),
                                      v.data_ptr(), out.data_ptr(), b * h, sq,
                                      k.shape[2], d, float(scale),
-                                     _DTYPES[q.dtype], vec, stream)
-    if rc != 0:
-        raise RuntimeError(f'flash_attention kernel launch failed: CUDA '
-                           f'error {rc} at q {tuple(q.shape)}, k '
-                           f'{tuple(k.shape)}')
+                                     DTYPES[q.dtype], vec_ok(q, k, v, out),
+                                     stream)
+    raise_on_error(rc, 'flash_attention', q, k)
     flash_attention.launches += 1
     return out
 

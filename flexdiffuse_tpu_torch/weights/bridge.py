@@ -15,9 +15,12 @@ The inverse of each converter sits in the function of the same name
 ↔ :func:`clip_vision`, ``convert_unet`` :170 ↔ :func:`unet`,
 ``convert_vae`` :236 ↔ :func:`vae`). Trees are nested dicts of numpy arrays
 (an outer ``{'params': ...}`` is accepted); no JAX is imported.
+:func:`lora_factors_to_torch` renames the JAX package's LoRA factors to the
+port's module names, so both packages train from the same factors.
 """
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict
 
@@ -203,6 +206,45 @@ def vae(tree: Mapping, config: VAEConfig) -> SD:
     _conv(sd, 'quant_conv', tree['quant_conv'])
     _conv(sd, 'post_quant_conv', tree['post_quant_conv'])
     return sd
+
+
+# The JAX GEGLU feed-forward's leaves → diffusers' FeedForward names.
+_FF = {'proj_in': 'net.0.proj', 'proj_out': 'net.2'}
+
+
+def _lora_module_name(path: str) -> str:
+    """A JAX LoRA factor path (``training/train.py`` ``init_lora``) → the
+    port's module name."""
+    parts = path.split('/')
+    head = parts[0]
+    m = re.match(r'^(down|up)_(\d+)_attn_(\d+)$', head)
+    if m:
+        side, i, j = m.groups()
+        prefix = f'{side}_blocks.{i}.attentions.{j}'
+    elif head == 'mid_attn':
+        prefix = 'mid_block.attentions.0'
+    else:
+        raise ValueError(f'no port module for LoRA path {path!r}')
+    if len(parts) == 4 and parts[1].startswith('blocks_'):
+        block = f'{prefix}.transformer_blocks.{parts[1][len("blocks_"):]}'
+        mid, leaf = parts[2], parts[3]
+        if mid in ('attn1', 'attn2') and leaf in ('to_q', 'to_k', 'to_v'):
+            return f'{block}.{mid}.{leaf}'
+        if mid in ('attn1', 'attn2') and leaf == 'to_out':
+            return f'{block}.{mid}.to_out.0'
+        if mid == 'ff' and leaf in _FF:
+            return f'{block}.ff.{_FF[leaf]}'
+    raise ValueError(f'no port module for LoRA path {path!r}')
+
+
+def lora_factors_to_torch(factors: Mapping) -> Dict[str, SD]:
+    """JAX LoRA factors ``{path: {'down': [r, in], 'up': [out, r]}}`` → the
+    port's ``{module name: {'down', 'up'}}`` (fp32 tensors). The arrays are
+    the same: JAX merges ``(up@down)ᵀ`` into an ``[in, out]`` kernel, the port
+    ``up@down`` into an ``[out, in]`` Linear weight."""
+    return {_lora_module_name(path): {k: _t(np.asarray(fac[k], np.float32))
+                                      for k in ('down', 'up')}
+            for path, fac in factors.items()}
 
 
 # Keyed by class name: the JAX package's config dataclasses are field-for-

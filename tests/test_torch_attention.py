@@ -35,12 +35,30 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.models.unet', 'flexdiffuse_tpu_torch.models.vae',
     'flexdiffuse_tpu_torch.ops.attention',
     'flexdiffuse_tpu_torch.ops.flash_attention',
+    'flexdiffuse_tpu_torch.ops.flash_backward',
     'flexdiffuse_tpu_torch.text.tokenizer',
     'flexdiffuse_tpu_torch.utils.image',
     'flexdiffuse_tpu_torch.weights.bridge',
     'flexdiffuse_tpu_torch.guidance', 'flexdiffuse_tpu_torch.schedulers',
-    'flexdiffuse_tpu_torch.pipeline',
+    'flexdiffuse_tpu_torch.pipeline', 'flexdiffuse_tpu_torch.training',
+    'flexdiffuse_tpu_torch.training.checkpoint',
+    'flexdiffuse_tpu_torch.training.data',
+    'flexdiffuse_tpu_torch.training.dreambooth',
+    'flexdiffuse_tpu_torch.training.loop',
+    'flexdiffuse_tpu_torch.training.train',
 ]
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One torch intra-op thread while a port test module runs: the suite
+    runs in several worker processes on shared cores, and torch's small CPU
+    ops slow down many times over when every worker starts a thread per
+    core. Imported (autouse) by every CPU test module of the port."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _qkv(shape, seed):

@@ -14,6 +14,7 @@ from flexdiffuse_tpu_torch import guidance as tg
 from flexdiffuse_tpu_torch.config import (GUIDE_ORDER_ALIGN,
                                           GUIDE_ORDER_DIRECT,
                                           GUIDE_ORDER_TEXT, GuidanceParams)
+from tests.test_torch_attention import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 T, A, D = 77, 257, 768

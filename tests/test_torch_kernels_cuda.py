@@ -1,11 +1,13 @@
-"""PyTorch port: the Hopper flash-attention kernel (K1) against its plain
-twin, on the card. Marked ``cuda``: each test skips without a CUDA device.
-Run on the card with ``python -m pytest tests/test_torch_kernels_cuda.py
--m cuda -q`` (this file imports no JAX).
+"""PyTorch port: the Hopper flash-attention kernels (K1 forward, K3
+forward with lse, K4 dq, K5 dk/dv) against their plain twins, on the card.
+Marked ``cuda``: each test skips without a CUDA device. Run on the card with
+``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
+(this file imports no JAX).
 """
 import pytest
 import torch
 
+from flexdiffuse_tpu_torch.ops import flash_backward as fb
 from flexdiffuse_tpu_torch.ops.attention import attention
 from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
                                                        plain_attention)
@@ -76,3 +78,96 @@ def test_dispatcher_routes_eligible_cuda_tensors_to_kernel(cuda_gen):
     assert flash_attention.launches == before + 1
     attention(q, ctx, ctx)                      # cross-attention: plain
     assert flash_attention.launches == before + 1
+
+
+def _rule(got, ref, plain):
+    """The kernel's max|Δ| to the fp32 reference is within twice the 16-bit
+    plain twin's plus 1e-3·max|ref| (the rule chip_smoke.py applies)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    plain_err = (plain.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item(), \
+        (err, plain_err)
+
+
+def _inputs(shape, skv, dtype, gen):
+    b, h, sq, d = shape
+    q, dout = (torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+               for _ in range(2))
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device='cuda',
+                        dtype=dtype) for _ in range(2))
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,skv,dtype', SHAPES)
+def test_lse_kernel_matches_plain(shape, skv, dtype, cuda_gen):
+    """K3: o as K1 (the same rule) and bit-equal to K1's output; lse within
+    1e-3 of the fp32 twin."""
+    q, k, v, _ = _inputs(shape, skv, dtype, cuda_gen)
+    scale = shape[-1]**-0.5
+    before = fb.flash_attention_lse.launches
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fb.flash_attention_lse.launches == before + 1
+    ref_o, ref_lse = fb.plain_attention_lse(q.float(), k.float(), v.float(),
+                                            scale)
+    _rule(o, ref_o, fb.plain_attention_lse(q, k, v, scale)[0])
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert torch.equal(o, flash_attention(q, k, v, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,skv,dtype', SHAPES)
+def test_backward_kernels_match_plain(shape, skv, dtype, cuda_gen):
+    """K4 (dq) and K5 (dk, dv) on the same 16-bit inputs as their twins."""
+    q, k, v, dout = _inputs(shape, skv, dtype, cuda_gen)
+    scale = shape[-1]**-0.5
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    dvec = fb.attention_delta(dout, o)
+    before = (fb.flash_attention_dq.launches, fb.flash_attention_dkv.launches)
+    dq = fb.flash_attention_dq(q, k, v, dout, lse, dvec, scale)
+    dk, dv = fb.flash_attention_dkv(q, k, v, dout, lse, dvec, scale)
+    torch.cuda.synchronize()
+    assert (fb.flash_attention_dq.launches,
+            fb.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
+    args32 = [t.float() for t in (q, k, v, dout)] + [lse, dvec, scale]
+    args16 = [q, k, v, dout, lse, dvec, scale]
+    _rule(dq, fb.plain_attention_dq(*args32), fb.plain_attention_dq(*args16))
+    for got, ref, plain in zip((dk, dv), fb.plain_attention_dkv(*args32),
+                               fb.plain_attention_dkv(*args16)):
+        _rule(got, ref, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(2, 8, 1024, 80), (1, 2, 4096, 40)])
+def test_dispatcher_gradients_reach_the_kernels(shape, cuda_gen):
+    """A gradient through the dispatcher on CUDA tensors that require grad
+    runs K3 forward and K4/K5 backward (no K1: its output has no gradient)
+    and equals plain autograd's within the kernel rule."""
+    q, k, v, w = _inputs(shape, shape[2], torch.bfloat16, cuda_gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches = (flash_attention.launches, fb.flash_attention_lse.launches,
+                fb.flash_attention_dq.launches,
+                fb.flash_attention_dkv.launches)
+    out = attention(*leaves)
+    grads = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fb.flash_attention_lse.launches,
+            fb.flash_attention_dq.launches,
+            fb.flash_attention_dkv.launches) == (
+                launches[0], launches[1] + 1, launches[2] + 1,
+                launches[3] + 1)
+    assert all(g is not None for g in grads)
+
+    def plain_grads(dtype):
+        ts = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        o = attention(*ts, backend='plain')
+        return torch.autograd.grad((o.float() * w.float()).sum(), ts)
+
+    for got, ref, plain in zip(grads, plain_grads(torch.float32),
+                               plain_grads(torch.bfloat16)):
+        _rule(got, ref, plain)
+    with torch.no_grad():                       # inference: K1 only
+        attention(q, k, v)
+    assert flash_attention.launches == launches[0] + 1

@@ -15,6 +15,7 @@ import torch
 from flexdiffuse_tpu import models as jm
 from flexdiffuse_tpu_torch import models as tm
 from flexdiffuse_tpu_torch.weights import params_to_state_dict
+from tests.test_torch_attention import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 
