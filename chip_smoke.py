@@ -3,57 +3,69 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-train 3 [--profile-out DIR]
+    python3 chip_smoke.py --profile-gen 5 [--profile-out DIR]
 
-The second form skips the smoke test and profiles train steps instead
-(``profile_training``). The first:
+The second and third forms skip the smoke test and profile train steps
+(``profile_training``) or UNet evaluations at 512² with K6 and with the
+plain GroupNorm (``profile_generate``) instead. The first:
 
-Inference (the first slice):
+Kernels and inference (the first and third slices):
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch/CUDA
    versions and the TF32 settings.
-2. Builds both kernel libraries at once, one ``nvcc`` per source:
+2. Builds the three kernel libraries at once, one ``nvcc`` per source:
    ``flexdiffuse_tpu_torch/csrc/flash_attention.cu`` (K1, and K3 as its
-   lse instantiation) and ``csrc/flash_backward.cu`` (K4, K5); prints the
-   seconds of each.
+   lse instantiation), ``csrc/flash_backward.cu`` (K4, K5) and
+   ``csrc/group_norm.cu`` (K6); prints the seconds of each.
 3. Holds K1 against the fp32 plain attention on the same bf16 inputs at six
    shapes. A shape passes when the kernel's max|Δ| to the fp32 reference is
    at most twice the bf16 plain version's max|Δ| to it, plus
    1e-3·max|ref| (bf16 rounds the output and P; the slack covers the
    kernel's different summation order). Prints both errors, and the
    kernel's, the plain version's and ``scaled_dot_product_attention``'s
-   times at the two main-path shapes.
-4. Builds SD-1.4 geometry (CLIP ViT-L/14 text and vision towers, the SD-1.4
-   UNet and VAE) with seeded random weights on the card in bf16, and checks
-   one UNet evaluation through the kernel against the same evaluation with
-   plain attention.
-5. Drives ``Runner.gen`` — txt2img at 512² with a synthetic guide image,
-   PNDM, 25 steps, CFG 8 — then one img2img ``gen`` at strength 0.6.
-6. Asserts 512×512 uint8 images, finite latents and ε, and exactly 10 K1
-   launches and no K3/K4/K5 launch per UNet evaluation; prints steps/s and
-   end-to-end seconds.
+   times at the two main-path shapes and at K2's (1,2,32768,40).
+4. Holds K6 against the fp32 plain GroupNorm on the same inputs at eight
+   shapes, by step 3's rule (fp32 outputs: 1e-4·max|ref|); at two shapes
+   prints the times of K6, the plain version, ``F.group_norm`` and
+   ``F.group_norm`` + ``F.silu``, and the bound.
+5. Builds SD-1.4 geometry (CLIP ViT-L/14 text and vision towers, the SD-1.4
+   UNet and VAE) with seeded random weights on the card in bf16; checks one
+   UNet evaluation through K1 and K6 against the same evaluation with plain
+   attention and plain GroupNorm, and one 512² VAE decode through K6
+   against the plain GroupNorm.
+6. Drives ``Runner.gen``: txt2img at 512² with a synthetic guide image,
+   PNDM, 25 steps, CFG 8, then img2img at strength 0.6; DDIM (η 0 and 0.5)
+   and LMS txt2img; latent inpainting of the left half; debug mode (5
+   steps, one image per step). Then ``Runner.compose`` at 512²: a
+   background and 2 entities (UNet batch 4), PNDM, 30 steps, CFG 8.
+7. Asserts 512×512 uint8 images, finite latents and ε, and exactly the
+   kernel launches each phase implies (K1: 10 per UNet evaluation; K6: 61
+   per UNet evaluation, 30 per VAE decode, 22 per VAE encode; no K3-K5);
+   prints UNet evaluations/s and end-to-end seconds.
 
 Training (the second slice):
 
-7. Holds K3 (``o`` and ``lse``), K4 (``dq``) and K5 (``dk``, ``dv``) against
+8. Holds K3 (``o`` and ``lse``), K4 (``dq``) and K5 (``dk``, ``dv``) against
    their fp32 plain twins on the same bf16 inputs at five shapes, by step
-   3's rule (``lse``: 1e-3 absolute); at the two training shapes prints the
-   kernels', the twins' and ``scaled_dot_product_attention``'s forward and
-   backward times.
-8. One LoRA train step's loss and factor gradients at SD-1.4 width (512²,
+   3's rule (``lse``: 1e-3 absolute; for K4 and K5 the bf16 plain version
+   rounds P and dS before the products, as step 3's rounds P); at the two
+   training shapes prints the kernels', the twins' and
+   ``scaled_dot_product_attention``'s forward and backward times.
+9. One LoRA train step's loss and factor gradients at SD-1.4 width (512²,
    batch 4, injected timesteps and noise) through the kernels against the
    same step with plain attention: max|Δg|/max|g| ≤ 5e-2.
-9. Encodes 8 synthetic 512² images (VAE encoder) and their captions (CLIP
-   text) into an ``EncodedDataset`` on the card.
-10. ``train_lora`` for 10 steps (rank 8, batch 4, remat 'none') on the bf16
+10. Encodes 8 synthetic 512² images (VAE encoder) and their captions (CLIP
+    text) into an ``EncodedDataset`` on the card.
+11. ``train_lora`` for 10 steps (rank 8, batch 4, remat 'none') on the bf16
     UNet, then ``train_full`` for 4 steps (batch 4, fp32 weights and Adam,
     bf16 autocast, remat 'full') on an fp32 copy: finite losses and exactly
     the kernel launches the path implies (LAUNCHES_PER_STEP); prints the
     median ms per step, images/s and peak device memory.
-11. Prints one JSON line about the kernels, then, only if every phase
+12. Prints one JSON line about the kernels, then, only if every phase
     passed, ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 5 and 10) and read just after; launches made to check a kernel
+(steps 6 and 11) and read just after; launches made to check a kernel
 against its plain twin do not count. Any failed phase raises, so the script
 exits non-zero; without CUDA it exits non-zero at once and prints no
 result.
@@ -62,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import os
 import statistics
@@ -86,6 +99,7 @@ from flexdiffuse_tpu_torch import training
 from flexdiffuse_tpu_torch.ops import attention as attn_mod
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
+from flexdiffuse_tpu_torch.ops import group_norm as gn
 from flexdiffuse_tpu_torch.runner import Runner
 from flexdiffuse_tpu_torch.text.tokenizer import FakeTokenizer
 from flexdiffuse_tpu_torch.training import train as train_mod
@@ -95,6 +109,13 @@ PROMPT = 'Deer colorful, fantasy, intricate, highly detailed'
 KERNEL_SHAPES = [(2, 8, 4096, 40), (4, 8, 4096, 40), (2, 8, 1024, 80),
                  (2, 8, 1536, 40), (2, 10, 4096, 64), (1, 2, 32768, 40)]
 MAIN_SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80)]
+K2_SHAPE = (1, 2, 32768, 40)   # K2's regime, served by K1: timed too
+TIMED_SHAPES = MAIN_SHAPES + [K2_SHAPE]
+# K6 launches: SD-1.4's UNet has 61 GroupNorms per evaluation (22 resnets ×
+# 2, 16 transformers, conv_norm_out), the VAE decoder 30 (14 resnets × 2,
+# the mid attention, conv_norm_out), the encoder 22 (10 resnets × 2, the
+# mid attention, conv_norm_out).
+K6_PER_UNET, K6_PER_DECODE, K6_PER_ENCODE = 61, 30, 22
 LAUNCHES_PER_UNET = 10   # 2 down + 3 up self-attentions at 4096 and 1024
 # One UNet evaluation through K1 against the same one with plain attention,
 # both bf16 end to end: max|Δε| / max|ε| must stay below this (bf16 rounding
@@ -112,13 +133,40 @@ LORA_STEPS, FULL_STEPS = 10, 4
 # Kernel launches per train step at 512²: each UNet forward runs the 10
 # flash-eligible self-attentions through K3 (never K1: they need a
 # gradient), the backward runs K4 and K5 once each; remat 'full' recomputes
-# the forward in the backward, so K3 runs twice.
-LAUNCHES_PER_STEP = {'none': dict(k1=0, k3=10, k4=10, k5=10),
-                     'full': dict(k1=0, k3=20, k4=10, k5=10)}
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# the forward in the backward, so K3 runs twice. K6 serves only GroupNorms
+# whose input and affine need no gradient: in LoRA training (frozen UNet,
+# factors on the attention projections) the three GroupNorms that run
+# before the first adapted layer, down_blocks[0].resnets[0].norm1 and
+# .norm2 and down_blocks[0].attentions[0].norm; every later activation
+# carries the factors' gradient. Full fine-tuning trains the affine of
+# every GroupNorm, so none.
+LAUNCHES_PER_STEP = {'lora': dict(k1=0, k3=10, k4=10, k5=10, k6=3),
+                     'full': dict(k1=0, k3=20, k4=10, k5=10, k6=0)}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
+# outside the tensor cores, HBM3.
+PEAK_FLOPS, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 KERNELS = {'k1': fa.flash_attention, 'k3': fb.flash_attention_lse,
-           'k4': fb.flash_attention_dq, 'k5': fb.flash_attention_dkv}
+           'k4': fb.flash_attention_dq, 'k5': fb.flash_attention_dkv,
+           'k6': gn.fused_group_norm}
+BF16, FP32 = torch.bfloat16, torch.float32
+# K6 check shapes (NCHW, silu, eps, in dtype, out dtype, timed), stored
+# channels-last as the models' activations are on the card: the UNet's
+# levels at 512² (CFG batch 2 and compose batch 4), the VAE's mid-block and
+# largest decoder activation, fp32 in and out, a ragged one (C/G = 3,
+# HW = 391). Groups: 32, as SD-1.4 everywhere.
+GN_SHAPES = [((2, 320, 64, 64), True, 1e-5, BF16, BF16, True),
+             ((2, 320, 64, 64), False, 1e-6, BF16, BF16, False),
+             ((2, 2560, 8, 8), True, 1e-5, BF16, BF16, False),
+             ((4, 640, 64, 64), True, 1e-5, BF16, BF16, False),
+             ((1, 512, 64, 64), False, 1e-6, BF16, BF16, False),
+             ((1, 256, 512, 512), True, 1e-6, BF16, BF16, True),
+             ((4, 320, 64, 64), True, 1e-5, FP32, FP32, False),
+             ((3, 96, 17, 23), True, 1e-5, FP32, BF16, False)]
+# One VAE decode through K6 against the plain GroupNorm, both bf16:
+# max|Δ|/max|ref| below this. Both are also held to an fp32 decode of the
+# same z (fp32 weights copied from the bf16 ones, plain GroupNorm), by K1's
+# rule: K6's error at most twice the bf16 plain decode's plus 1e-3·max|ref|.
+VAE_REL_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -128,14 +176,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls after 3 warm-ups,
+    by CUDA events. With ``graph`` the calls are captured once into a CUDA
+    graph and replayed, so a call shorter than its own host-side launch
+    (K6 at the UNet's sizes) is timed on the device, not at the rate the
+    host enqueues it."""
     for _ in range(3):
         fn()
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(iters):
+                fn()
+        captured.replay()
+        run = captured.replay
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -150,9 +213,9 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def bound(flops: float, nbytes: float) -> tuple:
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple:
     """The least time the card could take, in ms, and what bounds it."""
-    by_flops, by_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    by_flops, by_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(by_flops, by_bytes) * 1e3,
             'operations' if by_flops >= by_bytes else 'bytes')
 
@@ -194,13 +257,61 @@ def check_kernel(shape, gen: torch.Generator) -> dict:
     tol = 2.0 * plain_err + 1e-3 * max_ref
     res = dict(shape=list(shape), max_abs_err=err, plain_max_abs_err=plain_err,
                max_abs_ref=max_ref, tol=tol, ok=err <= tol)
-    if shape in MAIN_SHAPES:
+    if shape in TIMED_SHAPES:
         res['ms'] = time_ms(lambda: fa.flash_attention(q, k, v, scale))
-        res['plain_ms'] = time_ms(lambda: fa.plain_attention(q, k, v, scale))
+        res['plain_ms'] = time_ms(lambda: fa.plain_attention(q, k, v, scale),
+                                  iters=5 if shape == K2_SHAPE else 20)
         res['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale))
         res['bound_ms'], res['bound_by'] = attention_bound('k1', b, h, s, s,
                                                            d)
+    return res
+
+
+def check_group_norm(shape, silu: bool, eps: float, din: torch.dtype,
+                     dout: torch.dtype, timed: bool,
+                     gen: torch.Generator) -> dict:
+    """K6 against the fp32 plain GroupNorm on the same inputs (x not
+    centred and channels-last, the affine in x's dtype as the models hold
+    it), by K1's rule; fp32 outputs within 1e-4·max|ref|; y channels-last
+    too. At the timed shapes, replayed from a CUDA graph: K6, the plain
+    version, ``F.group_norm`` alone and with ``F.silu`` (the library call
+    of K6's function); and the bound: one read of x and one write of y at
+    3.35 TB/s against ~10 fp32 operations per element at 67 TFLOP/s."""
+    x = (1.5 * torch.randn(shape, generator=gen, device='cuda') +
+         0.7).to(din).contiguous(memory_format=torch.channels_last)
+    w = (1.0 + 0.5 * torch.randn(shape[1], generator=gen,
+                                 device='cuda')).to(din)
+    b = (0.3 * torch.randn(shape[1], generator=gen, device='cuda')).to(din)
+    args = (x, 32, w, b, eps, silu, dout)
+    y = gn.fused_group_norm(*args)
+    torch.cuda.synchronize()
+    ref = gn.plain_group_norm(x, 32, w, b, eps, silu, FP32)
+    plain = gn.plain_group_norm(*args)
+    err = (y.float() - ref).abs().max().item()
+    plain_err = (plain.float() - ref).abs().max().item()
+    max_ref = ref.abs().max().item()
+    tol = 1e-4 * max_ref if dout == FP32 else 2.0 * plain_err + \
+        1e-3 * max_ref
+    res = dict(shape=list(shape), silu=silu,
+               eps=eps, dtype=str(din), out_dtype=str(dout),
+               max_abs_err=err, plain_max_abs_err=plain_err,
+               max_abs_ref=max_ref, tol=tol,
+               ok=bool(err <= tol and torch.isfinite(y).all() and
+                       y.is_contiguous(memory_format=torch.channels_last)))
+    del ref, plain
+    if timed:
+        res['ms'] = time_ms(lambda: gn.fused_group_norm(*args), graph=True)
+        res['plain_ms'] = time_ms(lambda: gn.plain_group_norm(*args),
+                                  graph=True)
+        res['library_gn_ms'] = time_ms(
+            lambda: F.group_norm(x, 32, w, b, eps), graph=True)
+        res['library_ms'] = time_ms(
+            lambda: F.silu(F.group_norm(x, 32, w, b, eps)), graph=True)
+        nbytes = x.numel() * (x.element_size() + y.element_size()) + \
+            2 * w.numel() * w.element_size()
+        res['bound_ms'], res['bound_by'] = bound(10.0 * x.numel(), nbytes,
+                                                 PEAK_FP32)
     return res
 
 
@@ -270,9 +381,13 @@ def _errs(got, ref, plain) -> dict:
 
 
 def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
-    """K3, K4 and K5 against their fp32 plain twins on the same bf16 inputs
-    (the twins also run on the bf16 inputs, in fp32 math with 16-bit
-    outputs, for the rule's 'plain' error); times at the training shapes."""
+    """K3, K4 and K5 against their fp32 plain twins on the same bf16 inputs,
+    by K1's rule; times at the training shapes. The rule's 'plain' error,
+    as K1's bf16 plain version rounds P before P·V: for K3 the twin on the
+    bf16 inputs (fp32 math, 16-bit output); for K4 and K5 the twins' math
+    with P and dS rounded to the inputs' dtype before the products, as the
+    kernels' tensor cores take them (``twin_max_abs_err``: without that
+    rounding)."""
     b, h, sq, d = shape
     q, dout = (torch.randn(shape, generator=gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(2))
@@ -292,11 +407,20 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
     res['k3']['ok'] &= res['k3']['lse_max_abs_err'] <= 1e-3
     del ref_o, ref_lse
     rows = (lse, dvec, scale)
-    res['k4'] = _errs(dq, fb.plain_attention_dq(*f32, *rows),
-                      fb.plain_attention_dq(q, k, v, dout, *rows))
+    p16, ds16 = (t.to(q.dtype).float() for t in fb._probs_and_ds(
+        q, k, v, dout, *rows))
+    ref = fb.plain_attention_dq(*f32, *rows)
+    res['k4'] = _errs(dq, ref, torch.matmul(ds16, f32[1]).to(q.dtype))
+    res['k4']['twin_max_abs_err'] = (fb.plain_attention_dq(
+        q, k, v, dout, *rows).float() - ref).abs().max().item()
     ref = fb.plain_attention_dkv(*f32, *rows)
-    plain = fb.plain_attention_dkv(q, k, v, dout, *rows)
+    plain = (torch.matmul(ds16.transpose(-1, -2), f32[0]).to(q.dtype),
+             torch.matmul(p16.transpose(-1, -2), f32[3]).to(q.dtype))
+    twin = fb.plain_attention_dkv(q, k, v, dout, *rows)
     dk_res, dv_res = _errs(dk, ref[0], plain[0]), _errs(dv, ref[1], plain[1])
+    for r, t, want in ((dk_res, twin[0], ref[0]), (dv_res, twin[1], ref[1])):
+        r['twin_max_abs_err'] = (t.float() - want).abs().max().item()
+    del p16, ds16, twin
     res['k5'] = dict(dk=dk_res, dv=dv_res,
                      max_abs_err=max(dk_res['max_abs_err'],
                                      dv_res['max_abs_err']),
@@ -371,13 +495,14 @@ def check_lora_step(unet, ctx, gen: torch.Generator) -> float:
     before = counts()
     loss_k, g_k = run('auto')
     moved = {n: counts()[n] - before[n] for n in before}
-    loss_p, g_p = run('plain')
+    with gn.backend('plain'):
+        loss_p, g_p = run('plain')
     g_max = max(g.abs().max().item() for g in g_p)
     rel = max((a - b).abs().max().item() for a, b in zip(g_k, g_p)) / g_max
     print(f'LoRA step 512² batch {TRAIN_BATCH}: loss kernel {loss_k:.6f} '
           f'plain {loss_p:.6f}; factor grads max|Δg|/max|g| = {rel:.3e} '
           f'(limit {UNET_REL_TOL}); launches {moved}')
-    if moved != LAUNCHES_PER_STEP['none']:
+    if moved != LAUNCHES_PER_STEP['lora']:
         raise AssertionError(f'LoRA check step launched {moved}')
     if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= UNET_REL_TOL *
             abs(loss_p) and rel <= UNET_REL_TOL):
@@ -401,7 +526,7 @@ def encode_synthetic(runner, vae, n: int = 8):
                                        encode_batch=4)
 
 
-def run_training(label: str, train_fn, steps: int, remat: str) -> dict:
+def run_training(label: str, train_fn, steps: int, mode: str) -> dict:
     """Drive one training entry point with the launch counts at 0; check
     finite losses and the exact launches; time the steps."""
     stamps = []
@@ -414,7 +539,7 @@ def run_training(label: str, train_fn, steps: int, remat: str) -> dict:
     got = counts()
     per_step = [b - a for a, b in zip(stamps, stamps[1:])]
     ms = statistics.median(per_step[1:]) * 1e3   # the first step warms up
-    want = {k: v * steps for k, v in LAUNCHES_PER_STEP[remat].items()}
+    want = {k: v * steps for k, v in LAUNCHES_PER_STEP[mode].items()}
     res = dict(label=label, steps=steps, losses=losses, median_step_ms=ms,
                images_per_s=TRAIN_BATCH / ms * 1e3,
                max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -431,6 +556,7 @@ def run_training(label: str, train_fn, steps: int, remat: str) -> dict:
 GROUPS = [('flash_fwd_kernel', 'flash forward (K1/K3)'),
           ('flash_bwd_dq', 'flash dq (K4)'),
           ('flash_bwd_dkv', 'flash dk/dv (K5)'),
+          ('::gn_', 'GroupNorm (K6)'),
           ('nchwToNhwc', 'layout conversion'),
           ('nhwcToNchw', 'layout conversion'),
           ('fprop', 'convolution'), ('dgrad', 'convolution'),
@@ -463,7 +589,9 @@ def busy_us(intervals) -> float:
 
 def profile_steps(label: str, step, steps: int, out: str) -> dict:
     """Two warm-up steps, ``steps`` unprofiled steps (host time without the
-    profiler's overhead), then ``steps`` steps under ``torch.profiler``."""
+    profiler's overhead), then ``steps`` steps under ``torch.profiler``.
+    Writes the device time by kernel and by operator (with input shapes)
+    under ``out``."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -472,8 +600,8 @@ def profile_steps(label: str, step, steps: int, out: str) -> dict:
         step()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -508,6 +636,15 @@ def profile_steps(label: str, step, steps: int, out: str) -> dict:
         for n, t in by_name.most_common():
             f.write(f'{t / 1e3 / steps:10.3f} ms/step  {t / total:7.2%}  '
                     f'{n}\n')
+    # The operators that launched the device time, by input shapes (which
+    # copy is which, say).
+    ops = sorted(prof.key_averages(group_by_input_shape=True),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    with open(os.path.join(out, f'{label}_ops.txt'), 'w') as f:
+        for e in ops[:60]:
+            f.write(f'{e.self_device_time_total / 1e3 / steps:10.3f} ms/step '
+                    f'{e.count / steps:7.1f} calls/step  {e.key}  '
+                    f'{e.input_shapes}\n')
     with open(os.path.join(out, f'{label}_summary.json'), 'w') as f:
         json.dump(res, f, indent=1)
     print(json.dumps(res))
@@ -546,6 +683,165 @@ def profile_training(steps: int, out: str) -> None:
                   steps, out)
 
 
+def check_models(unet, vae, ctx, gen: torch.Generator) -> dict:
+    """One 512² UNet evaluation through K1 and K6 against plain attention
+    and plain GroupNorm, and one 512² VAE decode through K6 against the
+    plain GroupNorm, all bf16; both decodes also against an fp32 decode of
+    the same z (VAE_REL_TOL's comment); also the launches each run made."""
+    lat = torch.randn((2, 64, 64, 4), generator=gen, device='cuda')
+    t = torch.full((2,), 981.0, device='cuda')
+    z = torch.randn((1, 64, 64, 4), generator=gen, device='cuda')
+    with torch.no_grad():
+        reset_counts()
+        eps_k = unet(lat, t, ctx)
+        unet_launches = counts()
+        reset_counts()
+        img_k = vae.decode(z)
+        vae_launches = counts()
+        with attn_mod.backend('plain'), gn.backend('plain'):
+            eps_p = unet(lat, t, ctx)
+            img_p = vae.decode(z)
+            img_32 = copy.deepcopy(vae).float().decode(z)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    res = dict(unet_rel=rel(eps_k, eps_p), vae_rel=rel(img_k, img_p),
+               vae_k6_vs_fp32_rel=rel(img_k, img_32),
+               vae_plain_vs_fp32_rel=rel(img_p, img_32),
+               unet_launches=unet_launches, vae_launches=vae_launches)
+    vae_tol = 2.0 * res['vae_plain_vs_fp32_rel'] + 1e-3
+    print(f'UNet 512² bf16, K1+K6 vs plain: max|Δε|/max|ε| = '
+          f'{res["unet_rel"]:.3e} (limit {UNET_REL_TOL}), launches '
+          f'{unet_launches}; VAE decode 512² bf16, K6 vs plain: '
+          f'max|Δ|/max|ref| = {res["vae_rel"]:.3e} (limit {VAE_REL_TOL}), '
+          f'launches {vae_launches}; against the fp32 decode: K6 '
+          f'{res["vae_k6_vs_fp32_rel"]:.3e} (limit {vae_tol:.3e}), bf16 '
+          f'plain {res["vae_plain_vs_fp32_rel"]:.3e}')
+    if not (torch.isfinite(eps_k).all() and res['unet_rel'] <= UNET_REL_TOL):
+        raise AssertionError('UNet through K1 and K6 disagrees with the '
+                             'plain path')
+    if not (torch.isfinite(img_k).all() and res['vae_rel'] <= VAE_REL_TOL
+            and res['vae_k6_vs_fp32_rel'] <= vae_tol):
+        raise AssertionError('VAE decode through K6 disagrees with the '
+                             'plain path')
+    want_unet = dict(k1=LAUNCHES_PER_UNET, k3=0, k4=0, k5=0, k6=K6_PER_UNET)
+    want_vae = dict(k1=0, k3=0, k4=0, k5=0, k6=K6_PER_DECODE)
+    if unet_launches != want_unet or vae_launches != want_vae:
+        raise AssertionError(f'model checks launched {unet_launches} and '
+                             f'{vae_launches}')
+    return res
+
+
+def run_generate(label: str, call, probe: 'UNetProbe', latent_finite: list,
+                 decodes, encodes: int, images: int) -> dict:
+    """Drive one generate entry point with the launch counts at 0; check
+    the images, finite ε and latents, and the exact launches: K1 10 and K6
+    61 per UNet evaluation, K6 30 per VAE decode (``decodes`` None: one per
+    evaluation, as debug mode decodes every step) and 22 per encode."""
+    probe.reset()
+    latent_finite.clear()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, _ = call()
+    e2e = time.perf_counter() - t0
+    denoise = probe.seconds()
+    got = counts()
+    calls = probe.calls
+    decodes = calls if decodes is None else decodes
+    arrs = [np.asarray(im) for im in out]
+    res = dict(label=label, unet_evaluations=calls, denoise_s=denoise,
+               unet_evals_per_s=calls / denoise, e2e_s=e2e, images=len(arrs),
+               launches=got)
+    print(f'{label}: {json.dumps(res)}')
+    if len(arrs) != images or any(a.shape != (512, 512, 3) or
+                                  a.dtype != np.uint8 for a in arrs):
+        raise AssertionError(f'{label}: images '
+                             f'{[(a.shape, a.dtype) for a in arrs]}')
+    if not all(bool(f) for f in probe.finite + latent_finite):
+        raise AssertionError(f'{label}: non-finite ε or latents')
+    want = dict(k1=LAUNCHES_PER_UNET * calls, k3=0, k4=0, k5=0,
+                k6=K6_PER_UNET * calls + K6_PER_DECODE * decodes +
+                K6_PER_ENCODE * encodes)
+    if got != want:
+        raise AssertionError(f'{label}: launches {got}, expected {want} for '
+                             f'{calls} UNet evaluations')
+    res['image'] = out[0]
+    return res
+
+
+# Compose's entities: (prompt, left, top, width, height, blend), pixels.
+COMPOSE_ENTITIES = [['a red fox', 64, 96, 192, 192, 0.8],
+                    ['a stone castle', 288, 64, 192, 256, 1.0]]
+
+
+def run_generate_phases(text, vision, unet, vae) -> list:
+    """Every generate path of the port at 512² (see the module docstring,
+    step 6), each through ``run_generate``."""
+    tok = FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size)
+    make = lambda kind, eta=0.0: _with_eta(Runner.from_models(
+        text, vision, unet, vae, tok, scheduler=kind), eta)
+    pndm, ddim0, ddim5, lms = (make('pndm'), make('ddim'),
+                               make('ddim', 0.5), make('lms'))
+    probe = UNetProbe(unet)
+    latent_finite = []
+    hook = vae.post_quant_conv.register_forward_pre_hook(
+        lambda m, args: latent_finite.append(torch.isfinite(args[0]).all()))
+    common = dict(prompt=PROMPT, guide=synthetic_image(512, SEED), steps=25,
+                  guidance_scale=8, samples=1, seed=SEED, save=False)
+    left = np.zeros((512, 512), np.float32)
+    left[:, :256] = 1.0
+    runs = []
+    first = lambda: runs[0]['image']
+    phases = [
+        ('txt2img', lambda: pndm.gen(**common, init_size=(512, 512)),
+         1, 0, 1),
+        ('img2img', lambda: pndm.gen(**common, init_image=first(),
+                                     strength=0.6), 1, 1, 1),
+        ('ddim eta 0', lambda: ddim0.gen(**common), 1, 0, 1),
+        ('ddim eta 0.5', lambda: ddim5.gen(**common), 1, 0, 1),
+        ('lms', lambda: lms.gen(**common), 1, 0, 1),
+        ('inpaint', lambda: pndm.gen(**common, init_image=first(),
+                                     mask=left, strength=0.6), 1, 1, 1),
+        ('debug', lambda: pndm.gen(**dict(common, steps=5), debug=True),
+         None, 0, 6),
+        ('compose', lambda: pndm.compose(
+            PROMPT, COMPOSE_ENTITIES, steps=30, guidance_scale=8, batches=1,
+            seed=SEED, save=False), 1, 0, 1)]
+    for label, call, decodes, encodes, images in phases:
+        runs.append(run_generate(label, call, probe, latent_finite, decodes,
+                                 encodes, images))
+    hook.remove()
+    probe.remove()
+    return runs
+
+
+def _with_eta(runner, eta: float):
+    runner.eta = eta
+    return runner
+
+
+def profile_generate(steps: int, out: str) -> None:
+    """``--profile-gen``: where a 512² UNet evaluation's time goes (CFG
+    batch 2, bf16, seeded random SD-1.4 weights), through K1 and K6, then
+    through K1 with the plain GroupNorm, each by ``profile_steps``."""
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE)))
+    text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
+    runner = Runner.from_models(text, vision, unet, vae,
+                                FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
+    ctx = runner.encoder.prompt(['', PROMPT])
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    lat = torch.randn((2, 64, 64, 4), generator=gen, device='cuda')
+    t = torch.full((2,), 981.0, device='cuda')
+
+    def step():
+        with torch.no_grad():
+            unet(lat, t, ctx)
+
+    profile_steps('unet_k6', step, steps, out)
+    with gn.backend('plain'):
+        profile_steps('unet_plain_gn', step, steps, out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -553,8 +849,11 @@ def main() -> int:
     ap.add_argument('--profile-train', type=int, default=0, metavar='STEPS',
                     help='instead of the smoke test, profile STEPS LoRA and '
                     'STEPS full fine-tuning steps')
-    ap.add_argument('--profile-out', default='outputs/profile_train',
-                    help='where --profile-train writes its tables')
+    ap.add_argument('--profile-gen', type=int, default=0, metavar='STEPS',
+                    help='instead of the smoke test, profile STEPS 512² UNet '
+                    'evaluations with K6 and with the plain GroupNorm')
+    ap.add_argument('--profile-out', default='outputs/profile',
+                    help='where the profiling modes write their tables')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -571,8 +870,11 @@ def main() -> int:
     if args.profile_train:
         profile_training(args.profile_train, args.profile_out)
         return 0
+    if args.profile_gen:
+        profile_generate(args.profile_gen, args.profile_out)
+        return 0
 
-    sources = (fa.SOURCE, fb.SOURCE)
+    sources = (fa.SOURCE, fb.SOURCE, gn.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         build_secs = list(pool.map(fa.build, sources))
     for src, secs in zip(sources, build_secs):
@@ -586,64 +888,20 @@ def main() -> int:
     if bad:
         raise AssertionError(f'K1 disagrees with plain attention at {bad}')
 
+    gn_res = [check_group_norm(*spec, gen) for spec in GN_SHAPES]
+    for r in gn_res:
+        print('K6', json.dumps(r))
+    bad = [r['shape'] for r in gn_res if not r['ok']]
+    if bad:
+        raise AssertionError(f'K6 disagrees with the plain GroupNorm at '
+                             f'{bad}')
+
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
-
-    # One full-width UNet evaluation, kernel path against plain path.
-    ctx = runner.encoder.prompt(['', PROMPT])
-    lat = torch.randn((2, 64, 64, 4), generator=gen, device='cuda')
-    t = torch.full((2,), 981.0, device='cuda')
-    with torch.no_grad():
-        eps_flash = unet(lat, t, ctx)
-        with attn_mod.backend('plain'):
-            eps_plain = unet(lat, t, ctx)
-    rel = ((eps_flash - eps_plain).abs().max() /
-           eps_plain.abs().max()).item()
-    print(f'UNet 512² bf16: max|Δε|/max|ε| kernel vs plain = {rel:.3e} '
-          f'(limit {UNET_REL_TOL})')
-    if not (torch.isfinite(eps_flash).all() and rel <= UNET_REL_TOL):
-        raise AssertionError('UNet through K1 disagrees with plain path')
-
-    probe = UNetProbe(unet)
-    latent_finite = []
-    hook = vae.post_quant_conv.register_forward_pre_hook(
-        lambda m, args: latent_finite.append(torch.isfinite(args[0]).all()))
-    guide = synthetic_image(512, SEED)
-    common = dict(prompt=PROMPT, guide=guide, steps=25, guidance_scale=8,
-                  samples=1, seed=SEED, save=False)
-
-    runs = []
-    k1_launches = 0
-    for label, kw in (('txt2img', dict(init_size=(512, 512))),
-                      ('img2img', dict(strength=0.6))):
-        if label == 'img2img':
-            kw['init_image'] = runs[0]['image']
-        probe.reset()
-        reset_counts()
-        t0 = time.perf_counter()
-        images, _ = runner.gen(**common, **kw)
-        e2e = time.perf_counter() - t0
-        denoise = probe.seconds()
-        got = counts()
-        arr = np.asarray(images[0])
-        print(f'{label}: {probe.calls} UNet evaluations (CFG batch 2), '
-              f'launches {got}, denoise {denoise:.3f} s = '
-              f'{probe.calls / denoise:.2f} UNet evals/s, e2e {e2e:.3f} s, '
-              f'image {arr.shape} {arr.dtype}')
-        if arr.shape != (512, 512, 3) or arr.dtype != np.uint8:
-            raise AssertionError(f'{label}: image {arr.shape} {arr.dtype}')
-        if not all(bool(f) for f in probe.finite + latent_finite):
-            raise AssertionError(f'{label}: non-finite ε or latents')
-        if got != dict(k1=LAUNCHES_PER_UNET * probe.calls, k3=0, k4=0,
-                       k5=0):
-            raise AssertionError(f'{label}: launches {got} for '
-                                 f'{probe.calls} UNet evaluations')
-        k1_launches += got['k1']
-        runs.append(dict(image=images[0], launches=got['k1']))
-        latent_finite.clear()
-    hook.remove()
-    probe.remove()
+    check_models(unet, vae, runner.encoder.prompt(['', PROMPT]), gen)
+    runs = run_generate_phases(text, vision, unet, vae)
+    gen_launches = {k: sum(r['launches'][k] for r in runs) for k in KERNELS}
 
     # Training: the kernels, then the full-width step, then the loops.
     t0 = time.perf_counter()
@@ -671,7 +929,7 @@ def main() -> int:
             unet, ds, training.TrainConfig(learning_rate=1e-4,
                                            remat='none'),
             rank=8, steps=LORA_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
-            log_every=1, on_step=on_step), LORA_STEPS, 'none')
+            log_every=1, on_step=on_step), LORA_STEPS, 'lora')
     del text, vision, runner
     torch.manual_seed(SEED)
     with torch.device('cuda'):
@@ -682,8 +940,8 @@ def main() -> int:
                                              remat='full'),
             steps=FULL_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
             log_every=1, on_step=on_step), FULL_STEPS, 'full')
-    train_launches = {n: lora['launches'][n] + full['launches'][n]
-                      for n in ('k3', 'k4', 'k5')}
+    launches = {k: gen_launches[k] + lora['launches'][k] +
+                full['launches'][k] for k in KERNELS}
 
     main_res = results[0]
     train_main = train_res[0]
@@ -691,7 +949,7 @@ def main() -> int:
         name='flash_attention', route='cuda',
         source='flexdiffuse_tpu_torch/csrc/flash_attention.cu',
         replaces='flexdiffuse_tpu/ops/flash_attention.py:126',
-        launches=k1_launches,
+        launches=launches['k1'],
         max_abs_err=max(r['max_abs_err'] for r in results),
         ms=main_res['ms'], plain_ms=main_res['plain_ms'],
         bound_ms=main_res['bound_ms'], bound_by=main_res['bound_by'],
@@ -705,10 +963,20 @@ def main() -> int:
             name=kname, route='cuda',
             source=f'flexdiffuse_tpu_torch/csrc/{src}',
             replaces=f'flexdiffuse_tpu/ops/flash_backward.py:{line}',
-            launches=train_launches[key],
+            launches=launches[key],
             max_abs_err=max(r[key]['max_abs_err'] for r in train_res),
             ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
             bound_by=m['bound_by'], library_ms=m['library_ms']))
+    gn_main = gn_res[0]
+    kernels.append(dict(
+        name='fused_group_norm', route='cuda',
+        source='flexdiffuse_tpu_torch/csrc/group_norm.cu',
+        replaces='flexdiffuse_tpu/ops/group_norm.py:41',
+        launches=launches['k6'],
+        max_abs_err=max(r['max_abs_err'] for r in gn_res),
+        ms=gn_main['ms'], plain_ms=gn_main['plain_ms'],
+        bound_ms=gn_main['bound_ms'], bound_by=gn_main['bound_by'],
+        library_ms=gn_main['library_ms']))
     print(f'LoRA check max|Δg|/max|g| {lora_rel:.3e}; train_lora '
           f'{lora["median_step_ms"]:.1f} ms/step, train_full '
           f'{full["median_step_ms"]:.1f} ms/step')

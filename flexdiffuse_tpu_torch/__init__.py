@@ -2,9 +2,9 @@
 
 Module paths and public names mirror the JAX package, so each counterpart
 is found under the same name. The port imports ``torch`` and never ``jax``,
-and nothing from ``flexdiffuse_tpu`` at run time. Its one hand-written
-kernel, the Hopper flash attention (``csrc/flash_attention.cu``), is built
-with ``nvcc`` at first use on a CUDA tensor.
+and nothing from ``flexdiffuse_tpu`` at run time. Its hand-written Hopper
+kernels (``csrc/*.cu``: flash attention forward and backward, fused
+GroupNorm) are built with ``nvcc`` at first use on a CUDA tensor.
 """
 from flexdiffuse_tpu_torch.config import (GUIDE_ORDER_ALIGN,
                                           GUIDE_ORDER_DIRECT,

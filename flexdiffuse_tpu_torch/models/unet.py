@@ -15,7 +15,10 @@ Dtypes follow the JAX module: convs and matmuls in the weights' dtype (bf16
 on the card), GroupNorm statistics in fp32, the timestep features in fp32,
 and the returned ε in fp32. Self-attention goes through
 :func:`flexdiffuse_tpu_torch.ops.attention.attention`, which sends the 4096-
-and 1024-token levels to the Hopper flash kernel on CUDA.
+and 1024-token levels to the Hopper flash kernel on CUDA. Every GroupNorm
+(with the SiLU and the cast to the next layer's dtype that follow it) goes
+through :func:`flexdiffuse_tpu_torch.ops.group_norm.group_norm`: the Hopper
+kernel K6 on CUDA when no gradient is needed.
 
 Left out here (later ROADMAP steps): the channel-major interiors, DeepCache,
 PAG, FreeU, ToMe, IP-Adapter and ControlNet residuals, the LCM guidance
@@ -31,15 +34,26 @@ import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
 from flexdiffuse_tpu_torch.ops.attention import attention
+from flexdiffuse_tpu_torch.ops.group_norm import group_norm
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm with fp32 statistics and an fp32 result, whatever the input
-    dtype (the JAX modules' ``GroupNorm(dtype=float32)``)."""
+    """GroupNorm with fp32 statistics and affine (the JAX modules'
+    ``GroupNorm(dtype=float32)``), then SiLU when built with ``silu``, the
+    result cast to ``dtype`` (fp32 unless the caller names the dtype of the
+    layer it feeds). Through :func:`~flexdiffuse_tpu_torch.ops.group_norm.
+    group_norm`: K6 on the card when no gradient is needed, else the plain
+    version."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps)
+    def __init__(self, num_groups: int, num_channels: int,
+                 eps: float = 1e-5, silu: bool = False) -> None:
+        super().__init__(num_groups, num_channels, eps=eps)
+        self.silu = silu
+
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return group_norm(x, self.num_groups, self.weight, self.bias,
+                          self.eps, silu=self.silu, dtype=dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -73,11 +87,12 @@ class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, norm_groups: int,
                  temb_dim: int = 0, eps: float = 1e-5) -> None:
         super().__init__()
-        self.norm1 = GroupNorm32(norm_groups, in_channels, eps=eps)
+        self.norm1 = GroupNorm32(norm_groups, in_channels, eps=eps, silu=True)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         if temb_dim:
             self.time_emb_proj = nn.Linear(temb_dim, out_channels)
-        self.norm2 = GroupNorm32(norm_groups, out_channels, eps=eps)
+        self.norm2 = GroupNorm32(norm_groups, out_channels, eps=eps,
+                                 silu=True)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
@@ -85,11 +100,11 @@ class ResnetBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 temb: torch.Tensor = None) -> torch.Tensor:
         dtype = self.conv1.weight.dtype
-        h = self.conv1(F.silu(self.norm1(x)).to(dtype))
+        h = self.conv1(self.norm1(x, dtype))
         if temb is not None:
             t = self.time_emb_proj(F.silu(temb).to(dtype))
             h = h + t[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)).to(dtype))
+        h = self.conv2(self.norm2(h, dtype))
         if hasattr(self, 'conv_shortcut'):
             x = self.conv_shortcut(x.to(dtype))
         return x + h
@@ -185,7 +200,7 @@ class Transformer2D(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
-        h = self.proj_in(self.norm(x).to(self.proj_in.weight.dtype))
+        h = self.proj_in(self.norm(x, self.proj_in.weight.dtype))
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         for block in self.transformer_blocks:
             h = block(h, context)
@@ -292,7 +307,7 @@ class UNet2DCondition(nn.Module):
                              upsample=Upsample(ch) if i != n - 1 else None))
         self.up_blocks = nn.ModuleList(up)
 
-        self.conv_norm_out = GroupNorm32(groups, ch0, eps=1e-5)
+        self.conv_norm_out = GroupNorm32(groups, ch0, eps=1e-5, silu=True)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
@@ -330,6 +345,5 @@ class UNet2DCondition(nn.Module):
             if hasattr(blk, 'upsamplers'):
                 h = blk.upsamplers[0](h)
 
-        h = F.silu(self.conv_norm_out(h))
-        eps = self.conv_out(h.to(dtype)).float()
+        eps = self.conv_out(self.conv_norm_out(h, dtype)).float()
         return eps.permute(0, 2, 3, 1)                   # NCHW -> NHWC

@@ -9,7 +9,8 @@ Public tensors keep the JAX layout: ``encode`` takes NHWC pixels and returns
 NHWC ``(mean, logvar)``; ``decode`` takes NHWC latents and returns NHWC
 pixels in fp32. Inside, everything runs NCHW; the transposes sit at those two
 entry points and around the mid-block attention. GroupNorm eps is 1e-6 here
-(the UNet's is 1e-5). The 0.18215 latent scale lives in the pipeline.
+(the UNet's is 1e-5); every GroupNorm runs through K6 on the card, as in the
+UNet. The 0.18215 latent scale lives in the pipeline.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ class VAEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        y = self.group_norm(x).to(self.to_q.weight.dtype)
+        y = self.group_norm(x, self.to_q.weight.dtype)
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
         # A 512-wide head is not flash-eligible: this is plain attention.
@@ -108,7 +109,7 @@ class Encoder(nn.Module):
         self.down_blocks = nn.ModuleList(blocks)
         ch = cfg.block_channels[-1]
         self.mid_block = _MidBlock(ch, g)
-        self.conv_norm_out = GroupNorm32(g, ch, eps=1e-6)
+        self.conv_norm_out = GroupNorm32(g, ch, eps=1e-6, silu=True)
         self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -120,8 +121,7 @@ class Encoder(nn.Module):
             if hasattr(blk, 'downsamplers'):
                 h = blk.downsamplers[0](h)
         h = self.mid_block(h)
-        h = F.silu(self.conv_norm_out(h))
-        return self.conv_out(h.to(self.conv_out.weight.dtype))
+        return self.conv_out(self.conv_norm_out(h, self.conv_out.weight.dtype))
 
 
 class Decoder(nn.Module):
@@ -144,7 +144,7 @@ class Decoder(nn.Module):
                                  if i != n - 1 else None, down=False))
         self.up_blocks = nn.ModuleList(blocks)
         ch0 = cfg.block_channels[0]
-        self.conv_norm_out = GroupNorm32(g, ch0, eps=1e-6)
+        self.conv_norm_out = GroupNorm32(g, ch0, eps=1e-6, silu=True)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -156,8 +156,8 @@ class Decoder(nn.Module):
                 h = res(h)
             if hasattr(blk, 'upsamplers'):
                 h = blk.upsamplers[0](h)
-        h = F.silu(self.conv_norm_out(h))
-        return self.conv_out(h.to(self.conv_out.weight.dtype)).float()
+        h = self.conv_norm_out(h, self.conv_out.weight.dtype)
+        return self.conv_out(h).float()
 
 
 class AutoencoderKL(nn.Module):

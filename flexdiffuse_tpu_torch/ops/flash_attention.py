@@ -30,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -64,8 +64,8 @@ def _nvcc() -> str:
     candidate = os.path.join(cuda_home, 'bin', 'nvcc')
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError('nvcc not found (PATH or $CUDA_HOME/bin): the flash '
-                       'attention kernel cannot be built')
+    raise RuntimeError('nvcc not found (PATH or $CUDA_HOME/bin): the '
+                       'kernels cannot be built')
 
 
 def library_path(source: Path = SOURCE) -> Path:
@@ -105,10 +105,12 @@ def build(source: Path = SOURCE) -> float:
     return time.perf_counter() - t0
 
 
-def load(source: Path, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+def load(source: Path, signatures: Dict[str, Sequence],
+         restypes: Optional[Dict[str, type]] = None) -> ctypes.CDLL:
     """The library built from ``source`` (built first if missing), with the
-    argument types of each entry point in ``signatures`` declared; every C
-    entry point returns a CUDA error code. Loaded once per source."""
+    argument types of each entry point in ``signatures`` declared; an entry
+    point returns a CUDA error code (``ctypes.c_int``) unless ``restypes``
+    names another type for it. Loaded once per source."""
     lib = _libs.get(source)
     if lib is None:
         build(source)
@@ -116,7 +118,7 @@ def load(source: Path, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = (restypes or {}).get(name, ctypes.c_int)
         _libs[source] = lib
     return lib
 

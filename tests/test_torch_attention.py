@@ -36,6 +36,14 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.ops.attention',
     'flexdiffuse_tpu_torch.ops.flash_attention',
     'flexdiffuse_tpu_torch.ops.flash_backward',
+    'flexdiffuse_tpu_torch.ops.group_norm',
+    'flexdiffuse_tpu_torch.composition',
+    'flexdiffuse_tpu_torch.composition.embeds',
+    'flexdiffuse_tpu_torch.composition.schema',
+    'flexdiffuse_tpu_torch.pipeline.guides',
+    'flexdiffuse_tpu_torch.schedulers.ddim',
+    'flexdiffuse_tpu_torch.schedulers.lms',
+    'flexdiffuse_tpu_torch.schedulers.pndm',
     'flexdiffuse_tpu_torch.text.tokenizer',
     'flexdiffuse_tpu_torch.utils.image',
     'flexdiffuse_tpu_torch.weights.bridge',

@@ -240,7 +240,7 @@ def test_runner_gen_img2img_and_seed(runner):
     np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
 
 
-@pytest.mark.parametrize('name,step', [('mask', 7), ('hires_scale', 9),
+@pytest.mark.parametrize('name,step', [('cfg_interval', 9), ('hires_scale', 9),
                                        ('control_image', 10),
                                        ('weighted', 2)])
 def test_runner_rejects_unported_keywords(runner, name, step):
