@@ -13,10 +13,12 @@ Kernels and inference (the first and third slices):
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch/CUDA
    versions and the TF32 settings.
-2. Builds the three kernel libraries at once, one ``nvcc`` per source:
+2. Builds the four kernel libraries at once, one ``nvcc`` per source:
    ``flexdiffuse_tpu_torch/csrc/flash_attention.cu`` (K1, and K3 as its
-   lse instantiation), ``csrc/flash_backward.cu`` (K4, K5) and
-   ``csrc/group_norm.cu`` (K6); prints the seconds of each.
+   lse instantiation), ``csrc/flash_backward.cu`` (K4, K5),
+   ``csrc/group_norm.cu`` (K6) and ``csrc/flash_variants.cu`` (T1–T6, in
+   ``flash_variants.BUILD_PARTS`` parts of its instantiations, all started
+   together, then linked); prints the seconds of each and of the step.
 3. Holds K1 against the fp32 plain attention on the same bf16 inputs at six
    shapes. A shape passes when the kernel's max|Δ| to the fp32 reference is
    at most twice the bf16 plain version's max|Δ| to it, plus
@@ -61,11 +63,31 @@ Training (the second slice):
     bf16 autocast, remat 'full') on an fp32 copy: finite losses and exactly
     the kernel launches the path implies (LAUNCHES_PER_STEP); prints the
     median ms per step, images/s and peak device memory.
-12. Prints one JSON line about the kernels, then, only if every phase
+
+The flash-kernel experiment tools (the fourth slice):
+
+12. Holds every configuration of the attention variants T1–T6
+    (``csrc/flash_variants.cu``: T1 v0/vU/vG2/vG4, T2, T3, T4, T5
+    ttv3/ttv4/no-fold, T6 v0/v1/v2) against its twin by step 3's rule at
+    every shape the tools give it: the two main shapes, and (8,8,4096,40)
+    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). At the main
+    shapes prints each one's, its twin's, ``scaled_dot_product_attention``'s
+    (contiguous ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the
+    transposed views, which takes its slow path) and K1's times from this
+    run, and the bound.
+13. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
+    would: ``flash_variants``, ``flash_opt``, ``flash_pipelined`` (with its
+    UNet A/B, K1 against T3), ``flash_tt`` (exactness at four shapes, K1
+    against T4, the UNet A/B), ``flash_tt3`` (its main and ``step_ab``, K1
+    against ttv3 and ttv4). Asserts finite exactness errors (the scripts
+    print OK or FAIL by their own 0.04; step 12 holds the kernels to
+    step 3's rule) and, per UNet evaluation of each A/B, exactly 10
+    launches of the kernel in use, none of the other, and 61 of K6.
+14. Prints one JSON line about the kernels, then, only if every phase
     passed, ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6 and 11) and read just after; launches made to check a kernel
+(steps 6, 11 and 13) and read just after; launches made to check a kernel
 against its plain twin do not count. Any failed phase raises, so the script
 exits non-zero; without CUDA it exits non-zero at once and prints no
 result.
@@ -99,9 +121,18 @@ from flexdiffuse_tpu_torch import training
 from flexdiffuse_tpu_torch.ops import attention as attn_mod
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
+from flexdiffuse_tpu_torch.ops import flash_variants as fv
 from flexdiffuse_tpu_torch.ops import group_norm as gn
 from flexdiffuse_tpu_torch.runner import Runner
 from flexdiffuse_tpu_torch.text.tokenizer import FakeTokenizer
+from flexdiffuse_tpu_torch.tools import flash_opt as tool_opt
+from flexdiffuse_tpu_torch.tools import flash_pipelined as tool_pipelined
+from flexdiffuse_tpu_torch.tools import flash_tt as tool_tt
+from flexdiffuse_tpu_torch.tools import flash_tt3 as tool_tt3
+from flexdiffuse_tpu_torch.tools import flash_variants as tool_variants
+from flexdiffuse_tpu_torch.tools import reference as fp32_reference
+from flexdiffuse_tpu_torch.tools.perf_experiment import (
+    KERNELS, kernel_counts as counts, reset_counts)
 from flexdiffuse_tpu_torch.training import train as train_mod
 
 SEED = 1337
@@ -145,9 +176,6 @@ LAUNCHES_PER_STEP = {'lora': dict(k1=0, k3=10, k4=10, k5=10, k6=3),
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
 # outside the tensor cores, HBM3.
 PEAK_FLOPS, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-KERNELS = {'k1': fa.flash_attention, 'k3': fb.flash_attention_lse,
-           'k4': fb.flash_attention_dq, 'k5': fb.flash_attention_dkv,
-           'k6': gn.fused_group_norm}
 BF16, FP32 = torch.bfloat16, torch.float32
 # K6 check shapes (NCHW, silu, eps, in dtype, out dtype, timed), stored
 # channels-last as the models' activations are on the card: the UNet's
@@ -202,15 +230,6 @@ def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def reset_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-
-
-def counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple:
@@ -842,6 +861,151 @@ def profile_generate(steps: int, out: str) -> None:
         profile_steps('unet_plain_gn', step, steps, out)
 
 
+# T1–T6 in the kernels line: (name, TPU kernel, the configuration whose
+# times stand for it, the (wrapper, configuration) launches it counts).
+# T1 vG's G = 2 and 4 are one entry; T6 v0 is T1 v0's code (the source says
+# so), so their launches are one entry's.
+T_ENTRIES = [
+    ('attn_opt v0 (= attn_variants v0)', 'tools/flash_opt.py:57', 'T1 v0',
+     [(fv.attn_opt, 'v0'), (fv.attn_variants, 'v0')]),
+    ('attn_opt vU', 'tools/flash_opt.py:57', 'T1 vU', [(fv.attn_opt, 'vU')]),
+    ('attn_opt vG', 'tools/flash_opt.py:57', 'T1 vG2',
+     [(fv.attn_opt, 'vG2'), (fv.attn_opt, 'vG4')]),
+    ('attn_h', 'tools/flash_opt.py:120', 'T2', [(fv.attn_h, 'vH')]),
+    ('pipelined_attention', 'tools/flash_pipelined.py:22', 'T3',
+     [(fv.pipelined_attention, 'pipelined')]),
+    ('flash_tt2', 'tools/flash_tt.py:87', 'T4', [(fv.flash_tt2, 'tt2')]),
+    ('flash_ttv3 ttv3', 'tools/flash_tt3.py:41', 'T5 ttv3',
+     [(fv.flash_ttv3, 'ttv3')]),
+    ('flash_ttv3 ttv4', 'tools/flash_tt3.py:41', 'T5 ttv4',
+     [(fv.flash_ttv3, 'ttv4')]),
+    ('flash_ttv3 no-fold', 'tools/flash_tt3.py:41', 'T5 no-fold',
+     [(fv.flash_ttv3, 'no-fold')]),
+    ('attn_variants v1', 'tools/flash_variants.py:27', 'T6 v1',
+     [(fv.attn_variants, 'v1')]),
+    ('attn_variants v2', 'tools/flash_variants.py:27', 'T6 v2',
+     [(fv.attn_variants, 'v2')]),
+]
+# Launches per UNet evaluation in the tools' A/B runs: the kernel in use
+# takes the 10 eligible self-attentions, K6 the 61 GroupNorms.
+AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
+               'pipelined_attention': dict(
+                   pipelined_attention=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
+               'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
+               'flash_ttv3': dict(flash_ttv3=LAUNCHES_PER_UNET,
+                                  k6=K6_PER_UNET)}
+# Shapes beyond MAIN_SHAPES that the tools give a configuration:
+# flash_tt's check_exact and micro (T4), flash_tt3's main (T5).
+T_EXTRA_SHAPES = [((8, 8, 4096, 40), ('T4', 'T5 ttv3', 'T5 ttv4',
+                                       'T5 no-fold')),
+                  ((2, 8, 1536, 40), ('T4',))]
+
+
+def check_variants(shape, gen: torch.Generator, labels=None) -> dict:
+    """The T configurations in ``labels`` (all when None) against the fp32
+    reference by K1's rule, each twin supplying the plain error. With all
+    of them (the main shapes) also the times of each kernel and its twin,
+    of K1 and of ``scaled_dot_product_attention`` on contiguous
+    ``[B,H,S,D]`` (``library_ms``) and on the transposed views of T4/T5's
+    ``[B,H,D,S]`` operands (``library_views_ms``), with the bound."""
+    b, h, s, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device='cuda',
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = d**-0.5
+    tq, tk, tv = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    ref = fp32_reference(q, k, v, scale)
+    timed = labels is None
+    res = dict(shape=list(shape), configs={})
+    if timed:
+        res.update(
+            k1_ms=time_ms(lambda: fa.flash_attention(q, k, v, scale)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale)),
+            library_views_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *(x.transpose(-1, -2) for x in (tq, tk, tv)), scale=scale)))
+        res['bound_ms'], res['bound_by'] = attention_bound('k1', b, h, s, s,
+                                                           d)
+    for label in labels or fv.CONFIGS:
+        kernel, twin, bhds = fv.CONFIGS[label]
+        args = (tq, tk, tv) if bhds else (q, k, v)
+        back = (lambda x: x.transpose(-1, -2)) if bhds else (lambda x: x)
+        out = kernel(*args, scale)
+        torch.cuda.synchronize()
+        r = _errs(back(out), ref, back(twin(*args, scale)))
+        line = (f'{label:10s} {tuple(shape)}: max|Δ| {r["max_abs_err"]:.3e} '
+                f'(twin {r["plain_max_abs_err"]:.3e}, limit {r["tol"]:.3e})')
+        if timed:
+            r['ms'] = time_ms(lambda: kernel(*args, scale))
+            r['plain_ms'] = time_ms(lambda: twin(*args, scale))
+            line += (f' {r["ms"]:.4f} ms, twin {r["plain_ms"]:.3f}, K1 '
+                     f'{res["k1_ms"]:.4f}, SDPA {res["library_ms"]:.4f}'
+                     + (f' (on the views {res["library_views_ms"]:.4f})'
+                        if bhds else '') +
+                     f', bound {res["bound_ms"]:.5f} ({res["bound_by"]})')
+        res['configs'][label] = r
+        print(line, flush=True)
+    del ref
+    res['ok'] = all(r['ok'] for r in res['configs'].values())
+    return res
+
+
+def _ab_ok(label: str, per_eval: dict, kernel: str) -> None:
+    if per_eval != AB_LAUNCHES[kernel]:
+        raise AssertionError(f'{label}: launches per UNet evaluation '
+                             f'{per_eval}, expected {AB_LAUNCHES[kernel]}')
+
+
+def run_tools(gen: torch.Generator) -> dict:
+    """The ported tools, driven as a user would (module docstring, step
+    13), with the launch counts at 0 before and read after."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = dict(flash_variants=tool_variants.run(gen),
+               flash_opt=tool_opt.run(gen),
+               flash_pipelined=tool_pipelined.run(gen),
+               flash_tt=tool_tt.run(gen),
+               flash_tt3=tool_tt3.run(gen),
+               flash_tt3_step=tool_tt3.run(gen, step=True)['step'])
+    torch.cuda.synchronize()
+    res['seconds'] = time.perf_counter() - t0
+    res['launches'] = {name: sum(fn.launches[key] for fn, key in parts)
+                       for name, _, _, parts in T_ENTRIES}
+    res['launches'].update(counts())
+    errs = ([r['max_abs_err'] for r in res['flash_variants']] +
+            [r['max_abs_err'] for r in res['flash_opt']] +
+            [res['flash_pipelined']['max_abs_err']] +
+            [r['max_abs_err'] for r in res['flash_tt']['exact']] +
+            [r['max_abs_err'] for r in res['flash_tt3']['main']])
+    if not all(np.isfinite(e) for e in errs):
+        raise AssertionError(f'a tool exactness check is not finite: {errs}')
+    pipe, tt, tt3 = (res['flash_pipelined'], res['flash_tt']['step'],
+                     res['flash_tt3_step'])
+    for label, run, kernel in (
+            ('flash_pipelined K1', pipe['base'], 'k1'),
+            ('flash_pipelined T3', pipe['piped'], 'pipelined_attention'),
+            ('flash_tt step base', tt['base'], 'k1'),
+            ('flash_tt step tt', tt['tt'], 'flash_tt2'),
+            ('flash_tt3 step_ab tt', tt3['tt'], 'k1'),
+            ('flash_tt3 step_ab ttv3', tt3['ttv3'], 'flash_ttv3'),
+            ('flash_tt3 step_ab ttv4', tt3['ttv4'], 'flash_ttv3')):
+        _ab_ok(label, run['per_eval'], kernel)
+    unused = [n for n, _, _, _ in T_ENTRIES if res['launches'][n] == 0]
+    if unused:
+        raise AssertionError(f'the tools launched no {unused}')
+    ab = {label: r['ms'] for label, r in (
+        ('pipelined: K1', pipe['base']), ('pipelined: T3', pipe['piped']),
+        ('tt: K1', tt['base']), ('tt: T4', tt['tt']),
+        ('tt3: K1', tt3['tt']), ('tt3: ttv3', tt3['ttv3']),
+        ('tt3: ttv4', tt3['ttv4']))}
+    print(f'tools: {res["seconds"]:.1f} s; UNet A/B ms per evaluation '
+          f'{json.dumps(ab)}; ttv3/ttv4 max|Δε| vs K1 '
+          f'{tt3["ttv3"]["max_abs_diff_vs_first"]:.3e}/'
+          f'{tt3["ttv4"]["max_abs_diff_vs_first"]:.3e}; launches '
+          f'{json.dumps(res["launches"])}', flush=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -862,7 +1026,7 @@ def main() -> int:
     # models run in bf16, which TF32 does not touch.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(card_line())
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; '
           f'matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} '
@@ -874,11 +1038,14 @@ def main() -> int:
         profile_generate(args.profile_gen, args.profile_out)
         return 0
 
-    sources = (fa.SOURCE, fb.SOURCE, gn.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        build_secs = list(pool.map(fa.build, sources))
-    for src, secs in zip(sources, build_secs):
+    parts = {fa.SOURCE: 1, fb.SOURCE: 1, gn.SOURCE: 1,
+             fv.SOURCE: fv.BUILD_PARTS}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(parts)) as pool:
+        build_secs = list(pool.map(fa.build, parts, parts.values()))
+    for src, secs in zip(parts, build_secs):
         print(f'build {src.name}: {secs:.1f} s ({fa.library_path(src).name})')
+    print(f'build step: {time.perf_counter() - t0:.1f} s')
 
     gen = torch.Generator('cuda').manual_seed(SEED)
     results = [check_kernel(s, gen) for s in KERNEL_SHAPES]
@@ -942,6 +1109,20 @@ def main() -> int:
             log_every=1, on_step=on_step), FULL_STEPS, 'full')
     launches = {k: gen_launches[k] + lora['launches'][k] +
                 full['launches'][k] for k in KERNELS}
+    del unet32, ds
+
+    # The flash-kernel experiment tools: T1–T6 against their twins, then
+    # the tools themselves.
+    t0 = time.perf_counter()
+    var_res = [check_variants(s, gen) for s in MAIN_SHAPES]
+    var_res += [check_variants(s, gen, labels)
+                for s, labels in T_EXTRA_SHAPES]
+    bad = [(r['shape'], label) for r in var_res
+           for label, c in r['configs'].items() if not c['ok']]
+    if bad:
+        raise AssertionError(f'T1–T6 disagree with their twins at {bad}')
+    print(f'T1-T6 check: {time.perf_counter() - t0:.1f} s')
+    tools = run_tools(gen)
 
     main_res = results[0]
     train_main = train_res[0]
@@ -977,12 +1158,26 @@ def main() -> int:
         ms=gn_main['ms'], plain_ms=gn_main['plain_ms'],
         bound_ms=gn_main['bound_ms'], bound_by=gn_main['bound_by'],
         library_ms=gn_main['library_ms']))
+    var_main = var_res[0]
+    for entry, replaces, label, _ in T_ENTRIES:
+        c = var_main['configs'][label]
+        kernels.append(dict(
+            name=entry, route='cuda',
+            source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
+            replaces=replaces, launches=tools['launches'][entry],
+            max_abs_err=max(r['configs'][label]['max_abs_err']
+                            for r in var_res if label in r['configs']),
+            ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=var_main['bound_ms'],
+            bound_by=var_main['bound_by'],
+            library_ms=var_main['library_ms'],
+            **({'library_views_ms': var_main['library_views_ms']}
+               if fv.CONFIGS[label][2] else {})))
     print(f'LoRA check max|Δg|/max|g| {lora_rel:.3e}; train_lora '
           f'{lora["median_step_ms"]:.1f} ms/step, train_full '
           f'{full["median_step_ms"]:.1f} ms/step')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
+        'platform': 'gpu', 'kind': device_name,
         'count': torch.cuda.device_count()}}))
     return 0
 

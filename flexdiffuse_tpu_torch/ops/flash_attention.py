@@ -29,6 +29,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -79,41 +80,54 @@ def library_path(source: Path = SOURCE) -> Path:
     return BUILD_DIR / f'{source.stem}-{h.hexdigest()[:16]}.so'
 
 
-def build(source: Path = SOURCE) -> float:
+def _nvcc_run(cmd: Sequence[str], source: Path) -> None:
+    proc = subprocess.run(list(cmd), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed on {source.name} ({proc.returncode}):'
+                           f'\n{proc.stdout}\n{proc.stderr}')
+
+
+def build(source: Path = SOURCE, parts: int = 1) -> float:
     """Compile ``source`` if its build is missing; returns the seconds the
     compile took (0.0 when the build already existed). Raises when nvcc is
-    missing or the compile fails."""
+    missing or the compile fails. With ``parts`` > 1 the source is compiled
+    that many times at once, with ``-DBUILD_PART=p -DBUILD_PARTS=parts``
+    (each compile holds its share of the source's instantiations), and the
+    objects are linked into the one library."""
     out = library_path(source)
     if out.exists():
         return 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {source.name} '
-                               f'({proc.returncode}):\n{proc.stdout}\n'
-                               f'{proc.stderr}')
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = os.path.join(tmp, out.name)
+        if parts == 1:
+            _nvcc_run([nvcc, *NVCC_FLAGS, '-o', lib, str(source)], source)
+        else:
+            flags = [f for f in NVCC_FLAGS if f != '-shared']
+            objs = [os.path.join(tmp, f'part{p}.o') for p in range(parts)]
+            with ThreadPoolExecutor(parts) as pool:
+                list(pool.map(lambda p: _nvcc_run(
+                    [nvcc, *flags, '-c', f'-DBUILD_PART={p}',
+                     f'-DBUILD_PARTS={parts}', '-o', objs[p], str(source)],
+                    source), range(parts)))
+            _nvcc_run([nvcc, *NVCC_FLAGS, '-o', lib, *objs], source)
+        os.replace(lib, out)
     return time.perf_counter() - t0
 
 
 def load(source: Path, signatures: Dict[str, Sequence],
-         restypes: Optional[Dict[str, type]] = None) -> ctypes.CDLL:
-    """The library built from ``source`` (built first if missing), with the
-    argument types of each entry point in ``signatures`` declared; an entry
-    point returns a CUDA error code (``ctypes.c_int``) unless ``restypes``
-    names another type for it. Loaded once per source."""
+         restypes: Optional[Dict[str, type]] = None,
+         parts: int = 1) -> ctypes.CDLL:
+    """The library built from ``source`` (built first if missing, in
+    ``parts`` compiles as :func:`build`), with the argument types of each
+    entry point in ``signatures`` declared; an entry point returns a CUDA
+    error code (``ctypes.c_int``) unless ``restypes`` names another type for
+    it. Loaded once per source."""
     lib = _libs.get(source)
     if lib is None:
-        build(source)
+        build(source, parts)
         lib = ctypes.CDLL(str(library_path(source)))
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -1,0 +1,163 @@
+"""T4: the flash kernel over [B,H,D,S] operands, against K1 and in the UNet.
+
+Port of ``tools/flash_tt.py``: ``python -m flexdiffuse_tpu_torch.tools.flash_tt
+[exact|micro|micro2|step|all] [--device cpu]`` (``all``, the default, runs
+exact, micro and step, as the JAX script does).
+
+* ``check_exact``: K1 and T4 against fp32 attention at the script's four
+  shapes (OK below 0.04 absolute, the script's threshold).
+* ``micro`` / ``micro2``: 12-deep chains of K1 and T4 (``micro2`` checks
+  T4's exactness first). The JAX script's K1 took ``[B,H,D,S]`` and it
+  compared it with the older ``[B,H,S,D]`` layout; the port's K1 takes
+  ``[B,H,S,D]``, so here the comparison turns around: K1 on ``[B,H,S,D]``
+  against T4 on ``[B,H,D,S]``.
+* ``step``: the SD-1.4 UNet chain (``perf_experiment.scan_time``), ``base``
+  (K1) and ``tt`` (T4 through :func:`_attention_tt_bhsd`). The script's
+  GroupNorm variants (``gn``, ``gn-nb``, ``gn-stats``, ``tt+gn``) need
+  ``ops/group_norm_xla.py``, which is not ported (an XLA fusion
+  experiment); ``chip_smoke.py --profile-gen`` compares K6 with the plain
+  GroupNorm instead.
+
+On the CPU only ``check_exact`` runs, at a small shape.
+"""
+from __future__ import annotations
+
+import contextlib
+import sys
+from typing import Optional
+
+import torch
+
+import flexdiffuse_tpu_torch.models.unet as unet_mod
+from flexdiffuse_tpu_torch.ops.attention import flash_eligible
+from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       plain_attention)
+from flexdiffuse_tpu_torch.ops.flash_variants import flash_tt2
+from flexdiffuse_tpu_torch.tools import (TILE_NOTE, chain_ms, generator,
+                                         max_err, parser, qkv, reference,
+                                         resolve_device, tflops)
+from flexdiffuse_tpu_torch.tools import transposed as _t
+from flexdiffuse_tpu_torch.tools import perf_experiment as pe
+
+STEPS = 12
+EXACT_SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80), (8, 8, 4096, 40),
+                (2, 8, 1536, 40)]
+MICRO_SHAPES = [(2, 8, 4096, 40), (8, 8, 4096, 40), (2, 8, 1024, 80)]
+CPU_SHAPES = [(1, 2, 256, 40), (1, 2, 128, 80)]
+
+
+def check_exact(generator: torch.Generator) -> list:
+    """K1 on [B,H,S,D] and T4 on [B,H,D,S] against fp32 attention."""
+    cpu = generator.device.type == 'cpu'
+    rows = []
+    for shape in CPU_SHAPES if cpu else EXACT_SHAPES:
+        q, k, v = qkv(shape, generator)
+        scale = shape[-1]**-0.5
+        ref = reference(q, k, v, scale)
+        for label, got in (
+                ('flash (K1)', flash_attention(q, k, v, scale)),
+                ('tt2 (T4)', _t(flash_tt2(_t(q), _t(k), _t(v), scale)))):
+            err = max_err(got, ref)
+            print(f'{label} exactness {shape}: max abs err {err:.4f} '
+                  f'{"OK" if err < 0.04 else "FAIL"}', flush=True)
+            rows.append(dict(kernel=label, shape=list(shape),
+                             max_abs_err=err))
+    return rows
+
+
+def _bench(fn, q, k, v, label, shape) -> float:
+    """A 12-deep chain ``c ← 0.999·fn(c, k, v) + 0.001·q``."""
+    scale = shape[-1]**-0.5
+    ms, _ = chain_ms(lambda c: 0.999 * fn(c, k, v, scale) + 0.001 * q, q,
+                     STEPS)
+    print(f'  {label:10s} {shape}: {ms:6.3f} ms/call '
+          f'{tflops(shape, ms):6.1f} TFLOP/s ({TILE_NOTE})', flush=True)
+    return ms
+
+
+def micro(generator: torch.Generator, exact: bool = False) -> list:
+    """K1 on [B,H,S,D] against T4 on [B,H,D,S], chain-timed."""
+    rows = []
+    for shape in MICRO_SHAPES:
+        q, k, v = qkv(shape, generator)
+        qt, kt, vt = _t(q), _t(k), _t(v)
+        row = dict(shape=list(shape))
+        if exact:
+            ref = reference(q, k, v, shape[-1]**-0.5)
+            row['tt2_max_abs_err'] = max_err(
+                _t(flash_tt2(qt, kt, vt, shape[-1]**-0.5)), ref)
+            print(f'tt2 exact {shape}: {row["tt2_max_abs_err"]:.4f} '
+                  f'{"OK" if row["tt2_max_abs_err"] < 0.04 else "FAIL"}')
+        print(f'shape {shape}:')
+        row['flash_ms'] = _bench(flash_attention, q, k, v, 'flash (K1)',
+                                 shape)
+        row['tt2_ms'] = _bench(flash_tt2, qt, kt, vt, 'tt2 (T4)', shape)
+        rows.append(row)
+    return rows
+
+
+def micro2(generator: torch.Generator) -> list:
+    return micro(generator, exact=True)
+
+
+def _attention_tt_bhsd(q, k, v, scale=None, backend=None):
+    """Dispatcher-compatible ``[B,H,S,D]`` attention over T4 for the
+    flash-eligible shapes, plain attention otherwise (``backend`` is
+    accepted and ignored, as in the JAX script)."""
+    if scale is None:
+        scale = q.shape[-1]**-0.5
+    if not flash_eligible(q, k):
+        return plain_attention(q, k, v, scale)
+    return _t(flash_tt2(_t(q), _t(k), _t(v), scale))
+
+
+@contextlib.contextmanager
+def unet_attention(fn):
+    """The UNet's attention calls go to ``fn`` inside the block."""
+    orig = unet_mod.attention
+    unet_mod.attention = fn
+    try:
+        yield
+    finally:
+        unet_mod.attention = orig
+
+
+def step(generator: torch.Generator) -> dict:
+    """The UNet chain through K1 (``base``) and through T4 (``tt``)."""
+    make_unet = pe.unet_maker(generator.device)
+    res = {'base': pe.scan_time(make_unet, 'baseline (K1)',
+                                generator=generator)}
+    with unet_attention(_attention_tt_bhsd):
+        res['tt'] = pe.scan_time(make_unet, 'tt-attn (T4)',
+                                 generator=generator)
+    return res
+
+
+def run(generator: torch.Generator, device: Optional[str] = None,
+        which: str = 'all') -> dict:
+    dev = resolve_device(device)
+    res = {}
+    if which in ('exact', 'all') or dev.type == 'cpu':
+        res['exact'] = check_exact(generator)
+    if dev.type == 'cpu':
+        return res
+    if which in ('micro', 'all'):
+        res['micro'] = micro(generator)
+    if which == 'micro2':
+        res['micro2'] = micro2(generator)
+    if which in ('step', 'all'):
+        res['step'] = step(generator)
+    return res
+
+
+def main(argv=None) -> None:
+    ap = parser(__doc__)
+    ap.add_argument('which', nargs='?', default='all',
+                    choices=('exact', 'micro', 'micro2', 'step', 'all'))
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    run(generator(dev), args.device, args.which)
+
+
+if __name__ == '__main__':
+    main(sys.argv[1:])

@@ -37,6 +37,14 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.ops.flash_attention',
     'flexdiffuse_tpu_torch.ops.flash_backward',
     'flexdiffuse_tpu_torch.ops.group_norm',
+    'flexdiffuse_tpu_torch.ops.flash_variants',
+    'flexdiffuse_tpu_torch.tools',
+    'flexdiffuse_tpu_torch.tools.perf_experiment',
+    'flexdiffuse_tpu_torch.tools.flash_variants',
+    'flexdiffuse_tpu_torch.tools.flash_opt',
+    'flexdiffuse_tpu_torch.tools.flash_pipelined',
+    'flexdiffuse_tpu_torch.tools.flash_tt',
+    'flexdiffuse_tpu_torch.tools.flash_tt3',
     'flexdiffuse_tpu_torch.composition',
     'flexdiffuse_tpu_torch.composition.embeds',
     'flexdiffuse_tpu_torch.composition.schema',

@@ -1,6 +1,6 @@
 """PyTorch port: the Hopper kernels (K1 forward flash attention, K3
-forward with lse, K4 dq, K5 dk/dv, K6 fused GroupNorm) against their plain
-twins, on the card.
+forward with lse, K4 dq, K5 dk/dv, K6 fused GroupNorm, the attention
+variants T1–T6) against their plain twins, on the card.
 Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
@@ -10,6 +10,7 @@ import torch
 
 from flexdiffuse_tpu_torch.models.unet import GroupNorm32
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
+from flexdiffuse_tpu_torch.ops import flash_variants as fv
 from flexdiffuse_tpu_torch.ops import group_norm as gn
 from flexdiffuse_tpu_torch.ops.attention import attention
 from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
@@ -123,7 +124,10 @@ def test_lse_kernel_matches_plain(shape, skv, dtype, cuda_gen):
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape,skv,dtype', SHAPES)
 def test_backward_kernels_match_plain(shape, skv, dtype, cuda_gen):
-    """K4 (dq) and K5 (dk, dv) on the same 16-bit inputs as their twins."""
+    """K4 (dq) and K5 (dk, dv) on the same 16-bit inputs as their twins.
+    The rule's plain version rounds P and dS to the inputs' dtype before
+    the products, as the kernels' tensor cores take them (and as K1's
+    16-bit plain version rounds P), the way chip_smoke.py checks them."""
     q, k, v, dout = _inputs(shape, skv, dtype, cuda_gen)
     scale = shape[-1]**-0.5
     o, lse = fb.flash_attention_lse(q, k, v, scale)
@@ -134,12 +138,17 @@ def test_backward_kernels_match_plain(shape, skv, dtype, cuda_gen):
     torch.cuda.synchronize()
     assert (fb.flash_attention_dq.launches,
             fb.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
-    args32 = [t.float() for t in (q, k, v, dout)] + [lse, dvec, scale]
-    args16 = [q, k, v, dout, lse, dvec, scale]
-    _rule(dq, fb.plain_attention_dq(*args32), fb.plain_attention_dq(*args16))
-    for got, ref, plain in zip((dk, dv), fb.plain_attention_dkv(*args32),
-                               fb.plain_attention_dkv(*args16)):
-        _rule(got, ref, plain)
+    f32 = [t.float() for t in (q, k, v, dout)]
+    rows = (lse, dvec, scale)
+    p16, ds16 = (t.to(dtype).float()
+                 for t in fb._probs_and_ds(q, k, v, dout, *rows))
+    _rule(dq, fb.plain_attention_dq(*f32, *rows),
+          torch.matmul(ds16, f32[1]).to(dtype))
+    plain = (torch.matmul(ds16.transpose(-1, -2), f32[0]).to(dtype),
+             torch.matmul(p16.transpose(-1, -2), f32[3]).to(dtype))
+    for got, ref, want in zip((dk, dv), fb.plain_attention_dkv(*f32, *rows),
+                              plain):
+        _rule(got, ref, want)
 
 
 @pytest.mark.cuda
@@ -296,3 +305,56 @@ def test_group_norm32_launches_k6_only_without_gradient(cuda_gen):
     ref = gn.plain_group_norm(x, 32, norm.weight.detach(), norm.bias, 1e-5,
                               True, torch.float32)
     gn_rule(y, ref, out.detach(), torch.bfloat16)
+
+
+# T1–T6 at the 1024-token level's head and a 4096-token row of heads of 40.
+T_SHAPES = [(2, 8, 1024, 80), (1, 4, 4096, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', T_SHAPES)
+@pytest.mark.parametrize('label', list(fv.CONFIGS))
+def test_variant_kernel_matches_twin(label, shape, cuda_gen):
+    """Each T configuration against the fp32 reference, within twice its
+    16-bit twin's max|Δ| plus 1e-3·max|ref| (K1's rule); T4/T5 take and
+    return [B, H, D, S]."""
+    kernel, twin, bhds = fv.CONFIGS[label]
+    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = shape[-1]**-0.5
+    t = (lambda x: x.transpose(-1, -2).contiguous()) if bhds else \
+        (lambda x: x)
+    before = sum(fv.launch_counts().values())
+    out = kernel(t(q), t(k), t(v), scale)
+    torch.cuda.synchronize()
+    assert sum(fv.launch_counts().values()) == before + 1
+    assert out.shape == t(q).shape and out.is_contiguous()
+    ref = plain_attention(q.float(), k.float(), v.float(), scale)
+    _rule(t(out), ref, t(twin(t(q), t(k), t(v), scale)))
+
+
+@pytest.mark.cuda
+def test_variant_kernels_reject_what_they_do_not_take(cuda_gen):
+    q = torch.randn((1, 2, 128, 40), generator=cuda_gen, device='cuda',
+                    dtype=torch.bfloat16)
+    cases = [
+        lambda: fv.attn_opt('v0', q.float(), q.float(), q.float(), 0.1),
+        lambda: fv.attn_h(q[:, :, :100], q[:, :, :100], q[:, :, :100], 0.1),
+        lambda: fv.attn_opt('vG', q, q, q, 0.1, g=4),      # Sq % 256
+        lambda: fv.attn_opt('vG', q, q, q, 0.1, g=3),
+        lambda: fv.pipelined_attention(q[..., :36], q[..., :36], q[..., :36],
+                                       0.1),               # d % 8
+        lambda: fv.attn_variants(0, q.transpose(2, 3), q.transpose(2, 3),
+                                 q.transpose(2, 3), 0.1),  # not contiguous
+        lambda: fv.flash_tt2(q, q, q, 0.1),                # D = 128, S = 40
+        lambda: fv.flash_ttv3(*(torch.zeros((1, 1, 128, 64), device='cuda',
+                                            dtype=torch.bfloat16),) * 3,
+                              0.1),                        # fold, d = 128
+        lambda: fv.flash_ttv3(q, q, q, 0.1, bf16_p=True, sum_fold=False),
+        lambda: fv.attn_variants(3, q, q, q, 0.1),
+    ]
+    before = sum(fv.launch_counts().values())
+    for case in cases:
+        with pytest.raises(ValueError):
+            case()
+    assert sum(fv.launch_counts().values()) == before
