@@ -13,19 +13,25 @@ Kernels and inference (the first and third slices):
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch/CUDA
    versions and the TF32 settings.
-2. Builds the four kernel libraries at once, one ``nvcc`` per source:
-   ``flexdiffuse_tpu_torch/csrc/flash_attention.cu`` (K1, and K3 as its
-   lse instantiation), ``csrc/flash_backward.cu`` (K4, K5),
-   ``csrc/group_norm.cu`` (K6) and ``csrc/flash_variants.cu`` (T1–T6, in
-   ``flash_variants.BUILD_PARTS`` parts of its instantiations, all started
-   together, then linked); prints the seconds of each and of the step.
+2. Builds the four kernel libraries at once, one ``nvcc`` per source or
+   part: ``flexdiffuse_tpu_torch/csrc/flash_attention.cu`` (K1, and K3 as
+   its lse instantiation, on both paths; ``fa.BUILD_PARTS`` parts),
+   ``csrc/flash_backward.cu`` (K4, K5), ``csrc/group_norm.cu`` (K6) and
+   ``csrc/flash_variants.cu`` (T1–T6, ``flash_variants.BUILD_PARTS``
+   parts), the parts of a source all started together, then linked; prints
+   the seconds of each and of the step.
 3. Holds K1 against the fp32 plain attention on the same bf16 inputs at six
-   shapes. A shape passes when the kernel's max|Δ| to the fp32 reference is
-   at most twice the bf16 plain version's max|Δ| to it, plus
+   shapes, each on the Hopper path (``fa.plan``: TMA, wgmma, warp
+   specialisation). A shape passes when the kernel's max|Δ| to the fp32
+   reference is at most twice the bf16 plain version's max|Δ| to it, plus
    1e-3·max|ref| (bf16 rounds the output and P; the slack covers the
-   kernel's different summation order). Prints both errors, and the
-   kernel's, the plain version's and ``scaled_dot_product_attention``'s
-   times at the two main-path shapes and at K2's (1,2,32768,40).
+   kernel's different summation order). Prints both errors; at the two
+   main-path shapes and at K2's (1,2,32768,40) the times, from CUDA-graph
+   replays, of the Hopper path and of the kept mma.sync kernel (its own
+   entry point, the same inputs; interleaved old, new, new, old), of
+   ``scaled_dot_product_attention``, the plain version's, the bounds
+   (tensor cores or bytes, and the exponential unit) and the host µs per
+   call of both paths.
 4. Holds K6 against the fp32 plain GroupNorm on the same inputs at eight
    shapes, by step 3's rule (fp32 outputs: 1e-4·max|ref|); at two shapes
    prints the times of K6, the plain version, ``F.group_norm`` and
@@ -41,18 +47,21 @@ Kernels and inference (the first and third slices):
    steps, one image per step). Then ``Runner.compose`` at 512²: a
    background and 2 entities (UNet batch 4), PNDM, 30 steps, CFG 8.
 7. Asserts 512×512 uint8 images, finite latents and ε, and exactly the
-   kernel launches each phase implies (K1: 10 per UNet evaluation; K6: 61
-   per UNet evaluation, 30 per VAE decode, 22 per VAE encode; no K3-K5);
-   prints UNet evaluations/s and end-to-end seconds.
+   kernel launches each phase implies (K1: 10 per UNet evaluation, all on
+   the Hopper path, none on the kept kernel; K6: 61 per UNet evaluation, 30
+   per VAE decode, 22 per VAE encode; no K3-K5); prints UNet
+   evaluations/s and end-to-end seconds.
 
 Training (the second slice):
 
 8. Holds K3 (``o`` and ``lse``), K4 (``dq``) and K5 (``dk``, ``dv``) against
    their fp32 plain twins on the same bf16 inputs at five shapes, by step
-   3's rule (``lse``: 1e-3 absolute; for K4 and K5 the bf16 plain version
-   rounds P and dS before the products, as step 3's rounds P); at the two
-   training shapes prints the kernels', the twins' and
-   ``scaled_dot_product_attention``'s forward and backward times.
+   3's rule (``lse``: 1e-3 absolute; K3 on the Hopper path with ``o``
+   bit-equal to K1's; K4 and K5 fed K3's ``lse``, their bf16 plain version
+   rounding P and dS before the products, as step 3's rounds P); at the
+   two training shapes prints the kernels', the twins' and
+   ``scaled_dot_product_attention``'s forward and backward times, K3's as
+   step 3 times K1 (Hopper path against the kept kernel).
 9. One LoRA train step's loss and factor gradients at SD-1.4 width (512²,
    batch 4, injected timesteps and noise) through the kernels against the
    same step with plain attention: max|Δg|/max|g| ≤ 5e-2.
@@ -61,8 +70,9 @@ Training (the second slice):
 11. ``train_lora`` for 10 steps (rank 8, batch 4, remat 'none') on the bf16
     UNet, then ``train_full`` for 4 steps (batch 4, fp32 weights and Adam,
     bf16 autocast, remat 'full') on an fp32 copy: finite losses and exactly
-    the kernel launches the path implies (LAUNCHES_PER_STEP); prints the
-    median ms per step, images/s and peak device memory.
+    the kernel launches the path implies (LAUNCHES_PER_STEP; every K3 on the
+    Hopper path); prints the median ms per step, images/s and peak device
+    memory.
 
 The flash-kernel experiment tools (the fourth slice):
 
@@ -83,8 +93,10 @@ The flash-kernel experiment tools (the fourth slice):
     print OK or FAIL by their own 0.04; step 12 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
     launches of the kernel in use, none of the other, and 61 of K6.
-14. Prints one JSON line about the kernels, then, only if every phase
-    passed, ``{"ok": true, "device": {...}}`` as the last line.
+14. Prints one JSON line about the kernels (K1 and K3 also with the kept
+    kernel's time and the host µs per call),
+    then, only if every phase passed, ``{"ok": true, "device": {...}}`` as
+    the last line.
 
 Every kernel's launch count is set to 0 just before each main-path phase
 (steps 6, 11 and 13) and read just after; launches made to check a kernel
@@ -171,11 +183,26 @@ LORA_STEPS, FULL_STEPS = 10, 4
 # .norm2 and down_blocks[0].attentions[0].norm; every later activation
 # carries the factors' gradient. Full fine-tuning trains the affine of
 # every GroupNorm, so none.
-LAUNCHES_PER_STEP = {'lora': dict(k1=0, k3=10, k4=10, k5=10, k6=3),
-                     'full': dict(k1=0, k3=20, k4=10, k5=10, k6=0)}
+def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
+                  k6: int = 0) -> dict:
+    """The launch counts a main-path run must show (``kernel_counts``):
+    every K1 and K3 launch on the Hopper path ('sm90'), none on the kept
+    mma.sync kernel."""
+    return dict(k1=k1, k3=k3, k4=k4, k5=k5, k6=k6, k1_sm90=k1, k1_mma=0,
+                k3_sm90=k3, k3_mma=0)
+
+
+LAUNCHES_PER_STEP = {'lora': want_launches(k3=10, k4=10, k5=10, k6=3),
+                     'full': want_launches(k3=20, k4=10, k5=10)}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
-# outside the tensor cores, HBM3.
+# outside the tensor cores, HBM3. And the exponential unit, printed beside
+# K1/K3's times but kept out of the kernels line (it is a second bound on
+# an assumed clock): 16 ex2 per clock per SM (the CUDA C++ programming
+# guide's arithmetic-instruction throughput table, compute capability 9.0,
+# "32-bit floating-point ... base-2 exponential") on 132 SMs at the 1.98
+# GHz boost clock; under load the SM clock can sit lower.
 PEAK_FLOPS, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_EX2 = 16 * 132 * 1.98e9
 BF16, FP32 = torch.bfloat16, torch.float32
 # K6 check shapes (NCHW, silu, eps, in dtype, out dtype, timed), stored
 # channels-last as the models' activations are on the card: the UNet's
@@ -204,12 +231,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
+def time_ms(fn, iters: int = 20, graph: bool = False, reps: int = 3
+            ) -> float:
     """Mean ms per call of ``fn`` over ``iters`` calls after 3 warm-ups,
-    by CUDA events. With ``graph`` the calls are captured once into a CUDA
-    graph and replayed, so a call shorter than its own host-side launch
-    (K6 at the UNet's sizes) is timed on the device, not at the rate the
-    host enqueues it."""
+    by CUDA events; the median of ``reps`` such runs (a lone run of a
+    20-µs kernel spread 2× between calls). With ``graph`` the calls are
+    captured once into a CUDA graph and replayed, so a call shorter than
+    its own host-side launch (K6 at the UNet's sizes) is timed on the
+    device, not at the rate the host enqueues it."""
     for _ in range(3):
         fn()
     if graph:
@@ -225,11 +254,37 @@ def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
                 fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
+    times = []
+    for _ in range(reps):
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def time_pair(new, old, graph: bool = True) -> tuple:
+    """(new ms, old ms): each timed twice, in the order old, new, new, old
+    (``time_ms``, replayed from a CUDA graph so that a call shorter than its
+    host-side launch is timed on the device), the two times averaged."""
+    first_old = time_ms(old, graph=graph)
+    new_ms = (time_ms(new, graph=graph) + time_ms(new, graph=graph)) / 2
+    return new_ms, (first_old + time_ms(old, graph=graph)) / 2
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call of ``fn``: ``calls`` calls enqueued back to back,
+    timed on the host clock before the final synchronise."""
+    for _ in range(5):
+        fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple:
@@ -254,8 +309,39 @@ def attention_bound(kind: str, b: int, h: int, sq: int, skv: int,
     return bound(products * 2.0 * bh * sq * skv * d, nbytes)
 
 
+def exp_bound_ms(b: int, h: int, sq: int, skv: int) -> float:
+    """The exponential unit's least time for one exp2 per score."""
+    return b * h * sq * skv / PEAK_EX2 * 1e3
+
+
+def time_forward(res: dict, kernel, scale: float, q, k, v, kind: str
+                 ) -> None:
+    """Times of K1 or K3 (``kernel``) on the Hopper path and on the kept
+    mma.sync kernel (its own entry point, the same inputs), interleaved;
+    ``scaled_dot_product_attention``'s; the bounds; host µs per call of
+    both paths."""
+    b, h, sq, d = q.shape
+    res['ms'], res['kept_ms'] = time_pair(
+        lambda: kernel(q, k, v, scale), lambda: kernel(q, k, v, scale,
+                                                      path='mma'))
+    res['bound_ms'], res['bound_by'] = attention_bound(kind, b, h, sq,
+                                                       k.shape[2], d)
+    res['exp_bound_ms'] = exp_bound_ms(b, h, sq, k.shape[2])
+    res['host_us'] = host_us(lambda: kernel(q, k, v, scale))
+    res['kept_host_us'] = host_us(lambda: kernel(q, k, v, scale, path='mma'))
+
+
+def summary(res: dict) -> str:
+    return (f'{res["ms"]:.4f} ms (kept mma.sync {res["kept_ms"]:.4f}, SDPA '
+            f'{res["library_ms"]:.4f}, bound {res["bound_ms"]:.5f} '
+            f'{res["bound_by"]}, exp2 {res["exp_bound_ms"]:.4f}); host '
+            f'{res["host_us"]:.1f} µs per call (kept '
+            f'{res["kept_host_us"]:.1f})')
+
+
 def check_kernel(shape, gen: torch.Generator) -> dict:
-    """K1 against fp32 plain attention on the same bf16 inputs."""
+    """K1 against fp32 plain attention on the same bf16 inputs, on the path
+    ``fa.plan`` picks (every shape here is on the Hopper path)."""
     b, h, s, d = shape
     q, k, v = (torch.randn(shape, generator=gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(3))
@@ -274,16 +360,17 @@ def check_kernel(shape, gen: torch.Generator) -> dict:
         max_ref = max(max_ref, ref.abs().max().item())
         del ref, plain
     tol = 2.0 * plain_err + 1e-3 * max_ref
-    res = dict(shape=list(shape), max_abs_err=err, plain_max_abs_err=plain_err,
-               max_abs_ref=max_ref, tol=tol, ok=err <= tol)
+    how = fa.plan(q, k, v, out)
+    res = dict(shape=list(shape), path=how.path, block_q=how.block_q,
+               max_abs_err=err, plain_max_abs_err=plain_err,
+               max_abs_ref=max_ref, tol=tol,
+               ok=err <= tol and how.path == 'sm90')
     if shape in TIMED_SHAPES:
-        res['ms'] = time_ms(lambda: fa.flash_attention(q, k, v, scale))
+        time_forward(res, fa.flash_attention, scale, q, k, v, 'k1')
         res['plain_ms'] = time_ms(lambda: fa.plain_attention(q, k, v, scale),
                                   iters=5 if shape == K2_SHAPE else 20)
         res['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
-        res['bound_ms'], res['bound_by'] = attention_bound('k1', b, h, s, s,
-                                                           d)
+            q, k, v, scale=scale), graph=True)
     return res
 
 
@@ -423,7 +510,12 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
     ref_o, ref_lse = fb.plain_attention_lse(*f32[:3], scale)
     res['k3'] = _errs(o, ref_o, fb.plain_attention_lse(q, k, v, scale)[0])
     res['k3']['lse_max_abs_err'] = (lse - ref_lse).abs().max().item()
-    res['k3']['ok'] &= res['k3']['lse_max_abs_err'] <= 1e-3
+    res['k3']['equals_k1'] = torch.equal(o, fa.flash_attention(q, k, v,
+                                                               scale))
+    res['k3']['path'] = fa.plan(q, k, v, o).path
+    res['k3']['ok'] &= (res['k3']['lse_max_abs_err'] <= 1e-3 and
+                        res['k3']['equals_k1'] and
+                        res['k3']['path'] == 'sm90')
     del ref_o, ref_lse
     rows = (lse, dvec, scale)
     p16, ds16 = (t.to(q.dtype).float() for t in fb._probs_and_ds(
@@ -455,16 +547,21 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
             'k5': (lambda: fb.flash_attention_dkv(*args),
                    lambda: fb.plain_attention_dkv(*args))}
         for name, (kern, plain_fn) in timed.items():
-            res[name]['ms'] = time_ms(kern)
+            if name == 'k3':
+                time_forward(res['k3'], fb.flash_attention_lse, scale, q, k,
+                             v, 'k3')
+            else:
+                res[name]['ms'] = time_ms(kern)
+                res[name]['bound_ms'], res[name]['bound_by'] = \
+                    attention_bound(name, b, h, sq, skv, d)
             res[name]['plain_ms'] = time_ms(plain_fn)
-            res[name]['bound_ms'], res[name]['bound_by'] = attention_bound(
-                name, b, h, sq, skv, d)
         # The yardstick: scaled_dot_product_attention's forward (keeping
         # what its backward needs) and its backward (dq, dk and dv in one
         # call), on the same inputs. The port never calls it.
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         res['k3']['library_ms'] = time_ms(
-            lambda: F.scaled_dot_product_attention(*leaves, scale=scale))
+            lambda: F.scaled_dot_product_attention(*leaves, scale=scale),
+            graph=True)
         out = F.scaled_dot_product_attention(*leaves, scale=scale)
         bwd = time_ms(lambda: torch.autograd.grad(out, leaves, dout,
                                                   retain_graph=True))
@@ -572,7 +669,8 @@ def run_training(label: str, train_fn, steps: int, mode: str) -> dict:
 
 
 # Kernel name fragment → group, first match wins.
-GROUPS = [('flash_fwd_kernel', 'flash forward (K1/K3)'),
+GROUPS = [('flash_fwd_sm90_kernel', 'flash forward (K1/K3)'),
+          ('flash_fwd_kernel', 'flash forward, kept mma.sync (K1/K3)'),
           ('flash_bwd_dq', 'flash dq (K4)'),
           ('flash_bwd_dkv', 'flash dk/dv (K5)'),
           ('::gn_', 'GroupNorm (K6)'),
@@ -680,7 +778,7 @@ def profile_training(steps: int, out: str) -> None:
     the idle share against both host times, and device time by kernel group
     and by kernel, printed and written under ``out``."""
     with ThreadPoolExecutor(2) as pool:
-        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE)))
+        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE), (fa.BUILD_PARTS, 1)))
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
@@ -741,8 +839,8 @@ def check_models(unet, vae, ctx, gen: torch.Generator) -> dict:
             and res['vae_k6_vs_fp32_rel'] <= vae_tol):
         raise AssertionError('VAE decode through K6 disagrees with the '
                              'plain path')
-    want_unet = dict(k1=LAUNCHES_PER_UNET, k3=0, k4=0, k5=0, k6=K6_PER_UNET)
-    want_vae = dict(k1=0, k3=0, k4=0, k5=0, k6=K6_PER_DECODE)
+    want_unet = want_launches(k1=LAUNCHES_PER_UNET, k6=K6_PER_UNET)
+    want_vae = want_launches(k6=K6_PER_DECODE)
     if unet_launches != want_unet or vae_launches != want_vae:
         raise AssertionError(f'model checks launched {unet_launches} and '
                              f'{vae_launches}')
@@ -777,9 +875,9 @@ def run_generate(label: str, call, probe: 'UNetProbe', latent_finite: list,
                              f'{[(a.shape, a.dtype) for a in arrs]}')
     if not all(bool(f) for f in probe.finite + latent_finite):
         raise AssertionError(f'{label}: non-finite ε or latents')
-    want = dict(k1=LAUNCHES_PER_UNET * calls, k3=0, k4=0, k5=0,
-                k6=K6_PER_UNET * calls + K6_PER_DECODE * decodes +
-                K6_PER_ENCODE * encodes)
+    want = want_launches(k1=LAUNCHES_PER_UNET * calls,
+                    k6=K6_PER_UNET * calls + K6_PER_DECODE * decodes +
+                    K6_PER_ENCODE * encodes)
     if got != want:
         raise AssertionError(f'{label}: launches {got}, expected {want} for '
                              f'{calls} UNet evaluations')
@@ -843,7 +941,8 @@ def profile_generate(steps: int, out: str) -> None:
     batch 2, bf16, seeded random SD-1.4 weights), through K1 and K6, then
     through K1 with the plain GroupNorm, each by ``profile_steps``."""
     with ThreadPoolExecutor(3) as pool:
-        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE)))
+        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE),
+                      (fa.BUILD_PARTS, 1, 1)))
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
@@ -888,7 +987,8 @@ T_ENTRIES = [
 ]
 # Launches per UNet evaluation in the tools' A/B runs: the kernel in use
 # takes the 10 eligible self-attentions, K6 the 61 GroupNorms.
-AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
+AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k1_sm90=LAUNCHES_PER_UNET,
+                          k6=K6_PER_UNET),
                'pipelined_attention': dict(
                    pipelined_attention=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
                'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
@@ -1038,7 +1138,7 @@ def main() -> int:
         profile_generate(args.profile_gen, args.profile_out)
         return 0
 
-    parts = {fa.SOURCE: 1, fb.SOURCE: 1, gn.SOURCE: 1,
+    parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: 1, gn.SOURCE: 1,
              fv.SOURCE: fv.BUILD_PARTS}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(parts)) as pool:
@@ -1051,9 +1151,13 @@ def main() -> int:
     results = [check_kernel(s, gen) for s in KERNEL_SHAPES]
     for r in results:
         print('K1', json.dumps(r))
+    for r in results:
+        if 'ms' in r:
+            print(f'K1 {tuple(r["shape"])}: {summary(r)}')
     bad = [r['shape'] for r in results if not r['ok']]
     if bad:
-        raise AssertionError(f'K1 disagrees with plain attention at {bad}')
+        raise AssertionError(f'K1 disagrees with plain attention (or left '
+                             f'the Hopper path) at {bad}')
 
     gn_res = [check_group_norm(*spec, gen) for spec in GN_SHAPES]
     for r in gn_res:
@@ -1075,9 +1179,13 @@ def main() -> int:
     train_res = [check_train_kernels(s, skv, gen) for s, skv in TRAIN_SHAPES]
     for r in train_res:
         print('K3-K5', json.dumps(r))
+    for r in train_res:
+        if 'ms' in r['k3']:
+            print(f'K3 {tuple(r["shape"])}: {summary(r["k3"])}')
     bad = [(r['shape'], r['skv']) for r in train_res if not r['ok']]
     if bad:
-        raise AssertionError(f'K3/K4/K5 disagree with their twins at {bad}')
+        raise AssertionError(f'K3/K4/K5 disagree with their twins (or K3 '
+                             f'left the Hopper path or K1) at {bad}')
     print(f'K3-K5 check: {time.perf_counter() - t0:.1f} s')
 
     t0 = time.perf_counter()
@@ -1126,6 +1234,14 @@ def main() -> int:
 
     main_res = results[0]
     train_main = train_res[0]
+    # K1 and K3 also carry the kept mma.sync kernel's time on the same
+    # inputs and the host µs per call, and the times at every timed shape.
+    timed = lambda rows: [dict(shape=shape, **{key: m[key] for key in (
+        'ms', 'kept_ms', 'library_ms', 'bound_ms')})
+        for shape, m in rows if 'ms' in m]
+    extra = lambda m, rows: dict(
+        {key: m[key] for key in ('kept_ms', 'host_us', 'kept_host_us')},
+        by_shape=timed(rows))
     kernels = [dict(
         name='flash_attention', route='cuda',
         source='flexdiffuse_tpu_torch/csrc/flash_attention.cu',
@@ -1134,7 +1250,8 @@ def main() -> int:
         max_abs_err=max(r['max_abs_err'] for r in results),
         ms=main_res['ms'], plain_ms=main_res['plain_ms'],
         bound_ms=main_res['bound_ms'], bound_by=main_res['bound_by'],
-        library_ms=main_res['library_ms'])]
+        library_ms=main_res['library_ms'],
+        **extra(main_res, [(r['shape'], r) for r in results]))]
     for key, kname, src, line in (
             ('k3', 'flash_attention_lse', 'flash_attention.cu', 62),
             ('k4', 'flash_attention_dq', 'flash_backward.cu', 146),
@@ -1147,7 +1264,9 @@ def main() -> int:
             launches=launches[key],
             max_abs_err=max(r[key]['max_abs_err'] for r in train_res),
             ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
-            bound_by=m['bound_by'], library_ms=m['library_ms']))
+            bound_by=m['bound_by'], library_ms=m['library_ms'],
+            **(extra(m, [(r['shape'], r['k3']) for r in train_res])
+               if key == 'k3' else {})))
     gn_main = gn_res[0]
     kernels.append(dict(
         name='fused_group_norm', route='cuda',

@@ -1,38 +1,91 @@
-// Forward flash attention for Hopper (sm_90a): softmax(q·kᵀ·scale)·v.
+// Forward flash attention for Hopper (sm_90a): softmax(q·kᵀ·scale)·v over
+// contiguous [B, H, S, D] bf16/fp16 tensors, fp32 accumulators, Sq != Skv
+// allowed, any S >= 1.
 //
-// Replaces flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel (K1)
-// and, because K/V always stream through shared memory here, also its
-// VMEM-overflow twin _flash_stream_kernel (K2). Instantiated with kLse it
-// is K3, the training forward, which also writes the base-2 log-sum-exp
-// rows lse = m + log2(l) in fp32 (replaces
-// flexdiffuse_tpu/ops/flash_backward.py::_fwd_lse_kernel, :62); the
-// backward kernels K4/K5 (flash_backward.cu) recompute P from them. The
-// kLse = false instantiation is K1 unchanged. The TPU kernel's
+// Replaces flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel (K1,
+// :126) and, because K/V always stream through shared memory here, its
+// VMEM-overflow twin _flash_stream_kernel (K2, :44). Instantiated with kLse
+// it is K3, the training forward, which also writes the base-2 log-sum-exp
+// rows lse = m·scale·log2(e) + log2(l) in fp32 (replaces
+// flexdiffuse_tpu/ops/flash_backward.py::_fwd_lse_kernel, :62); the backward
+// kernels K4/K5 (flash_backward.cu) recompute P from them in fp32. K1 and K3
+// are one template, so K3's o is bit-equal to K1's. The TPU kernel's
 // transposed [d, s] operands and its ones-row sum fold answer the TPU's
 // 128-lane width and its vector unit; neither is carried over.
 //
-// Takes contiguous [B, H, S, D] bf16 or fp16 tensors, accumulates in fp32,
-// allows Sq != Skv, masks the ragged last tiles (any S >= 1) and takes any
-// D <= 128, zero-padded in shared memory to a multiple of 16.
+// What bounds it on this card. At SD's d = 40 a score costs 40 multiply-adds
+// on the tensor cores but one exp2 on the 16-lane-per-SM MUFU unit: at
+// (2,8,4096,40) 268 M exp2 take ~0.064 ms on 132 SMs at 1.98 GHz, above the
+// tensor-core bound (0.043 ms) and the bytes (~0.01 ms). So the design keeps
+// the MUFU busy and everything else off it and off the critical path. At
+// d = 80 with 1024 tokens the tensor cores bound it (0.0054 ms) and latency
+// and grid fill decide.
 //
-// Design (simple first): one thread block of 4 warps per (b·h, 64-row q
-// tile); each warp owns 16 q rows. A loop walks 64-row K/V tiles staged in
-// shared memory. Q·Kᵀ and P·V run on the tensor cores with
-// mma.sync.m16n8k16 (16-bit in, fp32 accumulate); the online softmax runs
-// in base 2 with scale·log2(e) folded into the scores, and the row max and
-// row sum stay in registers. The [Sq, Skv] scores never reach device
-// memory: each block reads its Q tile once, streams K/V once and writes O
-// once.
+// The Hopper path (flash_fwd_sm90_kernel), for d % 8 == 0 and 16-byte
+// aligned tensors (what TMA takes):
+// - Warp specialisation: warpgroup 0 is the producer; one thread issues all
+//   TMA loads (Q once, then K_j and V_j into a ring of 3 K/V stages, each
+//   with a full and an empty mbarrier) and gives its registers to the
+//   consumers (setmaxnreg). Each consumer warpgroup owns 64 q rows; a block
+//   of three consumers (DP <= 64, kv tile 64) or two (above, kv tile 128)
+//   takes 192 or 128 q rows, all reading the same K/V stages (Tiling).
+// - Tensor maps are 3-D, [B·H, S, D], so the zero fill of out-of-bounds
+//   reads pads both the ragged last rows of each head and the head columns
+//   d..DP, and a box never reads the next head's rows. The host encodes
+//   them per call (cuTensorMapEncodeTiled fetched through
+//   cudaGetDriverEntryPoint; no -lcuda).
+// - Head width: DP = d rounded up to 16 (48 at d = 40, 80 at d = 80), the
+//   k-steps of S. Neither is a 64- or 128-byte swizzle width, so a tile is
+//   stored in slabs of one swizzle span each: 16 columns with the 32-byte
+//   swizzle (no column beyond DP), or 64 with the 128-byte one (d = 40:
+//   one slab, columns 40..63 zero-filled by TMA, never multiplied). The
+//   wgmma descriptors describe exactly the slabs TMA wrote (Geometry); the
+//   128-byte swizzle measured faster at d = 40, the 32-byte one at d = 80.
+// - S = Q·K_jᵀ: wgmma m64n{kv tile}k16, Q and K both K-major in shared
+//   memory. O += P·V_j: wgmma m64n{DP}k16 with A = P in registers (the fp32
+//   S accumulator converted in place: its fragment layout is the register-A
+//   layout) and B = V_j MN-major (the transpose bit).
+// - Pipeline: S_j is issued together with P_{j-1}·V_{j-1}, so the softmax
+//   of S_j runs while that product is on the tensor cores, and the
+//   consumers take turns to issue their wgmma (ping-pong).
+// - Softmax: the row max is taken on the raw scores, as a tree; each score
+//   then costs one FFMA s·c − m·c (c = scale·log2 e in fp32, never a q
+//   pre-scaled in its 16-bit type, which K4/K5 could not reproduce) and one
+//   ex2.approx.ftz. Row max and sum stay in registers, reduced over the
+//   quad. The column mask runs only on the ragged last kv tile.
+// - What bounds it: clock stamps per phase put a consumer's tile at its own
+//   dependent chain (S wait, row max, exp2, P·V issue), not at the shared
+//   MUFU unit or tensor cores: taking turns for the exponentials gained
+//   nothing, three consumers of kv tile 64 (more chains per SM) and the
+//   shorter max tree did.
+// - Epilogue: O·(1/l) is written into the consumer's Q tile (free by then)
+//   in the swizzled layout and stored by TMA, which drops rows >= Sq and
+//   columns >= d; K3 writes lse for rows < Sq.
+// The wrapper (ops/flash_attention.py::plan) picks the path before launch.
 //
-// What bounds it on this card: at SD's d = 40 (padded to 48) a score costs
-// 48 multiply-adds on the tensor cores but an exp2, a max, a sum and a
-// rescale on the CUDA cores, and the loads are not overlapped with compute,
-// so the kernel is bound by the softmax and by latency, not by the tensor
-// cores or device memory. wgmma, TMA, cp.async pipelining and warp
-// specialisation are later work.
+// The kept path (flash_fwd_kernel, the first port's design, unchanged)
+// serves what TMA cannot take: d % 8 != 0 (rows not 16-byte strided) or a
+// misaligned pointer. One block of 4 warps per (b·h, 64-row q tile), K/V
+// tiles staged through registers, mma.sync.m16n8k16, head dim zero-padded
+// to a multiple of 16.
+
+#include <type_traits>
+#include <utility>
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
+// The build: ops/flash_attention.build compiles this file BUILD_PARTS times
+// at once (-DBUILD_PART=p) and links the objects. Part 0 holds the kept
+// kernel, the launcher table and the entry points; the Hopper kernel's
+// (dtype, width) units are spread over the other parts. A
+// compile without these macros holds everything.
+#ifndef BUILD_PARTS
+#define BUILD_PARTS 1
+#define BUILD_PART 0
+#endif
+
+#if BUILD_PART == 0
 namespace {
 
 template <typename T, int DP, bool kLse>
@@ -258,6 +311,530 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace
+#endif  // BUILD_PART == 0
+
+// ---------------------------------------------------------------------------
+// The Hopper path.
+
+namespace {
+
+constexpr int kRows = 64;      // q rows per consumer warpgroup (one wgmma M)
+constexpr int kMaxWidths = 8;  // DP = 16, 32, ..., 128
+constexpr int kStages = 3;     // K/V tiles in the ring
+
+// The tiles of a head width (ops/flash_attention.py::SM90_TILES says the
+// same to the wrapper). Up to DP = 64 (SD's d = 40): three consumers, kv
+// tile 64 (ptxas allocates 128 registers a thread at 512 threads, whatever
+// setmaxnreg gives later: too few for kv tile 128), 128-byte swizzle.
+// Above (d = 80): two consumers, kv tile 128, 32-byte swizzle, which wastes
+// no column. Each measured fastest at its widths (PERF.md, design steps).
+template <int DP>
+struct Tiling {
+  static constexpr bool kNarrow = DP <= 64;
+  static constexpr int kBlockKv = kNarrow ? 64 : 128;
+  static constexpr int kConsumers = kNarrow ? 3 : 2;
+  static constexpr int kPitch = kNarrow ? 128 : 32;  // swizzle span, bytes
+};
+
+// How a [rows x DP] operand tile sits in shared memory: kSlabs slabs of
+// `rows` rows of kPitch bytes (the swizzle span: 16 or 64 columns), slab s
+// holding columns s·kSlabCols ... and written by one TMA box of that width.
+// The zero fill pads the columns past d; the wgmma k-steps stop at DP.
+template <int kPitch, int DP>
+struct Geometry {
+  static_assert(kPitch == 32 || kPitch == 128, "pitch");
+  static constexpr int kSlabCols = kPitch / 2;
+  static constexpr int kSlabs = (DP + kSlabCols - 1) / kSlabCols;
+  static constexpr uint64_t kLayout = kPitch == 32 ? 3 : 1;  // descriptor
+  // Bytes of a tile, in shared memory and in TMA traffic (whole boxes).
+  __host__ __device__ static constexpr int bytes(int rows) {
+    return kSlabs * rows * kPitch;
+  }
+  // Byte offset of the 16-column k-step ks of a K-major tile.
+  __host__ __device__ static constexpr int kstep(int ks, int rows) {
+    return ks / (kSlabCols / 16) * rows * kPitch +
+           ks % (kSlabCols / 16) * 32;
+  }
+  // Swizzled byte offset of element (row, col) of a tile.
+  static __device__ __forceinline__ int offset(int row, int col, int rows) {
+    const int in = row * kPitch + col % kSlabCols * 2;
+    return col / kSlabCols * rows * kPitch +
+           (in ^ (((in >> 7) & (kPitch / 16 - 1)) << 4));
+  }
+  static __device__ __forceinline__ uint64_t kmajor(const void* tile) {
+    return sm90::desc(tile, 16, 8 * kPitch, kLayout);
+  }
+  // V_j, MN-major: slabs kSlabCols columns apart, 8-row groups 8 rows
+  // apart; one k-step is 16 kv rows.
+  static __device__ __forceinline__ uint64_t mnmajor(const void* tile,
+                                                     int rows) {
+    return sm90::desc(tile, rows * kPitch, 8 * kPitch, kLayout);
+  }
+};
+
+// Shared memory of one block, in bytes from a 1024-aligned base: each
+// consumer's Q tile (later its O tile), the K and V stages, the barriers.
+template <int kPitch, int DP, int BN, int C>
+struct Layout {
+  using G = Geometry<kPitch, DP>;
+  static constexpr int kQ = G::bytes(kRows);
+  static constexpr int kKV = G::bytes(BN);
+  static constexpr int kK = C * kQ;
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kBars = kV + kStages * kKV;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+};
+
+// Registers per thread, one block per SM. The producer warpgroup gives all
+// but kProducer of its share to the consumers.
+template <int C>
+struct Regs {
+  static constexpr int kLaunch = (65536 / ((C + 1) * 128)) & ~7;
+  static constexpr int kProducer = 24;
+  static constexpr int kConsumer = ((kLaunch * (C + 1) - kProducer) / C) & ~7;
+  static_assert(kConsumer <= 256 && kConsumer > kLaunch, "register split");
+};
+
+template <typename T, int kPitch, int DP, int BN>
+struct Consumer {
+  using G = Geometry<kPitch, DP>;
+  float o[DP / 2];
+  // Rows g and g + 8 of the warp's 16: running max of the raw scores and
+  // the quad-partial row sum.
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  int tq;
+
+  __device__ __forceinline__ Consumer(int t) : tq(t % 4) {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  }
+
+  // S = Q·K_jᵀ, 64 x BN, DP / 16 k-steps (not committed).
+  static __device__ __forceinline__ void issue_s(float (&sc)[BN / 2],
+                                                 const unsigned char* s_q,
+                                                 const unsigned char* sk) {
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      sm90::Wgmma<T, BN>::ss(sc, G::kmajor(s_q + G::kstep(ks, kRows)),
+                             G::kmajor(sk + G::kstep(ks, BN)), ks > 0);
+    }
+  }
+
+  // O += P·V_j; the accumulator n-blocks 2kt, 2kt + 1 of S are the A
+  // fragment of k-step kt (not committed).
+  __device__ __forceinline__ void issue_pv(const uint32_t (&pa)[BN / 16][4],
+                                           const unsigned char* sv) {
+#pragma unroll
+    for (int kt = 0; kt < BN / 16; ++kt) {
+      sm90::WgmmaRs<T, DP>::rs(o, pa[kt],
+                               G::mnmajor(sv + kt * 16 * kPitch, BN), 1);
+    }
+  }
+
+  // mx[r][i] = max(mx[r][i], mx[r][i + W]), then W / 2, ... 1: a tree
+  // whose levels are unrolled at compile time, so that mx stays in
+  // registers (a loop halving its bound left it in local memory).
+  template <int W>
+  static __device__ __forceinline__ void fold_max(float (&mx)[2][BN / 8]) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      mx[0][i] = fmaxf(mx[0][i], mx[0][i + W]);
+      mx[1][i] = fmaxf(mx[1][i], mx[1][i + W]);
+    }
+    if constexpr (W > 1) fold_max<W / 2>(mx);
+  }
+
+  // The online softmax of one tile in place: masks columns >= skv (only
+  // the ragged last tile has any), updates the row max and sum, leaves
+  // P = exp2(s·c − m·c) in sc and returns the factor O must be scaled by.
+  // The max is taken as a tree and the sum in two halves, to keep the
+  // dependent chains short: the softmax is on each consumer's critical path.
+  __device__ __forceinline__ void softmax(float (&sc)[BN / 2], int kv0,
+                                          int skv, float c,
+                                          float (&alpha)[2]) {
+    if (kv0 + BN > skv) {
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (kv0 + 8 * i + 2 * tq + (e & 1) >= skv) sc[4 * i + e] = -INFINITY;
+        }
+      }
+    }
+    float mx[2][BN / 8];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      mx[0][i] = fmaxf(sc[4 * i], sc[4 * i + 1]);
+      mx[1][i] = fmaxf(sc[4 * i + 2], sc[4 * i + 3]);
+    }
+    fold_max<BN / 16>(mx);
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = fmaxf(m_run[r], mx[r][0]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      // Column kv0 is always valid, so m is finite; on the first tile
+      // m_run is -inf and alpha 0. An unchanged max gives alpha 1 exactly.
+      mc[r] = __fmul_rn(m, c);
+      alpha[r] = sm90::ex2(__fmul_rn(m_run[r] - m, c));
+      m_run[r] = m;
+    }
+    float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = sm90::ex2(__fmaf_rn(sc[4 * i + e], c, -mc[e >> 1]));
+        sc[4 * i + e] = p;
+        rs[e >> 1][i & 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = l_run[r] * alpha[r] + (rs[r][0] + rs[r][1]);
+    }
+  }
+
+  __device__ __forceinline__ void rescale(const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      o[4 * i] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+  }
+
+  static __device__ __forceinline__ void to_p(const float (&sc)[BN / 2],
+                                              uint32_t (&pa)[BN / 16][4]) {
+#pragma unroll
+    for (int kt = 0; kt < BN / 16; ++kt) {
+      pa[kt][0] = Ops<T>::pack(sc[8 * kt], sc[8 * kt + 1]);
+      pa[kt][1] = Ops<T>::pack(sc[8 * kt + 2], sc[8 * kt + 3]);
+      pa[kt][2] = Ops<T>::pack(sc[8 * kt + 4], sc[8 * kt + 5]);
+      pa[kt][3] = Ops<T>::pack(sc[8 * kt + 6], sc[8 * kt + 7]);
+    }
+  }
+};
+
+template <int C>
+__device__ __forceinline__ void consumer_barrier(int cw) {
+  // One barrier id per consumer warpgroup (0 is __syncthreads').
+  if (cw == 0) sm90::named_barrier<1>(128);
+  if (cw == 1) sm90::named_barrier<2>(128);
+  if constexpr (C > 2) {
+    if (cw == 2) sm90::named_barrier<3>(128);
+  }
+}
+
+// Ping-pong (turns, as in FlashAttention-3): the consumers take turns to
+// issue their wgmma, so that one's softmax runs while the next one's
+// products are on the tensor cores. Consumer cw waits on barrier 4 + cw for
+// its turn and, once its products are issued, arrives on the next
+// consumer's. The last consumer opens the first turn and skips its arrival
+// in its last round, so that every phase of every barrier completes (each
+// consumer has the same number of rounds).
+template <int C>
+struct Turns {
+  static __device__ __forceinline__ void wait(int cw) {
+    if (cw == 0) sm90::named_barrier<4>(256);
+    if (cw == 1) sm90::named_barrier<5>(256);
+    if constexpr (C > 2) {
+      if (cw == 2) sm90::named_barrier<6>(256);
+    }
+  }
+  static __device__ __forceinline__ void pass(int cw) {
+    if (cw == C - 1) sm90::named_arrive<4>(256);
+    if (cw == 0) sm90::named_arrive<5>(256);
+    if constexpr (C > 2) {
+      if (cw == 1) sm90::named_arrive<6>(256);
+    }
+  }
+};
+
+template <typename T, int DP, bool kLse>
+__global__ void __launch_bounds__((Tiling<DP>::kConsumers + 1) * 128, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_o,
+                          float* __restrict__ lse, int sq, int skv,
+                          float scale_log2) {
+  using Tl = Tiling<DP>;
+  constexpr int kPitch = Tl::kPitch, BN = Tl::kBlockKv, C = Tl::kConsumers,
+                S = kStages;
+  static_assert(DP % 16 == 0 && DP <= 128, "head width");
+  static_assert(BN % 16 == 0 && BN <= 256, "kv tile");
+  static_assert(C == 2 || C == 3, "consumers");
+  using L = Layout<kPitch, DP, BN, C>;
+  using G = Geometry<kPitch, DP>;
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + S;
+
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kRows * C;
+  const int n_tiles = (skv + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], C);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    sm90::regs_dec<Regs<C>::kProducer>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_map(&tm_q);
+      sm90::prefetch_map(&tm_k);
+      sm90::prefetch_map(&tm_v);
+      sm90::mbar_expect_tx(q_full, C * L::kQ);
+      for (int c = 0; c < C; ++c) {
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(smem + c * L::kQ + sl * kRows * kPitch, &tm_q,
+                            q_full, sl * G::kSlabCols, q0 + c * kRows, bh);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % S;
+        if (j >= S) sm90::mbar_wait(&kv_empty[s], ((j / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(&kv_full[s], 2 * L::kKV);
+        unsigned char* sk = smem + L::kK + s * L::kKV;
+        unsigned char* sv = smem + L::kV + s * L::kKV;
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(sk + sl * BN * kPitch, &tm_k, &kv_full[s],
+                            sl * G::kSlabCols, j * BN, bh);
+        }
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(sv + sl * BN * kPitch, &tm_v, &kv_full[s],
+                            sl * G::kSlabCols, j * BN, bh);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup cw: q rows q0 + 64·cw ... + 63.
+    sm90::regs_inc<Regs<C>::kConsumer>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int g = (t % 32) / 4;
+    unsigned char* s_q = smem + cw * L::kQ;
+    auto k_tile = [&](int j) { return smem + L::kK + (j % S) * L::kKV; };
+    auto v_tile = [&](int j) { return smem + L::kV + (j % S) * L::kKV; };
+    auto wait_tile = [&](int j) {
+      sm90::mbar_wait(&kv_full[j % S], (j / S) & 1);
+    };
+    auto release = [&](int j) {
+      if (t == 0) sm90::mbar_arrive(&kv_empty[j % S]);
+    };
+    Consumer<T, kPitch, DP, BN> st(t);
+    float sc[BN / 2];
+    uint32_t pa[BN / 16][4];
+    float alpha[2];
+    auto my_turn = [&] { Turns<C>::wait(cw); };
+    auto next_turn = [&](bool last) {
+      if (!last || cw != C - 1) Turns<C>::pass(cw);
+    };
+    auto issue_s = [&](float (&acc)[BN / 2], int j) {
+      wait_tile(j);
+      sm90::wgmma_fence();
+      st.issue_s(acc, s_q, k_tile(j));
+      sm90::wgmma_commit();
+    };
+    auto issue_pv = [&](int j) {
+      sm90::fence_regs(st.o);
+      sm90::wgmma_fence();
+      st.issue_pv(pa, v_tile(j));
+      sm90::wgmma_commit();
+    };
+    // After P_j·V_j has completed: K_j/V_j back to the producer.
+    auto pv_done = [&](int j) {
+      sm90::fence_regs(st.o);
+      sm90::fence_regs(pa);
+      release(j);
+    };
+
+    if (cw == C - 1) sm90::named_arrive<4>(256);
+    sm90::mbar_wait(q_full, 0);
+    // S_0, then per tile j >= 1: S_j = Q·K_jᵀ and O += P_{j-1}·V_{j-1}
+    // issued together; the softmax of S_j runs while P_{j-1}·V_{j-1} is on
+    // the tensor cores; O is rescaled once that product is done.
+    my_turn();
+    issue_s(sc, 0);
+    next_turn(false);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    st.softmax(sc, 0, skv, scale_log2, alpha);
+    st.to_p(sc, pa);
+    for (int j = 1; j < n_tiles; ++j) {
+      my_turn();
+      issue_s(sc, j);
+      issue_pv(j - 1);
+      next_turn(false);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      st.softmax(sc, j * BN, skv, scale_log2, alpha);
+      sm90::wgmma_wait<0>();
+      pv_done(j - 1);
+      st.rescale(alpha);
+      st.to_p(sc, pa);
+    }
+    my_turn();
+    issue_pv(n_tiles - 1);
+    next_turn(true);
+    sm90::wgmma_wait<0>();
+    pv_done(n_tiles - 1);
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = st.l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / l;
+      if constexpr (kLse) {
+        const int row = q0 + cw * kRows + warp * 16 + g + 8 * r;
+        if (st.tq == 0 && row < sq) {
+          lse[(size_t)bh * sq + row] =
+              __fmul_rn(st.m_run[r], scale_log2) + log2f(l);
+        }
+      }
+    }
+    // Every wgmma that read this warpgroup's Q tile has completed: O's
+    // first DP columns go there, in the layout the O map's TMA store reads.
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int off =
+            G::offset(warp * 16 + g + 8 * r, 8 * i + 2 * st.tq, kRows);
+        *reinterpret_cast<uint32_t*>(s_q + off) = Ops<T>::pack(
+            st.o[4 * i + 2 * r] * inv[r], st.o[4 * i + 2 * r + 1] * inv[r]);
+      }
+    }
+    sm90::fence_proxy_async();
+    consumer_barrier<C>(cw);
+    if (t == 0) {
+#pragma unroll
+      for (int sl = 0; sl < G::kSlabs; ++sl) {
+        sm90::tma_store_3d(&tm_o, s_q + sl * kRows * kPitch,
+                           sl * G::kSlabCols, q0 + cw * kRows, bh);
+      }
+      sm90::tma_store_commit_and_wait();
+    }
+  }
+}
+
+template <typename T, int DP, bool kLse>
+int launch_sm90(const void* q, const void* k, const void* v, void* o,
+                float* lse, int batch_heads, int sq, int skv, int d,
+                float scale, cudaStream_t stream) {
+  using Tl = Tiling<DP>;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kBox = Geometry<Tl::kPitch, DP>::kSlabCols;
+  const int rows = kRows, bn = Tl::kBlockKv, pitch = Tl::kPitch;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!sm90::encode_slab_map(&tm_q, q, kBf16, batch_heads, sq, d, rows, kBox,
+                             pitch) ||
+      !sm90::encode_slab_map(&tm_k, k, kBf16, batch_heads, skv, d, bn, kBox,
+                             pitch) ||
+      !sm90::encode_slab_map(&tm_v, v, kBf16, batch_heads, skv, d, bn, kBox,
+                             pitch) ||
+      !sm90::encode_slab_map(&tm_o, o, kBf16, batch_heads, sq, d, rows, kBox,
+                             pitch)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int smem =
+      Layout<Tl::kPitch, DP, Tl::kBlockKv, Tl::kConsumers>::kBytes;
+  auto kernel = flash_fwd_sm90_kernel<T, DP, kLse>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int block_q = kRows * Tl::kConsumers;
+  const dim3 grid((sq + block_q - 1) / block_q, batch_heads);
+  kernel<<<grid, (Tl::kConsumers + 1) * 128, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, lse, sq, skv, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+using TmaLauncher = int (*)(const void*, const void*, const void*, void*,
+                            float*, int, int, int, int, float, cudaStream_t);
+namespace flash_sm90 {
+// [dtype][DP / 16 - 1][kLse], filled when the library loads.
+extern TmaLauncher launchers[2][kMaxWidths][2];
+#if BUILD_PART == 0
+TmaLauncher launchers[2][kMaxWidths][2] = {};
+#endif
+}  // namespace flash_sm90
+
+namespace {
+
+// Unit u = dtype·8 + width index; part 0 holds the kept kernel, so with
+// several parts the units go to parts 1 ... BUILD_PARTS - 1.
+template <int DT, int W>
+void enter_unit() {
+  constexpr int u = DT * kMaxWidths + W;
+  constexpr int part = BUILD_PARTS == 1 ? 0 : 1 + u % (BUILD_PARTS - 1);
+  constexpr int dp = 16 * (W + 1);
+  if constexpr (part == BUILD_PART) {
+    using T = std::conditional_t<DT == 0, __nv_bfloat16, __half>;
+    flash_sm90::launchers[DT][W][0] = &launch_sm90<T, dp, false>;
+    flash_sm90::launchers[DT][W][1] = &launch_sm90<T, dp, true>;
+  }
+}
+
+template <int... W>
+bool enter_units(std::integer_sequence<int, W...>) {
+  (enter_unit<0, W>(), ...);
+  (enter_unit<1, W>(), ...);
+  return true;
+}
+
+[[maybe_unused]] const bool kEntered =
+    enter_units(std::make_integer_sequence<int, kMaxWidths>{});
+
+}  // namespace
+
+#if BUILD_PART == 0
+namespace {
+
+template <bool kLse>
+int dispatch_sm90(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int batch_heads, int sq, int skv, int d,
+                  float scale, int dtype, void* stream) {
+  if (batch_heads < 1 || batch_heads > 65535 || sq < 1 || skv < 1 || d < 8 ||
+      d > 128 || d % 8 != 0 || dtype < 0 || dtype > 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return flash_sm90::launchers[dtype][(d + 15) / 16 - 1][kLse ? 1 : 0](
+      q, k, v, o, lse, batch_heads, sq, skv, d, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 // Plain C entry points (bound with ctypes). dtype: 0 = bf16, 1 = fp16.
 // vec != 0 promises 16-byte aligned rows (d % 8 == 0, aligned pointers).
@@ -280,3 +857,26 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
   return dispatch<true>(q, k, v, o, lse, batch_heads, sq, skv, d, scale,
                         dtype, vec, stream);
 }
+
+// The Hopper path: as flash_attention_fwd / flash_attention_fwd_lse, for
+// d % 8 == 0 (8 <= d <= 128) and 16-byte aligned q, k, v, o. Returns
+// cudaErrorInvalidValue for anything else.
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
+                                        const void* v, void* o,
+                                        int batch_heads, int sq, int skv,
+                                        int d, float scale, int dtype,
+                                        void* stream) {
+  return dispatch_sm90<false>(q, k, v, o, nullptr, batch_heads, sq, skv, d,
+                              scale, dtype, stream);
+}
+
+extern "C" int flash_attention_fwd_lse_sm90(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            float* lse, int batch_heads,
+                                            int sq, int skv, int d,
+                                            float scale, int dtype,
+                                            void* stream) {
+  return dispatch_sm90<true>(q, k, v, o, lse, batch_heads, sq, skv, d, scale,
+                             dtype, stream);
+}
+#endif  // BUILD_PART == 0

@@ -4,6 +4,10 @@ The kernel is ``csrc/flash_attention.cu``: forward flash attention over
 contiguous ``[B, H, S, D]`` bf16/fp16 tensors, written by hand for sm_90a
 (see the note at the top of the source). It replaces the JAX package's
 Pallas kernel ``flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel``.
+It has two paths, chosen by :func:`plan` from the shape and the alignment
+before the launch: 'sm90' (TMA, wgmma, a warp-specialised pipeline; head
+dim a multiple of 8, 16-byte aligned tensors: every main-path call) and
+'mma' (the first port's mma.sync kernel, kept for everything else).
 
 Every kernel source in ``csrc/`` is compiled at first use with ``nvcc``
 into a shared library with plain C entry points and bound with ``ctypes``
@@ -23,6 +27,7 @@ no gradient: ``ops/attention.py`` routes calls that need one to
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -31,7 +36,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +47,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 MAX_HEAD_DIM = 128
 DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+# flash_attention.cu is compiled in this many parts at once: the kept kernel
+# in part 0, the Hopper kernel's 32 instantiations split over the other two,
+# so that no part takes much longer than part 0.
+BUILD_PARTS = 3
 
 _libs: Dict[Path, ctypes.CDLL] = {}
 
@@ -138,12 +147,95 @@ def load(source: Path, signatures: Dict[str, Sequence],
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (q, k, v, o[, lse], batch_heads, sq, skv, d, scale, dtype, vec, stream)
+# (q, k, v, o[, lse], batch_heads, sq, skv, d, scale, dtype[, vec], stream):
+# the kept path also takes `vec`.
 SIGNATURES = {
     'flash_attention_fwd': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     'flash_attention_fwd_lse': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                                 _I, _P),
+    'flash_attention_fwd_sm90': (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                 _P),
+    'flash_attention_fwd_lse_sm90': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                     _I, _P),
 }
+# The entry point of each path: (without lse, with lse).
+ENTRIES = {'sm90': ('flash_attention_fwd_sm90',
+                    'flash_attention_fwd_lse_sm90'),
+           'mma': ('flash_attention_fwd', 'flash_attention_fwd_lse')}
+PATHS = tuple(ENTRIES)
+ROWS = 64         # q rows per warpgroup (sm90) and per block (mma)
+MMA_KV_TILE = 64  # the kept kernel's K/V tile
+# The Hopper path's tiles, as csrc/flash_attention.cu's ``Tiling`` chooses
+# them from the padded head width: (consumer warpgroups of ROWS q rows, kv
+# tile), keyed by head_pad <= 64; SM90_STAGES K/V tiles in the ring.
+SM90_TILES = {True: (3, 64), False: (2, 128)}
+SM90_STAGES = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs. ``path`` 'sm90' or 'mma'; ``head_pad`` DP, the head
+    dim rounded up to 16 in shared memory; ``block_q`` q rows per block;
+    ``block_kv`` kv rows per streamed tile; ``stages`` K/V tiles in flight
+    (1: the kept kernel stages one at a time); ``grid`` (q tiles, B·H);
+    ``threads`` per block."""
+    path: str
+    head_pad: int
+    block_q: int
+    block_kv: int
+    stages: int
+    grid: Tuple[int, int]
+    threads: int
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
+         path: Optional[str] = None) -> Plan:
+    """The path and tiling of a call on ``q`` ``[B, H, Sq, D]`` and ``k``
+    ``[B, H, Skv, D]`` (checked by :func:`check`), from the shape and the
+    alignment of ``q``, ``k`` and ``tensors`` (v, the output) alone. The
+    Hopper path needs what TMA needs: D % 8 == 0 (16-byte rows) and 16-byte
+    aligned pointers; everything else takes the kept kernel. ``path``
+    forces one ('sm90' raises where TMA cannot go)."""
+    if path not in (None, *PATHS):
+        raise ValueError(f'flash_attention: path {path!r} not in {PATHS}')
+    b, h, sq, d = q.shape
+    head_pad = -(-d // 16) * 16
+    tma = bool(vec_ok(q, k, *tensors))
+    if path == 'sm90' and not tma:
+        raise ValueError('flash_attention: the sm90 path takes D % 8 == 0 '
+                         'and 16-byte aligned tensors')
+    if path == 'mma' or not tma:
+        return Plan('mma', head_pad, ROWS, MMA_KV_TILE, 1,
+                    (-(-sq // ROWS), b * h), 128)
+    consumers, block_kv = SM90_TILES[head_pad <= 64]
+    block_q = ROWS * consumers
+    return Plan('sm90', head_pad, block_q, block_kv, SM90_STAGES,
+                (-(-sq // block_q), b * h), 128 * (consumers + 1))
+
+
+def count_launch(fn, path: str) -> None:
+    """One more launch of wrapper ``fn`` on ``path``: ``fn.launches`` counts
+    every launch, ``fn.path_launches[path]`` those of the path."""
+    fn.launches += 1
+    fn.path_launches[path] += 1
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, lse: Optional[torch.Tensor], scale: float,
+           how: Plan) -> None:
+    """Launch K1 (``lse`` None) or K3 on the current stream as ``how``
+    says; raises if the launch is refused."""
+    lib = load(SOURCE, SIGNATURES, parts=BUILD_PARTS)
+    b, h, sq, d = q.shape
+    entry = getattr(lib, ENTRIES[how.path][lse is not None])
+    vec = () if how.path == 'sm90' else (vec_ok(q, k, v, out),)
+    rows = () if lse is None else (lse.data_ptr(),)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   *rows, b * h, sq, k.shape[2], d, float(scale),
+                   DTYPES[q.dtype], *vec, stream)
+    raise_on_error(rc, entry.__name__, q, k)
 
 
 def vec_ok(*tensors: torch.Tensor) -> int:
@@ -188,28 +280,22 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, path: Optional[str] = None) -> torch.Tensor:
     """``[B, H, Sq, D] × [B, H, Skv, D] → [B, H, Sq, D]`` through the Hopper
-    kernel, launched on the current stream. CPU tensors take
-    :func:`plain_attention`; CUDA tensors the kernel does not take raise.
-    ``flash_attention.launches`` counts kernel launches."""
+    kernel, launched on the current stream on the path :func:`plan` picks
+    (``path``: forced, as :func:`plan` takes it, for comparisons). CPU tensors take :func:`plain_attention`; CUDA tensors
+    the kernel does not take raise. ``flash_attention.launches`` counts
+    kernel launches, ``flash_attention.path_launches`` them by path."""
     if q.device.type == 'cpu' and k.device.type == 'cpu' \
             and v.device.type == 'cpu':
         return plain_attention(q, k, v, scale)
     check(q, k, v)
-    lib = load(SOURCE, SIGNATURES)
     out = torch.empty_like(q)
-    b, h, sq, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), out.data_ptr(), b * h, sq,
-                                     k.shape[2], d, float(scale),
-                                     DTYPES[q.dtype], vec_ok(q, k, v, out),
-                                     stream)
-    raise_on_error(rc, 'flash_attention', q, k)
-    flash_attention.launches += 1
+    how = plan(q, k, v, out, path=path)
+    launch(q, k, v, out, None, scale, how)
+    count_launch(flash_attention, how.path)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.path_launches = dict.fromkeys(PATHS, 0)

@@ -26,7 +26,7 @@ Hopper K/V stream through shared memory at any length.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -122,24 +122,22 @@ def _check_backward(q, k, v, dout, lse, dvec) -> None:
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3: ``(o, lse)`` through the Hopper kernel for CUDA tensors; CPU
-    tensors take :func:`plain_attention_lse`. ``o`` equals K1's output."""
+                        scale: float, path: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(o, lse)`` through the Hopper kernel for CUDA tensors, on the
+    path ``fa.plan`` picks, as K1 (``path``: forced, for comparisons); CPU
+    tensors take :func:`plain_attention_lse`. ``o`` equals K1's output on
+    the same plan. ``.launches`` counts launches, ``.path_launches`` them by
+    path."""
     if _on_cpu(q, k, v):
         return plain_attention_lse(q, k, v, scale)
     fa.check(q, k, v)
-    lib = fa.load(fa.SOURCE, fa.SIGNATURES)
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b * h, sq, k.shape[2], d, float(scale),
-            fa.DTYPES[q.dtype], fa.vec_ok(q, k, v, out), stream)
-    fa.raise_on_error(rc, 'flash_attention_lse', q, k)
-    flash_attention_lse.launches += 1
+    how = fa.plan(q, k, v, out, path=path)
+    fa.launch(q, k, v, out, lse, scale, how)
+    fa.count_launch(flash_attention_lse, how.path)
     return out, lse
 
 
@@ -192,6 +190,7 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_lse.launches = 0
+flash_attention_lse.path_launches = dict.fromkeys(fa.PATHS, 0)
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
 

@@ -1,6 +1,7 @@
 """PyTorch port: the Hopper kernels (K1 forward flash attention, K3
-forward with lse, K4 dq, K5 dk/dv, K6 fused GroupNorm, the attention
-variants T1–T6) against their plain twins, on the card.
+forward with lse, both on the Hopper path and on the kept mma.sync kernel;
+K4 dq, K5 dk/dv, K6 fused GroupNorm, the attention variants T1–T6) against
+their plain twins, on the card.
 Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from flexdiffuse_tpu_torch.models.unet import GroupNorm32
+from flexdiffuse_tpu_torch.ops import flash_attention as fa
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
 from flexdiffuse_tpu_torch.ops import flash_variants as fv
 from flexdiffuse_tpu_torch.ops import group_norm as gn
@@ -54,6 +56,127 @@ def test_kernel_matches_plain(shape, skv, dtype, cuda_gen):
     plain_err = (plain.float() - ref).abs().max().item()
     assert torch.isfinite(out).all()
     assert err <= 2 * plain_err + 1e-3 * ref.abs().max().item()
+
+
+# The Hopper path at every SHAPES entry it takes (d % 8 == 0), K2's 32k
+# regime, a 1536-token row (a ragged last kv tile of 128), and every other
+# padded width the chooser can give it (DP 16 with d = 8, 32, 96, 112, and
+# 128 with d = 120), with ragged Sq and Skv; d = 104 and 120 leave the last
+# 16-column slab partly past d.
+HOPPER_SHAPES = [(shape, skv) for shape, skv, _ in SHAPES
+                 if shape[-1] % 8 == 0] + [((1, 2, 32768, 40), 32768),
+                                           ((2, 8, 1536, 40), 1536),
+                                           ((1, 2, 33, 8), 40),
+                                           ((1, 2, 70, 24), 100),
+                                           ((1, 2, 70, 32), 75),
+                                           ((1, 2, 130, 96), 200),
+                                           ((1, 2, 130, 104), 187),
+                                           ((1, 2, 130, 112), 190),
+                                           ((1, 2, 130, 120), 129)]
+
+
+def _path_launches():
+    return (dict(flash_attention.path_launches),
+            dict(fb.flash_attention_lse.path_launches))
+
+
+def _held_by_head(out, lse, q, k, v, scale):
+    """K1's rule and K3's lse bound against the fp32 twin, head by head
+    (the [S, S] fp32 logits of the 32k shape fit one head at a time)."""
+    err = plain_err = top = lse_err = 0.0
+    for hh in range(q.shape[1]):
+        sl = (slice(None), slice(hh, hh + 1))
+        ref, ref_lse = fb.plain_attention_lse(q[sl].float(), k[sl].float(),
+                                              v[sl].float(), scale)
+        plain = plain_attention(q[sl], k[sl], v[sl], scale)
+        err = max(err, (out[sl].float() - ref).abs().max().item())
+        plain_err = max(plain_err, (plain.float() - ref).abs().max().item())
+        top = max(top, ref.abs().max().item())
+        lse_err = max(lse_err, (lse[sl] - ref_lse).abs().max().item())
+    assert torch.isfinite(out).all()
+    assert err <= 2 * plain_err + 1e-3 * top, (err, plain_err)
+    assert lse_err <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,skv', HOPPER_SHAPES)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_hopper_path_matches_plain(shape, skv, dtype, cuda_gen):
+    """K1 and K3 take the Hopper path (TMA, wgmma) here, hold K1's rule and
+    the lse bound, and K3's o equals K1's bit for bit."""
+    b, h, sq, d = shape
+    q = torch.randn(shape, generator=cuda_gen, device='cuda', dtype=dtype)
+    k, v = (torch.randn((b, h, skv, d), generator=cuda_gen, device='cuda',
+                        dtype=dtype) for _ in range(2))
+    scale = d**-0.5
+    assert fa.plan(q, k, v).path == 'sm90'
+    k1, k3 = _path_launches()
+    out = flash_attention(q, k, v, scale)
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    k1['sm90'] += 1
+    k3['sm90'] += 1
+    assert _path_launches() == (k1, k3)
+    assert torch.equal(o, out)
+    _held_by_head(out, lse, q, k, v, scale)
+
+
+def _misaligned(shape, gen, dtype=torch.bfloat16):
+    """A contiguous tensor whose data starts 2 bytes past an aligned one."""
+    n = 1
+    for x in shape:
+        n *= x
+    base = torch.randn(n + 1, generator=gen, device='cuda', dtype=dtype)
+    return base[1:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['d33', 'd100', 'q', 'k', 'v'])
+def test_kept_path_takes_what_tma_cannot(case, cuda_gen):
+    """d % 8 != 0 (rows not 16-byte strided) or a misaligned pointer: the
+    chooser sends K1 and K3 to the kept mma.sync kernel before the launch,
+    the counters say so, and both hold K1's rule and the lse bound."""
+    d = {'d33': 33, 'd100': 100}.get(case, 40)
+    shape = (1, 3, 200, d)
+    kv_shape = (1, 3, 237, d)
+    make = lambda s, name: (_misaligned(s, cuda_gen) if case == name else
+                            torch.randn(s, generator=cuda_gen, device='cuda',
+                                        dtype=torch.bfloat16))
+    q, k, v = make(shape, 'q'), make(kv_shape, 'k'), make(kv_shape, 'v')
+    assert fa.plan(q, k, v).path == 'mma'
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, 0.1, path='sm90')
+    k1, k3 = _path_launches()
+    scale = d**-0.5
+    out = flash_attention(q, k, v, scale)
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    k1['mma'] += 1
+    k3['mma'] += 1
+    assert _path_launches() == (k1, k3)
+    assert torch.equal(o, out)
+    _held_by_head(out, lse, q, k, v, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(2, 8, 4096, 40), (2, 8, 1024, 80)])
+def test_both_paths_agree_on_the_main_shapes(shape, cuda_gen):
+    """The kept kernel, forced through its entry point on the aligned
+    main-path inputs, and the Hopper path are both within K1's rule."""
+    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = shape[-1]**-0.5
+    k1, _ = _path_launches()
+    kept = flash_attention(q, k, v, scale, path='mma')
+    new = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    k1['mma'] += 1
+    k1['sm90'] += 1
+    assert _path_launches()[0] == k1
+    ref = plain_attention(q.float(), k.float(), v.float(), scale)
+    plain = plain_attention(q, k, v, scale)
+    _rule(kept, ref, plain)
+    _rule(new, ref, plain)
 
 
 @pytest.mark.cuda
