@@ -16,7 +16,8 @@ Kernels and inference (the first and third slices):
 2. Builds the four kernel libraries at once, one ``nvcc`` per source or
    part: ``flexdiffuse_tpu_torch/csrc/flash_attention.cu`` (K1, and K3 as
    its lse instantiation, on both paths; ``fa.BUILD_PARTS`` parts),
-   ``csrc/flash_backward.cu`` (K4, K5), ``csrc/group_norm.cu`` (K6) and
+   ``csrc/flash_backward.cu`` (K4, K5, on both paths; ``fb.BUILD_PARTS``
+   parts), ``csrc/group_norm.cu`` (K6) and
    ``csrc/flash_variants.cu`` (T1–T6, ``flash_variants.BUILD_PARTS``
    parts), the parts of a source all started together, then linked; prints
    the seconds of each and of the step.
@@ -58,10 +59,20 @@ Training (the second slice):
    their fp32 plain twins on the same bf16 inputs at five shapes, by step
    3's rule (``lse``: 1e-3 absolute; K3 on the Hopper path with ``o``
    bit-equal to K1's; K4 and K5 fed K3's ``lse``, their bf16 plain version
-   rounding P and dS before the products, as step 3's rounds P); at the
-   two training shapes prints the kernels', the twins' and
-   ``scaled_dot_product_attention``'s forward and backward times, K3's as
-   step 3 times K1 (Hopper path against the kept kernel).
+   rounding P and dS before the products, as step 3's rounds P), K4 and K5
+   on the Hopper path (``fb.plan_backward``) and on the kept mma.sync
+   kernels on the same inputs, each launched twice with bit-equal results;
+   at the two training shapes prints the kernels' times on both paths
+   (interleaved, as step 3), the twins', ``scaled_dot_product_attention``'s
+   forward and backward and one forward+backward of each, with the bounds
+   and the host µs per call. Then fp32 on the kept kernels
+   (``check_fp32_attention``): K1, K3, K4 and K5 on fp32 tensors at
+   (1,8,4096,40) against their fp32 twins by step 3's rule (the plain
+   version on the inputs rounded to bf16, as the kernels take them), fp32
+   q/k/v through ``attention`` with and without a gradient and an fp32
+   SD-1.x self-attention (``CrossAttention``) at 4096 tokens against plain
+   attention, with exactly the kept-path launches each implies; their
+   times against the twins and SDPA.
 9. One LoRA train step's loss and factor gradients at SD-1.4 width (512²,
    batch 4, injected timesteps and noise) through the kernels against the
    same step with plain attention: max|Δg|/max|g| ≤ 5e-2.
@@ -70,9 +81,9 @@ Training (the second slice):
 11. ``train_lora`` for 10 steps (rank 8, batch 4, remat 'none') on the bf16
     UNet, then ``train_full`` for 4 steps (batch 4, fp32 weights and Adam,
     bf16 autocast, remat 'full') on an fp32 copy: finite losses and exactly
-    the kernel launches the path implies (LAUNCHES_PER_STEP; every K3 on the
-    Hopper path); prints the median ms per step, images/s and peak device
-    memory.
+    the kernel launches the path implies (LAUNCHES_PER_STEP; every K3, K4
+    and K5 on the Hopper path); prints the median ms per step, images/s and
+    peak device memory.
 
 The flash-kernel experiment tools (the fourth slice):
 
@@ -93,8 +104,8 @@ The flash-kernel experiment tools (the fourth slice):
     print OK or FAIL by their own 0.04; step 12 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
     launches of the kernel in use, none of the other, and 61 of K6.
-14. Prints one JSON line about the kernels (K1 and K3 also with the kept
-    kernel's time and the host µs per call),
+14. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
+    kernel's time, the host µs per call, the times by shape and fp32's),
     then, only if every phase passed, ``{"ok": true, "device": {...}}`` as
     the last line.
 
@@ -129,6 +140,7 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           SD14_VAE, AutoencoderKL,
                                           CLIPTextModel, CLIPVisionModel,
                                           UNet2DCondition)
+from flexdiffuse_tpu_torch.models.unet import CrossAttention
 from flexdiffuse_tpu_torch import training
 from flexdiffuse_tpu_torch.ops import attention as attn_mod
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
@@ -186,10 +198,11 @@ LORA_STEPS, FULL_STEPS = 10, 4
 def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
                   k6: int = 0) -> dict:
     """The launch counts a main-path run must show (``kernel_counts``):
-    every K1 and K3 launch on the Hopper path ('sm90'), none on the kept
-    mma.sync kernel."""
+    every K1, K3, K4 and K5 launch on the Hopper path ('sm90'), none on the
+    kept mma.sync kernels."""
     return dict(k1=k1, k3=k3, k4=k4, k5=k5, k6=k6, k1_sm90=k1, k1_mma=0,
-                k3_sm90=k3, k3_mma=0)
+                k3_sm90=k3, k3_mma=0, k4_sm90=k4, k4_mma=0, k5_sm90=k5,
+                k5_mma=0)
 
 
 LAUNCHES_PER_STEP = {'lora': want_launches(k3=10, k4=10, k5=10, k6=3),
@@ -295,12 +308,13 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple:
 
 
 def attention_bound(kind: str, b: int, h: int, sq: int, skv: int,
-                    d: int) -> tuple:
-    """Each input read once, each output written once (2-byte q/k/v/o/dO
-    and grads, fp32 lse and D); 2·Sq·Skv·d flops per product: K1/K3 two
-    (S, P·V), K4 three (S, dP, dQ), K5 four (S, dP, dV, dK)."""
+                    d: int, elem: int = 2) -> tuple:
+    """Each input read once, each output written once (``elem``-byte
+    q/k/v/o/dO and grads, fp32 lse and D); 2·Sq·Skv·d flops per product on
+    the bf16 tensor cores: K1/K3 two (S, P·V), K4 three (S, dP, dQ), K5
+    four (S, dP, dV, dK)."""
     bh = b * h
-    qo, kv, rows = 2 * bh * sq * d, 2 * bh * skv * d, 4 * bh * sq
+    qo, kv, rows = elem * bh * sq * d, elem * bh * skv * d, 4 * bh * sq
     products, nbytes = {
         'k1': (2, 2 * qo + 2 * kv),
         'k3': (2, 2 * qo + 2 * kv + rows),
@@ -314,21 +328,19 @@ def exp_bound_ms(b: int, h: int, sq: int, skv: int) -> float:
     return b * h * sq * skv / PEAK_EX2 * 1e3
 
 
-def time_forward(res: dict, kernel, scale: float, q, k, v, kind: str
-                 ) -> None:
-    """Times of K1 or K3 (``kernel``) on the Hopper path and on the kept
-    mma.sync kernel (its own entry point, the same inputs), interleaved;
-    ``scaled_dot_product_attention``'s; the bounds; host µs per call of
-    both paths."""
+def time_paths(res: dict, call, kind: str, q, k) -> None:
+    """Times of K1, K3, K4 or K5 (``call(path=None)``) on the Hopper path
+    and on the kept mma.sync kernel (``path='mma'``: its own entry point,
+    the same inputs), interleaved; the bounds; host µs per call of both
+    paths."""
     b, h, sq, d = q.shape
-    res['ms'], res['kept_ms'] = time_pair(
-        lambda: kernel(q, k, v, scale), lambda: kernel(q, k, v, scale,
-                                                      path='mma'))
+    kept = lambda: call(path='mma')
+    res['ms'], res['kept_ms'] = time_pair(call, kept)
     res['bound_ms'], res['bound_by'] = attention_bound(kind, b, h, sq,
                                                        k.shape[2], d)
     res['exp_bound_ms'] = exp_bound_ms(b, h, sq, k.shape[2])
-    res['host_us'] = host_us(lambda: kernel(q, k, v, scale))
-    res['kept_host_us'] = host_us(lambda: kernel(q, k, v, scale, path='mma'))
+    res['host_us'] = host_us(call)
+    res['kept_host_us'] = host_us(kept)
 
 
 def summary(res: dict) -> str:
@@ -366,7 +378,8 @@ def check_kernel(shape, gen: torch.Generator) -> dict:
                max_abs_ref=max_ref, tol=tol,
                ok=err <= tol and how.path == 'sm90')
     if shape in TIMED_SHAPES:
-        time_forward(res, fa.flash_attention, scale, q, k, v, 'k1')
+        time_paths(res, lambda path=None: fa.flash_attention(
+            q, k, v, scale, path=path), 'k1', q, k)
         res['plain_ms'] = time_ms(lambda: fa.plain_attention(q, k, v, scale),
                                   iters=5 if shape == K2_SHAPE else 20)
         res['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
@@ -486,10 +499,27 @@ def _errs(got, ref, plain) -> dict:
                 ok=bool(err <= tol and torch.isfinite(got).all()))
 
 
+def _backward_paths(q, k, v, dout, lse, dvec, scale) -> dict:
+    """K4's dq and K5's (dk, dv) on each path ('sm90': the one
+    ``plan_backward`` picks here; 'mma': the kept kernels forced), each
+    launched twice: {path: ((dq, dk, dv), bit-equal over the two)}."""
+    args = (q, k, v, dout, lse, dvec, scale)
+    out = {}
+    for path in ('sm90', 'mma'):
+        runs = [(fb.flash_attention_dq(*args, path=path),
+                 *fb.flash_attention_dkv(*args, path=path)) for _ in range(2)]
+        torch.cuda.synchronize()
+        out[path] = (runs[0], all(torch.equal(a, b)
+                                  for a, b in zip(*runs)))
+    return out
+
+
 def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
     """K3, K4 and K5 against their fp32 plain twins on the same bf16 inputs,
-    by K1's rule; times at the training shapes. The rule's 'plain' error,
-    as K1's bf16 plain version rounds P before P·V: for K3 the twin on the
+    by K1's rule; K4 and K5 on the Hopper path (which ``plan_backward``
+    must pick) and on the kept kernels, each launched twice with bit-equal
+    results; times at the training shapes. The rule's 'plain' error, as
+    K1's bf16 plain version rounds P before P·V: for K3 the twin on the
     bf16 inputs (fp32 math, 16-bit output); for K4 and K5 the twins' math
     with P and dS rounded to the inputs' dtype before the products, as the
     kernels' tensor cores take them (``twin_max_abs_err``: without that
@@ -502,9 +532,7 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
     scale = d**-0.5
     o, lse = fb.flash_attention_lse(q, k, v, scale)
     dvec = fb.attention_delta(dout, o)
-    dq = fb.flash_attention_dq(q, k, v, dout, lse, dvec, scale)
-    dk, dv = fb.flash_attention_dkv(q, k, v, dout, lse, dvec, scale)
-    torch.cuda.synchronize()
+    paths = _backward_paths(q, k, v, dout, lse, dvec, scale)
     f32 = [t.float() for t in (q, k, v, dout)]
     res = dict(shape=list(shape), skv=skv)
     ref_o, ref_lse = fb.plain_attention_lse(*f32[:3], scale)
@@ -520,41 +548,48 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
     rows = (lse, dvec, scale)
     p16, ds16 = (t.to(q.dtype).float() for t in fb._probs_and_ds(
         q, k, v, dout, *rows))
-    ref = fb.plain_attention_dq(*f32, *rows)
-    res['k4'] = _errs(dq, ref, torch.matmul(ds16, f32[1]).to(q.dtype))
-    res['k4']['twin_max_abs_err'] = (fb.plain_attention_dq(
-        q, k, v, dout, *rows).float() - ref).abs().max().item()
-    ref = fb.plain_attention_dkv(*f32, *rows)
-    plain = (torch.matmul(ds16.transpose(-1, -2), f32[0]).to(q.dtype),
-             torch.matmul(p16.transpose(-1, -2), f32[3]).to(q.dtype))
-    twin = fb.plain_attention_dkv(q, k, v, dout, *rows)
-    dk_res, dv_res = _errs(dk, ref[0], plain[0]), _errs(dv, ref[1], plain[1])
-    for r, t, want in ((dk_res, twin[0], ref[0]), (dv_res, twin[1], ref[1])):
-        r['twin_max_abs_err'] = (t.float() - want).abs().max().item()
-    del p16, ds16, twin
-    res['k5'] = dict(dk=dk_res, dv=dv_res,
-                     max_abs_err=max(dk_res['max_abs_err'],
-                                     dv_res['max_abs_err']),
-                     ok=dk_res['ok'] and dv_res['ok'])
-    del ref, plain
+    refs = (fb.plain_attention_dq(*f32, *rows),
+            *fb.plain_attention_dkv(*f32, *rows))
+    plains = (torch.matmul(ds16, f32[1]).to(q.dtype),
+              torch.matmul(ds16.transpose(-1, -2), f32[0]).to(q.dtype),
+              torch.matmul(p16.transpose(-1, -2), f32[3]).to(q.dtype))
+    twins = (fb.plain_attention_dq(q, k, v, dout, *rows),
+             *fb.plain_attention_dkv(q, k, v, dout, *rows))
+    del p16, ds16
+    # errs[path][i]: dq, dk, dv
+    errs = {path: [_errs(g, r, pl) for g, r, pl in zip(outs, refs, plains)]
+            for path, (outs, _) in paths.items()}
+    for r, t, ref in zip(errs['sm90'], twins, refs):
+        r['twin_max_abs_err'] = (t.float() - ref).abs().max().item()
+    del twins, refs, plains
+    for name, kind, parts, outs in (('k4', 'dq', slice(0, 1), (0,)),
+                                    ('k5', 'dkv', slice(1, 3), (1, 2))):
+        how = fb.plan_backward(kind, q, k, v, dout,
+                               *(paths['sm90'][0][i] for i in outs))
+        new, kept = errs['sm90'][parts], errs['mma'][parts]
+        res[name] = dict(path=how.path,
+                         max_abs_err=max(r['max_abs_err'] for r in new),
+                         kept_max_abs_err=max(r['max_abs_err'] for r in kept),
+                         deterministic=paths['sm90'][1] and paths['mma'][1],
+                         grads=dict(zip(('dq',) if name == 'k4' else
+                                        ('dk', 'dv'), new)),
+                         kept=dict(zip(('dq',) if name == 'k4' else
+                                       ('dk', 'dv'), kept)))
+        res[name]['ok'] = bool(all(r['ok'] for r in new + kept) and
+                               how.path == 'sm90' and
+                               res[name]['deterministic'])
     if shape in TRAIN_MAIN:
         args = (q, k, v, dout, lse, dvec, scale)
-        timed = {
-            'k3': (lambda: fb.flash_attention_lse(q, k, v, scale),
-                   lambda: fb.plain_attention_lse(q, k, v, scale)),
-            'k4': (lambda: fb.flash_attention_dq(*args),
-                   lambda: fb.plain_attention_dq(*args)),
-            'k5': (lambda: fb.flash_attention_dkv(*args),
-                   lambda: fb.plain_attention_dkv(*args))}
-        for name, (kern, plain_fn) in timed.items():
-            if name == 'k3':
-                time_forward(res['k3'], fb.flash_attention_lse, scale, q, k,
-                             v, 'k3')
-            else:
-                res[name]['ms'] = time_ms(kern)
-                res[name]['bound_ms'], res[name]['bound_by'] = \
-                    attention_bound(name, b, h, sq, skv, d)
-            res[name]['plain_ms'] = time_ms(plain_fn)
+        time_paths(res['k3'], lambda path=None: fb.flash_attention_lse(
+            q, k, v, scale, path=path), 'k3', q, k)
+        res['k3']['plain_ms'] = time_ms(
+            lambda: fb.plain_attention_lse(q, k, v, scale))
+        for name, kern, plain_fn in (
+                ('k4', fb.flash_attention_dq, fb.plain_attention_dq),
+                ('k5', fb.flash_attention_dkv, fb.plain_attention_dkv)):
+            time_paths(res[name], lambda path=None: kern(*args, path=path),
+                       name, q, k)
+            res[name]['plain_ms'] = time_ms(lambda: plain_fn(*args))
         # The yardstick: scaled_dot_product_attention's forward (keeping
         # what its backward needs) and its backward (dq, dk and dv in one
         # call), on the same inputs. The port never calls it.
@@ -578,6 +613,140 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
         res['fwd_bwd_ms'] = time_ms(ours)
         res['library_fwd_bwd_ms'] = time_ms(library)
     res['ok'] = all(res[n]['ok'] for n in ('k3', 'k4', 'k5'))
+    return res
+
+
+FP32_SHAPE = (1, 8, 4096, 40)   # SD-1.x's 4096-token self-attention
+
+
+def _rounded(*tensors):
+    """fp32 tensors as the kept kernels' products take them (bf16)."""
+    return [t.to(BF16).float() for t in tensors]
+
+
+def check_fp32_attention(gen: torch.Generator) -> dict:
+    """fp32 attention on the card, on the kernels' kept path (the Hopper
+    path takes 16 bits; the kept kernels round fp32 to bf16 as they stage
+    it). At FP32_SHAPE: K1, K3, K4 and K5 on fp32 tensors against their
+    fp32 twins by K1's rule, whose plain version takes the inputs rounded
+    to bf16 (K3's lse: within 1e-3 of the twin's on those inputs; K3's o
+    bit-equal to K1's; K4/K5 bit-equal over two launches); then
+    ``attention`` on fp32 q/k/v without and with a gradient and an fp32
+    SD-1.x self-attention (``CrossAttention``, 320 channels, 8 heads of 40)
+    against plain attention and its autograd by the same rule (plain
+    version: the same in bf16), with exactly the launches that implies,
+    all on the kept path. Times each kernel against its twin,
+    ``scaled_dot_product_attention`` on the fp32 tensors and the bound
+    (fp32 bytes, bf16 tensor-core operations)."""
+    shape = FP32_SHAPE
+    q, k, v, dout, w = (torch.randn(shape, generator=gen, device='cuda')
+                        for _ in range(5))
+    scale = shape[-1]**-0.5
+    reset_counts()
+    out = fa.flash_attention(q, k, v, scale)
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    dvec = fb.attention_delta(dout, o)
+    args = (q, k, v, dout, lse, dvec, scale)
+    runs = [(fb.flash_attention_dq(*args), *fb.flash_attention_dkv(*args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    kernel_launches = {n: c for n, c in counts().items() if c}
+    r16 = _rounded(q, k, v, dout)
+    res = dict(shape=list(shape))
+    res['k1'] = _errs(out, fb.plain_attention_lse(q, k, v, scale)[0],
+                      fa.plain_attention(*(t.to(BF16) for t in (q, k, v)),
+                                         scale))
+    res['k3'] = dict(equals_k1=torch.equal(o, out),
+                     lse_max_abs_err=(lse - fb.plain_attention_lse(
+                         *r16[:3], scale)[1]).abs().max().item())
+    res['k3']['ok'] = bool(res['k3']['equals_k1'] and
+                           res['k3']['lse_max_abs_err'] <= 1e-3)
+    rows = (lse, dvec, scale)
+    p16, ds16 = (t.to(BF16).float() for t in fb._probs_and_ds(*r16, *rows))
+    refs = (fb.plain_attention_dq(q, k, v, dout, *rows),
+            *fb.plain_attention_dkv(q, k, v, dout, *rows))
+    plains = (torch.matmul(ds16, r16[1]),
+              torch.matmul(ds16.transpose(-1, -2), r16[0]),
+              torch.matmul(p16.transpose(-1, -2), r16[3]))
+    grads = [_errs(g, r, pl) for g, r, pl in zip(runs[0], refs, plains)]
+    del p16, ds16, refs, plains
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    res['k4'] = dict(grads[0], deterministic=same)
+    res['k5'] = dict(max_abs_err=max(g['max_abs_err'] for g in grads[1:]),
+                     grads=dict(dk=grads[1], dv=grads[2]), deterministic=same,
+                     ok=grads[1]['ok'] and grads[2]['ok'])
+    res['kernel_launches'] = kernel_launches
+
+    # The dispatcher, as a user calls it.
+    reset_counts()
+    with torch.no_grad():
+        got = attn_mod.attention(q, k, v)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got_grads = torch.autograd.grad((attn_mod.attention(*leaves) * w).sum(),
+                                    leaves)
+    layer = CrossAttention(320, 8).cuda().requires_grad_(False)
+    x = torch.randn((1, 4096, 320), generator=gen, device='cuda')
+    y = layer(x)
+    torch.cuda.synchronize()
+    res['dispatcher_launches'] = {n: c for n, c in counts().items() if c}
+
+    def plain(dtype):
+        ts = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        o_ = attn_mod.attention(*ts, backend='plain')
+        return o_.detach(), torch.autograd.grad((o_.float() * w).sum(), ts)
+
+    (ref, ref_grads), (p16, p16_grads) = plain(FP32), plain(BF16)
+    with attn_mod.backend('plain'):
+        ref_y = layer(x)
+        p16_y = copy.deepcopy(layer).to(BF16)(x.to(BF16))
+    res['attention'] = _errs(got, ref, p16)
+    res['attention_grads'] = [_errs(g, r, pl) for g, r, pl in
+                              zip(got_grads, ref_grads, p16_grads)]
+    res['layer'] = _errs(y, ref_y, p16_y)
+    want_kernels = dict(k1=1, k1_mma=1, k3=1, k3_mma=1, k4=2, k4_mma=2, k5=2,
+                        k5_mma=2)
+    want_dispatch = dict(k1=2, k1_mma=2, k3=1, k3_mma=1, k4=1, k4_mma=1,
+                         k5=1, k5_mma=1)
+    res['ok'] = bool(
+        all(res[n]['ok'] for n in ('k1', 'k3', 'k4', 'k5', 'attention',
+                                   'layer')) and same and
+        all(g['ok'] for g in res['attention_grads']) and
+        kernel_launches == want_kernels and
+        res['dispatcher_launches'] == want_dispatch and
+        all(t.dtype == FP32 for t in (out, o, *runs[0], got, *got_grads, y)))
+
+    # Times: each kernel, its twin, SDPA on the same fp32 tensors, bounds.
+    b, h, sq, d = shape
+    for name, call, twin in (
+            ('k1', lambda: fa.flash_attention(q, k, v, scale),
+             lambda: fa.plain_attention(q, k, v, scale)),
+            ('k3', lambda: fb.flash_attention_lse(q, k, v, scale),
+             lambda: fb.plain_attention_lse(q, k, v, scale)),
+            ('k4', lambda: fb.flash_attention_dq(*args),
+             lambda: fb.plain_attention_dq(*args)),
+            ('k5', lambda: fb.flash_attention_dkv(*args),
+             lambda: fb.plain_attention_dkv(*args))):
+        res[name]['ms'] = time_ms(call, graph=True)
+        res[name]['plain_ms'] = time_ms(twin)
+        res[name]['bound_ms'], res[name]['bound_by'] = attention_bound(
+            name, b, h, sq, sq, d, elem=4)
+    sdpa_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    res['k1']['library_ms'] = res['k3']['library_ms'] = time_ms(
+        lambda: F.scaled_dot_product_attention(*sdpa_leaves, scale=scale),
+        graph=True)
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_leaves, scale=scale)
+    res['k4']['library_ms'] = res['k5']['library_ms'] = time_ms(
+        lambda: torch.autograd.grad(sdpa_out, sdpa_leaves, dout,
+                                    retain_graph=True))
+    print(f'fp32 attention on the card: {json.dumps(res)}')
+    for name in ('k1', 'k3', 'k4', 'k5'):
+        m = res[name]
+        print(f'{name.upper()} fp32 {shape}: {m["ms"]:.4f} ms (kept path; '
+              f'plain {m["plain_ms"]:.4f}, SDPA {m["library_ms"]:.4f}, bound '
+              f'{m["bound_ms"]:.5f} {m["bound_by"]})')
+    if not res['ok']:
+        raise AssertionError('fp32 attention on the card disagrees with '
+                             'plain attention, or left the kept kernels')
     return res
 
 
@@ -671,8 +840,10 @@ def run_training(label: str, train_fn, steps: int, mode: str) -> dict:
 # Kernel name fragment → group, first match wins.
 GROUPS = [('flash_fwd_sm90_kernel', 'flash forward (K1/K3)'),
           ('flash_fwd_kernel', 'flash forward, kept mma.sync (K1/K3)'),
-          ('flash_bwd_dq', 'flash dq (K4)'),
-          ('flash_bwd_dkv', 'flash dk/dv (K5)'),
+          ('flash_bwd_dq_sm90', 'flash dq (K4)'),
+          ('flash_bwd_dkv_sm90', 'flash dk/dv (K5)'),
+          ('flash_bwd_dq', 'flash dq, kept mma.sync (K4)'),
+          ('flash_bwd_dkv', 'flash dk/dv, kept mma.sync (K5)'),
           ('::gn_', 'GroupNorm (K6)'),
           ('nchwToNhwc', 'layout conversion'),
           ('nhwcToNchw', 'layout conversion'),
@@ -778,7 +949,8 @@ def profile_training(steps: int, out: str) -> None:
     the idle share against both host times, and device time by kernel group
     and by kernel, printed and written under ``out``."""
     with ThreadPoolExecutor(2) as pool:
-        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE), (fa.BUILD_PARTS, 1)))
+        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE),
+                      (fa.BUILD_PARTS, fb.BUILD_PARTS)))
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
@@ -942,7 +1114,7 @@ def profile_generate(steps: int, out: str) -> None:
     through K1 with the plain GroupNorm, each by ``profile_steps``."""
     with ThreadPoolExecutor(3) as pool:
         list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE),
-                      (fa.BUILD_PARTS, 1, 1)))
+                      (fa.BUILD_PARTS, fb.BUILD_PARTS, 1)))
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
@@ -1138,8 +1310,8 @@ def main() -> int:
         profile_generate(args.profile_gen, args.profile_out)
         return 0
 
-    parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: 1, gn.SOURCE: 1,
-             fv.SOURCE: fv.BUILD_PARTS}
+    parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: fb.BUILD_PARTS,
+             gn.SOURCE: 1, fv.SOURCE: fv.BUILD_PARTS}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(parts)) as pool:
         build_secs = list(pool.map(fa.build, parts, parts.values()))
@@ -1180,13 +1352,21 @@ def main() -> int:
     for r in train_res:
         print('K3-K5', json.dumps(r))
     for r in train_res:
-        if 'ms' in r['k3']:
-            print(f'K3 {tuple(r["shape"])}: {summary(r["k3"])}')
+        if 'ms' not in r['k3']:
+            continue
+        for name in ('k3', 'k4', 'k5'):
+            print(f'{name.upper()} {tuple(r["shape"])}: {summary(r[name])}')
+        print(f'K4+K5 {tuple(r["shape"])}: {r["k4"]["ms"] + r["k5"]["ms"]:.4f}'
+              f' ms (kept {r["k4"]["kept_ms"] + r["k5"]["kept_ms"]:.4f}, SDPA '
+              f'backward {r["k4"]["library_ms"]:.4f}); forward+backward '
+              f'{r["fwd_bwd_ms"]:.4f} (SDPA {r["library_fwd_bwd_ms"]:.4f})')
     bad = [(r['shape'], r['skv']) for r in train_res if not r['ok']]
     if bad:
-        raise AssertionError(f'K3/K4/K5 disagree with their twins (or K3 '
-                             f'left the Hopper path or K1) at {bad}')
-    print(f'K3-K5 check: {time.perf_counter() - t0:.1f} s')
+        raise AssertionError(f'K3/K4/K5 disagree with their twins (or left '
+                             f'the Hopper path, K3 K1, or K4/K5 are not '
+                             f'deterministic) at {bad}')
+    fp32_res = check_fp32_attention(gen)
+    print(f'K3-K5 and fp32 checks: {time.perf_counter() - t0:.1f} s')
 
     t0 = time.perf_counter()
     lora_rel = check_lora_step(
@@ -1234,14 +1414,18 @@ def main() -> int:
 
     main_res = results[0]
     train_main = train_res[0]
-    # K1 and K3 also carry the kept mma.sync kernel's time on the same
+    # K1 and K3–K5 also carry the kept mma.sync kernel's time on the same
     # inputs and the host µs per call, and the times at every timed shape.
     timed = lambda rows: [dict(shape=shape, **{key: m[key] for key in (
         'ms', 'kept_ms', 'library_ms', 'bound_ms')})
         for shape, m in rows if 'ms' in m]
-    extra = lambda m, rows: dict(
+    # ... and fp32's times on the kept path at FP32_SHAPE.
+    extra = lambda m, rows, name: dict(
         {key: m[key] for key in ('kept_ms', 'host_us', 'kept_host_us')},
-        by_shape=timed(rows))
+        by_shape=timed(rows), fp32=dict(shape=fp32_res['shape'], **{
+            key: fp32_res[name][key] for key in (
+                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+                'max_abs_err') if key in fp32_res[name]}))
     kernels = [dict(
         name='flash_attention', route='cuda',
         source='flexdiffuse_tpu_torch/csrc/flash_attention.cu',
@@ -1251,7 +1435,7 @@ def main() -> int:
         ms=main_res['ms'], plain_ms=main_res['plain_ms'],
         bound_ms=main_res['bound_ms'], bound_by=main_res['bound_by'],
         library_ms=main_res['library_ms'],
-        **extra(main_res, [(r['shape'], r) for r in results]))]
+        **extra(main_res, [(r['shape'], r) for r in results], 'k1'))]
     for key, kname, src, line in (
             ('k3', 'flash_attention_lse', 'flash_attention.cu', 62),
             ('k4', 'flash_attention_dq', 'flash_backward.cu', 146),
@@ -1265,8 +1449,7 @@ def main() -> int:
             max_abs_err=max(r[key]['max_abs_err'] for r in train_res),
             ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
             bound_by=m['bound_by'], library_ms=m['library_ms'],
-            **(extra(m, [(r['shape'], r['k3']) for r in train_res])
-               if key == 'k3' else {})))
+            **extra(m, [(r['shape'], r[key]) for r in train_res], key)))
     gn_main = gn_res[0]
     kernels.append(dict(
         name='fused_group_norm', route='cuda',

@@ -1,6 +1,6 @@
 // Forward flash attention for Hopper (sm_90a): softmax(q·kᵀ·scale)·v over
-// contiguous [B, H, S, D] bf16/fp16 tensors, fp32 accumulators, Sq != Skv
-// allowed, any S >= 1.
+// contiguous [B, H, S, D] bf16/fp16 tensors (fp32 on the kept path), fp32
+// accumulators, Sq != Skv allowed, any S >= 1.
 //
 // Replaces flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel (K1,
 // :126) and, because K/V always stream through shared memory here, its
@@ -63,11 +63,15 @@
 //   columns >= d; K3 writes lse for rows < Sq.
 // The wrapper (ops/flash_attention.py::plan) picks the path before launch.
 //
-// The kept path (flash_fwd_kernel, the first port's design, unchanged)
-// serves what TMA cannot take: d % 8 != 0 (rows not 16-byte strided) or a
-// misaligned pointer. One block of 4 warps per (b·h, 64-row q tile), K/V
-// tiles staged through registers, mma.sync.m16n8k16, head dim zero-padded
-// to a multiple of 16.
+// The kept path (flash_fwd_kernel, the first port's design) serves what
+// TMA cannot take: d % 8 != 0 (rows not 16-byte strided), a misaligned
+// pointer, or fp32 tensors. One block of 4 warps per (b·h, 64-row q tile),
+// K/V tiles staged through registers, mma.sync.m16n8k16, head dim
+// zero-padded to a multiple of 16. fp32 q, k, v are rounded to bf16 as they
+// are staged, and P to bf16 before P·V: the operand precision at which the
+// TPU's matrix unit multiplies fp32 at default precision, which is what the
+// reference's Pallas kernel computes there. Scores, softmax, accumulators,
+// lse and the fp32 output stay fp32.
 
 #include <type_traits>
 #include <utility>
@@ -88,10 +92,12 @@
 #if BUILD_PART == 0
 namespace {
 
-template <typename T, int DP, bool kLse>
+// T: the 16-bit type of the shared tiles and the products; TI: the type of
+// q, k, v and o (T, or float).
+template <typename T, int DP, bool kLse, typename TI>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                     const TI* __restrict__ v, TI* __restrict__ o,
                      float* __restrict__ lse, int sq, int skv, int d,
                      float scale_log2, int vec) {
   static_assert(DP % 16 == 0 && DP <= 128, "head dim tile");
@@ -114,10 +120,10 @@ __global__ void __launch_bounds__(kThreads)
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockM;
 
-  const T* qb = q + bh * sq * d;
-  const T* kb = k + bh * skv * d;
-  const T* vb = v + bh * skv * d;
-  T* ob = o + bh * sq * d;
+  const TI* qb = q + bh * sq * d;
+  const TI* kb = k + bh * skv * d;
+  const TI* vb = v + bh * skv * d;
+  TI* ob = o + bh * sq * d;
 
   load_tile<T, DP>(sQ, qb, q0, sq, d, vec != 0);
   __syncthreads();
@@ -246,42 +252,42 @@ __global__ void __launch_bounds__(kThreads)
   for (int dt = 0; dt < kDTiles; ++dt) {
     const int col = dt * 8 + tq * 2;
     if (row0 < sq) {
-      if (col < d) ob[(size_t)row0 * d + col] = Ops<T>::cast(oacc[dt][0] * inv[0]);
-      if (col + 1 < d) ob[(size_t)row0 * d + col + 1] = Ops<T>::cast(oacc[dt][1] * inv[0]);
+      if (col < d) ob[(size_t)row0 * d + col] = to_out<T, TI>(oacc[dt][0] * inv[0]);
+      if (col + 1 < d) ob[(size_t)row0 * d + col + 1] = to_out<T, TI>(oacc[dt][1] * inv[0]);
     }
     if (row1 < sq) {
-      if (col < d) ob[(size_t)row1 * d + col] = Ops<T>::cast(oacc[dt][2] * inv[1]);
-      if (col + 1 < d) ob[(size_t)row1 * d + col + 1] = Ops<T>::cast(oacc[dt][3] * inv[1]);
+      if (col < d) ob[(size_t)row1 * d + col] = to_out<T, TI>(oacc[dt][2] * inv[1]);
+      if (col + 1 < d) ob[(size_t)row1 * d + col + 1] = to_out<T, TI>(oacc[dt][3] * inv[1]);
     }
   }
 }
 
-template <typename T, int DP, bool kLse>
+template <typename T, int DP, bool kLse, typename TI>
 int launch_dp(const void* q, const void* k, const void* v, void* o,
               float* lse, int batch_heads, int sq, int skv, int d,
               float scale, int vec, cudaStream_t stream) {
   const int smem = (kBlockM + 2 * kBlockN) * (DP + kPad) * (int)sizeof(T);
   // Above 48 KB (DP = 128) dynamic shared memory needs the opt-in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP, kLse>,
+      flash_fwd_kernel<T, DP, kLse, TI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, batch_heads);
-  flash_fwd_kernel<T, DP, kLse><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, d,
+  flash_fwd_kernel<T, DP, kLse, TI><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TI*>(q), static_cast<const TI*>(k),
+      static_cast<const TI*>(v), static_cast<TI*>(o), lse, sq, skv, d,
       scale * kLog2e, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kLse>
+template <typename T, bool kLse, typename TI>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch_heads, int sq, int skv, int d, float scale, int vec,
            cudaStream_t stream) {
 #define FLASH_CASE(n) \
   case n / 16: \
-    return launch_dp<T, n, kLse>(q, k, v, o, lse, batch_heads, sq, skv, d, \
-                                 scale, vec, stream);
+    return launch_dp<T, n, kLse, TI>(q, k, v, o, lse, batch_heads, sq, skv, \
+                                     d, scale, vec, stream);
   switch ((d + 15) / 16) {
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64)
     FLASH_CASE(80) FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128)
@@ -300,12 +306,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<__nv_bfloat16, kLse>(q, k, v, o, lse, batch_heads, sq, skv,
-                                       d, scale, vec, s);
+    return launch<__nv_bfloat16, kLse, __nv_bfloat16>(
+        q, k, v, o, lse, batch_heads, sq, skv, d, scale, vec, s);
   }
   if (dtype == 1) {
-    return launch<__half, kLse>(q, k, v, o, lse, batch_heads, sq, skv, d,
-                                scale, vec, s);
+    return launch<__half, kLse, __half>(q, k, v, o, lse, batch_heads, sq,
+                                        skv, d, scale, vec, s);
+  }
+  if (dtype == 2) {
+    return launch<__nv_bfloat16, kLse, float>(q, k, v, o, lse, batch_heads,
+                                              sq, skv, d, scale, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -336,41 +346,8 @@ struct Tiling {
   static constexpr int kPitch = kNarrow ? 128 : 32;  // swizzle span, bytes
 };
 
-// How a [rows x DP] operand tile sits in shared memory: kSlabs slabs of
-// `rows` rows of kPitch bytes (the swizzle span: 16 or 64 columns), slab s
-// holding columns s·kSlabCols ... and written by one TMA box of that width.
-// The zero fill pads the columns past d; the wgmma k-steps stop at DP.
-template <int kPitch, int DP>
-struct Geometry {
-  static_assert(kPitch == 32 || kPitch == 128, "pitch");
-  static constexpr int kSlabCols = kPitch / 2;
-  static constexpr int kSlabs = (DP + kSlabCols - 1) / kSlabCols;
-  static constexpr uint64_t kLayout = kPitch == 32 ? 3 : 1;  // descriptor
-  // Bytes of a tile, in shared memory and in TMA traffic (whole boxes).
-  __host__ __device__ static constexpr int bytes(int rows) {
-    return kSlabs * rows * kPitch;
-  }
-  // Byte offset of the 16-column k-step ks of a K-major tile.
-  __host__ __device__ static constexpr int kstep(int ks, int rows) {
-    return ks / (kSlabCols / 16) * rows * kPitch +
-           ks % (kSlabCols / 16) * 32;
-  }
-  // Swizzled byte offset of element (row, col) of a tile.
-  static __device__ __forceinline__ int offset(int row, int col, int rows) {
-    const int in = row * kPitch + col % kSlabCols * 2;
-    return col / kSlabCols * rows * kPitch +
-           (in ^ (((in >> 7) & (kPitch / 16 - 1)) << 4));
-  }
-  static __device__ __forceinline__ uint64_t kmajor(const void* tile) {
-    return sm90::desc(tile, 16, 8 * kPitch, kLayout);
-  }
-  // V_j, MN-major: slabs kSlabCols columns apart, 8-row groups 8 rows
-  // apart; one k-step is 16 kv rows.
-  static __device__ __forceinline__ uint64_t mnmajor(const void* tile,
-                                                     int rows) {
-    return sm90::desc(tile, rows * kPitch, 8 * kPitch, kLayout);
-  }
-};
+using sm90::Geometry;  // the slab layout of a tile (sm90.cuh)
+using sm90::Regs;
 
 // Shared memory of one block, in bytes from a 1024-aligned base: each
 // consumer's Q tile (later its O tile), the K and V stages, the barriers.
@@ -383,16 +360,6 @@ struct Layout {
   static constexpr int kV = kK + kStages * kKV;
   static constexpr int kBars = kV + kStages * kKV;
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
-};
-
-// Registers per thread, one block per SM. The producer warpgroup gives all
-// but kProducer of its share to the consumers.
-template <int C>
-struct Regs {
-  static constexpr int kLaunch = (65536 / ((C + 1) * 128)) & ~7;
-  static constexpr int kProducer = 24;
-  static constexpr int kConsumer = ((kLaunch * (C + 1) - kProducer) / C) & ~7;
-  static_assert(kConsumer <= 256 && kConsumer > kLaunch, "register split");
 };
 
 template <typename T, int kPitch, int DP, int BN>
@@ -519,40 +486,7 @@ struct Consumer {
   }
 };
 
-template <int C>
-__device__ __forceinline__ void consumer_barrier(int cw) {
-  // One barrier id per consumer warpgroup (0 is __syncthreads').
-  if (cw == 0) sm90::named_barrier<1>(128);
-  if (cw == 1) sm90::named_barrier<2>(128);
-  if constexpr (C > 2) {
-    if (cw == 2) sm90::named_barrier<3>(128);
-  }
-}
-
-// Ping-pong (turns, as in FlashAttention-3): the consumers take turns to
-// issue their wgmma, so that one's softmax runs while the next one's
-// products are on the tensor cores. Consumer cw waits on barrier 4 + cw for
-// its turn and, once its products are issued, arrives on the next
-// consumer's. The last consumer opens the first turn and skips its arrival
-// in its last round, so that every phase of every barrier completes (each
-// consumer has the same number of rounds).
-template <int C>
-struct Turns {
-  static __device__ __forceinline__ void wait(int cw) {
-    if (cw == 0) sm90::named_barrier<4>(256);
-    if (cw == 1) sm90::named_barrier<5>(256);
-    if constexpr (C > 2) {
-      if (cw == 2) sm90::named_barrier<6>(256);
-    }
-  }
-  static __device__ __forceinline__ void pass(int cw) {
-    if (cw == C - 1) sm90::named_arrive<4>(256);
-    if (cw == 0) sm90::named_arrive<5>(256);
-    if constexpr (C > 2) {
-      if (cw == 1) sm90::named_arrive<6>(256);
-    }
-  }
-};
+using sm90::Turns;  // the consumers' ping-pong (sm90.cuh)
 
 template <typename T, int DP, bool kLse>
 __global__ void __launch_bounds__((Tiling<DP>::kConsumers + 1) * 128, 1)
@@ -729,7 +663,7 @@ __global__ void __launch_bounds__((Tiling<DP>::kConsumers + 1) * 128, 1)
       }
     }
     sm90::fence_proxy_async();
-    consumer_barrier<C>(cw);
+    sm90::consumer_sync<C>(cw);
     if (t == 0) {
 #pragma unroll
       for (int sl = 0; sl < G::kSlabs; ++sl) {
@@ -836,7 +770,9 @@ int dispatch_sm90(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). dtype: 0 = bf16, 1 = fp16.
+// Plain C entry points (bound with ctypes). dtype: 0 = bf16, 1 = fp16;
+// the kept path also takes 2 = fp32 (computed as the kept kernel's note
+// says).
 // vec != 0 promises 16-byte aligned rows (d % 8 == 0, aligned pointers).
 // Each launches on `stream` and returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,

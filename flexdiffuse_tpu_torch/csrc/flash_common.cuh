@@ -2,6 +2,9 @@
 // (flash_attention.cu: K1/K3; flash_backward.cu: K4/K5): the 64-row tile
 // geometry, mma.sync m16n8k16 for bf16/fp16 with fp32 accumulators, the
 // fragment loads from shared memory, and the zero-padding tile stager.
+// The kept kernels also take fp32 tensors (TI = float): they are rounded to
+// the 16-bit compute type T as they are staged, and outputs are written
+// from the fp32 accumulators without that rounding.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,11 +83,22 @@ __device__ __forceinline__ uint32_t lds32(const void* smem) {
   return *reinterpret_cast<const uint32_t*>(smem);
 }
 
-// Stage rows [r0, r0 + 64) x cols [0, DP) of a [rows, d] matrix into a
-// shared tile with row stride DP + kPad; rows >= `rows` and cols >= d are
-// zero, so padded columns add nothing to Q·Kᵀ and padded V rows stay finite.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
+// An fp32 accumulator value as an element of an output of type TI.
+template <typename T, typename TI>
+__device__ __forceinline__ TI to_out(float x) {
+  if constexpr (std::is_same_v<TI, float>) {
+    return x;
+  } else {
+    return Ops<T>::cast(x);
+  }
+}
+
+// Stage rows [r0, r0 + 64) x cols [0, DP) of a [rows, d] matrix of TI into
+// a shared tile of T with row stride DP + kPad; rows >= `rows` and
+// cols >= d are zero, so padded columns add nothing to Q·Kᵀ and padded V
+// rows stay finite. fp32 (TI = float) is rounded to T here.
+template <typename T, int DP, typename TI = T>
+__device__ __forceinline__ void load_tile(T* dst, const TI* src, int r0,
                                           int rows, int d, bool vec) {
   constexpr int kChunks = DP / 8;
   constexpr int kStride = DP + kPad;
@@ -93,12 +109,29 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0,
     const int gr = r0 + r;
     T* out = dst + r * kStride + c;
     if (vec && gr < rows && c + 8 <= d) {
-      *reinterpret_cast<uint4*>(out) =
-          *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c);
+      if constexpr (std::is_same_v<TI, float>) {
+        const float4* in =
+            reinterpret_cast<const float4*>(src + (size_t)gr * d + c);
+        const float4 lo = in[0];
+        const float4 hi = in[1];
+        *reinterpret_cast<uint4*>(out) = make_uint4(
+            Ops<T>::pack(lo.x, lo.y), Ops<T>::pack(lo.z, lo.w),
+            Ops<T>::pack(hi.x, hi.y), Ops<T>::pack(hi.z, hi.w));
+      } else {
+        *reinterpret_cast<uint4*>(out) =
+            *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c);
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        out[e] = (gr < rows && c + e < d) ? src[(size_t)gr * d + c + e] : zero;
+        if constexpr (std::is_same_v<TI, float>) {
+          out[e] = (gr < rows && c + e < d)
+                       ? Ops<T>::cast(src[(size_t)gr * d + c + e])
+                       : zero;
+        } else {
+          out[e] = (gr < rows && c + e < d) ? src[(size_t)gr * d + c + e]
+                                            : zero;
+        }
       }
     }
   }

@@ -2,14 +2,15 @@
 // 3-D TMA tensor loads and stores with their host-side tensor maps, wgmma
 // with shared-memory descriptors (operands from shared memory or A from
 // registers), register rebalancing between warpgroups, named barriers and
-// the single-instruction exp2. Used by csrc/flash_attention.cu (K1/K3); the
-// backward kernels (flash_backward.cu) can take the same pieces.
+// the single-instruction exp2, and the slab layout of a tile (Geometry) with
+// the register split between producer and consumer warpgroups (Regs). Used
+// by csrc/flash_attention.cu (K1/K3) and csrc/flash_backward.cu (K4/K5).
 //
 // Tiles are stored as TMA writes them with the 32- or 128-byte swizzle:
 // slabs of `rows` rows of P = 32 or 128 bytes (16 or 64 columns), row r at
 // r·P, the 16-byte chunks of each row permuted by XOR with bits of r
 // (address bits 4.. XOR bits 7..). The wgmma descriptors below describe
-// exactly that layout (flash_attention.cu's Geometry).
+// exactly that layout (Geometry).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -257,6 +258,40 @@ template <typename T, int N>
 struct Wgmma;
 template <typename T, int N>
 struct WgmmaRs;
+
+template <>
+struct Wgmma<__nv_bfloat16, 32> {
+  // D[64x32] (+)= A[64x16] (smem, K-major) · B[16x32] (smem, K-major).
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<__half, 32> {
+  // D[64x32] (+)= A[64x16] (smem, K-major) · B[16x32] (smem, K-major).
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <>
 struct Wgmma<__nv_bfloat16, 64> {
@@ -735,6 +770,90 @@ struct WgmmaRs<__half, 128> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d));
+  }
+};
+
+// How a [rows x DP] operand tile sits in shared memory: kSlabs slabs of
+// `rows` rows of kPitch bytes (the swizzle span: 16 or 64 columns), slab s
+// holding columns s·kSlabCols ... and written by one TMA box of that width.
+// The zero fill pads the columns past d; the wgmma k-steps stop at DP.
+template <int kPitch, int DP>
+struct Geometry {
+  static_assert(kPitch == 32 || kPitch == 128, "pitch");
+  static constexpr int kSlabCols = kPitch / 2;
+  static constexpr int kSlabs = (DP + kSlabCols - 1) / kSlabCols;
+  static constexpr uint64_t kLayout = kPitch == 32 ? 3 : 1;  // descriptor
+  // Bytes of a tile, in shared memory and in TMA traffic (whole boxes).
+  __host__ __device__ static constexpr int bytes(int rows) {
+    return kSlabs * rows * kPitch;
+  }
+  // Byte offset of the 16-column k-step ks of a K-major tile.
+  __host__ __device__ static constexpr int kstep(int ks, int rows) {
+    return ks / (kSlabCols / 16) * rows * kPitch +
+           ks % (kSlabCols / 16) * 32;
+  }
+  // Swizzled byte offset of element (row, col) of a tile.
+  static __device__ __forceinline__ int offset(int row, int col, int rows) {
+    const int in = row * kPitch + col % kSlabCols * 2;
+    return col / kSlabCols * rows * kPitch +
+           (in ^ (((in >> 7) & (kPitch / 16 - 1)) << 4));
+  }
+  static __device__ __forceinline__ uint64_t kmajor(const void* tile) {
+    return desc(tile, 16, 8 * kPitch, kLayout);
+  }
+  // An MN-major operand (a B whose rows are the k of the product, such as
+  // V_j in P·V_j): slabs kSlabCols columns apart, 8-row groups 8 rows apart;
+  // one k-step is 16 rows.
+  static __device__ __forceinline__ uint64_t mnmajor(const void* tile,
+                                                     int rows) {
+    return desc(tile, rows * kPitch, 8 * kPitch, kLayout);
+  }
+};
+
+// Registers per thread, one block per SM. The producer warpgroup gives all
+// but kProducer of its share to the consumers.
+template <int C>
+struct Regs {
+  static constexpr int kLaunch = (65536 / ((C + 1) * 128)) & ~7;
+  static constexpr int kProducer = 24;
+  static constexpr int kConsumer = ((kLaunch * (C + 1) - kProducer) / C) & ~7;
+  static_assert(kConsumer <= 256 && kConsumer > kLaunch, "register split");
+};
+
+// Barriers among the 128 threads of consumer warpgroup cw of C: one id per
+// consumer (0 is __syncthreads'; 4 to 6 are Turns').
+template <int C>
+__device__ __forceinline__ void consumer_sync(int cw) {
+  static_assert(C == 2 || C == 3, "consumers");
+  if (cw == 0) named_barrier<1>(128);
+  if (cw == 1) named_barrier<2>(128);
+  if constexpr (C > 2) {
+    if (cw == 2) named_barrier<3>(128);
+  }
+}
+
+// Ping-pong (turns, as in FlashAttention-3): the consumers take turns to
+// issue their wgmma, so that one's softmax runs while the next one's
+// products are on the tensor cores. Consumer cw waits on barrier 4 + cw for
+// its turn and, once its products are issued, arrives on the next
+// consumer's. The last consumer opens the first turn and skips its arrival
+// in its last round, so that every phase of every barrier completes (each
+// consumer has the same number of rounds).
+template <int C>
+struct Turns {
+  static __device__ __forceinline__ void wait(int cw) {
+    if (cw == 0) named_barrier<4>(256);
+    if (cw == 1) named_barrier<5>(256);
+    if constexpr (C > 2) {
+      if (cw == 2) named_barrier<6>(256);
+    }
+  }
+  static __device__ __forceinline__ void pass(int cw) {
+    if (cw == C - 1) named_arrive<4>(256);
+    if (cw == 0) named_arrive<5>(256);
+    if constexpr (C > 2) {
+      if (cw == 1) named_arrive<6>(256);
+    }
   }
 };
 

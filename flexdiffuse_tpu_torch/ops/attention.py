@@ -7,18 +7,22 @@ is eligible for the flash kernels; at 512² that is the UNet's 4096- and
 tokens, the 256-token level, the VAE's single 512-wide head — runs
 :func:`plain_attention`.
 
-Routing: an eligible call that needs a gradient (grad mode on and any of
-q, k, v requiring grad) goes to :class:`FlashAttentionFn` (K3 forward,
-K4/K5 backward, ``ops/flash_backward.py``); any other eligible call goes to
-the inference kernel K1 (``ops/flash_attention.py``), whose output carries
-no gradient. On CUDA tensors the kernels launch or raise; CPU tensors take
-the plain twins. There is no fallback from a kernel to a plain version.
+Routing (:func:`route`, decided before any launch): an eligible call that
+the backend sends to the kernels and that needs a gradient (grad mode on
+and any of q, k, v requiring grad) goes to :class:`FlashAttentionFn` (K3
+forward, K4/K5 backward, ``ops/flash_backward.py``); any other such call
+goes to the inference kernel K1 (``ops/flash_attention.py``), whose output
+carries no gradient. As in the reference, no dtype test: bf16 and fp16
+calls take the kernels' Hopper path, fp32 calls their kept path
+(``fa.plan``). On CUDA tensors the kernels launch or raise; CPU tensors
+take the plain twins. There is no fallback from a kernel to a plain
+version.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -50,13 +54,41 @@ def backend(name: str):
         _BACKEND.reset(token)
 
 
-def flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """The JAX package's eligibility rule (attention.py:125-136)."""
-    sq, skv = q.shape[-2], k.shape[-2]
+def _eligible(sq: int, skv: int, d: int) -> bool:
     big = sq >= FLASH_MIN_SEQ and skv >= FLASH_MIN_SEQ
     divisible = sq % 128 == 0 and skv % 128 == 0
-    narrow = q.shape[-1] <= 128
-    return big and divisible and narrow
+    return big and divisible and d <= 128
+
+
+def flash_eligible(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """The JAX package's eligibility rule (attention.py:125-136)."""
+    return _eligible(q.shape[-2], k.shape[-2], q.shape[-1])
+
+
+def route(q_shape: Sequence[int], k_shape: Sequence[int], device_type: str,
+          backend: str) -> str:
+    """'flash' (the kernels' wrappers) or 'plain' (:func:`plain_attention`)
+    for a call on q ``[..., Sq, D]`` and k ``[..., Skv, D]``, from the
+    shapes, the device type and the resolved backend alone.
+
+    - A shape that :func:`flash_eligible` refuses is 'plain' under every
+      backend.
+    - 'plain' is 'plain'.
+    - 'flash' takes the wrappers for every eligible call: a CPU tensor then
+      runs their plain twins.
+    - 'auto' takes them for CUDA tensors, and runs :func:`plain_attention`
+      for CPU tensors.
+
+    The dtype does not enter, as in the reference's dispatcher
+    (attention.py:125-149): the wrappers take bf16, fp16 and fp32 (fp32 on
+    the kernels' kept path) and raise on anything else.
+    """
+    if backend == 'plain' or not _eligible(q_shape[-2], k_shape[-2],
+                                           q_shape[-1]):
+        return 'plain'
+    if backend == 'auto' and device_type != 'cuda':
+        return 'plain'
+    return 'flash'
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,10 +96,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               backend: Optional[str] = None) -> torch.Tensor:
     """Multi-head attention ``[B, H, Sq, D] × [B, H, Skv, D] -> [B, H, Sq, D]``.
 
-    ``backend`` overrides the context-local setting for this call. 'auto'
-    takes the kernel for eligible CUDA tensors; 'flash' takes it for every
-    eligible shape (a CPU tensor then runs the wrapper's plain path);
-    'plain' never takes it.
+    ``backend`` overrides the context-local setting for this call;
+    :func:`route` says where each backend sends it.
     """
     if scale is None:
         scale = q.shape[-1]**-0.5
@@ -75,12 +105,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         backend = _BACKEND.get()
     else:
         _validate(backend)
-    eligible = flash_eligible(q, k)
-    if backend == 'auto':
-        backend = 'flash' if q.is_cuda and eligible else 'plain'
-    elif backend == 'flash' and not eligible:
-        backend = 'plain'
-    if backend == 'flash':
+    if route(q.shape, k.shape, q.device.type, backend) == 'flash':
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):

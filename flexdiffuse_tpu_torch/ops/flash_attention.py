@@ -1,13 +1,17 @@
 """Hopper flash attention (K1) — build, bind and launch, plus its plain twin.
 
 The kernel is ``csrc/flash_attention.cu``: forward flash attention over
-contiguous ``[B, H, S, D]`` bf16/fp16 tensors, written by hand for sm_90a
-(see the note at the top of the source). It replaces the JAX package's
-Pallas kernel ``flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel``.
-It has two paths, chosen by :func:`plan` from the shape and the alignment
-before the launch: 'sm90' (TMA, wgmma, a warp-specialised pipeline; head
-dim a multiple of 8, 16-byte aligned tensors: every main-path call) and
-'mma' (the first port's mma.sync kernel, kept for everything else).
+contiguous ``[B, H, S, D]`` bf16, fp16 or fp32 tensors, written by hand for
+sm_90a (see the note at the top of the source). It replaces the JAX
+package's Pallas kernel
+``flexdiffuse_tpu/ops/flash_attention.py::_flash_tt_kernel``. It has two
+paths, chosen by :func:`plan` from the dtype, the shape and the alignment
+before the launch: 'sm90' (TMA, wgmma, a warp-specialised pipeline; bf16
+or fp16, head dim a multiple of 8, 16-byte aligned tensors: every
+main-path call) and 'mma' (the first port's mma.sync kernel, kept for
+everything else). fp32 tensors take 'mma', which rounds them to bf16 as it
+stages them: the operand precision at which the TPU multiplies fp32 at its
+default precision, where the reference's Pallas kernel takes fp32 too.
 
 Every kernel source in ``csrc/`` is compiled at first use with ``nvcc``
 into a shared library with plain C entry points and bound with ``ctypes``
@@ -46,7 +50,10 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 MAX_HEAD_DIM = 128
-DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+# The kernels' dtype codes, and the 16-bit ones: all that the Hopper path
+# (and the T1–T6 variants, ops/flash_variants.py) take.
+DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+DTYPES16 = (torch.bfloat16, torch.float16)
 # flash_attention.cu is compiled in this many parts at once: the kept kernel
 # in part 0, the Hopper kernel's 32 instantiations split over the other two,
 # so that no part takes much longer than part 0.
@@ -191,19 +198,20 @@ class Plan:
 def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
          path: Optional[str] = None) -> Plan:
     """The path and tiling of a call on ``q`` ``[B, H, Sq, D]`` and ``k``
-    ``[B, H, Skv, D]`` (checked by :func:`check`), from the shape and the
-    alignment of ``q``, ``k`` and ``tensors`` (v, the output) alone. The
-    Hopper path needs what TMA needs: D % 8 == 0 (16-byte rows) and 16-byte
-    aligned pointers; everything else takes the kept kernel. ``path``
-    forces one ('sm90' raises where TMA cannot go)."""
+    ``[B, H, Skv, D]`` (checked by :func:`check`), from the dtype, the
+    shape and the alignment of ``q``, ``k`` and ``tensors`` (v, the output)
+    alone. The Hopper path takes bf16 or fp16 and needs what TMA needs:
+    D % 8 == 0 (16-byte rows) and 16-byte aligned pointers; everything else,
+    fp32 included, takes the kept kernel. ``path`` forces one ('sm90'
+    raises where it cannot go)."""
     if path not in (None, *PATHS):
         raise ValueError(f'flash_attention: path {path!r} not in {PATHS}')
     b, h, sq, d = q.shape
     head_pad = -(-d // 16) * 16
-    tma = bool(vec_ok(q, k, *tensors))
+    tma = q.dtype in DTYPES16 and bool(vec_ok(q, k, *tensors))
     if path == 'sm90' and not tma:
-        raise ValueError('flash_attention: the sm90 path takes D % 8 == 0 '
-                         'and 16-byte aligned tensors')
+        raise ValueError('flash_attention: the sm90 path takes bf16 or fp16, '
+                         'D % 8 == 0 and 16-byte aligned tensors')
     if path == 'mma' or not tma:
         return Plan('mma', head_pad, ROWS, MMA_KV_TILE, 1,
                     (-(-sq // ROWS), b * h), 128)
@@ -259,8 +267,8 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError('flash_attention: q, k, v on different devices')
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError('flash_attention takes bf16 or fp16 q/k/v of one '
-                         f'dtype, got {q.dtype}/{k.dtype}/{v.dtype}')
+        raise ValueError('flash_attention takes bf16, fp16 or fp32 q/k/v of '
+                         f'one dtype, got {q.dtype}/{k.dtype}/{v.dtype}')
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError('flash_attention takes q [B,H,Sq,D] and k, v '
                          f'[B,H,Skv,D], got {tuple(q.shape)}, '

@@ -166,7 +166,7 @@ def _check(name: str, q, k, v, bhds: bool, g: int = 1,
                 q.device == k.device == v.device):
             raise ValueError(f'{name}: q, k and v must all be CUDA tensors '
                              'of one device (or all CPU tensors)')
-        if q.dtype not in fa.DTYPES or k.dtype != q.dtype or \
+        if q.dtype not in fa.DTYPES16 or k.dtype != q.dtype or \
                 v.dtype != q.dtype:
             raise ValueError(f'{name} takes bf16 or fp16 q/k/v of one '
                              f'dtype, got {q.dtype}/{k.dtype}/{v.dtype}')

@@ -38,17 +38,17 @@ CPU_STEPS = 2
 
 
 # The kernels a UNet evaluation or a train step can launch, by id; each
-# counts its launches in ``.launches``. K1 and K3 also count them by path
+# counts its launches in ``.launches``. K1 and K3–K5 also count them by path
 # (``.path_launches``: 'sm90', the Hopper path, and 'mma', the kept one).
 KERNELS = {'k1': fa.flash_attention, 'k3': fb.flash_attention_lse,
            'k4': fb.flash_attention_dq, 'k5': fb.flash_attention_dkv,
            'k6': gn.fused_group_norm}
-BY_PATH = ('k1', 'k3')
+BY_PATH = ('k1', 'k3', 'k4', 'k5')
 
 
 def kernel_counts() -> dict:
-    """Launches so far of K1, K3–K5 and K6, by id, and of K1 and K3 by path
-    (``k1_sm90``, ``k1_mma``, ``k3_sm90``, ``k3_mma``)."""
+    """Launches so far of K1, K3–K5 and K6, by id, and of K1 and K3–K5 by
+    path (``k1_sm90``, ``k1_mma``, ``k3_sm90``, ..., ``k5_mma``)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     for name in BY_PATH:
         for path, n in KERNELS[name].path_launches.items():

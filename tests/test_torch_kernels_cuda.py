@@ -1,7 +1,7 @@
 """PyTorch port: the Hopper kernels (K1 forward flash attention, K3
-forward with lse, both on the Hopper path and on the kept mma.sync kernel;
-K4 dq, K5 dk/dv, K6 fused GroupNorm, the attention variants T1–T6) against
-their plain twins, on the card.
+forward with lse, K4 dq and K5 dk/dv, each on the Hopper path and on the
+kept mma.sync kernel, fp32 on the kept one; K6 fused GroupNorm, the
+attention variants T1–T6) against their plain twins, on the card.
 Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
@@ -9,14 +9,16 @@ Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 import pytest
 import torch
 
-from flexdiffuse_tpu_torch.models.unet import GroupNorm32
+from flexdiffuse_tpu_torch.models.unet import CrossAttention, GroupNorm32
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
 from flexdiffuse_tpu_torch.ops import flash_variants as fv
 from flexdiffuse_tpu_torch.ops import group_norm as gn
 from flexdiffuse_tpu_torch.ops.attention import attention
+from flexdiffuse_tpu_torch.ops.attention import backend as attention_backend
 from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
                                                        plain_attention)
+from flexdiffuse_tpu_torch.tools import perf_experiment
 
 
 @pytest.fixture
@@ -182,8 +184,10 @@ def test_both_paths_agree_on_the_main_shapes(shape, cuda_gen):
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_gen):
     q = torch.randn((1, 1, 128, 40), generator=cuda_gen, device='cuda')
-    with pytest.raises(ValueError):           # fp32
-        flash_attention(q, q, q, 0.1)
+    with pytest.raises(ValueError):           # fp64
+        flash_attention(q.double(), q.double(), q.double(), 0.1)
+    with pytest.raises(ValueError):           # mixed dtypes
+        flash_attention(q, q.to(torch.bfloat16), q, 0.1)
     qh = q.to(torch.bfloat16)
     with pytest.raises(ValueError):           # head wider than 128
         wide = torch.zeros((1, 1, 128, 160), device='cuda',
@@ -244,34 +248,244 @@ def test_lse_kernel_matches_plain(shape, skv, dtype, cuda_gen):
     assert torch.equal(o, flash_attention(q, k, v, scale))
 
 
+def _compute_dtype(t):
+    """The 16-bit type the kernels' products take ``t`` in: its own, or
+    bf16 for fp32 (the kept kernels round fp32 as they stage it)."""
+    return t.dtype if t.dtype in fa.DTYPES16 else torch.bfloat16
+
+
+def _plain16(q, k, v, scale):
+    """K1's rule's plain version: q, k, v as the kernel's products take
+    them, P rounded likewise, the output in q's dtype."""
+    c = _compute_dtype(q)
+    return plain_attention(q.to(c), k.to(c), v.to(c), scale).to(q.dtype)
+
+
+def _hold_backward(q, k, v, dout, lse, dvec, scale, dq, dk, dv):
+    """K4's dq and K5's dk, dv by the rule against the fp32 twins; the
+    rule's plain version takes the inputs and rounds P and dS as the
+    kernels' tensor cores take them (fp32 inputs: rounded to bf16 first;
+    as K1's plain version rounds P), the way chip_smoke.py checks them."""
+    dtype, c = q.dtype, _compute_dtype(q)
+    f32 = [t.float() for t in (q, k, v, dout)]
+    r16 = [t.to(c).float() for t in (q, k, v, dout)]
+    rows = (lse, dvec, scale)
+    p16, ds16 = (t.to(c).float()
+                 for t in fb._probs_and_ds(*r16, *rows))
+    _rule(dq, fb.plain_attention_dq(*f32, *rows),
+          torch.matmul(ds16, r16[1]).to(dtype))
+    plain = (torch.matmul(ds16.transpose(-1, -2), r16[0]).to(dtype),
+             torch.matmul(p16.transpose(-1, -2), r16[3]).to(dtype))
+    for got, ref, want in zip((dk, dv), fb.plain_attention_dkv(*f32, *rows),
+                              plain):
+        _rule(got, ref, want)
+
+
+def _rows(q, k, v, dout):
+    scale = q.shape[-1]**-0.5
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    return lse, fb.attention_delta(dout, o), scale
+
+
+def _bwd_path_launches():
+    return (dict(fb.flash_attention_dq.path_launches),
+            dict(fb.flash_attention_dkv.path_launches))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape,skv,dtype', SHAPES)
 def test_backward_kernels_match_plain(shape, skv, dtype, cuda_gen):
-    """K4 (dq) and K5 (dk, dv) on the same 16-bit inputs as their twins.
-    The rule's plain version rounds P and dS to the inputs' dtype before
-    the products, as the kernels' tensor cores take them (and as K1's
-    16-bit plain version rounds P), the way chip_smoke.py checks them."""
+    """K4 (dq) and K5 (dk, dv) on the same 16-bit inputs as their twins, on
+    the path the chooser picks (the kept kernels for d = 33 and 100)."""
     q, k, v, dout = _inputs(shape, skv, dtype, cuda_gen)
-    scale = shape[-1]**-0.5
-    o, lse = fb.flash_attention_lse(q, k, v, scale)
-    dvec = fb.attention_delta(dout, o)
+    lse, dvec, scale = _rows(q, k, v, dout)
     before = (fb.flash_attention_dq.launches, fb.flash_attention_dkv.launches)
     dq = fb.flash_attention_dq(q, k, v, dout, lse, dvec, scale)
     dk, dv = fb.flash_attention_dkv(q, k, v, dout, lse, dvec, scale)
     torch.cuda.synchronize()
     assert (fb.flash_attention_dq.launches,
             fb.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
-    f32 = [t.float() for t in (q, k, v, dout)]
-    rows = (lse, dvec, scale)
-    p16, ds16 = (t.to(dtype).float()
-                 for t in fb._probs_and_ds(q, k, v, dout, *rows))
-    _rule(dq, fb.plain_attention_dq(*f32, *rows),
-          torch.matmul(ds16, f32[1]).to(dtype))
-    plain = (torch.matmul(ds16.transpose(-1, -2), f32[0]).to(dtype),
-             torch.matmul(p16.transpose(-1, -2), f32[3]).to(dtype))
-    for got, ref, want in zip((dk, dv), fb.plain_attention_dkv(*f32, *rows),
-                              plain):
-        _rule(got, ref, want)
+    _hold_backward(q, k, v, dout, lse, dvec, scale, dq, dk, dv)
+
+
+def _both_kernels(q, k, v, dout, lse, dvec, scale, path=None):
+    """dq, dk, dv, launched twice on ``path``; asserts the two runs are
+    bit-equal (one owner per output element, no atomics)."""
+    runs = [(fb.flash_attention_dq(q, k, v, dout, lse, dvec, scale, path),
+             *fb.flash_attention_dkv(q, k, v, dout, lse, dvec, scale, path))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    return runs[0]
+
+
+# The backward's Hopper path at every SHAPES entry it takes (d % 8 == 0),
+# Sq != Skv both ways, and every padded width DP 16–128 (d = 8 ... 128 with
+# ragged Sq and Skv; d = 104 and 120 leave the last slab partly past d).
+BWD_HOPPER_SHAPES = [(shape, skv) for shape, skv, _ in SHAPES
+                     if shape[-1] % 8 == 0] + [
+                         ((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
+                         ((1, 8, 1024, 40), 2048), ((2, 4, 1000, 64), 1000)
+                     ] + [((1, 2, 130, d), 200 - d) for d in range(8, 129, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,skv', BWD_HOPPER_SHAPES)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_backward_hopper_path_matches_plain(shape, skv, dtype, cuda_gen):
+    """K4 and K5 take the Hopper path (TMA, wgmma) here, the counters say
+    so, they hold the rule and two launches are bit-equal."""
+    q, k, v, dout = _inputs(shape, skv, dtype, cuda_gen)
+    lse, dvec, scale = _rows(q, k, v, dout)
+    assert fb.plan_backward('dq', q, k, v, dout).path == 'sm90'
+    assert fb.plan_backward('dkv', q, k, v, dout).path == 'sm90'
+    k4, k5 = _bwd_path_launches()
+    dq, dk, dv = _both_kernels(q, k, v, dout, lse, dvec, scale)
+    k4['sm90'] += 2
+    k5['sm90'] += 2
+    assert _bwd_path_launches() == (k4, k5)
+    _hold_backward(q, k, v, dout, lse, dvec, scale, dq, dk, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['d33', 'd100', 'q', 'k', 'v', 'dout'])
+def test_backward_kept_path_takes_what_tma_cannot(case, cuda_gen):
+    """d % 8 != 0 or a misaligned q, k, v or dO: the chooser sends K4 and K5
+    to the kept mma.sync kernels before the launch, 'sm90' cannot be
+    forced, the counters say so, and both hold the rule, bit-equal over two
+    launches."""
+    d = {'d33': 33, 'd100': 100}.get(case, 40)
+    shape, kv_shape = (1, 3, 200, d), (1, 3, 237, d)
+    make = lambda sh, name: (_misaligned(sh, cuda_gen) if case == name else
+                             torch.randn(sh, generator=cuda_gen,
+                                         device='cuda', dtype=torch.bfloat16))
+    q, k, v = make(shape, 'q'), make(kv_shape, 'k'), make(kv_shape, 'v')
+    dout = make(shape, 'dout')
+    lse, dvec, scale = _rows(q.contiguous(), k, v, dout)
+    for kind in ('dq', 'dkv'):
+        assert fb.plan_backward(kind, q, k, v, dout).path == 'mma'
+    with pytest.raises(ValueError):
+        fb.flash_attention_dq(q, k, v, dout, lse, dvec, scale, path='sm90')
+    with pytest.raises(ValueError):
+        fb.flash_attention_dkv(q, k, v, dout, lse, dvec, scale, path='sm90')
+    k4, k5 = _bwd_path_launches()
+    dq, dk, dv = _both_kernels(q, k, v, dout, lse, dvec, scale)
+    k4['mma'] += 2
+    k5['mma'] += 2
+    assert _bwd_path_launches() == (k4, k5)
+    _hold_backward(q, k, v, dout, lse, dvec, scale, dq, dk, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(4, 8, 4096, 40), (4, 8, 1024, 80)])
+def test_backward_both_paths_agree_on_the_main_shapes(shape, cuda_gen):
+    """The kept kernels, forced through their entry points on the aligned
+    training shapes, and the Hopper path both hold the rule and are
+    bit-deterministic."""
+    q, k, v, dout = _inputs(shape, shape[2], torch.bfloat16, cuda_gen)
+    lse, dvec, scale = _rows(q, k, v, dout)
+    k4, k5 = _bwd_path_launches()
+    kept = _both_kernels(q, k, v, dout, lse, dvec, scale, 'mma')
+    new = _both_kernels(q, k, v, dout, lse, dvec, scale)
+    for path in ('mma', 'sm90'):
+        k4[path] += 2
+        k5[path] += 2
+    assert _bwd_path_launches() == (k4, k5)
+    _hold_backward(q, k, v, dout, lse, dvec, scale, *kept)
+    _hold_backward(q, k, v, dout, lse, dvec, scale, *new)
+
+
+def _moved(before):
+    return {n: c - before[n] for n, c in perf_experiment.kernel_counts()
+            .items() if c != before[n]}
+
+
+# fp32 on the kept kernels: the main shapes, ragged Sq != Skv, d % 8 != 0.
+FP32_SHAPES = [((1, 8, 4096, 40), 4096), ((2, 8, 1024, 80), 1024),
+               ((1, 3, 200, 33), 237), ((2, 1, 130, 128), 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,skv', FP32_SHAPES)
+def test_fp32_kernels_match_plain(shape, skv, cuda_gen):
+    """K1, K3, K4 and K5 on fp32 tensors take the kept path (the counters
+    say so), hold the rule against the fp32 twins with fp32 outputs (the
+    plain version: the inputs rounded to bf16, as the kernels take them),
+    K3's o equals K1's, and two launches of K4/K5 are bit-equal."""
+    q, k, v, dout = _inputs(shape, skv, torch.float32, cuda_gen)
+    scale = shape[-1]**-0.5
+    k1, k3 = _path_launches()
+    k4, k5 = _bwd_path_launches()
+    out = flash_attention(q, k, v, scale)
+    o, lse = fb.flash_attention_lse(q, k, v, scale)
+    dvec = fb.attention_delta(dout, o)
+    dq, dk, dv = _both_kernels(q, k, v, dout, lse, dvec, scale)
+    k1['mma'] += 1
+    k3['mma'] += 1
+    k4['mma'] += 2
+    k5['mma'] += 2
+    assert (_path_launches(), _bwd_path_launches()) == ((k1, k3), (k4, k5))
+    assert all(t.dtype == torch.float32 for t in (out, o, dq, dk, dv))
+    _rule(out, fb.plain_attention_lse(q, k, v, scale)[0],
+          _plain16(q, k, v, scale))
+    assert torch.equal(o, out)
+    # lse within 1e-3 of the twin's on the inputs as the kernel takes them.
+    rounded = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    ref_lse = fb.plain_attention_lse(*rounded, scale)[1]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    _hold_backward(q, k, v, dout, lse, dvec, scale, dq, dk, dv)
+
+
+@pytest.mark.cuda
+def test_fp32_attention_runs_the_kept_kernels_on_the_card(cuda_gen):
+    """fp32 CUDA q/k/v at (1,8,4096,40), a flash-eligible shape: the
+    dispatcher runs K1 without a gradient and K3, K4, K5 with one, each on
+    its kept path, and both hold the rule against fp32 plain attention and
+    its autograd (the plain version: the same on bf16 copies)."""
+    shape = (1, 8, 4096, 40)
+    q, k, v, w = (torch.randn(shape, generator=cuda_gen, device='cuda')
+                  for _ in range(4))
+    before = perf_experiment.kernel_counts()
+    with torch.no_grad():
+        out = attention(q, k, v)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad((attention(*leaves) * w).sum(), leaves)
+    torch.cuda.synchronize()
+    assert _moved(before) == dict(k1=1, k1_mma=1, k3=1, k3_mma=1, k4=1,
+                                  k4_mma=1, k5=1, k5_mma=1)
+
+    def plain(dtype):
+        ts = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        o = attention(*ts, backend='plain')
+        return o.detach(), torch.autograd.grad(
+            (o.float() * w).sum(), ts)
+
+    (ref, ref_grads), (p16, p16_grads) = plain(torch.float32), \
+        plain(torch.bfloat16)
+    assert out.dtype == torch.float32
+    _rule(out, ref, p16)
+    for got, want, rounded in zip(grads, ref_grads, p16_grads):
+        assert got.dtype == torch.float32
+        _rule(got, want, rounded)
+
+
+@pytest.mark.cuda
+def test_fp32_unet_self_attention_runs_the_kept_kernel(cuda_gen):
+    """An fp32 SD-1.x self-attention (CrossAttention, 320 channels, 8 heads
+    of 40) at 4096 tokens, which raised before fp32 had a kernel: one K1
+    launch on the kept path, and the rule against the layer with plain
+    attention (the plain version: the layer in bf16)."""
+    torch.manual_seed(0)
+    layer = CrossAttention(320, 8).cuda().requires_grad_(False)
+    x = torch.randn((1, 4096, 320), generator=cuda_gen, device='cuda')
+    before = perf_experiment.kernel_counts()
+    y = layer(x)
+    torch.cuda.synchronize()
+    assert _moved(before) == dict(k1=1, k1_mma=1)
+    with attention_backend('plain'):
+        ref = layer(x)
+        p16 = layer.to(torch.bfloat16)(x.to(torch.bfloat16))
+    _rule(y, ref, p16)
 
 
 @pytest.mark.cuda
