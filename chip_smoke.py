@@ -33,10 +33,13 @@ Kernels and inference (the first and third slices):
    ``scaled_dot_product_attention``, the plain version's, the bounds
    (tensor cores or bytes, and the exponential unit) and the host µs per
    call of both paths.
-4. Holds K6 against the fp32 plain GroupNorm on the same inputs at eight
-   shapes, by step 3's rule (fp32 outputs: 1e-4·max|ref|); at two shapes
-   prints the times of K6, the plain version, ``F.group_norm`` and
-   ``F.group_norm`` + ``F.silu``, and the bound.
+4. Holds K6 against the fp32 plain GroupNorm on the same inputs at eleven
+   shapes, by step 3's rule (fp32 outputs: 1e-4·max|ref|), each launched
+   once on the path ``gn.plan_group_norm`` picks ('resident' or
+   'stream'); at four shapes prints the times of K6 (on a resident shape
+   also of its stream path, forced), the plain version, ``F.group_norm``
+   and ``F.group_norm`` + ``F.silu``, the bound and the host µs per K6
+   call.
 5. Builds SD-1.4 geometry (CLIP ViT-L/14 text and vision towers, the SD-1.4
    UNet and VAE) with seeded random weights on the card in bf16; checks one
    UNet evaluation through K1 and K6 against the same evaluation with plain
@@ -49,8 +52,9 @@ Kernels and inference (the first and third slices):
    background and 2 entities (UNet batch 4), PNDM, 30 steps, CFG 8.
 7. Asserts 512×512 uint8 images, finite latents and ε, and exactly the
    kernel launches each phase implies (K1: 10 per UNet evaluation, all on
-   the Hopper path, none on the kept kernel; K6: 61 per UNet evaluation, 30
-   per VAE decode, 22 per VAE encode; no K3-K5); prints UNet
+   the Hopper path, none on the kept kernel; K6: 61 per UNet evaluation,
+   all resident, 30 per VAE decode, 13 of them on the stream path, 22 per
+   VAE encode, 8 on the stream path; no K3-K5); prints UNet
    evaluations/s and end-to-end seconds.
 
 Training (the second slice):
@@ -156,7 +160,7 @@ from flexdiffuse_tpu_torch.tools import flash_tt3 as tool_tt3
 from flexdiffuse_tpu_torch.tools import flash_variants as tool_variants
 from flexdiffuse_tpu_torch.tools import reference as fp32_reference
 from flexdiffuse_tpu_torch.tools.perf_experiment import (
-    KERNELS, kernel_counts as counts, reset_counts)
+    kernel_counts as counts, reset_counts)
 from flexdiffuse_tpu_torch.training import train as train_mod
 
 SEED = 1337
@@ -171,6 +175,12 @@ TIMED_SHAPES = MAIN_SHAPES + [K2_SHAPE]
 # the mid attention, conv_norm_out), the encoder 22 (10 resnets × 2, the
 # mid attention, conv_norm_out).
 K6_PER_UNET, K6_PER_DECODE, K6_PER_ENCODE = 61, 30, 22
+# Of those, on K6's stream path as ``gn.plan_group_norm`` plans them (the
+# rest resident; every UNet GroupNorm at 512² is resident): the decoder's
+# at 256² and 512² (five (1,256,256,256), one (1,512,256,256), six
+# (1,128,512,512), one (1,256,512,512)), the encoder's (four
+# (1,128,512,512), one (1,128,256,256), three (1,256,256,256)).
+K6_STREAM_PER_DECODE, K6_STREAM_PER_ENCODE = 13, 8
 LAUNCHES_PER_UNET = 10   # 2 down + 3 up self-attentions at 4096 and 1024
 # One UNet evaluation through K1 against the same one with plain attention,
 # both bf16 end to end: max|Δε| / max|ε| must stay below this (bf16 rounding
@@ -196,13 +206,14 @@ LORA_STEPS, FULL_STEPS = 10, 4
 # carries the factors' gradient. Full fine-tuning trains the affine of
 # every GroupNorm, so none.
 def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
-                  k6: int = 0) -> dict:
+                  k6: int = 0, k6_stream: int = 0) -> dict:
     """The launch counts a main-path run must show (``kernel_counts``):
     every K1, K3, K4 and K5 launch on the Hopper path ('sm90'), none on the
-    kept mma.sync kernels."""
+    kept mma.sync kernels; K6's ``k6_stream`` on the stream path, the rest
+    resident."""
     return dict(k1=k1, k3=k3, k4=k4, k5=k5, k6=k6, k1_sm90=k1, k1_mma=0,
                 k3_sm90=k3, k3_mma=0, k4_sm90=k4, k4_mma=0, k5_sm90=k5,
-                k5_mma=0)
+                k5_mma=0, k6_resident=k6 - k6_stream, k6_stream=k6_stream)
 
 
 LAUNCHES_PER_STEP = {'lora': want_launches(k3=10, k4=10, k5=10, k6=3),
@@ -219,15 +230,19 @@ PEAK_EX2 = 16 * 132 * 1.98e9
 BF16, FP32 = torch.bfloat16, torch.float32
 # K6 check shapes (NCHW, silu, eps, in dtype, out dtype, timed), stored
 # channels-last as the models' activations are on the card: the UNet's
-# levels at 512² (CFG batch 2 and compose batch 4), the VAE's mid-block and
-# largest decoder activation, fp32 in and out, a ragged one (C/G = 3,
-# HW = 391). Groups: 32, as SD-1.4 everywhere.
+# levels at 512² (CFG batch 2, with its largest group and an 8² call, and
+# compose batch 4), the VAE's mid-block and largest decoder activations
+# (the stream path), fp32 in and out, a ragged one (C/G = 3, HW = 391).
+# Groups: 32, as SD-1.4 everywhere.
 GN_SHAPES = [((2, 320, 64, 64), True, 1e-5, BF16, BF16, True),
              ((2, 320, 64, 64), False, 1e-6, BF16, BF16, False),
+             ((2, 960, 64, 64), True, 1e-5, BF16, BF16, True),
+             ((2, 1280, 8, 8), True, 1e-5, BF16, BF16, True),
              ((2, 2560, 8, 8), True, 1e-5, BF16, BF16, False),
              ((4, 640, 64, 64), True, 1e-5, BF16, BF16, False),
              ((1, 512, 64, 64), False, 1e-6, BF16, BF16, False),
              ((1, 256, 512, 512), True, 1e-6, BF16, BF16, True),
+             ((1, 128, 512, 512), True, 1e-6, BF16, BF16, False),
              ((4, 320, 64, 64), True, 1e-5, FP32, FP32, False),
              ((3, 96, 17, 23), True, 1e-5, FP32, BF16, False)]
 # One VAE decode through K6 against the plain GroupNorm, both bf16:
@@ -286,18 +301,21 @@ def time_pair(new, old, graph: bool = True) -> tuple:
     return new_ms, (first_old + time_ms(old, graph=graph)) / 2
 
 
-def host_us(fn, calls: int = 200) -> float:
+def host_us(fn, calls: int = 200, reps: int = 3) -> float:
     """Host µs per call of ``fn``: ``calls`` calls enqueued back to back,
-    timed on the host clock before the final synchronise."""
+    timed on the host clock before the final synchronise; the median of
+    ``reps`` such runs (the host clock spreads more than the device's)."""
     for _ in range(5):
         fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    elapsed = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return elapsed / calls * 1e6
+    return statistics.median(times)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple:
@@ -393,18 +411,25 @@ def check_group_norm(shape, silu: bool, eps: float, din: torch.dtype,
     """K6 against the fp32 plain GroupNorm on the same inputs (x not
     centred and channels-last, the affine in x's dtype as the models hold
     it), by K1's rule; fp32 outputs within 1e-4·max|ref|; y channels-last
-    too. At the timed shapes, replayed from a CUDA graph: K6, the plain
-    version, ``F.group_norm`` alone and with ``F.silu`` (the library call
-    of K6's function); and the bound: one read of x and one write of y at
-    3.35 TB/s against ~10 fp32 operations per element at 67 TFLOP/s."""
+    too; exactly one launch, on the path ``gn.plan_group_norm`` picks. At
+    the timed shapes, replayed from a CUDA graph: K6, on a resident shape
+    also its stream path forced, the plain version, ``F.group_norm`` alone
+    and with ``F.silu`` (the library call of K6's function); the bound: one
+    read of x and one write of y at 3.35 TB/s against ~10 fp32 operations
+    per element at 67 TFLOP/s; and the host µs per K6 call."""
     x = (1.5 * torch.randn(shape, generator=gen, device='cuda') +
          0.7).to(din).contiguous(memory_format=torch.channels_last)
     w = (1.0 + 0.5 * torch.randn(shape[1], generator=gen,
                                  device='cuda')).to(din)
     b = (0.3 * torch.randn(shape[1], generator=gen, device='cuda')).to(din)
     args = (x, 32, w, b, eps, silu, dout)
+    how = gn.plan_group_norm(tuple(shape), 32, din, dout,
+                             x.data_ptr() % 16 == 0)
+    before = dict(gn.fused_group_norm.path_launches)
     y = gn.fused_group_norm(*args)
     torch.cuda.synchronize()
+    launched = {p: n - before[p]
+                for p, n in gn.fused_group_norm.path_launches.items()}
     ref = gn.plain_group_norm(x, 32, w, b, eps, silu, FP32)
     plain = gn.plain_group_norm(*args)
     err = (y.float() - ref).abs().max().item()
@@ -413,14 +438,22 @@ def check_group_norm(shape, silu: bool, eps: float, din: torch.dtype,
     tol = 1e-4 * max_ref if dout == FP32 else 2.0 * plain_err + \
         1e-3 * max_ref
     res = dict(shape=list(shape), silu=silu,
-               eps=eps, dtype=str(din), out_dtype=str(dout),
+               eps=eps, dtype=str(din), out_dtype=str(dout), path=how.path,
+               slab=how.slab, cluster=how.cluster, pixels=how.pixels,
+               smem=how.smem, blocks=how.grid[0] * how.grid[1],
                max_abs_err=err, plain_max_abs_err=plain_err,
                max_abs_ref=max_ref, tol=tol,
                ok=bool(err <= tol and torch.isfinite(y).all() and
-                       y.is_contiguous(memory_format=torch.channels_last)))
+                       y.is_contiguous(memory_format=torch.channels_last) and
+                       launched == {p: int(p == how.path)
+                                    for p in gn.PATHS}))
     del ref, plain
     if timed:
         res['ms'] = time_ms(lambda: gn.fused_group_norm(*args), graph=True)
+        if how.path == 'resident':
+            res['stream_ms'] = time_ms(lambda: gn.fused_group_norm(
+                *args, path='stream'), graph=True)
+        res['host_us'] = host_us(lambda: gn.fused_group_norm(*args))
         res['plain_ms'] = time_ms(lambda: gn.plain_group_norm(*args),
                                   graph=True)
         res['library_gn_ms'] = time_ms(
@@ -432,6 +465,17 @@ def check_group_norm(shape, silu: bool, eps: float, din: torch.dtype,
         res['bound_ms'], res['bound_by'] = bound(10.0 * x.numel(), nbytes,
                                                  PEAK_FP32)
     return res
+
+
+def gn_summary(r: dict) -> str:
+    other = (f', stream path forced {r["stream_ms"]:.4f}'
+             if 'stream_ms' in r else '')
+    return (f'{r["ms"]:.4f} ms on the {r["path"]} path (cluster '
+            f'{r["cluster"]}, {r["blocks"]} blocks{other}; plain '
+            f'{r["plain_ms"]:.4f}, F.group_norm+F.silu {r["library_ms"]:.4f}, '
+            f'bound {r["bound_ms"]:.5f} {r["bound_by"]}, '
+            f'{r["bound_ms"] / r["ms"]:.1%} of it); host {r["host_us"]:.1f} '
+            f'µs per call')
 
 
 def build_models(device: str, dtype: torch.dtype, seed: int):
@@ -1012,7 +1056,8 @@ def check_models(unet, vae, ctx, gen: torch.Generator) -> dict:
         raise AssertionError('VAE decode through K6 disagrees with the '
                              'plain path')
     want_unet = want_launches(k1=LAUNCHES_PER_UNET, k6=K6_PER_UNET)
-    want_vae = want_launches(k6=K6_PER_DECODE)
+    want_vae = want_launches(k6=K6_PER_DECODE,
+                             k6_stream=K6_STREAM_PER_DECODE)
     if unet_launches != want_unet or vae_launches != want_vae:
         raise AssertionError(f'model checks launched {unet_launches} and '
                              f'{vae_launches}')
@@ -1048,8 +1093,10 @@ def run_generate(label: str, call, probe: 'UNetProbe', latent_finite: list,
     if not all(bool(f) for f in probe.finite + latent_finite):
         raise AssertionError(f'{label}: non-finite ε or latents')
     want = want_launches(k1=LAUNCHES_PER_UNET * calls,
-                    k6=K6_PER_UNET * calls + K6_PER_DECODE * decodes +
-                    K6_PER_ENCODE * encodes)
+                         k6=K6_PER_UNET * calls + K6_PER_DECODE * decodes +
+                         K6_PER_ENCODE * encodes,
+                         k6_stream=K6_STREAM_PER_DECODE * decodes +
+                         K6_STREAM_PER_ENCODE * encodes)
     if got != want:
         raise AssertionError(f'{label}: launches {got}, expected {want} for '
                              f'{calls} UNet evaluations')
@@ -1159,13 +1206,13 @@ T_ENTRIES = [
 ]
 # Launches per UNet evaluation in the tools' A/B runs: the kernel in use
 # takes the 10 eligible self-attentions, K6 the 61 GroupNorms.
+K6_AB = dict(k6=K6_PER_UNET, k6_resident=K6_PER_UNET)
 AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k1_sm90=LAUNCHES_PER_UNET,
-                          k6=K6_PER_UNET),
+                          **K6_AB),
                'pipelined_attention': dict(
-                   pipelined_attention=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
-               'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET, k6=K6_PER_UNET),
-               'flash_ttv3': dict(flash_ttv3=LAUNCHES_PER_UNET,
-                                  k6=K6_PER_UNET)}
+                   pipelined_attention=LAUNCHES_PER_UNET, **K6_AB),
+               'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET, **K6_AB),
+               'flash_ttv3': dict(flash_ttv3=LAUNCHES_PER_UNET, **K6_AB)}
 # Shapes beyond MAIN_SHAPES that the tools give a configuration:
 # flash_tt's check_exact and micro (T4), flash_tt3's main (T5).
 T_EXTRA_SHAPES = [((8, 8, 4096, 40), ('T4', 'T5 ttv3', 'T5 ttv4',
@@ -1334,17 +1381,21 @@ def main() -> int:
     gn_res = [check_group_norm(*spec, gen) for spec in GN_SHAPES]
     for r in gn_res:
         print('K6', json.dumps(r))
+    for r in gn_res:
+        if 'ms' in r:
+            print(f'K6 {tuple(r["shape"])}: {gn_summary(r)}')
     bad = [r['shape'] for r in gn_res if not r['ok']]
     if bad:
-        raise AssertionError(f'K6 disagrees with the plain GroupNorm at '
-                             f'{bad}')
+        raise AssertionError(f'K6 disagrees with the plain GroupNorm (or '
+                             f'left its planned path) at {bad}')
 
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
     check_models(unet, vae, runner.encoder.prompt(['', PROMPT]), gen)
     runs = run_generate_phases(text, vision, unet, vae)
-    gen_launches = {k: sum(r['launches'][k] for r in runs) for k in KERNELS}
+    gen_launches = {k: sum(r['launches'][k] for r in runs)
+                    for k in runs[0]['launches']}
 
     # Training: the kernels, then the full-width step, then the loops.
     t0 = time.perf_counter()
@@ -1396,7 +1447,7 @@ def main() -> int:
             steps=FULL_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
             log_every=1, on_step=on_step), FULL_STEPS, 'full')
     launches = {k: gen_launches[k] + lora['launches'][k] +
-                full['launches'][k] for k in KERNELS}
+                full['launches'][k] for k in gen_launches}
     del unet32, ds
 
     # The flash-kernel experiment tools: T1–T6 against their twins, then
@@ -1450,6 +1501,8 @@ def main() -> int:
             ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
             bound_by=m['bound_by'], library_ms=m['library_ms'],
             **extra(m, [(r['shape'], r[key]) for r in train_res], key)))
+    # K6 also carries its launches by path, the host µs per call, and the
+    # times at every timed shape.
     gn_main = gn_res[0]
     kernels.append(dict(
         name='fused_group_norm', route='cuda',
@@ -1459,7 +1512,13 @@ def main() -> int:
         max_abs_err=max(r['max_abs_err'] for r in gn_res),
         ms=gn_main['ms'], plain_ms=gn_main['plain_ms'],
         bound_ms=gn_main['bound_ms'], bound_by=gn_main['bound_by'],
-        library_ms=gn_main['library_ms']))
+        library_ms=gn_main['library_ms'],
+        path_launches={p: launches[f'k6_{p}'] for p in gn.PATHS},
+        host_us=gn_main['host_us'],
+        by_shape=[dict(shape=r['shape'], path=r['path'], **{
+            key: r[key] for key in ('ms', 'stream_ms', 'plain_ms',
+                                    'library_ms', 'bound_ms', 'host_us')
+            if key in r}) for r in gn_res if 'ms' in r]))
     var_main = var_res[0]
     for entry, replaces, label, _ in T_ENTRIES:
         c = var_main['configs'][label]

@@ -43,12 +43,13 @@ CPU_STEPS = 2
 KERNELS = {'k1': fa.flash_attention, 'k3': fb.flash_attention_lse,
            'k4': fb.flash_attention_dq, 'k5': fb.flash_attention_dkv,
            'k6': gn.fused_group_norm}
-BY_PATH = ('k1', 'k3', 'k4', 'k5')
+BY_PATH = ('k1', 'k3', 'k4', 'k5', 'k6')
 
 
 def kernel_counts() -> dict:
-    """Launches so far of K1, K3–K5 and K6, by id, and of K1 and K3–K5 by
-    path (``k1_sm90``, ``k1_mma``, ``k3_sm90``, ..., ``k5_mma``)."""
+    """Launches so far of K1, K3–K5 and K6, by id, and by path
+    (``k1_sm90``, ``k1_mma``, ``k3_sm90``, ..., ``k5_mma``, ``k6_resident``,
+    ``k6_stream``)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     for name in BY_PATH:
         for path, n in KERNELS[name].path_launches.items():
@@ -61,7 +62,8 @@ def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     for name in BY_PATH:
-        KERNELS[name].path_launches = dict.fromkeys(fa.PATHS, 0)
+        KERNELS[name].path_launches = dict.fromkeys(
+            KERNELS[name].path_launches, 0)
     fv.reset_counts()
 
 

@@ -45,6 +45,7 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.tools.flash_pipelined',
     'flexdiffuse_tpu_torch.tools.flash_tt',
     'flexdiffuse_tpu_torch.tools.flash_tt3',
+    'flexdiffuse_tpu_torch.tools.gn_compare',
     'flexdiffuse_tpu_torch.composition',
     'flexdiffuse_tpu_torch.composition.embeds',
     'flexdiffuse_tpu_torch.composition.schema',

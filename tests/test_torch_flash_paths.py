@@ -129,7 +129,7 @@ def test_cpu_wrappers_count_no_launch_on_any_path():
     counts = perf_experiment.kernel_counts()
     assert counts == dict(k1=0, k3=0, k4=0, k5=0, k6=0, k1_sm90=0, k1_mma=0,
                           k3_sm90=0, k3_mma=0, k4_sm90=0, k4_mma=0,
-                          k5_sm90=0, k5_mma=0)
+                          k5_sm90=0, k5_mma=0, k6_resident=0, k6_stream=0)
 
 
 BWD_KINDS = ['dq', 'dkv']

@@ -4,9 +4,13 @@ kernel K6, held against the JAX package on the CPU.
 The JAX side is ``flexdiffuse_tpu/ops/group_norm.py``: its Pallas kernel in
 interpret mode (as the JAX package's own tests run it) and its XLA
 reference, on NHWC inputs; the port takes NCHW, so the inputs and outputs
-are transposed. The Hopper kernel itself needs the card; its tests are in
-``tests/test_torch_kernels_cuda.py``.
+are transposed. K6's plan (``plan_group_norm``), which decides in Python
+before the launch how the kernel runs, is tested here over every GroupNorm
+shape of the SD-1.4 UNet and VAE at 512². The Hopper kernel itself needs
+the card; its tests are in ``tests/test_torch_kernels_cuda.py``.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,3 +135,166 @@ def test_group_norm32_routes_to_autograd_under_requires_grad():
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     with torch.no_grad():
         assert norm(xt, torch.bfloat16).dtype == torch.bfloat16
+
+
+# K6's plan (chosen in Python before the launch, so it is tested here).
+H100_SMEM = 232448   # shared memory one block can use (227 KB)
+
+
+def _hooked_shapes(model, run):
+    """The input shape of every GroupNorm32 call ``run`` makes, in order."""
+    got = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: got.append(tuple(args[0].shape)))
+        for m in model.modules() if isinstance(m, GroupNorm32)]
+    with torch.no_grad():
+        run()
+    for h in hooks:
+        h.remove()
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _sd14_shapes(kind: str, batch: int):
+    """Every GroupNorm shape of one SD-1.4 UNet evaluation at 512² (UNet
+    batch ``batch``), VAE decode or encode at 512², from the port's models
+    on the meta device (no weights, no arithmetic)."""
+    from flexdiffuse_tpu_torch.models import (SD14_UNET, SD14_VAE,
+                                              AutoencoderKL, UNet2DCondition)
+    meta = lambda *shape: torch.empty(shape, device='meta')
+    with torch.device('meta'):
+        model = (UNet2DCondition(SD14_UNET) if kind == 'unet' else
+                 AutoencoderKL(SD14_VAE))
+    run = {'unet': lambda: model(meta(batch, 64, 64, 4), meta(batch),
+                                 meta(batch, 77, 768)),
+           'decode': lambda: model.decode(meta(batch, 64, 64, 4)),
+           'encode': lambda: model.encode(meta(batch, 512, 512, 3))}[kind]
+    return tuple(_hooked_shapes(model, run))
+
+
+def _check_plan(shape, groups, dtype, out_dtype=None, aligned=True):
+    """The plan's invariants: whole groups per slab, at most 227 KB of
+    shared memory per block and 16 blocks per cluster, every (batch,
+    group) and pixel covered exactly once, whole 16-byte vectors and at
+    least one whole 32-byte sector per pixel of a resident slab."""
+    out_dtype = dtype if out_dtype is None else out_dtype
+    how = gn.plan_group_norm(shape, groups, dtype, out_dtype, aligned)
+    b, c, h, w = shape
+    hw, cpg = h * w, c // groups
+    elem = torch.finfo(dtype).bits // 8
+    blocks, batch = how.grid
+    assert batch == b and groups % how.slab == 0
+    if how.path == 'resident':
+        sc = how.slab * cpg
+        assert how.vec == 1 and aligned and sc % (16 // elem) == 0
+        assert sc // (16 // elem) <= gn.THREADS
+        assert sc * elem >= gn.MIN_SEGMENT
+        assert how.pixels * sc * elem <= gn.TILE_BYTES
+        assert 1 <= how.cluster <= 16
+        assert how.cluster & (how.cluster - 1) == 0
+        assert how.smem == gn.resident_smem(how.pixels, sc, elem, how.slab,
+                                            how.cluster)
+        assert how.smem <= H100_SMEM
+        assert how.workspace == how.stats_pixels == 0
+        assert how.pixels == -(-hw // how.cluster)
+        # Cluster k owns groups [k·slab, (k+1)·slab) of every batch row.
+        assert blocks % how.cluster == 0
+        owned = [g for k in range(blocks // how.cluster)
+                 for g in range(k * how.slab, (k + 1) * how.slab)]
+        assert owned == list(range(groups))
+    else:
+        assert how.cluster == 1 and how.smem == 0 and how.slab == groups
+        assert (blocks - 1) * how.pixels < hw <= blocks * how.pixels
+        parts = -(-hw // how.stats_pixels)
+        assert (parts - 1) * how.stats_pixels < hw
+        assert how.workspace == 2 * b * groups * parts
+        assert how.vec == int(aligned and c % (16 // elem) == 0)
+    return how
+
+
+@pytest.mark.parametrize('batch', [2, 4])
+def test_plan_puts_every_unet_group_norm_resident(batch):
+    """All 61 GroupNorms of a 512² UNet evaluation, at CFG batch 2 and at
+    compose batch 4, plan 'resident' (one launch, x read once), in bf16
+    and in fp32."""
+    shapes = _sd14_shapes('unet', batch)
+    assert len(shapes) == 61
+    for shape in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert _check_plan(shape, 32, dtype).path == 'resident', shape
+
+
+@pytest.mark.parametrize('kind,calls,stream', [('decode', 30, 13),
+                                               ('encode', 22, 8)])
+def test_plan_splits_the_vae_between_the_paths(kind, calls, stream):
+    """The VAE at 512²: only the activations at 256² and 512², whose
+    slabs no cluster holds in two blocks per SM, take the stream path; the
+    numbers are the ones chip_smoke.py asserts on the card."""
+    import chip_smoke
+    shapes = _sd14_shapes(kind, 1)
+    assert len(shapes) == calls
+    paths = [_check_plan(s, 32, torch.bfloat16).path for s in shapes]
+    streamed = [s for s, p in zip(shapes, paths) if p == 'stream']
+    assert len(streamed) == stream
+    assert all(s[2] >= 256 for s in streamed)
+    assert all(s[2] <= 128 for s, p in zip(shapes, paths) if p == 'resident')
+    assert stream == {'decode': chip_smoke.K6_STREAM_PER_DECODE,
+                      'encode': chip_smoke.K6_STREAM_PER_ENCODE}[kind]
+
+
+PLAN_CASES = [
+    ((2, 320, 64, 64), 32, torch.bfloat16, torch.float32, True),
+    ((4, 320, 64, 64), 32, torch.float32, torch.float32, True),
+    ((3, 96, 17, 23), 32, torch.float32, torch.bfloat16, True),
+    ((1, 512, 192, 256), 32, torch.bfloat16, None, True),
+    ((1, 512, 193, 256), 32, torch.bfloat16, None, True),
+    ((1, 128, 512, 512), 32, torch.float16, None, True),
+    ((2, 60, 9, 11), 1, torch.bfloat16, None, True),
+    ((2, 60, 9, 11), 12, torch.bfloat16, None, True),
+    ((2, 60, 9, 11), 60, torch.bfloat16, None, True),
+    ((2, 64, 9, 11), 4, torch.bfloat16, None, False),
+    ((1, 6144, 2, 3), 1, torch.float32, None, True),
+    ((1, 32, 1, 1), 32, torch.bfloat16, None, True),
+]
+
+
+@pytest.mark.parametrize('shape,groups,dtype,out_dtype,aligned', PLAN_CASES)
+def test_plan_invariants(shape, groups, dtype, out_dtype, aligned):
+    """fp32, mixed output dtypes, the resident/stream boundary, C % 8 != 0,
+    a misaligned x, a slab wider than a block's threads, one pixel."""
+    _check_plan(shape, groups, dtype, out_dtype, aligned)
+
+
+def test_plan_paths_where_expected():
+    """Which path each kind of call takes: 16 blocks of 96 KB hold 49,152
+    pixels of a 32-byte slab; scalar loads (C % 8 != 0, misaligned),
+    slabs wider than 256 vectors and pixels of less than a sector
+    stream."""
+    path = lambda *a: gn.plan_group_norm(*a).path
+    bf16 = torch.bfloat16
+    assert path((1, 512, 192, 256), 32, bf16, bf16, True) == 'resident'
+    assert path((1, 512, 193, 256), 32, bf16, bf16, True) == 'stream'
+    assert path((1, 128, 256, 256), 32, bf16, bf16, True) == 'stream'
+    assert path((2, 60, 9, 11), 12, bf16, bf16, True) == 'stream'
+    assert path((2, 64, 9, 11), 4, bf16, bf16, False) == 'stream'
+    assert gn.plan_group_norm((2, 60, 9, 11), 12, bf16, bf16, True).vec == 0
+    assert path((1, 4096, 2, 2), 1, bf16, bf16, True) == 'stream'
+    assert path((3, 96, 17, 23), 32, torch.float32, bf16, True) == \
+        'resident'
+
+
+def test_plan_is_the_same_on_every_call():
+    """Cached per (shape, groups, dtypes, alignment): the same object
+    every call, and a forced path is planned on its own."""
+    args = ((2, 320, 64, 64), 32, torch.bfloat16, torch.bfloat16, True)
+    first = gn.plan_group_norm(*args)
+    assert gn.plan_group_norm(*args) is first
+    assert gn.plan_group_norm(*args, 'resident') == first
+    forced = gn.plan_group_norm(*args, 'stream')
+    assert forced.path == 'stream'
+    assert gn.plan_group_norm(*args, 'stream') is forced
+    with pytest.raises(ValueError):
+        gn.plan_group_norm((2, 60, 9, 11), 12, torch.bfloat16,
+                           torch.bfloat16, True, 'resident')
+    with pytest.raises(ValueError):
+        gn.plan_group_norm(*args, 'plain')

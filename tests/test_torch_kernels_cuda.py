@@ -6,6 +6,8 @@ Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -524,25 +526,38 @@ def test_dispatcher_gradients_reach_the_kernels(shape, cuda_gen):
 
 # chip_smoke.py's K6 shapes: (NCHW shape, silu, eps, in dtype, out dtype),
 # channels-last in memory. The UNet's levels at 512² (CFG batch 2, compose
-# batch 4), the VAE's mid-block and its largest decoder activation, fp32 in
+# batch 4; its largest group (2,960,64,64) and the 8² calls), the VAE's
+# mid-block and its largest decoder activations (the stream path), fp32 in
 # and out, and a ragged one (C/G = 3, HW = 391).
 GN_SHAPES = [((2, 320, 64, 64), True, 1e-5, torch.bfloat16, torch.bfloat16),
              ((2, 320, 64, 64), False, 1e-6, torch.bfloat16, torch.bfloat16),
              ((2, 2560, 8, 8), True, 1e-5, torch.bfloat16, torch.bfloat16),
+             ((2, 1280, 8, 8), True, 1e-5, torch.bfloat16, torch.bfloat16),
+             ((2, 960, 64, 64), True, 1e-5, torch.bfloat16, torch.bfloat16),
              ((4, 640, 64, 64), True, 1e-5, torch.bfloat16, torch.bfloat16),
              ((1, 512, 64, 64), False, 1e-6, torch.bfloat16, torch.bfloat16),
              ((1, 256, 512, 512), True, 1e-6, torch.bfloat16,
               torch.bfloat16),
+             ((1, 128, 512, 512), True, 1e-6, torch.bfloat16,
+              torch.bfloat16),
              ((4, 320, 64, 64), True, 1e-5, torch.float32, torch.float32),
              ((3, 96, 17, 23), True, 1e-5, torch.float32, torch.bfloat16)]
+# The last resident slab and the first that no cluster holds (bf16, 16
+# channels of 32 bytes per group: 16 blocks of 96 KB hold 49,152 pixels).
+GN_BOUNDARY = [((1, 512, 192, 256), 'resident'),
+               ((1, 512, 193, 256), 'stream')]
 
 
-def _gn_inputs(shape, dtype, gen):
+def _gn_inputs(shape, dtype, gen, offset=0):
     """x not centred (so the statistics matter) and channels-last, as the
-    models' activations are on the card; the affine in x's dtype as the
-    models hold it."""
+    models' activations are on the card (``offset`` elements into its
+    storage: a misaligned view); the affine in x's dtype as the models hold
+    it."""
     x = (1.5 * torch.randn(shape, generator=gen, device='cuda') +
          0.7).to(dtype).contiguous(memory_format=torch.channels_last)
+    if offset:
+        base = torch.empty(x.numel() + offset, dtype=dtype, device='cuda')
+        x = base[offset:].as_strided(x.shape, x.stride()).copy_(x)
     w = (1.0 + 0.5 * torch.randn(shape[1], generator=gen,
                                  device='cuda')).to(dtype)
     b = (0.3 * torch.randn(shape[1], generator=gen, device='cuda')).to(dtype)
@@ -563,44 +578,111 @@ def gn_rule(got, ref, plain, out_dtype):
         assert err <= 2 * plain_err + 1e-3 * top, (err, plain_err)
 
 
+def _gn_check(x, groups, w, b, eps, silu, dout, path=None):
+    """One K6 call (on ``path``, or the planned one) held to the rule, with
+    exactly one launch counted, on that path; y channels-last, as x."""
+    want = path or gn.plan_group_norm(tuple(x.shape), groups, x.dtype, dout,
+                                      x.data_ptr() % 16 == 0).path
+    before = dict(gn.fused_group_norm.path_launches)
+    y = gn.fused_group_norm(x, groups, w, b, eps, silu, dout, path=path)
+    torch.cuda.synchronize()
+    before[want] += 1
+    assert gn.fused_group_norm.path_launches == before
+    assert y.dtype == dout and y.shape == x.shape
+    assert y.stride() == x.stride()
+    ref = gn.plain_group_norm(x, groups, w, b, eps, silu, torch.float32)
+    gn_rule(y, ref, gn.plain_group_norm(x, groups, w, b, eps, silu, dout),
+            dout)
+    return y
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape,silu,eps,din,dout', GN_SHAPES)
 def test_group_norm_kernel_matches_plain(shape, silu, eps, din, dout,
                                          cuda_gen):
-    """K6 within K1's rule of the fp32 plain version; y channels-last, as
-    x."""
+    """K6 on its planned path within K1's rule of the fp32 plain version;
+    one launch, counted on that path; y channels-last, as x."""
     x, w, b = _gn_inputs(shape, din, cuda_gen)
     before = gn.fused_group_norm.launches
-    y = gn.fused_group_norm(x, 32, w, b, eps, silu, dout)
-    torch.cuda.synchronize()
+    _gn_check(x, 32, w, b, eps, silu, dout)
     assert gn.fused_group_norm.launches == before + 1
-    assert y.dtype == dout and y.shape == x.shape
-    assert y.stride() == x.stride()
-    ref = gn.plain_group_norm(x, 32, w, b, eps, silu, torch.float32)
-    gn_rule(y, ref, gn.plain_group_norm(x, 32, w, b, eps, silu, dout), dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(2, 320, 64, 64), (2, 960, 64, 64),
+                                   (2, 1280, 8, 8), (2, 2560, 8, 8),
+                                   (1, 512, 64, 64), (3, 96, 17, 23)])
+@pytest.mark.parametrize('path', gn.PATHS)
+def test_group_norm_both_paths_match_plain(shape, path, cuda_gen):
+    """The resident and the stream path, forced, at shapes both take."""
+    x, w, b = _gn_inputs(shape, torch.bfloat16, cuda_gen)
+    _gn_check(x, 32, w, b, 1e-5, True, torch.bfloat16, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,path', GN_BOUNDARY)
+def test_group_norm_plan_boundary_matches_plain(shape, path, cuda_gen):
+    """Each side of the resident/stream boundary, on its planned path."""
+    x, w, b = _gn_inputs(shape, torch.bfloat16, cuda_gen)
+    assert gn.plan_group_norm(shape, 32, x.dtype, x.dtype, True).path == path
+    _gn_check(x, 32, w, b, 1e-6, True, torch.bfloat16)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('groups', [1, 12, 60])
 def test_group_norm_kernel_odd_channels(groups, cuda_gen):
-    """C = 60 (C % 8 != 0: the scalar stats pass, scalar loads everywhere),
-    HW = 99, 1 to 60 channels per group."""
+    """C = 60 (C % 8 != 0: the stream path with scalar loads), HW = 99, 1
+    to 60 channels per group; and a misaligned x (2 bytes into its
+    storage) at C = 64, scalar loads too."""
     x, w, b = _gn_inputs((2, 60, 9, 11), torch.bfloat16, cuda_gen)
-    y = gn.fused_group_norm(x, groups, w, b, 1e-5, True)
-    assert y.stride() == x.stride()
-    ref = gn.plain_group_norm(x, groups, w, b, 1e-5, True, torch.float32)
-    gn_rule(y, ref, gn.plain_group_norm(x, groups, w, b, 1e-5, True),
-            torch.bfloat16)
+    _gn_check(x, groups, w, b, 1e-5, True, torch.bfloat16)
+    x, w, b = _gn_inputs((2, 64, 9, 11), torch.bfloat16, cuda_gen, offset=1)
+    assert gn.plan_group_norm(tuple(x.shape), 4, x.dtype, x.dtype,
+                              False).vec == 0
+    _gn_check(x, 4, w, b, 1e-5, True, torch.bfloat16)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(2, 320, 64, 64), (1, 256, 512, 512),
-                                   (3, 96, 17, 23)])
-def test_group_norm_kernel_is_deterministic(shape, cuda_gen):
-    """No atomics, a fixed merge order: two runs are bit-identical."""
+@pytest.mark.parametrize('shape,path', [
+    ((2, 320, 64, 64), None), ((2, 320, 64, 64), 'stream'),
+    ((1, 256, 512, 512), None), ((3, 96, 17, 23), None),
+    ((3, 96, 17, 23), 'stream')])
+def test_group_norm_kernel_is_deterministic(shape, path, cuda_gen):
+    """No atomics, a fixed merge order: two runs are bit-identical, on
+    both paths."""
     x, w, b = _gn_inputs(shape, torch.bfloat16, cuda_gen)
-    first = gn.fused_group_norm(x, 32, w, b, 1e-6, True)
-    assert torch.equal(first, gn.fused_group_norm(x, 32, w, b, 1e-6, True))
+    first = gn.fused_group_norm(x, 32, w, b, 1e-6, True, path=path)
+    assert torch.equal(first, gn.fused_group_norm(x, 32, w, b, 1e-6, True,
+                                                  path=path))
+
+
+@pytest.mark.cuda
+def test_group_norm_refused_launch_raises_without_fallback(cuda_gen):
+    """A plan the CUDA runtime refuses (a cluster of 32 blocks; a 1 MB tile
+    in one block) raises, counts no launch and writes nothing: no other
+    path runs."""
+    shape = (1, 512, 128, 128)
+    x, w, b = _gn_inputs(shape, torch.bfloat16, cuda_gen)
+    how = gn.plan_group_norm(shape, 32, x.dtype, x.dtype, True)
+    assert how.path == 'resident'
+    sc, hw = how.slab * 16, 128 * 128
+    too_wide = dataclasses.replace(
+        how, cluster=32, pixels=hw // 32,
+        smem=gn.resident_smem(hw // 32, sc, 2, how.slab, 32),
+        grid=(32 * 32 // how.slab, 1))
+    too_deep = dataclasses.replace(
+        how, cluster=1, pixels=hw,
+        smem=gn.resident_smem(hw, sc, 2, how.slab, 1),
+        grid=(32 // how.slab, 1))
+    before = dict(gn.fused_group_norm.path_launches)
+    for bad in (too_wide, too_deep):
+        y = torch.zeros_like(x)
+        with pytest.raises(RuntimeError):
+            gn.launch(x, 32, w, b, y, 1e-5, True, bad)
+        torch.cuda.synchronize()
+        assert not y.any()
+    assert gn.fused_group_norm.path_launches == before
+    _gn_check(x, 32, w, b, 1e-5, True, torch.bfloat16)   # still launches
 
 
 @pytest.mark.cuda
