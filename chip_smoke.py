@@ -87,11 +87,33 @@ Training (the second slice):
     bf16 autocast, remat 'full') on an fp32 copy: finite losses and exactly
     the kernel launches the path implies (LAUNCHES_PER_STEP; every K3, K4
     and K5 on the Hopper path); prints the median ms per step, images/s and
-    peak device memory.
+    peak device memory. (Step 12 runs between the two.)
+
+Loading from disk (the eighth slice):
+
+12. Writes the seeded random SD-1.4 and CLIP ViT-L/14 weights as an
+    HF-layout snapshot into a temporary directory, removed after (fp16
+    safetensors: ``unet/``, ``vae/``, CLIP's ``model.safetensors``; a
+    character-level ``vocab.json``/``merges.txt`` padded to the 49408-row
+    embedding; about 2.6 GiB, the free space checked first). Builds
+    ``Runner(model_root=...)`` on its defaults (the card, bf16) and asserts
+    that every loaded tensor equals the written one, that the native BPE
+    is in use and that the long prompt takes three windows. Merges a rank-8
+    kohya LoRA from seeded factors (``apply_lora``; one merged weight is
+    checked against the stored value plus the update, rounded once), then
+    runs ``gen`` at 512² (PNDM, 25 steps, CFG 8, guide image); loads a
+    textual inversion and runs it again with its token; then once with
+    ``long_prompt=True`` and once with ``weighted=True``: step 7's
+    checks and launches for each. Then ``train_full`` for 2 steps (batch 4,
+    remat 'full') on the snapshot's UNet loaded in fp32, with
+    ``save_path=``, the launches of LAUNCHES_PER_STEP, and the saved file
+    reloaded by ``load_unet_msgpack`` equal to the trained tensors. Prints
+    the seconds to write, to load and to move to the card, the host RSS
+    (current and peak) and the peak device memory while loading.
 
 The flash-kernel experiment tools (the fourth slice):
 
-12. Holds every configuration of the attention variants T1–T6
+13. Holds every configuration of the attention variants T1–T6
     (``csrc/flash_variants.cu``: T1 v0/vU/vG2/vG4, T2, T3, T4, T5
     ttv3/ttv4/no-fold, T6 v0/v1/v2) against its twin by step 3's rule at
     every shape the tools give it: the two main shapes, and (8,8,4096,40)
@@ -100,21 +122,21 @@ The flash-kernel experiment tools (the fourth slice):
     (contiguous ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the
     transposed views, which takes its slow path) and K1's times from this
     run, and the bound.
-13. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
+14. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
     would: ``flash_variants``, ``flash_opt``, ``flash_pipelined`` (with its
     UNet A/B, K1 against T3), ``flash_tt`` (exactness at four shapes, K1
     against T4, the UNet A/B), ``flash_tt3`` (its main and ``step_ab``, K1
     against ttv3 and ttv4). Asserts finite exactness errors (the scripts
-    print OK or FAIL by their own 0.04; step 12 holds the kernels to
+    print OK or FAIL by their own 0.04; step 13 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
     launches of the kernel in use, none of the other, and 61 of K6.
-14. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
+15. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
     kernel's time, the host µs per call, the times by shape and fp32's),
     then, only if every phase passed, ``{"ok": true, "device": {...}}`` as
     the last line.
 
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6, 11 and 13) and read just after; launches made to check a kernel
+(steps 6, 11, 12 and 14) and read just after; launches made to check a kernel
 against its plain twin do not count. Any failed phase raises, so the script
 exits non-zero; without CUDA it exits non-zero at once and prints no
 result.
@@ -126,6 +148,8 @@ import collections
 import copy
 import json
 import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -146,6 +170,7 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           UNet2DCondition)
 from flexdiffuse_tpu_torch.models.unet import CrossAttention
 from flexdiffuse_tpu_torch import training
+from flexdiffuse_tpu_torch.config import RunConfig
 from flexdiffuse_tpu_torch.ops import attention as attn_mod
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
@@ -162,6 +187,10 @@ from flexdiffuse_tpu_torch.tools import reference as fp32_reference
 from flexdiffuse_tpu_torch.tools.perf_experiment import (
     kernel_counts as counts, reset_counts)
 from flexdiffuse_tpu_torch.training import train as train_mod
+from flexdiffuse_tpu_torch.weights import convert as weights_convert
+from flexdiffuse_tpu_torch.weights import load as weights_load
+from flexdiffuse_tpu_torch.weights import lora as weights_lora
+from flexdiffuse_tpu_torch.weights import safetensors as weights_safetensors
 
 SEED = 1337
 PROMPT = 'Deer colorful, fantasy, intricate, highly detailed'
@@ -1325,6 +1354,254 @@ def run_tools(gen: torch.Generator) -> dict:
     return res
 
 
+# The loading phase: a full-width HF-layout snapshot of the seeded random
+# weights, written to a temporary directory and loaded through
+# ``Runner(model_root=...)`` on its defaults (the card, bf16).
+SNAPSHOT_DTYPE = torch.float16
+BPE_CHARS = 'abcdefghijklmnopqrstuvwxyz0123456789{}!?.,'
+LORA_RANK, TI_TOKEN = 8, '<deer-style>'
+LONG_PROMPT = ' '.join([PROMPT] * 4)        # ~180 tokens: three windows
+WEIGHTED_PROMPT = ('(deer:1.3) colorful, [fantasy], intricate BREAK '
+                   '((highly detailed))')
+DISK_TRAIN_STEPS = 2
+
+
+def write_bpe_files(dst: str, vocab_size: int) -> None:
+    """A character-level ``vocab.json``/``merges.txt`` padded with unused
+    entries to ``vocab_size`` ids, BOS and EOS last (as CLIP's are), so
+    the tokenizer's id space matches the 49408-row embedding."""
+    vocab = {}
+    for c in BPE_CHARS:
+        vocab[c] = len(vocab)
+        vocab[c + '</w>'] = len(vocab)
+    while len(vocab) < vocab_size - 2:
+        vocab[f'<unused{len(vocab)}>'] = len(vocab)
+    vocab['<|startoftext|>'] = len(vocab)
+    vocab['<|endoftext|>'] = len(vocab)
+    with open(os.path.join(dst, 'vocab.json'), 'w') as f:
+        json.dump(vocab, f)
+    with open(os.path.join(dst, 'merges.txt'), 'w') as f:
+        f.write('#version: 0.2\n')
+
+
+def write_snapshot(root: str, text, vision, unet, vae) -> dict:
+    """The models' weights as an HF-layout snapshot under ``root`` (fp16
+    safetensors: ``unet/``, ``vae/`` and CLIP's ``model.safetensors``, one
+    file for both towers), after checking the free space."""
+    cfg = RunConfig()
+    sd_dir, clip_dir = weights_load.snapshot_dirs(root, cfg.sd_model,
+                                                  cfg.clip_model)
+    files = {os.path.join(sd_dir, 'unet',
+                          'diffusion_pytorch_model.safetensors'):
+             unet.state_dict(),
+             os.path.join(sd_dir, 'vae',
+                          'diffusion_pytorch_model.safetensors'):
+             vae.state_dict(),
+             os.path.join(clip_dir, 'model.safetensors'):
+             {**text.state_dict(), **vision.state_dict()}}
+    snapshot = sum(t.numel() * 2 for sd in files.values()
+                   for t in sd.values())
+    save = sum(p.numel() * 4 for p in unet.parameters())   # the fp32 save
+    need = snapshot + save
+    free = shutil.disk_usage(root).free
+    print(f'snapshot: {snapshot / 2**30:.2f} GiB, then the fp32 UNet save '
+          f'{save / 2**30:.2f} GiB, under {root}; {free / 2**30:.1f} GiB '
+          'free')
+    if free < 1.1 * need:
+        raise RuntimeError(f'not enough free space under {root}: '
+                           f'{free / 2**30:.1f} GiB for '
+                           f'{1.1 * need / 2**30:.1f}')
+    t0 = time.perf_counter()
+    for path, sd in files.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        weights_safetensors.save_file(
+            {k: v.to(SNAPSHOT_DTYPE) for k, v in sd.items()}, path)
+    write_bpe_files(clip_dir, CLIP_VIT_L14_TEXT.vocab_size)
+    return dict(sd_dir=sd_dir, clip_dir=clip_dir, bytes=snapshot,
+                write_s=time.perf_counter() - t0)
+
+
+def rss_gib() -> tuple:
+    """(current, peak) host RSS of this process in GiB (``VmRSS``, and
+    ``ru_maxrss`` in KiB)."""
+    with open('/proc/self/status') as f:
+        cur = next(int(line.split()[1]) for line in f
+                   if line.startswith('VmRSS:'))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return cur / 2**20, peak / 2**20
+
+
+def load_runner(root: str) -> tuple:
+    """``Runner(model_root=root)`` on its defaults, timing the part spent
+    filling the modules on the card (``weights.load.instantiate``)."""
+    spent = []
+    real = weights_load.instantiate
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    weights_load.instantiate = timed
+    try:
+        t0 = time.perf_counter()
+        runner = Runner(model_root=root)
+        total = time.perf_counter() - t0
+    finally:
+        weights_load.instantiate = real
+    return runner, dict(load_s=total - sum(spent), to_card_s=sum(spent),
+                        runner_s=total, peak_device_gib=(
+                            torch.cuda.max_memory_allocated() / 2**30))
+
+
+def check_loaded(runner, text, vision, unet, vae) -> None:
+    """Every loaded tensor equals the written one (the source's, rounded
+    to the snapshot's fp16, then to the Runner's bf16)."""
+    pairs = ((runner.encoder.text_model, text),
+             (runner.encoder.vision_model, vision),
+             (runner.pipe.unet, unet), (runner.pipe.vae, vae))
+    for loaded, src in pairs:
+        want = src.state_dict()
+        got = loaded.state_dict()
+        if sorted(got) != sorted(want):
+            raise AssertionError(f'{type(src).__name__}: loaded keys differ')
+        for k, v in got.items():
+            w = want[k].to(SNAPSHOT_DTYPE).to(v.dtype)
+            if v.device.type != 'cuda' or not torch.equal(v, w):
+                raise AssertionError(f'{type(src).__name__}.{k}: the loaded '
+                                     'tensor differs from the written one')
+
+
+def write_lora(path: str, unet, text, seed: int) -> str:
+    """A rank-8 kohya adapter from seeded factors on every attention
+    projection of the UNet and the text encoder; returns one adapted
+    module's name."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    names = [(n, m) for n, m in unet.named_modules()
+             if n.endswith(('attn1.to_q', 'attn1.to_k', 'attn1.to_v',
+                            'attn1.to_out.0', 'attn2.to_q', 'attn2.to_k',
+                            'attn2.to_v', 'attn2.to_out.0'))]
+    te = [(n, m) for n, m in text.named_modules()
+          if n.endswith(('q_proj', 'k_proj', 'v_proj', 'out_proj'))]
+    for prefix, mods in (('lora_unet_', names), ('lora_te_', te)):
+        for n, m in mods:
+            key = prefix + n.replace('.', '_')
+            out[f'{key}.lora_down.weight'] = 0.02 * torch.randn(
+                (LORA_RANK, m.in_features), generator=gen)
+            out[f'{key}.lora_up.weight'] = 0.02 * torch.randn(
+                (m.out_features, LORA_RANK), generator=gen)
+            out[f'{key}.alpha'] = torch.tensor(float(LORA_RANK))
+    weights_safetensors.save_file(out, path)
+    return names[0][0]
+
+
+def check_lora_merge(runner, path: str, name: str, stored) -> None:
+    """The merged bf16 weight of ``name`` is the snapshot's stored value
+    plus the update, in fp32, rounded once."""
+    (down, up, a), = [v for (t, n), v in weights_lora.parse_lora(
+        weights_load.load_state_dict(path))[0].items() if n == name]
+    delta = torch.from_numpy((a * (up.astype(np.float64) @
+                                   down.astype(np.float64))
+                              ).astype(np.float32))
+    got = dict(runner.pipe.unet.named_modules())[name].weight
+    want = (stored.float() + delta).to(got.dtype)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f'LoRA merge of {name} is not the stored weight '
+                             'plus the update rounded once')
+
+
+def run_disk_phases(text, vision, unet, vae, ds, root: str) -> dict:
+    """The loading phase (module docstring, step 12): snapshot, Runner on
+    its defaults, LoRA, textual inversion, long and weighted prompts, then
+    full fine-tuning of the snapshot's UNet with a save and its reload."""
+    snap = write_snapshot(root, text, vision, unet, vae)
+    runner, timing = load_runner(root)
+    cur, peak = rss_gib()
+    load_res = dict(snapshot_gib=snap['bytes'] / 2**30, write_s=snap['write_s'],
+                    **timing, host_rss_gib=cur, peak_host_rss_gib=peak)
+    print(f'loading: {json.dumps(load_res)}')
+    check_loaded(runner, text, vision, unet, vae)
+    if runner.encoder.tokenizer._native is None:
+        raise AssertionError('the native BPE is not in use')
+    dtypes = {p.dtype for p in runner.pipe.unet.parameters()}
+    if dtypes != {torch.bfloat16} or runner.pipe.device.type != 'cuda':
+        raise AssertionError(f'Runner defaults: {dtypes} on '
+                             f'{runner.pipe.device}')
+    enc = runner.encoder
+    windows = enc.prompt_chunked(LONG_PROMPT).shape[1] // 77
+    if windows != 3:
+        raise AssertionError(f'the long prompt takes {windows} windows')
+
+    lora_path = os.path.join(root, 'style.safetensors')
+    name = write_lora(lora_path, unet, text, SEED)
+    stored = weights_convert.normalize(weights_load.load_state_dict(
+        os.path.join(snap['sd_dir'], 'unet')), 'unet')[f'{name}.weight']
+    runner.apply_lora(lora_path, scale=1.0)
+    check_lora_merge(runner, lora_path, name, stored)
+    ti_path = os.path.join(root, 'concept.safetensors')
+    weights_safetensors.save_file({'emb_params': 0.01 * torch.randn(
+        (2, CLIP_VIT_L14_TEXT.hidden_size),
+        generator=torch.Generator().manual_seed(SEED))}, ti_path)
+
+    probe = UNetProbe(runner.pipe.unet)
+    latent_finite = []
+    hook = runner.pipe.vae.post_quant_conv.register_forward_pre_hook(
+        lambda m, args: latent_finite.append(torch.isfinite(args[0]).all()))
+    common = dict(guide=synthetic_image(512, SEED), steps=25,
+                  guidance_scale=8, samples=1, seed=SEED, save=False)
+    runs = [run_generate('disk: lora', lambda: runner.gen(
+        prompt=PROMPT, **common), probe, latent_finite, 1, 0, 1)]
+    runner.load_textual_inversion(ti_path, token=TI_TOKEN)
+    runs += [run_generate(label, call, probe, latent_finite, 1, 0, 1)
+             for label, call in (
+                 ('disk: textual inversion', lambda: runner.gen(
+                     prompt=f'{PROMPT}, {TI_TOKEN}', **common)),
+                 ('disk: long prompt', lambda: runner.gen(
+                     prompt=LONG_PROMPT, long_prompt=True, **common)),
+                 ('disk: weighted', lambda: runner.gen(
+                     prompt=WEIGHTED_PROMPT, weighted=True, **common)))]
+    hook.remove()
+    probe.remove()
+    del runner, probe
+
+    unet_sd, _ = weights_load.load_sd(snap['sd_dir'])
+    unet32 = weights_load.instantiate(UNet2DCondition, SD14_UNET, unet_sd,
+                                      'cuda', torch.float32)
+    unet32.requires_grad_(True)
+    save_path = os.path.join(root, 'unet_full.msgpack')
+    trained = {}
+
+    def train(on_step):
+        params, losses = training.train_full(
+            unet32, ds, training.TrainConfig(learning_rate=1e-5,
+                                             remat='full'),
+            steps=DISK_TRAIN_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
+            log_every=1, on_step=on_step, save_path=save_path)
+        trained.update(params)
+        return params, losses
+
+    full = run_training('disk: train_full', train, DISK_TRAIN_STEPS, 'full')
+    t0 = time.perf_counter()
+    reloaded = weights_load.load_unet_msgpack(save_path, SD14_UNET)
+    reload_s = time.perf_counter() - t0
+    if sorted(reloaded) != sorted(unet32.state_dict()):
+        raise AssertionError('the saved UNet has other keys')
+    for k, v in trained.items():
+        if not torch.equal(reloaded[k], v.detach().cpu()):
+            raise AssertionError(f'the saved UNet differs at {k}')
+    print(f'disk: train_full save {os.path.getsize(save_path) / 2**30:.2f} '
+          f'GiB, reloaded and equal in {reload_s:.1f} s')
+    load_res.update(reload_s=reload_s)
+    launches = {k: sum(r['launches'][k] for r in runs) + full['launches'][k]
+                for k in full['launches']}
+    return dict(load=load_res, runs=runs, full=full, launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -1436,6 +1713,15 @@ def main() -> int:
                                            remat='none'),
             rank=8, steps=LORA_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
             log_every=1, on_step=on_step), LORA_STEPS, 'lora')
+
+    # Loading from disk: a snapshot of these weights, removed after.
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='flexdiffuse_snapshot_')
+    try:
+        disk = run_disk_phases(text, vision, unet, vae, ds, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'loading phase: {time.perf_counter() - t0:.1f} s')
     del text, vision, runner
     torch.manual_seed(SEED)
     with torch.device('cuda'):
@@ -1447,7 +1733,8 @@ def main() -> int:
             steps=FULL_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
             log_every=1, on_step=on_step), FULL_STEPS, 'full')
     launches = {k: gen_launches[k] + lora['launches'][k] +
-                full['launches'][k] for k in gen_launches}
+                full['launches'][k] + disk['launches'][k]
+                for k in gen_launches}
     del unet32, ds
 
     # The flash-kernel experiment tools: T1–T6 against their twins, then

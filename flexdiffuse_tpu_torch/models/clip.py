@@ -7,7 +7,8 @@ Parameter names are the HF ``transformers`` CLIP names that
 ``visual_projection``), so an HF checkpoint loads by a plain
 ``load_state_dict``.
 
-* The text tower returns the final-LN last hidden state ``[B, 77, D]``.
+* The text tower returns the final-LN last hidden state ``[B, 77, D]``, or
+  the penultimate one through the final LN (``clip_skip``).
 * The vision tower returns all ``1 + P`` tokens after ``post_layernorm``
   and ``visual_projection`` (the reference's all-patch path,
   ``clip.py:174``), taking NHWC pixels like the JAX tower.
@@ -95,9 +96,10 @@ class CLIPEncoder(nn.Module):
             CLIPEncoderLayer(hidden_size, num_heads, intermediate_size,
                              activation) for _ in range(num_layers))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-        for layer in self.layers:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                skip: int = 0) -> torch.Tensor:
+        """All layers, or all but the last ``skip``."""
+        for layer in self.layers[:len(self.layers) - skip]:
             x = layer(x, mask)
         return x
 
@@ -121,8 +123,7 @@ class _TextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """Text tower: ``input_ids [B, T] -> [B, T, D]`` (final-LN last hidden
-    state, reference encode/clip.py:64-65)."""
+    """Text tower: ``input_ids [B, T] -> [B, T, D]``."""
 
     def __init__(self, config: CLIPTextConfig) -> None:
         super().__init__()
@@ -133,7 +134,15 @@ class CLIPTextModel(nn.Module):
         self.config = config
         self.text_model = _TextTransformer(config)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                output: str = 'final') -> torch.Tensor:
+        """``output``: 'final' → the final-LN last hidden state (the SD-1.x
+        path, reference encode/clip.py:64-65); 'penultimate_norm' → the
+        hidden state one layer before the end through ``final_layer_norm``
+        (the diffusers/A1111 ``clip_skip`` convention; the last layer is not
+        run)."""
+        if output not in ('final', 'penultimate_norm'):
+            raise ValueError(f'unknown output {output!r}')
         tm = self.text_model
         t = input_ids.shape[1]
         emb = tm.embeddings
@@ -141,7 +150,7 @@ class CLIPTextModel(nn.Module):
         causal = torch.triu(
             torch.full((t, t), torch.finfo(torch.float32).min,
                        device=x.device), diagonal=1)
-        x = tm.encoder(x, causal)
+        x = tm.encoder(x, causal, skip=int(output == 'penultimate_norm'))
         return tm.final_layer_norm(x)
 
 

@@ -1,15 +1,21 @@
 """Runner — guided generation and regional composition end to end (port of
-``flexdiffuse_tpu/runner.py``: ``Runner.from_models``, ``Runner.gen`` and
-``Runner.compose``).
+``flexdiffuse_tpu/runner.py``: ``Runner(model_root=...)``,
+``Runner.from_models``, ``Runner.gen``, ``Runner.compose``,
+``Runner.apply_lora`` and ``Runner.load_textual_inversion``).
+
+``Runner(model_root=...)`` loads SD-1.x and CLIP ViT-L/14 HF snapshots from
+disk (``weights/load.py``) onto the card by default (``device='cpu'`` for
+the CPU); ``from_models`` takes modules that already hold their weights.
 
 ``gen`` takes the reference's Sandbox parameters: the prompt, an optional
 guide image or text with the ``guide_*`` tween parameters and mapping
 concepts, an optional init image (img2img) with its strength and an
 inpainting ``mask``, steps, CFG scale, samples, seed, ``debug`` (every
-step's image), negative prompt and saving. The JAX Runner's other keywords
-raise ``NotImplementedError`` naming the ROADMAP step that ports them.
-``compose`` is the reference's second UI tab: a background prompt and
-rectangular entities, each with its prompt and blend.
+step's image), negative prompt and saving, and the JAX Runner's
+``long_prompt`` (75-token windows) and ``weighted`` (A1111 emphasis). Its
+other keywords raise ``NotImplementedError`` naming the ROADMAP step that
+ports them. ``compose`` is the reference's second UI tab: a background
+prompt and rectangular entities, each with its prompt and blend.
 
 Seeds are clamped as in the JAX Runner and seed a ``torch.Generator`` on the
 UNet's device; it draws every batch's noise in turn. A torch generator and a
@@ -18,6 +24,7 @@ differ (the tests hand both the same noise instead).
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -33,16 +40,26 @@ from flexdiffuse_tpu_torch.config import (MAX_SEED, GuidanceParams,
                                           RunConfig, clamp_seed)
 from flexdiffuse_tpu_torch.encode import CLIPEncoder
 from flexdiffuse_tpu_torch.guidance import Guide
+from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
+                                          CLIP_VIT_L14_VISION, SD14_UNET,
+                                          SD14_VAE, AutoencoderKL,
+                                          CLIPTextConfig, CLIPTextModel,
+                                          CLIPVisionConfig, CLIPVisionModel,
+                                          UNet2DCondition, UNetConfig,
+                                          VAEConfig)
 from flexdiffuse_tpu_torch.pipeline import FlexPipeline, SimpleGuidance
 from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
+from flexdiffuse_tpu_torch.text.tokenizer import CLIPTokenizer
 from flexdiffuse_tpu_torch.utils.image import image_grid
+from flexdiffuse_tpu_torch.weights import convert, load
+from flexdiffuse_tpu_torch.weights import lora as _lora
+from flexdiffuse_tpu_torch.weights import textual_inversion as _ti
 
 log = logging.getLogger(__name__)
 
 # JAX Runner.gen keywords the port does not take yet → the ROADMAP Queue 1
 # step that ports them.
 _NOT_PORTED = {
-    'long_prompt': 2, 'weighted': 2,
     'hires_scale': 9, 'hires_strength': 9, 'hires_steps': 9,
     'cfg_interval': 9, 'guidance_rescale': 9, 'pag_scale': 9,
     'control_image': 10, 'controlnet_scale': 10,
@@ -55,14 +72,77 @@ def _i100(f: float) -> int:
 
 
 class Runner:
-    """End-to-end generation runner. Loading from HF snapshots waits for
-    the checkpoints; construct with :meth:`from_models`."""
+    """End-to-end generation runner: from HF snapshots on disk
+    (``Runner(model_root=...)``) or from built modules
+    (:meth:`from_models`)."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            'loading SD-1.4/CLIP snapshots into the port is not ported yet '
-            '(ROADMAP Queue 1 step 8, weights/load.py); use '
-            'Runner.from_models(...)')
+    def __init__(self,
+                 model_root: Optional[str] = None,
+                 config: RunConfig = RunConfig(),
+                 scheduler: str = 'pndm',
+                 dtype: torch.dtype = torch.bfloat16,
+                 text_config: Optional[CLIPTextConfig] = None,
+                 vision_config: Optional[CLIPVisionConfig] = None,
+                 unet_config: Optional[UNetConfig] = None,
+                 vae_config: Optional[VAEConfig] = None,
+                 clip_skip: int = 0,
+                 scheduler_config: Optional[SchedulerConfig] = None,
+                 device: Union[str, torch.device, None] = None) -> None:
+        """Load the snapshots of ``config.sd_model`` and
+        ``config.clip_model`` (directories named after the last part of each
+        id) under ``model_root`` into modules of ``dtype`` on ``device``
+        (None: the CUDA card, which must be present). The configs default
+        to SD-1.4 and CLIP ViT-L/14; without ``unet_config`` the snapshot's
+        ``unet/config.json`` sets ``in_channels`` (9: inpainting)."""
+        if model_root is None:
+            raise ValueError(
+                'model_root is required (a directory with HF snapshots of '
+                f'{config.sd_model} and {config.clip_model}); for weightless '
+                'construction use Runner.from_models(...)')
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    'Runner(model_root=...) runs on the CUDA card by default '
+                    "and none is available; pass device='cpu' to run on the "
+                    'CPU')
+            device = 'cuda'
+        sd_dir, clip_dir = load.snapshot_dirs(model_root, config.sd_model,
+                                              config.clip_model)
+        if unet_config is None:
+            unet_config = SD14_UNET
+            found = load.unet_overrides(sd_dir)
+            if found.get('time_cond_proj_dim'):
+                raise NotImplementedError(
+                    'guidance-embedded (LCM) UNets are not ported yet '
+                    '(ROADMAP Queue 1 step 9)')
+            if found.get('in_channels', 4) == 8:
+                raise NotImplementedError(
+                    'InstructPix2Pix UNets (8 input channels) are not ported '
+                    'yet (ROADMAP Queue 1 step 10)')
+            if found.get('in_channels', 4) != unet_config.in_channels:
+                unet_config = dataclasses.replace(
+                    unet_config, in_channels=found['in_channels'])
+        log.info('Loading CLIP from %s and SD from %s onto %s (%s)',
+                 clip_dir, sd_dir, device, dtype)
+        text_sd, vision_sd = load.load_clip(clip_dir)
+        unet_sd, vae_sd = load.load_sd(sd_dir)
+        build = lambda cls, cfg, sd: load.instantiate(cls, cfg, sd, device,
+                                                      dtype)
+        models = (build(CLIPTextModel, text_config or CLIP_VIT_L14_TEXT,
+                        text_sd),
+                  build(CLIPVisionModel, vision_config or CLIP_VIT_L14_VISION,
+                        vision_sd),
+                  build(UNet2DCondition, unet_config, unet_sd),
+                  build(AutoencoderKL, vae_config or SD14_VAE, vae_sd))
+        del text_sd, vision_sd, unet_sd, vae_sd
+        self._init(*models, CLIPTokenizer.from_dir(clip_dir), scheduler,
+                   config, scheduler_config, clip_skip)
+        # The stored weights apply_lora merges from: mapped safetensors
+        # files only (a torch file would be read whole on every merge).
+        files = {'unet': load.weights_file(os.path.join(sd_dir, 'unet')),
+                 'te': load.weights_file(clip_dir)}
+        self._snapshots = {t: f for t, f in files.items()
+                           if f.endswith('.safetensors')}
 
     @classmethod
     def from_models(cls, text_model, vision_model, unet, vae, tokenizer,
@@ -75,8 +155,18 @@ class Runner:
         'ddim' or 'lms'; ``scheduler_config`` sets DDIM's and PNDM's
         switches (the PRK warm-up is ``skip_prk_steps=False``)."""
         self = cls.__new__(cls)
+        self._init(text_model, vision_model, unet, vae, tokenizer, scheduler,
+                   config, scheduler_config)
+        self._snapshots = {}
+        return self
+
+    def _init(self, text_model, vision_model, unet, vae, tokenizer,
+              scheduler: str, config: RunConfig,
+              scheduler_config: Optional[SchedulerConfig],
+              clip_skip: int = 0) -> None:
         self.config = config
-        self.encoder = CLIPEncoder(text_model, vision_model, tokenizer)
+        self.encoder = CLIPEncoder(text_model, vision_model, tokenizer,
+                                   clip_skip=clip_skip)
         self.guide = Guide(self.encoder)
         self.pipe = FlexPipeline(unet, vae, scheduler=scheduler,
                                  scheduler_config=scheduler_config)
@@ -84,7 +174,38 @@ class Runner:
         self.output_dir = config.output_dir
         self.grid_dir = os.path.join(self.output_dir, 'grids')
         self._generator = torch.Generator(self.pipe.device)
-        return self
+        self._merged: set = set()   # parameters a LoRA has changed
+
+    def apply_lora(self, path: str, scale: float = 1.0) -> None:
+        """Merge a LoRA adapter (kohya or diffusers/PEFT naming,
+        ``weights/lora.py``) into the UNet and text encoder in place.
+        Each weight is merged in fp32 and cast once: a weight no LoRA has
+        changed yet is merged from the snapshot's stored values (safetensors
+        snapshots), so a bf16 model keeps updates below bf16's resolution of
+        the weight. Repeated calls stack adapters."""
+        kinds = {'unet': 'unet', 'te': 'text'}
+        base = {t: convert.normalize(load.load_state_dict(f), kinds[t])
+                for t, f in self._snapshots.items()}
+        self._merged |= _lora.apply_lora(
+            self.pipe.unet, self.encoder.text_model,
+            load.load_state_dict(path), scale=scale, base=base,
+            merged=self._merged)
+
+    def load_textual_inversion(self, path: str,
+                               token: Optional[str] = None) -> None:
+        """Load a textual-inversion embedding: its placeholder token joins
+        the tokenizer and its vectors the text encoder's embedding table
+        (``weights/textual_inversion.py``). ``token`` overrides the name
+        stored in (or implied by) the file."""
+        file_token, table = _ti.extract_embedding(load.load_state_dict(path),
+                                                  token)
+        name = token or file_token or os.path.splitext(
+            os.path.basename(path))[0]
+        enc = self.encoder
+        enc.replace_text(_ti.add_textual_inversion(
+            enc.tokenizer, enc.text_model, name, table))
+        log.info('textual inversion %r: %d vector(s) added', name,
+                 table.shape[0])
 
     def _set_seed(self, seed: Optional[int]) -> int:
         seed = clamp_seed(seed)
@@ -145,10 +266,16 @@ class Runner:
             save: bool = True,
             negative_prompt: str = '',
             mask: Optional[Image.Image] = None,
+            long_prompt: bool = False,
+            weighted: bool = False,
             **not_ported) -> Tuple[List[Image.Image], Image.Image]:
         """Guided generation (reference ``Runner.gen`` utils.py:114-166);
         returns ``(images, grid)``. ``mask`` (with ``init_image``): 1 =
-        regenerate, 0 = keep."""
+        regenerate, 0 = keep. ``long_prompt`` encodes a prompt beyond 75
+        tokens in 75-token windows; ``weighted`` parses A1111 emphasis
+        (``(word:1.3)``, ``[word]``, ``BREAK``) in the prompt and the
+        negative prompt and chunks the same way. Either takes a single
+        prompt; a guide then tweens the first window only."""
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f'gen() got an unexpected keyword argument '
@@ -183,15 +310,49 @@ class Runner:
                                 max_guidance=guide_max_guidance,
                                 header_max=guide_header_max, mode=guide_mode,
                                 reuse=guide_reuse)
-        embeds = self.guide.embeds(prompt=prompt, guide=guide,
-                                   mapping_concepts=mapping_concepts,
-                                   params=params)
-        uncond = self.encoder.prompt(negative_prompt or '')
+        if long_prompt or weighted:
+            embeds, uncond = self._windowed(
+                prompt, negative_prompt, guide, mapping_concepts, params,
+                self.encoder.prompt_weighted if weighted
+                else self.encoder.prompt_chunked)
+        else:
+            embeds = self.guide.embeds(prompt=prompt, guide=guide,
+                                       mapping_concepts=mapping_concepts,
+                                       params=params)
+            uncond = self.encoder.prompt(negative_prompt or '')
         guidance = SimpleGuidance(embeddings=embeds, uncond=uncond,
                                   guidance_scale=float(guidance_scale),
                                   cfg=guidance_scale > 1.0)
         return self._run(samples, guidance, init_image, init_size, strength,
                          steps, debug, fp, save, mask=mask)
+
+    def _windowed(self, prompt, negative_prompt: str, guide,
+                  mapping_concepts: str, params: GuidanceParams, enc_fn
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cond and uncond contexts of a chunked (A1111) encoding, as the
+        JAX ``Runner.gen`` builds them: the guide tween, defined on one
+        77-token window, applies to the first window; the negative prompt
+        is chunked on its own, then cut or padded with empty-prompt windows
+        to the prompt's window count."""
+        if not isinstance(prompt, str):
+            raise ValueError('long_prompt/weighted take a single prompt')
+        embeds = enc_fn(prompt)
+        win = self.encoder.tokenizer.model_max_length
+        if guide is not None and (not isinstance(guide, str)
+                                  or bool(guide.strip())):
+            first = self.guide.embeds(prompt=prompt, guide=guide,
+                                      mapping_concepts=mapping_concepts,
+                                      params=params,
+                                      text_embeddings=embeds[:, :win])
+            embeds = torch.cat([first, embeds[:, win:]], dim=1)
+        uncond = enc_fn(negative_prompt or '')
+        k, k_u = embeds.shape[1] // win, uncond.shape[1] // win
+        if k_u > k:
+            uncond = uncond[:, :k * win]
+        elif k_u < k:
+            pad = self.encoder.prompt('').repeat(1, k - k_u, 1)
+            uncond = torch.cat([uncond, pad], dim=1)
+        return embeds, uncond
 
     def compose(self,
                 bg_prompt: str = '',

@@ -1,4 +1,5 @@
-"""CLIP BPE tokenizer — pure Python, loads HF ``vocab.json``/``merges.txt``.
+"""CLIP BPE tokenizer — loads HF ``vocab.json``/``merges.txt``; the merge
+loop runs in native code when it builds (``native/``), else in Python.
 
 Drop-in for the transformers ``CLIPTokenizer`` the reference uses
 (encode/clip.py:57-63): lowercasing, whitespace cleanup, byte-level BPE with
@@ -14,12 +15,15 @@ import functools
 import gzip
 import html
 import json
+import logging
 import os
 import re
 import zlib
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
+
+from flexdiffuse_tpu_torch import native as _native_pkg
 
 MODEL_MAX_LENGTH = 77
 
@@ -32,8 +36,7 @@ try:
         r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|"
         r"[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+", _re.IGNORECASE)
 except ImportError:  # ASCII-only degradation — WARN: ids will differ
-    import logging as _logging
-    _logging.getLogger(__name__).warning(
+    logging.getLogger(__name__).warning(
         'the `regex` package is unavailable; falling back to ASCII-only '
         'pre-tokenization — non-ASCII prompts will tokenize differently '
         'from the HF CLIPTokenizer')
@@ -87,6 +90,16 @@ class CLIPTokenizer:
         self.added_tokens: Dict[str, List[int]] = {}
         self._added_pattern = None
         self._added_count = 0
+        # Native merge loop (native/bpe.py): C++ behind ctypes; on any
+        # build or load failure the Python loop below serves.
+        self._native = None
+        if not _native_pkg.disabled():
+            try:
+                from flexdiffuse_tpu_torch.native.bpe import NativeBPE
+                self._native = NativeBPE(self.encoder, self.bpe_ranks)
+            except Exception as e:  # no compiler / build error — degrade
+                logging.getLogger(__name__).info(
+                    'native BPE unavailable (%s); using pure Python', e)
 
     def add_tokens(self, name: str, num_vectors: int = 1) -> List[int]:
         """Register a literal placeholder token mapping to ``num_vectors``
@@ -163,7 +176,14 @@ class CLIPTokenizer:
             if part in self.added_tokens:
                 ids.extend(self.added_tokens[part])
                 continue
-            for tok in _PAT.findall(part):
+            words = _PAT.findall(part)
+            if self._native is not None:
+                try:
+                    ids.extend(self._native.encode_words(words))
+                    continue
+                except KeyError:
+                    pass  # out-of-vocab symbol: the Python path raises
+            for tok in words:
                 tok = ''.join(self.byte_encoder[b]
                               for b in tok.encode('utf-8'))
                 ids.extend(self.encoder[t] for t in self._bpe(tok))

@@ -25,7 +25,7 @@ import torch
 
 from flexdiffuse_tpu_torch.training import train as _train
 from flexdiffuse_tpu_torch.training.data import EncodedDataset
-from flexdiffuse_tpu_torch.training.loop import generators, refuse_full_save
+from flexdiffuse_tpu_torch.training.loop import generators, save_full
 
 log = logging.getLogger(__name__)
 
@@ -68,7 +68,8 @@ def train_dreambooth(unet, instance_ds: EncodedDataset,
 
     ``mode``: 'lora' (returns the factors; ``save_path`` writes kohya
     safetensors) or 'full' (trains ``unet`` in place and returns its
-    trained parameters; ``save_path`` waits for ROADMAP step 8). The weights
+    trained parameters; ``save_path`` writes them in the JAX package's
+    msgpack format, ``training.loop.save_full``). The weights
     make the mean loss ``(L_inst + w·L_prior) / 2``: the published objective
     up to the constant 2, which the learning rate absorbs. Generators:
     instance stream ``seed``, class stream ``seed + 1``, steps
@@ -76,8 +77,6 @@ def train_dreambooth(unet, instance_ds: EncodedDataset,
     """
     if mode not in ('lora', 'full'):
         raise ValueError(f'unknown mode {mode!r}')
-    if mode == 'full':
-        refuse_full_save(save_path)
     cfg = cfg or _train.TrainConfig(learning_rate=(1e-4 if mode == 'lora'
                                                    else 2e-6),
                                     weight_decay=0.0)
@@ -111,7 +110,9 @@ def train_dreambooth(unet, instance_ds: EncodedDataset,
                      val, (i + 1) / max(time.monotonic() - t0, 1e-6))
             if on_step is not None:
                 on_step(i, val)
-    if save_path:
+    if save_path and mode == 'full':
+        save_full(unet, tree, save_path)
+    elif save_path:
         n = _train.export_lora_safetensors(tree, save_path)
         log.info('wrote %d LoRA modules to %s', n, save_path)
     return tree, losses

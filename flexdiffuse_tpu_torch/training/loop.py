@@ -21,6 +21,8 @@ import torch
 from flexdiffuse_tpu_torch.training import train as _train
 from flexdiffuse_tpu_torch.training.checkpoint import TrainCheckpointer
 from flexdiffuse_tpu_torch.training.data import EncodedDataset
+from flexdiffuse_tpu_torch.weights import convert as _convert
+from flexdiffuse_tpu_torch.weights import msgpack as _msgpack
 
 Tensor = torch.Tensor
 log = logging.getLogger(__name__)
@@ -124,12 +126,14 @@ def train_lora(unet, dataset: EncodedDataset,
     return factors, losses
 
 
-def refuse_full_save(save_path: Optional[str]) -> None:
-    if save_path:
-        raise NotImplementedError(
-            'saving a fully fine-tuned UNet (save_path=) waits for the '
-            "port's weight loading (ROADMAP Queue 1 step 8, weights/load.py);"
-            ' save the returned tensors with torch.save')
+def save_full(unet, tree: Dict[str, Tensor], path: str) -> None:
+    """Write a full fine-tune as the JAX package's ``{'params': tree}`` in
+    flax's msgpack format (the bytes ``flax.serialization.
+    msgpack_serialize`` gives; ``weights/msgpack.py``): ``tree``'s tensors
+    over the rest of ``unet``'s state dict."""
+    sd = {**unet.state_dict(), **{n: t.detach() for n, t in tree.items()}}
+    _msgpack.save(_convert.state_dict_to_params(sd, unet.config), path)
+    log.info('wrote trained params to %s', path)
 
 
 def train_full(unet, dataset: EncodedDataset,
@@ -142,14 +146,16 @@ def train_full(unet, dataset: EncodedDataset,
                ) -> Tuple[Dict[str, Tensor], List[float]]:
     """Full-model fine-tune of ``unet``, in place: returns the trained
     parameters by name (their EMA when ``cfg.ema_decay > 0``) and the loss
-    history. ``save_path`` raises ``NotImplementedError``: the JAX package
-    writes flax msgpack, which the port cannot load yet.
+    history. ``save_path`` also writes them in the JAX package's format
+    (:func:`save_full`; ``weights.load.load_unet_msgpack`` reads it back).
     ``checkpoint_dir`` as in :func:`train_lora`."""
-    refuse_full_save(save_path)
     cfg = cfg or _train.TrainConfig()
     step_fn, opt = _train.make_train_step(unet, cfg, mesh=mesh)
     log.info('full fine-tune: %d steps, batch %d', steps, batch_size)
-    return _run(step_fn, opt, _train.trainable_tree(unet), dataset, steps,
-                batch_size, seed, log_every, on_step,
-                ema_decay=cfg.ema_decay,
-                ckpt=_ckpt(checkpoint_dir, checkpoint_every))
+    tree, losses = _run(step_fn, opt, _train.trainable_tree(unet), dataset,
+                        steps, batch_size, seed, log_every, on_step,
+                        ema_decay=cfg.ema_decay,
+                        ckpt=_ckpt(checkpoint_dir, checkpoint_every))
+    if save_path:
+        save_full(unet, tree, save_path)
+    return tree, losses

@@ -29,8 +29,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import json
-import struct
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
@@ -40,6 +38,7 @@ from torch.utils import checkpoint as _ckpt
 
 from flexdiffuse_tpu_torch import schedulers
 from flexdiffuse_tpu_torch.ops import attention as _attn
+from flexdiffuse_tpu_torch.weights.safetensors import save_safetensors
 
 Tensor = torch.Tensor
 Factors = Dict[str, Dict[str, Tensor]]
@@ -406,27 +405,6 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
 def kohya_module_name(name: str) -> str:
     """Port module name → kohya ``lora_unet_*`` name."""
     return 'lora_unet_' + name.replace('.', '_')
-
-
-def save_safetensors(tensors: Dict[str, np.ndarray], path: str) -> None:
-    """Write fp32 arrays in the safetensors format: an 8-byte little-endian
-    header length, a JSON header of dtype/shape/byte offsets (padded with
-    spaces to 8 bytes), then the raw little-endian bytes."""
-    header, blobs, offset = {}, [], 0
-    for name in sorted(tensors):
-        arr = np.asarray(tensors[name], dtype='<f4')
-        blob = arr.tobytes()   # C order
-        header[name] = {'dtype': 'F32', 'shape': list(arr.shape),
-                        'data_offsets': [offset, offset + len(blob)]}
-        blobs.append(blob)
-        offset += len(blob)
-    raw = json.dumps(header, separators=(',', ':')).encode()
-    raw += b' ' * (-len(raw) % 8)
-    with open(path, 'wb') as f:
-        f.write(struct.pack('<Q', len(raw)))
-        f.write(raw)
-        for blob in blobs:
-            f.write(blob)
 
 
 def export_lora_safetensors(factors: Factors, path: str,

@@ -1,5 +1,8 @@
-"""Weights of the port: the JAX param tree -> state_dict bridge and the
-JAX LoRA factor renaming."""
+"""Weights of the port: loading HF snapshots (``load``), the safetensors
+and flax msgpack formats without their packages (``safetensors``,
+``msgpack``), checkpoint normalisation and the JAX tree rules
+(``convert``, and their inverse ``bridge``), LoRA merging (``lora``) and
+textual inversion (``textual_inversion``)."""
 from flexdiffuse_tpu_torch.weights.bridge import (lora_factors_to_torch,
                                                   params_to_state_dict)
 

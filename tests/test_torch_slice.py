@@ -242,7 +242,7 @@ def test_runner_gen_img2img_and_seed(runner):
 
 @pytest.mark.parametrize('name,step', [('cfg_interval', 9), ('hires_scale', 9),
                                        ('control_image', 10),
-                                       ('weighted', 2)])
+                                       ('pag_scale', 9)])
 def test_runner_rejects_unported_keywords(runner, name, step):
     with pytest.raises(NotImplementedError, match=f'step {step}'):
         runner.gen(prompt='a deer', steps=2, init_size=(16, 16), save=False,

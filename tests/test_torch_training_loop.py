@@ -17,7 +17,8 @@ from flexdiffuse_tpu import training as jt
 from flexdiffuse_tpu.models import TINY_UNET, UNet2DCondition
 from flexdiffuse_tpu_torch import models as tm
 from flexdiffuse_tpu_torch import training as tt
-from flexdiffuse_tpu_torch.weights import params_to_state_dict
+from flexdiffuse_tpu_torch.weights import convert, params_to_state_dict
+from flexdiffuse_tpu_torch.weights.load import load_unet_msgpack
 from tests.test_torch_attention import one_torch_thread  # noqa: F401
 
 T, D = 7, 32
@@ -164,7 +165,7 @@ def test_train_lora_end_to_end_loads_in_jax(tmp_path, jax_params):
     assert max(jax.tree_util.tree_leaves(deltas)) > 0
 
 
-def test_train_full_end_to_end(jax_params):
+def test_train_full_end_to_end(tmp_path, jax_params):
     unet = _unet(jax_params)
     before = [p.detach().clone() for p in unet.parameters()]
     params, losses = tt.train_full(
@@ -175,8 +176,14 @@ def test_train_full_end_to_end(jax_params):
     assert params['conv_in.weight'] is unet.conv_in.weight
     assert any(not torch.equal(a, b)
                for a, b in zip(before, unet.parameters()))
-    with pytest.raises(NotImplementedError, match='step 8'):
-        tt.train_full(unet, _dataset(), steps=1, save_path='unet.msgpack')
+    # save_path writes the JAX package's msgpack tree, which reads back
+    # bit for bit.
+    out = str(tmp_path / 'unet.msgpack')
+    params, _ = tt.train_full(unet, _dataset(), steps=1, save_path=out)
+    loaded = load_unet_msgpack(out, tm.TINY_UNET)
+    assert sorted(loaded) == sorted(unet.state_dict())
+    for k, v in params.items():
+        assert torch.equal(loaded[k], v.detach()), k
 
 
 @pytest.mark.parametrize('mode', ['lora', 'full'])
@@ -193,9 +200,20 @@ def test_dreambooth_trains_and_saves(tmp_path, jax_params, mode):
         tt.export_lora_safetensors(tree, out)
         assert os.path.exists(out)
     else:
-        with pytest.raises(NotImplementedError, match='step 8'):
-            tt.train_dreambooth(unet, _dataset(4), _dataset(4), mode='full',
-                                steps=1, save_path='db.msgpack')
+        out = str(tmp_path / 'db.msgpack')
+        tree, _ = tt.train_dreambooth(unet, _dataset(4), _dataset(4),
+                                      mode='full', steps=1, save_path=out)
+        from flax import serialization
+        with open(out, 'rb') as f:
+            restored = serialization.msgpack_restore(f.read())
+        want = convert.state_dict_to_params(
+            {k: v.detach().numpy() for k, v in unet.state_dict().items()},
+            tm.TINY_UNET)
+        assert (jax.tree_util.tree_structure(restored) ==
+                jax.tree_util.tree_structure(want))
+        for a, b in zip(jax.tree_util.tree_leaves(restored),
+                        jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_generate_class_images(tmp_path):
