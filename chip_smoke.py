@@ -21,25 +21,28 @@ Kernels and inference (the first and third slices):
    ``csrc/flash_variants.cu`` (T1–T6, ``flash_variants.BUILD_PARTS``
    parts), the parts of a source all started together, then linked; prints
    the seconds of each and of the step.
-3. Holds K1 against the fp32 plain attention on the same bf16 inputs at six
-   shapes, each on the Hopper path (``fa.plan``: TMA, wgmma, warp
-   specialisation). A shape passes when the kernel's max|Δ| to the fp32
-   reference is at most twice the bf16 plain version's max|Δ| to it, plus
-   1e-3·max|ref| (bf16 rounds the output and P; the slack covers the
-   kernel's different summation order). Prints both errors; at the two
-   main-path shapes and at K2's (1,2,32768,40) the times, from CUDA-graph
-   replays, of the Hopper path and of the kept mma.sync kernel (its own
-   entry point, the same inputs; interleaved old, new, new, old), of
-   ``scaled_dot_product_attention``, the plain version's, the bounds
-   (tensor cores or bytes, and the exponential unit) and the host µs per
-   call of both paths.
-4. Holds K6 against the fp32 plain GroupNorm on the same inputs at eleven
-   shapes, by step 3's rule (fp32 outputs: 1e-4·max|ref|), each launched
-   once on the path ``gn.plan_group_norm`` picks ('resident' or
-   'stream'); at four shapes prints the times of K6 (on a resident shape
-   also of its stream path, forced), the plain version, ``F.group_norm``
-   and ``F.group_norm`` + ``F.silu``, the bound and the host µs per K6
-   call.
+3. Holds K1 against the fp32 plain attention on the same bf16 inputs at
+   eight shapes (the last two the serving path's UNet batch 16, drawn from
+   a generator of their own), each on the Hopper path (``fa.plan``: TMA,
+   wgmma, warp specialisation). A shape passes when the kernel's max|Δ| to
+   the fp32 reference is at most twice the bf16 plain version's max|Δ| to
+   it, plus 1e-3·max|ref| (bf16 rounds the output and P; the slack covers
+   the kernel's different summation order). Prints both errors; at the two
+   main-path shapes, at K2's (1,2,32768,40) and at the two batch-16 shapes
+   the times, from CUDA-graph replays, of the Hopper path and of the kept
+   mma.sync kernel (its own entry point, the same inputs; interleaved old,
+   new, new, old), of ``scaled_dot_product_attention``, the plain
+   version's, the bounds (tensor cores or bytes, and the exponential unit)
+   and the host µs per call of both paths.
+4. Holds K6 against the fp32 plain GroupNorm on the same inputs at
+   fourteen shapes, by step 3's rule (fp32 outputs: 1e-4·max|ref|), each
+   launched once on the path ``gn.plan_group_norm`` picks ('resident' or
+   'stream'); at seven shapes (among them the serving path's
+   (16,320,64,64), (16,1280,8,8) and the 8-image decode's
+   (8,256,512,512), the last three drawn as step 3's) prints the times of
+   K6 (on a resident shape also of its stream path, forced), the plain
+   version, ``F.group_norm`` and ``F.group_norm`` + ``F.silu``, the bound
+   and the host µs per K6 call.
 5. Builds SD-1.4 geometry (CLIP ViT-L/14 text and vision towers, the SD-1.4
    UNet and VAE) with seeded random weights on the card in bf16; checks one
    UNet evaluation through K1 and K6 against the same evaluation with plain
@@ -111,9 +114,33 @@ Loading from disk (the eighth slice):
     the seconds to write, to load and to move to the card, the host RSS
     (current and peak) and the peak device memory while loading.
 
+The user surfaces (the ninth slice), on step 12's snapshot and Runner:
+
+13. The CLI in-process: ``cli.main(['generate', '--models', <snapshot>,
+    ...])`` at 512², 25 PNDM steps, CFG 8, a guide image, 2 samples, and
+    ``compose`` with a 2-entity schema: the PNGs written and exactly step
+    7's launches; then one ``python -m flexdiffuse_tpu_torch.cli generate``
+    in a subprocess (rc 0, one PNG). The web UI (``interface.server.
+    launch`` on port 0, in a thread): ``/api/generate`` (2 samples, a
+    base64 guide image) and ``/api/compose`` (2 entities), 200 with 512²
+    PNGs and exact launches. The serving API (``serving.launch``,
+    ``max_batch_rows`` 8; 512², 25 steps): one request alone (seed 1234,
+    no batching window), two 4-sample requests, 8 concurrent 1-row
+    requests including seed 1234 fused into exactly one 8-row dispatch
+    (UNet batch 16; a 5 s window they never wait out, checked through
+    ``/v1/stats``), 3 concurrent requests padded to 4; then on
+    ``fixed_rows`` services the request alone (padded to 8) and among 8
+    concurrent ones, bit-equal. Under the default padding it prints max|Δ|
+    and mean|Δ| of the request alone against batched, without a limit.
+    Asserts K1 = 10 per UNet evaluation, all on the Hopper path, and
+    K6 = 61 per evaluation plus 30 per decode (13 on the stream path,
+    whatever the decode's batch); prints beside the card's name and power
+    limit the images/min of 1-, 4- and 8-row dispatches, the p50 latency
+    of each service and the peak device memory.
+
 The flash-kernel experiment tools (the fourth slice):
 
-13. Holds every configuration of the attention variants T1–T6
+14. Holds every configuration of the attention variants T1–T6
     (``csrc/flash_variants.cu``: T1 v0/vU/vG2/vG4, T2, T3, T4, T5
     ttv3/ttv4/no-fold, T6 v0/v1/v2) against its twin by step 3's rule at
     every shape the tools give it: the two main shapes, and (8,8,4096,40)
@@ -122,31 +149,34 @@ The flash-kernel experiment tools (the fourth slice):
     (contiguous ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the
     transposed views, which takes its slow path) and K1's times from this
     run, and the bound.
-14. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
+15. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
     would: ``flash_variants``, ``flash_opt``, ``flash_pipelined`` (with its
     UNet A/B, K1 against T3), ``flash_tt`` (exactness at four shapes, K1
     against T4, the UNet A/B), ``flash_tt3`` (its main and ``step_ab``, K1
     against ttv3 and ttv4). Asserts finite exactness errors (the scripts
-    print OK or FAIL by their own 0.04; step 13 holds the kernels to
+    print OK or FAIL by their own 0.04; step 14 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
     launches of the kernel in use, none of the other, and 61 of K6.
-15. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
+16. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
     kernel's time, the host µs per call, the times by shape and fp32's),
     then, only if every phase passed, ``{"ok": true, "device": {...}}`` as
     the last line.
 
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6, 11, 12 and 14) and read just after; launches made to check a kernel
-against its plain twin do not count. Any failed phase raises, so the script
-exits non-zero; without CUDA it exits non-zero at once and prints no
-result.
+(steps 6, 11, 12, 13 and 15) and read just after; launches made to check a
+kernel against its plain twin do not count. Any failed phase raises, so
+the script exits non-zero; without CUDA it exits non-zero at once and
+prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import base64
 import collections
 import copy
+import io
 import json
+import logging
 import os
 import resource
 import shutil
@@ -154,7 +184,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -169,8 +201,9 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           CLIPTextModel, CLIPVisionModel,
                                           UNet2DCondition)
 from flexdiffuse_tpu_torch.models.unet import CrossAttention
-from flexdiffuse_tpu_torch import training
+from flexdiffuse_tpu_torch import cli, schedulers, serving, training
 from flexdiffuse_tpu_torch.config import RunConfig
+from flexdiffuse_tpu_torch.interface import server as ui_server
 from flexdiffuse_tpu_torch.ops import attention as attn_mod
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
 from flexdiffuse_tpu_torch.ops import flash_backward as fb
@@ -198,7 +231,12 @@ KERNEL_SHAPES = [(2, 8, 4096, 40), (4, 8, 4096, 40), (2, 8, 1024, 80),
                  (2, 8, 1536, 40), (2, 10, 4096, 64), (1, 2, 32768, 40)]
 MAIN_SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80)]
 K2_SHAPE = (1, 2, 32768, 40)   # K2's regime, served by K1: timed too
-TIMED_SHAPES = MAIN_SHAPES + [K2_SHAPE]
+# The serving path's: 8 fused rows under CFG, UNet batch 16 (step 13).
+# Their inputs come from a generator of their own (SERVE_SEED), so every
+# earlier check draws the inputs it drew before they were added.
+SERVE_SHAPES = [(16, 8, 4096, 40), (16, 8, 1024, 80)]
+SERVE_SEED = SEED + 9
+TIMED_SHAPES = MAIN_SHAPES + [K2_SHAPE] + SERVE_SHAPES
 # K6 launches: SD-1.4's UNet has 61 GroupNorms per evaluation (22 resnets ×
 # 2, 16 transformers, conv_norm_out), the VAE decoder 30 (14 resnets × 2,
 # the mid attention, conv_norm_out), the encoder 22 (10 resnets × 2, the
@@ -261,7 +299,9 @@ BF16, FP32 = torch.bfloat16, torch.float32
 # channels-last as the models' activations are on the card: the UNet's
 # levels at 512² (CFG batch 2, with its largest group and an 8² call, and
 # compose batch 4), the VAE's mid-block and largest decoder activations
-# (the stream path), fp32 in and out, a ragged one (C/G = 3, HW = 391).
+# (the stream path), fp32 in and out, a ragged one (C/G = 3, HW = 391),
+# then the serving path's: the UNet's first and last levels at batch 16
+# and the 8-image decode's largest stream shape.
 # Groups: 32, as SD-1.4 everywhere.
 GN_SHAPES = [((2, 320, 64, 64), True, 1e-5, BF16, BF16, True),
              ((2, 320, 64, 64), False, 1e-6, BF16, BF16, False),
@@ -274,6 +314,9 @@ GN_SHAPES = [((2, 320, 64, 64), True, 1e-5, BF16, BF16, True),
              ((1, 128, 512, 512), True, 1e-6, BF16, BF16, False),
              ((4, 320, 64, 64), True, 1e-5, FP32, FP32, False),
              ((3, 96, 17, 23), True, 1e-5, FP32, BF16, False)]
+SERVE_GN_SHAPES = [((16, 320, 64, 64), True, 1e-5, BF16, BF16, True),
+                   ((16, 1280, 8, 8), True, 1e-5, BF16, BF16, True),
+                   ((8, 256, 512, 512), True, 1e-6, BF16, BF16, True)]
 # One VAE decode through K6 against the plain GroupNorm, both bf16:
 # max|Δ|/max|ref| below this. Both are also held to an fp32 decode of the
 # same z (fp32 weights copied from the bf16 ones, plain GroupNorm), by K1's
@@ -527,13 +570,15 @@ def synthetic_image(size: int, seed: int) -> Image.Image:
 
 
 class UNetProbe:
-    """Forward hooks on the UNet: counts evaluations, brackets the denoise
-    loop with CUDA events, and keeps device-side finiteness flags of ε."""
+    """Forward hooks on the UNet: counts evaluations and their batch sizes,
+    brackets the denoise loop with CUDA events, and keeps device-side
+    finiteness flags of ε."""
 
     def __init__(self, unet) -> None:
         self.calls = 0
         self.first = self.last = None
         self.finite = []
+        self.batches = []
         self.handles = [unet.register_forward_pre_hook(self._pre),
                         unet.register_forward_hook(self._post)]
 
@@ -545,8 +590,10 @@ class UNetProbe:
         self.calls = 0
         self.first = self.last = None
         self.finite = []
+        self.batches = []
 
     def _pre(self, module, args):
+        self.batches.append(args[0].shape[0])
         if self.first is None:
             self.first = torch.cuda.Event(enable_timing=True)
             self.first.record()
@@ -1518,7 +1565,8 @@ def check_lora_merge(runner, path: str, name: str, stored) -> None:
 def run_disk_phases(text, vision, unet, vae, ds, root: str) -> dict:
     """The loading phase (module docstring, step 12): snapshot, Runner on
     its defaults, LoRA, textual inversion, long and weighted prompts, then
-    full fine-tuning of the snapshot's UNet with a save and its reload."""
+    full fine-tuning of the snapshot's UNet with a save and its reload.
+    Returns the Runner too, for the surfaces phase."""
     snap = write_snapshot(root, text, vision, unet, vae)
     runner, timing = load_runner(root)
     cur, peak = rss_gib()
@@ -1567,7 +1615,7 @@ def run_disk_phases(text, vision, unet, vae, ds, root: str) -> dict:
                      prompt=WEIGHTED_PROMPT, weighted=True, **common)))]
     hook.remove()
     probe.remove()
-    del runner, probe
+    del probe
 
     unet_sd, _ = weights_load.load_sd(snap['sd_dir'])
     unet32 = weights_load.instantiate(UNet2DCondition, SD14_UNET, unet_sd,
@@ -1599,7 +1647,334 @@ def run_disk_phases(text, vision, unet, vae, ds, root: str) -> dict:
     load_res.update(reload_s=reload_s)
     launches = {k: sum(r['launches'][k] for r in runs) + full['launches'][k]
                 for k in full['launches']}
-    return dict(load=load_res, runs=runs, full=full, launches=launches)
+    return dict(load=load_res, runs=runs, full=full, launches=launches,
+                runner=runner)
+
+
+# The surfaces phase (the ninth slice): the CLI, the web UI and the serving
+# API, as a user starts them, on the loading phase's snapshot and Runner.
+SURFACE_STEPS = 25
+SURFACE_SIZE = 512        # pixels, square
+SURFACE_PIXELS = (SURFACE_SIZE, SURFACE_SIZE, 3)
+SERVE_ROWS = 8            # max_batch_rows: UNet batch 16 under CFG
+SERVE_WAIT_MS = 5000.0    # a window the concurrent requests never wait out
+FIXED_SEED = 1234
+
+
+def _b64_pixels(data: str) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(
+        data.split(',')[-1]))))
+
+
+def _http(url: str, payload=None) -> dict:
+    """GET (no payload) or POST JSON; any status but 200 raises."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        if r.status != 200:
+            raise AssertionError(f'{url}: HTTP {r.status}')
+        return json.loads(r.read())
+
+
+def _concurrent(url: str, payloads) -> list:
+    """POST every payload at once, each from its own thread; the answers in
+    order."""
+    with ThreadPoolExecutor(len(payloads)) as pool:
+        return list(pool.map(lambda p: _http(url, p), payloads))
+
+
+class _Server:
+    """A ``ThreadingHTTPServer`` serving from a thread until ``close``."""
+
+    def __init__(self, httpd) -> None:
+        self.httpd = httpd
+        self.url = f'http://127.0.0.1:{httpd.server_address[1]}'
+        self.thread = threading.Thread(target=httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+        service = getattr(self.httpd.RequestHandlerClass, 'service', None)
+        if service is not None:
+            service.batcher.shutdown()
+
+
+def _surface_launches(label: str, evals: int, decodes: int) -> dict:
+    """The launches since the last reset against step 7's rule for
+    ``evals`` UNet evaluations and ``decodes`` VAE decodes."""
+    got = counts()
+    want = want_launches(k1=LAUNCHES_PER_UNET * evals,
+                         k6=K6_PER_UNET * evals + K6_PER_DECODE * decodes,
+                         k6_stream=K6_STREAM_PER_DECODE * decodes)
+    print(f'{label}: {evals} UNet evaluations, {decodes} decodes, launches '
+          f'{json.dumps(got)}')
+    if got != want:
+        raise AssertionError(f'{label}: launches {got}, expected {want}')
+    return got
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _pngs(out: str) -> list:
+    names = sorted(n for n in os.listdir(out) if n.endswith('.png'))
+    arrs = [np.asarray(Image.open(os.path.join(out, n))) for n in names]
+    if any(a.shape != SURFACE_PIXELS or a.dtype != np.uint8 for a in arrs):
+        raise AssertionError(f'{out}: images '
+                             f'{[(a.shape, a.dtype) for a in arrs]}')
+    return arrs
+
+
+def run_cli(root: str, guide_path: str) -> dict:
+    """The CLI in-process (``generate``, ``compose``) with the launches of
+    step 7's rule, then one ``python -m flexdiffuse_tpu_torch.cli
+    generate`` in a subprocess (rc 0, one PNG)."""
+    per_gen = schedulers.make('pndm', SURFACE_STEPS).length
+    total = {}
+    common = ['--models', root, '--steps', str(SURFACE_STEPS),
+              '--guidance-scale', '8', '--seed', str(SEED), '--height',
+              str(SURFACE_SIZE), '--width', str(SURFACE_SIZE)]
+    out = os.path.join(root, 'cli_generate')
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(['generate', *common, '--prompt', PROMPT, '--guide',
+                 guide_path, '--samples', '2', '--out', out]) != 0:
+        raise AssertionError('cli generate failed')
+    gen_s = time.perf_counter() - t0
+    _add(total, _surface_launches('cli generate', 2 * per_gen, 2))
+    if len(_pngs(out)) != 2:
+        raise AssertionError('cli generate wrote other than 2 images')
+
+    schema = os.path.join(root, 'schema.json')
+    with open(schema, 'w') as f:
+        json.dump({'background_prompt': PROMPT, 'style_start_prompt': '',
+                   'style_end_prompt': '', 'style_blend': [0.0, 1.0],
+                   'entities': [{'prompt': p, 'offset': [x, y],
+                                 'size': [w, h], 'blend': b}
+                                for p, x, y, w, h, b in COMPOSE_ENTITIES]},
+                  f)
+    out = os.path.join(root, 'cli_compose')
+    reset_counts()
+    t0 = time.perf_counter()
+    if cli.main(['compose', *common, '--schema', schema, '--samples', '1',
+                 '--out', out]) != 0:
+        raise AssertionError('cli compose failed')
+    compose_s = time.perf_counter() - t0
+    _add(total, _surface_launches('cli compose', per_gen, 1))
+    if len(_pngs(out)) != 1:
+        raise AssertionError('cli compose wrote other than 1 image')
+
+    out = os.path.join(root, 'cli_subprocess')
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'flexdiffuse_tpu_torch.cli', 'generate',
+         *common, '--prompt', PROMPT, '--guide', guide_path, '--samples',
+         '1', '--out', out], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0 or len(_pngs(out)) != 1:
+        raise AssertionError(f'python -m flexdiffuse_tpu_torch.cli generate: '
+                             f'rc {proc.returncode}\n{proc.stderr[-4000:]}')
+    res = dict(generate_s=gen_s, compose_s=compose_s, subprocess_s=sub_s,
+               launches=total)
+    print(f'cli: {json.dumps(res)}')
+    return res
+
+
+def run_ui(runner, guide_path: str) -> dict:
+    """The web UI (``interface.server.launch`` on port 0) serving the
+    Runner: ``/api/generate`` (2 samples, a base64 guide image) and
+    ``/api/compose`` (2 entities), 512² PNGs and exact launches."""
+    per_gen = schedulers.make('pndm', SURFACE_STEPS).length
+    ui_server._runner = None
+    server = _Server(ui_server.launch(lambda: runner, port=0))
+    total = {}
+    try:
+        if _http(server.url + '/api/health') != {'ok': True}:
+            raise AssertionError('/api/health')
+        with open(guide_path, 'rb') as f:
+            guide = 'data:image/png;base64,' + base64.b64encode(
+                f.read()).decode()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = _http(server.url + '/api/generate', dict(
+            prompt=PROMPT, guide_image=guide, steps=SURFACE_STEPS,
+            samples=2, seed=SEED, height=SURFACE_SIZE,
+            width=SURFACE_SIZE))
+        gen_s = time.perf_counter() - t0
+        _add(total, _surface_launches('ui generate', 2 * per_gen, 2))
+        images = [_b64_pixels(i) for i in out['images']]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = _http(server.url + '/api/compose', dict(
+            bg_prompt=PROMPT, entities=COMPOSE_ENTITIES,
+            steps=SURFACE_STEPS, samples=1, seed=SEED, height=SURFACE_SIZE,
+            width=SURFACE_SIZE))
+        compose_s = time.perf_counter() - t0
+        _add(total, _surface_launches('ui compose', per_gen, 1))
+        images += [_b64_pixels(i) for i in out['images']]
+    finally:
+        server.close()
+        ui_server._runner = None
+    if len(images) != 3 or any(a.shape != SURFACE_PIXELS for a in images):
+        raise AssertionError(f'ui images {[a.shape for a in images]}')
+    res = dict(generate_s=gen_s, compose_s=compose_s, launches=total)
+    print(f'ui: {json.dumps(res)}')
+    return res
+
+
+def _serve(runner, **kw) -> _Server:
+    server = _Server(serving.launch(lambda: runner, port=0,
+                                    max_batch_rows=SERVE_ROWS, **kw))
+    health = _http(server.url + '/v1/health')
+    if health['devices'] != [serving.api.describe_device(
+            runner.pipe.device)] or 'cuda' not in health['devices'][0]:
+        raise AssertionError(f'/v1/health {health}')
+    return server
+
+
+def _timed_dispatches(server: _Server) -> list:
+    """Wraps the service's batch call: each dispatch's (rows run, host
+    seconds from its start to its images on the host)."""
+    batcher = server.httpd.RequestHandlerClass.service.batcher
+    real = batcher._run
+    seen = []
+
+    def timed(payloads, rows):
+        t0 = time.perf_counter()
+        out = real(payloads, rows)
+        seen.append((rows, time.perf_counter() - t0))
+        return out
+
+    batcher._run = timed
+    return seen
+
+
+def run_serving(runner) -> dict:
+    """The serving API at 512², 25 steps (module docstring, step 13):
+    dispatches of 1, 4 and 8 rows, 8 concurrent requests fused into one
+    dispatch (UNet batch 16), 3 padded to 4, and the same request alone and
+    batched under the default padding and under ``fixed_rows``."""
+    probe = UNetProbe(runner.pipe.unet)
+    decodes = []
+    hook = runner.pipe.vae.post_quant_conv.register_forward_pre_hook(
+        lambda m, args: decodes.append(args[0].shape[0]))
+    req = lambda seed, **kw: dict(prompt=f'{PROMPT}, variant {seed}',
+                                  steps=SURFACE_STEPS, width=SURFACE_SIZE,
+                                  height=SURFACE_SIZE, guidance_scale=8.0,
+                                  seed=seed,
+                                  **kw)
+    eight = [req(FIXED_SEED)] + [req(SEED + i) for i in range(1, 8)]
+    servers = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_phase = time.perf_counter()
+    try:
+        quick = _serve(runner, max_wait_ms=0.0)
+        servers.append(quick)
+        window = _serve(runner, max_wait_ms=SERVE_WAIT_MS)
+        servers.append(window)
+        quick_runs = _timed_dispatches(quick)
+        alone = _http(quick.url + '/v1/generate', req(FIXED_SEED))
+        four = [_http(quick.url + '/v1/generate', req(7 + i, samples=4))
+                for i in range(2)]
+        before = _http(window.url + '/v1/stats')
+        batched = _concurrent(window.url + '/v1/generate', eight)
+        after = _http(window.url + '/v1/stats')
+        if [after[k] - before[k] for k in ('requests', 'batches', 'rows',
+                                            'padded_rows')] != [8, 1, 8, 0] \
+                or any(o['batched_with'] != 7 for o in batched):
+            raise AssertionError(f'8 concurrent requests: stats {before} -> '
+                                 f'{after}')
+        three = _concurrent(window.url + '/v1/generate',
+                            [req(SEED + 20 + i) for i in range(3)])
+        last = _http(window.url + '/v1/stats')
+        if [last[k] - after[k] for k in ('requests', 'batches', 'rows',
+                                          'padded_rows')] != [3, 1, 3, 1]:
+            raise AssertionError(f'3 concurrent requests: stats {after} -> '
+                                 f'{last}')
+        fixed_quick = _serve(runner, max_wait_ms=0.0, fixed_rows=True)
+        servers.append(fixed_quick)
+        fixed = _serve(runner, max_wait_ms=SERVE_WAIT_MS, fixed_rows=True)
+        servers.append(fixed)
+        fixed_runs = _timed_dispatches(fixed)
+        fixed_alone = _http(fixed_quick.url + '/v1/generate',
+                            req(FIXED_SEED))
+        fixed_batched = _concurrent(fixed.url + '/v1/generate', eight)
+        stats = {name: _http(s.url + '/v1/stats') for name, s in (
+            ('quick', quick), ('window', window),
+            ('fixed_quick', fixed_quick), ('fixed', fixed))}
+    finally:
+        for s in servers:
+            s.close()
+        hook.remove()
+        probe.remove()
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _surface_launches('serving', probe.calls, len(decodes))
+
+    answers = [alone] + four + batched + three + [fixed_alone] + fixed_batched
+    images = [_b64_pixels(i) for o in answers for i in o['images']]
+    if len(images) != 1 + 8 + 8 + 3 + 1 + 8 or any(
+            a.shape != SURFACE_PIXELS or a.dtype != np.uint8 for a in images):
+        raise AssertionError(f'serving images {[a.shape for a in images]}')
+    if not all(bool(f) for f in probe.finite):
+        raise AssertionError('serving: non-finite ε')
+    # Dispatches: quick 1, 4 and 4 rows, window 8 and 3→4, fixed 8 and 8.
+    unet_batches = sorted(set(probe.batches))
+    if unet_batches != [2, 8, 16] or \
+            sorted(decodes) != [1, 4, 4, 4, 8, 8, 8]:
+        raise AssertionError(f'serving: UNet batches {unet_batches}, '
+                             f'decodes {decodes}')
+    fixed_a = _b64_pixels(fixed_alone['images'][0])
+    fixed_b = _b64_pixels(fixed_batched[0]['images'][0])
+    if not np.array_equal(fixed_a, fixed_b):
+        raise AssertionError('fixed_rows: the request alone and batched '
+                             'differ')
+    delta = np.abs(_b64_pixels(alone['images'][0]).astype(np.int16) -
+                   _b64_pixels(batched[0]['images'][0]))
+    # Images per minute of one dispatch whose rows are all real images, on
+    # a batch shape the card has run before: 1 row (step 12 ran it), the
+    # second 4-row request, the fixed_rows service's 8 concurrent requests.
+    dispatch_s = {'1': quick_runs[0][1], '4': quick_runs[2][1],
+                  '8': fixed_runs[0][1]}
+    res = dict(
+        card=card_line(),
+        images_per_min={r: int(r) * 60.0 / t for r, t in dispatch_s.items()},
+        dispatch_s=dispatch_s,
+        first_dispatch_s={'4': quick_runs[1][1]},
+        latency_ms_p50={k: v['latency_ms_p50'] for k, v in stats.items()},
+        mean_rows_per_batch={k: v['mean_rows_per_batch']
+                             for k, v in stats.items()},
+        peak_device_gib=peak, phase_s=phase_s,
+        unet_evaluations=probe.calls, decodes=decodes,
+        default_padding_alone_vs_batched=dict(
+            max_abs_levels=int(delta.max()),
+            mean_abs_levels=float(delta.mean())),
+        fixed_rows_bit_equal=True, launches=launches)
+    print(f'serving: {json.dumps(res)}')
+    return res
+
+
+def run_surfaces(runner, root: str) -> dict:
+    """The surfaces phase (module docstring, step 13)."""
+    guide_path = os.path.join(root, 'guide.png')
+    synthetic_image(SURFACE_SIZE, SEED).save(guide_path)
+    res = dict(cli=run_cli(root, guide_path), ui=run_ui(runner, guide_path),
+               serving=run_serving(runner))
+    res['launches'] = {}
+    for part in ('cli', 'ui', 'serving'):
+        _add(res['launches'], res[part]['launches'])
+    return res
 
 
 def main() -> int:
@@ -1615,6 +1990,9 @@ def main() -> int:
     ap.add_argument('--profile-out', default='outputs/profile',
                     help='where the profiling modes write their tables')
     args = ap.parse_args()
+    # Warnings only: the CLI phase's ``cli.main`` would otherwise set INFO
+    # logging for every request of the surfaces phase.
+    logging.basicConfig(level=logging.WARNING)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
@@ -1644,7 +2022,9 @@ def main() -> int:
     print(f'build step: {time.perf_counter() - t0:.1f} s')
 
     gen = torch.Generator('cuda').manual_seed(SEED)
+    serve_gen = torch.Generator('cuda').manual_seed(SERVE_SEED)
     results = [check_kernel(s, gen) for s in KERNEL_SHAPES]
+    results += [check_kernel(s, serve_gen) for s in SERVE_SHAPES]
     for r in results:
         print('K1', json.dumps(r))
     for r in results:
@@ -1656,6 +2036,8 @@ def main() -> int:
                              f'the Hopper path) at {bad}')
 
     gn_res = [check_group_norm(*spec, gen) for spec in GN_SHAPES]
+    gn_res += [check_group_norm(*spec, serve_gen)
+               for spec in SERVE_GN_SHAPES]
     for r in gn_res:
         print('K6', json.dumps(r))
     for r in gn_res:
@@ -1719,9 +2101,13 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix='flexdiffuse_snapshot_')
     try:
         disk = run_disk_phases(text, vision, unet, vae, ds, root)
+        print(f'loading phase: {time.perf_counter() - t0:.1f} s')
+        # The surfaces: CLI, UI and serving on that snapshot and Runner.
+        t0 = time.perf_counter()
+        surfaces = run_surfaces(disk.pop('runner'), root)
+        print(f'surfaces phase: {time.perf_counter() - t0:.1f} s')
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f'loading phase: {time.perf_counter() - t0:.1f} s')
     del text, vision, runner
     torch.manual_seed(SEED)
     with torch.device('cuda'):
@@ -1733,8 +2119,8 @@ def main() -> int:
             steps=FULL_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
             log_every=1, on_step=on_step), FULL_STEPS, 'full')
     launches = {k: gen_launches[k] + lora['launches'][k] +
-                full['launches'][k] + disk['launches'][k]
-                for k in gen_launches}
+                full['launches'][k] + disk['launches'][k] +
+                surfaces['launches'][k] for k in gen_launches}
     del unet32, ds
 
     # The flash-kernel experiment tools: T1–T6 against their twins, then

@@ -1,0 +1,639 @@
+"""Command-line interface (port of ``flexdiffuse_tpu/cli.py``): the JAX
+package's 8 subcommands and flags, plus ``--device``. Usage::
+
+    python -m flexdiffuse_tpu_torch.cli convert --models ./models
+    python -m flexdiffuse_tpu_torch.cli generate --models ./models \\
+        --prompt "a deer" --guide guide.png --steps 30 --seed 1337
+    python -m flexdiffuse_tpu_torch.cli compose --models ./models \
+        --schema s.json
+    python -m flexdiffuse_tpu_torch.cli train --models ./models --data DIR
+    python -m flexdiffuse_tpu_torch.cli serve --models ./models [--lan]
+    python -m flexdiffuse_tpu_torch.cli serve-api --models ./models
+
+(or the ``flexdiffuse-tpu-torch`` script). ``generate``, ``compose``,
+``edit``, ``train``, ``serve`` and ``serve-api`` run on the CUDA card
+(``--device cuda``, the default, in bf16) and raise when there is none,
+unless given ``--device cpu`` (fp32); nothing falls back to the CPU.
+
+``convert`` writes the JAX package's msgpack caches beside the snapshots
+(the port itself reads the snapshots directly); ``download`` fetches the
+snapshots when ``huggingface_hub`` and the network are there.
+
+Every flag whose feature the port does not have yet raises
+``NotImplementedError`` naming its ROADMAP Queue 1 step, before any model
+loads (:func:`refuse_unported`); so does an unported ``--scheduler`` kind
+(``schedulers.make``). ``edit`` (InstructPix2Pix) is step 10. The JAX
+parser's ``--compile-cache``/``--no-compile-cache`` are left out: they set
+XLA's compilation cache (``utils/compile_cache.py``), which ROADMAP's "Do
+not port" list names.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+import torch
+
+from flexdiffuse_tpu_torch import models, schedulers
+from flexdiffuse_tpu_torch.config import RunConfig
+
+# The geometry the model-running commands and ``convert`` build: SD-1.4 and
+# CLIP ViT-L/14.
+MODEL_CONFIGS = dict(text=models.CLIP_VIT_L14_TEXT,
+                     vision=models.CLIP_VIT_L14_VISION,
+                     unet=models.SD14_UNET, vae=models.SD14_VAE)
+
+# Flags of generate/edit/compose/serve/serve-api whose features are not
+# ported: (dest, flag, the value that leaves the feature off, ROADMAP
+# Queue 1 step).
+UNPORTED = (
+    ('karras', '--karras', False, 9),
+    ('v_prediction', '--v-prediction', False, 9),
+    ('zero_snr', '--zero-snr', False, 9),
+    ('timestep_spacing', '--timestep-spacing', None, 9),
+    ('freeu', '--freeu', '', 9),
+    ('vae_tile', '--vae-tile', 0, 9),
+    ('deepcache', '--deepcache', 0, 9),
+    ('tome', '--tome', '', 9),
+    ('pag', '--pag', 0.0, 9),
+    ('pag_layers', '--pag-layers', '', 9),
+    ('cfg_interval', '--cfg-interval', None, 9),
+    ('guidance_rescale', '--guidance-rescale', 0.0, 9),
+    ('hires_scale', '--hires-scale', 0.0, 9),
+    ('hires_strength', '--hires-strength', 0.55, 9),
+    ('hires_steps', '--hires-steps', None, 9),
+    ('controlnet', '--controlnet', None, 10),
+    ('control_image', '--control-image', '', 10),
+    ('controlnet_scale', '--controlnet-scale', 1.0, 10),
+    ('ip_adapter', '--ip-adapter', None, 10),
+    ('ip_encoder', '--ip-encoder', None, 10),
+    ('ip_encoder_arch', '--ip-encoder-arch', 'vit-h', 10),
+    ('ip_image', '--ip-image', '', 10),
+    ('ip_scale', '--ip-scale', 1.0, 10),
+    ('refiner', '--refiner', None, 11),
+    ('refine_strength', '--refine-strength', 0.3, 11),
+)
+# train's unported flags (its --v-prediction objective is ported).
+TRAIN_UNPORTED = (
+    ('textual_inversion', '--textual-inversion', '', 12),
+    ('init_token', '--init-token', '', 12),
+    ('num_vectors', '--num-vectors', 1, 12),
+    ('style_templates', '--style-templates', False, 12),
+)
+FAMILY_STEP = {'sd2': 9, 'sdxl': 11}
+
+
+def _not_ported(what: str, step: int) -> NotImplementedError:
+    return NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1 '
+                               f'step {step})')
+
+
+def refuse_unported(args, table=UNPORTED) -> None:
+    """Raise for the first flag of ``args`` (of ``table``, ``--model-family``,
+    ``--data-parallel`` and ``--scheduler``) that asks for a feature the
+    port does not have yet, naming its ROADMAP step."""
+    for dest, flag, off, step in table:
+        if getattr(args, dest, off) != off:
+            raise _not_ported(flag, step)
+    family = getattr(args, 'model_family', 'sd1')
+    if family != 'sd1':
+        raise _not_ported(f'--model-family {family}', FAMILY_STEP[family])
+    if getattr(args, 'data_parallel', 1) > 1:
+        raise _not_ported('--data-parallel > 1', 13)
+    if hasattr(args, 'scheduler'):
+        schedulers.make(args.scheduler, 1)   # raises for unported kinds
+
+
+def resolve_device(name: str) -> torch.device:
+    """``--device``: a CUDA device must be present (no fallback)."""
+    device = torch.device(name)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'--device {name}: no CUDA card is available; '
+                           'pass --device cpu to run on the CPU')
+    return device
+
+
+def model_dtype(device: torch.device) -> torch.dtype:
+    """bf16 on the card, fp32 on the CPU."""
+    return torch.bfloat16 if device.type == 'cuda' else torch.float32
+
+
+def _check(args, table=UNPORTED) -> torch.device:
+    """Everything a model-running command checks before it loads a model."""
+    refuse_unported(args, table)
+    return resolve_device(args.device)
+
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument('--models', default='./models',
+                   help='dir with HF snapshots of SD-1.4 and CLIP ViT-L/14')
+    p.add_argument('--sd-model', default=None, metavar='REPO',
+                   help='SD checkpoint repo id (default '
+                        'CompVis/stable-diffusion-v1-4); its basename picks '
+                        'the snapshot dir under --models — e.g. '
+                        'runwayml/stable-diffusion-inpainting for native '
+                        'inpainting (UNet input channels auto-adopt from '
+                        "the snapshot's unet/config.json)")
+    p.add_argument('--scheduler', default='pndm',
+                   choices=('ddim', 'pndm', 'lms', 'euler', 'euler_a',
+                            'dpmpp', 'lcm', 'ddpm', 'unipc', 'heun'),
+                   help='ported: ddim, pndm, lms (the others: ROADMAP '
+                        'step 9)')
+    p.add_argument('--clip-skip', type=int, default=0, choices=(0, 1),
+                   help='1 = condition on the penultimate CLIP layer')
+    p.add_argument('--karras', action='store_true',
+                   help='Karras sigma spacing (not ported: step 9)')
+    p.add_argument('--v-prediction', action='store_true',
+                   help='v-parameterized model (not ported: step 9)')
+    p.add_argument('--zero-snr', action='store_true',
+                   help='zero-terminal-SNR beta rescale (not ported: '
+                        'step 9)')
+    p.add_argument('--timestep-spacing', default=None,
+                   choices=('leading', 'trailing'),
+                   help='ddim/ddpm timestep spacing (not ported: step 9)')
+    p.add_argument('--model-family', default='sd1',
+                   choices=('sd1', 'sd2', 'sdxl'),
+                   help='checkpoint geometry: sd1 = SD1.x + CLIP ViT-L/14 '
+                        '(sd2: step 9, sdxl: step 11)')
+    p.add_argument('--lora', action='append', default=[], metavar='PATH[:S]',
+                   help='merge a kohya or PEFT LoRA (optional :scale, '
+                        'repeatable)')
+    p.add_argument('--embedding', action='append', default=[],
+                   metavar='PATH[:TOKEN]',
+                   help='load a textual-inversion embedding (optional '
+                        ':token name, repeatable)')
+    p.add_argument('--controlnet', default=None, metavar='PATH',
+                   help='diffusers ControlNet snapshot (not ported: step 10)')
+    p.add_argument('--ip-adapter', default=None, metavar='PATH',
+                   help='IP-Adapter checkpoint (not ported: step 10)')
+    p.add_argument('--ip-encoder', default=None, metavar='DIR',
+                   help='the IP-Adapter image-encoder snapshot (not '
+                        'ported: step 10)')
+    p.add_argument('--ip-encoder-arch', default='vit-h',
+                   choices=('vit-h', 'bigg'),
+                   help='image-encoder tower for --ip-encoder (not ported: '
+                        'step 10)')
+    p.add_argument('--refiner', default=None, metavar='DIR',
+                   help='SDXL refiner snapshot (not ported: step 11)')
+    p.add_argument('--refine-strength', type=float, default=0.3,
+                   help='refiner img2img strength (not ported: step 11)')
+    _add_device_arg(p)
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument('--device', default='cuda',
+                   help="torch device: 'cuda' (default; bf16, raises "
+                        "without a card) or 'cpu' (fp32)")
+
+
+def _runner(args):
+    """``Runner(model_root=--models)`` on ``--device``, with the LoRAs and
+    textual inversions the flags name."""
+    from flexdiffuse_tpu_torch.runner import Runner
+    from flexdiffuse_tpu_torch.weights.lora import parse_spec
+    device = resolve_device(args.device)
+    run_cfg_kw = dict(output_dir=getattr(args, 'out', './outputs'))
+    if getattr(args, 'sd_model', None):
+        run_cfg_kw['sd_model'] = args.sd_model
+    c = MODEL_CONFIGS
+    runner = Runner(model_root=args.models, config=RunConfig(**run_cfg_kw),
+                    scheduler=args.scheduler, dtype=model_dtype(device),
+                    text_config=c['text'], vision_config=c['vision'],
+                    unet_config=c['unet'], vae_config=c['vae'],
+                    clip_skip=getattr(args, 'clip_skip', 0), device=device)
+    for spec in getattr(args, 'lora', []):
+        runner.apply_lora(*parse_spec(spec))
+    for spec in getattr(args, 'embedding', []):
+        # 'path:token' unless the whole spec is itself an existing file.
+        path, _, tok = spec.rpartition(':')
+        if path and not os.path.exists(spec):
+            runner.load_textual_inversion(path, token=tok)
+        else:
+            runner.load_textual_inversion(spec)
+    return runner
+
+
+def cmd_download(args) -> int:
+    """Download HF snapshots (the reference's --dl flag, utils.py:59-66),
+    then convert. Needs ``huggingface_hub`` and the network; says so on
+    stderr and returns 1 without them."""
+    cfg = RunConfig()
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError:
+        print('huggingface_hub is not installed; download the snapshots '
+              'manually and run `convert`.', file=sys.stderr)
+        return 1
+    for repo in (cfg.sd_model, cfg.clip_model):
+        dest = os.path.join(args.models, repo.split('/')[-1])
+        print(f'downloading {repo} -> {dest}')
+        try:
+            snapshot_download(repo, local_dir=dest)
+        except Exception as ex:
+            print(f'download failed ({type(ex).__name__}): no network '
+                  'egress? Place the snapshots manually and run `convert`.',
+                  file=sys.stderr)
+            return 1
+    return cmd_convert(args)
+
+
+def cmd_convert(args) -> int:
+    """Write the JAX package's msgpack caches beside the snapshots."""
+    from flexdiffuse_tpu_torch.weights import load
+    cfg = RunConfig()
+    sd_dir, clip_dir = load.snapshot_dirs(args.models, cfg.sd_model,
+                                          cfg.clip_model)
+    c = MODEL_CONFIGS
+    print(f'converted CLIP -> '
+          f'{load.write_clip_cache(clip_dir, c["text"], c["vision"])}')
+    print(f'converted SD   -> '
+          f'{load.write_sd_cache(sd_dir, c["unet"], c["vae"])}')
+    return 0
+
+
+def cmd_generate(args) -> int:
+    from PIL import Image
+    _check(args)
+    runner = _runner(args)
+    guide = None
+    if args.guide:
+        guide = Image.open(args.guide) if os.path.exists(args.guide) \
+            else args.guide  # a path → image guide; otherwise text guide
+    init = Image.open(args.init_image) if args.init_image else None
+    mask = Image.open(args.mask) if args.mask else None
+    imgs, grid = runner.gen(
+        prompt=args.prompt, init_image=init, guide=guide,
+        init_size=(args.height, args.width),
+        mapping_concepts=args.concepts,
+        guide_threshold_mult=args.threshold_mult,
+        guide_threshold_floor=args.threshold_floor,
+        guide_clustered=args.clustered,
+        guide_linear=(args.linear_start, args.linear_end),
+        guide_max_guidance=args.max_guidance,
+        guide_header_max=args.header_max, guide_mode=args.mode,
+        guide_reuse=not args.no_reuse, strength=args.strength,
+        steps=args.steps, guidance_scale=args.guidance_scale,
+        samples=args.samples, seed=args.seed, debug=args.debug,
+        negative_prompt=args.negative_prompt, mask=mask,
+        long_prompt=args.long_prompt, weighted=args.weighted)
+    print(f'{len(imgs)} image(s) written to {runner.output_dir}')
+    return 0
+
+
+def cmd_compose(args) -> int:
+    from flexdiffuse_tpu_torch.composition import Schema
+    _check(args)
+    with open(args.schema) as f:
+        schema = Schema.from_json(f.read())
+    runner = _runner(args)
+    imgs, grid = runner.compose(
+        bg_prompt=schema.background_prompt,
+        entities_df=[[e.prompt, e.offset[0], e.offset[1], e.size[0],
+                      e.size[1], e.blend] for e in schema.entities],
+        start_style=schema.style_start_prompt,
+        end_style=schema.style_end_prompt,
+        style_blend=schema.style_blend, batches=args.samples,
+        strength=args.strength, steps=args.steps,
+        guidance_scale=args.guidance_scale,
+        init_size=(args.height, args.width), seed=args.seed,
+        debug=args.debug)
+    print(f'{len(imgs)} image(s) written to {runner.output_dir}')
+    return 0
+
+
+def cmd_edit(args) -> int:
+    """Instruction-based image editing (InstructPix2Pix): not ported yet."""
+    if getattr(args, 'pag_layers', ''):
+        # As the JAX CLI: the IP2P guidance path has no PAG. Checked before
+        # anything else.
+        raise SystemExit('--pag-layers does not apply to edit (the '
+                         'InstructPix2Pix guidance path has no PAG); '
+                         'remove the flag')
+    raise _not_ported('edit (InstructPix2Pix)', 10)
+
+
+def _train_models(args, device: torch.device):
+    """(CLIP encoder, UNet, VAE) from the snapshots under ``--models``: the
+    text tower and VAE in the device's dtype, the UNet in fp32 for full
+    fine-tuning (fp32 weights and AdamW; bf16 autocast on the card) and in
+    the device's dtype under LoRA factors (which stay fp32)."""
+    from flexdiffuse_tpu_torch.encode import CLIPEncoder
+    from flexdiffuse_tpu_torch.text.tokenizer import CLIPTokenizer
+    from flexdiffuse_tpu_torch.weights import load
+    cfg = RunConfig()
+    sd_dir, clip_dir = load.snapshot_dirs(args.models, cfg.sd_model,
+                                          cfg.clip_model)
+    c = MODEL_CONFIGS
+    dtype = model_dtype(device)
+    text_sd, _ = load.load_clip(clip_dir)
+    unet_sd, vae_sd = load.load_sd(sd_dir)
+    text = load.instantiate(models.CLIPTextModel, c['text'], text_sd, device,
+                            dtype)
+    encoder = CLIPEncoder(text, None, CLIPTokenizer.from_dir(clip_dir),
+                          clip_skip=args.clip_skip)
+    unet = load.instantiate(models.UNet2DCondition, c['unet'], unet_sd,
+                            device, torch.float32 if args.full else dtype)
+    if args.full:
+        unet.requires_grad_(True)
+    vae = load.instantiate(models.AutoencoderKL, c['vae'], vae_sd, device,
+                           dtype)
+    return encoder, unet, vae
+
+
+def cmd_train(args) -> int:
+    """Fine-tune on a folder of images: LoRA by default, ``--full`` for the
+    whole UNet, DreamBooth prior preservation with ``--class-data``."""
+    from flexdiffuse_tpu_torch import training
+    device = _check(args, TRAIN_UNPORTED)
+    encoder, unet, vae = _train_models(args, device)
+    tcfg = training.TrainConfig(learning_rate=args.lr,
+                                prediction_type=('v_prediction'
+                                                 if args.v_prediction
+                                                 else 'epsilon'),
+                                snr_gamma=args.snr_gamma,
+                                remat=args.remat,
+                                grad_accum=args.grad_accum,
+                                ema_decay=args.ema_decay)
+    items = training.find_items(args.data, default_caption=args.caption)
+    ds = training.encode_dataset(items, vae, encoder,
+                                 resolution=args.resolution)
+    seed = args.seed if args.seed is not None else 0
+    if args.class_data:
+        # DreamBooth prior preservation: class images must exist already
+        # (pre-generate with `generate --prompt "<class prompt>"` or
+        # training.generate_class_images).
+        cds = training.encode_dataset(
+            training.find_items(args.class_data,
+                                default_caption=args.class_caption),
+            vae, encoder, resolution=args.resolution)
+        mode = 'full' if args.full else 'lora'
+        out = args.out or ('finetuned_unet.msgpack' if args.full
+                           else 'lora.safetensors')
+        training.train_dreambooth(
+            unet, ds, cds, cfg=tcfg, prior_weight=args.prior_weight,
+            mode=mode, rank=args.rank, steps=args.steps,
+            batch_size=args.batch_size, seed=seed, save_path=out)
+        print(f'trained weights written to {out}')
+        return 0
+    ckpt_kw = dict(checkpoint_dir=args.checkpoint_dir,
+                   checkpoint_every=args.checkpoint_every)
+    if args.full:
+        out = args.out or 'finetuned_unet.msgpack'
+        training.train_full(unet, ds, tcfg, steps=args.steps,
+                            batch_size=args.batch_size, seed=seed,
+                            save_path=out, **ckpt_kw)
+    else:
+        out = args.out or 'lora.safetensors'
+        training.train_lora(unet, ds, tcfg, rank=args.rank,
+                            steps=args.steps, batch_size=args.batch_size,
+                            seed=seed, save_path=out, **ckpt_kw)
+    print(f'trained weights written to {out}')
+    return 0
+
+
+def _add_pipe_option_args(p) -> None:
+    """The JAX CLI's post-construction pipeline knobs (generate/edit/serve/
+    serve-api); none is ported yet (step 9)."""
+    p.add_argument('--freeu', default='',
+                   help="FreeU 'b1,b2,s1,s2' or 'on' (not ported: step 9)")
+    p.add_argument('--vae-tile', type=int, default=0,
+                   help='tiled VAE in N-latent-unit tiles (not ported: '
+                        'step 9)')
+    p.add_argument('--deepcache', type=int, default=0,
+                   help='DeepCache interval (not ported: step 9)')
+    p.add_argument('--tome', default='',
+                   help="ToMe token merging 'RATIO[,MIN_SEQ]' (not ported: "
+                        'step 9)')
+    p.add_argument('--pag-layers', default='',
+                   help='PAG perturbed layers (not ported: step 9)')
+
+
+def cmd_serve(args) -> int:
+    from flexdiffuse_tpu_torch.interface.server import launch
+    _check(args)
+    launch(lambda: _runner(args), lan=args.lan,
+           port=args.port).serve_forever()
+    return 0
+
+
+def cmd_serve_api(args) -> int:
+    from flexdiffuse_tpu_torch.serving import launch
+    _check(args)
+    launch(lambda: _runner(args), port=args.port, lan=args.lan,
+           max_batch_rows=args.max_batch, max_wait_ms=args.max_wait_ms,
+           fixed_rows=args.deterministic).serve_forever()
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's parser without its compilation-cache pair, with
+    ``--device`` on every model-running subcommand."""
+    parser = argparse.ArgumentParser(prog='flexdiffuse_tpu_torch')
+    sub = parser.add_subparsers(dest='cmd', required=True)
+
+    p = sub.add_parser('convert', help='write the JAX package\'s msgpack '
+                                       'caches beside the HF snapshots')
+    p.add_argument('--models', default='./models')
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser('download',
+                       help='download HF snapshots then convert (needs '
+                            'network egress)')
+    p.add_argument('--models', default='./models')
+    p.set_defaults(fn=cmd_download)
+
+    p = sub.add_parser('generate', help='guided generation')
+    _add_model_args(p)
+    p.add_argument('--prompt', default='')
+    p.add_argument('--negative-prompt', default='')
+    p.add_argument('--guide', default='',
+                   help='guide image path or guide text')
+    p.add_argument('--init-image', default='')
+    p.add_argument('--mask', default='',
+                   help='inpainting mask image (white = regenerate)')
+    p.add_argument('--control-image', default='',
+                   help='ControlNet conditioning image (not ported: step 10)')
+    p.add_argument('--controlnet-scale', type=float, default=1.0)
+    p.add_argument('--ip-image', default='',
+                   help='IP-Adapter image prompt (not ported: step 10)')
+    p.add_argument('--ip-scale', type=float, default=1.0)
+    p.add_argument('--long-prompt', action='store_true',
+                   help='chunked encoding for >75-token prompts (A1111 '
+                        'convention; with --guide, the tween applies to the '
+                        'first 77-token window)')
+    _add_pipe_option_args(p)
+    p.add_argument('--hires-scale', type=float, default=0.0,
+                   help='two-pass highres fix (not ported: step 9)')
+    p.add_argument('--hires-strength', type=float, default=0.55)
+    p.add_argument('--hires-steps', type=int, default=None)
+    p.add_argument('--weighted', action='store_true',
+                   help='parse A1111 emphasis syntax — (word:1.3), [word], '
+                        'BREAK — in prompt and negative prompt; subsumes '
+                        '--long-prompt')
+    p.add_argument('--cfg-interval', type=float, nargs=2, default=None,
+                   metavar=('LO', 'HI'),
+                   help='CFG only for progress in [LO, HI] (not ported: '
+                        'step 9)')
+    p.add_argument('--guidance-rescale', type=float, default=0.0,
+                   help='CFG rescale phi (not ported: step 9)')
+    p.add_argument('--pag', type=float, default=0.0, metavar='SCALE',
+                   help='perturbed-attention guidance scale (not ported: '
+                        'step 9)')
+    p.add_argument('--concepts', default='')
+    p.add_argument('--out', default='./outputs')
+    p.add_argument('--height', type=int, default=512)
+    p.add_argument('--width', type=int, default=512)
+    p.add_argument('--threshold-mult', type=float, default=0.25)
+    p.add_argument('--threshold-floor', type=float, default=0.75)
+    p.add_argument('--clustered', type=float, default=0.15)
+    p.add_argument('--linear-start', type=float, default=0.1)
+    p.add_argument('--linear-end', type=float, default=0.5)
+    p.add_argument('--max-guidance', type=float, default=0.35)
+    p.add_argument('--header-max', type=float, default=0.0)
+    p.add_argument('--mode', type=int, default=1,
+                   help='0=text order, 1=best fit, 2=direct')
+    p.add_argument('--no-reuse', action='store_true')
+    p.add_argument('--strength', type=float, default=0.6)
+    p.add_argument('--steps', type=int, default=30)
+    p.add_argument('--guidance-scale', type=float, default=8.0)
+    p.add_argument('--samples', type=int, default=4)
+    p.add_argument('--seed', type=int, default=None)
+    p.add_argument('--debug', action='store_true')
+    p.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser('edit',
+                       help='instruction-based image editing '
+                            '(InstructPix2Pix; not ported: step 10)')
+    _add_model_args(p)
+    p.add_argument('--prompt', required=True, help='edit instruction, '
+                   'e.g. "make it winter"')
+    p.add_argument('--image', required=True, help='image to edit')
+    p.add_argument('--negative-prompt', default='')
+    p.add_argument('--steps', type=int, default=30)
+    p.add_argument('--guidance-scale', type=float, default=7.5,
+                   help='text CFG scale (published IP2P default 7.5)')
+    p.add_argument('--image-guidance-scale', type=float, default=1.5,
+                   help='image CFG scale (published default 1.5)')
+    p.add_argument('--guidance-rescale', type=float, default=0.0)
+    p.add_argument('--samples', type=int, default=1)
+    p.add_argument('--seed', type=int, default=None)
+    p.add_argument('--out', default='./outputs')
+    p.add_argument('--debug', action='store_true')
+    _add_pipe_option_args(p)
+    p.set_defaults(fn=cmd_edit)
+
+    p = sub.add_parser('compose', help='regional composition from a schema')
+    _add_model_args(p)
+    p.add_argument('--schema', required=True, help='Schema json file')
+    p.add_argument('--out', default='./outputs')
+    p.add_argument('--height', type=int, default=512)
+    p.add_argument('--width', type=int, default=512)
+    p.add_argument('--strength', type=float, default=0.7)
+    p.add_argument('--steps', type=int, default=30)
+    p.add_argument('--guidance-scale', type=float, default=8.0)
+    p.add_argument('--samples', type=int, default=4)
+    p.add_argument('--seed', type=int, default=None)
+    p.add_argument('--debug', action='store_true')
+    p.set_defaults(fn=cmd_compose)
+
+    p = sub.add_parser('train', help='fine-tune on a folder of images '
+                                     '(LoRA by default)')
+    p.add_argument('--models', default='./models',
+                   help='dir with the HF snapshots')
+    p.add_argument('--model-family', default='sd1', choices=('sd1', 'sd2'),
+                   help='sd2: not ported (step 9)')
+    p.add_argument('--clip-skip', type=int, default=0, choices=(0, 1))
+    p.add_argument('--v-prediction', action='store_true',
+                   help='train against the v-prediction objective')
+    p.add_argument('--data', required=True,
+                   help='dataset dir: images + same-stem .txt captions or '
+                        'metadata.jsonl; captionless folders use --caption')
+    p.add_argument('--caption', default='',
+                   help='caption for images without one (DreamBooth-style '
+                        'single-concept training)')
+    p.add_argument('--resolution', type=int, default=512)
+    p.add_argument('--full', action='store_true',
+                   help='fine-tune the whole UNet instead of LoRA factors')
+    p.add_argument('--textual-inversion', default='', metavar='PLACEHOLDER',
+                   help='train a textual-inversion embedding (not ported: '
+                        'step 12)')
+    p.add_argument('--init-token', default='',
+                   help='textual inversion (not ported: step 12)')
+    p.add_argument('--num-vectors', type=int, default=1,
+                   help='textual inversion (not ported: step 12)')
+    p.add_argument('--style-templates', action='store_true',
+                   help='textual inversion (not ported: step 12)')
+    p.add_argument('--remat', default='none',
+                   choices=('none', 'dots', 'full'),
+                   help='activation rematerialization (memory for compute)')
+    p.add_argument('--grad-accum', type=int, default=1,
+                   help='micro-batches per optimizer step')
+    p.add_argument('--ema-decay', type=float, default=0.0,
+                   help='EMA of trained params (e.g. 0.9999; 0 = off)')
+    p.add_argument('--class-data', default='',
+                   help='DreamBooth prior preservation: folder of class '
+                        'images (pre-generate with the generate command)')
+    p.add_argument('--class-caption', default='',
+                   help='caption for class images without sidecars (e.g. '
+                        '"a photo of a dog")')
+    p.add_argument('--prior-weight', type=float, default=1.0,
+                   help='DreamBooth prior-preservation loss weight')
+    p.add_argument('--rank', type=int, default=8, help='LoRA rank')
+    p.add_argument('--steps', type=int, default=500)
+    p.add_argument('--batch-size', type=int, default=4)
+    p.add_argument('--lr', type=float, default=1e-4)
+    p.add_argument('--snr-gamma', type=float, default=0.0,
+                   help='min-SNR loss weighting (0 = uniform)')
+    p.add_argument('--data-parallel', type=int, default=1,
+                   help='shard batches over this many devices (> 1 not '
+                        'ported: step 13)')
+    p.add_argument('--checkpoint-dir', default='',
+                   help='checkpoint directory; if it already holds a '
+                        'checkpoint, training resumes from it')
+    p.add_argument('--checkpoint-every', type=int, default=100,
+                   help='optimizer steps between checkpoints')
+    p.add_argument('--seed', type=int, default=None)
+    p.add_argument('--out', default='',
+                   help='output path (default lora.safetensors / '
+                        'finetuned_unet.msgpack)')
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser('serve', help='launch the web UI')
+    _add_model_args(p)
+    _add_pipe_option_args(p)
+    p.add_argument('--lan', action='store_true')
+    p.add_argument('--port', type=int, default=7860)
+    p.add_argument('--out', default='./outputs')
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser('serve-api',
+                       help='launch the batched JSON serving API')
+    _add_model_args(p)
+    _add_pipe_option_args(p)
+    p.add_argument('--lan', action='store_true')
+    p.add_argument('--port', type=int, default=8000)
+    p.add_argument('--max-batch', type=int, default=8,
+                   help='max fused rows per device dispatch')
+    p.add_argument('--max-wait-ms', type=float, default=30.0,
+                   help='batching window before a partial batch dispatches')
+    p.add_argument('--deterministic', action='store_true',
+                   help='pad every dispatch to --max-batch rows: one batch '
+                        'shape, bitwise-reproducible results regardless of '
+                        'batch composition')
+    p.add_argument('--out', default='./outputs')
+    p.set_defaults(fn=cmd_serve_api)
+    return parser
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(name)s %(message)s')
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -47,7 +47,7 @@ Guidance = Union[SimpleGuidance, CompositeGuidance]
 
 @dataclasses.dataclass
 class FlexPipelineOutput:
-    images: Union[List[Image.Image], torch.Tensor]
+    images: Union[List[Image.Image], np.ndarray, torch.Tensor]
 
 
 def prepare_latent_mask(mask, latent_hw: Tuple[int, int]) -> torch.Tensor:
@@ -153,6 +153,14 @@ class FlexPipeline:
     def latents_to_images(self, latents: torch.Tensor) -> List[Image.Image]:
         return to_pil(self.decode_u8_device(latents).cpu().numpy())
 
+    @torch.no_grad()
+    def latents_to_np(self, latents: torch.Tensor) -> np.ndarray:
+        """VAE decode → float32 images ``[B, H, W, 3]`` in [0, 1] on the
+        host (the JAX pipeline's ``output_type='np'``)."""
+        img = self.vae.decode(latents / self.latent_scale)
+        img = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
+        return img.float().cpu().numpy()
+
     def _pixels(self, init_image) -> torch.Tensor:
         if isinstance(init_image, Image.Image):
             init_image = preprocess(init_image)
@@ -176,8 +184,9 @@ class FlexPipeline:
                  mask_posterior_noise: Optional[torch.Tensor] = None,
                  variance_noise: Optional[Sequence[torch.Tensor]] = None,
                  inpaint_noise: Optional[Sequence[torch.Tensor]] = None):
-        """Generate images. ``output_type``: 'pil' or 'latent' (the final
-        scaled latents). ``eta``: DDIM's η. ``mask`` (needs ``init_image``):
+        """Generate images. ``output_type``: 'pil', 'np' (float32 ``[B, H,
+        W, 3]`` in [0, 1] on the host) or 'latent' (the final scaled
+        latents). ``eta``: DDIM's η. ``mask`` (needs ``init_image``):
         1 = regenerate, 0 = keep; a 9-channel UNet takes it as input
         channels, any other UNet re-anchors the kept region every step.
         ``debug``: decode the latents after every step from the first active
@@ -189,7 +198,7 @@ class FlexPipeline:
             raise ValueError('inpainting (mask=...) requires init_image')
         if debug and output_type != 'pil':
             raise ValueError("debug decodes every step: output_type 'pil'")
-        if output_type not in ('pil', 'latent'):
+        if output_type not in ('pil', 'np', 'latent'):
             raise ValueError(f'unknown output_type {output_type!r}')
         dev = self.device
         batch_size = guide.batch_size
@@ -293,4 +302,6 @@ class FlexPipeline:
                 im for lat in recorded for im in self.latents_to_images(lat)])
         if output_type == 'latent':
             return FlexPipelineOutput(images=latents)
+        if output_type == 'np':
+            return FlexPipelineOutput(images=self.latents_to_np(latents))
         return FlexPipelineOutput(images=self.latents_to_images(latents))

@@ -19,7 +19,7 @@ CFG interval and CFG rescale (step 9), SDXL's pooled embeddings and time ids
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -42,14 +42,17 @@ def _reject_unported(guide) -> None:
 @dataclasses.dataclass(frozen=True)
 class SimpleGuidance:
     """CFG conditioning: ``embeddings [B, T, D]`` tweened prompt embeddings,
-    ``uncond [1, T, D]`` empty/negative-prompt embeddings. ``cfg`` follows
-    the reference's ``guidance > 1`` gate. ``extra_channels [1 or B, h, w,
-    5]`` (mask, masked-image latents) is concatenated onto the UNet input
-    every step for a 9-channel inpainting UNet."""
+    ``uncond [1 or B, T, D]`` empty/negative-prompt embeddings (one row for
+    all, or one per row). ``guidance_scale``: a float, or a per-row fp32
+    tensor ``[B, 1, 1, 1]`` (the serving path fuses requests with their own
+    scales). ``cfg`` follows the reference's ``guidance > 1`` gate.
+    ``extra_channels [1 or B, h, w, 5]`` (mask, masked-image latents) is
+    concatenated onto the UNet input every step for a 9-channel inpainting
+    UNet."""
 
     embeddings: torch.Tensor
     uncond: torch.Tensor
-    guidance_scale: float
+    guidance_scale: Union[float, torch.Tensor]
     cfg: bool = True
     extra_channels: Optional[torch.Tensor] = None
     cfg_interval: bool = False
@@ -86,7 +89,10 @@ class SimpleGuidance:
                          self.embeddings.to(dtype)])
         eps = noise_fn(torch.cat([lat_in, lat_in]), t.expand(2 * b), ctx)
         eps_u, eps_c = eps.chunk(2)
-        return eps_u + self.guidance_scale * (eps_c - eps_u)
+        scale = self.guidance_scale
+        if isinstance(scale, torch.Tensor):
+            scale = scale.to(eps.device)
+        return eps_u + scale * (eps_c - eps_u)
 
 
 def entity_masks(entities: Sequence[Tuple[Tuple[int, int], Tuple[int, int]]],

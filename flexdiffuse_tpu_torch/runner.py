@@ -17,6 +17,11 @@ other keywords raise ``NotImplementedError`` naming the ROADMAP step that
 ports them. ``compose`` is the reference's second UI tab: a background
 prompt and rectangular entities, each with its prompt and blend.
 
+``Runner.timer`` (``utils/profiling.PhaseTimer``) accumulates the host
+seconds of ``gen``'s two phases, ``'embeds'`` (the prompt and guide
+embeddings) and ``'generate'`` (denoise, decode and saving), as the JAX
+Runner's.
+
 Seeds are clamped as in the JAX Runner and seed a ``torch.Generator`` on the
 UNet's device; it draws every batch's noise in turn. A torch generator and a
 JAX key give different numbers, so seeded outputs of the two packages
@@ -51,6 +56,7 @@ from flexdiffuse_tpu_torch.pipeline import FlexPipeline, SimpleGuidance
 from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
 from flexdiffuse_tpu_torch.text.tokenizer import CLIPTokenizer
 from flexdiffuse_tpu_torch.utils.image import image_grid
+from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer
 from flexdiffuse_tpu_torch.weights import convert, load
 from flexdiffuse_tpu_torch.weights import lora as _lora
 from flexdiffuse_tpu_torch.weights import textual_inversion as _ti
@@ -175,6 +181,7 @@ class Runner:
         self.grid_dir = os.path.join(self.output_dir, 'grids')
         self._generator = torch.Generator(self.pipe.device)
         self._merged: set = set()   # parameters a LoRA has changed
+        self.timer = PhaseTimer()
 
     def apply_lora(self, path: str, scale: float = 1.0) -> None:
         """Merge a LoRA adapter (kohya or diffusers/PEFT naming,
@@ -310,30 +317,34 @@ class Runner:
                                 max_guidance=guide_max_guidance,
                                 header_max=guide_header_max, mode=guide_mode,
                                 reuse=guide_reuse)
+        enc_fn = (self.encoder.prompt_weighted if weighted
+                  else self.encoder.prompt_chunked)
+        with self.timer.phase('embeds'):
+            if long_prompt or weighted:
+                embeds = self._windowed(prompt, guide, mapping_concepts,
+                                        params, enc_fn)
+            else:
+                embeds = self.guide.embeds(prompt=prompt, guide=guide,
+                                           mapping_concepts=mapping_concepts,
+                                           params=params)
+            if embeds.device.type == 'cuda':
+                torch.cuda.synchronize(embeds.device)
         if long_prompt or weighted:
-            embeds, uncond = self._windowed(
-                prompt, negative_prompt, guide, mapping_concepts, params,
-                self.encoder.prompt_weighted if weighted
-                else self.encoder.prompt_chunked)
+            uncond = self._windowed_uncond(negative_prompt, embeds, enc_fn)
         else:
-            embeds = self.guide.embeds(prompt=prompt, guide=guide,
-                                       mapping_concepts=mapping_concepts,
-                                       params=params)
             uncond = self.encoder.prompt(negative_prompt or '')
         guidance = SimpleGuidance(embeddings=embeds, uncond=uncond,
                                   guidance_scale=float(guidance_scale),
                                   cfg=guidance_scale > 1.0)
-        return self._run(samples, guidance, init_image, init_size, strength,
-                         steps, debug, fp, save, mask=mask)
+        with self.timer.phase('generate'):
+            return self._run(samples, guidance, init_image, init_size,
+                             strength, steps, debug, fp, save, mask=mask)
 
-    def _windowed(self, prompt, negative_prompt: str, guide,
-                  mapping_concepts: str, params: GuidanceParams, enc_fn
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Cond and uncond contexts of a chunked (A1111) encoding, as the
-        JAX ``Runner.gen`` builds them: the guide tween, defined on one
-        77-token window, applies to the first window; the negative prompt
-        is chunked on its own, then cut or padded with empty-prompt windows
-        to the prompt's window count."""
+    def _windowed(self, prompt, guide, mapping_concepts: str,
+                  params: GuidanceParams, enc_fn) -> torch.Tensor:
+        """The cond context of a chunked (A1111) encoding, as the JAX
+        ``Runner.gen`` builds it: the guide tween, defined on one 77-token
+        window, applies to the first window."""
         if not isinstance(prompt, str):
             raise ValueError('long_prompt/weighted take a single prompt')
         embeds = enc_fn(prompt)
@@ -345,6 +356,14 @@ class Runner:
                                       params=params,
                                       text_embeddings=embeds[:, :win])
             embeds = torch.cat([first, embeds[:, win:]], dim=1)
+        return embeds
+
+    def _windowed_uncond(self, negative_prompt: str, embeds: torch.Tensor,
+                         enc_fn) -> torch.Tensor:
+        """The uncond context beside :meth:`_windowed`'s: the negative
+        prompt chunked on its own, then cut or padded with empty-prompt
+        windows to the prompt's window count."""
+        win = self.encoder.tokenizer.model_max_length
         uncond = enc_fn(negative_prompt or '')
         k, k_u = embeds.shape[1] // win, uncond.shape[1] // win
         if k_u > k:
@@ -352,7 +371,7 @@ class Runner:
         elif k_u < k:
             pad = self.encoder.prompt('').repeat(1, k - k_u, 1)
             uncond = torch.cat([uncond, pad], dim=1)
-        return embeds, uncond
+        return uncond
 
     def compose(self,
                 bg_prompt: str = '',

@@ -4,13 +4,16 @@ modules (port of ``flexdiffuse_tpu/weights/load.py``).
 The JAX package converts a snapshot into its trees once and caches them as
 msgpack beside it; the port's modules carry the snapshot's own names, so it
 reads the files directly (safetensors through a copy-on-write ``mmap``,
-``weights/safetensors.py``) and needs no cache. :func:`instantiate` builds a
-module on the meta device and fills it from a state dict with
+``weights/safetensors.py``) and needs no cache; it writes the JAX
+package's caches all the same (:func:`write_clip_cache`,
+:func:`write_sd_cache`: the CLI's ``convert``). :func:`instantiate` builds
+a module on the meta device and fills it from a state dict with
 ``strict=True``, so the weights reach the device once, in the module's
 dtype.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Dict, Tuple
@@ -18,7 +21,9 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from flexdiffuse_tpu_torch.models.configs import UNetConfig
+from flexdiffuse_tpu_torch.models.configs import (CLIPTextConfig,
+                                                  CLIPVisionConfig,
+                                                  UNetConfig, VAEConfig)
 from flexdiffuse_tpu_torch.weights import bridge, convert
 from flexdiffuse_tpu_torch.weights import msgpack as _msgpack
 from flexdiffuse_tpu_torch.weights import safetensors as _safetensors
@@ -138,3 +143,42 @@ def unet_overrides(sd_dir: str) -> Dict[str, int]:
     return {'in_channels': int(uj.get('in_channels') or 4),
             'time_cond_proj_dim': int(uj.get('time_cond_proj_dim') or 0)}
 
+
+def _config_tag(*configs) -> str:
+    """Short fingerprint of the model configs a cache was converted under
+    (the JAX loader's ``_config_tag``; the two packages' configs have the
+    same ``repr``, so the tags agree)."""
+    text = '|'.join(repr(c) for c in configs)
+    return hashlib.sha1(text.encode()).hexdigest()[:10]
+
+
+def _write_cache(model_dir: str, kind: str, parts: Dict[str, tuple]) -> str:
+    """``parts`` (tree key → (state dict, config)) converted by
+    ``convert.state_dict_to_params`` into the JAX package's cache
+    ``flexdiffuse_tpu_<kind>_<tag>.msgpack`` in ``model_dir``, in flax's
+    msgpack bytes; returns its path."""
+    tree = {key: convert.state_dict_to_params(sd, cfg)['params']
+            for key, (sd, cfg) in parts.items()}
+    tag = _config_tag(*(cfg for _, cfg in parts.values()))
+    path = os.path.join(model_dir, f'flexdiffuse_tpu_{kind}_{tag}.msgpack')
+    _msgpack.save(tree, path)
+    return path
+
+
+def write_clip_cache(model_dir: str,
+                     text_config: CLIPTextConfig = CLIPTextConfig(),
+                     vision_config: CLIPVisionConfig = CLIPVisionConfig()
+                     ) -> str:
+    """The JAX loader's CLIP cache for a CLIP snapshot, beside it."""
+    text, vision = load_clip(model_dir)
+    return _write_cache(model_dir, 'clip', {'text': (text, text_config),
+                                            'vision': (vision,
+                                                       vision_config)})
+
+
+def write_sd_cache(model_dir: str, unet_config: UNetConfig = UNetConfig(),
+                   vae_config: VAEConfig = VAEConfig()) -> str:
+    """The JAX loader's UNet+VAE cache for an SD snapshot, beside it."""
+    unet, vae = load_sd(model_dir)
+    return _write_cache(model_dir, 'sd', {'unet': (unet, unet_config),
+                                          'vae': (vae, vae_config)})

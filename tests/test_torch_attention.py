@@ -63,6 +63,12 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.training.dreambooth',
     'flexdiffuse_tpu_torch.training.loop',
     'flexdiffuse_tpu_torch.training.train',
+    'flexdiffuse_tpu_torch.cli', 'flexdiffuse_tpu_torch.interface',
+    'flexdiffuse_tpu_torch.interface.app',
+    'flexdiffuse_tpu_torch.interface.server',
+    'flexdiffuse_tpu_torch.serving', 'flexdiffuse_tpu_torch.serving.api',
+    'flexdiffuse_tpu_torch.serving.batcher',
+    'flexdiffuse_tpu_torch.utils.profiling',
 ]
 
 

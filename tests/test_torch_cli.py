@@ -1,0 +1,475 @@
+"""PyTorch port: the command line (``flexdiffuse_tpu_torch/cli.py``,
+``python -m flexdiffuse_tpu_torch``), held against the JAX CLI.
+
+* Both parsers parse the same argv to equal namespaces, flag for flag; the
+  port leaves out only the JAX parser's ``--compile-cache`` pair and adds
+  ``--device``.
+* With a recording fake Runner in both, ``generate`` and ``compose`` call
+  ``gen``/``compose`` with equal keyword arguments (the port leaves out
+  the keywords it does not port, which the JAX CLI passes at their inert
+  values).
+* Every flag whose feature is not ported raises ``NotImplementedError``
+  naming its ROADMAP step, before any model loads; ``edit --pag-layers``
+  is refused as in the JAX CLI, and ``edit`` itself names step 10; without
+  a card the model-running commands raise unless given ``--device cpu``.
+* ``convert`` on the tiny HF-layout snapshot writes the caches the JAX
+  loader (``load_clip``/``load_sd``, ``cache=True``) reads back, equal to
+  the JAX converter's trees leaf for leaf in dtype and value.
+* ``download`` without ``huggingface_hub`` (or without the network)
+  returns 1 with its message; nothing here contacts a network.
+* ``generate``, ``compose`` and ``train`` (LoRA, ``--full``, DreamBooth)
+  run end to end on the tiny snapshot, fp32 on the CPU.
+"""
+import json
+import os
+import subprocess
+import sys
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from flexdiffuse_tpu import cli as jcli
+from flexdiffuse_tpu.models import TINY_UNET as J_TINY_UNET
+from flexdiffuse_tpu.models import TINY_VAE as J_TINY_VAE
+from flexdiffuse_tpu.weights import convert as jconvert
+from flexdiffuse_tpu.weights import load as jload
+from flexdiffuse_tpu_torch import cli as tcli
+from flexdiffuse_tpu_torch import models as tm
+from flexdiffuse_tpu_torch.interface import app as tapp
+from flexdiffuse_tpu_torch.weights import load as tload
+from flexdiffuse_tpu_torch.weights import safetensors as tsafetensors
+from tests.test_runner_disk_loading import model_root  # noqa: F401
+from tests.test_torch_attention import REPO
+from tests.test_torch_attention import one_torch_thread  # noqa: F401
+from tests.test_torch_loading import CONFIGS, _dirs
+
+SUBCOMMANDS = ('convert', 'download', 'generate', 'edit', 'compose', 'train',
+               'serve', 'serve-api')
+JAX_ONLY = {'compile_cache', 'no_compile_cache', 'fn'}
+PORT_ONLY = {'device', 'fn'}
+
+
+def jax_namespace(monkeypatch, argv):
+    """The namespace the JAX CLI's ``main`` hands its subcommand."""
+    seen = []
+    for name in ('cmd_convert', 'cmd_download', 'cmd_generate', 'cmd_edit',
+                 'cmd_compose', 'cmd_train', 'cmd_serve', 'cmd_serve_api'):
+        monkeypatch.setattr(jcli, name, lambda a: seen.append(a) or 0)
+    assert jcli.main(['--no-compile-cache', *argv]) == 0
+    return seen[0]
+
+
+ARGV = {
+    'generate_defaults': ['generate'],
+    'generate_all': [
+        'generate', '--models', 'm', '--sd-model', 'a/b', '--scheduler',
+        'ddim', '--clip-skip', '1', '--lora', 'l.safetensors:0.5', '--lora',
+        'k', '--embedding', 'e.pt:tok', '--prompt', 'a deer',
+        '--negative-prompt', 'blur', '--guide', 'g.png', '--init-image',
+        'i.png', '--mask', 'm.png', '--long-prompt', '--weighted',
+        '--concepts', 'deer', '--out', 'o', '--height', '256', '--width',
+        '384', '--threshold-mult', '0.3', '--threshold-floor', '0.7',
+        '--clustered', '0.2', '--linear-start', '0.05', '--linear-end',
+        '0.6', '--max-guidance', '0.4', '--header-max', '0.1', '--mode',
+        '2', '--no-reuse', '--strength', '0.5', '--steps', '12',
+        '--guidance-scale', '7.5', '--samples', '3', '--seed', '9',
+        '--debug'],
+    'generate_unported': [
+        'generate', '--karras', '--v-prediction', '--zero-snr',
+        '--timestep-spacing', 'trailing', '--model-family', 'sdxl',
+        '--controlnet', 'c', '--ip-adapter', 'a', '--ip-encoder', 'e',
+        '--ip-encoder-arch', 'bigg', '--refiner', 'r', '--refine-strength',
+        '0.4', '--control-image', 'ci', '--controlnet-scale', '0.5',
+        '--ip-image', 'ii', '--ip-scale', '0.3', '--freeu', 'on',
+        '--vae-tile', '64', '--deepcache', '2', '--tome', '0.5,1024',
+        '--pag-layers', 'mid', '--hires-scale', '2', '--hires-strength',
+        '0.4', '--hires-steps', '10', '--cfg-interval', '0.0', '0.6',
+        '--guidance-rescale', '0.7', '--pag', '3'],
+    'edit': ['edit', '--prompt', 'winter', '--image', 'x.png',
+             '--image-guidance-scale', '1.2', '--samples', '2'],
+    'compose': ['compose', '--schema', 's.json', '--samples', '2',
+                '--strength', '0.5', '--seed', '4', '--debug'],
+    'train': ['train', '--data', 'd', '--full', '--rank', '4', '--remat',
+              'full', '--grad-accum', '2', '--ema-decay', '0.99',
+              '--class-data', 'c', '--class-caption', 'a dog',
+              '--prior-weight', '0.5', '--steps', '3', '--batch-size', '2',
+              '--lr', '2e-5', '--snr-gamma', '5', '--checkpoint-dir', 'ck',
+              '--checkpoint-every', '7', '--seed', '1', '--out', 'o',
+              '--v-prediction', '--clip-skip', '1', '--resolution', '256'],
+    'train_ti': ['train', '--data', 'd', '--textual-inversion', '<x>',
+                 '--init-token', 'cat', '--num-vectors', '2',
+                 '--style-templates', '--data-parallel', '2',
+                 '--model-family', 'sd2'],
+    'serve': ['serve', '--lan', '--port', '1234', '--freeu', '1,2,3,4'],
+    'serve_api': ['serve-api', '--port', '99', '--max-batch', '4',
+                  '--max-wait-ms', '12.5', '--deterministic'],
+    'convert': ['convert', '--models', 'm'],
+    'download': ['download'],
+}
+
+
+@pytest.mark.parametrize('case', sorted(ARGV))
+def test_parsers_agree(monkeypatch, case):
+    argv = ARGV[case]
+    want = vars(jax_namespace(monkeypatch, argv))
+    got = vars(tcli.build_parser().parse_args(argv))
+    assert {k: v for k, v in got.items() if k not in PORT_ONLY} == \
+        {k: v for k, v in want.items() if k not in JAX_ONLY}
+    if argv[0] not in ('convert', 'download'):
+        assert got['device'] == 'cuda'
+
+
+def test_subcommands_match_and_the_entry_points_run():
+    """Both parsers offer the same 8 subcommands; ``python -m`` runs the
+    CLI and the UI entry point."""
+    subs = lambda p: set(next(a for a in p._actions
+                              if a.dest == 'cmd').choices)
+    assert subs(tcli.build_parser()) == set(SUBCOMMANDS)
+    for mod, want in (('flexdiffuse_tpu_torch.cli', SUBCOMMANDS),
+                      ('flexdiffuse_tpu_torch', ('--models', '--device',
+                                                 '--lan'))):
+        r = subprocess.run([sys.executable, '-m', mod, '--help'], cwd=REPO,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+        for word in want:
+            assert word in r.stdout
+
+
+# --- what the commands hand the Runner -------------------------------------
+
+class Recorder:
+    """A fake Runner recording ``gen``/``compose`` keyword arguments."""
+
+    output_dir = 'nowhere'
+
+    def __init__(self):
+        self.calls = []
+
+    def gen(self, **kw):
+        self.calls.append(('gen', kw))
+        return [], None
+
+    def compose(self, **kw):
+        self.calls.append(('compose', kw))
+        return [], None
+
+
+# The JAX CLI's gen keywords the port does not take, at the values the JAX
+# CLI passes while their flags are off.
+INERT = dict(control_image=None, controlnet_scale=1.0, ip_image=None,
+             ip_scale=1.0, cfg_interval=None, guidance_rescale=0.0,
+             pag_scale=0.0, hires_scale=0.0, hires_strength=0.55,
+             hires_steps=None)
+
+
+def _files(tmp_path):
+    paths = {}
+    for name, seed in (('guide', 1), ('init', 2), ('mask', 3)):
+        p = tmp_path / f'{name}.png'
+        Image.fromarray(np.random.default_rng(seed).integers(
+            0, 256, (24, 20, 3), np.uint8)).save(p)
+        paths[name] = str(p)
+    schema = tmp_path / 'schema.json'
+    schema.write_text(json.dumps({
+        'background_prompt': 'a forest', 'style_start_prompt': 'photo',
+        'style_end_prompt': 'ink', 'style_blend': [0.2, 0.8],
+        'entities': [{'prompt': 'a deer', 'offset': [8, 16],
+                      'size': [32, 24], 'blend': 0.7},
+                     {'prompt': 'a fox', 'offset': [0, 0],
+                      'size': [16, 16], 'blend': 1.0}]}))
+    paths['schema'] = str(schema)
+    return paths
+
+
+def _call_both(monkeypatch, argv):
+    jrec, trec = Recorder(), Recorder()
+    monkeypatch.setattr(jcli, '_runner', lambda args: jrec)
+    monkeypatch.setattr(tcli, '_runner', lambda args: trec)
+    assert jcli.main(['--no-compile-cache', *argv]) == 0
+    assert tcli.main([*argv, '--device', 'cpu']) == 0
+    (jkind, jkw), = jrec.calls
+    (tkind, tkw), = trec.calls
+    assert jkind == tkind
+    return jkw, tkw
+
+
+@pytest.mark.parametrize('case', ['defaults', 'text_guide', 'images'])
+def test_generate_calls_gen_alike(monkeypatch, tmp_path, case):
+    f = _files(tmp_path)
+    argv = {'defaults': ['generate'],
+            'text_guide': ['generate', '--prompt', 'a deer', '--guide',
+                           'an oil painting', '--seed', '5', '--samples',
+                           '2', '--steps', '7', '--weighted', '--mode', '0',
+                           '--negative-prompt', 'blurry', '--debug'],
+            'images': ['generate', '--prompt', 'x', '--guide', f['guide'],
+                       '--init-image', f['init'], '--mask', f['mask'],
+                       '--strength', '0.8', '--long-prompt',
+                       '--no-reuse']}[case]
+    jkw, tkw = _call_both(monkeypatch, argv)
+    assert {k: jkw[k] for k in INERT} == INERT
+    assert tkw == {k: v for k, v in jkw.items() if k not in INERT}
+
+
+def test_compose_calls_compose_alike(monkeypatch, tmp_path):
+    f = _files(tmp_path)
+    jkw, tkw = _call_both(monkeypatch, ['compose', '--schema', f['schema'],
+                                        '--samples', '2', '--seed', '3',
+                                        '--height', '256', '--debug'])
+    assert tkw == jkw
+    assert len(tkw['entities_df']) == 2
+
+
+# --- what the port refuses --------------------------------------------------
+
+UNPORTED = [
+    (['generate', '--karras'], 9), (['generate', '--v-prediction'], 9),
+    (['generate', '--zero-snr'], 9),
+    (['generate', '--timestep-spacing', 'trailing'], 9),
+    (['generate', '--freeu', 'on'], 9), (['generate', '--vae-tile', '64'], 9),
+    (['generate', '--deepcache', '2'], 9), (['generate', '--tome', '0.5'], 9),
+    (['generate', '--pag', '3'], 9), (['generate', '--pag-layers', 'mid'], 9),
+    (['generate', '--cfg-interval', '0', '0.6'], 9),
+    (['generate', '--guidance-rescale', '0.7'], 9),
+    (['generate', '--hires-scale', '2'], 9),
+    (['generate', '--hires-strength', '0.4'], 9),
+    (['generate', '--hires-steps', '10'], 9),
+    (['generate', '--model-family', 'sd2'], 9),
+    (['generate', '--scheduler', 'euler'], 9),
+    (['generate', '--scheduler', 'lcm'], 9),
+    (['generate', '--controlnet', 'c'], 10),
+    (['generate', '--control-image', 'c.png'], 10),
+    (['generate', '--controlnet-scale', '0.5'], 10),
+    (['generate', '--ip-adapter', 'a'], 10),
+    (['generate', '--ip-encoder', 'e'], 10),
+    (['generate', '--ip-encoder-arch', 'bigg'], 10),
+    (['generate', '--ip-image', 'i.png'], 10),
+    (['generate', '--ip-scale', '0.5'], 10),
+    (['generate', '--model-family', 'sdxl'], 11),
+    (['generate', '--refiner', 'r'], 11),
+    (['generate', '--refine-strength', '0.5'], 11),
+    (['compose', '--schema', 's.json', '--karras'], 9),
+    (['compose', '--schema', 's.json', '--scheduler', 'heun'], 9),
+    (['serve', '--freeu', 'on'], 9), (['serve-api', '--deepcache', '2'], 9),
+    (['serve-api', '--model-family', 'sdxl'], 11),
+    (['train', '--data', 'd', '--textual-inversion', '<x>'], 12),
+    (['train', '--data', 'd', '--init-token', 'cat'], 12),
+    (['train', '--data', 'd', '--num-vectors', '2'], 12),
+    (['train', '--data', 'd', '--style-templates'], 12),
+    (['train', '--data', 'd', '--model-family', 'sd2'], 9),
+    (['train', '--data', 'd', '--data-parallel', '2'], 13),
+]
+
+
+@pytest.fixture()
+def no_models(monkeypatch):
+    """Fail the test if anything would load a model or bind a server."""
+    def refuse(*a, **k):
+        raise AssertionError('a model was loaded')
+
+    for name in ('_runner', '_train_models'):
+        monkeypatch.setattr(tcli, name, refuse)
+    monkeypatch.setattr('flexdiffuse_tpu_torch.runner.Runner.__init__',
+                        refuse)
+    monkeypatch.setattr('flexdiffuse_tpu_torch.interface.server.launch',
+                        refuse)
+    monkeypatch.setattr('flexdiffuse_tpu_torch.serving.launch', refuse)
+
+
+@pytest.mark.parametrize('argv,step', UNPORTED,
+                         ids=[' '.join(a[:1] + a[-2:]) for a, _ in UNPORTED])
+def test_unported_flags_name_their_step(no_models, argv, step):
+    with pytest.raises(NotImplementedError, match=f'step {step}\\)'):
+        tcli.main([*argv, '--device', 'cpu'])
+
+
+def test_edit_refuses_pag_layers_then_names_step_10(no_models):
+    with pytest.raises(SystemExit, match='does not apply to edit'):
+        tcli.main(['edit', '--prompt', 'x', '--image', '/nonexistent.png',
+                   '--pag-layers', 'mid', '--models', '/nonexistent'])
+    with pytest.raises(NotImplementedError, match='step 10'):
+        tcli.main(['edit', '--prompt', 'x', '--image', '/nonexistent.png'])
+    r = subprocess.run([sys.executable, '-m', 'flexdiffuse_tpu_torch.cli',
+                        'edit', '--prompt', 'x', '--image', '/none.png',
+                        '--pag-layers', 'mid', '--models', '/nonexistent'],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert 'does not apply to edit' in r.stderr
+
+
+@pytest.mark.parametrize('argv', [
+    ['generate'], ['compose', '--schema', 's.json'],
+    ['train', '--data', 'd'], ['serve'], ['serve-api']])
+def test_the_card_is_the_default(no_models, argv):
+    """No CUDA here: every model-running command raises before loading,
+    with no CPU fallback."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        tcli.main(argv)
+
+
+def test_ui_app_refuses_without_the_card_and_unported_flags(no_models):
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        tapp.main([])
+    for argv, step in ((['--karras'], 9), (['--v-prediction'], 9),
+                       (['--model-family', 'sd2'], 9),
+                       (['--scheduler', 'unipc'], 9)):
+        with pytest.raises(NotImplementedError, match=f'step {step}'):
+            tapp.main([*argv, '--device', 'cpu'])
+
+
+# --- download and convert ---------------------------------------------------
+
+def test_download_without_huggingface_hub(monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, 'huggingface_hub', None)
+    assert tcli.main(['download', '--models', 'nowhere']) == 1
+    assert 'huggingface_hub is not installed' in capsys.readouterr().err
+
+
+def test_download_without_the_network(monkeypatch, capsys, tmp_path):
+    """A stand-in ``huggingface_hub`` whose download fails as it does
+    offline: 1 and the message (no request leaves the process)."""
+    hub = types.ModuleType('huggingface_hub')
+
+    def offline(repo, local_dir):
+        raise OSError(f'cannot reach the hub for {repo}')
+
+    hub.snapshot_download = offline
+    monkeypatch.setitem(sys.modules, 'huggingface_hub', hub)
+    assert tcli.main(['download', '--models', str(tmp_path)]) == 1
+    assert 'download failed (OSError)' in capsys.readouterr().err
+
+
+@pytest.fixture()
+def tiny_configs(monkeypatch):
+    """The CLI's model geometry set to the tiny snapshot's."""
+    monkeypatch.setattr(tcli, 'MODEL_CONFIGS', dict(
+        text=CONFIGS['text'][1], vision=CONFIGS['vision'][1],
+        unet=tm.TINY_UNET, vae=tm.TINY_VAE))
+
+
+def _leaves_equal(got, want, path=''):
+    assert isinstance(got, dict) == isinstance(want, dict), path
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _leaves_equal(got[k], want[k], f'{path}/{k}')
+        return
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, path
+    np.testing.assert_array_equal(got, want, err_msg=path)
+
+
+def test_convert_writes_the_jax_caches(model_root, tiny_configs,  # noqa: F811
+                                       monkeypatch):
+    sd_dir, clip_dir = _dirs(model_root)
+    jtext, jvision = CONFIGS['text'][0], CONFIGS['vision'][0]
+    want_clip = jload.load_clip(clip_dir, jtext, jvision, cache=False)
+    want_sd = jload.load_sd(sd_dir, J_TINY_UNET, J_TINY_VAE, cache=False)
+    assert tcli.main(['convert', '--models', str(model_root)]) == 0
+    names = {f'flexdiffuse_tpu_clip_{jload._config_tag(jtext, jvision)}'
+             '.msgpack',
+             f'flexdiffuse_tpu_sd_{jload._config_tag(J_TINY_UNET, J_TINY_VAE)}'
+             '.msgpack'}
+    written = {n for d in (clip_dir, sd_dir) for n in os.listdir(d)
+               if n.endswith('.msgpack')}
+    assert written == names
+
+    def no_rebuild(*a, **k):
+        raise AssertionError('the JAX loader converted instead of reading '
+                             'the cache')
+
+    for name in ('convert_clip_text', 'convert_clip_vision', 'convert_unet',
+                 'convert_vae'):
+        monkeypatch.setattr(jconvert, name, no_rebuild)
+    got_clip = jload.load_clip(clip_dir, jtext, jvision, cache=True)
+    got_sd = jload.load_sd(sd_dir, J_TINY_UNET, J_TINY_VAE, cache=True)
+    for got, want in zip(got_clip + got_sd, want_clip + want_sd):
+        _leaves_equal(jax.tree.map(np.asarray, got),
+                      jax.tree.map(np.asarray, want))
+
+
+def test_cache_tags_agree_with_jax():
+    """The port's tag of each default config equals the JAX loader's."""
+    from flexdiffuse_tpu.models import configs as jcfg
+    assert tload._config_tag(tm.CLIPTextConfig(), tm.CLIPVisionConfig()) == \
+        jload._config_tag(jcfg.CLIPTextConfig(), jcfg.CLIPVisionConfig())
+    assert tload._config_tag(tm.SD14_UNET, tm.SD14_VAE) == \
+        jload._config_tag(jcfg.UNetConfig(), jcfg.VAEConfig())
+
+
+# --- end to end on the tiny snapshot, CPU -----------------------------------
+
+def _pngs(d):
+    return sorted(n for n in os.listdir(d) if n.endswith('.png'))
+
+
+def test_generate_end_to_end(model_root, tiny_configs, tmp_path):  # noqa: F811
+    out = tmp_path / 'out'
+    assert tcli.main(['generate', '--models', str(model_root), '--device',
+                      'cpu', '--prompt', 'a deer', '--negative-prompt',
+                      'blur', '--steps', '2', '--height', '16', '--width',
+                      '16', '--samples', '2', '--seed', '3', '--out',
+                      str(out)]) == 0
+    names = _pngs(out)
+    assert len(names) == 2 and all('_t2i_st2_gs8_se3' in n for n in names)
+    assert all(Image.open(out / n).size == (16, 16) for n in names)
+    assert len(_pngs(out / 'grids')) == 1
+
+
+def test_compose_end_to_end(model_root, tiny_configs, tmp_path):  # noqa: F811
+    out = tmp_path / 'out'
+    schema = tmp_path / 's.json'
+    schema.write_text(json.dumps({
+        'background_prompt': 'a forest', 'style_start_prompt': '',
+        'style_end_prompt': '', 'style_blend': [0.0, 1.0],
+        'entities': [{'prompt': 'a deer', 'offset': [0, 0], 'size': [8, 8],
+                      'blend': 0.8}]}))
+    assert tcli.main(['compose', '--models', str(model_root), '--device',
+                      'cpu', '--schema', str(schema), '--steps', '2',
+                      '--height', '16', '--width', '16', '--samples', '1',
+                      '--seed', '2', '--out', str(out)]) == 0
+    names = _pngs(out)
+    assert len(names) == 1 and 'ct2i_st2_gs8_se2' in names[0]
+
+
+@pytest.fixture()
+def dataset(tmp_path):
+    """Two captioned 16² images and a captionless class folder."""
+    rng = np.random.default_rng(0)
+    for d, n in (('data', 2), ('class', 2)):
+        os.makedirs(tmp_path / d)
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 256, (16, 16, 3), np.uint8)).save(
+                tmp_path / d / f'{i}.png')
+            if d == 'data':
+                (tmp_path / d / f'{i}.txt').write_text(f'a photo of thing {i}')
+    return tmp_path
+
+
+@pytest.mark.parametrize('mode', ['lora', 'full', 'dreambooth'])
+def test_train_end_to_end(model_root, tiny_configs, dataset,  # noqa: F811
+                          mode):
+    out = dataset / {'lora': 'lora.safetensors', 'full': 'unet.msgpack',
+                     'dreambooth': 'db.safetensors'}[mode]
+    argv = ['train', '--models', str(model_root), '--device', 'cpu',
+            '--data', str(dataset / 'data'), '--resolution', '16',
+            '--steps', '2', '--batch-size', '1', '--rank', '2', '--seed', '4',
+            '--out', str(out)]
+    if mode == 'full':
+        argv += ['--full', '--lr', '1e-5']
+    if mode == 'dreambooth':
+        argv += ['--class-data', str(dataset / 'class'), '--class-caption',
+                 'a photo']
+    assert tcli.main(argv) == 0
+    assert out.exists()
+    if mode == 'full':
+        sd = tload.load_unet_msgpack(str(out), tm.TINY_UNET)
+        ref = tm.UNet2DCondition(tm.TINY_UNET).state_dict()
+        assert sorted(sd) == sorted(ref)
+    else:
+        keys = tsafetensors.load_file(str(out))
+        assert keys and all(k.startswith('lora_unet_') for k in keys)

@@ -242,6 +242,26 @@ def test_plan_splits_the_vae_between_the_paths(kind, calls, stream):
                       'encode': chip_smoke.K6_STREAM_PER_ENCODE}[kind]
 
 
+@pytest.mark.parametrize('kind,batch', [('unet', 8), ('unet', 16),
+                                        ('decode', 4), ('decode', 8)])
+def test_plan_at_serving_batches(kind, batch):
+    """The serving path's batches (up to 8 fused rows: UNet batch 16, a
+    decode of 8 images) plan as batch 1 and 2 do: every UNet GroupNorm
+    resident, 13 of a decode's 30 on the stream path, the counts
+    ``chip_smoke.py`` step 13 asserts."""
+    import chip_smoke
+    shapes = _sd14_shapes(kind, batch)
+    paths = [_check_plan(s, 32, torch.bfloat16).path for s in shapes]
+    if kind == 'unet':
+        assert len(shapes) == chip_smoke.K6_PER_UNET
+        assert set(paths) == {'resident'}
+    else:
+        assert len(shapes) == chip_smoke.K6_PER_DECODE
+        assert paths.count('stream') == chip_smoke.K6_STREAM_PER_DECODE
+        assert paths == [_check_plan((1,) + tuple(s[1:]), 32,
+                                     torch.bfloat16).path for s in shapes]
+
+
 PLAN_CASES = [
     ((2, 320, 64, 64), 32, torch.bfloat16, torch.float32, True),
     ((4, 320, 64, 64), 32, torch.float32, torch.float32, True),
