@@ -19,10 +19,15 @@ unless given ``--device cpu`` (fp32); nothing falls back to the CPU.
 (the port itself reads the snapshots directly); ``download`` fetches the
 snapshots when ``huggingface_hub`` and the network are there.
 
-Every flag whose feature the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP Queue 1 step, before any model
-loads (:func:`refuse_unported`); so does an unported ``--scheduler`` kind
-(``schedulers.make``). ``edit`` (InstructPix2Pix) is step 10. The JAX
+The scheduler kinds and their switches (``--karras``, ``--v-prediction``,
+``--zero-snr``, ``--timestep-spacing``), ``--model-family sd2`` (SD-2.1:
+OpenCLIP-H text tower, 64-wide heads), the pipeline knobs (``--freeu``,
+``--vae-tile``, ``--deepcache``, ``--tome``, ``--pag-layers``) and
+generate's ``--pag``, ``--cfg-interval``, ``--guidance-rescale`` and
+``--hires-*`` do what they do in the JAX CLI. Every flag whose feature the
+port does not have yet raises ``NotImplementedError`` naming its ROADMAP
+Queue 1 step, before any model loads (:func:`refuse_unported`).
+``edit`` (InstructPix2Pix) is step 10. The JAX
 parser's ``--compile-cache``/``--no-compile-cache`` are left out: they set
 XLA's compilation cache (``utils/compile_cache.py``), which ROADMAP's "Do
 not port" list names.
@@ -40,30 +45,19 @@ from flexdiffuse_tpu_torch import models, schedulers
 from flexdiffuse_tpu_torch.config import RunConfig
 
 # The geometry the model-running commands and ``convert`` build: SD-1.4 and
-# CLIP ViT-L/14.
+# CLIP ViT-L/14; with ``--model-family sd2`` SD-2.1 and its OpenCLIP-H text
+# tower (the vision tower stays CLIP ViT-L/14's, as in the JAX CLI).
 MODEL_CONFIGS = dict(text=models.CLIP_VIT_L14_TEXT,
                      vision=models.CLIP_VIT_L14_VISION,
                      unet=models.SD14_UNET, vae=models.SD14_VAE)
+SD2_MODEL_CONFIGS = dict(text=models.OPENCLIP_H_TEXT,
+                         vision=models.CLIP_VIT_L14_VISION,
+                         unet=models.SD21_UNET, vae=models.SD21_VAE)
 
 # Flags of generate/edit/compose/serve/serve-api whose features are not
 # ported: (dest, flag, the value that leaves the feature off, ROADMAP
 # Queue 1 step).
 UNPORTED = (
-    ('karras', '--karras', False, 9),
-    ('v_prediction', '--v-prediction', False, 9),
-    ('zero_snr', '--zero-snr', False, 9),
-    ('timestep_spacing', '--timestep-spacing', None, 9),
-    ('freeu', '--freeu', '', 9),
-    ('vae_tile', '--vae-tile', 0, 9),
-    ('deepcache', '--deepcache', 0, 9),
-    ('tome', '--tome', '', 9),
-    ('pag', '--pag', 0.0, 9),
-    ('pag_layers', '--pag-layers', '', 9),
-    ('cfg_interval', '--cfg-interval', None, 9),
-    ('guidance_rescale', '--guidance-rescale', 0.0, 9),
-    ('hires_scale', '--hires-scale', 0.0, 9),
-    ('hires_strength', '--hires-strength', 0.55, 9),
-    ('hires_steps', '--hires-steps', None, 9),
     ('controlnet', '--controlnet', None, 10),
     ('control_image', '--control-image', '', 10),
     ('controlnet_scale', '--controlnet-scale', 1.0, 10),
@@ -82,7 +76,7 @@ TRAIN_UNPORTED = (
     ('num_vectors', '--num-vectors', 1, 12),
     ('style_templates', '--style-templates', False, 12),
 )
-FAMILY_STEP = {'sd2': 9, 'sdxl': 11}
+FAMILY_STEP = {'sdxl': 11}
 
 
 def _not_ported(what: str, step: int) -> NotImplementedError:
@@ -98,12 +92,34 @@ def refuse_unported(args, table=UNPORTED) -> None:
         if getattr(args, dest, off) != off:
             raise _not_ported(flag, step)
     family = getattr(args, 'model_family', 'sd1')
-    if family != 'sd1':
+    if family in FAMILY_STEP:
         raise _not_ported(f'--model-family {family}', FAMILY_STEP[family])
     if getattr(args, 'data_parallel', 1) > 1:
         raise _not_ported('--data-parallel > 1', 13)
-    if hasattr(args, 'scheduler'):
-        schedulers.make(args.scheduler, 1)   # raises for unported kinds
+
+
+def family_configs(args) -> dict:
+    """The model geometry of ``--model-family``."""
+    if getattr(args, 'model_family', 'sd1') == 'sd2':
+        return SD2_MODEL_CONFIGS
+    return MODEL_CONFIGS
+
+
+def scheduler_config(args):
+    """The JAX CLI's SchedulerConfig from the scheduler switches (None when
+    none is given)."""
+    if not (getattr(args, 'karras', False) or
+            getattr(args, 'v_prediction', False) or
+            getattr(args, 'zero_snr', False) or
+            getattr(args, 'timestep_spacing', None)):
+        return None
+    return schedulers.SchedulerConfig(
+        kind=args.scheduler,
+        use_karras_sigmas=getattr(args, 'karras', False),
+        rescale_betas_zero_snr=getattr(args, 'zero_snr', False),
+        timestep_spacing=getattr(args, 'timestep_spacing', None) or 'leading',
+        prediction_type=('v_prediction' if getattr(args, 'v_prediction',
+                                                   False) else 'epsilon'))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -138,25 +154,28 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                         "the snapshot's unet/config.json)")
     p.add_argument('--scheduler', default='pndm',
                    choices=('ddim', 'pndm', 'lms', 'euler', 'euler_a',
-                            'dpmpp', 'lcm', 'ddpm', 'unipc', 'heun'),
-                   help='ported: ddim, pndm, lms (the others: ROADMAP '
-                        'step 9)')
+                            'dpmpp', 'lcm', 'ddpm', 'unipc', 'heun'))
     p.add_argument('--clip-skip', type=int, default=0, choices=(0, 1),
                    help='1 = condition on the penultimate CLIP layer')
     p.add_argument('--karras', action='store_true',
-                   help='Karras sigma spacing (not ported: step 9)')
+                   help='Karras sigma spacing (euler/euler_a/dpmpp/unipc/heun)')
     p.add_argument('--v-prediction', action='store_true',
-                   help='v-parameterized model (not ported: step 9)')
+                   help='v-parameterized model (use with --model-family sd2 '
+                        'for SD2.1 768-v checkpoints)')
     p.add_argument('--zero-snr', action='store_true',
-                   help='zero-terminal-SNR beta rescale (not ported: '
-                        'step 9)')
+                   help='zero-terminal-SNR beta rescale (Lin et al. 2023) '
+                        'for checkpoints trained with it; pair with '
+                        '--v-prediction and consider --guidance-rescale 0.7')
     p.add_argument('--timestep-spacing', default=None,
                    choices=('leading', 'trailing'),
-                   help='ddim/ddpm timestep spacing (not ported: step 9)')
+                   help="'trailing' starts inference at the last train "
+                        'step (needed with --zero-snr to actually see pure '
+                        'noise); default leading. ddim/ddpm only')
     p.add_argument('--model-family', default='sd1',
                    choices=('sd1', 'sd2', 'sdxl'),
-                   help='checkpoint geometry: sd1 = SD1.x + CLIP ViT-L/14 '
-                        '(sd2: step 9, sdxl: step 11)')
+                   help='checkpoint geometry: sd1 = SD1.x + CLIP ViT-L/14, '
+                        'sd2 = SD2.x + OpenCLIP ViT-H text (sdxl: not '
+                        'ported, step 11)')
     p.add_argument('--lora', action='append', default=[], metavar='PATH[:S]',
                    help='merge a kohya or PEFT LoRA (optional :scale, '
                         'repeatable)')
@@ -197,12 +216,13 @@ def _runner(args):
     run_cfg_kw = dict(output_dir=getattr(args, 'out', './outputs'))
     if getattr(args, 'sd_model', None):
         run_cfg_kw['sd_model'] = args.sd_model
-    c = MODEL_CONFIGS
+    c = family_configs(args)
     runner = Runner(model_root=args.models, config=RunConfig(**run_cfg_kw),
                     scheduler=args.scheduler, dtype=model_dtype(device),
                     text_config=c['text'], vision_config=c['vision'],
                     unet_config=c['unet'], vae_config=c['vae'],
-                    clip_skip=getattr(args, 'clip_skip', 0), device=device)
+                    clip_skip=getattr(args, 'clip_skip', 0),
+                    scheduler_config=scheduler_config(args), device=device)
     for spec in getattr(args, 'lora', []):
         runner.apply_lora(*parse_spec(spec))
     for spec in getattr(args, 'embedding', []):
@@ -253,10 +273,45 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def _apply_pipe_options(runner, args) -> None:
+    """The pipeline knobs of generate, serve and serve-api (the JAX CLI's):
+    FreeU, tiled VAE, DeepCache, ToMe and the PAG layers."""
+    freeu = getattr(args, 'freeu', '')
+    if freeu:
+        if freeu.strip().lower() == 'on':
+            runner.enable_freeu()
+        else:
+            vals = [float(v) for v in freeu.split(',')]
+            if len(vals) != 4:
+                raise SystemExit("--freeu expects 'b1,b2,s1,s2' or 'on'")
+            runner.enable_freeu(*vals)
+    if getattr(args, 'vae_tile', 0):
+        runner.enable_vae_tiling(args.vae_tile)
+    if getattr(args, 'deepcache', 0):
+        runner.enable_deepcache(args.deepcache)
+    tome = getattr(args, 'tome', '')
+    if tome:
+        vals = tome.split(',')
+        if len(vals) not in (1, 2):
+            raise SystemExit("--tome expects 'RATIO' or 'RATIO,MIN_SEQ'")
+        runner.enable_tome(float(vals[0]),
+                           *([int(vals[1])] if len(vals) == 2 else []))
+    pag_layers = getattr(args, 'pag_layers', '')
+    if pag_layers:
+        runner.enable_pag(tuple(s.strip() for s in pag_layers.split(',')
+                                if s.strip()))
+
+
+def _runner_with_options(args):
+    runner = _runner(args)
+    _apply_pipe_options(runner, args)
+    return runner
+
+
 def cmd_generate(args) -> int:
     from PIL import Image
     _check(args)
-    runner = _runner(args)
+    runner = _runner_with_options(args)
     guide = None
     if args.guide:
         guide = Image.open(args.guide) if os.path.exists(args.guide) \
@@ -277,7 +332,12 @@ def cmd_generate(args) -> int:
         steps=args.steps, guidance_scale=args.guidance_scale,
         samples=args.samples, seed=args.seed, debug=args.debug,
         negative_prompt=args.negative_prompt, mask=mask,
-        long_prompt=args.long_prompt, weighted=args.weighted)
+        long_prompt=args.long_prompt, weighted=args.weighted,
+        cfg_interval=(tuple(args.cfg_interval) if args.cfg_interval
+                      else None),
+        guidance_rescale=args.guidance_rescale, pag_scale=args.pag,
+        hires_scale=args.hires_scale, hires_strength=args.hires_strength,
+        hires_steps=args.hires_steps)
     print(f'{len(imgs)} image(s) written to {runner.output_dir}')
     return 0
 
@@ -325,7 +385,7 @@ def _train_models(args, device: torch.device):
     cfg = RunConfig()
     sd_dir, clip_dir = load.snapshot_dirs(args.models, cfg.sd_model,
                                           cfg.clip_model)
-    c = MODEL_CONFIGS
+    c = family_configs(args)
     dtype = model_dtype(device)
     text_sd, _ = load.load_clip(clip_dir)
     unet_sd, vae_sd = load.load_sd(sd_dir)
@@ -348,9 +408,10 @@ def cmd_train(args) -> int:
     from flexdiffuse_tpu_torch import training
     device = _check(args, TRAIN_UNPORTED)
     encoder, unet, vae = _train_models(args, device)
+    # SD-2.x trains against v, as the JAX CLI.
+    v_pred = args.v_prediction or args.model_family == 'sd2'
     tcfg = training.TrainConfig(learning_rate=args.lr,
-                                prediction_type=('v_prediction'
-                                                 if args.v_prediction
+                                prediction_type=('v_prediction' if v_pred
                                                  else 'epsilon'),
                                 snr_gamma=args.snr_gamma,
                                 remat=args.remat,
@@ -395,25 +456,31 @@ def cmd_train(args) -> int:
 
 def _add_pipe_option_args(p) -> None:
     """The JAX CLI's post-construction pipeline knobs (generate/edit/serve/
-    serve-api); none is ported yet (step 9)."""
+    serve-api; :func:`_apply_pipe_options`)."""
     p.add_argument('--freeu', default='',
-                   help="FreeU 'b1,b2,s1,s2' or 'on' (not ported: step 9)")
+                   help="FreeU 'b1,b2,s1,s2' (empty = off; 'on' = the "
+                        "SD1.x defaults 1.5,1.6,0.9,0.2)")
     p.add_argument('--vae-tile', type=int, default=0,
-                   help='tiled VAE in N-latent-unit tiles (not ported: '
-                        'step 9)')
+                   help='tiled VAE decode/encode in N-latent-unit tiles '
+                        '(64 = 512 px). 0 = off')
     p.add_argument('--deepcache', type=int, default=0,
-                   help='DeepCache interval (not ported: step 9)')
+                   help='DeepCache interval N: full UNet every Nth step, '
+                        'the shallow levels around the cached deep feature '
+                        'in between (2-3: the published sweet spot). '
+                        '0 = off')
     p.add_argument('--tome', default='',
-                   help="ToMe token merging 'RATIO[,MIN_SEQ]' (not ported: "
-                        'step 9)')
+                   help="ToMe token merging 'RATIO' or 'RATIO,MIN_SEQ' "
+                        '(default MIN_SEQ 4096); empty = off')
     p.add_argument('--pag-layers', default='',
-                   help='PAG perturbed layers (not ported: step 9)')
+                   help="PAG perturbed layers, comma-separated name "
+                        "prefixes ('mid', 'down_1', 'up_2_attn_1'); 'mid' "
+                        'when --pag is used without it')
 
 
 def cmd_serve(args) -> int:
     from flexdiffuse_tpu_torch.interface.server import launch
     _check(args)
-    launch(lambda: _runner(args), lan=args.lan,
+    launch(lambda: _runner_with_options(args), lan=args.lan,
            port=args.port).serve_forever()
     return 0
 
@@ -421,7 +488,7 @@ def cmd_serve(args) -> int:
 def cmd_serve_api(args) -> int:
     from flexdiffuse_tpu_torch.serving import launch
     _check(args)
-    launch(lambda: _runner(args), port=args.port, lan=args.lan,
+    launch(lambda: _runner_with_options(args), port=args.port, lan=args.lan,
            max_batch_rows=args.max_batch, max_wait_ms=args.max_wait_ms,
            fixed_rows=args.deterministic).serve_forever()
     return 0
@@ -465,7 +532,9 @@ def build_parser() -> argparse.ArgumentParser:
                         'first 77-token window)')
     _add_pipe_option_args(p)
     p.add_argument('--hires-scale', type=float, default=0.0,
-                   help='two-pass highres fix (not ported: step 9)')
+                   help='two-pass highres fix: generate at --height/'
+                        '--width, upscale the latents by this factor, '
+                        'refine with img2img. 0 = off')
     p.add_argument('--hires-strength', type=float, default=0.55)
     p.add_argument('--hires-steps', type=int, default=None)
     p.add_argument('--weighted', action='store_true',
@@ -474,13 +543,15 @@ def build_parser() -> argparse.ArgumentParser:
                         '--long-prompt')
     p.add_argument('--cfg-interval', type=float, nargs=2, default=None,
                    metavar=('LO', 'HI'),
-                   help='CFG only for progress in [LO, HI] (not ported: '
-                        'step 9)')
+                   help='classifier-free guidance only for denoise '
+                        'progress in [LO, HI] (cond-only at half the UNet '
+                        'batch outside), e.g. 0.0 0.6')
     p.add_argument('--guidance-rescale', type=float, default=0.0,
-                   help='CFG rescale phi (not ported: step 9)')
+                   help='CFG rescale phi (Lin et al. 2023); 0.7 for '
+                        'zero-SNR checkpoints. 0 = off')
     p.add_argument('--pag', type=float, default=0.0, metavar='SCALE',
-                   help='perturbed-attention guidance scale (not ported: '
-                        'step 9)')
+                   help='perturbed-attention guidance scale (~3.0; '
+                        "layers from --pag-layers, default 'mid'). 0 = off")
     p.add_argument('--concepts', default='')
     p.add_argument('--out', default='./outputs')
     p.add_argument('--height', type=int, default=512)
@@ -543,7 +614,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--models', default='./models',
                    help='dir with the HF snapshots')
     p.add_argument('--model-family', default='sd1', choices=('sd1', 'sd2'),
-                   help='sd2: not ported (step 9)')
+                   help='sd2 = SD2.x + OpenCLIP ViT-H text; trains against '
+                        'v')
     p.add_argument('--clip-skip', type=int, default=0, choices=(0, 1))
     p.add_argument('--v-prediction', action='store_true',
                    help='train against the v-prediction objective')

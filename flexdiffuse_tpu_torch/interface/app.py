@@ -5,10 +5,9 @@ Usage: ``python -m flexdiffuse_tpu_torch [--models DIR] [--lan] [--port N]
 the CUDA card (bf16) at the first request and the command raises at once
 when there is no card, unless given ``--device cpu`` (fp32). ``--dl``
 allows downloads as in the JAX app (the port reads snapshots already on
-disk under ``--models``). Flags whose features the port does not have yet
-(``--karras``, ``--v-prediction``, ``--model-family sd2``: ROADMAP Queue 1
-step 9; an unported ``--scheduler`` kind) raise naming their step. The JAX
-app's ``--compile-cache``/``--no-compile-cache`` are left out: they set
+disk under ``--models``). ``--karras``, ``--v-prediction`` and
+``--model-family sd2`` (SD-2.1 with the OpenCLIP-H text tower) build the
+Runner as the JAX app does. The JAX app's ``--compile-cache``/``--no-compile-cache`` are left out: they set
 XLA's compilation cache (``utils/compile_cache.py``, on ROADMAP's "Do not
 port" list).
 """
@@ -31,17 +30,16 @@ def main(argv=None) -> None:
     parser.add_argument('--port', type=int, default=7860)
     parser.add_argument('--scheduler', default='pndm',
                         choices=('ddim', 'pndm', 'lms', 'euler', 'euler_a',
-                                 'dpmpp', 'ddpm', 'unipc'),
-                        help='ported: ddim, pndm, lms (the others: ROADMAP '
-                             'step 9)')
+                                 'dpmpp', 'ddpm', 'unipc'))
     parser.add_argument('--karras', action='store_true',
-                        help='Karras sigma spacing (not ported: step 9)')
+                        help='Karras sigma spacing (euler/euler_a/dpmpp/unipc)')
     parser.add_argument('--v-prediction', action='store_true',
-                        help='v-parameterized model (not ported: step 9)')
+                        help='v-parameterized model (with --model-family sd2 '
+                             'for SD2.1 768-v)')
     parser.add_argument('--model-family', default='sd1',
                         choices=('sd1', 'sd2'),
-                        help='checkpoint geometry: sd1 = SD1.x + ViT-L/14 '
-                             '(sd2: step 9)')
+                        help='checkpoint geometry: sd1 = SD1.x + ViT-L/14, '
+                             'sd2 = SD2.x + OpenCLIP ViT-H')
     parser.add_argument('--lora', action='append', default=[],
                         metavar='PATH[:S]',
                         help='merge a kohya or PEFT LoRA (optional :scale, '
@@ -60,11 +58,25 @@ def main(argv=None) -> None:
     def make_runner():
         from flexdiffuse_tpu_torch.config import RunConfig
         from flexdiffuse_tpu_torch.runner import Runner
+        from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
         from flexdiffuse_tpu_torch.weights.lora import parse_spec
+        scheduler_config = None
+        if args.karras or args.v_prediction:
+            scheduler_config = SchedulerConfig(
+                kind=args.scheduler, use_karras_sigmas=args.karras,
+                prediction_type=('v_prediction' if args.v_prediction
+                                 else 'epsilon'))
+        model_kw = {}
+        if args.model_family == 'sd2':
+            c = cli.SD2_MODEL_CONFIGS
+            model_kw = dict(text_config=c['text'], unet_config=c['unet'],
+                            vae_config=c['vae'])
         runner = Runner(model_root=args.models,
                         config=RunConfig(local_only=not args.download),
                         scheduler=args.scheduler,
-                        dtype=cli.model_dtype(device), device=device)
+                        scheduler_config=scheduler_config,
+                        dtype=cli.model_dtype(device), device=device,
+                        **model_kw)
         for spec in args.lora:
             runner.apply_lora(*parse_spec(spec))
         return runner

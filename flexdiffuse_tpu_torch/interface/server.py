@@ -11,12 +11,13 @@ Runner is a lazy singleton built by the factory given to :func:`launch`
 given ``device='cpu'``), guarded by a lock.
 
 Generation requests serialise on ``_gen_lock``, so only one HTTP thread at
-a time runs the model and touches the card. ``Runner.gen`` keywords the
-port does not take yet (ControlNet, IP-Adapter, hires fix, CFG interval,
-CFG rescale, PAG, SDXL's refiner) are forwarded only when a client enables
-them, as the JAX handler forwards its optional ones; the Runner's
-``NotImplementedError`` naming the ROADMAP step then reaches the client as
-a JSON 500.
+a time runs the model and touches the card. The optional ``Runner.gen``
+keywords (hires fix, CFG interval from the page's ``cfg_from``/``cfg_to``,
+CFG rescale, PAG; ControlNet, IP-Adapter and SDXL's refiner) are forwarded
+only when a client enables them, as the JAX handler forwards them; a
+keyword the port does not take yet (ControlNet, IP-Adapter: ROADMAP step
+10; the refiner: step 11) reaches the client as the Runner's
+``NotImplementedError``, a JSON 500.
 """
 from __future__ import annotations
 

@@ -20,12 +20,20 @@ and 1024-token levels to the Hopper flash kernel on CUDA. Every GroupNorm
 through :func:`flexdiffuse_tpu_torch.ops.group_norm.group_norm`: the Hopper
 kernel K6 on CUDA when no gradient is needed.
 
-Left out here (later ROADMAP steps): the channel-major interiors, DeepCache,
-PAG, FreeU, ToMe, IP-Adapter and ControlNet residuals, the LCM guidance
-embedding and the SDXL additional embedding.
+The sampling features of the JAX module, as call-time settings of
+:class:`UNet2DCondition` (``freeu``, ``tome``, ``pag_layers``; plain
+attributes, so a shallow copy of the module shares the weights and carries
+its own settings) and arguments of its forward (``timestep_cond``,
+``cache_mode``/``deep_cache``, ``pag_mask``): FreeU, ToMe, PAG, DeepCache
+and the LCM guidance embedding.
+
+Left out here (later ROADMAP steps): the channel-major interiors (do not
+port), IP-Adapter layers and ControlNet residuals (step 10) and the SDXL
+additional embedding (step 11).
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -33,6 +41,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
+from flexdiffuse_tpu_torch.ops import tome as _tome
 from flexdiffuse_tpu_torch.ops.attention import attention
 from flexdiffuse_tpu_torch.ops.group_norm import group_norm
 
@@ -70,9 +79,59 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     return emb
 
 
+def guidance_scale_embedding(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """LCM guidance-scale embedding ``[B] -> [B, dim]`` fp32 (``w`` is the
+    conditioning scale, conventionally ``guidance_scale - 1``): scaled by
+    1000, log-spaced sin|cos features (diffusers'
+    ``get_guidance_scale_embedding``; not the timestep's cos|sin order)."""
+    w = torch.as_tensor(w, dtype=torch.float32) * 1000.0
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) *
+                      torch.arange(half, dtype=torch.float32,
+                                   device=w.device) / (half - 1))
+    args = w.reshape(-1, 1) * freqs[None]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def fourier_filter(x: torch.Tensor, threshold: int,
+                   scale: float) -> torch.Tensor:
+    """FreeU's low-frequency skip attenuation on NCHW ``x``: a 2-D FFT over
+    the spatial dims (2, 3), the ``threshold``-radius block around DC
+    scaled by ``scale``, the inverse FFT's real part; in fp32 (cuFFT takes
+    no bf16) and cast back."""
+    _, _, hh, ww = x.shape
+    xf = torch.fft.fftshift(torch.fft.fft2(x.float(), dim=(2, 3)),
+                            dim=(2, 3))
+    mask = torch.ones((1, 1, hh, ww), dtype=torch.float32)
+    cr, cc = hh // 2, ww // 2
+    mask[:, :, max(cr - threshold, 0):cr + threshold,
+         max(cc - threshold, 0):cc + threshold] = scale
+    xf = xf * mask.to(x.device)
+    out = torch.fft.ifft2(torch.fft.ifftshift(xf, dim=(2, 3)),
+                          dim=(2, 3)).real
+    return out.to(x.dtype)
+
+
+def pag_selected(pag_layers, name: str) -> bool:
+    """PAG layer selection by the JAX module's transformer names: a pattern
+    matches by prefix (``'mid'`` hits ``mid_attn``, ``'down_1'`` every
+    ``down_1_attn_*``, ``'up_2_attn_1'`` exactly one)."""
+    return pag_layers is not None and any(
+        name.startswith(p) for p in pag_layers)
+
+
 class TimestepEmbedding(nn.Module):
-    def __init__(self, in_dim: int, dim: int) -> None:
+    """``linear_2(silu(linear_1(x)))``; with ``cond_dim`` the LCM guidance
+    projection ``cond_proj`` (bias-free, applied by the UNet in fp32 to the
+    sinusoidal features before ``linear_1``)."""
+
+    def __init__(self, in_dim: int, dim: int, cond_dim: int = 0) -> None:
         super().__init__()
+        if cond_dim:
+            self.cond_proj = nn.Linear(cond_dim, in_dim, bias=False)
         self.linear_1 = nn.Linear(in_dim, dim)
         self.linear_2 = nn.Linear(dim, dim)
 
@@ -124,8 +183,12 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(ctx, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor = None,
+                pag_mask: torch.Tensor = None) -> torch.Tensor:
+        """``pag_mask`` (PAG, self-attention only): a ``[B]`` 0/1 row
+        selector; the rows with 1 replace the attention map with the
+        identity, whose output before ``to_out`` is the projected v, taken
+        after the attention ran on every row."""
         ctx = x if context is None else context.to(x.dtype)
         q = self.to_q(x)
         k = self.to_k(ctx)
@@ -138,6 +201,9 @@ class CrossAttention(nn.Module):
         out = attention(split(q, sq), split(k, skv), split(v, skv),
                         scale=hd**-0.5)
         out = out.transpose(1, 2).reshape(b, sq, d)
+        if pag_mask is not None and context is None:
+            out = torch.where(pag_mask.to(out.device)[:, None, None] > 0, v,
+                              out)
         return self.to_out[0](out)
 
 
@@ -176,9 +242,18 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForwardGEGLU(dim)
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                tome_plan: _tome.TomePlan = None,
+                pag_mask: torch.Tensor = None) -> torch.Tensor:
+        """With ``tome_plan`` the self-attention runs on the merged rows and
+        its output is copied back; cross-attention and the MLP stay full
+        length."""
+        if tome_plan is None:
+            x = x + self.attn1(self.norm1(x), pag_mask=pag_mask)
+        else:
+            xa = _tome.merge(self.norm1(x), tome_plan)
+            x = x + _tome.unmerge(self.attn1(xa, pag_mask=pag_mask),
+                                  tome_plan)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -197,13 +272,22 @@ class Transformer2D(nn.Module):
             for _ in range(depth))
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                tome=None, pag_mask: torch.Tensor = None) -> torch.Tensor:
+        """``tome``: ``(ratio, min_seq)``; a grid of at least ``min_seq``
+        tokens merges before every self-attention, one plan shared by the
+        blocks (built from the hidden state after ``proj_in``)."""
         b, c, hh, ww = x.shape
         h = self.proj_in(self.norm(x, self.proj_in.weight.dtype))
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        plan = None
+        if tome is not None:
+            ratio, min_seq = tome
+            r = _tome.resolve_r(hh, ww, float(ratio))
+            if hh * ww >= max(int(min_seq), 2) and r > 0:
+                plan = _tome.merge_plan(h, (hh, ww), r)
         for block in self.transformer_blocks:
-            h = block(h, context)
+            h = block(h, context, plan, pag_mask)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.proj_out(h) + x
 
@@ -243,24 +327,42 @@ class _Level(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    """``(latents [B,H,W,4], t [B], context [B,T,D]) -> eps [B,H,W,4]``."""
+    """``(latents [B,H,W,4], t [B], context [B,T,D]) -> eps [B,H,W,4]``.
+
+    Sampling settings (None: off), read at every call:
+
+    - ``freeu`` ``(b1, b2, s1, s2)``: amplify the first half of the
+      backbone channels and Fourier-attenuate the skips at the two deepest
+      decoder levels (SD-1.x's published 1.5/1.6/0.9/0.2);
+    - ``tome`` ``(ratio, min_seq)``: token merging before every
+      self-attention on a grid of at least ``min_seq`` tokens;
+    - ``pag_layers``: name prefixes (:func:`pag_selected`) of the
+      transformers whose self-attention turns into the identity on the
+      rows that ``pag_mask`` selects.
+    """
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__()
-        if config.addition_embed or config.time_cond_proj_dim \
-                or config.ip_adapter:
+        if config.addition_embed:
             raise NotImplementedError(
-                'SDXL additional embeddings, the LCM guidance embedding and '
+                'SDXL additional embeddings are not ported yet (ROADMAP '
+                'Queue 1 step 11)')
+        if config.ip_adapter:
+            raise NotImplementedError(
                 'IP-Adapter layers are not ported yet (ROADMAP Queue 1 '
-                'steps 9-11)')
+                'step 10)')
         self.config = cfg = config
+        self.freeu = None
+        self.tome = None
+        self.pag_layers = None
         ch0 = cfg.block_channels[0]
         temb_dim = ch0 * 4
         groups = cfg.norm_groups
         ctx = cfg.cross_attention_dim
         n = len(cfg.block_channels)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
-        self.time_embedding = TimestepEmbedding(ch0, temb_dim)
+        self.time_embedding = TimestepEmbedding(ch0, temb_dim,
+                                                cfg.time_cond_proj_dim)
 
         down = []
         in_ch = ch0
@@ -310,40 +412,131 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm32(groups, ch0, eps=1e-5, silu=True)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
+    def with_settings(self, **settings) -> 'UNet2DCondition':
+        """A shallow copy with other sampling settings (``freeu``, ``tome``,
+        ``pag_layers``): it shares this module's submodules and weights."""
+        unet = copy.copy(self)
+        for name, value in settings.items():
+            if name not in ('freeu', 'tome', 'pag_layers'):
+                raise TypeError(f'unknown UNet setting {name!r}')
+            setattr(unet, name, value)
+        return unet
+
+    def _pm(self, name: str, pag_mask):
+        return pag_mask if pag_selected(self.pag_layers, name) else None
+
+    def _attn(self, attn, name: str, h, context, pag_mask):
+        return attn(h, context, self.tome, self._pm(name, pag_mask))
+
+    def run_down(self, h, temb, context, levels: int, pag_mask=None):
+        """The first ``levels`` encoder levels; returns ``(h, skips)``. The
+        downsample of level ``levels - 1`` is skipped (a DeepCache shallow
+        pass: its skip feeds a decoder level the cache replaces)."""
+        skips = [h]
+        for i in range(levels):
+            blk = self.down_blocks[i]
+            attns = getattr(blk, 'attentions', None)
+            for j, res in enumerate(blk.resnets):
+                h = res(h, temb)
+                if attns is not None:
+                    h = self._attn(attns[j], f'down_{i}_attn_{j}', h,
+                                   context, pag_mask)
+                skips.append(h)
+            if hasattr(blk, 'downsamplers') and i < levels - 1:
+                h = blk.downsamplers[0](h)
+                skips.append(h)
+        return h, skips
+
+    def run_up(self, h, skips, temb, context, start_i: int = 0,
+               capture_i=None, pag_mask=None):
+        """The decoder from up level ``start_i``; also returns the hidden
+        state entering level ``capture_i`` (the DeepCache splice point)."""
+        captured = None
+        for i in range(start_i, len(self.up_blocks)):
+            blk = self.up_blocks[i]
+            if i == capture_i:
+                captured = h
+            attns = getattr(blk, 'attentions', None)
+            for j, res in enumerate(blk.resnets):
+                skip = skips.pop()
+                if self.freeu is not None and i < 2:
+                    b, s = self.freeu[i], self.freeu[2 + i]
+                    half = h.shape[1] // 2
+                    h = torch.cat([h[:, :half] * b, h[:, half:]], dim=1)
+                    skip = fourier_filter(skip, 1, s)
+                    if self.conv_in.weight.is_cuda:
+                        # The channel slice and the FFT lose the
+                        # channels-last layout K6 takes.
+                        h, skip = (x.contiguous(
+                            memory_format=torch.channels_last)
+                            for x in (h, skip))
+                h = res(torch.cat([h, skip], dim=1), temb)
+                if attns is not None:
+                    h = self._attn(attns[j], f'up_{i}_attn_{j}', h, context,
+                                   pag_mask)
+            if hasattr(blk, 'upsamplers'):
+                h = blk.upsamplers[0](h)
+        return h, captured
+
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: torch.Tensor, timestep_cond: torch.Tensor = None,
+                deep_cache: torch.Tensor = None, cache_mode: str = 'off',
+                pag_mask: torch.Tensor = None):
+        """``timestep_cond``: the LCM guidance embedding ``[B,
+        time_cond_proj_dim]`` (:func:`guidance_scale_embedding`), which a
+        UNet with ``time_cond_proj_dim`` requires.
+
+        DeepCache: ``cache_mode='save'`` runs the full UNet and also returns
+        the hidden state entering the shallowest ``cache_depth`` decoder
+        levels, ``(eps, cache)``; ``'use'`` takes that state as
+        ``deep_cache``, recomputes only the shallow encoder and decoder
+        levels and splices the cache in place of the deep path. A 'use'
+        call with a cache saved at the same (latents, t) is bit-identical
+        to the full forward.
+
+        ``pag_mask`` ``[B]`` selects the rows whose self-attention in the
+        ``pag_layers`` transformers is the identity."""
+        cfg = self.config
         dtype = self.conv_in.weight.dtype
-        temb = timestep_embedding(t, self.config.block_channels[0])
+        n = len(cfg.block_channels)
+        depth = cfg.cache_depth
+        if not 1 <= depth < n:
+            raise ValueError(f'cache_depth {depth} must be in [1, {n - 1}]')
+        temb = timestep_embedding(t, cfg.block_channels[0])
+        if cfg.time_cond_proj_dim:
+            if timestep_cond is None:
+                raise ValueError(
+                    'this UNet config requires timestep_cond (the LCM '
+                    'guidance embedding, guidance_scale_embedding)')
+            proj = self.time_embedding.cond_proj.weight
+            temb = temb + F.linear(timestep_cond.float().to(temb.device),
+                                   proj.float())
         temb = self.time_embedding(temb.to(dtype))
         context = context.to(dtype)
         # NHWC (public layout) -> NCHW (conv layout).
         h = self.conv_in(latents.permute(0, 3, 1, 2).to(dtype))
 
-        skips = [h]
-        for blk in self.down_blocks:
-            attns = getattr(blk, 'attentions', None)
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
-                if attns is not None:
-                    h = attns[j](h, context)
-                skips.append(h)
-            if hasattr(blk, 'downsamplers'):
-                h = blk.downsamplers[0](h)
-                skips.append(h)
-
-        mb = self.mid_block
-        h = mb.resnets[0](h, temb)
-        h = mb.attentions[0](h, context)
-        h = mb.resnets[1](h, temb)
-
-        for blk in self.up_blocks:
-            attns = getattr(blk, 'attentions', None)
-            for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
-                if attns is not None:
-                    h = attns[j](h, context)
-            if hasattr(blk, 'upsamplers'):
-                h = blk.upsamplers[0](h)
+        if cache_mode == 'use':
+            if deep_cache is None:
+                raise ValueError("cache_mode='use' requires deep_cache")
+            _, skips = self.run_down(h, temb, context, depth, pag_mask)
+            h, _ = self.run_up(deep_cache.to(dtype), skips, temb, context,
+                               start_i=n - depth, pag_mask=pag_mask)
+            captured = deep_cache
+        else:
+            h, skips = self.run_down(h, temb, context, n, pag_mask)
+            mb = self.mid_block
+            h = mb.resnets[0](h, temb)
+            h = self._attn(mb.attentions[0], 'mid_attn', h, context,
+                           pag_mask)
+            h = mb.resnets[1](h, temb)
+            h, captured = self.run_up(
+                h, skips, temb, context,
+                capture_i=n - depth if cache_mode == 'save' else None,
+                pag_mask=pag_mask)
 
         eps = self.conv_out(self.conv_norm_out(h, dtype)).float()
-        return eps.permute(0, 2, 3, 1)                   # NCHW -> NHWC
+        eps = eps.permute(0, 2, 3, 1)                    # NCHW -> NHWC
+        if cache_mode == 'off':
+            return eps
+        return eps, captured

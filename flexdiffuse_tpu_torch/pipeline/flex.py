@@ -18,11 +18,21 @@ split(key, 4)``; per scan row ``k, sub, k_inp = split(k, 3)``):
 * ``mask_posterior_noise=``: the masked image's posterior sample of the
   9-channel inpainting path (``k_enc``);
 * ``variance_noise=``, ``inpaint_noise=``: sequences indexed by the scan
-  position ``i``, the DDIM η > 0 variance noise (``sub``) and the latent
-  inpainting anchor noise (``k_inp``).
+  position ``i``, the step noise (``sub``: DDIM's η > 0 variance noise and
+  the per-step draws of Euler-a, DDPM and LCM) and the latent inpainting
+  anchor noise (``k_inp``).
 
 Whatever is omitted is drawn from the ``generator`` (a ``torch.Generator``
 on the pipeline's device).
+
+The sampling features of the JAX pipeline: Heun's two evaluations per step
+(its schedule has ``2·steps − 1`` rows), the CFG interval (outside it the
+UNet runs at batch B), PAG (the guide's 3B batch and the UNet's
+``pag_mask``), DeepCache (``deepcache=N``: every N-th active row runs the
+full UNet and saves the deep feature, the rows between run the shallow
+levels around it), the LCM guidance embedding for guidance-embedded UNets,
+latents-direct img2img (``init_latents=``, the hires fix's second pass,
+with :func:`upscale_latents`) and the tiled VAE (``vae_tile``).
 """
 from __future__ import annotations
 
@@ -36,7 +46,9 @@ from PIL import Image
 
 from flexdiffuse_tpu_torch import schedulers
 from flexdiffuse_tpu_torch.config import LATENT_SCALE
+from flexdiffuse_tpu_torch.models.unet import guidance_scale_embedding
 from flexdiffuse_tpu_torch.models.vae import sample_latents
+from flexdiffuse_tpu_torch.ops.tiled_vae import tiled_apply
 from flexdiffuse_tpu_torch.pipeline.guides import (CompositeGuidance,
                                                    SimpleGuidance)
 from flexdiffuse_tpu_torch.schedulers.pndm import PRKSchedule
@@ -76,21 +88,43 @@ def prepare_latent_mask(mask, latent_hw: Tuple[int, int]) -> torch.Tensor:
     return torch.clamp(m, 0.0, 1.0)
 
 
+def upscale_latents(latents: torch.Tensor, scale: float,
+                    method: str = 'bilinear') -> torch.Tensor:
+    """Latent-space upscale for the hires fix's second pass (A1111's
+    'Latent' mode): NHWC latents resized by ``scale``, the new dims snapped
+    down to multiples of 8 (at least 8), half-pixel linear interpolation as
+    ``jax.image.resize``; fp32."""
+    if scale <= 1.0:
+        raise ValueError(f'hires scale must be > 1, got {scale}')
+    _, h, w, _ = latents.shape
+    nh = max(8, (int(h * scale) // 8) * 8)
+    nw = max(8, (int(w * scale) // 8) * 8)
+    out = F.interpolate(latents.float().permute(0, 3, 1, 2), size=(nh, nw),
+                        mode=method, align_corners=False)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
 class FlexPipeline:
     """Holds the UNet and VAE modules and runs the denoise loop.
 
     Args:
         unet: a :class:`~flexdiffuse_tpu_torch.models.UNet2DCondition`.
         vae: an :class:`~flexdiffuse_tpu_torch.models.AutoencoderKL`.
-        scheduler: 'ddim' | 'pndm' | 'lms'.
+        scheduler: a kind of :mod:`~flexdiffuse_tpu_torch.schedulers`.
         scheduler_config: a :class:`~flexdiffuse_tpu_torch.schedulers.
             SchedulerConfig` (None: the defaults; PNDM's PRK warm-up is
             ``skip_prk_steps=False``).
+        vae_tile, vae_tile_overlap: decode and encode in tiles of
+            ``vae_tile`` latent units with cross-faded overlaps once the
+            canvas exceeds one tile (0: off).
+        deepcache: the DeepCache interval (0 or 1: off).
     """
 
     def __init__(self, unet, vae, scheduler: str = 'pndm',
                  scheduler_config: Optional[
-                     schedulers.SchedulerConfig] = None) -> None:
+                     schedulers.SchedulerConfig] = None,
+                 vae_tile: int = 0, vae_tile_overlap: int = 8,
+                 deepcache: int = 0) -> None:
         self.unet = unet
         self.vae = vae
         self.scheduler_kind = scheduler
@@ -99,6 +133,13 @@ class FlexPipeline:
         self.latent_channels = vae.config.latent_channels
         self.vae_scale = 2**(len(vae.config.block_channels) - 1)
         self.latent_scale = LATENT_SCALE
+        self.vae_tile = int(vae_tile)
+        self.vae_tile_overlap = int(vae_tile_overlap)
+        if self.vae_tile and self.vae_tile_overlap >= self.vae_tile:
+            raise ValueError('vae_tile_overlap must be < vae_tile')
+        self.deepcache = int(deepcache)
+        if self.deepcache < 0:
+            raise ValueError('deepcache interval must be >= 0')
 
     @property
     def device(self) -> torch.device:
@@ -124,12 +165,24 @@ class FlexPipeline:
                              f'{tuple(shape)}')
         return given
 
+    def _tiling_active(self, h: int, w: int) -> bool:
+        """Latent dims ``h×w`` exceed one VAE tile."""
+        return self.vae_tile > 0 and (h > self.vae_tile or w > self.vae_tile)
+
     @torch.no_grad()
     def encode_pixels(self, pixels: torch.Tensor,
                       posterior_noise: torch.Tensor) -> torch.Tensor:
         """VAE-encode NHWC pixels in [-1, 1] → scaled latents, sampling the
-        posterior with the given unit noise."""
-        mean, logvar = self.vae.encode(pixels)
+        posterior with the given unit noise. Tiled, the posterior moments
+        cross-fade across the seams and the posterior is sampled once over
+        the blended canvas."""
+        f = self.vae_scale
+        if self._tiling_active(pixels.shape[1] // f, pixels.shape[2] // f):
+            mean, logvar = tiled_apply(
+                self.vae.encode, pixels, self.vae_tile * f,
+                self.vae_tile_overlap * f, out_num=1, out_den=f)
+        else:
+            mean, logvar = self.vae.encode(pixels)
         return sample_latents(mean, logvar, posterior_noise) * \
             self.latent_scale
 
@@ -142,13 +195,23 @@ class FlexPipeline:
                                   self._draw(posterior_noise, shape,
                                              generator))
 
+    def _decode01(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents → images in [0, 1], tiled when the canvas exceeds one
+        tile."""
+        def decode(z):
+            img = self.vae.decode(z / self.latent_scale)
+            return torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
+        if self._tiling_active(latents.shape[1], latents.shape[2]):
+            return tiled_apply(decode, latents, self.vae_tile,
+                               self.vae_tile_overlap, out_num=self.vae_scale,
+                               out_den=1)
+        return decode(latents)
+
     @torch.no_grad()
     def decode_u8_device(self, latents: torch.Tensor) -> torch.Tensor:
         """VAE decode + uint8 quantize (round half up, as ``to_pil``), left
         on the device: ``[B, H, W, 3]`` uint8."""
-        img = self.vae.decode(latents / self.latent_scale)
-        img = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
-        return (img * 255.0 + 0.5).to(torch.uint8)
+        return (self._decode01(latents) * 255.0 + 0.5).to(torch.uint8)
 
     def latents_to_images(self, latents: torch.Tensor) -> List[Image.Image]:
         return to_pil(self.decode_u8_device(latents).cpu().numpy())
@@ -157,15 +220,105 @@ class FlexPipeline:
     def latents_to_np(self, latents: torch.Tensor) -> np.ndarray:
         """VAE decode → float32 images ``[B, H, W, 3]`` in [0, 1] on the
         host (the JAX pipeline's ``output_type='np'``)."""
-        img = self.vae.decode(latents / self.latent_scale)
-        img = torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
-        return img.float().cpu().numpy()
+        return self._decode01(latents).float().cpu().numpy()
 
     def _pixels(self, init_image) -> torch.Tensor:
         if isinstance(init_image, Image.Image):
             init_image = preprocess(init_image)
         return torch.as_tensor(np.asarray(init_image, np.float32),
                                device=self.device)
+
+    def _check_features(self, guide) -> None:
+        """The JAX pipeline's composition rules for DeepCache, the CFG
+        interval and PAG."""
+        if (self.deepcache >= 2 and guide.cfg_interval
+                and isinstance(guide, CompositeGuidance)):
+            raise ValueError('cfg_interval composes with deepcache only for '
+                             'SimpleGuidance (composite stacks have no '
+                             'half-batch cache layout)')
+        if getattr(guide, 'pag', False):
+            if self.unet.pag_layers is None:
+                raise ValueError(
+                    'PAG guidance requires a UNet with pag_layers set '
+                    '(Runner.enable_pag / unet.with_settings(pag_layers=...))'
+                    ' — without it the perturbed row is a wasted cond copy')
+            if self.deepcache >= 2 and guide.cfg_interval:
+                raise ValueError('PAG composes with deepcache or '
+                                 'cfg_interval, but not both at once (the '
+                                 'half-batch cache layout assumes two rows '
+                                 'per sample)')
+
+    def _lcm_guide(self, guide):
+        """A guidance-embedded (LCM) UNet takes the guidance scale as an
+        input and runs without CFG (diffusers' semantics)."""
+        tcp = self.unet.config.time_cond_proj_dim
+        if not tcp:
+            return guide
+        if not hasattr(guide, 'timestep_cond'):
+            raise NotImplementedError(
+                'guidance-embedded (LCM) UNets are driven through '
+                'SimpleGuidance; composite guidance does not carry a '
+                'timestep_cond')
+        if guide.timestep_cond is not None:
+            return guide
+        w = torch.as_tensor(guide.guidance_scale, dtype=torch.float32) - 1.0
+        return guide.replace(timestep_cond=guidance_scale_embedding(
+            w.cpu(), tcp).to(self.device), cfg=False)
+
+    def _predictor(self, guide, span: int, t_start: int):
+        """``eps_at(i, xin, t)``: the guided ε at row ``i``, through the CFG
+        interval and DeepCache schedules of the JAX pipeline's scan."""
+        unet = self.unet
+        use_interval = guide.cfg_interval and guide.cfg
+        g_cond = guide.replace(cfg=False) if use_interval else None
+        lo, hi = np.float32(guide.cfg_from), np.float32(guide.cfg_to)
+
+        def prog(i: int) -> np.float32:
+            # fp32, as the JAX scan compares it with fp32 bounds.
+            return np.float32(i - t_start) / np.float32(span)
+
+        def inside(i: int) -> bool:
+            return bool(lo <= prog(i) <= hi)
+
+        def pick(i: int):
+            return guide if not use_interval or inside(i) else g_cond
+
+        def progress(i: int) -> torch.Tensor:
+            return torch.tensor(float(i - t_start)) / span
+
+        if self.deepcache < 2:
+            def eps_at(i, xin, t):
+                return pick(i).noise_pred(unet, xin, t, progress(i))
+            return eps_at
+
+        box = {}
+
+        def save_fn(*args, **kw):
+            eps, box['cache'] = unet(*args, cache_mode='save', **kw)
+            return eps
+
+        def use_fn(*args, **kw):
+            return unet(*args, cache_mode='use', deep_cache=box['use'],
+                        **kw)[0]
+
+        def eps_at(i, xin, t):
+            full = (i - t_start) % self.deepcache == 0
+            if use_interval:
+                # A full 'save' on every interval transition: a CFG row
+                # never uses the cond-only save's tiled stand-in.
+                full = full or inside(i) != inside(i - 1)
+            g = pick(i)
+            if full:
+                eps = g.noise_pred(save_fn, xin, t, progress(i))
+                if g is g_cond:
+                    # Tile the half-batch cache into the uncond slots.
+                    box['cache'] = torch.cat([box['cache']] * 2)
+                return eps
+            cache = box['cache']
+            box['use'] = cache[cache.shape[0] // 2:] if g is g_cond \
+                else cache
+            return g.noise_pred(use_fn, xin, t, progress(i))
+        return eps_at
 
     @torch.no_grad()
     def __call__(self,
@@ -179,6 +332,7 @@ class FlexPipeline:
                  output_type: str = 'pil',
                  debug: bool = False,
                  mask=None,
+                 init_latents: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None,
                  posterior_noise: Optional[torch.Tensor] = None,
                  mask_posterior_noise: Optional[torch.Tensor] = None,
@@ -189,23 +343,29 @@ class FlexPipeline:
         latents). ``eta``: DDIM's η. ``mask`` (needs ``init_image``):
         1 = regenerate, 0 = keep; a 9-channel UNet takes it as input
         channels, any other UNet re-anchors the kept region every step.
-        ``debug``: decode the latents after every step from the first active
-        one and return all those images ('pil' only)."""
+        ``init_latents`` (instead of ``init_image``): img2img from scaled
+        latents, no VAE round trip. ``debug``: decode the latents after
+        every step from the first active one and return all those images
+        ('pil' only)."""
         if strength < 0 or strength > 1:
             raise ValueError('The value of strength should in [0.0, 1.0] '
                              f'but is {strength}')
         if mask is not None and init_image is None:
             raise ValueError('inpainting (mask=...) requires init_image')
+        if init_latents is not None and init_image is not None:
+            raise ValueError('pass init_image OR init_latents, not both')
         if debug and output_type != 'pil':
             raise ValueError("debug decodes every step: output_type 'pil'")
         if output_type not in ('pil', 'np', 'latent'):
             raise ValueError(f'unknown output_type {output_type!r}')
+        self._check_features(guide)
+        guide = self._lcm_guide(guide)
         dev = self.device
         batch_size = guide.batch_size
         schedule = self.schedule(steps)
         f = self.vae_scale
         sigma_space = schedule.kind in schedulers.SIGMA_SPACE_KINDS
-        init_latents = latent_mask = None
+        latent_mask = None
 
         if mask is not None and \
                 self.unet.config.in_channels > self.latent_channels:
@@ -227,11 +387,13 @@ class FlexPipeline:
                 dim=-1)
             guide = guide.replace(extra_channels=extra)
             want = (batch_size, hpix // f, wpix // f, self.latent_channels)
+            init_latents = None
             if strength < 1.0:
                 orig = self._encode(pixels, posterior_noise, generator)
                 orig = torch.cat([orig] * batch_size)
                 init_timestep, t_start = schedulers.init_timestep_info(
                     schedule, strength, steps)
+                t_start *= schedule.rows_per_step
                 latents = schedulers.add_noise(
                     schedule, orig, self._draw(noise, want, generator),
                     init_timestep)
@@ -240,7 +402,7 @@ class FlexPipeline:
                 latents = self._draw(noise, want, generator)
                 if sigma_space:
                     latents = latents * schedule.sigmas[0]
-        elif init_image is not None:
+        elif init_image is not None or init_latents is not None:
             if isinstance(schedule, PRKSchedule):
                 # The PRK feed's first 12 positions span only the top 3
                 # timesteps: a strength-derived t_start would enter the
@@ -248,11 +410,18 @@ class FlexPipeline:
                 raise NotImplementedError(
                     'img2img/inpaint is not defined for PNDM PRK warm-up '
                     '(skip_prk_steps=False); use the PLMS mode')
-            init_latents = self._encode(self._pixels(init_image),
-                                        posterior_noise, generator)
-            init_latents = torch.cat([init_latents] * batch_size)
+            if init_latents is not None:
+                init_latents = torch.as_tensor(init_latents).to(
+                    dev, torch.float32)
+                if init_latents.shape[0] != batch_size:
+                    init_latents = torch.cat([init_latents] * batch_size)
+            else:
+                init_latents = self._encode(self._pixels(init_image),
+                                            posterior_noise, generator)
+                init_latents = torch.cat([init_latents] * batch_size)
             init_timestep, t_start = schedulers.init_timestep_info(
                 schedule, strength, steps)
+            t_start *= schedule.rows_per_step
             latents = schedulers.add_noise(
                 schedule, init_latents,
                 self._draw(noise, init_latents.shape, generator),
@@ -270,15 +439,14 @@ class FlexPipeline:
 
         state = schedulers.init_state(schedule, latents.shape, latents.dtype)
         span = max(schedule.length - 1 - t_start, 1)
-        eta_noise = schedule.kind == 'ddim' and eta > 0
+        eps_at = self._predictor(guide, span, t_start)
+        step_noise = schedulers.takes_noise(schedule, eta)
         recorded = []
         for i in range(t_start, schedule.length):
             xin = schedulers.scale_model_input(schedule, latents, i)
-            t = schedule.timesteps[i].to(dev)
-            progress = torch.tensor(float(i - t_start)) / span
-            eps = guide.noise_pred(self.unet, xin, t, progress)
+            eps = eps_at(i, xin, schedule.timesteps[i].to(dev))
             vnoise = None
-            if eta_noise:
+            if step_noise:
                 vnoise = self._draw(None if variance_noise is None else
                                     variance_noise[i], latents.shape,
                                     generator)

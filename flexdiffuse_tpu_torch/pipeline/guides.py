@@ -11,10 +11,21 @@
 ``noise_pred(noise_fn, latents, t, progress)``: ``progress`` in [0, 1] is the
 denoise progress (CompositeGuidance's style interpolation reads it).
 
-Fields of the JAX guides that the port does not take yet raise
-``NotImplementedError`` naming the ROADMAP Queue 1 step that ports them:
-CFG interval and CFG rescale (step 9), SDXL's pooled embeddings and time ids
-(step 11).
+Both take the JAX guides' sampling fields:
+
+- CFG interval (Kynkäänniemi et al. 2024): with ``cfg_interval`` the
+  pipeline runs CFG only for progress in ``[cfg_from, cfg_to]`` and, outside,
+  the guide with ``cfg=False`` (the UNet at batch B, not 2B);
+- CFG rescale (Lin et al. 2023): with ``rescale``, :func:`rescale_cfg` pulls
+  the guided ε toward the cond ε's per-sample std by ``guidance_rescale``;
+- PAG (Ahn et al. 2024, SimpleGuidance): with ``pag`` one more cond row per
+  sample runs with identity self-attention in the UNet's ``pag_layers``
+  (the ``pag_mask`` row selector), and ε gains ``pag_scale·(ε_cond −
+  ε_perturbed)``;
+- ``timestep_cond``: the LCM guidance embedding, passed to the UNet.
+
+SDXL's pooled embeddings and time ids raise ``NotImplementedError`` naming
+ROADMAP Queue 1 step 11.
 """
 from __future__ import annotations
 
@@ -26,8 +37,7 @@ import torch
 # noise_fn(latents [N,h,w,C], t [N], context [N,T,D]) -> eps [N,h,w,4]
 NoiseFn = Callable[..., torch.Tensor]
 
-_UNPORTED_FIELDS = {'cfg_interval': 9, 'rescale': 9, 'pooled': 11,
-                    'time_ids': 11}
+_UNPORTED_FIELDS = {'pooled': 11, 'time_ids': 11}
 
 
 def _reject_unported(guide) -> None:
@@ -39,6 +49,43 @@ def _reject_unported(guide) -> None:
                 f'(ROADMAP Queue 1 step {step})')
 
 
+def rescale_cfg(eps_cfg: torch.Tensor, eps_cond: torch.Tensor,
+                phi) -> torch.Tensor:
+    """CFG rescale (Lin et al. 2023, §3.4): scale the guided ε toward the
+    cond ε's per-sample std (population std over every axis but the
+    batch) and lerp by ``phi``."""
+    dims = tuple(range(1, eps_cfg.ndim))
+    std_c = torch.std(eps_cond, dim=dims, keepdim=True, correction=0)
+    std_g = torch.std(eps_cfg, dim=dims, keepdim=True, correction=0)
+    rescaled = eps_cfg * (std_c / (std_g + 1e-8))
+    return phi * rescaled + (1.0 - phi) * eps_cfg
+
+
+def _check_rescale_gate(guide) -> None:
+    """A nonzero ``guidance_rescale`` with the ``rescale`` flag off would
+    never apply: refuse it, as the JAX guides do."""
+    if not guide.rescale and float(guide.guidance_rescale) != 0.0:
+        raise ValueError(
+            'guidance_rescale is set but the static rescale flag is off — '
+            'it would silently never apply. Pass rescale=True alongside '
+            'guidance_rescale (runner-level APIs do this automatically).')
+
+
+def _scale(value, device):
+    return value.to(device) if isinstance(value, torch.Tensor) else value
+
+
+def _call(noise_fn: NoiseFn, lat, t, ctx, timestep_cond=None,
+          pag_mask=None) -> torch.Tensor:
+    """``noise_fn`` with the optional UNet inputs only when they are set."""
+    kw = {}
+    if timestep_cond is not None:
+        kw['timestep_cond'] = timestep_cond
+    if pag_mask is not None:
+        kw['pag_mask'] = pag_mask
+    return noise_fn(lat, t, ctx, **kw)
+
+
 @dataclasses.dataclass(frozen=True)
 class SimpleGuidance:
     """CFG conditioning: ``embeddings [B, T, D]`` tweened prompt embeddings,
@@ -48,20 +95,29 @@ class SimpleGuidance:
     scales). ``cfg`` follows the reference's ``guidance > 1`` gate.
     ``extra_channels [1 or B, h, w, 5]`` (mask, masked-image latents) is
     concatenated onto the UNet input every step for a 9-channel inpainting
-    UNet."""
+    UNet. ``timestep_cond [1, time_cond_proj_dim]`` is the LCM guidance
+    embedding (then ``cfg`` is False). The CFG interval, CFG rescale and PAG
+    fields are the module docstring's."""
 
     embeddings: torch.Tensor
     uncond: torch.Tensor
     guidance_scale: Union[float, torch.Tensor]
     cfg: bool = True
     extra_channels: Optional[torch.Tensor] = None
+    timestep_cond: Optional[torch.Tensor] = None
+    cfg_from: float = 0.0
+    cfg_to: float = 1.0
     cfg_interval: bool = False
+    guidance_rescale: float = 0.0
     rescale: bool = False
+    pag_scale: float = 0.0
+    pag: bool = False
     pooled: Optional[torch.Tensor] = None
     time_ids: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         _reject_unported(self)
+        _check_rescale_gate(self)
 
     @property
     def batch_size(self) -> int:
@@ -77,22 +133,62 @@ class SimpleGuidance:
             tuple(latents.shape[:3]) + (self.extra_channels.shape[-1],))
         return torch.cat([latents, extra.to(latents.dtype)], dim=-1)
 
+    def _tcond(self, n: int):
+        if self.timestep_cond is None:
+            return None
+        return self.timestep_cond.expand((n,) +
+                                         tuple(self.timestep_cond.shape[1:]))
+
+    def _uncond_ctx(self) -> torch.Tensor:
+        dtype = torch.promote_types(self.uncond.dtype, self.embeddings.dtype)
+        return self.uncond.expand(self.embeddings.shape).to(dtype), dtype
+
+    def _finish(self, out, eps_c):
+        if self.rescale:
+            out = rescale_cfg(out, eps_c, self.guidance_rescale)
+        return out
+
     def noise_pred(self, noise_fn: NoiseFn, latents: torch.Tensor,
                    t: torch.Tensor, progress=0.0) -> torch.Tensor:
         del progress
         b = self.batch_size
         lat_in = self._with_extra(latents)
+        if self.pag:
+            return self._noise_pred_pag(noise_fn, lat_in, t)
         if not self.cfg:
-            return noise_fn(lat_in, t.expand(b), self.embeddings)
-        dtype = torch.promote_types(self.uncond.dtype, self.embeddings.dtype)
-        ctx = torch.cat([self.uncond.expand(self.embeddings.shape).to(dtype),
-                         self.embeddings.to(dtype)])
-        eps = noise_fn(torch.cat([lat_in, lat_in]), t.expand(2 * b), ctx)
+            return _call(noise_fn, lat_in, t.expand(b), self.embeddings,
+                         self._tcond(b))
+        unc, dtype = self._uncond_ctx()
+        ctx = torch.cat([unc, self.embeddings.to(dtype)])
+        eps = _call(noise_fn, torch.cat([lat_in, lat_in]), t.expand(2 * b),
+                    ctx, self._tcond(2 * b))
         eps_u, eps_c = eps.chunk(2)
-        scale = self.guidance_scale
-        if isinstance(scale, torch.Tensor):
-            scale = scale.to(eps.device)
-        return eps_u + scale * (eps_c - eps_u)
+        scale = _scale(self.guidance_scale, eps.device)
+        return self._finish(eps_u + scale * (eps_c - eps_u), eps_c)
+
+    def _noise_pred_pag(self, noise_fn: NoiseFn, lat_in: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        """PAG: ``[uncond; cond; perturbed]`` at 3B under CFG (the published
+        PAG+CFG combination), ``[cond; perturbed]`` at 2B without; the
+        perturbed rows are the ``pag_mask`` ones."""
+        b = self.batch_size
+        unc, dtype = self._uncond_ctx()
+        cond = self.embeddings.to(dtype)
+        rows = 3 if self.cfg else 2
+        ctx = torch.cat(([unc] if self.cfg else []) + [cond, cond])
+        mask = torch.cat([torch.zeros(((rows - 1) * b,)), torch.ones((b,))])
+        eps = _call(noise_fn, torch.cat([lat_in] * rows),
+                    t.expand(rows * b), ctx, self._tcond(rows * b),
+                    pag_mask=mask.to(lat_in.device))
+        pag = _scale(self.pag_scale, eps.device)
+        if self.cfg:
+            eps_u, eps_c, eps_p = eps.chunk(3)
+            scale = _scale(self.guidance_scale, eps.device)
+            out = (eps_u + scale * (eps_c - eps_u) + pag * (eps_c - eps_p))
+        else:
+            eps_c, eps_p = eps.chunk(2)
+            out = eps_c + pag * (eps_c - eps_p)
+        return self._finish(out, eps_c)
 
 
 def entity_masks(entities: Sequence[Tuple[Tuple[int, int], Tuple[int, int]]],
@@ -129,13 +225,17 @@ class CompositeGuidance:
     style_range: Optional[torch.Tensor] = None
     style_strength: float = 0.0
     cfg: bool = True
+    cfg_from: float = 0.0
+    cfg_to: float = 1.0
     cfg_interval: bool = False
+    guidance_rescale: float = 0.0
     rescale: bool = False
     pooled: Optional[torch.Tensor] = None
     time_ids: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         _reject_unported(self)
+        _check_rescale_gate(self)
 
     @property
     def batch_size(self) -> int:
@@ -182,5 +282,8 @@ class CompositeGuidance:
             bg = bg + m * self.blends[i] * (ent - bg)
         if self.cfg:
             uncond = eps[:, 0]
+            cond = bg
             bg = uncond + self.guidance_scale * (bg - uncond)
+            if self.rescale:
+                bg = rescale_cfg(bg, cond, self.guidance_rescale)
         return bg

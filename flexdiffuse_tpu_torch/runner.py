@@ -12,10 +12,18 @@ guide image or text with the ``guide_*`` tween parameters and mapping
 concepts, an optional init image (img2img) with its strength and an
 inpainting ``mask``, steps, CFG scale, samples, seed, ``debug`` (every
 step's image), negative prompt and saving, and the JAX Runner's
-``long_prompt`` (75-token windows) and ``weighted`` (A1111 emphasis). Its
-other keywords raise ``NotImplementedError`` naming the ROADMAP step that
-ports them. ``compose`` is the reference's second UI tab: a background
-prompt and rectangular entities, each with its prompt and blend.
+``long_prompt`` (75-token windows), ``weighted`` (A1111 emphasis), the
+two-pass hires fix (``hires_scale``, ``hires_strength``, ``hires_steps``),
+``cfg_interval``, ``guidance_rescale`` and ``pag_scale``. Its ControlNet and
+IP-Adapter keywords raise ``NotImplementedError`` naming ROADMAP step 10.
+``compose`` is the reference's second UI tab: a background prompt and
+rectangular entities, each with its prompt and blend.
+
+The sampling toggles of the JAX Runner: ``enable_freeu``, ``enable_tome``,
+``enable_pag``, ``enable_deepcache`` and ``enable_vae_tiling``, each with
+its ``disable_*``. The first three give the pipeline a shallow copy of the
+UNet with the setting (the weights are shared); DeepCache rebuilds the
+pipeline; the tiling applies at once.
 
 ``Runner.timer`` (``utils/profiling.PhaseTimer``) accumulates the host
 seconds of ``gen``'s two phases, ``'embeds'`` (the prompt and guide
@@ -52,7 +60,8 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           CLIPVisionConfig, CLIPVisionModel,
                                           UNet2DCondition, UNetConfig,
                                           VAEConfig)
-from flexdiffuse_tpu_torch.pipeline import FlexPipeline, SimpleGuidance
+from flexdiffuse_tpu_torch.pipeline import (FlexPipeline, SimpleGuidance,
+                                            upscale_latents)
 from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
 from flexdiffuse_tpu_torch.text.tokenizer import CLIPTokenizer
 from flexdiffuse_tpu_torch.utils.image import image_grid
@@ -66,8 +75,6 @@ log = logging.getLogger(__name__)
 # JAX Runner.gen keywords the port does not take yet → the ROADMAP Queue 1
 # step that ports them.
 _NOT_PORTED = {
-    'hires_scale': 9, 'hires_strength': 9, 'hires_steps': 9,
-    'cfg_interval': 9, 'guidance_rescale': 9, 'pag_scale': 9,
     'control_image': 10, 'controlnet_scale': 10,
     'ip_embed': 10, 'ip_image': 10, 'ip_scale': 10,
 }
@@ -118,9 +125,10 @@ class Runner:
             unet_config = SD14_UNET
             found = load.unet_overrides(sd_dir)
             if found.get('time_cond_proj_dim'):
-                raise NotImplementedError(
-                    'guidance-embedded (LCM) UNets are not ported yet '
-                    '(ROADMAP Queue 1 step 9)')
+                # A guidance-embedded (LCM) checkpoint.
+                unet_config = dataclasses.replace(
+                    unet_config,
+                    time_cond_proj_dim=found['time_cond_proj_dim'])
             if found.get('in_channels', 4) == 8:
                 raise NotImplementedError(
                     'InstructPix2Pix UNets (8 input channels) are not ported '
@@ -157,9 +165,10 @@ class Runner:
                     scheduler_config: Optional[SchedulerConfig] = None
                     ) -> 'Runner':
         """Build from modules that already hold their weights (on the
-        device, in the dtype they should run in). ``scheduler``: 'pndm',
-        'ddim' or 'lms'; ``scheduler_config`` sets DDIM's and PNDM's
-        switches (the PRK warm-up is ``skip_prk_steps=False``)."""
+        device, in the dtype they should run in). ``scheduler``: a kind of
+        :mod:`~flexdiffuse_tpu_torch.schedulers`; ``scheduler_config`` sets
+        its switches (v-prediction, Karras σ, spacing, zero SNR, DDIM's and
+        PNDM's)."""
         self = cls.__new__(cls)
         self._init(text_model, vision_model, unet, vae, tokenizer, scheduler,
                    config, scheduler_config)
@@ -182,6 +191,81 @@ class Runner:
         self._generator = torch.Generator(self.pipe.device)
         self._merged: set = set()   # parameters a LoRA has changed
         self.timer = PhaseTimer()
+
+    def _rebuild(self, unet=None, **overrides) -> None:
+        """A new pipeline around ``unet`` (default: the current one) with
+        the current scheduler, tiling and DeepCache unless overridden."""
+        kw = dict(scheduler=self.pipe.scheduler_kind,
+                  scheduler_config=self.pipe.scheduler_config,
+                  vae_tile=self.pipe.vae_tile,
+                  vae_tile_overlap=self.pipe.vae_tile_overlap,
+                  deepcache=self.pipe.deepcache)
+        kw.update(overrides)
+        self.pipe = FlexPipeline(unet or self.pipe.unet, self.pipe.vae,
+                                 **kw)
+
+    def enable_freeu(self, b1: float = 1.5, b2: float = 1.6,
+                     s1: float = 0.9, s2: float = 0.2) -> None:
+        """FreeU (the published recipe; the defaults are SD-1.x's): amplify
+        the backbone's first half-channels and Fourier-attenuate the skips
+        at the two deepest decoder levels. No new weights."""
+        self._rebuild(self.pipe.unet.with_settings(freeu=(b1, b2, s1, s2)))
+
+    def disable_freeu(self) -> None:
+        if self.pipe.unet.freeu is not None:
+            self._rebuild(self.pipe.unet.with_settings(freeu=None))
+
+    def enable_tome(self, ratio: float = 0.5, min_seq: int = 4096) -> None:
+        """ToMe token merging (``ops/tome.py``): before every self-attention
+        on a grid of at least ``min_seq`` tokens, merge ``ratio`` of the
+        tokens into their most similar neighbours and copy the outputs
+        back. The default engages SD-1.x's 4096-token level (and larger
+        canvases). An approximation."""
+        if not 0.0 < ratio < 1.0:
+            raise ValueError('tome ratio must be in (0, 1)')
+        self._rebuild(self.pipe.unet.with_settings(
+            tome=(float(ratio), int(min_seq))))
+
+    def disable_tome(self) -> None:
+        if self.pipe.unet.tome is not None:
+            self._rebuild(self.pipe.unet.with_settings(tome=None))
+
+    def enable_pag(self, layers: Sequence[str] = ('mid',)) -> None:
+        """PAG, perturbed-attention guidance: an extra cond row runs with
+        identity self-attention in the transformers whose names start with
+        one of ``layers`` ('mid', 'down_1', 'up_2_attn_1'; ('mid',) is the
+        published default); ``gen(pag_scale=...)`` sets the strength."""
+        if not layers:
+            raise ValueError('pag layers must name at least one '
+                             "transformer (e.g. ('mid',))")
+        self._rebuild(self.pipe.unet.with_settings(pag_layers=tuple(layers)))
+
+    def disable_pag(self) -> None:
+        if self.pipe.unet.pag_layers is not None:
+            self._rebuild(self.pipe.unet.with_settings(pag_layers=None))
+
+    def enable_deepcache(self, interval: int = 2) -> None:
+        """DeepCache: the full UNet every ``interval``-th denoise step, the
+        deep feature reused in between with only the shallow levels
+        recomputed (2-3 is the published sweet spot)."""
+        if int(interval) != self.pipe.deepcache:
+            self._rebuild(deepcache=int(interval))
+
+    def disable_deepcache(self) -> None:
+        if self.pipe.deepcache:
+            self._rebuild(deepcache=0)
+
+    def enable_vae_tiling(self, tile: int = 64, overlap: int = 8) -> None:
+        """Decode and encode in ``tile``-latent-unit tiles with cross-faded
+        ``overlap`` seams once the canvas exceeds one tile (``ops/
+        tiled_vae.py``); ``tile=64`` is 512² pixels per tile."""
+        if overlap >= tile:
+            raise ValueError('overlap must be < tile')
+        self.pipe.vae_tile = int(tile)
+        self.pipe.vae_tile_overlap = int(overlap)
+
+    def disable_vae_tiling(self) -> None:
+        self.pipe.vae_tile = 0
 
     def apply_lora(self, path: str, scale: float = 1.0) -> None:
         """Merge a LoRA adapter (kohya or diffusers/PEFT naming,
@@ -223,19 +307,41 @@ class Runner:
 
     def _run(self, batches: int, guidance, init_image, init_size,
              strength: float, steps: int, debug: bool, fp: str, save: bool,
-             mask=None) -> Tuple[List[Image.Image], Image.Image]:
+             mask=None, hires_scale: float = 0.0,
+             hires_strength: float = 0.55,
+             hires_steps: Optional[int] = None
+             ) -> Tuple[List[Image.Image], Image.Image]:
         """Multi-batch sweep (reference ``_run`` utils.py:85-112); in debug
-        mode each batch gives one image per recorded step."""
+        mode each batch gives one image per recorded step.
+
+        ``hires_scale > 1``: the two-pass hires fix (A1111's 'Latent'
+        mode): pass 1 at ``init_size``, its latents upscaled by
+        ``hires_scale`` (:func:`upscale_latents`) and refined by an img2img
+        pass at ``hires_strength`` (a mask applies to pass 1 only)."""
+        hires = bool(hires_scale) and hires_scale > 1.0
         all_images: List[Image.Image] = []
         if save:
             os.makedirs(self.grid_dir, exist_ok=True)
         for b in range(batches):
             stime = time.time()
             ms_time = int(stime * 1000)
-            images = self.pipe(guidance, steps=steps, init_image=init_image,
-                               init_size=init_size, strength=strength,
-                               eta=self.eta, generator=self._generator,
-                               debug=debug, mask=mask).images
+            if hires:
+                lat = self.pipe(guidance, steps=steps, init_image=init_image,
+                                init_size=init_size, strength=strength,
+                                eta=self.eta, generator=self._generator,
+                                mask=mask, output_type='latent').images
+                images = self.pipe(guidance, steps=hires_steps or steps,
+                                   init_latents=upscale_latents(
+                                       lat, hires_scale),
+                                   strength=hires_strength, eta=self.eta,
+                                   generator=self._generator,
+                                   debug=debug).images
+            else:
+                images = self.pipe(guidance, steps=steps,
+                                   init_image=init_image,
+                                   init_size=init_size, strength=strength,
+                                   eta=self.eta, generator=self._generator,
+                                   debug=debug, mask=mask).images
             log.info('batch %d/%d: %d image(s) in %.2fs', b + 1, batches,
                      len(images), time.time() - stime)
             if save:
@@ -275,6 +381,12 @@ class Runner:
             mask: Optional[Image.Image] = None,
             long_prompt: bool = False,
             weighted: bool = False,
+            hires_scale: float = 0.0,
+            hires_strength: float = 0.55,
+            hires_steps: Optional[int] = None,
+            cfg_interval: Optional[Tuple[float, float]] = None,
+            guidance_rescale: float = 0.0,
+            pag_scale: float = 0.0,
             **not_ported) -> Tuple[List[Image.Image], Image.Image]:
         """Guided generation (reference ``Runner.gen`` utils.py:114-166);
         returns ``(images, grid)``. ``mask`` (with ``init_image``): 1 =
@@ -282,7 +394,14 @@ class Runner:
         tokens in 75-token windows; ``weighted`` parses A1111 emphasis
         (``(word:1.3)``, ``[word]``, ``BREAK``) in the prompt and the
         negative prompt and chunks the same way. Either takes a single
-        prompt; a guide then tweens the first window only."""
+        prompt; a guide then tweens the first window only.
+
+        ``hires_scale > 1``: the two-pass hires fix (see :meth:`_run`).
+        ``cfg_interval=(lo, hi)``: CFG only for denoise progress in
+        [lo, hi], cond-only at half the UNet batch outside.
+        ``guidance_rescale``: CFG rescale's phi (0: off).
+        ``pag_scale``: perturbed-attention guidance on the layers of
+        :meth:`enable_pag` (('mid',) on first use; 0: off)."""
         for name in not_ported:
             if name not in _NOT_PORTED:
                 raise TypeError(f'gen() got an unexpected keyword argument '
@@ -290,6 +409,8 @@ class Runner:
             raise NotImplementedError(
                 f'gen({name}=...) is not ported yet (ROADMAP Queue 1 step '
                 f'{_NOT_PORTED[name]})')
+        if pag_scale and self.pipe.unet.pag_layers is None:
+            self.enable_pag()
         if mask is not None and init_image is not None:
             fp = f'inp_ds{int(strength * 100)}'
         elif init_image is not None:
@@ -306,6 +427,14 @@ class Runner:
                    f'_hm{_i100(guide_header_max)}'
                    f'_im{guide_mode:d}')
         fp += f'_st{steps}_gs{int(guidance_scale)}'
+        if cfg_interval is not None:
+            fp += f'_ci{_i100(cfg_interval[0])}-{_i100(cfg_interval[1])}'
+        if guidance_rescale:
+            fp += f'_gr{_i100(guidance_rescale)}'
+        if pag_scale:
+            fp += f'_pg{_i100(pag_scale)}'
+        if hires_scale and hires_scale > 1.0:
+            fp += f'_hr{_i100(hires_scale)}_hs{_i100(hires_strength)}'
         if seed:
             fp += f'_se{seed}'
 
@@ -333,12 +462,25 @@ class Runner:
             uncond = self._windowed_uncond(negative_prompt, embeds, enc_fn)
         else:
             uncond = self.encoder.prompt(negative_prompt or '')
+        features = {}
+        if cfg_interval is not None:
+            features.update(cfg_interval=True,
+                            cfg_from=float(cfg_interval[0]),
+                            cfg_to=float(cfg_interval[1]))
+        if pag_scale:
+            features.update(pag=True, pag_scale=float(pag_scale))
+        if guidance_rescale:
+            features.update(rescale=True,
+                            guidance_rescale=float(guidance_rescale))
         guidance = SimpleGuidance(embeddings=embeds, uncond=uncond,
                                   guidance_scale=float(guidance_scale),
-                                  cfg=guidance_scale > 1.0)
+                                  cfg=guidance_scale > 1.0, **features)
         with self.timer.phase('generate'):
             return self._run(samples, guidance, init_image, init_size,
-                             strength, steps, debug, fp, save, mask=mask)
+                             strength, steps, debug, fp, save, mask=mask,
+                             hires_scale=hires_scale,
+                             hires_strength=hires_strength,
+                             hires_steps=hires_steps)
 
     def _windowed(self, prompt, guide, mapping_concepts: str,
                   params: GuidanceParams, enc_fn) -> torch.Tensor:

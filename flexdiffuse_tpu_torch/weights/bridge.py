@@ -131,6 +131,8 @@ def unet(tree: Mapping, config: UNetConfig) -> SD:
     sd: SD = {}
     _dense(sd, 'time_embedding.linear_1', tree['time_embed_1'])
     _dense(sd, 'time_embedding.linear_2', tree['time_embed_2'])
+    if 'time_cond_proj' in tree:
+        _dense(sd, 'time_embedding.cond_proj', tree['time_cond_proj'])
     _conv(sd, 'conv_in', tree['conv_in'])
     _norm(sd, 'conv_norm_out', tree['norm_out'])
     _conv(sd, 'conv_out', tree['conv_out'])

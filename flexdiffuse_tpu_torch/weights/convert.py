@@ -216,6 +216,10 @@ def convert_unet(sd: SD, config: UNetConfig) -> dict:
         'norm_out': _norm(sd, 'conv_norm_out'),
         'conv_out': _conv(sd, 'conv_out'),
     }
+    if config.time_cond_proj_dim:
+        # LCM guidance-embedding projection (bias-free).
+        out['time_cond_proj'] = _dense(sd, 'time_embedding.cond_proj',
+                                       bias=False)
     n = len(config.block_channels)
     for i in range(n):
         for j in range(config.layers_per_block):

@@ -53,6 +53,14 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.schedulers.ddim',
     'flexdiffuse_tpu_torch.schedulers.lms',
     'flexdiffuse_tpu_torch.schedulers.pndm',
+    'flexdiffuse_tpu_torch.schedulers.euler',
+    'flexdiffuse_tpu_torch.schedulers.euler_ancestral',
+    'flexdiffuse_tpu_torch.schedulers.heun',
+    'flexdiffuse_tpu_torch.schedulers.dpmpp',
+    'flexdiffuse_tpu_torch.schedulers.unipc',
+    'flexdiffuse_tpu_torch.schedulers.ddpm',
+    'flexdiffuse_tpu_torch.schedulers.lcm',
+    'flexdiffuse_tpu_torch.ops.tome', 'flexdiffuse_tpu_torch.ops.tiled_vae',
     'flexdiffuse_tpu_torch.text.tokenizer',
     'flexdiffuse_tpu_torch.utils.image',
     'flexdiffuse_tpu_torch.weights.bridge',

@@ -12,6 +12,11 @@
   naming its ROADMAP step, before any model loads; ``edit --pag-layers``
   is refused as in the JAX CLI, and ``edit`` itself names step 10; without
   a card the model-running commands raise unless given ``--device cpu``.
+* The scheduler and sampling flags (the tenth slice) reach the Runner as
+  they do in the JAX CLI and app, with recording Runners in both packages
+  (no model loads): the same scheduler, SchedulerConfig, model geometry
+  (``--model-family sd2``), ``enable_*`` calls and ``gen``/``compose``
+  keywords.
 * ``convert`` on the tiny HF-layout snapshot writes the caches the JAX
   loader (``load_clip``/``load_sd``, ``cache=True``) reads back, equal to
   the JAX converter's trees leaf for leaf in dtype and value.
@@ -20,6 +25,7 @@
 * ``generate``, ``compose`` and ``train`` (LoRA, ``--full``, DreamBooth)
   run end to end on the tiny snapshot, fp32 on the CPU.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -158,12 +164,10 @@ class Recorder:
         return [], None
 
 
-# The JAX CLI's gen keywords the port does not take, at the values the JAX
-# CLI passes while their flags are off.
+# The JAX CLI's gen keywords the port does not take (step 10), at the
+# values the JAX CLI passes while their flags are off.
 INERT = dict(control_image=None, controlnet_scale=1.0, ip_image=None,
-             ip_scale=1.0, cfg_interval=None, guidance_rescale=0.0,
-             pag_scale=0.0, hires_scale=0.0, hires_strength=0.55,
-             hires_steps=None)
+             ip_scale=1.0)
 
 
 def _files(tmp_path):
@@ -226,20 +230,6 @@ def test_compose_calls_compose_alike(monkeypatch, tmp_path):
 # --- what the port refuses --------------------------------------------------
 
 UNPORTED = [
-    (['generate', '--karras'], 9), (['generate', '--v-prediction'], 9),
-    (['generate', '--zero-snr'], 9),
-    (['generate', '--timestep-spacing', 'trailing'], 9),
-    (['generate', '--freeu', 'on'], 9), (['generate', '--vae-tile', '64'], 9),
-    (['generate', '--deepcache', '2'], 9), (['generate', '--tome', '0.5'], 9),
-    (['generate', '--pag', '3'], 9), (['generate', '--pag-layers', 'mid'], 9),
-    (['generate', '--cfg-interval', '0', '0.6'], 9),
-    (['generate', '--guidance-rescale', '0.7'], 9),
-    (['generate', '--hires-scale', '2'], 9),
-    (['generate', '--hires-strength', '0.4'], 9),
-    (['generate', '--hires-steps', '10'], 9),
-    (['generate', '--model-family', 'sd2'], 9),
-    (['generate', '--scheduler', 'euler'], 9),
-    (['generate', '--scheduler', 'lcm'], 9),
     (['generate', '--controlnet', 'c'], 10),
     (['generate', '--control-image', 'c.png'], 10),
     (['generate', '--controlnet-scale', '0.5'], 10),
@@ -251,16 +241,34 @@ UNPORTED = [
     (['generate', '--model-family', 'sdxl'], 11),
     (['generate', '--refiner', 'r'], 11),
     (['generate', '--refine-strength', '0.5'], 11),
-    (['compose', '--schema', 's.json', '--karras'], 9),
-    (['compose', '--schema', 's.json', '--scheduler', 'heun'], 9),
-    (['serve', '--freeu', 'on'], 9), (['serve-api', '--deepcache', '2'], 9),
     (['serve-api', '--model-family', 'sdxl'], 11),
     (['train', '--data', 'd', '--textual-inversion', '<x>'], 12),
     (['train', '--data', 'd', '--init-token', 'cat'], 12),
     (['train', '--data', 'd', '--num-vectors', '2'], 12),
     (['train', '--data', 'd', '--style-templates'], 12),
-    (['train', '--data', 'd', '--model-family', 'sd2'], 9),
     (['train', '--data', 'd', '--data-parallel', '2'], 13),
+]
+# The scheduler and sampling flags of the tenth slice: each reaches the
+# Runner (or the training config) as in the JAX CLI
+# (test_step9_flags_reach_the_runner_as_in_jax).
+STEP9 = [
+    ['generate', '--karras', '--scheduler', 'euler'],
+    ['generate', '--v-prediction'], ['generate', '--zero-snr'],
+    ['generate', '--timestep-spacing', 'trailing', '--scheduler', 'ddim'],
+    ['generate', '--freeu', 'on'], ['generate', '--vae-tile', '64'],
+    ['generate', '--deepcache', '2'], ['generate', '--tome', '0.5'],
+    ['generate', '--pag', '3'], ['generate', '--pag-layers', 'mid'],
+    ['generate', '--cfg-interval', '0', '0.6'],
+    ['generate', '--guidance-rescale', '0.7'],
+    ['generate', '--hires-scale', '2'],
+    ['generate', '--hires-strength', '0.4'],
+    ['generate', '--hires-steps', '10'],
+    ['generate', '--model-family', 'sd2'],
+    ['generate', '--scheduler', 'euler'], ['generate', '--scheduler', 'lcm'],
+    ['compose', '--schema', 'SCHEMA', '--karras', '--scheduler', 'dpmpp'],
+    ['compose', '--schema', 'SCHEMA', '--scheduler', 'heun'],
+    ['serve', '--freeu', 'on'], ['serve-api', '--deepcache', '2'],
+    ['train', '--data', 'd', '--model-family', 'sd2'],
 ]
 
 
@@ -314,11 +322,171 @@ def test_the_card_is_the_default(no_models, argv):
 def test_ui_app_refuses_without_the_card_and_unported_flags(no_models):
     with pytest.raises(RuntimeError, match='--device cpu'):
         tapp.main([])
-    for argv, step in ((['--karras'], 9), (['--v-prediction'], 9),
-                       (['--model-family', 'sd2'], 9),
-                       (['--scheduler', 'unipc'], 9)):
-        with pytest.raises(NotImplementedError, match=f'step {step}'):
-            tapp.main([*argv, '--device', 'cpu'])
+
+
+# --- what the tenth slice's flags hand the Runner ---------------------------
+
+_PORT_RUNNER_FN = tcli._runner
+
+
+class FakeRunner:
+    """Either package's Runner as the CLI and the app drive it: records its
+    construction (normalised) and every later call; loads nothing."""
+
+    output_dir = 'nowhere'
+
+    def __init__(self, log, defaults, **kw):
+        self.log = log
+        cfgs = {k: kw.get(f'{k}_config', defaults[k])
+                for k in ('text', 'vision', 'unet', 'vae')}
+        sc = kw.get('scheduler_config')
+        log.append(('init', dict(
+            scheduler=kw.get('scheduler', 'pndm'),
+            scheduler_config=None if sc is None else dataclasses.asdict(sc),
+            clip_skip=kw.get('clip_skip', 0),
+            **{k: dataclasses.asdict(v) for k, v in cfgs.items()})))
+
+    def __getattr__(self, name):
+        if name.startswith(('enable_', 'disable_', 'apply_', 'load_')):
+            return lambda *a, **k: self.log.append((name, a, k))
+        raise AttributeError(name)
+
+    def gen(self, **kw):
+        self.log.append(('gen', kw))
+        return [], None
+
+    def compose(self, **kw):
+        self.log.append(('compose', kw))
+        return [], None
+
+
+class _Served:
+    def serve_forever(self):
+        pass
+
+
+@pytest.fixture()
+def fake_runners(no_models, monkeypatch):
+    """Both packages' Runner replaced by FakeRunner and their servers by a
+    stub that builds the runner once; the no_models refusals stay for
+    everything else. Returns the two logs."""
+    from flexdiffuse_tpu import runner as jrunner_mod
+    from flexdiffuse_tpu.models import configs as jcfg
+    logs = {'jax': [], 'port': []}
+    jdef = dict(text=jcfg.CLIP_VIT_L14_TEXT, vision=jcfg.CLIP_VIT_L14_VISION,
+                unet=jcfg.SD14_UNET, vae=jcfg.SD14_VAE)
+    tdef = dict(text=tm.CLIP_VIT_L14_TEXT, vision=tm.CLIP_VIT_L14_VISION,
+                unet=tm.SD14_UNET, vae=tm.SD14_VAE)
+    monkeypatch.setattr(jrunner_mod, 'Runner',
+                        lambda **kw: FakeRunner(logs['jax'], jdef, **kw))
+    monkeypatch.setattr('flexdiffuse_tpu_torch.runner.Runner',
+                        lambda **kw: FakeRunner(logs['port'], tdef, **kw))
+    monkeypatch.setattr(tcli, '_runner', _PORT_RUNNER_FN)
+
+    def serve(factory, *a, **k):
+        factory()
+        return _Served()
+
+    for target in ('flexdiffuse_tpu.interface.server.launch',
+                   'flexdiffuse_tpu.serving.launch',
+                   'flexdiffuse_tpu_torch.interface.server.launch',
+                   'flexdiffuse_tpu_torch.serving.launch'):
+        monkeypatch.setattr(target, serve)
+    return logs
+
+
+def _normalise(log):
+    """Drop the keywords the port does not take (INERT, at their inert
+    values) from the JAX log's gen calls."""
+    out = []
+    for entry in log:
+        if entry[0] == 'gen':
+            assert {k: entry[1][k] for k in INERT} == INERT
+            entry = ('gen', {k: v for k, v in entry[1].items()
+                             if k not in INERT})
+        out.append(entry)
+    return out
+
+
+@pytest.mark.parametrize('argv', STEP9, ids=[' '.join(a) for a in STEP9])
+def test_step9_flags_reach_the_runner_as_in_jax(fake_runners, monkeypatch,
+                                                tmp_path, argv):
+    """Each flag that named ROADMAP step 9 before the tenth slice: the
+    port's Runner is built and driven exactly as the JAX CLI builds and
+    drives its own (scheduler and SchedulerConfig, model geometry,
+    ``enable_*`` calls, ``gen``/``compose`` keywords)."""
+    argv = [str(_files(tmp_path)['schema']) if a == 'SCHEMA' else a
+            for a in argv]
+    if argv[0] == 'train':
+        return _train_sd2_as_in_jax(monkeypatch, argv)
+    assert jcli.main(['--no-compile-cache', *argv]) == 0
+    assert tcli.main([*argv, '--device', 'cpu']) == 0
+    jlog, tlog = _normalise(fake_runners['jax']), fake_runners['port']
+    assert tlog[0][0] == 'init' and tlog == jlog
+    flag = argv[1]
+    if flag in ('--karras', '--v-prediction', '--zero-snr',
+                '--timestep-spacing'):
+        assert tlog[0][1]['scheduler_config'] is not None
+    if flag == '--model-family':
+        assert tlog[0][1]['text']['hidden_size'] == 1024
+        assert tlog[0][1]['unet']['head_dim'] == 64
+
+
+class _Stop(Exception):
+    pass
+
+
+def _train_sd2_as_in_jax(monkeypatch, argv):
+    """``train --model-family sd2``: the JAX CLI loads the OpenCLIP-H text
+    tower, SD-2.1's UNet and VAE and trains against v; so does the port."""
+    seen = {}
+
+    def jax_load_clip(clip_dir, text_config, vision_config, **kw):
+        seen['jax'] = dataclasses.asdict(text_config)
+        raise _Stop
+
+    monkeypatch.setattr('flexdiffuse_tpu.weights.load.load_clip',
+                        jax_load_clip)
+    with pytest.raises(_Stop):
+        jcli.main(['--no-compile-cache', *argv])
+
+    def port_models(args, device):
+        seen['port'] = {k: dataclasses.asdict(v)
+                        for k, v in tcli.family_configs(args).items()}
+        return None, None, None
+
+    def train_config(**kw):
+        seen['prediction'] = kw['prediction_type']
+        raise _Stop
+
+    monkeypatch.setattr(tcli, '_train_models', port_models)
+    monkeypatch.setattr('flexdiffuse_tpu_torch.training.TrainConfig',
+                        train_config)
+    with pytest.raises(_Stop):
+        tcli.main([*argv, '--device', 'cpu'])
+    from flexdiffuse_tpu.models import configs as jcfg
+    assert seen['port']['text'] == seen['jax']
+    assert seen['port']['unet'] == dataclasses.asdict(jcfg.SD21_UNET)
+    assert seen['port']['vae'] == dataclasses.asdict(jcfg.SD21_VAE)
+    assert seen['prediction'] == 'v_prediction'
+
+
+UI_FLAGS = [['--karras', '--scheduler', 'euler'], ['--v-prediction'],
+            ['--model-family', 'sd2'], ['--scheduler', 'unipc']]
+
+
+@pytest.mark.parametrize('argv', UI_FLAGS, ids=[' '.join(a)
+                                                for a in UI_FLAGS])
+def test_ui_app_flags_reach_the_runner_as_in_jax(fake_runners, monkeypatch,
+                                                 argv):
+    """``python -m flexdiffuse_tpu_torch`` builds its Runner as the JAX
+    app does for the same flags."""
+    from flexdiffuse_tpu.interface import app as japp
+    monkeypatch.setattr(sys, 'argv', ['ui', '--no-compile-cache', *argv])
+    japp.main()
+    tapp.main([*argv, '--device', 'cpu'])
+    assert fake_runners['port'] == fake_runners['jax']
+    assert len(fake_runners['port']) == 1
 
 
 # --- download and convert ---------------------------------------------------

@@ -172,12 +172,34 @@ def test_composite_noise_pred_matches_jax(models, entities, style, cfg,
                                atol=1e-4)
 
 
-def test_unported_guidance_fields_name_their_step():
-    _, tguide = _composites(1)
-    with pytest.raises(NotImplementedError, match='step 9'):
-        dataclasses.replace(tguide, cfg_interval=True)
+def test_unported_guidance_fields_name_their_step(models):
+    """SDXL's fields still name step 11. The CFG interval and CFG rescale
+    fields (step 9 until the tenth slice) are taken as the JAX guide takes
+    them: rescale's gate refuses a phi without its flag, and a rescaled
+    composite prediction matches JAX's within 1e-4."""
+    jguide, tguide = _composites(1)
     with pytest.raises(NotImplementedError, match='step 11'):
         dataclasses.replace(tguide, pooled=torch.zeros(2, 8))
+    interval = dataclasses.replace(tguide, cfg_interval=True, cfg_from=0.1,
+                                   cfg_to=0.6)
+    assert (interval.cfg_interval, interval.cfg_from, interval.cfg_to) == \
+        (True, 0.1, 0.6)
+    for mod_guide in (jguide, tguide):
+        with pytest.raises(ValueError, match='rescale'):
+            mod_guide.replace(guidance_rescale=0.7)
+    jg = jguide.replace(rescale=True, guidance_rescale=jnp.float32(0.7))
+    tg = tguide.replace(rescale=True, guidance_rescale=0.7)
+    lat = np.random.default_rng(5).standard_normal((1, 8, 8, 4)).astype(
+        np.float32)
+    unet, params = models['unet'], models['unet_params']
+    want = jg.noise_pred(lambda *a: unet.apply(params, *a),
+                         jnp.asarray(lat), jnp.float32(501.0),
+                         jnp.float32(0.3))
+    with torch.no_grad():
+        got = tg.noise_pred(models['port_unet'], torch.from_numpy(lat),
+                            torch.tensor(501.0), torch.tensor(0.3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
 
 
 def _rows(key, length, shape):

@@ -455,8 +455,7 @@ def test_runner_defaults_to_the_card(model_root, tmp_path):  # noqa: F811
         Runner()
 
 
-@pytest.mark.parametrize('unet_json,step', [
-    ({'in_channels': 8}, 10), ({'time_cond_proj_dim': 256}, 9)])
+@pytest.mark.parametrize('unet_json,step', [({'in_channels': 8}, 10)])
 def test_runner_refuses_unported_unets(tmp_path, unet_json, step):
     sd_dir, _ = _dirs(str(tmp_path))
     os.makedirs(os.path.join(sd_dir, 'unet'))
@@ -464,6 +463,47 @@ def test_runner_refuses_unported_unets(tmp_path, unet_json, step):
         json.dump(unet_json, f)
     with pytest.raises(NotImplementedError, match=f'step {step}'):
         Runner(model_root=str(tmp_path), device='cpu')
+
+
+def test_runner_loads_a_guidance_embedded_lcm_unet(model_root, tmp_path,  # noqa: F811,E501
+                                                   monkeypatch):
+    """A snapshot whose unet/config.json names ``time_cond_proj_dim`` (a
+    full LCM checkpoint) loads as the JAX Runner adopts it: the UNet gains
+    ``time_embedding.cond_proj`` with the stored weights, and ``gen``
+    runs LCM with CFG off (UNet batch 1)."""
+    import shutil
+    from safetensors.numpy import load_file, save_file
+    root = tmp_path / 'models'
+    shutil.copytree(model_root, root)
+    sd_dir, _ = _dirs(str(root))
+    path = load.weights_file(os.path.join(sd_dir, 'unet'))
+    sd = load_file(path)
+    proj = np.random.default_rng(0).normal(
+        size=(tm.TINY_UNET.block_channels[0], 16)).astype(np.float32)
+    sd['time_embedding.cond_proj.weight'] = proj
+    save_file(sd, path)
+    with open(os.path.join(sd_dir, 'unet', 'config.json'), 'w') as f:
+        json.dump({'in_channels': 4, 'time_cond_proj_dim': 16}, f)
+    # The snapshot's geometry is the tiny UNet's: the default path reads it.
+    monkeypatch.setattr('flexdiffuse_tpu_torch.runner.SD14_UNET',
+                        tm.TINY_UNET)
+    runner = Runner(model_root=str(root), device='cpu', dtype=torch.float32,
+                    scheduler='lcm', text_config=CONFIGS['text'][1],
+                    vision_config=CONFIGS['vision'][1],
+                    vae_config=tm.TINY_VAE,
+                    config=RunConfig(output_dir=str(tmp_path / 'out')))
+    unet = runner.pipe.unet
+    assert unet.config.time_cond_proj_dim == 16
+    np.testing.assert_array_equal(
+        unet.time_embedding.cond_proj.weight.numpy(), proj)
+    batches = []
+    hook = unet.register_forward_pre_hook(
+        lambda m, args: batches.append(args[0].shape[0]))
+    images, _ = runner.gen(prompt='a deer', steps=2, init_size=(16, 16),
+                           seed=1, save=False)
+    hook.remove()
+    assert batches == [1, 1]
+    assert np.asarray(images[0]).shape == (16, 16, 3)
 
 
 def test_unet_overrides_read_config_json(tmp_path):

@@ -240,9 +240,40 @@ def test_runner_gen_img2img_and_seed(runner):
     np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
 
 
-@pytest.mark.parametrize('name,step', [('cfg_interval', 9), ('hires_scale', 9),
-                                       ('control_image', 10),
-                                       ('pag_scale', 9)])
+@pytest.mark.parametrize('name,value,want', [
+    ('cfg_interval', (0.0, 0.6), dict(cfg_interval=True, cfg_from=0.0,
+                                      cfg_to=0.6)),
+    ('hires_scale', 1.5, None),
+    ('pag_scale', 3.0, dict(pag=True, pag_scale=3.0))])
+def test_runner_takes_the_sampling_keywords(runner, monkeypatch, name, value,
+                                            want):
+    """The keywords that named ROADMAP step 9 before the tenth slice reach
+    the pipeline with the JAX Runner's guidance fields; the hires fix runs
+    two passes (the second from the first's latents upscaled 1.5×)."""
+    calls = []
+    real = runner.pipe.__class__.__call__
+
+    def record(pipe, guidance, **kw):
+        calls.append((guidance, kw))
+        return real(pipe, guidance, **kw)
+
+    monkeypatch.setattr(runner.pipe.__class__, '__call__', record)
+    # A 16² latent: 1.5× is 24, a multiple of 8 (the upscale snaps down).
+    images, _ = runner.gen(prompt='a deer', steps=2, init_size=(32, 32),
+                           save=False, seed=3, **{name: value})
+    if name == 'hires_scale':
+        assert [c[1].get('output_type') for c in calls] == ['latent', None]
+        assert tuple(calls[1][1]['init_latents'].shape) == (1, 24, 24, 4)
+        assert images[0].size == (48, 48)
+    else:
+        assert len(calls) == 1 and images[0].size == (32, 32)
+        assert {k: getattr(calls[0][0], k) for k in want} == want
+    if name == 'pag_scale':
+        assert runner.pipe.unet.pag_layers == ('mid',)
+        runner.disable_pag()
+
+
+@pytest.mark.parametrize('name,step', [('control_image', 10)])
 def test_runner_rejects_unported_keywords(runner, name, step):
     with pytest.raises(NotImplementedError, match=f'step {step}'):
         runner.gen(prompt='a deer', steps=2, init_size=(16, 16), save=False,

@@ -236,9 +236,21 @@ def test_debug_sample_clamp(ui):
     assert len(out['images']) == 61
 
 
+def test_sampling_fields_generate(ui):
+    """The page's CFG interval (``cfg_from``/``cfg_to``), CFG rescale, PAG
+    and hires fields reach ``Runner.gen`` and generate: 200 with the hires
+    pass's 1.5× images."""
+    base, _ = ui
+    out = _post(base + '/api/generate', {
+        'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64, 'seed': 5,
+        'samples': 1, 'cfg_from': 0.0, 'cfg_to': 0.5,
+        'guidance_rescale': 0.7, 'pag_scale': 3.0, 'hires_scale': 1.5,
+        'hires_strength': 0.5})
+    assert len(out['images']) == 1
+    assert _image(out['images'][0]).size == (96, 96)
+
+
 @pytest.mark.parametrize('payload,message', [
-    ({'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64,
-      'cfg_to': 0.5}, 'step 9'),
     ({'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64,
       'control_image': _png_b64()}, 'step 10'),
     ({'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64,
