@@ -192,8 +192,38 @@ The sampling features (the tenth slice), run after step 7:
     decodes (``tree_launches``: every attention call the dispatcher sends
     to K1, every GroupNorm, each on its planned path).
 
+The conditioning models (the eleventh slice), run after step 17:
+
+18. Holds K1 at (3,8,1024,80) (InstructPix2Pix's 3-row batch at the
+    1024-token level) and K6 at (3,320,64,64) and (3,1280,8,8), by step 3's
+    rule, timed as step 3 times its shapes. Writes into a temporary
+    directory, removed after, seeded random checkpoints at SD-1.x's
+    published widths (fp16; the free space checked first): an SD-1.4 and
+    CLIP ViT-L/14 snapshot whose UNet has 8 input channels
+    (``unet/config.json``), a diffusers ControlNet made from step 6's UNet
+    as ``from_unet`` makes one (its conditioning embedding and zero
+    convolutions random, not zero), the base (4 tokens from the pooled
+    1024-wide embedding) and Plus (Resampler: dim 768, depth 4, 12 heads of
+    64, 16 queries, 1280 → 768) IP-Adapter ``.bin`` files in the official
+    nesting, and an OpenCLIP ViT-H/14 image encoder; loads them back through
+    ``Runner.load_controlnet``, ``Runner.load_ip_adapter(...,
+    image_encoder_dir=)`` and ``Runner(model_root=...)``. Checks one 512²
+    evaluation of the UNet with the ControlNet, of the IP-Adapter UNet at
+    ``ip_scale`` 1 and of the 8-channel UNet at batch 3 through K1 and K6
+    against the plain backends (UNET_REL_TOL), each with exactly the
+    module tree's launches, and that the ControlNet and the image tokens
+    move ε by more than UNET_REL_TOL (against scale 0). Then five runs at
+    512², bf16, 25 PNDM steps: ``Runner.gen`` with a control image (CFG 8,
+    ``controlnet_scale`` 1), the same under DeepCache 2 (the 'use' rows run
+    the full control branch), IP-Adapter base and Plus from ``ip_image``,
+    and ``Runner.edit`` of a 512² synthetic image (CFG 7.5, image CFG 1.5;
+    UNet batch 3). Each: the UNet and ControlNet evaluations it must make,
+    finite ε, latents and image, exactly the K1 and K6 launches (by path)
+    of the module tree, with the control branch's (``control_launches``),
+    its e2e seconds and peak device memory.
+
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6, 11, 12, 13, 15 and each run of 17) and read just after; launches
+(steps 6, 11, 12, 13, 15 and each run of 17 and 18) and read just after; launches
 made to check a kernel against its plain twin do not count. Any failed phase raises, so
 the script exits non-zero; without CUDA it exits non-zero at once and
 prints no result.
@@ -233,6 +263,12 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           AutoencoderKL,
                                           CLIPTextModel, CLIPVisionModel,
                                           UNet2DCondition)
+from flexdiffuse_tpu_torch.models.configs import OPENCLIP_H_VISION
+from flexdiffuse_tpu_torch.models.controlnet import (COND_EMBED_CHANNELS,
+                                                     ControlNetModel)
+from flexdiffuse_tpu_torch.models.ip_adapter import (ImageProjection,
+                                                     Resampler,
+                                                     attn2_layer_order)
 from flexdiffuse_tpu_torch.models.unet import CrossAttention
 from flexdiffuse_tpu_torch import cli, schedulers, serving, training
 from flexdiffuse_tpu_torch.config import RunConfig
@@ -2077,18 +2113,28 @@ LCM_COND_DIM = 256      # LCM-Dreamshaper's time_cond_proj_dim
 
 class CallLog:
     """Every UNet evaluation of a run (batch, latent size, cache mode, PAG
-    rows, the cache's shape, the module's settings and config) and every
-    VAE decode and encode (their latent shapes), from hooks; device-side
-    finiteness flags of ε and of the latents entering a decode."""
+    rows, the cache's and the IP-Adapter tokens' shapes, the module's
+    settings and config), every ControlNet evaluation (its config and
+    shapes) and every VAE decode and encode (their latent shapes), from
+    hooks; device-side finiteness flags of ε and of the latents entering a
+    decode."""
 
-    def __init__(self, unet, vae) -> None:
+    def __init__(self, unet, vae, controlnet=None) -> None:
         self.evals, self.decodes, self.encodes, self.finite = [], [], [], []
+        self.control = []
         self.handles = [
             unet.register_forward_pre_hook(self._pre, with_kwargs=True),
             unet.register_forward_hook(self._post),
             vae.post_quant_conv.register_forward_pre_hook(self._decode),
             vae.quant_conv.register_forward_hook(
                 lambda m, args, out: self.encodes.append(tuple(out.shape)))]
+        if controlnet is not None:
+            self.handles.append(controlnet.register_forward_pre_hook(
+                lambda m, args: self.control.append(dict(
+                    batch=args[0].shape[0], hw=tuple(args[0].shape[1:3]),
+                    ctx=tuple(args[2].shape[1:]),
+                    cond=tuple(args[3].shape[1:]), config=m.config,
+                    ramp=len(m.controlnet_cond_embedding.blocks) // 2 + 1))))
 
     def remove(self) -> None:
         for h in self.handles:
@@ -2097,6 +2143,7 @@ class CallLog:
     def _pre(self, module, args, kwargs):
         lat, _, ctx = args[:3]
         cache = kwargs.get('deep_cache')
+        ip = kwargs.get('ip_ctx')
         self.evals.append(dict(
             batch=lat.shape[0], hw=tuple(lat.shape[1:3]),
             channels=lat.shape[3], ctx=tuple(ctx.shape[1:]),
@@ -2104,6 +2151,7 @@ class CallLog:
             pag=kwargs.get('pag_mask') is not None,
             tcond=kwargs.get('timestep_cond') is not None,
             cache=None if cache is None else tuple(cache.shape),
+            ip=None if ip is None else tuple(ip.shape),
             config=module.config,
             settings=(module.freeu, module.tome, module.pag_layers)))
 
@@ -2190,10 +2238,33 @@ def eval_launches(e: dict) -> dict:
             kw['pag_mask'] = meta(b)
         if e['tcond']:
             kw['timestep_cond'] = meta(b, e['config'].time_cond_proj_dim)
+        if e['ip'] is not None:
+            kw['ip_ctx'] = meta(*e['ip'])
+        # ControlNet residuals are adds into the skips: no kernel launch, so
+        # the pass runs without them (control_launches counts the branch).
         unet = _meta_model(UNet2DCondition, e['config'], e['settings'])
         _META_COUNTS[key] = tree_launches(lambda: unet(
             meta(b, *e['hw'], e['channels']), meta(b), meta(b, *e['ctx']),
             **kw))
+    return _META_COUNTS[key]
+
+
+def control_launches(c: dict) -> dict:
+    """:func:`tree_launches` of one recorded ControlNet evaluation on a
+    meta ControlNet of the same config, ramp and shapes."""
+    key = ('controlnet',) + tuple((k, v) for k, v in sorted(c.items()))
+    if key not in _META_COUNTS:
+        meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+        mkey = (ControlNetModel, c['config'], c['ramp'])
+        if mkey not in _META_MODELS:
+            with torch.device('meta'):
+                _META_MODELS[mkey] = ControlNetModel(
+                    c['config'], COND_EMBED_CHANNELS[:c['ramp']]).to(
+                        BF16).eval()
+        net, b = _META_MODELS[mkey], c['batch']
+        _META_COUNTS[key] = tree_launches(lambda: net(
+            meta(b, *c['hw'], 4), meta(b), meta(b, *c['ctx']),
+            meta(b, *c['cond'])))
     return _META_COUNTS[key]
 
 
@@ -2300,20 +2371,27 @@ def step17_runs(make, lcm_unet, guide, size: int, steps: int) -> list:
 
 
 def run_feature(label: str, runner, gen_kw: dict, evals: list,
-                decodes: list, image_side: int, check: bool = True) -> dict:
-    """One step-17 run with the launch counts at 0: the UNet evaluations
-    and VAE decodes it must make (``evals``, ``decodes``), finite ε and
-    latents, finite ``image_side``² uint8 images, and exactly the launches
-    the module tree implies for those evaluations, decodes and encodes
-    (:func:`eval_launches`, :func:`vae_launches`)."""
+                decodes: list, image_side: int, check: bool = True,
+                call: str = 'gen', control: list = (),
+                step: int = 17) -> dict:
+    """One step-17 or step-18 run (``runner.<call>(**gen_kw)``) with the
+    launch counts at 0: the UNet evaluations, ControlNet evaluations and
+    VAE decodes it must make (``evals``; ``control`` as (batch, latent
+    side); ``decodes``), finite ε and latents, finite ``image_side``² uint8
+    images, and exactly the launches the module tree implies for those
+    evaluations, decodes and encodes (:func:`eval_launches`,
+    :func:`control_launches`, :func:`vae_launches`); the peak device
+    memory of the run."""
     pipe = runner.pipe
-    log = CallLog(pipe.unet, pipe.vae)
-    if pipe.device.type == 'cuda':
+    log = CallLog(pipe.unet, pipe.vae, pipe.controlnet)
+    cuda = pipe.device.type == 'cuda'
+    if cuda:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     try:
-        images, _ = runner.gen(**gen_kw)
+        images, _ = getattr(runner, call)(**gen_kw)
     finally:
         log.remove()
     e2e = time.perf_counter() - t0
@@ -2322,19 +2400,27 @@ def run_feature(label: str, runner, gen_kw: dict, evals: list,
     if seen != evals:
         raise AssertionError(f'{label}: UNet evaluations {seen}, expected '
                              f'{evals}')
+    seen = [(c['batch'], c['hw'][0]) for c in log.control]
+    if seen != list(control):
+        raise AssertionError(f'{label}: ControlNet evaluations {seen}, '
+                             f'expected {list(control)}')
     want_dec = [d for side, n in decodes for d in [(side, side)] * n]
     if [d[2:] for d in log.decodes] != want_dec:
         raise AssertionError(f'{label}: decodes {log.decodes}, expected '
                              f'{want_dec}')
     parts = [eval_launches(e) for e in log.evals] + [
+        control_launches(c) for c in log.control] + [
         vae_launches(pipe.vae.config, log.decodes, log.encodes)]
     want = _sum(p[0] for p in parts)
     arrs = [np.asarray(im) for im in images]
     res = dict(label=label, unet_evaluations=len(log.evals),
+               controlnet_evaluations=len(log.control),
                batches=sorted(collections.Counter(
                    e['batch'] for e in log.evals).items()),
-               e2e_s=e2e, launches=got, expected=want)
-    print(f'step 17 {label}: {json.dumps(res)}', flush=True)
+               e2e_s=e2e, launches=got, expected=want,
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else None))
+    print(f'step {step} {label}: {json.dumps(res)}', flush=True)
     if not all(bool(f) for f in log.finite):
         raise AssertionError(f'{label}: non-finite ε or latents')
     if len(arrs) != 1 or any(
@@ -2413,6 +2499,284 @@ def run_sampling_phase(text, vision, unet, vae, size: int = 512,
             f'{shape} {n}' for (k, shape), n in sorted(by_shape.items())
             if k == kernel), flush=True)
     return dict(runs=results, launches=_sum(r['launches'] for r in results))
+
+
+# --- Step 18: the conditioning models (the eleventh slice) ---------------
+
+STEP18_SEED = SEED + 18
+# K1 at InstructPix2Pix's 3-row UNet batch at the 1024-token level (its
+# 4096-token rows are PAG's (3,8,4096,40), timed in step 17); K6 at the UNet
+# batch 3's first and last levels.
+STEP18_K1_SHAPES = [(3, 8, 1024, 80)]
+STEP18_GN_SHAPES = [((3, 320, 64, 64), True, 1e-5, BF16, BF16, True),
+                    ((3, 1280, 8, 8), True, 1e-5, BF16, BF16, True)]
+# IP-Adapter Plus for SD-1.5 (h94/IP-Adapter ip-adapter-plus_sd15: the
+# perceiver Resampler over OpenCLIP ViT-H's penultimate 257×1280 tokens);
+# the base adapter projects the pooled 1024-wide embedding to 4 tokens.
+PLUS_SD15 = dict(dim=768, depth=4, dim_head=64, heads=12, num_queries=16,
+                 ff_mult=4)
+IP_BASE_TOKENS = 4
+
+
+def controlnet_from_unet(unet, seed: int) -> ControlNetModel:
+    """A ControlNet of ``unet``'s geometry as diffusers'
+    ``ControlNetModel.from_unet`` makes one: ``conv_in``, the time embedding
+    and the down and mid blocks copied from the UNet; the conditioning
+    embedding and the 1×1 zero convolutions seeded random (torch's default
+    init: not zero, so the branch has an effect)."""
+    w = next(unet.parameters())
+    torch.manual_seed(seed)
+    with torch.device(w.device):
+        net = ControlNetModel(unet.config)
+    own = net.state_dict()
+    net.load_state_dict({k: v for k, v in unet.state_dict().items()
+                         if k in own}, strict=False)
+    return net.to(w.dtype).eval().requires_grad_(False)
+
+
+def ip_adapter_checkpoint(unet, kind: str, embed_dim: int, seed: int,
+                          plus: dict = PLUS_SD15) -> dict:
+    """An official-layout IP-Adapter checkpoint for ``unet``: ``{'image_proj':
+    head, 'ip_adapter': {'<2n+1>.to_{k,v}_ip.weight': ...}}``, fp16 on the
+    host. The head (base: ``ImageProjection`` of ``embed_dim`` to 4 tokens;
+    'plus': the ``Resampler``) is seeded random; each layer's projections
+    start from its cross-attention's ``to_k``/``to_v``, as IP-Adapter's
+    training does."""
+    ctx = unet.config.cross_attention_dim
+    torch.manual_seed(seed)
+    if kind == 'base':
+        head = ImageProjection(embed_dim, ctx, IP_BASE_TOKENS)
+    else:
+        head = Resampler(ctx, embed_dim=embed_dim, **plus)
+        torch.nn.init.normal_(head.latents, std=plus['dim']**-0.5)
+    sd = unet.state_dict()
+    layers = {f'{2 * n + 1}.to_{kv}_ip.weight': sd[f'{name}.to_{kv}.weight']
+              for n, name in enumerate(attn2_layer_order(unet.config))
+              for kv in 'kv'}
+    host = lambda d: {k: v.detach().to('cpu', SNAPSHOT_DTYPE).contiguous()
+                      for k, v in d.items()}
+    return {'image_proj': host(head.state_dict()), 'ip_adapter': host(layers)}
+
+
+def unet_with_channels(unet, channels: int, seed: int):
+    """An InstructPix2Pix-style UNet sharing ``unet``'s weights but
+    ``conv_in``, widened to ``channels`` inputs (the extra ones seeded
+    random)."""
+    cfg = dataclasses.replace(unet.config, in_channels=channels)
+    w = unet.conv_in.weight
+    gen = torch.Generator(w.device).manual_seed(seed)
+    extra = 0.02 * torch.randn(
+        (w.shape[0], channels - w.shape[1]) + tuple(w.shape[2:]),
+        generator=gen, device=w.device)
+    with torch.device('meta'):
+        wide = UNet2DCondition(cfg)
+    wide.load_state_dict({**unet.state_dict(), 'conv_in.weight': torch.cat(
+        [w, extra.to(w.dtype)], dim=1)}, strict=True, assign=True)
+    return wide.eval().requires_grad_(False)
+
+
+def write_conditioning(root: str, text, vision, unet, vae, encoder,
+                       plus: dict = PLUS_SD15) -> dict:
+    """Step 18's checkpoints under ``root``, after checking the free space:
+    an SD-1.x snapshot with an 8-channel UNet (``unet/config.json``:
+    ``in_channels`` 8) beside its CLIP snapshot, a diffusers ControlNet
+    (fp16 safetensors), the base and Plus IP-Adapter ``.bin`` files
+    (official nesting) and the image encoder (HF vision-tower names).
+    Returns the paths."""
+    unet8 = unet_with_channels(unet, 8, STEP18_SEED)
+    controlnet = controlnet_from_unet(unet, STEP18_SEED)
+    embed = {'base': encoder.config.projection_dim,
+             'plus': encoder.config.hidden_size}
+    ips = {kind: ip_adapter_checkpoint(unet, kind, embed[kind],
+                                       STEP18_SEED + 1, plus)
+           for kind in ('base', 'plus')}
+    extra = {os.path.join(root, 'controlnet',
+                          'diffusion_pytorch_model.safetensors'):
+             controlnet.state_dict(),
+             os.path.join(root, 'image_encoder', 'model.safetensors'):
+             encoder.state_dict()}
+    need = sum(t.numel() * 2 for sd in extra.values() for t in sd.values())
+    need += sum(t.numel() * 2 for ck in ips.values()
+                for part in ck.values() for t in part.values())
+    free = shutil.disk_usage(root).free
+    if free < 1.1 * need:
+        raise RuntimeError(f'not enough free space under {root}: '
+                           f'{free / 2**30:.1f} GiB for '
+                           f'{1.1 * need / 2**30:.1f}')
+    snap = write_snapshot(root, text, vision, unet8, vae)
+    t0 = time.perf_counter()
+    with open(os.path.join(snap['sd_dir'], 'unet', 'config.json'), 'w') as f:
+        json.dump({'in_channels': 8}, f)
+    for path, sd in extra.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        weights_safetensors.save_file(
+            {k: v.to(SNAPSHOT_DTYPE) for k, v in sd.items()}, path)
+    paths = dict(controlnet=os.path.dirname(next(iter(extra))),
+                 encoder=os.path.join(root, 'image_encoder'))
+    for kind, ck in ips.items():
+        paths[kind] = os.path.join(root, f'ip-adapter-{kind}_sd15.bin')
+        torch.save(ck, paths[kind])
+    print(f'step 18 checkpoints: {(snap["bytes"] + need) / 2**30:.2f} GiB '
+          f'under {root} ({free / 2**30:.1f} GiB free) in '
+          f'{snap["write_s"] + time.perf_counter() - t0:.2f} s', flush=True)
+    return paths
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).abs().max() /
+            b.float().abs().max()).item()
+
+
+def check_conditioning(label: str, run, meta_run, off=None) -> dict:
+    """One 512² evaluation ``run()`` through K1 and K6 against the same with
+    plain attention and GroupNorm: max|Δε|/max|ε| within UNET_REL_TOL, its
+    launches exactly the module tree's (``meta_run`` on the meta device);
+    with ``off`` (the same evaluation with the branch's scale at 0) the
+    branch moves ε by more than UNET_REL_TOL."""
+    with torch.no_grad():
+        reset_counts()
+        eps_k = run()
+        got = counts()
+        with attn_mod.backend('plain'), gn.backend('plain'):
+            eps_p = run()
+        eps_off = off() if off is not None else None
+    want = tree_launches(meta_run)[0]
+    res = dict(label=label, rel=_rel(eps_k, eps_p), launches=got,
+               expected=want)
+    if eps_off is not None:
+        res['branch_rel'] = _rel(eps_k, eps_off)
+    print(f'step 18 model check, {label}: {json.dumps(res)}', flush=True)
+    if not (torch.isfinite(eps_k).all() and res['rel'] <= UNET_REL_TOL):
+        raise AssertionError(f'{label}: K1+K6 disagrees with the plain path')
+    if got != want:
+        raise AssertionError(f'{label}: launches {got}, expected {want}')
+    if eps_off is not None and not res['branch_rel'] > UNET_REL_TOL:
+        raise AssertionError(f'{label}: the branch moved ε by only '
+                             f'{res["branch_rel"]:.3e}')
+    return res
+
+
+def check_conditioning_models(unet, controlnet, ip_unet, ip_tokens, unet8,
+                              encoder_ctx, gen: torch.Generator) -> list:
+    """Step 18's model checks at 512² (module docstring): the UNet with a
+    ControlNet (batch 2; against ``controlnet_scale`` 0), the IP-Adapter
+    UNet at ``ip_scale`` 1 (batch 2; against ``ip_scale`` 0) and the
+    8-channel UNet at batch 3."""
+    meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+    lat = torch.randn((2, 64, 64, 4), generator=gen, device='cuda')
+    lat8 = torch.randn((3, 64, 64, 8), generator=gen, device='cuda')
+    cond = torch.rand((1, 512, 512, 3), generator=gen, device='cuda')
+    t2, t3 = (torch.full((n,), 981.0, device='cuda') for n in (2, 3))
+    ctx2, ctx3 = encoder_ctx(['', PROMPT]), encoder_ctx(['', '', PROMPT])
+    tok = ip_tokens.expand(2, -1, -1)
+    munet = _meta_model(UNet2DCondition, unet.config)
+    mcn = _meta_model(ControlNetModel, controlnet.config)
+    mip = _meta_model(UNet2DCondition, ip_unet.config)
+    m8 = _meta_model(UNet2DCondition, unet8.config)
+    with_cn = lambda scale: unet(lat, t2, ctx2, control=controlnet(
+        lat, t2, ctx2, cond.expand(2, -1, -1, -1), scale))
+    return [
+        check_conditioning(
+            'UNet + ControlNet, batch 2', lambda: with_cn(1.0),
+            lambda: munet(meta(2, 64, 64, 4), meta(2), meta(2, 77, 768),
+                          control=mcn(meta(2, 64, 64, 4), meta(2),
+                                      meta(2, 77, 768),
+                                      meta(2, 512, 512, 3))),
+            off=lambda: with_cn(0.0)),
+        check_conditioning(
+            'IP-Adapter UNet at ip_scale 1, batch 2',
+            lambda: ip_unet(lat, t2, ctx2, ip_ctx=tok, ip_scale=1.0),
+            lambda: mip(meta(2, 64, 64, 4), meta(2), meta(2, 77, 768),
+                        ip_ctx=meta(*tok.shape)),
+            off=lambda: ip_unet(lat, t2, ctx2, ip_ctx=tok, ip_scale=0.0)),
+        check_conditioning(
+            '8-channel UNet, batch 3', lambda: unet8(lat8, t3, ctx3),
+            lambda: m8(meta(3, 64, 64, 8), meta(3), meta(3, 77, 768)))]
+
+
+def run_conditioning_phase(text, vision, unet, vae, root: str,
+                           size: int = 512, steps: int = 25,
+                           encoder=None, plus: dict = PLUS_SD15,
+                           runner_kw=None, check: bool = True) -> dict:
+    """Step 18 (module docstring): the checkpoints written under ``root``
+    and loaded back through the port's loaders, the model checks (with
+    ``check``), then the five runs at ``size``², ``steps`` PNDM steps:
+    ControlNet, ControlNet with DeepCache 2, IP-Adapter base and Plus from
+    ``ip_image``, and ``edit``. ``encoder``: the image encoder to write
+    (default: OpenCLIP ViT-H, seeded); ``runner_kw``: the IP2P Runner's
+    device, dtype and configs (default: the card, bf16, SD-1.4)."""
+    if encoder is None:
+        w = next(unet.parameters())
+        torch.manual_seed(STEP18_SEED)
+        with torch.device(w.device):
+            encoder = CLIPVisionModel(OPENCLIP_H_VISION)
+        encoder = encoder.to(w.dtype).eval().requires_grad_(False)
+    written = write_conditioning(root, text, vision, unet, vae, encoder,
+                                 plus)
+    enc_config = encoder.config
+    del encoder
+    tok = FakeTokenizer(text.config.vocab_size)
+    make = lambda: Runner.from_models(text, vision, unet, vae, tok)
+    t0 = time.perf_counter()
+    cn = make()
+    cn.load_controlnet(written['controlnet'])
+    ips = {}
+    for kind in ('base', 'plus'):
+        ips[kind] = make()
+        ips[kind].load_ip_adapter(written[kind], written['encoder'],
+                                  vision_config=enc_config)
+    edit = Runner(model_root=root, **(runner_kw or {}))
+    loaded = time.perf_counter() - t0
+    if edit.pipe.unet.config.in_channels != 8:
+        raise AssertionError('the IP2P snapshot did not load 8-channel')
+    print(f'step 18 loaded the ControlNet, both IP-Adapters with their '
+          f'encoder and the 8-channel Runner in {loaded:.2f} s', flush=True)
+    image = synthetic_image(size, STEP18_SEED)
+    checks = []
+    if check:
+        gen = torch.Generator('cuda').manual_seed(STEP18_SEED)
+        base = ips['base']
+        checks = check_conditioning_models(
+            unet, cn.pipe.controlnet, base.pipe.unet,
+            base._ip.fields(None, image, 1.0)['ip_tokens'],
+            edit.pipe.unet, cn.encoder.prompt, gen)
+    lat, plms = size // 8, steps + 1
+    rows = lambda b=2, mode=None: [
+        (b, lat, mode(i) if mode else 'off', False) for i in range(plms)]
+    common = dict(prompt=PROMPT, steps=steps, guidance_scale=8, samples=1,
+                  seed=STEP18_SEED, save=False, init_size=(size, size))
+    control = dict(control_image=image, controlnet_scale=1.0)
+    ip = dict(ip_image=image, ip_scale=1.0)
+    results = [run_feature('ControlNet', cn, dict(common, **control), rows(),
+                           [(lat, 1)], size, check,
+                           control=[(2, lat)] * plms, step=18)]
+    cn.enable_deepcache(2)
+    results.append(run_feature(
+        'ControlNet, DeepCache 2', cn, dict(common, **control),
+        rows(mode=lambda i: 'save' if i % 2 == 0 else 'use'), [(lat, 1)],
+        size, check, control=[(2, lat)] * plms, step=18))
+    for kind in ('base', 'plus'):
+        results.append(run_feature(
+            f'IP-Adapter {kind} from ip_image', ips[kind],
+            dict(common, **ip), rows(), [(lat, 1)], size, check, step=18))
+    results.append(run_feature(
+        f'edit {size}²', edit,
+        # The image as the [-1, 1] array ``preprocess`` makes of a 512²
+        # PIL image (which it would resize to 512 at any other size).
+        dict(prompt='make it winter',
+             image=np.asarray(image, np.float32)[None] / 127.5 - 1.0,
+             steps=steps,
+             guidance_scale=7.5, image_guidance_scale=1.5,
+             seed=STEP18_SEED, save=False),
+        rows(b=3), [(lat, 1)], size, check, call='edit', step=18))
+    by_shape = sum((r.pop('by_shape') for r in results),
+                   collections.Counter())
+    for kernel in ('K1', 'K6'):
+        print(f'step 18 {kernel} launches by shape: ' + ', '.join(
+            f'{shape} {n}' for (k, shape), n in sorted(by_shape.items())
+            if k == kernel), flush=True)
+    return dict(runs=results, checks=checks,
+                launches=_sum(r['launches'] for r in results))
 
 
 def main() -> int:
@@ -2528,6 +2892,33 @@ def main() -> int:
     print(f'sampling phase (step 17): {time.perf_counter() - t0:.1f} s',
           flush=True)
 
+    # The conditioning models (step 18): K1 and K6 at their new shapes,
+    # then the checkpoints, the model checks and the five runs.
+    t0 = time.perf_counter()
+    gen18 = torch.Generator('cuda').manual_seed(STEP18_SEED)
+    res18 = [check_kernel(s, gen18, timed=True) for s in STEP18_K1_SHAPES]
+    gn18 = [check_group_norm(*spec, gen18) for spec in STEP18_GN_SHAPES]
+    for r in res18:
+        print('K1', json.dumps(r))
+        print(f'K1 {tuple(r["shape"])}: {summary(r)}')
+    for r in gn18:
+        print('K6', json.dumps(r))
+        print(f'K6 {tuple(r["shape"])}: {gn_summary(r)}')
+    bad = [r['shape'] for r in res18 + gn18 if not r['ok']]
+    if bad:
+        raise AssertionError(f'K1 or K6 disagrees with its plain version (or '
+                             f'left its planned path) at {bad}')
+    root18 = tempfile.mkdtemp(prefix='flexdiffuse_conditioning_')
+    try:
+        conditioning = run_conditioning_phase(text, vision, unet, vae,
+                                              root18)
+    finally:
+        shutil.rmtree(root18, ignore_errors=True)
+    results += res18
+    gn_res += gn18
+    print(f'conditioning phase (step 18): {time.perf_counter() - t0:.1f} s',
+          flush=True)
+
     # Training: the kernels, then the full-width step, then the loops.
     t0 = time.perf_counter()
     train_res = [check_train_kernels(s, skv, gen) for s, skv in TRAIN_SHAPES]
@@ -2592,8 +2983,8 @@ def main() -> int:
             log_every=1, on_step=on_step), FULL_STEPS, 'full')
     launches = {k: gen_launches[k] + lora['launches'][k] +
                 full['launches'][k] + disk['launches'][k] +
-                surfaces['launches'][k] + sampling['launches'][k]
-                for k in gen_launches}
+                surfaces['launches'][k] + sampling['launches'][k] +
+                conditioning['launches'][k] for k in gen_launches}
     del unet32, ds
 
     # The flash-kernel experiment tools: T1–T6 against their twins, then

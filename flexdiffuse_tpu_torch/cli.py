@@ -24,10 +24,14 @@ The scheduler kinds and their switches (``--karras``, ``--v-prediction``,
 OpenCLIP-H text tower, 64-wide heads), the pipeline knobs (``--freeu``,
 ``--vae-tile``, ``--deepcache``, ``--tome``, ``--pag-layers``) and
 generate's ``--pag``, ``--cfg-interval``, ``--guidance-rescale`` and
-``--hires-*`` do what they do in the JAX CLI. Every flag whose feature the
-port does not have yet raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 step, before any model loads (:func:`refuse_unported`).
-``edit`` (InstructPix2Pix) is step 10. The JAX
+``--hires-*`` do what they do in the JAX CLI, and so do the conditioning
+models: ``--controlnet`` with ``--control-image``/``--controlnet-scale``,
+``--ip-adapter`` (with ``--ip-encoder``) with ``--ip-image``/``--ip-scale``,
+and ``edit`` (InstructPix2Pix on an 8-channel snapshot); for SD-1.x
+``--ip-encoder-arch`` is accepted and unused, as in the JAX CLI. Every flag
+whose feature the port does not have yet raises ``NotImplementedError``
+naming its ROADMAP Queue 1 step, before any model loads
+(:func:`refuse_unported`). The JAX
 parser's ``--compile-cache``/``--no-compile-cache`` are left out: they set
 XLA's compilation cache (``utils/compile_cache.py``), which ROADMAP's "Do
 not port" list names.
@@ -58,14 +62,6 @@ SD2_MODEL_CONFIGS = dict(text=models.OPENCLIP_H_TEXT,
 # ported: (dest, flag, the value that leaves the feature off, ROADMAP
 # Queue 1 step).
 UNPORTED = (
-    ('controlnet', '--controlnet', None, 10),
-    ('control_image', '--control-image', '', 10),
-    ('controlnet_scale', '--controlnet-scale', 1.0, 10),
-    ('ip_adapter', '--ip-adapter', None, 10),
-    ('ip_encoder', '--ip-encoder', None, 10),
-    ('ip_encoder_arch', '--ip-encoder-arch', 'vit-h', 10),
-    ('ip_image', '--ip-image', '', 10),
-    ('ip_scale', '--ip-scale', 1.0, 10),
     ('refiner', '--refiner', None, 11),
     ('refine_strength', '--refine-strength', 0.3, 11),
 )
@@ -184,16 +180,19 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                    help='load a textual-inversion embedding (optional '
                         ':token name, repeatable)')
     p.add_argument('--controlnet', default=None, metavar='PATH',
-                   help='diffusers ControlNet snapshot (not ported: step 10)')
+                   help='diffusers ControlNet snapshot (pair with '
+                        '--control-image)')
     p.add_argument('--ip-adapter', default=None, metavar='PATH',
-                   help='IP-Adapter checkpoint (not ported: step 10)')
+                   help='IP-Adapter checkpoint (base or Plus; pair with '
+                        '--ip-image)')
     p.add_argument('--ip-encoder', default=None, metavar='DIR',
-                   help='the IP-Adapter image-encoder snapshot (not '
-                        'ported: step 10)')
+                   help='the IP-Adapter image-encoder snapshot '
+                        '(CLIPVisionModelWithProjection; OpenCLIP ViT-H for '
+                        'the SD-1.5 adapters)')
     p.add_argument('--ip-encoder-arch', default='vit-h',
                    choices=('vit-h', 'bigg'),
-                   help='image-encoder tower for --ip-encoder (not ported: '
-                        'step 10)')
+                   help='image-encoder tower for --ip-encoder with '
+                        '--model-family sdxl (step 11); SD-1.x uses ViT-H')
     p.add_argument('--refiner', default=None, metavar='DIR',
                    help='SDXL refiner snapshot (not ported: step 11)')
     p.add_argument('--refine-strength', type=float, default=0.3,
@@ -208,8 +207,9 @@ def _add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def _runner(args):
-    """``Runner(model_root=--models)`` on ``--device``, with the LoRAs and
-    textual inversions the flags name."""
+    """``Runner(model_root=--models)`` on ``--device``, with the LoRAs,
+    ControlNet, IP-Adapter and textual inversions the flags name (in the
+    JAX CLI's order)."""
     from flexdiffuse_tpu_torch.runner import Runner
     from flexdiffuse_tpu_torch.weights.lora import parse_spec
     device = resolve_device(args.device)
@@ -225,6 +225,12 @@ def _runner(args):
                     scheduler_config=scheduler_config(args), device=device)
     for spec in getattr(args, 'lora', []):
         runner.apply_lora(*parse_spec(spec))
+    if getattr(args, 'controlnet', None):
+        runner.load_controlnet(args.controlnet)
+    if getattr(args, 'ip_adapter', None):
+        runner.load_ip_adapter(args.ip_adapter,
+                               image_encoder_dir=getattr(args, 'ip_encoder',
+                                                         None))
     for spec in getattr(args, 'embedding', []):
         # 'path:token' unless the whole spec is itself an existing file.
         path, _, tok = spec.rpartition(':')
@@ -318,6 +324,8 @@ def cmd_generate(args) -> int:
             else args.guide  # a path → image guide; otherwise text guide
     init = Image.open(args.init_image) if args.init_image else None
     mask = Image.open(args.mask) if args.mask else None
+    control = Image.open(args.control_image) if args.control_image else None
+    ip_img = Image.open(args.ip_image) if args.ip_image else None
     imgs, grid = runner.gen(
         prompt=args.prompt, init_image=init, guide=guide,
         init_size=(args.height, args.width),
@@ -332,6 +340,8 @@ def cmd_generate(args) -> int:
         steps=args.steps, guidance_scale=args.guidance_scale,
         samples=args.samples, seed=args.seed, debug=args.debug,
         negative_prompt=args.negative_prompt, mask=mask,
+        control_image=control, controlnet_scale=args.controlnet_scale,
+        ip_image=ip_img, ip_scale=args.ip_scale,
         long_prompt=args.long_prompt, weighted=args.weighted,
         cfg_interval=(tuple(args.cfg_interval) if args.cfg_interval
                       else None),
@@ -364,14 +374,28 @@ def cmd_compose(args) -> int:
 
 
 def cmd_edit(args) -> int:
-    """Instruction-based image editing (InstructPix2Pix): not ported yet."""
+    """Instruction-based image editing (InstructPix2Pix): needs an
+    8-channel edit snapshot (e.g. timbrooks/instruct-pix2pix, named with
+    ``--sd-model``); the UNet's input width comes from its
+    ``unet/config.json``."""
+    from PIL import Image
     if getattr(args, 'pag_layers', ''):
         # As the JAX CLI: the IP2P guidance path has no PAG. Checked before
         # anything else.
         raise SystemExit('--pag-layers does not apply to edit (the '
                          'InstructPix2Pix guidance path has no PAG); '
                          'remove the flag')
-    raise _not_ported('edit (InstructPix2Pix)', 10)
+    _check(args)
+    runner = _runner_with_options(args)
+    imgs, grid = runner.edit(
+        prompt=args.prompt, image=Image.open(args.image), steps=args.steps,
+        guidance_scale=args.guidance_scale,
+        image_guidance_scale=args.image_guidance_scale,
+        negative_prompt=args.negative_prompt, samples=args.samples,
+        seed=args.seed, debug=args.debug,
+        guidance_rescale=args.guidance_rescale)
+    print(f'{len(imgs)} image(s) written to {runner.output_dir}')
+    return 0
 
 
 def _train_models(args, device: torch.device):
@@ -521,10 +545,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--mask', default='',
                    help='inpainting mask image (white = regenerate)')
     p.add_argument('--control-image', default='',
-                   help='ControlNet conditioning image (not ported: step 10)')
+                   help='ControlNet conditioning image (needs --controlnet)')
     p.add_argument('--controlnet-scale', type=float, default=1.0)
     p.add_argument('--ip-image', default='',
-                   help='IP-Adapter image prompt (not ported: step 10)')
+                   help='IP-Adapter image prompt (needs --ip-adapter and '
+                        '--ip-encoder)')
     p.add_argument('--ip-scale', type=float, default=1.0)
     p.add_argument('--long-prompt', action='store_true',
                    help='chunked encoding for >75-token prompts (A1111 '
@@ -576,7 +601,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser('edit',
                        help='instruction-based image editing '
-                            '(InstructPix2Pix; not ported: step 10)')
+                            '(InstructPix2Pix)')
     _add_model_args(p)
     p.add_argument('--prompt', required=True, help='edit instruction, '
                    'e.g. "make it winter"')

@@ -13,11 +13,13 @@ given ``device='cpu'``), guarded by a lock.
 Generation requests serialise on ``_gen_lock``, so only one HTTP thread at
 a time runs the model and touches the card. The optional ``Runner.gen``
 keywords (hires fix, CFG interval from the page's ``cfg_from``/``cfg_to``,
-CFG rescale, PAG; ControlNet, IP-Adapter and SDXL's refiner) are forwarded
-only when a client enables them, as the JAX handler forwards them; a
-keyword the port does not take yet (ControlNet, IP-Adapter: ROADMAP step
-10; the refiner: step 11) reaches the client as the Runner's
-``NotImplementedError``, a JSON 500.
+CFG rescale, PAG; ``control_image``/``controlnet_scale`` and
+``ip_image``/``ip_scale``; SDXL's refiner) are forwarded only when a client
+enables them, as the JAX handler forwards them. A control image needs a
+Runner with a ControlNet (``--controlnet``) and an image prompt one with an
+IP-Adapter and its encoder; without them the Runner's ``ValueError``, and
+for the refiner (not ported: ROADMAP Queue 1 step 11) its ``TypeError``,
+reaches the client as a JSON 500.
 """
 from __future__ import annotations
 

@@ -9,9 +9,11 @@ Parameter names are the HF ``transformers`` CLIP names that
 
 * The text tower returns the final-LN last hidden state ``[B, 77, D]``, or
   the penultimate one through the final LN (``clip_skip``).
-* The vision tower returns all ``1 + P`` tokens after ``post_layernorm``
-  and ``visual_projection`` (the reference's all-patch path,
-  ``clip.py:174``), taking NHWC pixels like the JAX tower.
+* The vision tower takes NHWC pixels like the JAX tower and returns all
+  ``1 + P`` tokens after ``post_layernorm`` and ``visual_projection`` (the
+  reference's all-patch path, ``clip.py:174``), the CLS token's pooled
+  projection (a base IP-Adapter's input), or the penultimate hidden states
+  (an IP-Adapter Plus's input).
 
 Attention here is plain einsum math (77 and 257 tokens; nothing to stream).
 """
@@ -176,8 +178,10 @@ class _VisionTransformer(nn.Module):
 
 
 class CLIPVisionModel(nn.Module):
-    """Vision tower with the reference's all-patch projection path:
-    ``pixels [B, H, W, 3] (NHWC) -> [B, 1 + P, projection_dim]``."""
+    """Vision tower: ``pixels [B, H, W, 3] (NHWC)`` → the output that
+    :meth:`forward`'s ``output`` names."""
+
+    OUTPUTS = ('patches', 'pooled', 'penultimate')
 
     def __init__(self, config: CLIPVisionConfig) -> None:
         super().__init__()
@@ -186,7 +190,15 @@ class CLIPVisionModel(nn.Module):
         self.visual_projection = nn.Linear(config.hidden_size,
                                            config.projection_dim, bias=False)
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor,
+                output: str = 'patches') -> torch.Tensor:
+        """``output``: 'patches' → every token after post-LN and the
+        projection, ``[B, 1 + P, projection_dim]``; 'pooled' → the CLS
+        token's, ``[B, projection_dim]``; 'penultimate' → the hidden states
+        one layer before the end, ``[B, 1 + P, hidden]``, no post-LN and no
+        projection (the last layer is not run)."""
+        if output not in self.OUTPUTS:
+            raise ValueError(f'unknown output {output!r}')
         vm = self.vision_model
         emb = vm.embeddings
         w = emb.patch_embedding.weight
@@ -197,7 +209,10 @@ class CLIPVisionModel(nn.Module):
         cls = emb.class_embedding.to(x.dtype).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight
         x = vm.pre_layrnorm(x)
+        if output == 'penultimate':
+            return vm.encoder(x, None, skip=1)
         x = vm.encoder(x, None)
-        # Reference quirk (encode/clip.py:96-100): post-LN + projection over
-        # ALL tokens, not just the pooled class token.
-        return self.visual_projection(vm.post_layernorm(x))
+        # Reference quirk (encode/clip.py:96-100): 'patches' takes post-LN +
+        # projection over ALL tokens, not just the pooled class token.
+        x = vm.post_layernorm(x if output == 'patches' else x[:, 0])
+        return self.visual_projection(x)

@@ -25,11 +25,14 @@ The sampling features of the JAX module, as call-time settings of
 attributes, so a shallow copy of the module shares the weights and carries
 its own settings) and arguments of its forward (``timestep_cond``,
 ``cache_mode``/``deep_cache``, ``pag_mask``): FreeU, ToMe, PAG, DeepCache
-and the LCM guidance embedding.
+and the LCM guidance embedding. The conditioning models: IP-Adapter's
+decoupled cross-attention (``config.ip_adapter``; ``ip_ctx``/``ip_scale``)
+and ControlNet residuals (``control``). The down and mid path
+(:class:`DownMid`) is shared with the ControlNet's control branch
+(``models/controlnet.py``), blocks and names alike.
 
-Left out here (later ROADMAP steps): the channel-major interiors (do not
-port), IP-Adapter layers and ControlNet residuals (step 10) and the SDXL
-additional embedding (step 11).
+Left out here: the channel-major interiors (ROADMAP "do not port") and the
+SDXL additional embedding (Queue 1 step 11).
 """
 from __future__ import annotations
 
@@ -171,24 +174,33 @@ class ResnetBlock(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head attention over ``[B, S, C]``; self-attention when
-    ``context`` is None."""
+    ``context`` is None. With ``ip_adapter`` (cross-attention only) the
+    IP-Adapter projections ``to_k_ip``/``to_v_ip`` attend over the image
+    tokens."""
 
     def __init__(self, query_dim: int, num_heads: int,
-                 context_dim: int = 0) -> None:
+                 context_dim: int = 0, ip_adapter: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
         ctx = context_dim or query_dim
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(ctx, query_dim, bias=False)
         self.to_v = nn.Linear(ctx, query_dim, bias=False)
+        if ip_adapter:
+            self.to_k_ip = nn.Linear(ctx, query_dim, bias=False)
+            self.to_v_ip = nn.Linear(ctx, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
     def forward(self, x: torch.Tensor, context: torch.Tensor = None,
-                pag_mask: torch.Tensor = None) -> torch.Tensor:
+                pag_mask: torch.Tensor = None, ip=None) -> torch.Tensor:
         """``pag_mask`` (PAG, self-attention only): a ``[B]`` 0/1 row
         selector; the rows with 1 replace the attention map with the
         identity, whose output before ``to_out`` is the projected v, taken
-        after the attention ran on every row."""
+        after the attention ran on every row.
+
+        ``ip`` (IP-Adapter, cross-attention only): ``(ip_ctx [B, N, D],
+        ip_scale)``; the output before ``to_out`` becomes ``out + ip_scale ·
+        attention(q, k_ip, v_ip)``."""
         ctx = x if context is None else context.to(x.dtype)
         q = self.to_q(x)
         k = self.to_k(ctx)
@@ -198,8 +210,19 @@ class CrossAttention(nn.Module):
         h = self.num_heads
         hd = d // h
         split = lambda t, s: t.reshape(b, s, h, hd).transpose(1, 2)
-        out = attention(split(q, sq), split(k, skv), split(v, skv),
-                        scale=hd**-0.5)
+        qh = split(q, sq)
+        out = attention(qh, split(k, skv), split(v, skv), scale=hd**-0.5)
+        if (ip is not None and context is not None
+                and hasattr(self, 'to_k_ip')):
+            ip_ctx, ip_scale = ip
+            ip_ctx = ip_ctx.to(x.device, x.dtype)
+            n = ip_ctx.shape[1]
+            out_ip = attention(qh, split(self.to_k_ip(ip_ctx), n),
+                               split(self.to_v_ip(ip_ctx), n),
+                               scale=hd**-0.5)
+            # The scale in the output's dtype, as the JAX module casts it.
+            out = out + torch.as_tensor(ip_scale, dtype=out.dtype,
+                                        device=out.device) * out_ip
         out = out.transpose(1, 2).reshape(b, sq, d)
         if pag_mask is not None and context is None:
             out = torch.where(pag_mask.to(out.device)[:, None, None] > 0, v,
@@ -233,18 +256,19 @@ class FeedForwardGEGLU(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, context_dim: int) -> None:
+    def __init__(self, dim: int, num_heads: int, context_dim: int,
+                 ip_adapter: bool = False) -> None:
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = CrossAttention(dim, num_heads, context_dim)
+        self.attn2 = CrossAttention(dim, num_heads, context_dim, ip_adapter)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForwardGEGLU(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 tome_plan: _tome.TomePlan = None,
-                pag_mask: torch.Tensor = None) -> torch.Tensor:
+                pag_mask: torch.Tensor = None, ip=None) -> torch.Tensor:
         """With ``tome_plan`` the self-attention runs on the merged rows and
         its output is copied back; cross-attention and the MLP stay full
         length."""
@@ -254,7 +278,7 @@ class BasicTransformerBlock(nn.Module):
             xa = _tome.merge(self.norm1(x), tome_plan)
             x = x + _tome.unmerge(self.attn1(xa, pag_mask=pag_mask),
                                   tome_plan)
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, ip=ip)
         return x + self.ff(self.norm3(x))
 
 
@@ -263,17 +287,20 @@ class Transformer2D(nn.Module):
     proj_out (1×1) → + residual. NCHW in and out."""
 
     def __init__(self, channels: int, num_heads: int, depth: int,
-                 norm_groups: int, context_dim: int) -> None:
+                 norm_groups: int, context_dim: int,
+                 ip_adapter: bool = False) -> None:
         super().__init__()
         self.norm = GroupNorm32(norm_groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(channels, num_heads, context_dim)
+            BasicTransformerBlock(channels, num_heads, context_dim,
+                                  ip_adapter)
             for _ in range(depth))
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                tome=None, pag_mask: torch.Tensor = None) -> torch.Tensor:
+                tome=None, pag_mask: torch.Tensor = None,
+                ip=None) -> torch.Tensor:
         """``tome``: ``(ratio, min_seq)``; a grid of at least ``min_seq``
         tokens merges before every self-attention, one plan shared by the
         blocks (built from the hidden state after ``proj_in``)."""
@@ -287,7 +314,7 @@ class Transformer2D(nn.Module):
             if hh * ww >= max(int(min_seq), 2) and r > 0:
                 plan = _tome.merge_plan(h, (hh, ww), r)
         for block in self.transformer_blocks:
-            h = block(h, context, plan, pag_mask)
+            h = block(h, context, plan, pag_mask, ip)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.proj_out(h) + x
 
@@ -326,8 +353,96 @@ class _Level(nn.Module):
             self.upsamplers = nn.ModuleList([upsample])
 
 
-class UNet2DCondition(nn.Module):
-    """``(latents [B,H,W,4], t [B], context [B,T,D]) -> eps [B,H,W,4]``.
+def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
+    return Transformer2D(ch, cfg.heads_for(ch), depth, cfg.norm_groups,
+                         cfg.cross_attention_dim, cfg.ip_adapter)
+
+
+class DownMid(nn.Module):
+    """The UNet's time embedding and down and mid path (``down_blocks``,
+    ``mid_block``), shared by :class:`UNet2DCondition` and the ControlNet's
+    control branch (``models/controlnet.py``), as the JAX package shares
+    ``run_down_mid``: one definition, one set of names. The sampling
+    settings ``tome`` and ``pag_layers`` are read by :meth:`_attn` (None
+    on the control branch, which the JAX package never perturbs)."""
+
+    tome = None
+    pag_layers = None
+
+    def _build_down_mid(self, cfg: UNetConfig, temb_dim: int) -> None:
+        groups = cfg.norm_groups
+        n = len(cfg.block_channels)
+        down = []
+        in_ch = cfg.block_channels[0]
+        for i, ch in enumerate(cfg.block_channels):
+            resnets, attns = [], []
+            for j in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock(in_ch, ch, groups, temb_dim))
+                in_ch = ch
+                if cfg.attention_levels[i]:
+                    attns.append(_transformer(cfg, ch, cfg.depth_at(i)))
+            down.append(_Level(resnets, attns if attns else None,
+                               downsample=(Downsample(ch)
+                                           if i != n - 1 else None)))
+        self.down_blocks = nn.ModuleList(down)
+        mid = cfg.block_channels[-1]
+        self.mid_block = _Level(
+            [ResnetBlock(mid, mid, groups, temb_dim),
+             ResnetBlock(mid, mid, groups, temb_dim)],
+            [_transformer(cfg, mid, cfg.depth_mid())])
+
+    def embed_time(self, t: torch.Tensor,
+                   timestep_cond: torch.Tensor = None) -> torch.Tensor:
+        """The timestep embedding ``[B, 4·C0]`` in the weights' dtype (with
+        the LCM guidance projection when the config has one)."""
+        cfg = self.config
+        temb = timestep_embedding(t, cfg.block_channels[0])
+        if cfg.time_cond_proj_dim:
+            if timestep_cond is None:
+                raise ValueError(
+                    'this UNet config requires timestep_cond (the LCM '
+                    'guidance embedding, guidance_scale_embedding)')
+            proj = self.time_embedding.cond_proj.weight
+            temb = temb + F.linear(timestep_cond.float().to(temb.device),
+                                   proj.float())
+        return self.time_embedding(temb.to(self.conv_in.weight.dtype))
+
+    def _pm(self, name: str, pag_mask):
+        return pag_mask if pag_selected(self.pag_layers, name) else None
+
+    def _attn(self, attn, name: str, h, context, pag_mask, ip=None):
+        return attn(h, context, self.tome, self._pm(name, pag_mask), ip)
+
+    def run_down(self, h, temb, context, levels: int, pag_mask=None,
+                 ip=None):
+        """The first ``levels`` encoder levels; returns ``(h, skips)``. The
+        downsample of level ``levels - 1`` is skipped (a DeepCache shallow
+        pass: its skip feeds a decoder level the cache replaces)."""
+        skips = [h]
+        for i in range(levels):
+            blk = self.down_blocks[i]
+            attns = getattr(blk, 'attentions', None)
+            for j, res in enumerate(blk.resnets):
+                h = res(h, temb)
+                if attns is not None:
+                    h = self._attn(attns[j], f'down_{i}_attn_{j}', h,
+                                   context, pag_mask, ip)
+                skips.append(h)
+            if hasattr(blk, 'downsamplers') and i < levels - 1:
+                h = blk.downsamplers[0](h)
+                skips.append(h)
+        return h, skips
+
+    def run_mid(self, h, temb, context, pag_mask=None, ip=None):
+        mb = self.mid_block
+        h = mb.resnets[0](h, temb)
+        h = self._attn(mb.attentions[0], 'mid_attn', h, context, pag_mask,
+                       ip)
+        return mb.resnets[1](h, temb)
+
+
+class UNet2DCondition(DownMid):
+    """``(latents [B,H,W,C], t [B], context [B,T,D]) -> eps [B,H,W,4]``.
 
     Sampling settings (None: off), read at every call:
 
@@ -347,10 +462,6 @@ class UNet2DCondition(nn.Module):
             raise NotImplementedError(
                 'SDXL additional embeddings are not ported yet (ROADMAP '
                 'Queue 1 step 11)')
-        if config.ip_adapter:
-            raise NotImplementedError(
-                'IP-Adapter layers are not ported yet (ROADMAP Queue 1 '
-                'step 10)')
         self.config = cfg = config
         self.freeu = None
         self.tome = None
@@ -358,33 +469,11 @@ class UNet2DCondition(nn.Module):
         ch0 = cfg.block_channels[0]
         temb_dim = ch0 * 4
         groups = cfg.norm_groups
-        ctx = cfg.cross_attention_dim
         n = len(cfg.block_channels)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch0, temb_dim,
                                                 cfg.time_cond_proj_dim)
-
-        down = []
-        in_ch = ch0
-        for i, ch in enumerate(cfg.block_channels):
-            resnets, attns = [], []
-            for j in range(cfg.layers_per_block):
-                resnets.append(ResnetBlock(in_ch, ch, groups, temb_dim))
-                in_ch = ch
-                if cfg.attention_levels[i]:
-                    attns.append(Transformer2D(ch, cfg.heads_for(ch),
-                                               cfg.depth_at(i), groups, ctx))
-            down.append(_Level(resnets, attns if attns else None,
-                               downsample=(Downsample(ch)
-                                           if i != n - 1 else None)))
-        self.down_blocks = nn.ModuleList(down)
-
-        mid = cfg.block_channels[-1]
-        self.mid_block = _Level(
-            [ResnetBlock(mid, mid, groups, temb_dim),
-             ResnetBlock(mid, mid, groups, temb_dim)],
-            [Transformer2D(mid, cfg.heads_for(mid), cfg.depth_mid(), groups,
-                           ctx)])
+        self._build_down_mid(cfg, temb_dim)
 
         # Skip channels in the order run_up pops them.
         skip_ch = [ch0]
@@ -393,7 +482,7 @@ class UNet2DCondition(nn.Module):
             if i != n - 1:
                 skip_ch.append(ch)
         up = []
-        prev = mid
+        prev = cfg.block_channels[-1]
         for i, ch in enumerate(reversed(cfg.block_channels)):
             level = n - 1 - i
             resnets, attns = [], []
@@ -402,9 +491,7 @@ class UNet2DCondition(nn.Module):
                                            temb_dim))
                 prev = ch
                 if cfg.attention_levels[level]:
-                    attns.append(Transformer2D(ch, cfg.heads_for(ch),
-                                               cfg.depth_at(level), groups,
-                                               ctx))
+                    attns.append(_transformer(cfg, ch, cfg.depth_at(level)))
             up.append(_Level(resnets, attns if attns else None,
                              upsample=Upsample(ch) if i != n - 1 else None))
         self.up_blocks = nn.ModuleList(up)
@@ -422,33 +509,8 @@ class UNet2DCondition(nn.Module):
             setattr(unet, name, value)
         return unet
 
-    def _pm(self, name: str, pag_mask):
-        return pag_mask if pag_selected(self.pag_layers, name) else None
-
-    def _attn(self, attn, name: str, h, context, pag_mask):
-        return attn(h, context, self.tome, self._pm(name, pag_mask))
-
-    def run_down(self, h, temb, context, levels: int, pag_mask=None):
-        """The first ``levels`` encoder levels; returns ``(h, skips)``. The
-        downsample of level ``levels - 1`` is skipped (a DeepCache shallow
-        pass: its skip feeds a decoder level the cache replaces)."""
-        skips = [h]
-        for i in range(levels):
-            blk = self.down_blocks[i]
-            attns = getattr(blk, 'attentions', None)
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
-                if attns is not None:
-                    h = self._attn(attns[j], f'down_{i}_attn_{j}', h,
-                                   context, pag_mask)
-                skips.append(h)
-            if hasattr(blk, 'downsamplers') and i < levels - 1:
-                h = blk.downsamplers[0](h)
-                skips.append(h)
-        return h, skips
-
     def run_up(self, h, skips, temb, context, start_i: int = 0,
-               capture_i=None, pag_mask=None):
+               capture_i=None, pag_mask=None, ip=None):
         """The decoder from up level ``start_i``; also returns the hidden
         state entering level ``capture_i`` (the DeepCache splice point)."""
         captured = None
@@ -473,7 +535,7 @@ class UNet2DCondition(nn.Module):
                 h = res(torch.cat([h, skip], dim=1), temb)
                 if attns is not None:
                     h = self._attn(attns[j], f'up_{i}_attn_{j}', h, context,
-                                   pag_mask)
+                                   pag_mask, ip)
             if hasattr(blk, 'upsamplers'):
                 h = blk.upsamplers[0](h)
         return h, captured
@@ -481,7 +543,8 @@ class UNet2DCondition(nn.Module):
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, timestep_cond: torch.Tensor = None,
                 deep_cache: torch.Tensor = None, cache_mode: str = 'off',
-                pag_mask: torch.Tensor = None):
+                pag_mask: torch.Tensor = None, control=None,
+                ip_ctx: torch.Tensor = None, ip_scale=1.0):
         """``timestep_cond``: the LCM guidance embedding ``[B,
         time_cond_proj_dim]`` (:func:`guidance_scale_embedding`), which a
         UNet with ``time_cond_proj_dim`` requires.
@@ -495,45 +558,51 @@ class UNet2DCondition(nn.Module):
         to the full forward.
 
         ``pag_mask`` ``[B]`` selects the rows whose self-attention in the
-        ``pag_layers`` transformers is the identity."""
+        ``pag_layers`` transformers is the identity.
+
+        ``control`` (ControlNet): ``(down_residuals, mid_residual)``, NCHW,
+        added to the skip states and the mid output; under 'use' only the
+        down residuals, zipped onto the shallow skips (the JAX zip: the
+        first ones). ``ip_ctx`` ``[B, N, D]`` with ``ip_scale`` (an
+        ``ip_adapter`` config): the IP-Adapter image tokens."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         n = len(cfg.block_channels)
         depth = cfg.cache_depth
         if not 1 <= depth < n:
             raise ValueError(f'cache_depth {depth} must be in [1, {n - 1}]')
-        temb = timestep_embedding(t, cfg.block_channels[0])
-        if cfg.time_cond_proj_dim:
-            if timestep_cond is None:
-                raise ValueError(
-                    'this UNet config requires timestep_cond (the LCM '
-                    'guidance embedding, guidance_scale_embedding)')
-            proj = self.time_embedding.cond_proj.weight
-            temb = temb + F.linear(timestep_cond.float().to(temb.device),
-                                   proj.float())
-        temb = self.time_embedding(temb.to(dtype))
+        temb = self.embed_time(t, timestep_cond)
         context = context.to(dtype)
+        ip = None if ip_ctx is None else (ip_ctx, ip_scale)
         # NHWC (public layout) -> NCHW (conv layout).
         h = self.conv_in(latents.permute(0, 3, 1, 2).to(dtype))
 
         if cache_mode == 'use':
             if deep_cache is None:
                 raise ValueError("cache_mode='use' requires deep_cache")
-            _, skips = self.run_down(h, temb, context, depth, pag_mask)
+            _, skips = self.run_down(h, temb, context, depth, pag_mask, ip)
+            if control is not None:
+                skips = [s + r.to(s.dtype)
+                         for s, r in zip(skips, control[0])]
             h, _ = self.run_up(deep_cache.to(dtype), skips, temb, context,
-                               start_i=n - depth, pag_mask=pag_mask)
+                               start_i=n - depth, pag_mask=pag_mask, ip=ip)
             captured = deep_cache
         else:
-            h, skips = self.run_down(h, temb, context, n, pag_mask)
-            mb = self.mid_block
-            h = mb.resnets[0](h, temb)
-            h = self._attn(mb.attentions[0], 'mid_attn', h, context,
-                           pag_mask)
-            h = mb.resnets[1](h, temb)
+            h, skips = self.run_down(h, temb, context, n, pag_mask, ip)
+            h = self.run_mid(h, temb, context, pag_mask, ip)
+            if control is not None:
+                down_res, mid_res = control
+                if len(down_res) != len(skips):
+                    raise ValueError(
+                        f'control provides {len(down_res)} down residuals '
+                        f'but the UNet has {len(skips)} skip states — '
+                        'mismatched ControlNet geometry')
+                skips = [s + r.to(s.dtype) for s, r in zip(skips, down_res)]
+                h = h + mid_res.to(h.dtype)
             h, captured = self.run_up(
                 h, skips, temb, context,
                 capture_i=n - depth if cache_mode == 'save' else None,
-                pag_mask=pag_mask)
+                pag_mask=pag_mask, ip=ip)
 
         eps = self.conv_out(self.conv_norm_out(h, dtype)).float()
         eps = eps.permute(0, 2, 3, 1)                    # NCHW -> NHWC

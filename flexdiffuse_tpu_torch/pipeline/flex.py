@@ -33,6 +33,13 @@ full UNet and saves the deep feature, the rows between run the shallow
 levels around it), the LCM guidance embedding for guidance-embedded UNets,
 latents-direct img2img (``init_latents=``, the hires fix's second pass,
 with :func:`upscale_latents`) and the tiled VAE (``vae_tile``).
+
+The conditioning models: a ControlNet (``FlexPipeline(controlnet=)``,
+``__call__(control_image=, controlnet_scale=)``) runs beside every UNet
+evaluation on the same rows and ``t``, on the latent channels only, never
+PAG-perturbed, and in full under DeepCache's shallow evaluations too; an
+IP-Adapter's image tokens ride ``SimpleGuidance``; an 8-channel
+InstructPix2Pix UNet runs through ``InstructPix2PixGuidance``.
 """
 from __future__ import annotations
 
@@ -50,16 +57,38 @@ from flexdiffuse_tpu_torch.models.unet import guidance_scale_embedding
 from flexdiffuse_tpu_torch.models.vae import sample_latents
 from flexdiffuse_tpu_torch.ops.tiled_vae import tiled_apply
 from flexdiffuse_tpu_torch.pipeline.guides import (CompositeGuidance,
+                                                   InstructPix2PixGuidance,
                                                    SimpleGuidance)
 from flexdiffuse_tpu_torch.schedulers.pndm import PRKSchedule
 from flexdiffuse_tpu_torch.utils.image import preprocess, to_pil
 
-Guidance = Union[SimpleGuidance, CompositeGuidance]
+Guidance = Union[SimpleGuidance, CompositeGuidance, InstructPix2PixGuidance]
 
 
 @dataclasses.dataclass
 class FlexPipelineOutput:
     images: Union[List[Image.Image], np.ndarray, torch.Tensor]
+
+
+def resize_nhwc(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """``[B, H, W, C]`` fp32 resized to ``hw``: half-pixel linear
+    interpolation, antialiased when it shrinks, as ``jax.image.resize``'s
+    'bilinear'."""
+    if tuple(x.shape[1:3]) == tuple(hw):
+        return x
+    return F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
+                         mode='bilinear', align_corners=False,
+                         antialias=True).permute(0, 2, 3, 1)
+
+
+def prepare_control_image(image) -> torch.Tensor:
+    """A ControlNet conditioning image → ``[B, H, W, 3]`` fp32 in [0, 1]
+    (CPU): PIL images become RGB / 255; arrays are taken as given, a bare
+    ``[H, W, 3]`` gaining the batch dim."""
+    if isinstance(image, Image.Image):
+        image = np.asarray(image.convert('RGB'), np.float32) / 255.0
+    cond = torch.as_tensor(np.asarray(image, np.float32))
+    return cond[None] if cond.ndim == 3 else cond
 
 
 def prepare_latent_mask(mask, latent_hw: Tuple[int, int]) -> torch.Tensor:
@@ -80,12 +109,7 @@ def prepare_latent_mask(mask, latent_hw: Tuple[int, int]) -> torch.Tensor:
         m = m[None] if m.shape[-1] in (1, 3, 4) else m[..., None]
     if m.shape[-1] > 1:
         m = m[..., :3].mean(dim=-1, keepdim=True)
-    h, w = latent_hw
-    if tuple(m.shape[1:3]) != (h, w):
-        m = F.interpolate(m.permute(0, 3, 1, 2), size=(h, w),
-                          mode='bilinear', align_corners=False,
-                          antialias=True).permute(0, 2, 3, 1)
-    return torch.clamp(m, 0.0, 1.0)
+    return torch.clamp(resize_nhwc(m, latent_hw), 0.0, 1.0)
 
 
 def upscale_latents(latents: torch.Tensor, scale: float,
@@ -118,15 +142,18 @@ class FlexPipeline:
             ``vae_tile`` latent units with cross-faded overlaps once the
             canvas exceeds one tile (0: off).
         deepcache: the DeepCache interval (0 or 1: off).
+        controlnet: a :class:`~flexdiffuse_tpu_torch.models.controlnet.
+            ControlNetModel` for ``control_image=`` (None: none).
     """
 
     def __init__(self, unet, vae, scheduler: str = 'pndm',
                  scheduler_config: Optional[
                      schedulers.SchedulerConfig] = None,
                  vae_tile: int = 0, vae_tile_overlap: int = 8,
-                 deepcache: int = 0) -> None:
+                 deepcache: int = 0, controlnet=None) -> None:
         self.unet = unet
         self.vae = vae
+        self.controlnet = controlnet
         self.scheduler_kind = scheduler
         self.scheduler_config = scheduler_config
         self._schedules: dict = {}
@@ -231,7 +258,7 @@ class FlexPipeline:
     def _check_features(self, guide) -> None:
         """The JAX pipeline's composition rules for DeepCache, the CFG
         interval and PAG."""
-        if (self.deepcache >= 2 and guide.cfg_interval
+        if (self.deepcache >= 2 and getattr(guide, 'cfg_interval', False)
                 and isinstance(guide, CompositeGuidance)):
             raise ValueError('cfg_interval composes with deepcache only for '
                              'SimpleGuidance (composite stacks have no '
@@ -265,13 +292,45 @@ class FlexPipeline:
         return guide.replace(timestep_cond=guidance_scale_embedding(
             w.cpu(), tcp).to(self.device), cfg=False)
 
-    def _predictor(self, guide, span: int, t_start: int):
+    def _model(self, control):
+        """The noise function the guides call: the UNet, with the
+        ControlNet's residuals when ``control`` is ``(cond [1 or N, H, W,
+        3], scale)``. The control branch sees the rows' latent channels
+        only (a 9- or 8-channel UNet's extras stripped), the same ``t`` and
+        context, and neither PAG's mask nor DeepCache's mode."""
+        unet = self.unet
+        if control is None:
+            return unet
+        cond, scale = control
+        c = self.latent_channels
+
+        def model(lat, t, ctx, **kw):
+            rows = cond.expand((lat.shape[0],) + tuple(cond.shape[1:]))
+            kw['control'] = self.controlnet(lat[..., :c], t, ctx, rows,
+                                            scale)
+            return unet(lat, t, ctx, **kw)
+        return model
+
+    def _control(self, control_image, scale: float, latents: torch.Tensor):
+        """``(cond, scale)`` for :meth:`_model`: the control image on the
+        device, resized to the generation's pixel size; None without
+        one."""
+        if control_image is None:
+            return None
+        f = self.vae_scale
+        hw = (latents.shape[1] * f, latents.shape[2] * f)
+        return (resize_nhwc(prepare_control_image(control_image), hw).to(
+            self.device), float(scale))
+
+    def _predictor(self, guide, span: int, t_start: int, control=None):
         """``eps_at(i, xin, t)``: the guided ε at row ``i``, through the CFG
         interval and DeepCache schedules of the JAX pipeline's scan."""
-        unet = self.unet
-        use_interval = guide.cfg_interval and guide.cfg
+        unet = self._model(control)
+        use_interval = (getattr(guide, 'cfg_interval', False)
+                        and getattr(guide, 'cfg', False))
         g_cond = guide.replace(cfg=False) if use_interval else None
-        lo, hi = np.float32(guide.cfg_from), np.float32(guide.cfg_to)
+        lo, hi = (np.float32(guide.cfg_from), np.float32(guide.cfg_to)) \
+            if use_interval else (None, None)
 
         def prog(i: int) -> np.float32:
             # fp32, as the JAX scan compares it with fp32 bounds.
@@ -330,8 +389,11 @@ class FlexPipeline:
                  eta: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  output_type: str = 'pil',
+                 return_dict: bool = True,
                  debug: bool = False,
                  mask=None,
+                 control_image=None,
+                 controlnet_scale: float = 1.0,
                  init_latents: Optional[torch.Tensor] = None,
                  noise: Optional[torch.Tensor] = None,
                  posterior_noise: Optional[torch.Tensor] = None,
@@ -346,7 +408,13 @@ class FlexPipeline:
         ``init_latents`` (instead of ``init_image``): img2img from scaled
         latents, no VAE round trip. ``debug``: decode the latents after
         every step from the first active one and return all those images
-        ('pil' only)."""
+        (for any ``output_type`` but 'pil', float32 ``[steps·B, H, W, 3]``
+        in [0, 1], the steps concatenated on axis 0, as JAX).
+        ``control_image`` (needs the pipeline's ``controlnet``): PIL, or
+        ``[H, W, 3]``/``[1, H, W, 3]`` in [0, 1], resized to the
+        generation's pixel size; ``controlnet_scale`` weighs its residuals.
+        ``return_dict=False`` returns ``(images, False)`` (the JAX
+        pipeline's tuple: images and the NSFW flag)."""
         if strength < 0 or strength > 1:
             raise ValueError('The value of strength should in [0.0, 1.0] '
                              f'but is {strength}')
@@ -354,10 +422,11 @@ class FlexPipeline:
             raise ValueError('inpainting (mask=...) requires init_image')
         if init_latents is not None and init_image is not None:
             raise ValueError('pass init_image OR init_latents, not both')
-        if debug and output_type != 'pil':
-            raise ValueError("debug decodes every step: output_type 'pil'")
         if output_type not in ('pil', 'np', 'latent'):
             raise ValueError(f'unknown output_type {output_type!r}')
+        if control_image is not None and self.controlnet is None:
+            raise ValueError('control_image given but this pipeline was '
+                             'built without a controlnet')
         self._check_features(guide)
         guide = self._lcm_guide(guide)
         dev = self.device
@@ -439,7 +508,9 @@ class FlexPipeline:
 
         state = schedulers.init_state(schedule, latents.shape, latents.dtype)
         span = max(schedule.length - 1 - t_start, 1)
-        eps_at = self._predictor(guide, span, t_start)
+        eps_at = self._predictor(
+            guide, span, t_start,
+            self._control(control_image, controlnet_scale, latents))
         step_noise = schedulers.takes_noise(schedule, eta)
         recorded = []
         for i in range(t_start, schedule.length):
@@ -465,11 +536,18 @@ class FlexPipeline:
             if debug:
                 recorded.append(latents)
 
-        if debug:
-            return FlexPipelineOutput(images=[
-                im for lat in recorded for im in self.latents_to_images(lat)])
-        if output_type == 'latent':
-            return FlexPipelineOutput(images=latents)
-        if output_type == 'np':
-            return FlexPipelineOutput(images=self.latents_to_np(latents))
-        return FlexPipelineOutput(images=self.latents_to_images(latents))
+        if debug and output_type == 'pil':
+            images = [im for lat in recorded
+                      for im in self.latents_to_images(lat)]
+        elif debug:
+            images = np.concatenate([self.latents_to_np(lat)
+                                     for lat in recorded])
+        elif output_type == 'latent':
+            images = latents
+        elif output_type == 'np':
+            images = self.latents_to_np(latents)
+        else:
+            images = self.latents_to_images(latents)
+        if not return_dict:
+            return images, False
+        return FlexPipelineOutput(images=images)

@@ -2,7 +2,12 @@
 
 * :class:`SimpleGuidance`: classifier-free guidance with the batch stacked
   ``[uncond; cond]`` at 2B; ``extra_channels`` carries a 9-channel
-  inpainting UNet's mask and masked-image latents.
+  inpainting UNet's mask and masked-image latents; ``ip_tokens`` an
+  IP-Adapter's image tokens, whose rows follow the CFG rows (the uncond
+  rows take ``ip_uncond``).
+* :class:`InstructPix2PixGuidance`: an 8-channel edit UNet's dual text and
+  image CFG, 3 rows per sample in one UNet call.
+* :func:`prompt_guidance`: CFG guidance straight from a prompt.
 * :class:`CompositeGuidance`: regional composition. One UNet call denoises
   the latents against the ``[uncond,] background, entities...`` stack; each
   entity's ε is blended into its rectangle of the background's ε in
@@ -76,13 +81,16 @@ def _scale(value, device):
 
 
 def _call(noise_fn: NoiseFn, lat, t, ctx, timestep_cond=None,
-          pag_mask=None) -> torch.Tensor:
-    """``noise_fn`` with the optional UNet inputs only when they are set."""
+          pag_mask=None, ip=None) -> torch.Tensor:
+    """``noise_fn`` with the optional UNet inputs only when they are set
+    (``ip``: ``(ip_ctx, ip_scale)``)."""
     kw = {}
     if timestep_cond is not None:
         kw['timestep_cond'] = timestep_cond
     if pag_mask is not None:
         kw['pag_mask'] = pag_mask
+    if ip is not None:
+        kw['ip_ctx'], kw['ip_scale'] = ip
     return noise_fn(lat, t, ctx, **kw)
 
 
@@ -96,8 +104,10 @@ class SimpleGuidance:
     ``extra_channels [1 or B, h, w, 5]`` (mask, masked-image latents) is
     concatenated onto the UNet input every step for a 9-channel inpainting
     UNet. ``timestep_cond [1, time_cond_proj_dim]`` is the LCM guidance
-    embedding (then ``cfg`` is False). The CFG interval, CFG rescale and PAG
-    fields are the module docstring's."""
+    embedding (then ``cfg`` is False). ``ip_tokens [1 or B, N, D]``: an
+    IP-Adapter's projected image tokens at ``ip_scale``; the uncond rows
+    take ``ip_uncond`` (zeros when None). The CFG interval, CFG rescale and
+    PAG fields are the module docstring's."""
 
     embeddings: torch.Tensor
     uncond: torch.Tensor
@@ -112,6 +122,9 @@ class SimpleGuidance:
     rescale: bool = False
     pag_scale: float = 0.0
     pag: bool = False
+    ip_tokens: Optional[torch.Tensor] = None
+    ip_uncond: Optional[torch.Tensor] = None
+    ip_scale: Union[float, torch.Tensor] = 1.0
     pooled: Optional[torch.Tensor] = None
     time_ids: Optional[torch.Tensor] = None
 
@@ -122,6 +135,20 @@ class SimpleGuidance:
     @property
     def batch_size(self) -> int:
         return self.embeddings.shape[0]
+
+    def _ip(self, with_uncond: bool, cond_copies: int = 1):
+        """The IP-Adapter rows beside the CFG rows: ``(ip_ctx,
+        ip_scale)``, or None without image tokens."""
+        if self.ip_tokens is None:
+            return None
+        shape = (self.batch_size,) + tuple(self.ip_tokens.shape[1:])
+        cond = torch.cat([self.ip_tokens.expand(shape)] * cond_copies)
+        if with_uncond:
+            unc = (self.ip_uncond.expand(shape).to(cond.dtype)
+                   if self.ip_uncond is not None else
+                   torch.zeros(shape, dtype=cond.dtype, device=cond.device))
+            cond = torch.cat([unc, cond])
+        return cond, self.ip_scale
 
     def replace(self, **changes) -> 'SimpleGuidance':
         return dataclasses.replace(self, **changes)
@@ -157,11 +184,11 @@ class SimpleGuidance:
             return self._noise_pred_pag(noise_fn, lat_in, t)
         if not self.cfg:
             return _call(noise_fn, lat_in, t.expand(b), self.embeddings,
-                         self._tcond(b))
+                         self._tcond(b), ip=self._ip(False))
         unc, dtype = self._uncond_ctx()
         ctx = torch.cat([unc, self.embeddings.to(dtype)])
         eps = _call(noise_fn, torch.cat([lat_in, lat_in]), t.expand(2 * b),
-                    ctx, self._tcond(2 * b))
+                    ctx, self._tcond(2 * b), ip=self._ip(True))
         eps_u, eps_c = eps.chunk(2)
         scale = _scale(self.guidance_scale, eps.device)
         return self._finish(eps_u + scale * (eps_c - eps_u), eps_c)
@@ -179,7 +206,8 @@ class SimpleGuidance:
         mask = torch.cat([torch.zeros(((rows - 1) * b,)), torch.ones((b,))])
         eps = _call(noise_fn, torch.cat([lat_in] * rows),
                     t.expand(rows * b), ctx, self._tcond(rows * b),
-                    pag_mask=mask.to(lat_in.device))
+                    pag_mask=mask.to(lat_in.device),
+                    ip=self._ip(self.cfg, cond_copies=2))
         pag = _scale(self.pag_scale, eps.device)
         if self.cfg:
             eps_u, eps_c, eps_p = eps.chunk(3)
@@ -189,6 +217,72 @@ class SimpleGuidance:
             eps_c, eps_p = eps.chunk(2)
             out = eps_c + pag * (eps_c - eps_p)
         return self._finish(out, eps_c)
+
+
+@dataclasses.dataclass(frozen=True)
+class InstructPix2PixGuidance:
+    """Dual text and image CFG for InstructPix2Pix (Brooks et al. 2023):
+    an 8-channel UNet conditioned on the input image's latents as extra
+    input channels. Three rows per sample ride one UNet call, ``[uncond
+    text, zero image; uncond text, image; text, image]``, combined as
+    ``eps_u + s_img·(eps_i − eps_u) + s_txt·(eps_f − eps_i)``.
+
+    ``embeddings [B, T, D]`` (the edit instruction), ``uncond [1 or B, T,
+    D]``, ``image_latents [1 or B, h, w, 4]``: the VAE posterior mean,
+    unscaled (as the published checkpoints were trained), and not scaled by
+    the scheduler's input scaling either. ``guidance_scale`` is s_txt,
+    ``image_guidance_scale`` s_img; ``rescale``/``guidance_rescale`` as
+    :class:`SimpleGuidance`'s (toward the full row's std)."""
+
+    embeddings: torch.Tensor
+    uncond: torch.Tensor
+    image_latents: torch.Tensor
+    guidance_scale: float
+    image_guidance_scale: float
+    guidance_rescale: float = 0.0
+    rescale: bool = False
+
+    def __post_init__(self):
+        _check_rescale_gate(self)
+
+    @property
+    def batch_size(self) -> int:
+        return self.embeddings.shape[0]
+
+    def replace(self, **changes) -> 'InstructPix2PixGuidance':
+        return dataclasses.replace(self, **changes)
+
+    def noise_pred(self, noise_fn: NoiseFn, latents: torch.Tensor,
+                   t: torch.Tensor, progress=0.0) -> torch.Tensor:
+        del progress
+        b = self.batch_size
+        img = self.image_latents.to(latents.device, latents.dtype).expand(
+            tuple(latents.shape[:3]) + (self.image_latents.shape[-1],))
+        with_img = torch.cat([latents, img], dim=-1)
+        lat3 = torch.cat([torch.cat([latents, torch.zeros_like(img)],
+                                    dim=-1), with_img, with_img])
+        dtype = torch.promote_types(self.uncond.dtype, self.embeddings.dtype)
+        unc = self.uncond.expand(self.embeddings.shape).to(dtype)
+        ctx = torch.cat([unc, unc, self.embeddings.to(dtype)])
+        eps = noise_fn(lat3, t.expand(3 * b), ctx)
+        eps_u, eps_i, eps_f = eps.chunk(3)
+        out = (eps_u + _scale(self.image_guidance_scale, eps.device) *
+               (eps_i - eps_u) +
+               _scale(self.guidance_scale, eps.device) * (eps_f - eps_i))
+        if self.rescale:
+            out = rescale_cfg(out, eps_f, self.guidance_rescale)
+        return out
+
+
+def prompt_guidance(encoder, prompt, guidance_scale: float
+                    ) -> SimpleGuidance:
+    """CFG guidance straight from a prompt (the reference's
+    ``PromptGuide``, pipeline/guide.py:67-72): ``encoder`` is a
+    :class:`~flexdiffuse_tpu_torch.encode.CLIPEncoder`."""
+    return SimpleGuidance(embeddings=encoder.prompt(prompt),
+                          uncond=encoder.prompt(''),
+                          guidance_scale=float(guidance_scale),
+                          cfg=guidance_scale > 1.0)
 
 
 def entity_masks(entities: Sequence[Tuple[Tuple[int, int], Tuple[int, int]]],

@@ -1,7 +1,8 @@
-"""Runner — guided generation and regional composition end to end (port of
-``flexdiffuse_tpu/runner.py``: ``Runner(model_root=...)``,
-``Runner.from_models``, ``Runner.gen``, ``Runner.compose``,
-``Runner.apply_lora`` and ``Runner.load_textual_inversion``).
+"""Runner — guided generation, editing and regional composition end to end
+(port of ``flexdiffuse_tpu/runner.py``: ``Runner(model_root=...)``,
+``Runner.from_models``, ``Runner.gen``, ``Runner.edit``,
+``Runner.compose``, ``Runner.apply_lora``, ``Runner.load_textual_inversion``,
+``Runner.load_controlnet`` and ``Runner.load_ip_adapter``).
 
 ``Runner(model_root=...)`` loads SD-1.x and CLIP ViT-L/14 HF snapshots from
 disk (``weights/load.py``) onto the card by default (``device='cpu'`` for
@@ -14,8 +15,11 @@ inpainting ``mask``, steps, CFG scale, samples, seed, ``debug`` (every
 step's image), negative prompt and saving, and the JAX Runner's
 ``long_prompt`` (75-token windows), ``weighted`` (A1111 emphasis), the
 two-pass hires fix (``hires_scale``, ``hires_strength``, ``hires_steps``),
-``cfg_interval``, ``guidance_rescale`` and ``pag_scale``. Its ControlNet and
-IP-Adapter keywords raise ``NotImplementedError`` naming ROADMAP step 10.
+``cfg_interval``, ``guidance_rescale`` and ``pag_scale``, and the
+conditioning models: ``control_image``/``controlnet_scale`` after
+:meth:`Runner.load_controlnet`, ``ip_image``/``ip_embed``/``ip_scale``
+after :meth:`Runner.load_ip_adapter`. ``edit`` is InstructPix2Pix on an
+8-channel UNet (detected from the snapshot's ``unet/config.json``).
 ``compose`` is the reference's second UI tab: a background prompt and
 rectangular entities, each with its prompt and blend.
 
@@ -60,11 +64,16 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           CLIPVisionConfig, CLIPVisionModel,
                                           UNet2DCondition, UNetConfig,
                                           VAEConfig)
-from flexdiffuse_tpu_torch.pipeline import (FlexPipeline, SimpleGuidance,
-                                            upscale_latents)
+from flexdiffuse_tpu_torch.models.configs import OPENCLIP_H_VISION
+from flexdiffuse_tpu_torch.models.controlnet import ControlNetModel
+from flexdiffuse_tpu_torch.models import ip_adapter as _ipa
+from flexdiffuse_tpu_torch.pipeline import (FlexPipeline,
+                                            InstructPix2PixGuidance,
+                                            SimpleGuidance, upscale_latents)
 from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
 from flexdiffuse_tpu_torch.text.tokenizer import CLIPTokenizer
-from flexdiffuse_tpu_torch.utils.image import image_grid
+from flexdiffuse_tpu_torch.utils.image import (clip_preprocess, image_grid,
+                                               preprocess)
 from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer
 from flexdiffuse_tpu_torch.weights import convert, load
 from flexdiffuse_tpu_torch.weights import lora as _lora
@@ -72,12 +81,96 @@ from flexdiffuse_tpu_torch.weights import textual_inversion as _ti
 
 log = logging.getLogger(__name__)
 
-# JAX Runner.gen keywords the port does not take yet → the ROADMAP Queue 1
-# step that ports them.
-_NOT_PORTED = {
-    'control_image': 10, 'controlnet_scale': 10,
-    'ip_embed': 10, 'ip_image': 10, 'ip_scale': 10,
-}
+
+def _param(module: torch.nn.Module) -> torch.Tensor:
+    return next(module.parameters())
+
+
+class IPAdapterState:
+    """A loaded IP-Adapter: its image-projection head (``ImageProjection``
+    or ``Resampler``, on the UNet's device and dtype), what the head takes
+    (``input_kind``: 'pooled' or 'penultimate'), the image encoder (a
+    :class:`CLIPVisionModel`, or None for precomputed embeddings) and the
+    adapter's unconditional tokens."""
+
+    def __init__(self, proj, input_kind: str, encoder,
+                 vision_config: CLIPVisionConfig) -> None:
+        self.proj = proj
+        self.input_kind = input_kind
+        self.encoder = encoder
+        self.vision_config = vision_config
+        with torch.no_grad():
+            self.uncond_tokens = self.proj(self._uncond_embed())
+
+    def _uncond_embed(self) -> torch.Tensor:
+        """Zeros for base checkpoints; for Plus, the encoder's
+        penultimate states of a zeros pixel grid (zeros in the normalized
+        pixel space, the official uncond), or zero hidden states without an
+        encoder."""
+        w = _param(self.proj)
+        if self.input_kind == 'pooled':
+            return torch.zeros((1, self.proj.proj.in_features),
+                               device=w.device)
+        if self.encoder is not None:
+            size = self.vision_config.image_size
+            return self.encoder(torch.zeros((1, size, size, 3),
+                                            device=w.device),
+                                output='penultimate')
+        return torch.zeros((1, 257, self.proj.proj_in.in_features),
+                           device=w.device)
+
+    @torch.no_grad()
+    def fields(self, ip_embed, ip_image, ip_scale: float) -> dict:
+        """The ``SimpleGuidance`` ip_* fields of one generation."""
+        w = _param(self.proj)
+        if ip_embed is None:
+            if self.encoder is None:
+                raise ValueError(
+                    'ip_image requires load_ip_adapter(image_encoder_dir=…) '
+                    '— or pass a precomputed ip_embed')
+            pixels = torch.as_tensor(clip_preprocess(
+                ip_image, self.vision_config.image_size), device=w.device)
+            ip_embed = self.encoder(pixels, output=self.input_kind)
+        emb = torch.as_tensor(ip_embed, dtype=torch.float32).to(w.device)
+        want_ndim = 3 if self.input_kind == 'penultimate' else 2
+        if emb.ndim == want_ndim - 1:
+            emb = emb[None]
+        return dict(ip_tokens=self.proj(emb), ip_uncond=self.uncond_tokens,
+                    ip_scale=float(ip_scale))
+
+
+def attach_ip_adapter(pipe: FlexPipeline, path: str,
+                      image_encoder_dir: Optional[str] = None,
+                      vision_config: Optional[CLIPVisionConfig] = None):
+    """An IP-Adapter checkpoint merged into ``pipe``'s UNet: returns
+    ``(unet, IPAdapterState)``, the UNet an ``ip_adapter=True`` copy whose
+    weights are the old ones (shared) plus the per-layer
+    ``to_k_ip``/``to_v_ip``, with the old one's sampling settings.
+    ``vision_config`` (default OpenCLIP ViT-H, the SD-1.5 adapters'
+    encoder) describes the image-encoder snapshot at ``image_encoder_dir``.
+    Official ``.bin`` files nest ``image_proj`` and ``ip_adapter`` dicts;
+    ``load_state_dict`` flattens them to dotted keys."""
+    vision_config = vision_config or OPENCLIP_H_VISION
+    sd = load.load_state_dict(path)
+    old = pipe.unet
+    w = _param(old)
+    layers = _ipa.convert_ip_layers(sd, old.config)
+    proj, tokens, kind = _ipa.build_image_proj(sd, old.config)
+    cfg = dataclasses.replace(old.config, ip_adapter=True, ip_tokens=tokens)
+    unet = load.instantiate(UNet2DCondition, cfg, _ipa.merge_ip_weights(
+        old.state_dict(), layers), w.device, w.dtype).with_settings(
+            freeu=old.freeu, tome=old.tome, pag_layers=old.pag_layers)
+    encoder = None
+    if image_encoder_dir:
+        enc_sd = convert.normalize(load.load_state_dict(image_encoder_dir),
+                                   'vision')
+        encoder = load.instantiate(CLIPVisionModel, vision_config, enc_sd,
+                                   w.device, w.dtype)
+    state = IPAdapterState(proj.to(w.device, w.dtype), kind, encoder,
+                           vision_config)
+    log.info('ip-adapter loaded from %s (%d tokens, %s input)', path,
+             tokens, kind)
+    return unet, state
 
 
 def _i100(f: float) -> int:
@@ -105,8 +198,9 @@ class Runner:
         ``config.clip_model`` (directories named after the last part of each
         id) under ``model_root`` into modules of ``dtype`` on ``device``
         (None: the CUDA card, which must be present). The configs default
-        to SD-1.4 and CLIP ViT-L/14; without ``unet_config`` the snapshot's
-        ``unet/config.json`` sets ``in_channels`` (9: inpainting)."""
+        to SD-1.4 and CLIP ViT-L/14; the snapshot's ``unet/config.json`` sets
+        the UNet's ``in_channels`` (9: inpainting, 8: InstructPix2Pix) and
+        ``time_cond_proj_dim`` (LCM)."""
         if model_root is None:
             raise ValueError(
                 'model_root is required (a directory with HF snapshots of '
@@ -121,21 +215,20 @@ class Runner:
             device = 'cuda'
         sd_dir, clip_dir = load.snapshot_dirs(model_root, config.sd_model,
                                               config.clip_model)
-        if unet_config is None:
-            unet_config = SD14_UNET
-            found = load.unet_overrides(sd_dir)
-            if found.get('time_cond_proj_dim'):
-                # A guidance-embedded (LCM) checkpoint.
-                unet_config = dataclasses.replace(
-                    unet_config,
-                    time_cond_proj_dim=found['time_cond_proj_dim'])
-            if found.get('in_channels', 4) == 8:
-                raise NotImplementedError(
-                    'InstructPix2Pix UNets (8 input channels) are not ported '
-                    'yet (ROADMAP Queue 1 step 10)')
-            if found.get('in_channels', 4) != unet_config.in_channels:
-                unet_config = dataclasses.replace(
-                    unet_config, in_channels=found['in_channels'])
+        # The snapshot's unet/config.json sets the conditioned UNets' input
+        # width (9: inpainting; 8: InstructPix2Pix) and a guidance-embedded
+        # (LCM) checkpoint's cond_proj width, also over a given config (the
+        # CLI gives its family's geometry); the weights would not load
+        # into another.
+        unet_config = unet_config or SD14_UNET
+        found = load.unet_overrides(sd_dir)
+        if found.get('time_cond_proj_dim'):
+            unet_config = dataclasses.replace(
+                unet_config, time_cond_proj_dim=found['time_cond_proj_dim'])
+        if found.get('in_channels', unet_config.in_channels) != \
+                unet_config.in_channels:
+            unet_config = dataclasses.replace(
+                unet_config, in_channels=found['in_channels'])
         log.info('Loading CLIP from %s and SD from %s onto %s (%s)',
                  clip_dir, sd_dir, device, dtype)
         text_sd, vision_sd = load.load_clip(clip_dir)
@@ -190,16 +283,19 @@ class Runner:
         self.grid_dir = os.path.join(self.output_dir, 'grids')
         self._generator = torch.Generator(self.pipe.device)
         self._merged: set = set()   # parameters a LoRA has changed
+        self._ip: Optional[IPAdapterState] = None
         self.timer = PhaseTimer()
 
     def _rebuild(self, unet=None, **overrides) -> None:
         """A new pipeline around ``unet`` (default: the current one) with
-        the current scheduler, tiling and DeepCache unless overridden."""
+        the current scheduler, tiling, DeepCache and ControlNet unless
+        overridden."""
         kw = dict(scheduler=self.pipe.scheduler_kind,
                   scheduler_config=self.pipe.scheduler_config,
                   vae_tile=self.pipe.vae_tile,
                   vae_tile_overlap=self.pipe.vae_tile_overlap,
-                  deepcache=self.pipe.deepcache)
+                  deepcache=self.pipe.deepcache,
+                  controlnet=self.pipe.controlnet)
         kw.update(overrides)
         self.pipe = FlexPipeline(unet or self.pipe.unet, self.pipe.vae,
                                  **kw)
@@ -267,6 +363,49 @@ class Runner:
     def disable_vae_tiling(self) -> None:
         self.pipe.vae_tile = 0
 
+    def load_controlnet(self, path: str) -> None:
+        """Load a diffusers ControlNet snapshot (a directory or weights
+        file; ``models/controlnet.py``) onto the UNet's device and dtype and
+        rebuild the pipeline with it; then pass ``control_image=`` (and
+        ``controlnet_scale=``) to :meth:`gen`. The conditioning ramp comes
+        from the checkpoint's shapes."""
+        sd = convert.normalize(load.load_state_dict(path), 'controlnet')
+        ramp, i = [sd['controlnet_cond_embedding.conv_in.weight'].shape[0]], 1
+        while f'controlnet_cond_embedding.blocks.{i}.weight' in sd:
+            ramp.append(sd[f'controlnet_cond_embedding.blocks.{i}.weight'
+                           ].shape[0])
+            i += 2
+        w = _param(self.pipe.unet)
+        build = lambda cfg: ControlNetModel(cfg, tuple(ramp))
+        self._rebuild(controlnet=load.instantiate(
+            build, self.pipe.unet.config, sd, w.device, w.dtype))
+        log.info('controlnet loaded from %s', path)
+
+    def load_ip_adapter(self, path: str,
+                        image_encoder_dir: Optional[str] = None,
+                        vision_config: Optional[CLIPVisionConfig] = None
+                        ) -> None:
+        """Load an official IP-Adapter checkpoint (base or Plus, detected
+        from its keys; ``models/ip_adapter.py``) and rebuild the pipeline
+        around a UNet with its per-layer projections. Generate with
+        ``gen(ip_image=<PIL image>, ip_scale=...)`` when
+        ``image_encoder_dir`` holds the adapter's image-encoder snapshot
+        (OpenCLIP ViT-H for the SD-1.5 adapters, or ``vision_config``), or
+        with a precomputed ``gen(ip_embed=...)`` of the adapter's input kind
+        (the CLS-pooled projected embedding for base adapters, the
+        penultimate hidden states for Plus ones)."""
+        unet, self._ip = attach_ip_adapter(self.pipe, path,
+                                           image_encoder_dir, vision_config)
+        self._rebuild(unet)
+
+    def _ip_fields(self, ip_embed, ip_image, ip_scale: float) -> dict:
+        if ip_embed is None and ip_image is None:
+            return {}
+        if self._ip is None:
+            raise ValueError('image prompt given but no IP-Adapter is '
+                             'loaded (Runner.load_ip_adapter)')
+        return self._ip.fields(ip_embed, ip_image, ip_scale)
+
     def apply_lora(self, path: str, scale: float = 1.0) -> None:
         """Merge a LoRA adapter (kohya or diffusers/PEFT naming,
         ``weights/lora.py``) into the UNet and text encoder in place.
@@ -307,8 +446,8 @@ class Runner:
 
     def _run(self, batches: int, guidance, init_image, init_size,
              strength: float, steps: int, debug: bool, fp: str, save: bool,
-             mask=None, hires_scale: float = 0.0,
-             hires_strength: float = 0.55,
+             mask=None, control_image=None, controlnet_scale: float = 1.0,
+             hires_scale: float = 0.0, hires_strength: float = 0.55,
              hires_steps: Optional[int] = None
              ) -> Tuple[List[Image.Image], Image.Image]:
         """Multi-batch sweep (reference ``_run`` utils.py:85-112); in debug
@@ -322,6 +461,8 @@ class Runner:
         all_images: List[Image.Image] = []
         if save:
             os.makedirs(self.grid_dir, exist_ok=True)
+        control = dict(control_image=control_image,
+                       controlnet_scale=controlnet_scale)
         for b in range(batches):
             stime = time.time()
             ms_time = int(stime * 1000)
@@ -329,19 +470,20 @@ class Runner:
                 lat = self.pipe(guidance, steps=steps, init_image=init_image,
                                 init_size=init_size, strength=strength,
                                 eta=self.eta, generator=self._generator,
-                                mask=mask, output_type='latent').images
+                                mask=mask, output_type='latent',
+                                **control).images
                 images = self.pipe(guidance, steps=hires_steps or steps,
                                    init_latents=upscale_latents(
                                        lat, hires_scale),
                                    strength=hires_strength, eta=self.eta,
                                    generator=self._generator,
-                                   debug=debug).images
+                                   debug=debug, **control).images
             else:
                 images = self.pipe(guidance, steps=steps,
                                    init_image=init_image,
                                    init_size=init_size, strength=strength,
                                    eta=self.eta, generator=self._generator,
-                                   debug=debug, mask=mask).images
+                                   debug=debug, mask=mask, **control).images
             log.info('batch %d/%d: %d image(s) in %.2fs', b + 1, batches,
                      len(images), time.time() - stime)
             if save:
@@ -379,6 +521,11 @@ class Runner:
             save: bool = True,
             negative_prompt: str = '',
             mask: Optional[Image.Image] = None,
+            control_image: Optional[Image.Image] = None,
+            controlnet_scale: float = 1.0,
+            ip_embed=None,
+            ip_image: Optional[Image.Image] = None,
+            ip_scale: float = 1.0,
             long_prompt: bool = False,
             weighted: bool = False,
             hires_scale: float = 0.0,
@@ -386,8 +533,7 @@ class Runner:
             hires_steps: Optional[int] = None,
             cfg_interval: Optional[Tuple[float, float]] = None,
             guidance_rescale: float = 0.0,
-            pag_scale: float = 0.0,
-            **not_ported) -> Tuple[List[Image.Image], Image.Image]:
+            pag_scale: float = 0.0) -> Tuple[List[Image.Image], Image.Image]:
         """Guided generation (reference ``Runner.gen`` utils.py:114-166);
         returns ``(images, grid)``. ``mask`` (with ``init_image``): 1 =
         regenerate, 0 = keep. ``long_prompt`` encodes a prompt beyond 75
@@ -401,14 +547,11 @@ class Runner:
         [lo, hi], cond-only at half the UNet batch outside.
         ``guidance_rescale``: CFG rescale's phi (0: off).
         ``pag_scale``: perturbed-attention guidance on the layers of
-        :meth:`enable_pag` (('mid',) on first use; 0: off)."""
-        for name in not_ported:
-            if name not in _NOT_PORTED:
-                raise TypeError(f'gen() got an unexpected keyword argument '
-                                f'{name!r}')
-            raise NotImplementedError(
-                f'gen({name}=...) is not ported yet (ROADMAP Queue 1 step '
-                f'{_NOT_PORTED[name]})')
+        :meth:`enable_pag` (('mid',) on first use; 0: off).
+        ``control_image`` (after :meth:`load_controlnet`): the ControlNet's
+        conditioning image, weighed by ``controlnet_scale``. ``ip_image``
+        or a precomputed ``ip_embed`` (after :meth:`load_ip_adapter`): the
+        image prompt, weighed by ``ip_scale``."""
         if pag_scale and self.pipe.unet.pag_layers is None:
             self.enable_pag()
         if mask is not None and init_image is not None:
@@ -472,15 +615,79 @@ class Runner:
         if guidance_rescale:
             features.update(rescale=True,
                             guidance_rescale=float(guidance_rescale))
+        features.update(self._ip_fields(ip_embed, ip_image, ip_scale))
         guidance = SimpleGuidance(embeddings=embeds, uncond=uncond,
                                   guidance_scale=float(guidance_scale),
                                   cfg=guidance_scale > 1.0, **features)
         with self.timer.phase('generate'):
             return self._run(samples, guidance, init_image, init_size,
                              strength, steps, debug, fp, save, mask=mask,
+                             control_image=control_image,
+                             controlnet_scale=controlnet_scale,
                              hires_scale=hires_scale,
                              hires_strength=hires_strength,
                              hires_steps=hires_steps)
+
+    def edit(self,
+             prompt: str,
+             image: Union[Image.Image, np.ndarray],
+             steps: int = 20,
+             guidance_scale: float = 7.5,
+             image_guidance_scale: float = 1.5,
+             negative_prompt: str = '',
+             samples: int = 1,
+             seed: Optional[int] = None,
+             save: bool = True,
+             debug: bool = False,
+             guidance_rescale: float = 0.0
+             ) -> Tuple[List[Image.Image], Image.Image]:
+        """Instruction-based editing (InstructPix2Pix, Brooks et al. 2023):
+        ``prompt`` is the instruction ("make it winter"), ``image`` the
+        picture, PIL or a preprocessed ``[-1, 1]`` NHWC array ``[1, H, W,
+        3]`` (a bare ``[H, W, 3]`` gains the batch dim). Needs an 8-channel
+        UNet. The image's VAE posterior mean, unscaled, conditions every
+        step through the extra input channels; sampling starts from noise
+        with dual text/image CFG (:class:`InstructPix2PixGuidance`;
+        ``image_guidance_scale`` 1.5 is the published default, higher stays
+        closer to the input). Returns ``(images, grid)``."""
+        in_ch = self.pipe.unet.config.in_channels
+        if in_ch != 8:
+            raise ValueError(
+                'edit() needs an 8-channel InstructPix2Pix UNet; this '
+                f'pipeline has {in_ch} input channels (point --models at an '
+                'instruct-pix2pix snapshot)')
+        fp = (f'edit_st{steps}_gs{int(guidance_scale)}'
+              f'_igs{_i100(image_guidance_scale)}')
+        if guidance_rescale:
+            fp += f'_gr{_i100(guidance_rescale)}'
+        if seed:
+            fp += f'_se{seed}'
+        self._set_seed(seed)
+        with self.timer.phase('embeds'):
+            embeds = self.encoder.prompt(prompt)
+            uncond = self.encoder.prompt(negative_prompt or '')
+        if isinstance(image, Image.Image):
+            image = preprocess(image)
+        pixels = torch.as_tensor(np.asarray(image, np.float32))
+        if pixels.ndim == 3:          # unbatched HWC → add the batch dim
+            pixels = pixels[None]
+        if pixels.ndim != 4 or pixels.shape[-1] != 3:
+            raise ValueError(
+                'edit() image array must be [1, H, W, 3] (or [H, W, 3]) '
+                f'in [-1, 1]; got shape {tuple(pixels.shape)}')
+        h, w = pixels.shape[1:3]
+        with torch.no_grad():
+            # The posterior mean, unscaled: IP2P's conditioning.
+            mean, _ = self.pipe.vae.encode(pixels.to(self.pipe.device))
+        rescale = dict(rescale=True, guidance_rescale=float(
+            guidance_rescale)) if guidance_rescale else {}
+        guidance = InstructPix2PixGuidance(
+            embeddings=embeds, uncond=uncond, image_latents=mean,
+            guidance_scale=float(guidance_scale),
+            image_guidance_scale=float(image_guidance_scale), **rescale)
+        with self.timer.phase('generate'):
+            return self._run(samples, guidance, None, (h, w), 1.0, steps,
+                             debug, fp, save)
 
     def _windowed(self, prompt, guide, mapping_concepts: str,
                   params: GuidanceParams, enc_fn) -> torch.Tensor:

@@ -12,9 +12,14 @@ module undoes each rule:
 
 The inverse of each converter sits in the function of the same name
 (``convert_clip_text`` :77 ↔ :func:`clip_text`, ``convert_clip_vision`` :103
-↔ :func:`clip_vision`, ``convert_unet`` :170 ↔ :func:`unet`,
-``convert_vae`` :236 ↔ :func:`vae`). Trees are nested dicts of numpy arrays
-(an outer ``{'params': ...}`` is accepted); no JAX is imported.
+↔ :func:`clip_vision`, ``convert_unet`` :170 ↔ :func:`unet` (with an
+IP-Adapter's ``to_k_ip``/``to_v_ip`` where the tree has them),
+``convert_vae`` :236 ↔ :func:`vae`, ``convert_controlnet`` :275 ↔
+:func:`controlnet`); the IP-Adapter heads of
+``flexdiffuse_tpu/models/ip_adapter.py`` (``ImageProjection``,
+``Resampler``) ↔ :func:`image_projection`, :func:`resampler`. Trees are
+nested dicts of numpy arrays (an outer ``{'params': ...}`` is accepted);
+no JAX is imported.
 :func:`lora_factors_to_torch` renames the JAX package's LoRA factors to the
 port's module names, so both packages train from the same factors.
 """
@@ -107,8 +112,9 @@ def _resnet(sd: SD, p: str, tree: Mapping) -> None:
 
 
 def _attn(sd: SD, p: str, tree: Mapping) -> None:
-    for k in ('to_q', 'to_k', 'to_v'):
-        _dense(sd, f'{p}.{k}', tree[k])
+    for k in ('to_q', 'to_k', 'to_v', 'to_k_ip', 'to_v_ip'):
+        if k in tree:
+            _dense(sd, f'{p}.{k}', tree[k])
     _dense(sd, f'{p}.to_out.0', tree['to_out'])
 
 
@@ -127,15 +133,12 @@ def _transformer2d(sd: SD, p: str, tree: Mapping, depth: int) -> None:
         _dense(sd, f'{b}.ff.net.2', blk['ff']['proj_out'])
 
 
-def unet(tree: Mapping, config: UNetConfig) -> SD:
-    sd: SD = {}
+def _down_mid(sd: SD, tree: Mapping, config: UNetConfig) -> None:
+    """The time embedding, ``conv_in`` and the down and mid path, which
+    the UNet and the ControlNet share."""
     _dense(sd, 'time_embedding.linear_1', tree['time_embed_1'])
     _dense(sd, 'time_embedding.linear_2', tree['time_embed_2'])
-    if 'time_cond_proj' in tree:
-        _dense(sd, 'time_embedding.cond_proj', tree['time_cond_proj'])
     _conv(sd, 'conv_in', tree['conv_in'])
-    _norm(sd, 'conv_norm_out', tree['norm_out'])
-    _conv(sd, 'conv_out', tree['conv_out'])
     n = len(config.block_channels)
     for i in range(n):
         for j in range(config.layers_per_block):
@@ -152,6 +155,16 @@ def unet(tree: Mapping, config: UNetConfig) -> SD:
     _resnet(sd, 'mid_block.resnets.1', tree['mid_res_1'])
     _transformer2d(sd, 'mid_block.attentions.0', tree['mid_attn'],
                    config.depth_mid())
+
+
+def unet(tree: Mapping, config: UNetConfig) -> SD:
+    sd: SD = {}
+    _down_mid(sd, tree, config)
+    if 'time_cond_proj' in tree:
+        _dense(sd, 'time_embedding.cond_proj', tree['time_cond_proj'])
+    _norm(sd, 'conv_norm_out', tree['norm_out'])
+    _conv(sd, 'conv_out', tree['conv_out'])
+    n = len(config.block_channels)
     for i in range(n):
         level = n - 1 - i
         for j in range(config.layers_per_block + 1):
@@ -163,6 +176,57 @@ def unet(tree: Mapping, config: UNetConfig) -> SD:
         if i != n - 1:
             _conv(sd, f'up_blocks.{i}.upsamplers.0.conv',
                   tree[f'up_{i}_upsample']['conv'])
+    return sd
+
+
+def controlnet(tree: Mapping, config: UNetConfig) -> SD:
+    """``ControlNetModel``'s tree → the port's ``ControlNetModel``
+    (diffusers' names: ``controlnet_cond_embedding``,
+    ``controlnet_down_blocks.{k}``, ``controlnet_mid_block``)."""
+    sd: SD = {}
+    _down_mid(sd, tree, config)
+    ce = tree['cond_embed']
+    _conv(sd, 'controlnet_cond_embedding.conv_in', ce['conv_in'])
+    _conv(sd, 'controlnet_cond_embedding.conv_out', ce['conv_out'])
+    i = 0
+    while f'block_{i}' in ce:
+        _conv(sd, f'controlnet_cond_embedding.blocks.{i}', ce[f'block_{i}'])
+        i += 1
+    k = 0
+    while f'zero_conv_{k}' in tree:
+        _conv(sd, f'controlnet_down_blocks.{k}', tree[f'zero_conv_{k}'])
+        k += 1
+    _conv(sd, 'controlnet_mid_block', tree['zero_conv_mid'])
+    return sd
+
+
+def image_projection(tree: Mapping) -> SD:
+    """The base IP-Adapter head (``ImageProjection``)."""
+    sd: SD = {}
+    _dense(sd, 'proj', tree['proj'])
+    _norm(sd, 'norm', tree['norm'])
+    return sd
+
+
+def resampler(tree: Mapping) -> SD:
+    """IP-Adapter Plus's perceiver ``Resampler``: ``layers_{i}_attn`` →
+    ``layers.{i}.0``, ``layers_{i}_ff_norm``/``_ff_1``/``_ff_2`` →
+    ``layers.{i}.1.{0,1,3}`` (the official checkpoints' names)."""
+    sd: SD = {'latents': _t(tree['latents'])}
+    for name in ('proj_in', 'proj_out'):
+        _dense(sd, name, tree[name])
+    _norm(sd, 'norm_out', tree['norm_out'])
+    i = 0
+    while f'layers_{i}_attn' in tree:
+        a = tree[f'layers_{i}_attn']
+        _norm(sd, f'layers.{i}.0.norm1', a['norm1'])
+        _norm(sd, f'layers.{i}.0.norm2', a['norm2'])
+        for name in ('to_q', 'to_kv', 'to_out'):
+            _dense(sd, f'layers.{i}.0.{name}', a[name])
+        _norm(sd, f'layers.{i}.1.0', tree[f'layers_{i}_ff_norm'])
+        _dense(sd, f'layers.{i}.1.1', tree[f'layers_{i}_ff_1'])
+        _dense(sd, f'layers.{i}.1.3', tree[f'layers_{i}_ff_2'])
+        i += 1
     return sd
 
 
@@ -256,11 +320,19 @@ _BY_CONFIG = {CLIPTextConfig.__name__: clip_text,
               UNetConfig.__name__: unet, VAEConfig.__name__: vae}
 
 
-def params_to_state_dict(tree: Mapping, config) -> SD:
+def params_to_state_dict(tree: Mapping, config=None) -> SD:
     """The JAX package's param tree for the model that ``config`` describes
-    → the port's ``state_dict`` (load it with ``strict=True``)."""
+    → the port's ``state_dict`` (load it with ``strict=True``). A
+    ControlNet's tree (with a ``UNetConfig``) and the IP-Adapter heads'
+    (no config needed) are told apart by their keys."""
     if 'params' in tree and len(tree) == 1:
         tree = tree['params']
+    if 'zero_conv_mid' in tree:
+        return controlnet(tree, config)
+    if 'latents' in tree:
+        return resampler(tree)
+    if set(tree) == {'proj', 'norm'}:
+        return image_projection(tree)
     fn = _BY_CONFIG.get(type(config).__name__)
     if fn is None:
         raise TypeError(f'no bridge for config {type(config).__name__}')

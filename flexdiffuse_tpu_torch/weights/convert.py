@@ -9,7 +9,9 @@ converter:
 
 * SD-2.x-style transformers (``use_linear_projection``) store
   ``proj_in``/``proj_out`` as Linear ``[out, in]``; the port keeps a 1×1
-  conv, so they become ``[out, in, 1, 1]`` (``convert.py:36-40``);
+  conv, so they become ``[out, in, 1, 1]`` (``convert.py:36-40``), in a
+  UNet and a ControlNet alike (the JAX ``convert_controlnet`` reuses the
+  UNet's rules, ``convert.py:275``);
 * old VAE checkpoints name the mid attention ``query``/``key``/``value``/
   ``proj_attn`` and some store it as 4-D 1×1 convs (``convert.py:218-234``);
 * one HF CLIP file holds both towers (the vision tower with HF's
@@ -57,7 +59,7 @@ _VAE_ATTN = re.compile(r'^((?:en|de)coder\.mid_block\.attentions\.0)\.'
                        r'to_out\.0)\.(weight|bias)$')
 _VAE_NEW = {'query': 'to_q', 'key': 'to_k', 'value': 'to_v',
             'proj_attn': 'to_out.0'}
-KINDS = ('text', 'vision', 'unet', 'vae')
+KINDS = ('text', 'vision', 'unet', 'vae', 'controlnet')
 
 
 def _split_clip(key: str) -> str:
@@ -70,7 +72,7 @@ def _split_clip(key: str) -> str:
 
 def normalize(sd: SD, kind: str) -> Dict[str, torch.Tensor]:
     """The state dict of the port's model of ``kind`` ('text', 'vision',
-    'unet' or 'vae') from a diffusers/HF checkpoint's. A CLIP checkpoint
+    'unet', 'vae' or 'controlnet') from a diffusers/HF checkpoint's. A CLIP checkpoint
     serves 'text' and 'vision' alike: each keeps its own tower's keys.
     Tensors are not copied unless a rule reshapes them."""
     if kind not in KINDS:
@@ -87,7 +89,8 @@ def normalize(sd: SD, kind: str) -> Dict[str, torch.Tensor]:
                 if not _split_clip(key):
                     dropped.append(key)
                 continue
-        elif kind == 'unet' and _PROJ.search(key) and w.ndim == 2:
+        elif (kind in ('unet', 'controlnet') and _PROJ.search(key)
+              and w.ndim == 2):
             w = w[:, :, None, None]
         elif kind == 'vae':
             m = _VAE_ATTN.match(key)

@@ -5,25 +5,27 @@
   port leaves out only the JAX parser's ``--compile-cache`` pair and adds
   ``--device``.
 * With a recording fake Runner in both, ``generate`` and ``compose`` call
-  ``gen``/``compose`` with equal keyword arguments (the port leaves out
-  the keywords it does not port, which the JAX CLI passes at their inert
-  values).
+  ``gen``/``compose`` with equal keyword arguments.
 * Every flag whose feature is not ported raises ``NotImplementedError``
   naming its ROADMAP step, before any model loads; ``edit --pag-layers``
-  is refused as in the JAX CLI, and ``edit`` itself names step 10; without
-  a card the model-running commands raise unless given ``--device cpu``.
+  is refused first, as in the JAX CLI; without a card the model-running
+  commands raise unless given ``--device cpu``.
 * The scheduler and sampling flags (the tenth slice) reach the Runner as
   they do in the JAX CLI and app, with recording Runners in both packages
   (no model loads): the same scheduler, SchedulerConfig, model geometry
   (``--model-family sd2``), ``enable_*`` calls and ``gen``/``compose``
-  keywords.
+  keywords. So do the conditioning models' flags (the eleventh slice):
+  ``--controlnet``/``--control-image``/``--controlnet-scale``,
+  ``--ip-adapter``/``--ip-encoder``/``--ip-image``/``--ip-scale``,
+  ``--ip-encoder-arch`` (accepted, unused for SD-1.x) and ``edit``.
 * ``convert`` on the tiny HF-layout snapshot writes the caches the JAX
   loader (``load_clip``/``load_sd``, ``cache=True``) reads back, equal to
   the JAX converter's trees leaf for leaf in dtype and value.
 * ``download`` without ``huggingface_hub`` (or without the network)
   returns 1 with its message; nothing here contacts a network.
-* ``generate``, ``compose`` and ``train`` (LoRA, ``--full``, DreamBooth)
-  run end to end on the tiny snapshot, fp32 on the CPU.
+* ``generate``, ``compose``, ``edit`` (on the tiny snapshot made
+  8-channel) and ``train`` (LoRA, ``--full``, DreamBooth) run end to end
+  on the tiny snapshot, fp32 on the CPU.
 """
 import dataclasses
 import json
@@ -164,12 +166,6 @@ class Recorder:
         return [], None
 
 
-# The JAX CLI's gen keywords the port does not take (step 10), at the
-# values the JAX CLI passes while their flags are off.
-INERT = dict(control_image=None, controlnet_scale=1.0, ip_image=None,
-             ip_scale=1.0)
-
-
 def _files(tmp_path):
     paths = {}
     for name, seed in (('guide', 1), ('init', 2), ('mask', 3)):
@@ -214,8 +210,8 @@ def test_generate_calls_gen_alike(monkeypatch, tmp_path, case):
                        '--strength', '0.8', '--long-prompt',
                        '--no-reuse']}[case]
     jkw, tkw = _call_both(monkeypatch, argv)
-    assert {k: jkw[k] for k in INERT} == INERT
-    assert tkw == {k: v for k, v in jkw.items() if k not in INERT}
+    assert tkw == jkw
+    assert tkw['control_image'] is None and tkw['ip_image'] is None
 
 
 def test_compose_calls_compose_alike(monkeypatch, tmp_path):
@@ -230,14 +226,6 @@ def test_compose_calls_compose_alike(monkeypatch, tmp_path):
 # --- what the port refuses --------------------------------------------------
 
 UNPORTED = [
-    (['generate', '--controlnet', 'c'], 10),
-    (['generate', '--control-image', 'c.png'], 10),
-    (['generate', '--controlnet-scale', '0.5'], 10),
-    (['generate', '--ip-adapter', 'a'], 10),
-    (['generate', '--ip-encoder', 'e'], 10),
-    (['generate', '--ip-encoder-arch', 'bigg'], 10),
-    (['generate', '--ip-image', 'i.png'], 10),
-    (['generate', '--ip-scale', '0.5'], 10),
     (['generate', '--model-family', 'sdxl'], 11),
     (['generate', '--refiner', 'r'], 11),
     (['generate', '--refine-strength', '0.5'], 11),
@@ -270,6 +258,23 @@ STEP9 = [
     ['serve', '--freeu', 'on'], ['serve-api', '--deepcache', '2'],
     ['train', '--data', 'd', '--model-family', 'sd2'],
 ]
+# The conditioning models' flags (the eleventh slice; they named step 10
+# before): each reaches the Runner as in the JAX CLI
+# (test_step10_flags_reach_the_runner_as_in_jax). IMAGE is a real PNG.
+STEP10 = [
+    ['generate', '--controlnet', 'c'],
+    ['generate', '--controlnet', 'c', '--control-image', 'IMAGE'],
+    ['generate', '--controlnet', 'c', '--control-image', 'IMAGE',
+     '--controlnet-scale', '0.5'],
+    ['generate', '--ip-adapter', 'a'],
+    ['generate', '--ip-adapter', 'a', '--ip-encoder', 'e'],
+    ['generate', '--ip-adapter', 'a', '--ip-encoder', 'e', '--ip-image',
+     'IMAGE', '--ip-scale', '0.3'],
+    ['generate', '--ip-encoder-arch', 'bigg'],
+    ['edit', '--prompt', 'winter', '--image', 'IMAGE',
+     '--image-guidance-scale', '1.2', '--steps', '3', '--seed', '2'],
+    ['serve', '--controlnet', 'c', '--ip-adapter', 'a'],
+]
 
 
 @pytest.fixture()
@@ -294,11 +299,14 @@ def test_unported_flags_name_their_step(no_models, argv, step):
         tcli.main([*argv, '--device', 'cpu'])
 
 
-def test_edit_refuses_pag_layers_then_names_step_10(no_models):
+def test_edit_refuses_pag_layers_first(no_models):
+    """As the JAX CLI, before anything loads (the IP2P guidance path has
+    no PAG); without ``--pag-layers`` and without a card, ``edit`` asks for
+    ``--device cpu`` like every model-running command."""
     with pytest.raises(SystemExit, match='does not apply to edit'):
         tcli.main(['edit', '--prompt', 'x', '--image', '/nonexistent.png',
                    '--pag-layers', 'mid', '--models', '/nonexistent'])
-    with pytest.raises(NotImplementedError, match='step 10'):
+    with pytest.raises(RuntimeError, match='--device cpu'):
         tcli.main(['edit', '--prompt', 'x', '--image', '/nonexistent.png'])
     r = subprocess.run([sys.executable, '-m', 'flexdiffuse_tpu_torch.cli',
                         'edit', '--prompt', 'x', '--image', '/none.png',
@@ -359,6 +367,10 @@ class FakeRunner:
         self.log.append(('compose', kw))
         return [], None
 
+    def edit(self, **kw):
+        self.log.append(('edit', kw))
+        return [], None
+
 
 class _Served:
     def serve_forever(self):
@@ -395,19 +407,6 @@ def fake_runners(no_models, monkeypatch):
     return logs
 
 
-def _normalise(log):
-    """Drop the keywords the port does not take (INERT, at their inert
-    values) from the JAX log's gen calls."""
-    out = []
-    for entry in log:
-        if entry[0] == 'gen':
-            assert {k: entry[1][k] for k in INERT} == INERT
-            entry = ('gen', {k: v for k, v in entry[1].items()
-                             if k not in INERT})
-        out.append(entry)
-    return out
-
-
 @pytest.mark.parametrize('argv', STEP9, ids=[' '.join(a) for a in STEP9])
 def test_step9_flags_reach_the_runner_as_in_jax(fake_runners, monkeypatch,
                                                 tmp_path, argv):
@@ -421,7 +420,7 @@ def test_step9_flags_reach_the_runner_as_in_jax(fake_runners, monkeypatch,
         return _train_sd2_as_in_jax(monkeypatch, argv)
     assert jcli.main(['--no-compile-cache', *argv]) == 0
     assert tcli.main([*argv, '--device', 'cpu']) == 0
-    jlog, tlog = _normalise(fake_runners['jax']), fake_runners['port']
+    jlog, tlog = fake_runners['jax'], fake_runners['port']
     assert tlog[0][0] == 'init' and tlog == jlog
     flag = argv[1]
     if flag in ('--karras', '--v-prediction', '--zero-snr',
@@ -430,6 +429,40 @@ def test_step9_flags_reach_the_runner_as_in_jax(fake_runners, monkeypatch,
     if flag == '--model-family':
         assert tlog[0][1]['text']['hidden_size'] == 1024
         assert tlog[0][1]['unet']['head_dim'] == 64
+
+
+@pytest.mark.parametrize('argv', STEP10, ids=[' '.join(a) for a in STEP10])
+def test_step10_flags_reach_the_runner_as_in_jax(fake_runners, tmp_path,
+                                                 argv):
+    """The port's Runner is built and driven as the JAX CLI builds and
+    drives its own: ``load_controlnet``/``load_ip_adapter`` (with
+    ``image_encoder_dir``) in the JAX order, then ``gen`` with the control
+    and IP images opened from disk and their scales, or ``edit``."""
+    image = _files(tmp_path)['guide']
+    argv = [image if a == 'IMAGE' else a for a in argv]
+    assert jcli.main(['--no-compile-cache', *argv]) == 0
+    assert tcli.main([*argv, '--device', 'cpu']) == 0
+    jlog, tlog = fake_runners['jax'], fake_runners['port']
+    assert tlog[0][0] == 'init' and tlog == jlog
+    names = [entry[0] for entry in tlog]
+    if '--controlnet' in argv:
+        assert ('load_controlnet', ('c',), {}) in tlog
+    if '--ip-adapter' in argv:
+        encoder = 'e' if '--ip-encoder' in argv else None
+        assert ('load_ip_adapter', ('a',),
+                {'image_encoder_dir': encoder}) in tlog
+    if argv[0] == 'generate':
+        kw = tlog[-1][1]
+        assert names[-1] == 'gen'
+        assert (kw['control_image'] is not None) == ('--control-image' in
+                                                     argv)
+        assert (kw['ip_image'] is not None) == ('--ip-image' in argv)
+        assert kw['controlnet_scale'] == (0.5 if '--controlnet-scale' in
+                                          argv else 1.0)
+        assert kw['ip_scale'] == (0.3 if '--ip-scale' in argv else 1.0)
+    if argv[0] == 'edit':
+        assert names[-1] == 'edit'
+        assert tlog[-1][1]['image_guidance_scale'] == 1.2
 
 
 class _Stop(Exception):
@@ -602,6 +635,34 @@ def test_compose_end_to_end(model_root, tiny_configs, tmp_path):  # noqa: F811
                       '--seed', '2', '--out', str(out)]) == 0
     names = _pngs(out)
     assert len(names) == 1 and 'ct2i_st2_gs8_se2' in names[0]
+
+
+def test_edit_end_to_end(model_root, tiny_configs, tmp_path,  # noqa: F811
+                         monkeypatch):
+    """``edit`` on the tiny snapshot made 8-channel (``--sd-model``
+    names it; the UNet's input width comes from its ``unet/config.json``):
+    the edited PNGs carry the JAX tag and the input's size. The reference's
+    ``preprocess`` would resize the PNG to 512², which the tiny VAE's
+    single mid attention cannot take on this CPU: a 16² stand-in."""
+    from tests.test_torch_loading import eight_channel_root
+    monkeypatch.setattr(
+        'flexdiffuse_tpu_torch.runner.preprocess',
+        lambda im: np.asarray(im.convert('RGB'), np.float32)[None] / 127.5
+        - 1.0)
+    root = eight_channel_root(model_root, tmp_path / 'models')
+    image = tmp_path / 'in.png'
+    Image.fromarray(np.random.default_rng(6).integers(
+        0, 256, (16, 16, 3), np.uint8)).save(image)
+    out = tmp_path / 'out'
+    assert tcli.main(['edit', '--models', str(root), '--device', 'cpu',
+                      '--sd-model', 'timbrooks/instruct-pix2pix',
+                      '--prompt', 'make it winter', '--image', str(image),
+                      '--steps', '2', '--seed', '3', '--samples', '2',
+                      '--out', str(out)]) == 0
+    names = _pngs(out)
+    assert len(names) == 2 and all('edit_st2_gs7_igs150_se3' in n
+                                   for n in names)
+    assert all(Image.open(out / n).size == (16, 16) for n in names)
 
 
 @pytest.fixture()

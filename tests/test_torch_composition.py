@@ -341,6 +341,29 @@ def test_debug_mode_matches_jax(models):
         assert np.abs(diff).max() <= 1
 
 
+def test_debug_mode_np_matches_jax(models):
+    """``debug=True`` with ``output_type='np'``: every recorded step from
+    t_start on, decoded to float32 [0, 1] and concatenated on axis 0, as
+    JAX's ``_package`` (``flexdiffuse_tpu/pipeline/flex.py:769-782``);
+    within one uint8 level of JAX's, as the 'pil' case."""
+    jpipe, tpipe = _pipes(models, 'pndm')
+    jguide, tguide = _guides(batch=2, seed=8)
+    pixels = _pixels(9)
+    key = jax.random.PRNGKey(44)
+    _, k_enc, k_noise, _ = jax.random.split(key, 4)
+    posterior = np.array(jax.random.normal(k_enc, (1, 8, 8, 4), jnp.float32))
+    noise = np.array(jax.random.normal(k_noise, (2, 8, 8, 4), jnp.float32))
+    want = jpipe(jguide, steps=4, init_image=jnp.asarray(pixels),
+                 strength=0.5, key=key, debug=True, output_type='np').images
+    got = tpipe(tguide, steps=4, init_image=pixels, strength=0.5,
+                noise=torch.from_numpy(noise),
+                posterior_noise=torch.from_numpy(posterior), debug=True,
+                output_type='np').images
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    assert got.shape == np.asarray(want).shape == (2 * 3, 16, 16, 3)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1.0 / 255)
+
+
 def test_prk_rejects_img2img(models):
     _, tpipe = _pipes(models, 'pndm', SchedulerConfig(skip_prk_steps=False))
     _, tguide = _guides()

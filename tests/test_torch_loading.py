@@ -13,6 +13,8 @@
 * ``Runner(model_root, device='cpu', dtype=torch.float32)`` against the
   JAX ``Runner(model_root)``: the pipelines' latents within 1e-4 and uint8
   images within one level on the same guidance inputs and noise.
+* A snapshot whose ``unet/config.json`` says ``in_channels: 8``
+  (InstructPix2Pix) loads 8-channel and ``edit`` runs it.
 * The port imports none of JAX, flax, msgpack, safetensors or the JAX
   package.
 """
@@ -455,14 +457,56 @@ def test_runner_defaults_to_the_card(model_root, tmp_path):  # noqa: F811
         Runner()
 
 
-@pytest.mark.parametrize('unet_json,step', [({'in_channels': 8}, 10)])
-def test_runner_refuses_unported_unets(tmp_path, unet_json, step):
-    sd_dir, _ = _dirs(str(tmp_path))
-    os.makedirs(os.path.join(sd_dir, 'unet'))
-    with open(os.path.join(sd_dir, 'unet', 'config.json'), 'w') as f:
-        json.dump(unet_json, f)
-    with pytest.raises(NotImplementedError, match=f'step {step}'):
-        Runner(model_root=str(tmp_path), device='cpu')
+def eight_channel_root(model_root: str, root) -> str:
+    """A copy of the tiny snapshot whose SD model is an InstructPix2Pix-style
+    8-channel UNet under ``instruct-pix2pix``: ``conv_in`` widened with
+    seeded random weights for the image channels, ``unet/config.json``
+    saying ``in_channels: 8``."""
+    import shutil
+    from safetensors.numpy import load_file, save_file
+    shutil.copytree(model_root, root)
+    sd_dir, _ = _dirs(str(root))
+    dst = os.path.join(os.path.dirname(sd_dir), 'instruct-pix2pix')
+    shutil.copytree(sd_dir, dst)
+    path = load.weights_file(os.path.join(dst, 'unet'))
+    sd = load_file(path)
+    w = sd['conv_in.weight']
+    extra = np.random.default_rng(0).normal(
+        size=w.shape[:1] + (4,) + w.shape[2:]).astype(w.dtype) * 0.1
+    sd['conv_in.weight'] = np.concatenate([w, extra], axis=1)
+    save_file(sd, path)
+    with open(os.path.join(dst, 'unet', 'config.json'), 'w') as f:
+        json.dump({'in_channels': 8}, f)
+    return str(root)
+
+
+def test_runner_loads_an_eight_channel_unet(model_root, tmp_path):  # noqa: F811,E501
+    """A snapshot whose unet/config.json says ``in_channels: 8`` (an
+    InstructPix2Pix checkpoint) loads with that width, also over the
+    tiny config given, with the stored ``conv_in``; ``edit`` runs it at
+    UNet batch 3."""
+    root = eight_channel_root(model_root, tmp_path / 'models')
+    runner = Runner(model_root=root, device='cpu', dtype=torch.float32,
+                    config=RunConfig(sd_model='timbrooks/instruct-pix2pix',
+                                     output_dir=str(tmp_path / 'out')),
+                    text_config=CONFIGS['text'][1],
+                    vision_config=CONFIGS['vision'][1],
+                    unet_config=tm.TINY_UNET, vae_config=tm.TINY_VAE)
+    unet = runner.pipe.unet
+    assert unet.config.in_channels == 8
+    stored = load.load_state_dict(os.path.join(root, 'instruct-pix2pix',
+                                               'unet'))['conv_in.weight']
+    assert torch.equal(unet.conv_in.weight, stored)
+    batches = []
+    hook = unet.register_forward_pre_hook(
+        lambda m, args: batches.append(tuple(args[0].shape)))
+    image = np.random.default_rng(1).uniform(-1, 1, (1, 16, 16, 3)).astype(
+        np.float32)
+    images, _ = runner.edit('make it winter', image, steps=2, seed=1,
+                            save=False)
+    hook.remove()
+    assert batches == [(3, 8, 8, 8)] * 3
+    assert images[0].size == (16, 16)
 
 
 def test_runner_loads_a_guidance_embedded_lcm_unet(model_root, tmp_path,  # noqa: F811,E501

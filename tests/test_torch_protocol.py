@@ -188,3 +188,25 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(4) @ torch.ones(4)
     path = tmp_path / 'prof' / 'trace.json'
     assert path.exists() and path.stat().st_size > 0
+
+
+@pytest.mark.parametrize('prompt,scale', [('a deer', 7.5),
+                                          (['a deer', 'a fox'], 1.0)])
+def test_prompt_guidance_matches_jax(runners, prompt, scale):
+    """``prompt_guidance(encoder, prompt, guidance_scale)`` (JAX
+    ``pipeline/guides.py:326-332``): equal ``SimpleGuidance`` fields for the
+    same prompt and scale: the embeddings and the empty prompt's within
+    1e-5, the scale, and CFG on only above 1."""
+    from flexdiffuse_tpu.pipeline import prompt_guidance as jax_prompt_guidance
+    from flexdiffuse_tpu_torch.pipeline import (SimpleGuidance,
+                                                prompt_guidance)
+    jr, tr = runners
+    want = jax_prompt_guidance(jr.encoder, prompt, scale)
+    got = prompt_guidance(tr.encoder, prompt, scale)
+    assert isinstance(got, SimpleGuidance)
+    for name in ('embeddings', 'uncond'):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), rtol=0,
+                                   atol=1e-5)
+    assert got.guidance_scale == float(want.guidance_scale) == scale
+    assert got.cfg == want.cfg == (scale > 1.0)

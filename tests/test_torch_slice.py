@@ -4,7 +4,8 @@
     through the port's UNet and scheduler hits the committed golden.
 (b) ``FlexPipeline`` txt2img (with ``noise=``) and img2img (with the two
     noises replayed from JAX's ``jax.random.split(key, 4)``) match the JAX
-    pipeline on tiny models: latents to 1e-4, uint8 images within 1 level.
+    pipeline on tiny models: latents to 1e-4, uint8 images within 1 level;
+    ``return_dict=False`` returns JAX's ``(images, False)``.
 (c) ``Runner.from_models(...).gen`` with a PIL guide returns PIL images of
     the requested size.
 (d) The host-side copies (tokenizers, image prep) equal the originals.
@@ -178,6 +179,36 @@ def test_pipeline_txt2img_matches_jax(pipes):
     _compare(jpipe, tpipe, jlat, tlat)
 
 
+@pytest.mark.parametrize('output_type', ['latent', 'np'])
+def test_pipeline_return_dict_false_matches_jax(pipes, output_type):
+    """``return_dict=False`` returns ``(images, False)``, as JAX's
+    ``__call__`` (``flexdiffuse_tpu/pipeline/flex.py:796-797``), with the
+    images the dict form gives."""
+    jpipe, tpipe = pipes
+    jguide, tguide = _guides(batch=1, seed=4)
+    noise = np.random.default_rng(5).normal(size=(1, 8, 8, 4)).astype(
+        np.float32)
+    jout = jpipe(jguide, steps=3, init_size=(16, 16),
+                 noise=jnp.asarray(noise), key=jax.random.PRNGKey(1),
+                 output_type=output_type, return_dict=False)
+    tout = tpipe(tguide, steps=3, init_size=(16, 16),
+                 noise=torch.from_numpy(noise), output_type=output_type,
+                 return_dict=False)
+    assert isinstance(tout, tuple) and len(tout) == 2
+    assert tout[1] is False and jout[1] is False
+    as_dict = tpipe(tguide, steps=3, init_size=(16, 16),
+                    noise=torch.from_numpy(noise),
+                    output_type=output_type).images
+    if output_type == 'latent':
+        _compare(jpipe, tpipe, jout[0], tout[0])
+        assert torch.equal(tout[0], as_dict)
+    else:
+        assert tout[0].shape == np.asarray(jout[0]).shape == (1, 16, 16, 3)
+        np.testing.assert_allclose(tout[0], np.asarray(jout[0]), rtol=0,
+                                   atol=1.0 / 255)
+        np.testing.assert_array_equal(tout[0], as_dict)
+
+
 @pytest.mark.parametrize('strength', [0.6, 1.0])
 def test_pipeline_img2img_matches_jax(pipes, strength):
     """The two noises the JAX pipeline draws from its key (flex.py:593)
@@ -273,11 +304,20 @@ def test_runner_takes_the_sampling_keywords(runner, monkeypatch, name, value,
         runner.disable_pag()
 
 
-@pytest.mark.parametrize('name,step', [('control_image', 10)])
-def test_runner_rejects_unported_keywords(runner, name, step):
-    with pytest.raises(NotImplementedError, match=f'step {step}'):
+@pytest.mark.parametrize('name,match', [
+    ('control_image', 'without a controlnet'),
+    ('ip_image', 'no IP-Adapter is loaded'),
+    ('ip_embed', 'no IP-Adapter is loaded')])
+def test_runner_rejects_conditioning_without_its_model(runner, name, match):
+    """A control image without a ControlNet, or an image prompt without an
+    IP-Adapter, raises the JAX Runner's ``ValueError``; an unknown keyword
+    a ``TypeError``."""
+    value = (np.zeros((16, 16, 3), np.float32) if name == 'control_image'
+             else np.zeros(32, np.float32) if name == 'ip_embed'
+             else _pil(16, 1))
+    with pytest.raises(ValueError, match=match):
         runner.gen(prompt='a deer', steps=2, init_size=(16, 16), save=False,
-                   **{name: 1})
+                   **{name: value})
     with pytest.raises(TypeError):
         runner.gen(prompt='a deer', not_a_keyword=1)
 

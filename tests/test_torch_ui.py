@@ -9,8 +9,9 @@ against the JAX package's.
   ``ip_image``/``ip_scale``, the port only with their image.
 * Over real HTTP on port 0, the port's server serves the JAX package's page
   and ``/api/health``, runs a 64² generate and compose on the tiny models
-  (fp32, CPU), clamps debug runs, and answers a failure (an unported
-  keyword's ``NotImplementedError``) as JSON 500.
+  (fp32, CPU), clamps debug runs, runs a posted control image through a
+  Runner with a ControlNet, and answers a failure (a control image without
+  a ControlNet, an unported keyword) as JSON 500.
 """
 import base64
 import io
@@ -21,6 +22,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from flexdiffuse_tpu.interface import server as jserver
@@ -252,7 +254,7 @@ def test_sampling_fields_generate(ui):
 
 @pytest.mark.parametrize('payload,message', [
     ({'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64,
-      'control_image': _png_b64()}, 'step 10'),
+      'control_image': _png_b64()}, 'without a controlnet'),
     ({'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64,
       'refine_strength': 0.3}, 'refine_strength'),
 ])
@@ -266,6 +268,35 @@ def test_error_surfaced_as_json(ui, payload, message):
     assert e.value.code == 500
     body = json.loads(e.value.read())
     assert message in body['error']
+
+
+def test_control_image_reaches_a_runner_with_a_controlnet(ui, monkeypatch,
+                                                          tmp_path):
+    """``/api/generate`` with a base64 ``control_image`` and
+    ``controlnet_scale`` on a Runner that loaded a ControlNet (seeded random
+    weights, diffusers layout): 200, and the control branch ran beside
+    every UNet evaluation (3 PLMS rows at CFG batch 2)."""
+    from flexdiffuse_tpu_torch import models as tm
+    from flexdiffuse_tpu_torch.models.controlnet import ControlNetModel
+    from flexdiffuse_tpu_torch.weights.safetensors import save_file
+    base, _ = ui
+    _, tr = runner_pair(str(tmp_path))
+    torch.manual_seed(0)
+    net = ControlNetModel(tm.TINY_UNET, cond_channels=(8, 16))
+    path = str(tmp_path / 'controlnet.safetensors')
+    save_file({k: v.detach() for k, v in net.state_dict().items()}, path)
+    tr.load_controlnet(path)
+    calls = []
+    tr.pipe.controlnet.register_forward_pre_hook(
+        lambda m, args: calls.append(args[0].shape[0]))
+    monkeypatch.setattr(tserver, '_runner', tr)
+    out = _post(base + '/api/generate', {
+        'prompt': 'x', 'steps': 2, 'height': 64, 'width': 64, 'seed': 4,
+        'samples': 1, 'control_image': _png_b64((40, 40), seed=6),
+        'controlnet_scale': 0.5})
+    assert len(out['images']) == 1
+    assert _image(out['images'][0]).size == (64, 64)
+    assert calls == [2, 2, 2]
 
 
 def test_launch_keeps_the_runner_lazy(monkeypatch):
