@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-train 3 [--profile-out DIR]
-    python3 chip_smoke.py --profile-gen 5 [--profile-out DIR]
+    python3 chip_smoke.py --profile-gen 5 [--family sdxl] [--profile-out DIR]
 
 The second and third forms skip the smoke test and profile train steps
 (``profile_training``) or UNet evaluations at 512² with K6 and with the
-plain GroupNorm (``profile_generate``) instead. The first:
+plain GroupNorm, or with ``--family sdxl`` SDXL base evaluations at 1024²
+(``profile_generate``), instead. The first:
 
 Kernels and inference (the first and third slices):
 
@@ -222,8 +223,47 @@ The conditioning models (the eleventh slice), run after step 17:
     of the module tree, with the control branch's (``control_launches``),
     its e2e seconds and peak device memory.
 
+SDXL base and refiner at 1024² (the twelfth slice), run after step 18:
+
+19. Holds K1 at SDXL's four self-attention shapes (STEP19_K1_SHAPES: the
+    base's 10 and 20 heads of 64 at 4096 and 1024 tokens, the refiner's 12
+    and 24; ``fa.SM90_TILES[True]``) and K6 at each of the 40 distinct
+    calls (shape, SiLU, ε) of one base and one refiner CFG evaluation, one
+    1024² decode and one encode, taken from the module tree
+    (``sdxl_gn_specs``), by step 3's rule; K1 and six K6 shapes
+    (STEP19_GN_TIMED: the base's and refiner's 128², 32² and 16² levels,
+    the 960-channel level the plan streams, the 1024² decode's
+    activations) timed as step 3 times its shapes. Writes into a
+    temporary directory, removed after, seeded random weights at SDXL's
+    published widths built on the card (bigG with its pooled projection,
+    the base and refiner UNets, the VAE; step 6's CLIP ViT-L/14 towers as
+    encoder 1 and the guide's vision tower) as fp16 HF-layout snapshots
+    (≈ 12 GiB; the free space checked first): SDXL base (``unet/``,
+    ``vae/``, ``text_encoder/``, ``text_encoder_2/``, ``tokenizer/``), the
+    refiner (``unet/``) and CLIP ViT-L/14, and loads them back through
+    ``SDXLRunner(model_root=, clip_root=, refiner_root=)`` (every loaded
+    tensor equal to the written one; write, load and to-card seconds).
+    Checks one 1024² CFG evaluation of the base and of the refiner UNet
+    through K1 and K6 against the plain backends (UNET_REL_TOL), with the
+    module tree's launches (K1_SDXL, K6_SDXL), and that ``added_cond``
+    moves ε by more than UNET_REL_TOL (against zero ``text_embeds`` and
+    ``time_ids``). Then seven runs at 1024², bf16, 25 DPM++ steps, CFG 5:
+    txt2img, txt2img with a guide image (tweened into the CLIP-L half),
+    img2img of a 1024² image at strength 0.6, base→refiner at
+    ``refine_strength`` 0.3, DeepCache 2, txt2img after ``apply_lora`` of
+    an SGM-named kohya LoRA (``lora_unet_*``, ``lora_te1_``,
+    ``lora_te2_``; a UNet and an encoder-2 weight checked to be the stored
+    weight plus the update rounded once), and ``cli generate
+    --model-family sdxl --refiner`` in-process on the same snapshots. Each:
+    the base's and the refiner's UNet evaluations it must make, its VAE
+    decodes and encodes, finite ε, latents and image, exactly the K1 and K6
+    launches (by path) of the module tree with ``added_cond``
+    (``tree_launches``), its e2e seconds and peak device memory.
+    ``--profile-gen N --family sdxl`` profiles SDXL base evaluations at
+    1024² instead of the smoke test.
+
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6, 11, 12, 13, 15 and each run of 17 and 18) and read just after; launches
+(steps 6, 11, 12, 13, 15 and each run of 17, 18 and 19) and read just after; launches
 made to check a kernel against its plain twin do not count. Any failed phase raises, so
 the script exits non-zero; without CUDA it exits non-zero at once and
 prints no result.
@@ -235,6 +275,7 @@ import base64
 import collections
 import copy
 import dataclasses
+import gc
 import io
 import json
 import logging
@@ -258,11 +299,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           CLIP_VIT_L14_VISION,
+                                          OPENCLIP_BIGG_TEXT,
                                           OPENCLIP_H_TEXT, SD14_UNET,
                                           SD14_VAE, SD21_UNET, SD21_VAE,
-                                          AutoencoderKL,
+                                          SDXL_REFINER_UNET, SDXL_UNET,
+                                          SDXL_VAE, AutoencoderKL,
                                           CLIPTextModel, CLIPVisionModel,
                                           UNet2DCondition)
+from flexdiffuse_tpu_torch.models import sdxl as sdxl_models
 from flexdiffuse_tpu_torch.models.configs import OPENCLIP_H_VISION
 from flexdiffuse_tpu_torch.models.controlnet import (COND_EMBED_CHANNELS,
                                                      ControlNetModel)
@@ -1341,13 +1385,35 @@ def _with_eta(runner, eta: float):
     return runner
 
 
-def profile_generate(steps: int, out: str) -> None:
+def profile_generate(steps: int, out: str, family: str = 'sd1') -> None:
     """``--profile-gen``: where a 512² UNet evaluation's time goes (CFG
     batch 2, bf16, seeded random SD-1.4 weights), through K1 and K6, then
-    through K1 with the plain GroupNorm, each by ``profile_steps``."""
+    through K1 with the plain GroupNorm, each by ``profile_steps``. With
+    ``family`` 'sdxl': the SDXL base UNet at 1024² (CFG batch 2, seeded
+    random weights, random context and ``added_cond``), through K1 and
+    K6."""
     with ThreadPoolExecutor(3) as pool:
         list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE),
                       (fa.BUILD_PARTS, fb.BUILD_PARTS, 1)))
+    if family == 'sdxl':
+        torch.manual_seed(STEP19_SEED)
+        with torch.device('cuda'):
+            unet = UNet2DCondition(SDXL_UNET)
+        unet = unet.to(BF16).eval().requires_grad_(False)
+        gen = torch.Generator('cuda').manual_seed(STEP19_SEED)
+        lat = torch.randn((2, 128, 128, 4), generator=gen, device='cuda')
+        t = torch.full((2,), 981.0, device='cuda')
+        ctx = torch.randn((2, 77, 2048), generator=gen, device='cuda')
+        added = {'text_embeds': torch.randn((2, 1280), generator=gen,
+                                            device='cuda'),
+                 'time_ids': sdxl_models.time_ids().expand(2, -1)}
+
+        def xl_step():
+            with torch.no_grad():
+                unet(lat, t, ctx, added_cond=added)
+
+        profile_steps('sdxl_unet_k6', xl_step, steps, out)
+        return
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
                                 FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size))
@@ -1589,9 +1655,10 @@ def rss_gib() -> tuple:
     return cur / 2**20, peak / 2**20
 
 
-def load_runner(root: str) -> tuple:
-    """``Runner(model_root=root)`` on its defaults, timing the part spent
-    filling the modules on the card (``weights.load.instantiate``)."""
+def load_runner(root: str, make=None) -> tuple:
+    """``Runner(model_root=root)`` on its defaults (or ``make()``), timing
+    the part spent filling the modules on the card
+    (``weights.load.instantiate``)."""
     spent = []
     real = weights_load.instantiate
 
@@ -1607,7 +1674,7 @@ def load_runner(root: str) -> tuple:
     weights_load.instantiate = timed
     try:
         t0 = time.perf_counter()
-        runner = Runner(model_root=root)
+        runner = make() if make else Runner(model_root=root)
         total = time.perf_counter() - t0
     finally:
         weights_load.instantiate = real
@@ -1617,11 +1684,16 @@ def load_runner(root: str) -> tuple:
 
 
 def check_loaded(runner, text, vision, unet, vae) -> None:
-    """Every loaded tensor equals the written one (the source's, rounded
-    to the snapshot's fp16, then to the Runner's bf16)."""
-    pairs = ((runner.encoder.text_model, text),
-             (runner.encoder.vision_model, vision),
-             (runner.pipe.unet, unet), (runner.pipe.vae, vae))
+    """Every loaded tensor of the Runner equals the written one."""
+    check_pairs(((runner.encoder.text_model, text),
+                 (runner.encoder.vision_model, vision),
+                 (runner.pipe.unet, unet), (runner.pipe.vae, vae)))
+
+
+def check_pairs(pairs) -> None:
+    """Every tensor of each loaded module equals its source's (rounded to
+    the snapshot's fp16, then to the module's bf16), ``pairs`` of (loaded,
+    source)."""
     for loaded, src in pairs:
         want = src.state_dict()
         got = loaded.state_dict()
@@ -2113,21 +2185,24 @@ LCM_COND_DIM = 256      # LCM-Dreamshaper's time_cond_proj_dim
 
 class CallLog:
     """Every UNet evaluation of a run (batch, latent size, cache mode, PAG
-    rows, the cache's and the IP-Adapter tokens' shapes, the module's
-    settings and config), every ControlNet evaluation (its config and
-    shapes) and every VAE decode and encode (their latent shapes), from
-    hooks; device-side finiteness flags of ε and of the latents entering a
-    decode."""
+    rows, the cache's, the IP-Adapter tokens' and SDXL's ``added_cond``
+    shapes, the module's settings and config), every ControlNet evaluation
+    (its config and shapes) and every VAE decode and encode (their latent
+    shapes; without ``vae``, none), from hooks; device-side finiteness
+    flags of ε and of the latents entering a decode."""
 
-    def __init__(self, unet, vae, controlnet=None) -> None:
+    def __init__(self, unet, vae=None, controlnet=None) -> None:
         self.evals, self.decodes, self.encodes, self.finite = [], [], [], []
         self.control = []
         self.handles = [
             unet.register_forward_pre_hook(self._pre, with_kwargs=True),
-            unet.register_forward_hook(self._post),
-            vae.post_quant_conv.register_forward_pre_hook(self._decode),
-            vae.quant_conv.register_forward_hook(
-                lambda m, args, out: self.encodes.append(tuple(out.shape)))]
+            unet.register_forward_hook(self._post)]
+        if vae is not None:
+            self.handles += [
+                vae.post_quant_conv.register_forward_pre_hook(self._decode),
+                vae.quant_conv.register_forward_hook(
+                    lambda m, args, out: self.encodes.append(
+                        tuple(out.shape)))]
         if controlnet is not None:
             self.handles.append(controlnet.register_forward_pre_hook(
                 lambda m, args: self.control.append(dict(
@@ -2144,6 +2219,7 @@ class CallLog:
         lat, _, ctx = args[:3]
         cache = kwargs.get('deep_cache')
         ip = kwargs.get('ip_ctx')
+        added = kwargs.get('added_cond')
         self.evals.append(dict(
             batch=lat.shape[0], hw=tuple(lat.shape[1:3]),
             channels=lat.shape[3], ctx=tuple(ctx.shape[1:]),
@@ -2152,6 +2228,8 @@ class CallLog:
             tcond=kwargs.get('timestep_cond') is not None,
             cache=None if cache is None else tuple(cache.shape),
             ip=None if ip is None else tuple(ip.shape),
+            added=None if added is None else tuple(
+                tuple(added[k].shape) for k in ('text_embeds', 'time_ids')),
             config=module.config,
             settings=(module.freeu, module.tome, module.pag_layers)))
 
@@ -2240,6 +2318,9 @@ def eval_launches(e: dict) -> dict:
             kw['timestep_cond'] = meta(b, e['config'].time_cond_proj_dim)
         if e['ip'] is not None:
             kw['ip_ctx'] = meta(*e['ip'])
+        if e.get('added') is not None:
+            kw['added_cond'] = dict(zip(('text_embeds', 'time_ids'),
+                                        (meta(*s) for s in e['added'])))
         # ControlNet residuals are adds into the skips: no kernel launch, so
         # the pass runs without them (control_launches counts the branch).
         unet = _meta_model(UNet2DCondition, e['config'], e['settings'])
@@ -2370,20 +2451,25 @@ def step17_runs(make, lcm_unet, guide, size: int, steps: int) -> list:
             for label, runner, kw, evals, decodes in runs]
 
 
+def _observe(runner) -> list:
+    """CallLogs on ``runner``'s pipeline (UNet, VAE, ControlNet) and, for an
+    ``SDXLRunner`` with a refiner, on the refiner's UNet."""
+    pipe = runner.pipe
+    logs = [CallLog(pipe.unet, pipe.vae, pipe.controlnet)]
+    refiner = getattr(runner, 'refiner_pipe', None)
+    if refiner is not None:
+        logs.append(CallLog(refiner.unet))
+    return logs
+
+
 def run_feature(label: str, runner, gen_kw: dict, evals: list,
                 decodes: list, image_side: int, check: bool = True,
                 call: str = 'gen', control: list = (),
-                step: int = 17) -> dict:
-    """One step-17 or step-18 run (``runner.<call>(**gen_kw)``) with the
-    launch counts at 0: the UNet evaluations, ControlNet evaluations and
-    VAE decodes it must make (``evals``; ``control`` as (batch, latent
-    side); ``decodes``), finite ε and latents, finite ``image_side``² uint8
-    images, and exactly the launches the module tree implies for those
-    evaluations, decodes and encodes (:func:`eval_launches`,
-    :func:`control_launches`, :func:`vae_launches`); the peak device
-    memory of the run."""
+                step: int = 17, refiner_evals: list = ()) -> dict:
+    """One step-17, 18 or 19 run (``runner.<call>(**gen_kw)``) with the
+    launch counts at 0, held by :func:`verify_run`."""
     pipe = runner.pipe
-    log = CallLog(pipe.unet, pipe.vae, pipe.controlnet)
+    logs = _observe(runner)
     cuda = pipe.device.type == 'cuda'
     if cuda:
         torch.cuda.synchronize()
@@ -2393,13 +2479,37 @@ def run_feature(label: str, runner, gen_kw: dict, evals: list,
     try:
         images, _ = getattr(runner, call)(**gen_kw)
     finally:
-        log.remove()
-    e2e = time.perf_counter() - t0
+        for log in logs:
+            log.remove()
+    return verify_run(label, logs, images, time.perf_counter() - t0,
+                      pipe.vae.config, evals, decodes, image_side, check,
+                      control, step, refiner_evals, cuda)
+
+
+def verify_run(label: str, logs: list, images, e2e: float, vae_config,
+               evals: list, decodes: list, image_side: int,
+               check: bool = True, control: list = (), step: int = 17,
+               refiner_evals: list = (), cuda: bool = True) -> dict:
+    """A run's record (``logs`` from :func:`_observe`): the UNet
+    evaluations it must make (``evals``, and the refiner's
+    ``refiner_evals``, as (batch, latent side, cache mode, PAG rows)),
+    the ControlNet evaluations (``control`` as (batch, latent side)) and
+    VAE decodes (``decodes`` as (latent side, count)), finite ε and
+    latents, finite ``image_side``² uint8 images, and exactly the launches
+    the module tree implies for those evaluations, decodes and encodes
+    (:func:`eval_launches`, :func:`control_launches`,
+    :func:`vae_launches`); the peak device memory of the run."""
     got = counts()
-    seen = [(e['batch'], e['hw'][0], e['mode'], e['pag']) for e in log.evals]
-    if seen != evals:
-        raise AssertionError(f'{label}: UNet evaluations {seen}, expected '
-                             f'{evals}')
+    log, ref_log = logs[0], (logs[1] if len(logs) > 1 else None)
+    nets = [('UNet', log, evals)]
+    if ref_log is not None or refiner_evals:
+        nets.append(('refiner UNet', ref_log, list(refiner_evals)))
+    for name, lg, want_evals in nets:
+        seen = [] if lg is None else [
+            (e['batch'], e['hw'][0], e['mode'], e['pag']) for e in lg.evals]
+        if seen != want_evals:
+            raise AssertionError(f'{label}: {name} evaluations {seen}, '
+                                 f'expected {want_evals}')
     seen = [(c['batch'], c['hw'][0]) for c in log.control]
     if seen != list(control):
         raise AssertionError(f'{label}: ControlNet evaluations {seen}, '
@@ -2408,9 +2518,10 @@ def run_feature(label: str, runner, gen_kw: dict, evals: list,
     if [d[2:] for d in log.decodes] != want_dec:
         raise AssertionError(f'{label}: decodes {log.decodes}, expected '
                              f'{want_dec}')
-    parts = [eval_launches(e) for e in log.evals] + [
+    all_evals = [e for lg in logs for e in lg.evals]
+    parts = [eval_launches(e) for e in all_evals] + [
         control_launches(c) for c in log.control] + [
-        vae_launches(pipe.vae.config, log.decodes, log.encodes)]
+        vae_launches(vae_config, log.decodes, log.encodes)]
     want = _sum(p[0] for p in parts)
     arrs = [np.asarray(im) for im in images]
     res = dict(label=label, unet_evaluations=len(log.evals),
@@ -2420,8 +2531,11 @@ def run_feature(label: str, runner, gen_kw: dict, evals: list,
                e2e_s=e2e, launches=got, expected=want,
                peak_gib=(torch.cuda.max_memory_allocated() / 2**30
                          if cuda else None))
+    if ref_log is not None:
+        res['refiner_evaluations'] = len(ref_log.evals)
+    res['encodes'] = len(log.encodes)
     print(f'step {step} {label}: {json.dumps(res)}', flush=True)
-    if not all(bool(f) for f in log.finite):
+    if not all(bool(f) for lg in logs for f in lg.finite):
         raise AssertionError(f'{label}: non-finite ε or latents')
     if len(arrs) != 1 or any(
             a.shape != (image_side, image_side, 3) or a.dtype != np.uint8
@@ -2627,7 +2741,8 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
             b.float().abs().max()).item()
 
 
-def check_conditioning(label: str, run, meta_run, off=None) -> dict:
+def check_conditioning(label: str, run, meta_run, off=None,
+                       step: int = 18) -> dict:
     """One 512² evaluation ``run()`` through K1 and K6 against the same with
     plain attention and GroupNorm: max|Δε|/max|ε| within UNET_REL_TOL, its
     launches exactly the module tree's (``meta_run`` on the meta device);
@@ -2645,7 +2760,8 @@ def check_conditioning(label: str, run, meta_run, off=None) -> dict:
                expected=want)
     if eps_off is not None:
         res['branch_rel'] = _rel(eps_k, eps_off)
-    print(f'step 18 model check, {label}: {json.dumps(res)}', flush=True)
+    print(f'step {step} model check, {label}: {json.dumps(res)}',
+          flush=True)
     if not (torch.isfinite(eps_k).all() and res['rel'] <= UNET_REL_TOL):
         raise AssertionError(f'{label}: K1+K6 disagrees with the plain path')
     if got != want:
@@ -2779,6 +2895,384 @@ def run_conditioning_phase(text, vision, unet, vae, root: str,
                 launches=_sum(r['launches'] for r in results))
 
 
+# --- Step 19: SDXL base and refiner at 1024² (the twelfth slice) ---------
+
+STEP19_SEED = SEED + 19
+SDXL_SIZE, SDXL_STEPS, SDXL_CFG = 1024, 25, 5.0
+SDXL_REFINE, SDXL_STRENGTH = 0.3, 0.6
+# K1 at SDXL's self-attentions at 1024²: the base's 4096- and 1024-token
+# levels (10 and 20 heads of 64) and the refiner's (12 and 24), all on
+# fa.SM90_TILES[True].
+STEP19_K1_SHAPES = [(2, 10, 4096, 64), (2, 20, 1024, 64),
+                    (2, 12, 4096, 64), (2, 24, 1024, 64)]
+# K6 is held at every call of the SDXL path (sdxl_gn_specs); these are
+# timed: the base's first, widest-streamed and deepest 128²/32² levels, the
+# refiner's 128² and 16² levels and the decode's 1024² activations, with
+# SiLU.
+STEP19_GN_TIMED = [(2, 320, 128, 128), (2, 960, 128, 128), (2, 2560, 32, 32),
+                   (2, 384, 128, 128), (2, 3072, 16, 16),
+                   (1, 128, 1024, 1024)]
+# K6 calls and their stream-path share per SDXL base and refiner evaluation
+# under CFG at 1024², per 1024² decode and encode, as gn.plan_group_norm
+# plans them (tests/test_torch_group_norm.py -k sdxl holds these on the
+# CPU); K1 per evaluation.
+K6_SDXL = {'base': (46, 1), 'refiner': (56, 1), 'decode': (30, 19),
+           'encode': (22, 12)}
+K1_SDXL = {'base': 70, 'refiner': 40}
+SDXL_DIRS = ('stable-diffusion-xl-base-1.0',
+             'stable-diffusion-xl-refiner-1.0', 'clip-vit-large-patch14')
+
+
+def build_sdxl(device: str, dtype: torch.dtype, seed: int):
+    """SDXL's second text tower (OpenCLIP bigG with its pooled
+    projection), the base and refiner UNets and the VAE at their published
+    widths, seeded random, created directly on ``device``."""
+    torch.manual_seed(seed)
+    out = []
+    for cls, cfg in ((CLIPTextModel, OPENCLIP_BIGG_TEXT),
+                     (UNet2DCondition, SDXL_UNET),
+                     (UNet2DCondition, SDXL_REFINER_UNET),
+                     (AutoencoderKL, SDXL_VAE)):
+        with torch.device(device):
+            model = cls(cfg)
+        out.append(model.to(dtype).eval().requires_grad_(False))
+    return tuple(out)
+
+
+def write_sdxl(root: str, text, vision, te2, unet, refiner, vae) -> dict:
+    """The SDXL base snapshot (``unet/``, ``vae/``, ``text_encoder/`` the
+    CLIP-L text tower, ``text_encoder_2/`` bigG with ``text_projection``,
+    ``tokenizer/``), the refiner's (``unet/``) and the CLIP ViT-L/14
+    snapshot for ``clip_root``, fp16 HF layout under ``root``, after
+    checking the free space."""
+    base, ref, clip = (os.path.join(root, d) for d in SDXL_DIRS)
+    files = {
+        os.path.join(base, 'unet', 'diffusion_pytorch_model.safetensors'):
+        unet.state_dict(),
+        os.path.join(base, 'vae', 'diffusion_pytorch_model.safetensors'):
+        vae.state_dict(),
+        os.path.join(base, 'text_encoder', 'model.safetensors'):
+        text.state_dict(),
+        os.path.join(base, 'text_encoder_2', 'model.safetensors'):
+        te2.state_dict(),
+        os.path.join(ref, 'unet', 'diffusion_pytorch_model.safetensors'):
+        refiner.state_dict(),
+        os.path.join(clip, 'model.safetensors'):
+        {**text.state_dict(), **vision.state_dict()}}
+    need = sum(t.numel() * 2 for sd in files.values() for t in sd.values())
+    free = shutil.disk_usage(root).free
+    if free < 1.1 * need:
+        raise RuntimeError(f'not enough free space under {root}: '
+                           f'{free / 2**30:.1f} GiB for '
+                           f'{1.1 * need / 2**30:.1f}')
+    t0 = time.perf_counter()
+    for path, sd in files.items():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        weights_safetensors.save_file(
+            {k: v.to(SNAPSHOT_DTYPE) for k, v in sd.items()}, path)
+    os.makedirs(os.path.join(base, 'tokenizer'))
+    for d in (os.path.join(base, 'tokenizer'), clip):
+        write_bpe_files(d, text.config.vocab_size)
+    write_s = time.perf_counter() - t0
+    print(f'step 19 snapshots: {need / 2**30:.2f} GiB under {root} '
+          f'({free / 2**30:.1f} GiB free) in {write_s:.2f} s', flush=True)
+    return dict(base=base, refiner=ref, clip=clip, bytes=need,
+                write_s=write_s)
+
+
+def write_sgm_lora(path: str, unet, te1, te2, seed: int) -> dict:
+    """A rank-8 kohya SDXL adapter from seeded factors, SGM-named: the
+    self-attention projections of every transformer block of ``unet``
+    (``lora_unet_input_blocks_*``, ``middle_block_1``,
+    ``output_blocks_*``) and the q/v projections of both text towers
+    (``lora_te1_``, ``lora_te2_``). Returns one adapted module per target
+    as ``{target: name}``."""
+    gen = torch.Generator().manual_seed(seed)
+    named = dict(unet.named_modules())
+    mods = []
+    for sgm, name in weights_lora.sgm_block_map(unet.config).items():
+        for d in range(len(named[name].transformer_blocks)):
+            for leaf in ('to_q', 'to_k', 'to_v', 'to_out.0'):
+                full = f'{name}.transformer_blocks.{d}.attn1.{leaf}'
+                key = (f'lora_unet_{sgm}_transformer_blocks_{d}_attn1_'
+                       f'{leaf.replace(".", "_")}')
+                mods.append(('unet', key, full, named[full]))
+    for target, prefix, model in (('te', 'lora_te1_', te1),
+                                  ('te2', 'lora_te2_', te2)):
+        for n, m in model.named_modules():
+            if n.endswith(('q_proj', 'v_proj')):
+                mods.append((target, prefix + n.replace('.', '_'), n, m))
+    out, first = {}, {}
+    for target, key, name, m in mods:
+        out[f'{key}.lora_down.weight'] = 0.02 * torch.randn(
+            (LORA_RANK, m.in_features), generator=gen)
+        out[f'{key}.lora_up.weight'] = 0.02 * torch.randn(
+            (m.out_features, LORA_RANK), generator=gen)
+        out[f'{key}.alpha'] = torch.tensor(float(LORA_RANK))
+        first.setdefault(target, name)
+    weights_safetensors.save_file(out, path)
+    return first
+
+
+def check_sdxl_merge(path: str, target: str, name: str, module,
+                     stored: torch.Tensor, unet_config) -> None:
+    """The merged weight of ``name`` is the snapshot's stored value plus
+    the update, in fp32, rounded once."""
+    (down, up, a), = [v for (t, n), v in weights_lora.parse_lora(
+        weights_load.load_state_dict(path), unet_config)[0].items()
+        if (t, n) == (target, name)]
+    delta = torch.from_numpy((a * (up.astype(np.float64) @
+                                   down.astype(np.float64))
+                              ).astype(np.float32))
+    got = module.weight
+    if not torch.equal(got.cpu(), (stored.float() + delta).to(got.dtype)):
+        raise AssertionError(f'SDXL LoRA merge of {target}:{name} is not '
+                             'the stored weight plus the update rounded once')
+
+
+def sdxl_rows(strength=None, steps: int = SDXL_STEPS) -> int:
+    """The denoise rows of a DPM++ run of ``steps`` steps (img2img from
+    ``strength``)."""
+    sched = schedulers.make('dpmpp', steps)
+    if strength is None:
+        return sched.length
+    _, t_start = schedulers.init_timestep_info(sched, strength, steps)
+    return sched.length - t_start * sched.rows_per_step
+
+
+def sdxl_gn_specs() -> list:
+    """Every distinct K6 call of the SDXL path at 1024²: ``(shape, silu,
+    eps, input dtype, output dtype)`` of one base and one refiner CFG
+    evaluation, one decode and one encode, from :func:`tree_launches`' pass
+    over the module tree on the meta device, in the order first met."""
+    from flexdiffuse_tpu_torch.models import unet as unet_mod
+    meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+    specs, real = {}, unet_mod.group_norm
+
+    def record(x, groups, weight, bias, eps, silu=False, dtype=None):
+        if groups != 32:
+            raise AssertionError(f'SDXL GroupNorm with {groups} groups')
+        specs.setdefault((tuple(x.shape), bool(silu), float(eps), x.dtype,
+                          dtype or x.dtype), None)
+        return real(x, groups, weight, bias, eps, silu, dtype)
+
+    lat = SDXL_SIZE // 8
+    runs = []
+    for cfg in (SDXL_UNET, SDXL_REFINER_UNET):
+        added = {'text_embeds': meta(2, cfg.addition_pooled_dim),
+                 'time_ids': meta(2, cfg.num_time_ids)}
+        runs.append(lambda m=_meta_model(UNet2DCondition, cfg), c=cfg,
+                    a=added: m(meta(2, lat, lat, 4), meta(2),
+                               meta(2, 77, c.cross_attention_dim),
+                               added_cond=a))
+    vae = _meta_model(AutoencoderKL, SDXL_VAE)
+    runs += [lambda: vae.decode(meta(1, lat, lat, 4)),
+             lambda: vae.encode(meta(1, SDXL_SIZE, SDXL_SIZE, 3))]
+    unet_mod.group_norm = record
+    try:
+        for run in runs:
+            tree_launches(run)
+    finally:
+        unet_mod.group_norm = real
+    return list(specs)
+
+
+def check_sdxl_models(runner, gen: torch.Generator) -> list:
+    """One 1024² CFG evaluation of the base and of the refiner UNet through
+    K1 and K6 against the plain backends (UNET_REL_TOL), with the module
+    tree's launches (K1_SDXL, K6_SDXL), and ``added_cond`` moving ε by
+    more than UNET_REL_TOL (against zero ``text_embeds`` and
+    ``time_ids``)."""
+    meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+    lat = torch.randn((2, 128, 128, 4), generator=gen, device='cuda')
+    t2 = torch.full((2,), 981.0, device='cuda')
+    ctx, pooled = runner.text.encode(['', PROMPT])
+    rctx, rpooled = runner.text.encode_refiner(['', PROMPT])
+    tids = sdxl_models.time_ids((SDXL_SIZE, SDXL_SIZE), (0, 0),
+                                (SDXL_SIZE, SDXL_SIZE)).expand(2, -1)
+    rtids = torch.cat([sdxl_models.refiner_time_ids(aesthetic_score=s)
+                       for s in (2.5, 6.0)])
+    out = []
+    for kind, unet, c, p, ids in (('base', runner.pipe.unet, ctx, pooled,
+                                   tids),
+                                  ('refiner', runner.refiner_pipe.unet, rctx,
+                                   rpooled, rtids)):
+        added = {'text_embeds': p, 'time_ids': ids.to('cuda')}
+        zero = {k: torch.zeros_like(v) for k, v in added.items()}
+        mnet = _meta_model(UNet2DCondition, unet.config)
+        madded = {k: meta(*v.shape) for k, v in added.items()}
+        meta_run = (lambda m=mnet, c=c, a=madded: m(
+            meta(2, 128, 128, 4), meta(2), meta(2, 77, c.shape[-1]),
+            added_cond=a))
+        tree = tree_launches(meta_run)[0]
+        if (tree['k1'], tree['k6'], tree['k6_stream']) != (
+                K1_SDXL[kind], *K6_SDXL[kind]):
+            raise AssertionError(f'SDXL {kind}: the module tree implies '
+                                 f'{tree}, not K1_SDXL/K6_SDXL')
+        out.append(check_conditioning(
+            f'SDXL {kind} UNet at 1024², batch 2',
+            lambda u=unet, c=c, a=added: u(lat, t2, c, added_cond=a),
+            meta_run,
+            off=lambda u=unet, c=c, z=zero: u(lat, t2, c, added_cond=z),
+            step=19))
+    return out
+
+
+def run_sdxl_cli(dirs: dict, out: str, size: int, steps: int,
+                 base_evals: list, refiner_evals: list, check: bool,
+                 device: str = 'cuda', configs=None) -> dict:
+    """``cli generate --model-family sdxl --refiner`` in-process on the
+    snapshots (the SDXLRunner it builds observed by :func:`_observe`, with
+    ``configs`` for snapshots of another geometry than the published one),
+    held by :func:`verify_run`; e2e includes the load."""
+    from flexdiffuse_tpu_torch import sdxl_runner as sr
+    real, seen = sr.SDXLRunner, {}
+
+    class Observed(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw, **(configs or {}))
+
+        def gen(self, **kw):
+            seen['logs'] = _observe(self)
+            seen['vae'] = self.pipe.vae.config
+            try:
+                return super().gen(**kw)
+            finally:
+                for log in seen['logs']:
+                    log.remove()
+
+    argv = ['generate', '--model-family', 'sdxl', '--models',
+            os.path.dirname(dirs['base']), '--refiner', dirs['refiner'],
+            '--refine-strength', str(SDXL_REFINE), '--scheduler', 'dpmpp',
+            '--prompt', PROMPT, '--steps', str(steps), '--guidance-scale',
+            str(SDXL_CFG), '--height', str(size), '--width', str(size),
+            '--samples', '1', '--seed', str(STEP19_SEED), '--out', out,
+            '--device', device]
+    cuda = device == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sr.SDXLRunner = Observed
+    t0 = time.perf_counter()
+    try:
+        if cli.main(argv) != 0:
+            raise AssertionError('cli generate --model-family sdxl failed')
+    finally:
+        sr.SDXLRunner = real
+    e2e = time.perf_counter() - t0
+    images = [Image.open(os.path.join(out, n))
+              for n in sorted(os.listdir(out)) if n.endswith('.png')]
+    return verify_run('cli generate --model-family sdxl --refiner',
+                      seen['logs'], images, e2e, seen['vae'], base_evals,
+                      [(base_evals[0][1], 1)], size, check, step=19,
+                      refiner_evals=refiner_evals, cuda=cuda)
+
+
+def run_sdxl_phase(text, vision, root: str, size: int = SDXL_SIZE,
+                   steps: int = SDXL_STEPS, models=None, runner_kw=None,
+                   check: bool = True, device: str = 'cuda') -> dict:
+    """Step 19 (module docstring): the SDXL snapshots written under
+    ``root`` (``text``/``vision``: the CLIP ViT-L/14 towers, SDXL's
+    encoder 1 and the image-guide tower; ``models``: (bigG, base UNet,
+    refiner UNet, VAE), default seeded random at the published widths) and
+    loaded back through ``SDXLRunner``, the model checks (with ``check``),
+    then the runs at ``size``², ``steps`` DPM++ steps, CFG 5: txt2img, an
+    image guide, img2img at 0.6, base→refiner at 0.3, DeepCache 2, an SGM
+    LoRA and the CLI. ``runner_kw``: the SDXLRunner's device, dtype and
+    configs (default: the card, bf16, the published geometry)."""
+    from flexdiffuse_tpu_torch.sdxl_runner import SDXLRunner
+    te2, unet, refiner, vae = models or build_sdxl('cuda', BF16,
+                                                   STEP19_SEED)
+    dirs = write_sdxl(root, text, vision, te2, unet, refiner, vae)
+    make = lambda: SDXLRunner(dirs['base'], clip_root=dirs['clip'],
+                              refiner_root=dirs['refiner'],
+                              **(runner_kw or {}))
+    if device == 'cuda':
+        runner, timing = load_runner(None, make)
+    else:
+        runner, timing = make(), {}
+    if device == 'cuda':
+        check_pairs(((runner.text.enc1, text), (runner.text.enc2, te2),
+                     (runner.pipe.unet, unet),
+                     (runner.refiner_pipe.unet, refiner),
+                     (runner.pipe.vae, vae), (runner.vision, vision)))
+    print(f'step 19 loaded SDXLRunner(model_root=, clip_root=, '
+          f'refiner_root=): {json.dumps(timing)}; every loaded tensor '
+          'equals the written one', flush=True)
+    del te2, unet, refiner, vae, models
+    gc.collect()
+    if device == 'cuda':
+        torch.cuda.empty_cache()
+    checks = []
+    if check:
+        checks = check_sdxl_models(
+            runner, torch.Generator('cuda').manual_seed(STEP19_SEED))
+    f = runner.pipe.vae_scale
+    lat = size // f
+    full = lambda n, mode=None: [
+        (2, lat, mode(i) if mode else 'off', False) for i in range(n)]
+    rows = sdxl_rows(steps=steps)
+    image = synthetic_image(size, STEP19_SEED)
+    pixels = np.asarray(image, np.float32)[None] / 127.5 - 1.0
+    common = dict(prompt=PROMPT, steps=steps, guidance_scale=SDXL_CFG,
+                  samples=1, seed=STEP19_SEED, save=False,
+                  init_size=(size, size), refine_strength=0.0)
+    one = [(lat, 1)]
+    run = lambda label, kw, evals, ref=(): run_feature(
+        label, runner, dict(common, **kw), evals, one, size, check,
+        step=19, refiner_evals=list(ref))
+    results = [
+        run(f'txt2img {size}²', {}, full(rows)),
+        run('txt2img, image guide', dict(guide=image), full(rows)),
+        # The image as the [-1, 1] array preprocess makes of a PIL image,
+        # which it would resize to 512 on the long side.
+        run(f'img2img {SDXL_STRENGTH}', dict(init_image=pixels,
+                                             strength=SDXL_STRENGTH),
+            full(sdxl_rows(SDXL_STRENGTH, steps))),
+        run(f'base→refiner {SDXL_REFINE}', dict(refine_strength=SDXL_REFINE),
+            full(rows), full(sdxl_rows(SDXL_REFINE, steps)))]
+    runner.enable_deepcache(2)
+    results.append(run('DeepCache 2', {}, full(
+        rows, lambda i: 'save' if i % 2 == 0 else 'use')))
+    runner.disable_deepcache()
+    lora_path = os.path.join(root, 'sdxl_lora.safetensors')
+    first = write_sgm_lora(lora_path, runner.pipe.unet, runner.text.enc1,
+                           runner.text.enc2, STEP19_SEED)
+    t0 = time.perf_counter()
+    runner.apply_lora(lora_path)
+    merge_s = time.perf_counter() - t0
+    stored = {t: weights_load.load_state_dict(os.path.join(
+        dirs['base'], sub)) for t, sub in (('unet', 'unet'),
+                                           ('te2', 'text_encoder_2'))}
+    for target, model in (('unet', runner.pipe.unet),
+                          ('te2', runner.text.enc2)):
+        name = first[target]
+        check_sdxl_merge(lora_path, target, name,
+                         dict(model.named_modules())[name],
+                         stored[target][f'{name}.weight'],
+                         runner.pipe.unet.config)
+    print(f'step 19 SGM LoRA merged in {merge_s:.2f} s ({len(runner._merged)} '
+          'weights; the checked ones are the stored weight plus the update '
+          'rounded once)', flush=True)
+    results.append(run('txt2img after an SGM LoRA', {}, full(rows)))
+    out = os.path.join(root, 'cli_out')
+    configs = {k: v for k, v in (runner_kw or {}).items()
+               if k.endswith('_config')}
+    results.append(run_sdxl_cli(dirs, out, size, steps, full(rows),
+                                full(sdxl_rows(SDXL_REFINE, steps)), check,
+                                device, configs))
+    by_shape = sum((r.pop('by_shape') for r in results),
+                   collections.Counter())
+    for kernel in ('K1', 'K6'):
+        print(f'step 19 {kernel} launches by shape: ' + ', '.join(
+            f'{shape} {n}' for (k, shape), n in sorted(by_shape.items())
+            if k == kernel), flush=True)
+    return dict(runs=results, checks=checks, loading=timing,
+                write_s=dirs['write_s'], bytes=dirs['bytes'],
+                launches=_sum(r['launches'] for r in results))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -2789,6 +3283,9 @@ def main() -> int:
     ap.add_argument('--profile-gen', type=int, default=0, metavar='STEPS',
                     help='instead of the smoke test, profile STEPS 512² UNet '
                     'evaluations with K6 and with the plain GroupNorm')
+    ap.add_argument('--family', default='sd1', choices=('sd1', 'sdxl'),
+                    help='--profile-gen: SD-1.4 at 512² or the SDXL base '
+                    'at 1024²')
     ap.add_argument('--profile-out', default='outputs/profile',
                     help='where the profiling modes write their tables')
     args = ap.parse_args()
@@ -2811,7 +3308,7 @@ def main() -> int:
         profile_training(args.profile_train, args.profile_out)
         return 0
     if args.profile_gen:
-        profile_generate(args.profile_gen, args.profile_out)
+        profile_generate(args.profile_gen, args.profile_out, args.family)
         return 0
 
     parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: fb.BUILD_PARTS,
@@ -2919,6 +3416,47 @@ def main() -> int:
     print(f'conditioning phase (step 18): {time.perf_counter() - t0:.1f} s',
           flush=True)
 
+    # SDXL (step 19): K1 and K6 at SDXL's shapes, then the snapshots, the
+    # model checks and the runs, after steps 17-18's runners are freed.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen19 = torch.Generator('cuda').manual_seed(STEP19_SEED)
+    res19 = [check_kernel(s, gen19, timed=True) for s in STEP19_K1_SHAPES]
+    # K6 at every call of the path; timed at STEP19_GN_TIMED with SiLU.
+    gn19 = [check_group_norm(shape, silu, eps, din, dout,
+                             silu and shape in STEP19_GN_TIMED, gen19)
+            for shape, silu, eps, din, dout in sdxl_gn_specs()]
+    for r in res19:
+        print('K1', json.dumps(r))
+        print(f'K1 {tuple(r["shape"])}: {summary(r)}')
+    for r in gn19:
+        print('K6', json.dumps(r))
+        if 'ms' in r:
+            print(f'K6 {tuple(r["shape"])}: {gn_summary(r)}')
+    print(f'step 19 K6 held at {len(gn19)} calls of the path, '
+          f'{sum("ms" in r for r in gn19)} timed; largest error '
+          f'{max(r["max_abs_err"] / r["tol"] for r in gn19):.3f} of its '
+          'tolerance', flush=True)
+    bad = [r['shape'] for r in res19 if not r['ok'] or (
+        (r['block_q'] // fa.ROWS, r['block_kv']) != wide)]
+    bad += [r['shape'] for r in gn19 if not r['ok']]
+    if bad:
+        raise AssertionError(f'K1 or K6 disagrees with its plain version (or '
+                             f'left its planned path or K1 its 64-wide '
+                             f'tiling) at {bad}')
+    root19 = tempfile.mkdtemp(prefix='flexdiffuse_sdxl_')
+    try:
+        sdxl = run_sdxl_phase(text, vision, root19)
+    finally:
+        shutil.rmtree(root19, ignore_errors=True)
+    results += res19
+    gn_res += gn19
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'SDXL phase (step 19): {time.perf_counter() - t0:.1f} s',
+          flush=True)
+
     # Training: the kernels, then the full-width step, then the loops.
     t0 = time.perf_counter()
     train_res = [check_train_kernels(s, skv, gen) for s, skv in TRAIN_SHAPES]
@@ -2984,7 +3522,8 @@ def main() -> int:
     launches = {k: gen_launches[k] + lora['launches'][k] +
                 full['launches'][k] + disk['launches'][k] +
                 surfaces['launches'][k] + sampling['launches'][k] +
-                conditioning['launches'][k] for k in gen_launches}
+                conditioning['launches'][k] + sdxl['launches'][k]
+                for k in gen_launches}
     del unet32, ds
 
     # The flash-kernel experiment tools: T1–T6 against their twins, then

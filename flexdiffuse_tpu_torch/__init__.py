@@ -14,6 +14,7 @@ from flexdiffuse_tpu_torch.encode import CLIPEncoder
 from flexdiffuse_tpu_torch.guidance import Guide
 from flexdiffuse_tpu_torch.pipeline import FlexPipeline, SimpleGuidance
 from flexdiffuse_tpu_torch.runner import Runner
+from flexdiffuse_tpu_torch.sdxl_runner import SDXLRunner
 from flexdiffuse_tpu_torch.utils.image import image_grid, preprocess
 
 __version__ = '0.1.0'
@@ -21,5 +22,6 @@ __version__ = '0.1.0'
 __all__ = [
     'CLIPEncoder', 'GUIDE_ORDER_TEXT', 'GUIDE_ORDER_ALIGN',
     'GUIDE_ORDER_DIRECT', 'Guide', 'preprocess', 'FlexPipeline',
-    'image_grid', 'Runner', 'SimpleGuidance', 'GuidanceParams', 'RunConfig'
+    'image_grid', 'Runner', 'SDXLRunner', 'SimpleGuidance',
+    'GuidanceParams', 'RunConfig'
 ]

@@ -21,7 +21,12 @@ snapshots when ``huggingface_hub`` and the network are there.
 
 The scheduler kinds and their switches (``--karras``, ``--v-prediction``,
 ``--zero-snr``, ``--timestep-spacing``), ``--model-family sd2`` (SD-2.1:
-OpenCLIP-H text tower, 64-wide heads), the pipeline knobs (``--freeu``,
+OpenCLIP-H text tower, 64-wide heads), ``--model-family sdxl`` (an
+:class:`~flexdiffuse_tpu_torch.sdxl_runner.SDXLRunner` on the
+``stable-diffusion-xl-base-1.0`` snapshot under ``--models``, or on
+``--models`` itself, with ``--refiner``/``--refine-strength``; ``serve-api``
+refuses it at start, as its dispatcher needs the SD-1.x Runner's encoder),
+the pipeline knobs (``--freeu``,
 ``--vae-tile``, ``--deepcache``, ``--tome``, ``--pag-layers``) and
 generate's ``--pag``, ``--cfg-interval``, ``--guidance-rescale`` and
 ``--hires-*`` do what they do in the JAX CLI, and so do the conditioning
@@ -29,9 +34,9 @@ models: ``--controlnet`` with ``--control-image``/``--controlnet-scale``,
 ``--ip-adapter`` (with ``--ip-encoder``) with ``--ip-image``/``--ip-scale``,
 and ``edit`` (InstructPix2Pix on an 8-channel snapshot); for SD-1.x
 ``--ip-encoder-arch`` is accepted and unused, as in the JAX CLI. Every flag
-whose feature the port does not have yet raises ``NotImplementedError``
-naming its ROADMAP Queue 1 step, before any model loads
-(:func:`refuse_unported`). The JAX
+whose feature the port does not have yet (``train``'s textual inversion
+and ``--data-parallel``) raises ``NotImplementedError`` naming its ROADMAP
+Queue 1 step, before any model loads (:func:`refuse_unported`). The JAX
 parser's ``--compile-cache``/``--no-compile-cache`` are left out: they set
 XLA's compilation cache (``utils/compile_cache.py``), which ROADMAP's "Do
 not port" list names.
@@ -57,22 +62,14 @@ MODEL_CONFIGS = dict(text=models.CLIP_VIT_L14_TEXT,
 SD2_MODEL_CONFIGS = dict(text=models.OPENCLIP_H_TEXT,
                          vision=models.CLIP_VIT_L14_VISION,
                          unet=models.SD21_UNET, vae=models.SD21_VAE)
-
-# Flags of generate/edit/compose/serve/serve-api whose features are not
-# ported: (dest, flag, the value that leaves the feature off, ROADMAP
-# Queue 1 step).
-UNPORTED = (
-    ('refiner', '--refiner', None, 11),
-    ('refine_strength', '--refine-strength', 0.3, 11),
-)
-# train's unported flags (its --v-prediction objective is ported).
+# train's unported flags, (dest, flag, the value that leaves the feature
+# off, ROADMAP Queue 1 step); its --v-prediction objective is ported.
 TRAIN_UNPORTED = (
     ('textual_inversion', '--textual-inversion', '', 12),
     ('init_token', '--init-token', '', 12),
     ('num_vectors', '--num-vectors', 1, 12),
     ('style_templates', '--style-templates', False, 12),
 )
-FAMILY_STEP = {'sdxl': 11}
 
 
 def _not_ported(what: str, step: int) -> NotImplementedError:
@@ -80,16 +77,13 @@ def _not_ported(what: str, step: int) -> NotImplementedError:
                                f'step {step})')
 
 
-def refuse_unported(args, table=UNPORTED) -> None:
-    """Raise for the first flag of ``args`` (of ``table``, ``--model-family``,
-    ``--data-parallel`` and ``--scheduler``) that asks for a feature the
-    port does not have yet, naming its ROADMAP step."""
+def refuse_unported(args, table=()) -> None:
+    """Raise for the first flag of ``args`` (of ``table`` and
+    ``--data-parallel``: ``train``'s) that asks for a feature the port does
+    not have yet, naming its ROADMAP step."""
     for dest, flag, off, step in table:
         if getattr(args, dest, off) != off:
             raise _not_ported(flag, step)
-    family = getattr(args, 'model_family', 'sd1')
-    if family in FAMILY_STEP:
-        raise _not_ported(f'--model-family {family}', FAMILY_STEP[family])
     if getattr(args, 'data_parallel', 1) > 1:
         raise _not_ported('--data-parallel > 1', 13)
 
@@ -132,7 +126,7 @@ def model_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == 'cuda' else torch.float32
 
 
-def _check(args, table=UNPORTED) -> torch.device:
+def _check(args, table=()) -> torch.device:
     """Everything a model-running command checks before it loads a model."""
     refuse_unported(args, table)
     return resolve_device(args.device)
@@ -170,8 +164,9 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--model-family', default='sd1',
                    choices=('sd1', 'sd2', 'sdxl'),
                    help='checkpoint geometry: sd1 = SD1.x + CLIP ViT-L/14, '
-                        'sd2 = SD2.x + OpenCLIP ViT-H text (sdxl: not '
-                        'ported, step 11)')
+                        'sd2 = SD2.x + OpenCLIP ViT-H text, sdxl = SDXL '
+                        'base (+ --refiner); --models may point straight '
+                        'at the SDXL snapshot')
     p.add_argument('--lora', action='append', default=[], metavar='PATH[:S]',
                    help='merge a kohya or PEFT LoRA (optional :scale, '
                         'repeatable)')
@@ -192,11 +187,17 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument('--ip-encoder-arch', default='vit-h',
                    choices=('vit-h', 'bigg'),
                    help='image-encoder tower for --ip-encoder with '
-                        '--model-family sdxl (step 11); SD-1.x uses ViT-H')
+                        '--model-family sdxl (ip-adapter_sdxl.bin uses the '
+                        'bigG tower; _vit-h checkpoints use ViT-H); SD-1.x '
+                        'uses ViT-H')
     p.add_argument('--refiner', default=None, metavar='DIR',
-                   help='SDXL refiner snapshot (not ported: step 11)')
+                   help='SDXL refiner snapshot '
+                        '(stable-diffusion-xl-refiner-1.0); enables the '
+                        'two-stage base->refiner flow for --model-family '
+                        'sdxl')
     p.add_argument('--refine-strength', type=float, default=0.3,
-                   help='refiner img2img strength (not ported: step 11)')
+                   help='refiner img2img strength (fraction of the noise '
+                        'schedule the refiner re-denoises; 0 disables)')
     _add_device_arg(p)
 
 
@@ -206,12 +207,46 @@ def _add_device_arg(p: argparse.ArgumentParser) -> None:
                         "without a card) or 'cpu' (fp32)")
 
 
+def _sdxl_runner(args):
+    """``SDXLRunner`` on ``--device`` (the JAX CLI's ``_sdxl_runner``): the
+    ``stable-diffusion-xl-base-1.0`` snapshot under ``--models``, or
+    ``--models`` itself; ``clip_root`` when ``clip-vit-large-patch14/`` is
+    there; the refiner, LoRAs and IP-Adapter the flags name."""
+    from flexdiffuse_tpu_torch.sdxl_runner import SDXLRunner
+    from flexdiffuse_tpu_torch.weights.lora import parse_spec
+    for flag in ('controlnet', 'embedding'):
+        if getattr(args, flag, None):
+            raise SystemExit(f'--{flag.replace("_", "-")} is not supported '
+                             'with --model-family sdxl (SD1.x only)')
+    device = resolve_device(args.device)
+    root = os.path.join(args.models, 'stable-diffusion-xl-base-1.0')
+    if not os.path.isdir(root):
+        root = args.models  # --models may point straight at the snapshot
+    clip = os.path.join(args.models, 'clip-vit-large-patch14')
+    runner = SDXLRunner(root,
+                        clip_root=clip if os.path.isdir(clip) else None,
+                        scheduler=args.scheduler,
+                        output_dir=getattr(args, 'out', './outputs'),
+                        refiner_root=getattr(args, 'refiner', None),
+                        device=device, dtype=model_dtype(device))
+    for spec in getattr(args, 'lora', []):
+        runner.apply_lora(*parse_spec(spec))
+    if getattr(args, 'ip_adapter', None):
+        runner.load_ip_adapter(args.ip_adapter,
+                               getattr(args, 'ip_encoder', None),
+                               encoder=getattr(args, 'ip_encoder_arch',
+                                               'vit-h'))
+    return runner
+
+
 def _runner(args):
     """``Runner(model_root=--models)`` on ``--device``, with the LoRAs,
     ControlNet, IP-Adapter and textual inversions the flags name (in the
-    JAX CLI's order)."""
+    JAX CLI's order); ``SDXLRunner`` for ``--model-family sdxl``."""
     from flexdiffuse_tpu_torch.runner import Runner
     from flexdiffuse_tpu_torch.weights.lora import parse_spec
+    if getattr(args, 'model_family', 'sd1') == 'sdxl':
+        return _sdxl_runner(args)
     device = resolve_device(args.device)
     run_cfg_kw = dict(output_dir=getattr(args, 'out', './outputs'))
     if getattr(args, 'sd_model', None):
@@ -346,8 +381,11 @@ def cmd_generate(args) -> int:
         cfg_interval=(tuple(args.cfg_interval) if args.cfg_interval
                       else None),
         guidance_rescale=args.guidance_rescale, pag_scale=args.pag,
-        hires_scale=args.hires_scale, hires_strength=args.hires_strength,
-        hires_steps=args.hires_steps)
+        **({'refine_strength': args.refine_strength}
+           if args.model_family == 'sdxl' else
+           {'hires_scale': args.hires_scale,
+            'hires_strength': args.hires_strength,
+            'hires_steps': args.hires_steps}))
     print(f'{len(imgs)} image(s) written to {runner.output_dir}')
     return 0
 
@@ -511,6 +549,11 @@ def cmd_serve(args) -> int:
 
 def cmd_serve_api(args) -> int:
     from flexdiffuse_tpu_torch.serving import launch
+    if args.model_family == 'sdxl':
+        # The dispatcher encodes prompts with the SD-1.x Runner's encoder,
+        # which SDXLRunner has not (nor has the JAX API a path for it).
+        raise SystemExit('serve-api does not serve --model-family sdxl; use '
+                         '`serve` (the web UI) or `generate`')
     _check(args)
     launch(lambda: _runner_with_options(args), port=args.port, lan=args.lan,
            max_batch_rows=args.max_batch, max_wait_ms=args.max_wait_ms,

@@ -52,7 +52,6 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(name)s %(message)s')
     from flexdiffuse_tpu_torch import cli
-    cli.refuse_unported(args)
     device = cli.resolve_device(args.device)
 
     def make_runner():

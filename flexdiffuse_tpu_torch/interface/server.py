@@ -14,12 +14,14 @@ Generation requests serialise on ``_gen_lock``, so only one HTTP thread at
 a time runs the model and touches the card. The optional ``Runner.gen``
 keywords (hires fix, CFG interval from the page's ``cfg_from``/``cfg_to``,
 CFG rescale, PAG; ``control_image``/``controlnet_scale`` and
-``ip_image``/``ip_scale``; SDXL's refiner) are forwarded only when a client
-enables them, as the JAX handler forwards them. A control image needs a
-Runner with a ControlNet (``--controlnet``) and an image prompt one with an
-IP-Adapter and its encoder; without them the Runner's ``ValueError``, and
-for the refiner (not ported: ROADMAP Queue 1 step 11) its ``TypeError``,
-reaches the client as a JSON 500.
+``ip_image``/``ip_scale``; SDXL's ``refine_strength``) are forwarded only
+when a client enables them, as the JAX handler forwards them. A control
+image needs a Runner with a ControlNet (``--controlnet``) and an image
+prompt one with an IP-Adapter and its encoder; without them the Runner's
+``ValueError`` reaches the client as a JSON 500. The factory may build an
+:class:`~flexdiffuse_tpu_torch.sdxl_runner.SDXLRunner` (``serve
+--model-family sdxl``): the Sandbox tab drives its ``gen``, and the Compose
+tab shows its ``compose`` error (composition is SD-1.x only) as a JSON 500.
 """
 from __future__ import annotations
 

@@ -7,8 +7,11 @@ Parameter names are the HF ``transformers`` CLIP names that
 ``visual_projection``), so an HF checkpoint loads by a plain
 ``load_state_dict``.
 
-* The text tower returns the final-LN last hidden state ``[B, 77, D]``, or
-  the penultimate one through the final LN (``clip_skip``).
+* The text tower returns the final-LN last hidden state ``[B, 77, D]``, the
+  penultimate one through the final LN (``clip_skip``), or SDXL's outputs:
+  the penultimate hidden state un-normalised, alone or with the pooled
+  projection (the final-LN state at the first EOS position through
+  ``text_projection``, which a config with ``projection_dim`` holds).
 * The vision tower takes NHWC pixels like the JAX tower and returns all
   ``1 + P`` tokens after ``post_layernorm`` and ``visual_projection`` (the
   reference's all-patch path, ``clip.py:174``), the CLS token's pooled
@@ -129,31 +132,51 @@ class CLIPTextModel(nn.Module):
 
     def __init__(self, config: CLIPTextConfig) -> None:
         super().__init__()
-        if config.projection_dim:
-            raise NotImplementedError(
-                'the pooled text projection (SDXL) is not ported yet '
-                '(ROADMAP Queue 1 step 11)')
         self.config = config
         self.text_model = _TextTransformer(config)
+        if config.projection_dim:
+            self.text_projection = nn.Linear(config.hidden_size,
+                                             config.projection_dim,
+                                             bias=False)
 
-    def forward(self, input_ids: torch.Tensor,
-                output: str = 'final') -> torch.Tensor:
+    OUTPUTS = ('final', 'penultimate', 'penultimate_norm',
+               'penultimate_and_pooled')
+
+    def forward(self, input_ids: torch.Tensor, output: str = 'final'):
         """``output``: 'final' → the final-LN last hidden state (the SD-1.x
         path, reference encode/clip.py:64-65); 'penultimate_norm' → the
         hidden state one layer before the end through ``final_layer_norm``
         (the diffusers/A1111 ``clip_skip`` convention; the last layer is not
-        run)."""
-        if output not in ('final', 'penultimate_norm'):
+        run); 'penultimate' → that hidden state un-normalised (SDXL's
+        conditioning); 'penultimate_and_pooled' → ``(penultimate, pooled)``,
+        pooled ``[B, projection_dim]`` the final-LN state at the first
+        position whose id is ``eos_token_id`` (not ``ids.argmax()``, which
+        textual-inversion tokens above the EOS id would break) through
+        ``text_projection``."""
+        if output not in self.OUTPUTS:
             raise ValueError(f'unknown output {output!r}')
+        if output == 'penultimate_and_pooled' and \
+                not self.config.projection_dim:
+            raise ValueError("output='penultimate_and_pooled' needs a text "
+                             'config with projection_dim (text_projection)')
         tm = self.text_model
-        t = input_ids.shape[1]
+        b, t = input_ids.shape
         emb = tm.embeddings
         x = emb.token_embedding(input_ids) + emb.position_embedding.weight[:t]
         causal = torch.triu(
             torch.full((t, t), torch.finfo(torch.float32).min,
                        device=x.device), diagonal=1)
-        x = tm.encoder(x, causal, skip=int(output == 'penultimate_norm'))
-        return tm.final_layer_norm(x)
+        if output == 'final':
+            return tm.final_layer_norm(tm.encoder(x, causal))
+        penult = tm.encoder(x, causal, skip=1)
+        if output == 'penultimate':
+            return penult
+        if output == 'penultimate_norm':
+            return tm.final_layer_norm(penult)
+        final = tm.final_layer_norm(tm.encoder.layers[-1](penult, causal))
+        eos = (input_ids == self.config.eos_token_id).int().argmax(dim=-1)
+        pooled = final[torch.arange(b, device=final.device), eos]
+        return penult, self.text_projection(pooled)
 
 
 class _VisionEmbeddings(nn.Module):

@@ -11,7 +11,8 @@ stride-2 convolutions from pixel to latent resolution.
 
 Parameter names are diffusers' ``ControlNetModel`` names
 (``controlnet_cond_embedding.*``, ``controlnet_down_blocks.{k}``,
-``controlnet_mid_block``), so a diffusers snapshot loads by
+``controlnet_mid_block``, and an SDXL ControlNet's ``add_embedding``), so
+a diffusers snapshot loads by
 ``load_state_dict`` after ``weights.convert.normalize(sd, 'controlnet')``.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
-from flexdiffuse_tpu_torch.models.unet import DownMid, TimestepEmbedding
+from flexdiffuse_tpu_torch.models.unet import DownMid
 
 # Conditioning-embedding channel ramp (diffusers
 # ControlNetConditioningEmbedding's default block_out_channels).
@@ -72,16 +73,11 @@ class ControlNetModel(DownMid):
                  cond_channels: Tuple[int, ...] = COND_EMBED_CHANNELS
                  ) -> None:
         super().__init__()
-        if config.addition_embed:
-            raise NotImplementedError(
-                'SDXL ControlNets (added_cond) are not ported yet (ROADMAP '
-                'Queue 1 step 11)')
         self.config = cfg = dataclasses.replace(config, ip_adapter=False,
                                                 time_cond_proj_dim=0)
         ch0 = cfg.block_channels[0]
-        temb_dim = ch0 * 4
         self.conv_in = nn.Conv2d(4, ch0, 3, padding=1)
-        self.time_embedding = TimestepEmbedding(ch0, temb_dim)
+        temb_dim = self._build_time(cfg)
         self.controlnet_cond_embedding = ConditioningEmbedding(
             ch0, tuple(cond_channels))
         self._build_down_mid(cfg, temb_dim)
@@ -99,12 +95,11 @@ class ControlNetModel(DownMid):
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, cond: torch.Tensor, scale=1.0,
                 added_cond=None):
-        if added_cond is not None:
-            raise NotImplementedError(
-                'ControlNet added_cond (SDXL) is not ported yet (ROADMAP '
-                'Queue 1 step 11)')
+        """``added_cond``: SDXL's ``{'text_embeds', 'time_ids'}``, which
+        the ControlNet of an ``addition_embed`` UNet requires (its
+        ``add_embedding``, as the UNet's)."""
         dtype = self.conv_in.weight.dtype
-        temb = self.embed_time(t)
+        temb = self.embed_time(t, added_cond=added_cond)
         context = context.to(dtype)
         # NHWC (public layout) -> NCHW; on the card the permuted views are
         # channels-last, and so is everything the convs make of them.

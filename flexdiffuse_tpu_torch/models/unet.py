@@ -25,14 +25,17 @@ The sampling features of the JAX module, as call-time settings of
 attributes, so a shallow copy of the module shares the weights and carries
 its own settings) and arguments of its forward (``timestep_cond``,
 ``cache_mode``/``deep_cache``, ``pag_mask``): FreeU, ToMe, PAG, DeepCache
-and the LCM guidance embedding. The conditioning models: IP-Adapter's
+and the LCM guidance embedding. SDXL's text-time additional embedding
+(``config.addition_embed``: the pooled text embedding and the
+micro-conditioning time ids, ``added_cond``) joins the timestep embedding
+(:meth:`DownMid.embed_time`), so every path the timestep embedding reaches
+carries it. The conditioning models: IP-Adapter's
 decoupled cross-attention (``config.ip_adapter``; ``ip_ctx``/``ip_scale``)
 and ControlNet residuals (``control``). The down and mid path
 (:class:`DownMid`) is shared with the ControlNet's control branch
 (``models/controlnet.py``), blocks and names alike.
 
-Left out here: the channel-major interiors (ROADMAP "do not port") and the
-SDXL additional embedding (Queue 1 step 11).
+Left out here: the channel-major interiors (ROADMAP "do not port").
 """
 from __future__ import annotations
 
@@ -140,6 +143,14 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(x)))
+
+
+def addition_in_dim(cfg: UNetConfig) -> int:
+    """``add_embedding.linear_1``'s input width: the pooled text embedding
+    and ``num_time_ids`` sinusoidal features of ``addition_time_embed_dim``
+    (SDXL base 1280 + 6·256 = 2816, the refiner 1280 + 5·256 = 2560)."""
+    return cfg.addition_pooled_dim + cfg.num_time_ids * \
+        cfg.addition_time_embed_dim
 
 
 class ResnetBlock(nn.Module):
@@ -369,6 +380,18 @@ class DownMid(nn.Module):
     tome = None
     pag_layers = None
 
+    def _build_time(self, cfg: UNetConfig, cond_dim: int = 0) -> int:
+        """``time_embedding`` (with the LCM projection when ``cond_dim``)
+        and, for an ``addition_embed`` config, SDXL's ``add_embedding``;
+        returns the embedding width."""
+        ch0 = cfg.block_channels[0]
+        temb_dim = ch0 * 4
+        self.time_embedding = TimestepEmbedding(ch0, temb_dim, cond_dim)
+        if cfg.addition_embed:
+            self.add_embedding = TimestepEmbedding(addition_in_dim(cfg),
+                                                   temb_dim)
+        return temb_dim
+
     def _build_down_mid(self, cfg: UNetConfig, temb_dim: int) -> None:
         groups = cfg.norm_groups
         n = len(cfg.block_channels)
@@ -392,10 +415,17 @@ class DownMid(nn.Module):
             [_transformer(cfg, mid, cfg.depth_mid())])
 
     def embed_time(self, t: torch.Tensor,
-                   timestep_cond: torch.Tensor = None) -> torch.Tensor:
+                   timestep_cond: torch.Tensor = None,
+                   added_cond: dict = None) -> torch.Tensor:
         """The timestep embedding ``[B, 4·C0]`` in the weights' dtype (with
-        the LCM guidance projection when the config has one)."""
+        the LCM guidance projection when the config has one). An
+        ``addition_embed`` config requires ``added_cond`` ``{'text_embeds':
+        [B, addition_pooled_dim], 'time_ids': [B, num_time_ids]}``: each id's
+        sinusoidal features at ``addition_time_embed_dim``, flattened after
+        the pooled embedding (fp32, as the JAX module concatenates), through
+        ``add_embedding``, added to the timestep embedding."""
         cfg = self.config
+        dtype = self.conv_in.weight.dtype
         temb = timestep_embedding(t, cfg.block_channels[0])
         if cfg.time_cond_proj_dim:
             if timestep_cond is None:
@@ -405,7 +435,18 @@ class DownMid(nn.Module):
             proj = self.time_embedding.cond_proj.weight
             temb = temb + F.linear(timestep_cond.float().to(temb.device),
                                    proj.float())
-        return self.time_embedding(temb.to(self.conv_in.weight.dtype))
+        temb = self.time_embedding(temb.to(dtype))
+        if not cfg.addition_embed:
+            return temb
+        if added_cond is None:
+            raise ValueError('this UNet config requires added_cond '
+                             '(text_embeds, time_ids)')
+        pooled = added_cond['text_embeds'].to(temb.device, torch.float32)
+        tids = added_cond['time_ids'].to(temb.device).reshape(-1)
+        tid_emb = timestep_embedding(tids, cfg.addition_time_embed_dim)
+        add = torch.cat([pooled, tid_emb.reshape(pooled.shape[0], -1)],
+                        dim=-1)
+        return temb + self.add_embedding(add.to(dtype))
 
     def _pm(self, name: str, pag_mask):
         return pag_mask if pag_selected(self.pag_layers, name) else None
@@ -458,21 +499,15 @@ class UNet2DCondition(DownMid):
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__()
-        if config.addition_embed:
-            raise NotImplementedError(
-                'SDXL additional embeddings are not ported yet (ROADMAP '
-                'Queue 1 step 11)')
         self.config = cfg = config
         self.freeu = None
         self.tome = None
         self.pag_layers = None
         ch0 = cfg.block_channels[0]
-        temb_dim = ch0 * 4
         groups = cfg.norm_groups
         n = len(cfg.block_channels)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
-        self.time_embedding = TimestepEmbedding(ch0, temb_dim,
-                                                cfg.time_cond_proj_dim)
+        temb_dim = self._build_time(cfg, cfg.time_cond_proj_dim)
         self._build_down_mid(cfg, temb_dim)
 
         # Skip channels in the order run_up pops them.
@@ -544,10 +579,13 @@ class UNet2DCondition(DownMid):
                 context: torch.Tensor, timestep_cond: torch.Tensor = None,
                 deep_cache: torch.Tensor = None, cache_mode: str = 'off',
                 pag_mask: torch.Tensor = None, control=None,
-                ip_ctx: torch.Tensor = None, ip_scale=1.0):
+                ip_ctx: torch.Tensor = None, ip_scale=1.0,
+                added_cond: dict = None):
         """``timestep_cond``: the LCM guidance embedding ``[B,
         time_cond_proj_dim]`` (:func:`guidance_scale_embedding`), which a
-        UNet with ``time_cond_proj_dim`` requires.
+        UNet with ``time_cond_proj_dim`` requires. ``added_cond``: SDXL's
+        ``{'text_embeds', 'time_ids'}`` (:meth:`DownMid.embed_time`), which
+        an ``addition_embed`` UNet requires.
 
         DeepCache: ``cache_mode='save'`` runs the full UNet and also returns
         the hidden state entering the shallowest ``cache_depth`` decoder
@@ -571,7 +609,7 @@ class UNet2DCondition(DownMid):
         depth = cfg.cache_depth
         if not 1 <= depth < n:
             raise ValueError(f'cache_depth {depth} must be in [1, {n - 1}]')
-        temb = self.embed_time(t, timestep_cond)
+        temb = self.embed_time(t, timestep_cond, added_cond)
         context = context.to(dtype)
         ip = None if ip_ctx is None else (ip_ctx, ip_scale)
         # NHWC (public layout) -> NCHW (conv layout).

@@ -31,8 +31,10 @@ UNet runs at batch B), PAG (the guide's 3B batch and the UNet's
 ``pag_mask``), DeepCache (``deepcache=N``: every N-th active row runs the
 full UNet and saves the deep feature, the rows between run the shallow
 levels around it), the LCM guidance embedding for guidance-embedded UNets,
-latents-direct img2img (``init_latents=``, the hires fix's second pass,
-with :func:`upscale_latents`) and the tiled VAE (``vae_tile``).
+latents-direct img2img (``init_latents=``, the hires fix's second pass
+and the SDXL refiner's, with :func:`upscale_latents`) and the tiled VAE
+(``vae_tile``). ``latent_scale`` is the VAE's latent scaling (SD-1.x's
+0.18215 by default; SDXL's 0.13025), applied in every encode and decode.
 
 The conditioning models: a ControlNet (``FlexPipeline(controlnet=)``,
 ``__call__(control_image=, controlnet_scale=)``) runs beside every UNet
@@ -144,13 +146,15 @@ class FlexPipeline:
         deepcache: the DeepCache interval (0 or 1: off).
         controlnet: a :class:`~flexdiffuse_tpu_torch.models.controlnet.
             ControlNetModel` for ``control_image=`` (None: none).
+        latent_scale: the VAE latents' scaling factor.
     """
 
     def __init__(self, unet, vae, scheduler: str = 'pndm',
                  scheduler_config: Optional[
                      schedulers.SchedulerConfig] = None,
                  vae_tile: int = 0, vae_tile_overlap: int = 8,
-                 deepcache: int = 0, controlnet=None) -> None:
+                 deepcache: int = 0, controlnet=None,
+                 latent_scale: float = LATENT_SCALE) -> None:
         self.unet = unet
         self.vae = vae
         self.controlnet = controlnet
@@ -159,7 +163,7 @@ class FlexPipeline:
         self._schedules: dict = {}
         self.latent_channels = vae.config.latent_channels
         self.vae_scale = 2**(len(vae.config.block_channels) - 1)
-        self.latent_scale = LATENT_SCALE
+        self.latent_scale = float(latent_scale)
         self.vae_tile = int(vae_tile)
         self.vae_tile_overlap = int(vae_tile_overlap)
         if self.vae_tile and self.vae_tile_overlap >= self.vae_tile:
@@ -296,8 +300,9 @@ class FlexPipeline:
         """The noise function the guides call: the UNet, with the
         ControlNet's residuals when ``control`` is ``(cond [1 or N, H, W,
         3], scale)``. The control branch sees the rows' latent channels
-        only (a 9- or 8-channel UNet's extras stripped), the same ``t`` and
-        context, and neither PAG's mask nor DeepCache's mode."""
+        only (a 9- or 8-channel UNet's extras stripped), the same ``t``,
+        context and ``added_cond``, and neither PAG's mask nor DeepCache's
+        mode."""
         unet = self.unet
         if control is None:
             return unet
@@ -306,8 +311,9 @@ class FlexPipeline:
 
         def model(lat, t, ctx, **kw):
             rows = cond.expand((lat.shape[0],) + tuple(cond.shape[1:]))
-            kw['control'] = self.controlnet(lat[..., :c], t, ctx, rows,
-                                            scale)
+            kw['control'] = self.controlnet(
+                lat[..., :c], t, ctx, rows, scale,
+                added_cond=kw.get('added_cond'))
             return unet(lat, t, ctx, **kw)
         return model
 

@@ -27,10 +27,10 @@ Both take the JAX guides' sampling fields:
   sample runs with identity self-attention in the UNet's ``pag_layers``
   (the ``pag_mask`` row selector), and ε gains ``pag_scale·(ε_cond −
   ε_perturbed)``;
-- ``timestep_cond``: the LCM guidance embedding, passed to the UNet.
-
-SDXL's pooled embeddings and time ids raise ``NotImplementedError`` naming
-ROADMAP Queue 1 step 11.
+- ``timestep_cond``: the LCM guidance embedding, passed to the UNet;
+- SDXL's text-time conditioning: ``pooled`` (``pooled_stack`` on the
+  composite) and ``time_ids`` become the UNet's ``added_cond`` rows, laid
+  out beside the context rows as the JAX guides lay them (``_added``).
 """
 from __future__ import annotations
 
@@ -41,17 +41,6 @@ import torch
 
 # noise_fn(latents [N,h,w,C], t [N], context [N,T,D]) -> eps [N,h,w,4]
 NoiseFn = Callable[..., torch.Tensor]
-
-_UNPORTED_FIELDS = {'pooled': 11, 'time_ids': 11}
-
-
-def _reject_unported(guide) -> None:
-    for name, step in _UNPORTED_FIELDS.items():
-        value = getattr(guide, name)
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f'{type(guide).__name__}({name}=...) is not ported yet '
-                f'(ROADMAP Queue 1 step {step})')
 
 
 def rescale_cfg(eps_cfg: torch.Tensor, eps_cond: torch.Tensor,
@@ -81,10 +70,12 @@ def _scale(value, device):
 
 
 def _call(noise_fn: NoiseFn, lat, t, ctx, timestep_cond=None,
-          pag_mask=None, ip=None) -> torch.Tensor:
+          pag_mask=None, ip=None, added=None) -> torch.Tensor:
     """``noise_fn`` with the optional UNet inputs only when they are set
-    (``ip``: ``(ip_ctx, ip_scale)``)."""
+    (``ip``: ``(ip_ctx, ip_scale)``; ``added``: SDXL's ``added_cond``)."""
     kw = {}
+    if added is not None:
+        kw['added_cond'] = added
     if timestep_cond is not None:
         kw['timestep_cond'] = timestep_cond
     if pag_mask is not None:
@@ -106,8 +97,11 @@ class SimpleGuidance:
     UNet. ``timestep_cond [1, time_cond_proj_dim]`` is the LCM guidance
     embedding (then ``cfg`` is False). ``ip_tokens [1 or B, N, D]``: an
     IP-Adapter's projected image tokens at ``ip_scale``; the uncond rows
-    take ``ip_uncond`` (zeros when None). The CFG interval, CFG rescale and
-    PAG fields are the module docstring's."""
+    take ``ip_uncond`` (zeros when None). SDXL: ``pooled [1 or B, P]``
+    and ``uncond_pooled [1, P]`` (the second encoder's pooled projections),
+    ``time_ids [1, n]`` and, for the refiner's CFG, ``uncond_time_ids [1,
+    n]`` (its own aesthetic score; None: ``time_ids``). The CFG interval,
+    CFG rescale and PAG fields are the module docstring's."""
 
     embeddings: torch.Tensor
     uncond: torch.Tensor
@@ -126,15 +120,36 @@ class SimpleGuidance:
     ip_uncond: Optional[torch.Tensor] = None
     ip_scale: Union[float, torch.Tensor] = 1.0
     pooled: Optional[torch.Tensor] = None
+    uncond_pooled: Optional[torch.Tensor] = None
     time_ids: Optional[torch.Tensor] = None
+    uncond_time_ids: Optional[torch.Tensor] = None
 
     def __post_init__(self):
-        _reject_unported(self)
         _check_rescale_gate(self)
 
     @property
     def batch_size(self) -> int:
         return self.embeddings.shape[0]
+
+    def _added(self, n: int, with_uncond: bool, cond_copies: int = 1):
+        """SDXL's ``added_cond`` for a UNet call of ``n`` rows laid out as
+        the context rows: ``[uncond;] cond × cond_copies``; None without
+        ``pooled``."""
+        if self.pooled is None:
+            return None
+        b = self.batch_size
+        width = self.pooled.shape[1:]
+        pooled = torch.cat([self.pooled.expand((b,) + width)] * cond_copies)
+        if with_uncond:
+            unc = self.uncond_pooled.expand((b,) + width).to(pooled)
+            pooled = torch.cat([unc, pooled])
+        k = self.time_ids.shape[-1]
+        if with_uncond and self.uncond_time_ids is not None:
+            tids = torch.cat([self.uncond_time_ids.expand(b, k),
+                              self.time_ids.expand(b * cond_copies, k)])
+        else:
+            tids = self.time_ids.expand(n, k)
+        return {'text_embeds': pooled, 'time_ids': tids}
 
     def _ip(self, with_uncond: bool, cond_copies: int = 1):
         """The IP-Adapter rows beside the CFG rows: ``(ip_ctx,
@@ -184,11 +199,13 @@ class SimpleGuidance:
             return self._noise_pred_pag(noise_fn, lat_in, t)
         if not self.cfg:
             return _call(noise_fn, lat_in, t.expand(b), self.embeddings,
-                         self._tcond(b), ip=self._ip(False))
+                         self._tcond(b), ip=self._ip(False),
+                         added=self._added(b, False))
         unc, dtype = self._uncond_ctx()
         ctx = torch.cat([unc, self.embeddings.to(dtype)])
         eps = _call(noise_fn, torch.cat([lat_in, lat_in]), t.expand(2 * b),
-                    ctx, self._tcond(2 * b), ip=self._ip(True))
+                    ctx, self._tcond(2 * b), ip=self._ip(True),
+                    added=self._added(2 * b, True))
         eps_u, eps_c = eps.chunk(2)
         scale = _scale(self.guidance_scale, eps.device)
         return self._finish(eps_u + scale * (eps_c - eps_u), eps_c)
@@ -207,7 +224,8 @@ class SimpleGuidance:
         eps = _call(noise_fn, torch.cat([lat_in] * rows),
                     t.expand(rows * b), ctx, self._tcond(rows * b),
                     pag_mask=mask.to(lat_in.device),
-                    ip=self._ip(self.cfg, cond_copies=2))
+                    ip=self._ip(self.cfg, cond_copies=2),
+                    added=self._added(rows * b, self.cfg, cond_copies=2))
         pag = _scale(self.pag_scale, eps.device)
         if self.cfg:
             eps_u, eps_c, eps_p = eps.chunk(3)
@@ -324,11 +342,11 @@ class CompositeGuidance:
     cfg_interval: bool = False
     guidance_rescale: float = 0.0
     rescale: bool = False
-    pooled: Optional[torch.Tensor] = None
+    pooled_stack: Optional[torch.Tensor] = None
+    uncond_pooled: Optional[torch.Tensor] = None
     time_ids: Optional[torch.Tensor] = None
 
     def __post_init__(self):
-        _reject_unported(self)
         _check_rescale_gate(self)
 
     @property
@@ -338,6 +356,18 @@ class CompositeGuidance:
     @property
     def num_entities(self) -> int:
         return self.entities.shape[0]
+
+    def _added(self, b: int, n: int):
+        """SDXL's ``added_cond`` for ``b`` latent rows against the ``n``-row
+        stack, row-major as the contexts; None without ``pooled_stack``."""
+        if self.pooled_stack is None:
+            return None
+        rows = [self.pooled_stack]
+        if self.cfg:
+            rows = [self.uncond_pooled.to(self.pooled_stack)] + rows
+        pooled = torch.cat(rows).repeat(b, 1)
+        tids = self.time_ids.expand(b * n, self.time_ids.shape[-1])
+        return {'text_embeds': pooled, 'time_ids': tids}
 
     def replace(self, **changes) -> 'CompositeGuidance':
         return dataclasses.replace(self, **changes)
@@ -364,7 +394,8 @@ class CompositeGuidance:
         # [b0·ctx0..b0·ctxN, b1·ctx0, ...], in one UNet call.
         b = latents.shape[0]
         lat = latents.repeat_interleave(n, dim=0)
-        eps = noise_fn(lat, t.expand(b * n), ctx.repeat(b, 1, 1))
+        eps = _call(noise_fn, lat, t.expand(b * n), ctx.repeat(b, 1, 1),
+                    added=self._added(b, n))
         eps = eps.reshape((b, n) + tuple(eps.shape[1:]))
 
         off = 1 if self.cfg else 0

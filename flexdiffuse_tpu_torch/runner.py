@@ -173,6 +173,69 @@ def attach_ip_adapter(pipe: FlexPipeline, path: str,
     return unet, state
 
 
+def rebuild(pipe: FlexPipeline, unet=None, **changes) -> FlexPipeline:
+    """A new pipeline around ``unet`` (default: ``pipe``'s) and ``pipe``'s
+    VAE, with ``pipe``'s scheduler, tiling, DeepCache, ControlNet and latent
+    scale unless ``changes`` say otherwise."""
+    kw = dict(scheduler=pipe.scheduler_kind,
+              scheduler_config=pipe.scheduler_config,
+              vae_tile=pipe.vae_tile, vae_tile_overlap=pipe.vae_tile_overlap,
+              deepcache=pipe.deepcache, controlnet=pipe.controlnet,
+              latent_scale=pipe.latent_scale)
+    kw.update(changes)
+    return FlexPipeline(unet or pipe.unet, pipe.vae, **kw)
+
+
+def seed_generator(generator: torch.Generator, seed: Optional[int]) -> int:
+    """Seed ``generator`` with ``seed`` (clamped; a random one when None)
+    and return the seed used."""
+    seed = clamp_seed(seed)
+    if seed is None:
+        seed = int(np.random.default_rng().integers(0, MAX_SEED))
+    generator.manual_seed(seed)
+    return seed
+
+
+def ip_fields(state: Optional[IPAdapterState], ip_embed, ip_image,
+              ip_scale: float, runner: str = 'Runner') -> dict:
+    """The guide's ip_* fields of one generation from ``state`` (the
+    loaded IP-Adapter of a ``runner``); none without an image prompt."""
+    if ip_embed is None and ip_image is None:
+        return {}
+    if state is None:
+        raise ValueError('image prompt given but no IP-Adapter is '
+                         f'loaded ({runner}.load_ip_adapter)')
+    return state.fields(ip_embed, ip_image, ip_scale)
+
+
+def run_batches(batches: int, sample, output_dir: str, fp: str,
+                save: bool) -> Tuple[List[Image.Image], Image.Image]:
+    """``batches`` calls of ``sample()`` (a list of images each) and the
+    grid of all their images; with ``save`` each image goes to
+    ``output_dir`` and the grid to its ``grids/``, under file names of the
+    time and the provenance tag ``fp``."""
+    grid_dir = os.path.join(output_dir, 'grids')
+    all_images: List[Image.Image] = []
+    if save:
+        os.makedirs(grid_dir, exist_ok=True)
+    for b in range(batches):
+        stime = time.time()
+        ms_time = int(stime * 1000)
+        images = sample()
+        log.info('batch %d/%d: %d image(s) in %.2fs', b + 1, batches,
+                 len(images), time.time() - stime)
+        if save:
+            for i, img in enumerate(images):
+                img.save(f'{output_dir}/{ms_time:>013d}_{i:>02d}_{fp}.png',
+                         format='png')
+        all_images.extend(images)
+    grid = image_grid(all_images)
+    if save:
+        ms_time = int(time.time() * 1000)
+        grid.save(f'{grid_dir}/{ms_time:>013d}_{fp}.png', format='png')
+    return all_images, grid
+
+
 def _i100(f: float) -> int:
     return int(f * 100)
 
@@ -280,25 +343,13 @@ class Runner:
                                  scheduler_config=scheduler_config)
         self.eta = 0.0  # DDIM η, read by every generation
         self.output_dir = config.output_dir
-        self.grid_dir = os.path.join(self.output_dir, 'grids')
         self._generator = torch.Generator(self.pipe.device)
         self._merged: set = set()   # parameters a LoRA has changed
         self._ip: Optional[IPAdapterState] = None
         self.timer = PhaseTimer()
 
     def _rebuild(self, unet=None, **overrides) -> None:
-        """A new pipeline around ``unet`` (default: the current one) with
-        the current scheduler, tiling, DeepCache and ControlNet unless
-        overridden."""
-        kw = dict(scheduler=self.pipe.scheduler_kind,
-                  scheduler_config=self.pipe.scheduler_config,
-                  vae_tile=self.pipe.vae_tile,
-                  vae_tile_overlap=self.pipe.vae_tile_overlap,
-                  deepcache=self.pipe.deepcache,
-                  controlnet=self.pipe.controlnet)
-        kw.update(overrides)
-        self.pipe = FlexPipeline(unet or self.pipe.unet, self.pipe.vae,
-                                 **kw)
+        self.pipe = rebuild(self.pipe, unet, **overrides)
 
     def enable_freeu(self, b1: float = 1.5, b2: float = 1.6,
                      s1: float = 0.9, s2: float = 0.2) -> None:
@@ -398,14 +449,6 @@ class Runner:
                                            image_encoder_dir, vision_config)
         self._rebuild(unet)
 
-    def _ip_fields(self, ip_embed, ip_image, ip_scale: float) -> dict:
-        if ip_embed is None and ip_image is None:
-            return {}
-        if self._ip is None:
-            raise ValueError('image prompt given but no IP-Adapter is '
-                             'loaded (Runner.load_ip_adapter)')
-        return self._ip.fields(ip_embed, ip_image, ip_scale)
-
     def apply_lora(self, path: str, scale: float = 1.0) -> None:
         """Merge a LoRA adapter (kohya or diffusers/PEFT naming,
         ``weights/lora.py``) into the UNet and text encoder in place.
@@ -437,13 +480,6 @@ class Runner:
         log.info('textual inversion %r: %d vector(s) added', name,
                  table.shape[0])
 
-    def _set_seed(self, seed: Optional[int]) -> int:
-        seed = clamp_seed(seed)
-        if seed is None:
-            seed = int(np.random.default_rng().integers(0, MAX_SEED))
-        self._generator.manual_seed(seed)
-        return seed
-
     def _run(self, batches: int, guidance, init_image, init_size,
              strength: float, steps: int, debug: bool, fp: str, save: bool,
              mask=None, control_image=None, controlnet_scale: float = 1.0,
@@ -458,45 +494,25 @@ class Runner:
         ``hires_scale`` (:func:`upscale_latents`) and refined by an img2img
         pass at ``hires_strength`` (a mask applies to pass 1 only)."""
         hires = bool(hires_scale) and hires_scale > 1.0
-        all_images: List[Image.Image] = []
-        if save:
-            os.makedirs(self.grid_dir, exist_ok=True)
         control = dict(control_image=control_image,
                        controlnet_scale=controlnet_scale)
-        for b in range(batches):
-            stime = time.time()
-            ms_time = int(stime * 1000)
-            if hires:
-                lat = self.pipe(guidance, steps=steps, init_image=init_image,
-                                init_size=init_size, strength=strength,
-                                eta=self.eta, generator=self._generator,
-                                mask=mask, output_type='latent',
-                                **control).images
-                images = self.pipe(guidance, steps=hires_steps or steps,
-                                   init_latents=upscale_latents(
-                                       lat, hires_scale),
-                                   strength=hires_strength, eta=self.eta,
-                                   generator=self._generator,
-                                   debug=debug, **control).images
-            else:
-                images = self.pipe(guidance, steps=steps,
-                                   init_image=init_image,
-                                   init_size=init_size, strength=strength,
-                                   eta=self.eta, generator=self._generator,
-                                   debug=debug, mask=mask, **control).images
-            log.info('batch %d/%d: %d image(s) in %.2fs', b + 1, batches,
-                     len(images), time.time() - stime)
-            if save:
-                for i, img in enumerate(images):
-                    img.save(f'{self.output_dir}/{ms_time:>013d}_{i:>02d}_'
-                             f'{fp}.png', format='png')
-            all_images.extend(images)
-        grid = image_grid(all_images)
-        if save:
-            ms_time = int(time.time() * 1000)
-            grid.save(f'{self.grid_dir}/{ms_time:>013d}_{fp}.png',
-                      format='png')
-        return all_images, grid
+
+        def sample() -> List[Image.Image]:
+            if not hires:
+                return self.pipe(guidance, steps=steps, init_image=init_image,
+                                 init_size=init_size, strength=strength,
+                                 eta=self.eta, generator=self._generator,
+                                 debug=debug, mask=mask, **control).images
+            lat = self.pipe(guidance, steps=steps, init_image=init_image,
+                            init_size=init_size, strength=strength,
+                            eta=self.eta, generator=self._generator,
+                            mask=mask, output_type='latent', **control).images
+            return self.pipe(guidance, steps=hires_steps or steps,
+                             init_latents=upscale_latents(lat, hires_scale),
+                             strength=hires_strength, eta=self.eta,
+                             generator=self._generator, debug=debug,
+                             **control).images
+        return run_batches(batches, sample, self.output_dir, fp, save)
 
     def gen(self,
             prompt: Union[str, List[str]] = '',
@@ -581,7 +597,7 @@ class Runner:
         if seed:
             fp += f'_se{seed}'
 
-        self._set_seed(seed)
+        seed_generator(self._generator, seed)
         params = GuidanceParams(threshold_mult=guide_threshold_mult,
                                 threshold_floor=guide_threshold_floor,
                                 clustered=guide_clustered,
@@ -615,7 +631,7 @@ class Runner:
         if guidance_rescale:
             features.update(rescale=True,
                             guidance_rescale=float(guidance_rescale))
-        features.update(self._ip_fields(ip_embed, ip_image, ip_scale))
+        features.update(ip_fields(self._ip, ip_embed, ip_image, ip_scale))
         guidance = SimpleGuidance(embeddings=embeds, uncond=uncond,
                                   guidance_scale=float(guidance_scale),
                                   cfg=guidance_scale > 1.0, **features)
@@ -662,7 +678,7 @@ class Runner:
             fp += f'_gr{_i100(guidance_rescale)}'
         if seed:
             fp += f'_se{seed}'
-        self._set_seed(seed)
+        seed_generator(self._generator, seed)
         with self.timer.phase('embeds'):
             embeds = self.encoder.prompt(prompt)
             uncond = self.encoder.prompt(negative_prompt or '')
@@ -748,7 +764,7 @@ class Runner:
         fp += f'_st{steps}_gs{int(guidance_scale)}'
         if seed:
             fp += f'_se{seed}'
-        self._set_seed(seed)
+        seed_generator(self._generator, seed)
 
         def _row_to_ent(row: Sequence[Any]) -> Optional[EntitySchema]:
             try:

@@ -14,7 +14,7 @@ Dataset layout (kohya/diffusers folder conventions):
 * no captions at all → every image uses ``default_caption`` (DreamBooth
   single-concept style).
 
-``encode_dataset_sdxl`` waits for SDXL (ROADMAP Queue 1 step 11).
+``encode_dataset_sdxl`` waits for SDXL training (ROADMAP Queue 1 step 12).
 """
 from __future__ import annotations
 

@@ -11,9 +11,11 @@ module undoes each rule:
 * our ``pre_layernorm``              → HF's ``pre_layrnorm``
 
 The inverse of each converter sits in the function of the same name
-(``convert_clip_text`` :77 ↔ :func:`clip_text`, ``convert_clip_vision`` :103
+(``convert_clip_text`` :77 ↔ :func:`clip_text` (with SDXL's
+``text_projection``), ``convert_clip_vision`` :103
 ↔ :func:`clip_vision`, ``convert_unet`` :170 ↔ :func:`unet` (with an
-IP-Adapter's ``to_k_ip``/``to_v_ip`` where the tree has them),
+IP-Adapter's ``to_k_ip``/``to_v_ip`` and SDXL's ``add_embed_1/2`` where
+the tree has them),
 ``convert_vae`` :236 ↔ :func:`vae`, ``convert_controlnet`` :275 ↔
 :func:`controlnet`); the IP-Adapter heads of
 ``flexdiffuse_tpu/models/ip_adapter.py`` (``ImageProjection``,
@@ -83,6 +85,8 @@ def clip_text(tree: Mapping, config: CLIPTextConfig) -> SD:
         tree['position_embedding'])
     _clip_encoder(sd, f'{p}.encoder', tree['encoder'], config.num_layers)
     _norm(sd, f'{p}.final_layer_norm', tree['final_layer_norm'])
+    if 'text_projection' in tree:
+        _dense(sd, 'text_projection', tree['text_projection'])
     return sd
 
 
@@ -134,10 +138,14 @@ def _transformer2d(sd: SD, p: str, tree: Mapping, depth: int) -> None:
 
 
 def _down_mid(sd: SD, tree: Mapping, config: UNetConfig) -> None:
-    """The time embedding, ``conv_in`` and the down and mid path, which
-    the UNet and the ControlNet share."""
+    """The time embedding (with SDXL's additional embedding where the
+    tree has it), ``conv_in`` and the down and mid path, which the UNet and
+    the ControlNet share."""
     _dense(sd, 'time_embedding.linear_1', tree['time_embed_1'])
     _dense(sd, 'time_embedding.linear_2', tree['time_embed_2'])
+    if 'add_embed_1' in tree:
+        _dense(sd, 'add_embedding.linear_1', tree['add_embed_1'])
+        _dense(sd, 'add_embedding.linear_2', tree['add_embed_2'])
     _conv(sd, 'conv_in', tree['conv_in'])
     n = len(config.block_channels)
     for i in range(n):

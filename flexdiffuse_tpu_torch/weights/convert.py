@@ -16,8 +16,9 @@ converter:
   ``proj_attn`` and some store it as 4-D 1×1 convs (``convert.py:218-234``);
 * one HF CLIP file holds both towers (the vision tower with HF's
   ``pre_layrnorm`` spelling, which the port keeps) and keys no port module
-  has (``logit_scale``, ``text_projection``, ``position_ids``): those are
-  dropped with a log line.
+  has (``logit_scale``, ``position_ids``, and ``text_projection`` unless
+  the text tower has a ``projection_dim``, as SDXL's second encoder has):
+  those are dropped with a log line.
 
 Every other key goes through unchanged, so ``load_state_dict(strict=True)``
 reports any gap.
@@ -70,11 +71,14 @@ def _split_clip(key: str) -> str:
     return ''
 
 
-def normalize(sd: SD, kind: str) -> Dict[str, torch.Tensor]:
+def normalize(sd: SD, kind: str,
+              projection: bool = False) -> Dict[str, torch.Tensor]:
     """The state dict of the port's model of ``kind`` ('text', 'vision',
-    'unet', 'vae' or 'controlnet') from a diffusers/HF checkpoint's. A CLIP checkpoint
-    serves 'text' and 'vision' alike: each keeps its own tower's keys.
-    Tensors are not copied unless a rule reshapes them."""
+    'unet', 'vae' or 'controlnet') from a diffusers/HF checkpoint's. A CLIP
+    checkpoint serves 'text' and 'vision' alike: each keeps its own tower's
+    keys; 'text' keeps ``text_projection.weight`` only with ``projection``
+    (a text config with ``projection_dim``). Tensors are not copied unless
+    a rule reshapes them."""
     if kind not in KINDS:
         raise ValueError(f'unknown model kind {kind!r}')
     out: Dict[str, torch.Tensor] = {}
@@ -82,6 +86,10 @@ def normalize(sd: SD, kind: str) -> Dict[str, torch.Tensor]:
     for key, w in sd.items():
         w = torch.as_tensor(w)
         if kind in ('text', 'vision'):
+            if (kind == 'text' and projection
+                    and key == 'text_projection.weight'):
+                out[key] = w
+                continue
             if CLIP_EXTRA.match(key):
                 dropped.append(key)
                 continue
@@ -155,13 +163,16 @@ def _clip_encoder(sd: SD, prefix: str, num_layers: int) -> dict:
 
 def convert_clip_text(sd: SD, config: CLIPTextConfig) -> dict:
     p = 'text_model'
-    return {
+    out = {
         'token_embedding': {
             'embedding': sd[f'{p}.embeddings.token_embedding.weight']},
         'position_embedding': sd[f'{p}.embeddings.position_embedding.weight'],
         'encoder': _clip_encoder(sd, f'{p}.encoder', config.num_layers),
         'final_layer_norm': _norm(sd, f'{p}.final_layer_norm'),
     }
+    if config.projection_dim:
+        out['text_projection'] = _dense(sd, 'text_projection', bias=False)
+    return out
 
 
 def convert_clip_vision(sd: SD, config: CLIPVisionConfig) -> dict:
@@ -223,6 +234,10 @@ def convert_unet(sd: SD, config: UNetConfig) -> dict:
         # LCM guidance-embedding projection (bias-free).
         out['time_cond_proj'] = _dense(sd, 'time_embedding.cond_proj',
                                        bias=False)
+    if config.addition_embed:
+        # SDXL's text-time additional embedding.
+        out['add_embed_1'] = _dense(sd, 'add_embedding.linear_1')
+        out['add_embed_2'] = _dense(sd, 'add_embedding.linear_2')
     n = len(config.block_channels)
     for i in range(n):
         for j in range(config.layers_per_block):

@@ -88,6 +88,20 @@ def load_sd(model_dir: str) -> Tuple[SD, SD]:
                               'vae'))
 
 
+def load_sdxl(model_dir: str, projection: bool = True
+              ) -> Tuple[SD, SD, SD, SD]:
+    """The UNet's, VAE's and both text encoders' state dicts from an
+    SDXL snapshot directory (``unet/``, ``vae/``, ``text_encoder/``,
+    ``text_encoder_2/``); encoder 2 keeps its ``text_projection`` with
+    ``projection``."""
+    part = lambda sub: load_state_dict(os.path.join(model_dir, sub))
+    return (convert.normalize(part('unet'), 'unet'),
+            convert.normalize(part('vae'), 'vae'),
+            convert.normalize(part('text_encoder'), 'text'),
+            convert.normalize(part('text_encoder_2'), 'text',
+                              projection=projection))
+
+
 def _np_leaves(tree):
     """A restored tree with bfloat16 leaves (torch tensors) widened to
     float32 numpy arrays, exactly; ``bridge`` takes numpy."""

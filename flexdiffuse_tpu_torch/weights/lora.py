@@ -19,8 +19,9 @@ keys are reported, not silently dropped.
 
 SDXL's kohya SGM naming (``input_blocks_{n}_1`` / ``middle_block_1`` /
 ``output_blocks_{n}_1``) maps through :func:`sgm_block_map`, a function of
-the UNet config; merging into an SDXL UNet waits for the port's SDXL UNet
-(ROADMAP Queue 1 step 11).
+the UNet config (``apply_lora(unet_config=)``), and ``lora_te2_`` /
+``text_encoder_2.`` modules merge into SDXL's second text encoder
+(``apply_lora(text2_model=)``).
 """
 from __future__ import annotations
 
@@ -243,13 +244,17 @@ def apply_lora(unet: Optional[nn.Module], text_model: Optional[nn.Module],
                lora_sd: Mapping, scale: float = 1.0,
                unet_config: Optional[UNetConfig] = None,
                base: Optional[Mapping[str, Mapping]] = None,
-               merged: Set[str] = frozenset()) -> Set[str]:
-    """Merge a LoRA into the UNet and text encoder in place; either may be
-    None to skip its part. Each weight is merged in fp32 on the host and
-    cast to its module's dtype once; at most one weight's fp32 copy exists
-    at a time.
+               merged: Set[str] = frozenset(),
+               text2_model: Optional[nn.Module] = None) -> Set[str]:
+    """Merge a LoRA into the UNet and text encoders in place; any may be
+    None to skip its part (``text2_model``: SDXL's second encoder, the
+    'te2' modules). ``unet_config`` is the UNet's geometry for SGM-named
+    modules (default SDXL base). Each weight is merged in fp32 on the host
+    and cast to its module's dtype once; at most one weight's fp32 copy
+    exists at a time.
 
-    ``base``: for each target ('unet', 'te'), a state dict of the unmerged
+    ``base``: for each target ('unet', 'te', 'te2'), a state dict of the
+    unmerged
     weights (the snapshot's); a weight not in ``merged`` is merged from
     there, not from the module's possibly lower-precision copy. Returns
     the ``'target:name'`` of every weight merged. Raises on a LoRA module
@@ -261,7 +266,7 @@ def apply_lora(unet: Optional[nn.Module], text_model: Optional[nn.Module],
                     len(unmapped), unmapped[0])
     if not modules:
         raise ValueError('no applicable LoRA modules found')
-    models = {'unet': unet, 'te': text_model}
+    models = {'unet': unet, 'te': text_model, 'te2': text2_model}
     dropped = sorted({t for (t, _) in modules if models.get(t) is None})
     if dropped:
         log.warning('LoRA: modules targeting %s skipped; no such model was '

@@ -35,6 +35,8 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.models.unet', 'flexdiffuse_tpu_torch.models.vae',
     'flexdiffuse_tpu_torch.models.controlnet',
     'flexdiffuse_tpu_torch.models.ip_adapter',
+    'flexdiffuse_tpu_torch.models.sdxl',
+    'flexdiffuse_tpu_torch.sdxl_runner',
     'flexdiffuse_tpu_torch.ops.attention',
     'flexdiffuse_tpu_torch.ops.flash_attention',
     'flexdiffuse_tpu_torch.ops.flash_backward',

@@ -226,10 +226,6 @@ def test_compose_calls_compose_alike(monkeypatch, tmp_path):
 # --- what the port refuses --------------------------------------------------
 
 UNPORTED = [
-    (['generate', '--model-family', 'sdxl'], 11),
-    (['generate', '--refiner', 'r'], 11),
-    (['generate', '--refine-strength', '0.5'], 11),
-    (['serve-api', '--model-family', 'sdxl'], 11),
     (['train', '--data', 'd', '--textual-inversion', '<x>'], 12),
     (['train', '--data', 'd', '--init-token', 'cat'], 12),
     (['train', '--data', 'd', '--num-vectors', '2'], 12),
@@ -257,6 +253,14 @@ STEP9 = [
     ['compose', '--schema', 'SCHEMA', '--scheduler', 'heun'],
     ['serve', '--freeu', 'on'], ['serve-api', '--deepcache', '2'],
     ['train', '--data', 'd', '--model-family', 'sd2'],
+]
+# The SDXL flags (the twelfth slice; they named step 11 before): each
+# reaches SDXLRunner as in the JAX CLI
+# (test_step11_flags_reach_the_sdxl_runner_as_in_jax).
+STEP11 = [
+    ['generate', '--model-family', 'sdxl'],
+    ['generate', '--model-family', 'sdxl', '--refiner', 'r'],
+    ['generate', '--model-family', 'sdxl', '--refine-strength', '0.5'],
 ]
 # The conditioning models' flags (the eleventh slice; they named step 10
 # before): each reaches the Runner as in the JAX CLI
@@ -325,6 +329,15 @@ def test_the_card_is_the_default(no_models, argv):
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match='--device cpu'):
         tcli.main(argv)
+
+
+def test_serve_api_refuses_sdxl_at_start(no_models):
+    """``serve-api --model-family sdxl`` (which named step 11 before) is
+    refused before anything loads: the serving dispatcher encodes with the
+    SD-1.x Runner's encoder, which SDXLRunner has not (nor has the JAX
+    API's)."""
+    with pytest.raises(SystemExit, match='serve-api does not serve'):
+        tcli.main(['serve-api', '--model-family', 'sdxl', '--device', 'cpu'])
 
 
 def test_ui_app_refuses_without_the_card_and_unported_flags(no_models):
@@ -702,3 +715,46 @@ def test_train_end_to_end(model_root, tiny_configs, dataset,  # noqa: F811
     else:
         keys = tsafetensors.load_file(str(out))
         assert keys and all(k.startswith('lora_unet_') for k in keys)
+
+
+class FakeSDXLRunner:
+    """Either package's SDXLRunner as the CLI drives it: records its
+    construction and ``gen``; loads nothing."""
+
+    output_dir = 'nowhere'
+
+    def __init__(self, log, root, clip_root=None, scheduler='dpmpp',
+                 output_dir='./outputs', refiner_root=None, **kw):
+        self.log = log
+        log.append(('init', dict(root=root, clip_root=clip_root,
+                                 scheduler=scheduler, output_dir=output_dir,
+                                 refiner_root=refiner_root)))
+
+    def gen(self, **kw):
+        self.log.append(('gen', kw))
+        return [], None
+
+
+@pytest.mark.parametrize('argv', STEP11, ids=[' '.join(a) for a in STEP11])
+def test_step11_flags_reach_the_sdxl_runner_as_in_jax(fake_runners,
+                                                      monkeypatch, argv):
+    """Each flag that named ROADMAP step 11 before the twelfth slice: the
+    port builds an SDXLRunner as the JAX CLI builds its own (snapshot root,
+    ``clip_root``, scheduler, output dir, refiner) and hands ``gen`` the
+    same keywords (``refine_strength`` instead of the hires ones)."""
+    import flexdiffuse_tpu.sdxl_runner as jsr
+    from flexdiffuse_tpu_torch import sdxl_runner as tsr
+    logs = {'jax': [], 'port': []}
+    monkeypatch.setattr(jsr, 'SDXLRunner',
+                        lambda *a, **k: FakeSDXLRunner(logs['jax'], *a, **k))
+    monkeypatch.setattr(tsr, 'SDXLRunner',
+                        lambda *a, **k: FakeSDXLRunner(logs['port'], *a,
+                                                       **k))
+    assert jcli.main(['--no-compile-cache', *argv]) == 0
+    assert tcli.main([*argv, '--device', 'cpu']) == 0
+    assert logs['port'] == logs['jax']
+    (_, init), (_, gen) = logs['port']
+    assert init['refiner_root'] == ('r' if '--refiner' in argv else None)
+    assert gen['refine_strength'] == (0.5 if '--refine-strength' in argv
+                                      else 0.3)
+    assert 'hires_scale' not in gen

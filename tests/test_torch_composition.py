@@ -172,14 +172,47 @@ def test_composite_noise_pred_matches_jax(models, entities, style, cfg,
                                atol=1e-4)
 
 
+@pytest.mark.parametrize('cfg,batch', [(True, 1), (True, 2), (False, 2)])
+def test_composite_sdxl_added_rows_match_jax(cfg, batch):
+    """SDXL's ``pooled_stack``/``uncond_pooled``/``time_ids`` on the
+    composite guide: the ``added_cond`` rows beside the stack's (``[uncond,]
+    background, entities`` per latent row) equal JAX's, and its noise
+    function receives them."""
+    jguide, tguide = _composites(2, cfg=cfg)
+    rng = np.random.default_rng(21)
+    pooled = rng.standard_normal((3, 24)).astype(np.float32)
+    upooled = rng.standard_normal((1, 24)).astype(np.float32)
+    tids = np.array([[64, 64, 0, 0, 64, 64]], np.float32)
+    jguide = jguide.replace(pooled_stack=jnp.asarray(pooled),
+                            uncond_pooled=jnp.asarray(upooled),
+                            time_ids=jnp.asarray(tids))
+    tguide = tguide.replace(pooled_stack=torch.from_numpy(pooled),
+                            uncond_pooled=torch.from_numpy(upooled),
+                            time_ids=torch.from_numpy(tids))
+    n = 3 + cfg
+    want = jguide._added(batch, n)
+    got = tguide._added(batch, n)
+    for key in ('text_embeds', 'time_ids'):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    seen = []
+
+    def noise_fn(lat, t, ctx, added_cond=None):
+        seen.append(added_cond)
+        return torch.zeros(lat.shape)
+    tguide.noise_pred(noise_fn, torch.zeros((batch, 8, 8, 4)),
+                      torch.tensor(501.0))
+    assert seen[0]['text_embeds'].shape == (batch * n, 24)
+    np.testing.assert_array_equal(seen[0]['text_embeds'].numpy(),
+                                  np.asarray(want['text_embeds']))
+
+
 def test_unported_guidance_fields_name_their_step(models):
-    """SDXL's fields still name step 11. The CFG interval and CFG rescale
-    fields (step 9 until the tenth slice) are taken as the JAX guide takes
-    them: rescale's gate refuses a phi without its flag, and a rescaled
-    composite prediction matches JAX's within 1e-4."""
+    """The CFG interval and CFG rescale fields (step 9 until the tenth
+    slice) are taken as the JAX guide takes them: rescale's gate refuses a
+    phi without its flag, and a rescaled composite prediction matches JAX's
+    within 1e-4. (SDXL's fields, step 11 until the twelfth slice, are held
+    by test_composite_sdxl_added_rows_match_jax.)"""
     jguide, tguide = _composites(1)
-    with pytest.raises(NotImplementedError, match='step 11'):
-        dataclasses.replace(tguide, pooled=torch.zeros(2, 8))
     interval = dataclasses.replace(tguide, cfg_interval=True, cfg_from=0.1,
                                    cfg_to=0.6)
     assert (interval.cfg_interval, interval.cfg_from, interval.cfg_to) == \

@@ -262,6 +262,65 @@ def test_plan_at_serving_batches(kind, batch):
                                      torch.bfloat16).path for s in shapes]
 
 
+@functools.lru_cache(maxsize=None)
+def _sdxl_shapes(kind: str):
+    """Every GroupNorm shape of one SDXL base or refiner UNet evaluation at
+    1024² under CFG (batch 2, with ``added_cond``), or of a 1024² decode or
+    encode, from the port's models on the meta device."""
+    from flexdiffuse_tpu_torch.models import (SDXL_REFINER_UNET, SDXL_UNET,
+                                              SDXL_VAE, AutoencoderKL,
+                                              UNet2DCondition)
+    meta = lambda *shape: torch.empty(shape, device='meta')
+    cfg = {'base': SDXL_UNET, 'refiner': SDXL_REFINER_UNET}.get(kind)
+    with torch.device('meta'):
+        model = (UNet2DCondition(cfg) if cfg is not None else
+                 AutoencoderKL(SDXL_VAE))
+    if cfg is not None:
+        added = {'text_embeds': meta(2, cfg.addition_pooled_dim),
+                 'time_ids': meta(2, cfg.num_time_ids)}
+        run = lambda: model(meta(2, 128, 128, 4), meta(2),
+                            meta(2, 77, cfg.cross_attention_dim),
+                            added_cond=added)
+    else:
+        run = {'decode': lambda: model.decode(meta(1, 128, 128, 4)),
+               'encode': lambda: model.encode(meta(1, 1024, 1024, 3))}[kind]
+    return tuple(_hooked_shapes(model, run))
+
+
+@pytest.mark.parametrize('kind', ['base', 'refiner', 'decode', 'encode'])
+def test_plan_at_sdxl_1024(kind):
+    """SDXL at 1024²: every GroupNorm of a base and a refiner evaluation
+    (one of each streams: the 960- and 1152-channel 128² levels, whose
+    vector-aligned slabs of 4 groups no cluster of 16 holds) and of the
+    decode and encode; the calls and stream counts are the ones
+    ``chip_smoke.py`` step 19 holds its module-tree counts to."""
+    import chip_smoke
+    shapes = _sdxl_shapes(kind)
+    paths = [_check_plan(s, 32, torch.bfloat16).path for s in shapes]
+    assert (len(shapes), paths.count('stream')) == chip_smoke.K6_SDXL[kind]
+    if kind in ('base', 'refiner'):
+        assert all(s[2] == 128 and s[1] in (960, 1152)
+                   for s, p in zip(shapes, paths) if p == 'stream')
+
+
+def test_step19_holds_k6_at_every_sdxl_call():
+    """``chip_smoke.py`` step 19 holds K6 at every distinct GroupNorm call
+    of the SDXL path: its specs cover every shape of the base and refiner
+    evaluations, the decode and the encode, with both plans' paths, and
+    its timed shapes are SiLU calls of that path."""
+    import chip_smoke
+    specs = chip_smoke.sdxl_gn_specs()
+    shapes = {s[0] for s in specs}
+    assert len(specs) == len(set(specs))
+    assert shapes == {tuple(s) for kind in ('base', 'refiner', 'decode',
+                                            'encode')
+                      for s in _sdxl_shapes(kind)}
+    assert {_check_plan(s, 32, torch.bfloat16).path for s in shapes} == {
+        'resident', 'stream'}
+    silu = {s[0] for s in specs if s[1]}
+    assert set(chip_smoke.STEP19_GN_TIMED) <= silu
+
+
 PLAN_CASES = [
     ((2, 320, 64, 64), 32, torch.bfloat16, torch.float32, True),
     ((4, 320, 64, 64), 32, torch.float32, torch.float32, True),

@@ -32,6 +32,8 @@ from PIL import Image
 
 from flexdiffuse_tpu import pipeline as jp
 from flexdiffuse_tpu.models import SD14_UNET as J_SD14_UNET
+from flexdiffuse_tpu.models import SDXL_UNET as J_SDXL_UNET
+from flexdiffuse_tpu.models import TINY_SDXL_UNET as J_TINY_SDXL_UNET
 from flexdiffuse_tpu.models import (TINY_UNET, TINY_VISION, CLIPVisionModel,
                                     UNet2DCondition)
 from flexdiffuse_tpu.models import ip_adapter as jipa
@@ -190,20 +192,41 @@ def test_image_projection_heads_match_jax(kind):
 
 # --- (b) the key layouts ------------------------------------------------------
 
-@pytest.mark.parametrize('config', ['sd14', 'tiny'])
+# config: (JAX's, the port's, its number of cross-attentions).
+ORDER_CONFIGS = {
+    'sd14': (J_SD14_UNET, tm.SD14_UNET, 16),
+    'tiny': (TINY_UNET, tm.TINY_UNET, 4),
+    # SDXL: 2·2 + 2·10 down, 3·10 + 3·2 up, 10 mid (the 70 layers of the
+    # official ip-adapter_sdxl checkpoints).
+    'sdxl': (J_SDXL_UNET, tm.SDXL_UNET, 70),
+    'tiny_sdxl': (J_TINY_SDXL_UNET, tm.TINY_SDXL_UNET, 8),
+}
+
+
+@pytest.mark.parametrize('config', list(ORDER_CONFIGS))
 def test_attn2_layer_order_matches_jax(config):
     """SD-1.x: 6 down, 9 up, then the mid block last (16 layers, as the
-    official ip-adapter_sd15 checkpoint); the tiny UNet: 4."""
-    jcfg = J_SD14_UNET if config == 'sd14' else TINY_UNET
-    tcfg = tm.SD14_UNET if config == 'sd14' else tm.TINY_UNET
+    official ip-adapter_sd15 checkpoint); SDXL's 70 in the same order, with
+    every block of a deep transformer; the tiny UNets: 4 and 8."""
+    jcfg, tcfg, n = ORDER_CONFIGS[config]
     order = ipa.attn2_layer_order(tcfg)
     assert order == [_jax_name(p) for p in jipa.attn2_layer_order(jcfg)]
-    assert len(order) == (16 if config == 'sd14' else 4)
-    assert order[-1] == 'mid_block.attentions.0.transformer_blocks.0.attn2'
+    assert len(order) == n
+    assert order[-1].startswith('mid_block.attentions.0.transformer_blocks.')
+    assert order[-1].endswith('.attn2')
     if config == 'sd14':
         assert order[0] == 'down_blocks.0.attentions.0.transformer_blocks.0' \
             '.attn2'
         assert order[6] == 'up_blocks.1.attentions.0.transformer_blocks.0' \
+            '.attn2'
+    if config == 'sdxl':
+        assert order[0] == 'down_blocks.1.attentions.0.transformer_blocks.0' \
+            '.attn2'
+        assert order[4] == 'down_blocks.2.attentions.0.transformer_blocks.0' \
+            '.attn2'
+        assert order[24] == 'up_blocks.0.attentions.0.transformer_blocks.0' \
+            '.attn2'
+        assert order[-1] == 'mid_block.attentions.0.transformer_blocks.9' \
             '.attn2'
 
 

@@ -197,7 +197,7 @@ def test_clip_skip_changes_the_context_and_refuses_two(towers):
                     clip_skip=2)
     with pytest.raises(ValueError):
         plain.text_model(torch.zeros((1, 77), dtype=torch.long),
-                         output='penultimate')
+                         output='penultimate_and_pooled')
 
 
 # --- the Runner ----------------------------------------------------------
