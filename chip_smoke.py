@@ -94,7 +94,7 @@ Training (the second slice):
 11. ``train_lora`` for 10 steps (rank 8, batch 4, remat 'none') on the bf16
     UNet, then ``train_full`` for 4 steps (batch 4, fp32 weights and Adam,
     bf16 autocast, remat 'full') on an fp32 copy: finite losses and exactly
-    the kernel launches the path implies (LAUNCHES_PER_STEP; every K3, K4
+    the kernel launches the path implies (``step_launches``; every K3, K4
     and K5 on the Hopper path); prints the median ms per step, images/s and
     peak device memory. (Step 12 runs between the two.)
 
@@ -115,7 +115,7 @@ Loading from disk (the eighth slice):
     ``long_prompt=True`` and once with ``weighted=True``: step 7's
     checks and launches for each. Then ``train_full`` for 2 steps (batch 4,
     remat 'full') on the snapshot's UNet loaded in fp32, with
-    ``save_path=``, the launches of LAUNCHES_PER_STEP, and the saved file
+    ``save_path=``, the launches ``step_launches`` implies, and the saved file
     reloaded by ``load_unet_msgpack`` equal to the trained tensors. Prints
     the seconds to write, to load and to move to the card, the host RSS
     (current and peak) and the peak device memory while loading.
@@ -262,9 +262,47 @@ SDXL base and refiner at 1024² (the twelfth slice), run after step 18:
     ``--profile-gen N --family sdxl`` profiles SDXL base evaluations at
     1024² instead of the smoke test.
 
+Textual-inversion and SDXL training (the thirteenth slice), step 20, in
+two parts: the SDXL part right after step 19 (on its runner, while the
+snapshots that ``SDXLRunner.apply_lora`` reads exist), the textual
+inversion after step 13 (on step 12's snapshot and Runner):
+
+20. Holds K3 (``o``, ``lse``), K4 and K5 at SDXL's training shapes
+    (STEP20_TRAIN_SHAPES: the base's 10 and 20 heads of 64 at 4096 and
+    1024 tokens, batch 2 for LoRA and 1 for full fine-tuning; K5 on its
+    32-row q tile above DP 48) by step 8's checks, timed at the batch-2
+    shapes as step 8 times its own. Encodes 4 synthetic 1024² images with
+    two captions through ``encode_dataset_sdxl`` (the runner's VAE and
+    ``SDXLTextEncoder``; pooled embeddings and time ids fp32), runs
+    ``train_lora`` (rank 8, batch 2, remat 'full', the bf16 base, fp32
+    factors, 6 steps), merges the exported LoRA with
+    ``SDXLRunner.apply_lora`` and runs one txt2img (1024², 25 DPM++ steps,
+    CFG 5); loads a seeded base-projection IP-Adapter (``_vit-h`` layout,
+    ``ip_adapter_checkpoint``) with a seeded OpenCLIP ViT-H image encoder
+    through ``load_ip_adapter(encoder='vit-h')`` and runs the same with an
+    ``ip_image``; checks one 1024² CFG evaluation of the base UNet with a
+    ControlNet of its geometry and ``added_cond`` against the plain
+    backends (UNET_REL_TOL, the branch moving ε). Then frees the runner,
+    prints the memory reckoning and runs ``train_full`` (batch 1, remat
+    'full', 2 steps) on an fp32 copy of the base UNet. The textual
+    inversion: ``train_textual_inversion`` on step 6's models (8 synthetic
+    512² images, 2 vectors, batch 4, remat 'none', 10 steps; the saved
+    file holds the returned rows), then ``cli train --textual-inversion
+    --init-token a --num-vectors 2 --style-templates`` in-process on step
+    12's snapshot (4 steps); its embedding loads into step 12's Runner
+    (``load_textual_inversion``: the new ids hold its rows) and one 512²
+    ``gen`` with the placeholder follows (25 PNDM steps, CFG 8). Every
+    training run: finite losses, the median ms per step, images/s, peak
+    device memory and exactly the launches of the module tree with
+    autograd on (``step_launches``: per TI step 1 K1, 9 K3, 9 K4, 9 K5, 3
+    K6; per SDXL LoRA step 140 K3, 70 K4, 70 K5, 14 K6; per SDXL full step
+    140, 70, 70, 0), plus the VAE encodes, every K3–K5 on the Hopper path;
+    each generate run step 17's checks.
+
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6, 11, 12, 13, 15 and each run of 17, 18 and 19) and read just after; launches
-made to check a kernel against its plain twin do not count. Any failed phase raises, so
+(steps 6, 11, 12, 13, 15, each run of 17, 18 and 19, and each training
+run, encode and generate run of 20) and read just after; launches made to
+check a kernel against its plain twin do not count. Any failed phase raises, so
 the script exits non-zero; without CUDA it exits non-zero at once and
 prints no result.
 """
@@ -376,16 +414,8 @@ TRAIN_SHAPES = [((4, 8, 4096, 40), 4096), ((4, 8, 1024, 80), 1024),
 TRAIN_MAIN = [(4, 8, 4096, 40), (4, 8, 1024, 80)]
 TRAIN_BATCH = 4
 LORA_STEPS, FULL_STEPS = 10, 4
-# Kernel launches per train step at 512²: each UNet forward runs the 10
-# flash-eligible self-attentions through K3 (never K1: they need a
-# gradient), the backward runs K4 and K5 once each; remat 'full' recomputes
-# the forward in the backward, so K3 runs twice. K6 serves only GroupNorms
-# whose input and affine need no gradient: in LoRA training (frozen UNet,
-# factors on the attention projections) the three GroupNorms that run
-# before the first adapted layer, down_blocks[0].resnets[0].norm1 and
-# .norm2 and down_blocks[0].attentions[0].norm; every later activation
-# carries the factors' gradient. Full fine-tuning trains the affine of
-# every GroupNorm, so none.
+
+
 def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
                   k6: int = 0, k6_stream: int = 0) -> dict:
     """The launch counts a main-path run must show (``kernel_counts``):
@@ -397,8 +427,6 @@ def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
                 k5_mma=0, k6_resident=k6 - k6_stream, k6_stream=k6_stream)
 
 
-LAUNCHES_PER_STEP = {'lora': want_launches(k3=10, k4=10, k5=10, k6=3),
-                     'full': want_launches(k3=20, k4=10, k5=10)}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
 # outside the tensor cores, HBM3. And the exponential unit, printed beside
 # K1/K3's times but kept out of the kernels line (it is a second bound on
@@ -788,7 +816,8 @@ def _backward_paths(q, k, v, dout, lse, dvec, scale) -> dict:
     return out
 
 
-def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
+def check_train_kernels(shape, skv: int, gen: torch.Generator,
+                        timed: bool) -> dict:
     """K3, K4 and K5 against their fp32 plain twins on the same bf16 inputs,
     by K1's rule; K4 and K5 on the Hopper path (which ``plan_backward``
     must pick) and on the kept kernels, each launched twice with bit-equal
@@ -797,7 +826,7 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
     bf16 inputs (fp32 math, 16-bit output); for K4 and K5 the twins' math
     with P and dS rounded to the inputs' dtype before the products, as the
     kernels' tensor cores take them (``twin_max_abs_err``: without that
-    rounding)."""
+    rounding). ``timed``: also time the kernels."""
     b, h, sq, d = shape
     q, dout = (torch.randn(shape, generator=gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(2))
@@ -852,7 +881,7 @@ def check_train_kernels(shape, skv: int, gen: torch.Generator) -> dict:
         res[name]['ok'] = bool(all(r['ok'] for r in new + kept) and
                                how.path == 'sm90' and
                                res[name]['deterministic'])
-    if shape in TRAIN_MAIN:
+    if timed:
         args = (q, k, v, dout, lse, dvec, scale)
         time_paths(res['k3'], lambda path=None: fb.flash_attention_lse(
             q, k, v, scale, path=path), 'k3', q, k)
@@ -1061,7 +1090,8 @@ def check_lora_step(unet, ctx, gen: torch.Generator) -> float:
     print(f'LoRA step 512² batch {TRAIN_BATCH}: loss kernel {loss_k:.6f} '
           f'plain {loss_p:.6f}; factor grads max|Δg|/max|g| = {rel:.3e} '
           f'(limit {UNET_REL_TOL}); launches {moved}')
-    if moved != LAUNCHES_PER_STEP['lora']:
+    if moved != step_launches(unet.config, 'lora', 'none', TRAIN_BATCH,
+                              64):
         raise AssertionError(f'LoRA check step launched {moved}')
     if not (np.isfinite(loss_k) and abs(loss_k - loss_p) <= UNET_REL_TOL *
             abs(loss_p) and rel <= UNET_REL_TOL):
@@ -1075,38 +1105,39 @@ def encode_synthetic(runner, vae, n: int = 8):
     ``find_items``/``encode_dataset`` into an ``EncodedDataset`` on the
     card."""
     with tempfile.TemporaryDirectory() as tmp:
-        for i in range(n):
-            synthetic_image(512, SEED + i).save(os.path.join(tmp,
-                                                             f'{i}.png'))
-            with open(os.path.join(tmp, f'{i}.txt'), 'w') as f:
-                f.write(f'{PROMPT}, view {i % 2}')
-        return training.encode_dataset(training.find_items(tmp), vae,
+        data = write_images(tmp, 'data', n, 512, SEED, captions=True)
+        return training.encode_dataset(training.find_items(data), vae,
                                        runner.encoder, resolution=512,
                                        encode_batch=4)
 
 
-def run_training(label: str, train_fn, steps: int, mode: str) -> dict:
+def run_training(label: str, train_fn, steps: int, want: dict,
+                 batch: int = TRAIN_BATCH, check: bool = True) -> dict:
     """Drive one training entry point with the launch counts at 0; check
-    finite losses and the exact launches; time the steps."""
+    finite losses and the exact launches ``want`` (:func:`train_want`);
+    time the steps (``batch`` images each)."""
+    cuda = torch.cuda.is_available()
     stamps = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     reset_counts()
     stamps.append(time.perf_counter())
     _, losses = train_fn(lambda i, loss: stamps.append(time.perf_counter()))
-    torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
     got = counts()
     per_step = [b - a for a, b in zip(stamps, stamps[1:])]
     ms = statistics.median(per_step[1:]) * 1e3   # the first step warms up
-    want = {k: v * steps for k, v in LAUNCHES_PER_STEP[mode].items()}
-    res = dict(label=label, steps=steps, losses=losses, median_step_ms=ms,
-               images_per_s=TRAIN_BATCH / ms * 1e3,
-               max_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=got)
-    print(f'{label}: {json.dumps(res)}')
+    res = dict(label=label, steps=steps, batch=batch, losses=losses,
+               median_step_ms=ms, images_per_s=batch / ms * 1e3,
+               max_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                               if cuda else None),
+               launches=got, expected=want)
+    print(f'{label}: {json.dumps(res)}', flush=True)
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f'{label}: losses {losses}')
-    if got != want:
+    if check and got != want:
         raise AssertionError(f'{label}: launches {got}, expected {want}')
     return res
 
@@ -1582,7 +1613,7 @@ def run_tools(gen: torch.Generator) -> dict:
 # weights, written to a temporary directory and loaded through
 # ``Runner(model_root=...)`` on its defaults (the card, bf16).
 SNAPSHOT_DTYPE = torch.float16
-BPE_CHARS = 'abcdefghijklmnopqrstuvwxyz0123456789{}!?.,'
+BPE_CHARS = 'abcdefghijklmnopqrstuvwxyz0123456789{}!?.,-'
 LORA_RANK, TI_TOKEN = 8, '<deer-style>'
 LONG_PROMPT = ' '.join([PROMPT] * 4)        # ~180 tokens: three windows
 WEIGHTED_PROMPT = ('(deer:1.3) colorful, [fantasy], intricate BREAK '
@@ -1816,7 +1847,9 @@ def run_disk_phases(text, vision, unet, vae, ds, root: str) -> dict:
         trained.update(params)
         return params, losses
 
-    full = run_training('disk: train_full', train, DISK_TRAIN_STEPS, 'full')
+    full = run_training('disk: train_full', train, DISK_TRAIN_STEPS,
+                        train_want(SD14_UNET, 'full', 'full', TRAIN_BATCH, 64,
+                                   DISK_TRAIN_STEPS))
     t0 = time.perf_counter()
     reloaded = weights_load.load_unet_msgpack(save_path, SD14_UNET)
     reload_s = time.perf_counter() - t0
@@ -2260,14 +2293,15 @@ def _meta_model(cls, config, settings=None):
     return _META_MODELS[key]
 
 
-def tree_launches(run) -> tuple:
+def tree_launches(run, grad: bool = False) -> tuple:
     """The launches ``run()`` implies on the card, from a pass over the
     module tree on the meta device: every attention call the dispatcher
     sends to the kernels (``attn_mod.route`` for a CUDA tensor under
-    'auto', no gradient: K1, on the path ``fa.plan`` picks) and every
-    GroupNorm (K6, on the path ``gn.plan_group_norm`` picks, aligned).
-    Returns ``(launches, by_shape)``, ``by_shape`` a Counter of (kernel,
-    shape)."""
+    'auto'; K1 on the path ``fa.plan`` picks, or, with ``grad`` (autograd
+    on) when q, k or v needs a gradient, one K3 in the forward and one K4
+    and one K5 in the backward) and every GroupNorm that needs no gradient
+    (K6, on the path ``gn.plan_group_norm`` picks, aligned). Returns
+    ``(launches, by_shape)``, ``by_shape`` a Counter of (kernel, shape)."""
     from flexdiffuse_tpu_torch.models import unet as unet_mod
     from flexdiffuse_tpu_torch.models import vae as vae_mod
     tally = collections.Counter()
@@ -2276,12 +2310,20 @@ def tree_launches(run) -> tuple:
 
     def attention(q, k, v, scale=None, backend=None):
         if attn_mod.route(q.shape, k.shape, 'cuda', 'auto') == 'flash':
-            tally['k1'] += 1
-            tally[f'k1_{fa.plan(q.contiguous(), k.contiguous()).path}'] += 1
-            by_shape['K1', tuple(q.shape)] += 1
+            name = 'k3' if torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad) \
+                else 'k1'
+            tally[name] += 1
+            tally[f'{name}_{fa.plan(q.contiguous(), k.contiguous()).path}'] \
+                += 1
+            by_shape[name.upper(), tuple(q.shape)] += 1
         return real_attn(q, k, v, scale, backend)
 
     def group_norm(x, groups, weight, bias, eps, silu=False, dtype=None):
+        if torch.is_grad_enabled() and (x.requires_grad or
+                                        weight.requires_grad or
+                                        bias.requires_grad):
+            return real_gn(x, groups, weight, bias, eps, silu, dtype)
         tally['k6'] += 1
         how = gn.plan_group_norm(tuple(x.shape), groups, x.dtype,
                                  dtype or x.dtype, True)
@@ -2292,14 +2334,53 @@ def tree_launches(run) -> tuple:
     unet_mod.attention = vae_mod.attention = attention
     unet_mod.group_norm = group_norm
     try:
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             run()
     finally:
         unet_mod.attention = vae_mod.attention = real_attn
         unet_mod.group_norm = real_gn
-    return want_launches(k1=tally['k1'], k6=tally['k6'],
+    return want_launches(k1=tally['k1'], k3=tally['k3'], k4=tally['k3'],
+                         k5=tally['k3'], k6=tally['k6'],
                          k6_stream=tally['k6_stream']) | {
-        k: tally[k] for k in ('k1_sm90', 'k1_mma', 'k6_resident')}, by_shape
+        k: tally[k] for k in ('k1_sm90', 'k1_mma', 'k3_sm90', 'k3_mma',
+                              'k6_resident')}, by_shape
+
+
+def step_launches(config, mode: str, remat: str, batch: int,
+                  lat: int) -> dict:
+    """The launches one train step implies on the card (:func:`tree_launches`
+    of the UNet's forward with autograd on, for a UNet of ``config`` at
+    ``batch`` × ``lat``² latents and 77 context tokens): 'lora' trains the
+    LoRA targets' weights of a frozen UNet, 'full' every parameter, 'ti'
+    the context of a frozen UNet (textual inversion's rows reach the UNet
+    only through it). Remat 'full' and 'dots' run the forward again in the
+    backward: its K1, K3 and K6 twice. K4 and K5 are counted on the Hopper
+    path, as every main-path call must take it."""
+    key = ('step', config, mode, remat, batch, lat)
+    if key not in _META_COUNTS:
+        meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+        with torch.device('meta'):
+            unet = UNet2DCondition(config).to(BF16)
+        unet.requires_grad_(mode == 'full')
+        if mode == 'lora':
+            for lin in train_mod.lora_targets(unet).values():
+                lin.weight.requires_grad_(True)
+        ctx = meta(batch, 77, config.cross_attention_dim).requires_grad_(
+            mode == 'ti')
+        kw = {}
+        if config.addition_embed:
+            kw['added_cond'] = {
+                'text_embeds': meta(batch, config.addition_pooled_dim),
+                'time_ids': meta(batch, config.num_time_ids)}
+        got = tree_launches(lambda: unet(meta(batch, lat, lat, 4),
+                                         meta(batch), ctx, **kw),
+                            grad=True)[0]
+        if remat != 'none':
+            for k in got:
+                if k.startswith(('k1', 'k3', 'k6')):
+                    got[k] *= 2
+        _META_COUNTS[key] = got
+    return dict(_META_COUNTS[key])
 
 
 def eval_launches(e: dict) -> dict:
@@ -3270,7 +3351,359 @@ def run_sdxl_phase(text, vision, root: str, size: int = SDXL_SIZE,
             if k == kernel), flush=True)
     return dict(runs=results, checks=checks, loading=timing,
                 write_s=dirs['write_s'], bytes=dirs['bytes'],
-                launches=_sum(r['launches'] for r in results))
+                launches=_sum(r['launches'] for r in results),
+                runner=runner)
+
+
+# --- Step 20: textual-inversion and SDXL training (the thirteenth slice) ---
+
+STEP20_SEED = SEED + 20
+# K3/K4/K5 at SDXL's self-attentions at 1024²: the base's 4096- and
+# 1024-token levels (10 and 20 heads of 64; K5 on its 32-row q tile above
+# DP 48), at the LoRA run's batch 2 (timed) and the full run's batch 1.
+STEP20_TRAIN_SHAPES = [((2, 10, 4096, 64), 4096), ((2, 20, 1024, 64), 1024),
+                       ((1, 10, 4096, 64), 4096), ((1, 20, 1024, 64), 1024)]
+STEP20_TIMED = [(2, 10, 4096, 64), (2, 20, 1024, 64)]
+TI_IMAGES, TI_BATCH, TI_VECTORS, TI_STEPS, TI_CLI_STEPS = 8, 4, 2, 10, 4
+TI_CONCEPT, TI_CLI_CONCEPT = '<flex-concept>', '<flex-style>'
+SDXL_TRAIN_IMAGES, SDXL_LORA_BATCH, SDXL_LORA_STEPS = 4, 2, 6
+SDXL_FULL_BATCH, SDXL_FULL_STEPS = 1, 2
+
+
+def write_images(root: str, name: str, n: int, size: int, seed: int,
+                 captions: bool = False) -> str:
+    """``n`` synthetic ``size``² images (with ``.txt`` captions, two
+    distinct) in a new folder ``root/name``."""
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    for i in range(n):
+        synthetic_image(size, seed + i).save(os.path.join(d, f'{i}.png'))
+        if captions:
+            with open(os.path.join(d, f'{i}.txt'), 'w') as f:
+                f.write(f'{PROMPT}, view {i % 2}')
+    return d
+
+
+def train_want(config, mode: str, remat: str, batch: int, lat: int,
+               steps: int, vae_config=None, encodes=()) -> dict:
+    """The launches of ``steps`` train steps (:func:`step_launches`) and of
+    the VAE encodes (quant_conv output shapes, a VAE of ``vae_config``) the
+    entry point makes."""
+    step = step_launches(config, mode, remat, batch, lat)
+    parts = [{k: v * steps for k, v in step.items()}]
+    if encodes:
+        parts.append(vae_launches(vae_config, [], list(encodes))[0])
+    return _sum(parts)
+
+
+class StepStamps(logging.Handler):
+    """The times of a training logger's 'step i/n' records, while
+    attached (the logger at INFO and kept to itself meanwhile)."""
+
+    def __init__(self, name: str) -> None:
+        super().__init__(logging.INFO)
+        self.times: list = []
+        self.logger = logging.getLogger(name)
+        self.was = self.logger.level, self.logger.propagate
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        self.logger.addHandler(self)
+
+    def emit(self, record) -> None:
+        if record.getMessage().startswith('step '):
+            self.times.append(record.created)
+
+    def remove(self) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.was[0])
+        self.logger.propagate = self.was[1]
+
+
+def run_ti_phase(text, unet, vae, root: str, runner, size: int = 512,
+                 steps: int = TI_STEPS, cli_steps: int = TI_CLI_STEPS,
+                 gen_steps: int = 25, check: bool = True,
+                 device: str = 'cuda') -> dict:
+    """Step 20's textual inversion (module docstring): the library entry
+    point on step 6's models, then ``cli train --textual-inversion`` on
+    step 12's snapshot under ``root``, its embedding loaded into
+    ``runner`` (step 12's) and one ``gen`` with the placeholder."""
+    data = write_images(root, 'ti_data', TI_IMAGES, size, STEP20_SEED)
+    paths = [p for p, _ in training.find_items(data, default_caption='x')]
+    lat = size // 8
+    encodes = [(len(paths), 8, lat, lat)]
+    want = lambda n: train_want(unet.config, 'ti', 'none', TI_BATCH, lat, n,
+                                vae.config, encodes)
+    out = os.path.join(root, 'ti_library.safetensors')
+    kept = {}
+
+    def train(on_step):
+        rows, losses = training.train_textual_inversion(
+            text, FakeTokenizer(text.config.vocab_size), unet, vae, paths,
+            TI_CONCEPT, num_vectors=TI_VECTORS,
+            cfg=training.TrainConfig(learning_rate=5e-4, weight_decay=0.0,
+                                     remat='none'),
+            steps=steps, batch_size=TI_BATCH, resolution=size,
+            seed=STEP20_SEED, save_path=out, log_every=1, on_step=on_step)
+        kept['rows'] = rows
+        return rows, losses
+
+    lib = run_training('step 20 train_textual_inversion', train, steps,
+                       want=want(steps), batch=TI_BATCH, check=check)
+    saved = weights_safetensors.load_file(out)
+    if list(saved) != [TI_CONCEPT] or not np.array_equal(
+            saved[TI_CONCEPT].numpy(), kept['rows']):
+        raise AssertionError('the saved embedding is not the returned rows')
+
+    cli_out = os.path.join(root, 'ti_cli.safetensors')
+    argv = ['train', '--models', root, '--data', data,
+            '--textual-inversion', TI_CLI_CONCEPT, '--init-token', 'a',
+            '--num-vectors', str(TI_VECTORS), '--style-templates',
+            '--steps', str(cli_steps), '--batch-size', str(TI_BATCH),
+            '--resolution', str(size), '--lr', '5e-4', '--seed',
+            str(STEP20_SEED), '--out', cli_out, '--device', device]
+    if device == 'cuda':
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # The CLI logs its first and last step, each after a synchronising
+    # read of the loss: their records' times give the ms per step.
+    stamps = StepStamps('flexdiffuse_tpu_torch.training.textual_inversion')
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        if cli.main(argv) != 0:
+            raise AssertionError('cli train --textual-inversion failed')
+    finally:
+        stamps.remove()
+    got, e2e = counts(), time.perf_counter() - t0
+    ms = (stamps.times[-1] - stamps.times[0]) / (cli_steps - 1) * 1e3
+    cli_res = dict(label='cli train --textual-inversion', steps=cli_steps,
+                   e2e_s=e2e, mean_step_ms=ms, batch=TI_BATCH,
+                   images_per_s=TI_BATCH / ms * 1e3, launches=got,
+                   expected=want(cli_steps),
+                   peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                             if device == 'cuda' else None))
+    print(f'step 20 {json.dumps(cli_res)}', flush=True)
+    if check and got != cli_res['expected']:
+        raise AssertionError(f'cli train --textual-inversion: launches {got}'
+                             f', expected {cli_res["expected"]}')
+    rows = weights_safetensors.load_file(cli_out)[TI_CLI_CONCEPT]
+    runner.load_textual_inversion(cli_out)
+    table = runner.encoder.text_model.text_model.embeddings.token_embedding
+    ids = runner.encoder.tokenizer.added_tokens[TI_CLI_CONCEPT.lower()]
+    if ids != list(range(table.weight.shape[0] - TI_VECTORS,
+                         table.weight.shape[0])) or not torch.equal(
+            table.weight[ids].cpu(), rows.to(table.weight.dtype)):
+        raise AssertionError('the CLI embedding did not load to its rows')
+    plms = gen_steps + 1
+    gen = run_feature(
+        f'gen {size}² with the trained placeholder', runner,
+        dict(prompt=f'{PROMPT}, {TI_CLI_CONCEPT}', steps=gen_steps,
+             guidance_scale=8, samples=1, seed=STEP20_SEED, save=False,
+             init_size=(size, size)),
+        [(2, lat, 'off', False)] * plms, [(lat, 1)], size, check, step=20)
+    gen.pop('by_shape')
+    return dict(library=lib, cli=cli_res, gen=gen,
+                launches=_sum([lib['launches'], got, gen['launches']]))
+
+
+def check_sdxl_controlnet(unet, gen: torch.Generator, text,
+                          size: int = SDXL_SIZE) -> dict:
+    """One CFG evaluation of the SDXL base UNet with a ControlNet of its
+    geometry (``controlnet_from_unet``) and ``added_cond`` through K1 and
+    K6 against the plain backends (UNET_REL_TOL), with the module tree's
+    launches; the branch moves ε (against ``controlnet_scale`` 0)."""
+    cn = controlnet_from_unet(unet, STEP20_SEED)
+    lat = size // 8
+    meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+    w = next(unet.parameters())
+    x = torch.randn((2, lat, lat, 4), generator=gen, device=w.device)
+    t2 = torch.full((2,), 981.0, device=w.device)
+    cond = torch.rand((1, size, size, 3), generator=gen, device=w.device)
+    ctx, pooled = text.encode(['', PROMPT])
+    added = {'text_embeds': pooled, 'time_ids': sdxl_models.time_ids(
+        (size, size), (0, 0), (size, size)).expand(2, -1).to(w.device)}
+    madded = {k: meta(*v.shape) for k, v in added.items()}
+    munet = _meta_model(UNet2DCondition, unet.config)
+    mcn = _meta_model(ControlNetModel, cn.config)
+    with_cn = lambda scale: unet(x, t2, ctx, added_cond=added, control=cn(
+        x, t2, ctx, cond.expand(2, -1, -1, -1), scale, added_cond=added))
+    return check_conditioning(
+        f'SDXL UNet + ControlNet with added_cond at {size}², batch 2',
+        lambda: with_cn(1.0),
+        lambda: munet(meta(2, lat, lat, 4), meta(2),
+                      meta(2, 77, ctx.shape[-1]), added_cond=madded,
+                      control=mcn(meta(2, lat, lat, 4), meta(2),
+                                  meta(2, 77, ctx.shape[-1]),
+                                  meta(2, size, size, 3),
+                                  added_cond=madded)),
+        off=lambda: with_cn(0.0), step=20)
+
+
+def write_ip_adapter(root: str, unet, encoder) -> dict:
+    """A seeded base-projection SDXL IP-Adapter checkpoint
+    (``ip_adapter_checkpoint``, the ``_vit-h`` layout: ``encoder``'s
+    projection width to 4 tokens) and ``encoder`` as an image-encoder
+    snapshot under ``root``, after checking the free space."""
+    ck = ip_adapter_checkpoint(unet, 'base', encoder.config.projection_dim,
+                               STEP20_SEED)
+    sd = encoder.state_dict()
+    need = sum(t.numel() * 2 for t in sd.values()) + sum(
+        t.numel() * 2 for part in ck.values() for t in part.values())
+    free = shutil.disk_usage(root).free
+    if free < 1.1 * need:
+        raise RuntimeError(f'not enough free space under {root}: '
+                           f'{free / 2**30:.1f} GiB for '
+                           f'{1.1 * need / 2**30:.1f}')
+    paths = dict(adapter=os.path.join(root, 'ip-adapter_sdxl_vit-h.bin'),
+                 encoder=os.path.join(root, 'image_encoder'))
+    os.makedirs(paths['encoder'])
+    weights_safetensors.save_file(
+        {k: v.to(SNAPSHOT_DTYPE) for k, v in sd.items()},
+        os.path.join(paths['encoder'], 'model.safetensors'))
+    torch.save(ck, paths['adapter'])
+    return paths
+
+
+def run_sdxl_training_phase(runner, root: str, size: int = SDXL_SIZE,
+                            steps: int = SDXL_STEPS,
+                            lora_steps: int = SDXL_LORA_STEPS,
+                            full_steps: int = SDXL_FULL_STEPS,
+                            encoder=None, check: bool = True,
+                            device: str = 'cuda') -> dict:
+    """Step 20's SDXL part (module docstring), on step 19's ``runner``
+    while its snapshots under ``root`` exist: the SDXL dataset, LoRA
+    training, its merge and a txt2img, an IP-Adapter (``_vit-h``) run and a
+    ControlNet check, then, with the runner freed, full fine-tuning of an
+    fp32 copy of the base UNet. ``encoder``: the image encoder to write
+    (default: OpenCLIP ViT-H, seeded)."""
+    cuda = device == 'cuda'
+    data = write_images(root, 'sdxl_data', SDXL_TRAIN_IMAGES, size,
+                        STEP20_SEED, captions=True)
+    vae, base = runner.pipe.vae, runner.pipe.unet
+    lat = size // runner.pipe.vae_scale
+    encodes = [(SDXL_TRAIN_IMAGES, 8, lat, lat)]
+    reset_counts()
+    t0 = time.perf_counter()
+    ds = training.encode_dataset_sdxl(training.find_items(data), vae,
+                                      runner.text, resolution=size,
+                                      encode_batch=SDXL_TRAIN_IMAGES)
+    got, want = counts(), vae_launches(vae.config, [], encodes)[0]
+    enc = dict(images=len(ds), seconds=time.perf_counter() - t0,
+               mean=list(ds.mean.shape), context=list(ds.context.shape),
+               pooled=list(ds.pooled.shape), time_ids=ds.time_ids.tolist(),
+               dtypes=[str(ds.pooled.dtype), str(ds.time_ids.dtype)],
+               launches=got)
+    print(f'step 20 encode_dataset_sdxl: {json.dumps(enc)}', flush=True)
+    if ds.pooled.dtype != torch.float32 or \
+            ds.time_ids.dtype != torch.float32 or \
+            ds.time_ids[0, 0].item() != size:
+        raise AssertionError('the SDXL dataset\'s pooled/time ids')
+    if check and got != _sum([want]):
+        raise AssertionError(f'encode_dataset_sdxl: launches {got}, '
+                             f'expected {want}')
+
+    lora_path = os.path.join(root, 'sdxl_trained_lora.safetensors')
+    lora = run_training(
+        'step 20 SDXL train_lora', lambda on_step: training.train_lora(
+            base, ds, training.TrainConfig(learning_rate=1e-4,
+                                           remat='full'),
+            rank=LORA_RANK, steps=lora_steps, batch_size=SDXL_LORA_BATCH,
+            seed=STEP20_SEED, save_path=lora_path, log_every=1,
+            on_step=on_step), lora_steps,
+        want=train_want(base.config, 'lora', 'full', SDXL_LORA_BATCH, lat,
+                        lora_steps),
+        batch=SDXL_LORA_BATCH, check=check)
+    t0 = time.perf_counter()
+    runner.apply_lora(lora_path)
+    merge_s = time.perf_counter() - t0
+    rows = sdxl_rows(steps=steps)
+    full = [(2, lat, 'off', False)] * rows
+    common = dict(prompt=PROMPT, steps=steps, guidance_scale=SDXL_CFG,
+                  samples=1, seed=STEP20_SEED, save=False,
+                  init_size=(size, size), refine_strength=0.0)
+    runs = [run_feature(f'txt2img {size}² after the trained LoRA '
+                        f'(merged in {merge_s:.2f} s)', runner, common, full,
+                        [(lat, 1)], size, check, step=20)]
+
+    if encoder is None:
+        torch.manual_seed(STEP20_SEED)
+        with torch.device(device):
+            encoder = CLIPVisionModel(OPENCLIP_H_VISION)
+        encoder = encoder.to(BF16).eval().requires_grad_(False)
+    ip = write_ip_adapter(root, base, encoder)
+    del encoder
+    runner.load_ip_adapter(ip['adapter'], ip['encoder'], encoder='vit-h')
+    image = synthetic_image(size, STEP20_SEED)
+    runs.append(run_feature(
+        f'IP-Adapter _vit-h at {size}² from ip_image', runner,
+        dict(common, ip_image=image, ip_scale=1.0), full, [(lat, 1)], size,
+        check, step=20))
+    checks = []
+    if check:
+        checks.append(check_sdxl_controlnet(
+            base, torch.Generator(device).manual_seed(STEP20_SEED),
+            runner.text, size))
+    for r in runs:
+        r.pop('by_shape')
+
+    n = sum(p.numel() for p in base.parameters())
+    print(f'step 20 SDXL train_full memory: {n} parameters; fp32 weights, '
+          f'gradients and two Adam moments {16 * n / 2**30:.1f} GiB, plus '
+          f'the bf16 casts of the weights {2 * n / 2**30:.1f} GiB under '
+          'autocast and the activations of one batch-1 forward '
+          '(remat full)', flush=True)
+    with torch.device('meta'):
+        unet32 = UNet2DCondition(base.config)
+    unet32.load_state_dict({k: v.float() for k, v in
+                            base.state_dict().items()}, assign=True)
+    unet32.requires_grad_(True)
+    config = base.config
+    del runner, base, vae
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    full_res = run_training(
+        'step 20 SDXL train_full', lambda on_step: training.train_full(
+            unet32, ds, training.TrainConfig(learning_rate=1e-5,
+                                             remat='full'),
+            steps=full_steps, batch_size=SDXL_FULL_BATCH, seed=STEP20_SEED,
+            log_every=1, on_step=on_step), full_steps,
+        want=train_want(config, 'full', 'full', SDXL_FULL_BATCH, lat,
+                        full_steps),
+        batch=SDXL_FULL_BATCH, check=check)
+    del unet32
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(encode=enc, lora=lora, runs=runs, checks=checks,
+                full=full_res, launches=_sum(
+                    [got, lora['launches'], full_res['launches']] +
+                    [r['launches'] for r in runs]))
+
+
+def check_train_shapes(shapes, gen: torch.Generator, timed) -> list:
+    """K3/K4/K5 at ``shapes`` ((shape, skv) pairs) against their twins
+    (:func:`check_train_kernels`), timed at the shapes in ``timed``; raises
+    on a disagreement, a kernel off the Hopper path, K3 not K1's output or
+    K4/K5 not deterministic."""
+    res = [check_train_kernels(s, skv, gen, s in timed) for s, skv in shapes]
+    for r in res:
+        print('K3-K5', json.dumps(r))
+        if 'ms' not in r['k3']:
+            continue
+        for name in ('k3', 'k4', 'k5'):
+            print(f'{name.upper()} {tuple(r["shape"])}: {summary(r[name])}')
+        print(f'K4+K5 {tuple(r["shape"])}: {r["k4"]["ms"] + r["k5"]["ms"]:.4f}'
+              f' ms (kept {r["k4"]["kept_ms"] + r["k5"]["kept_ms"]:.4f}, SDPA '
+              f'backward {r["k4"]["library_ms"]:.4f}); forward+backward '
+              f'{r["fwd_bwd_ms"]:.4f} (SDPA {r["library_fwd_bwd_ms"]:.4f})',
+              flush=True)
+    bad = [(r['shape'], r['skv']) for r in res if not r['ok']]
+    if bad:
+        raise AssertionError(f'K3/K4/K5 disagree with their twins (or left '
+                             f'the Hopper path, K3 K1, or K4/K5 are not '
+                             f'deterministic) at {bad}')
+    return res
 
 
 def main() -> int:
@@ -3448,34 +3881,28 @@ def main() -> int:
     root19 = tempfile.mkdtemp(prefix='flexdiffuse_sdxl_')
     try:
         sdxl = run_sdxl_phase(text, vision, root19)
+        print(f'SDXL phase (step 19): {time.perf_counter() - t0:.1f} s',
+              flush=True)
+        # Step 20's SDXL part, on step 19's runner while its snapshots
+        # (which SDXLRunner.apply_lora reads) exist: K3/K4/K5 at SDXL's
+        # training shapes, then the runs.
+        t0 = time.perf_counter()
+        res20 = check_train_shapes(
+            STEP20_TRAIN_SHAPES,
+            torch.Generator('cuda').manual_seed(STEP20_SEED), STEP20_TIMED)
+        sdxl_train = run_sdxl_training_phase(sdxl.pop('runner'), root19)
+        step20_s = time.perf_counter() - t0
+        print(f'SDXL training (step 20): {step20_s:.1f} s', flush=True)
     finally:
         shutil.rmtree(root19, ignore_errors=True)
     results += res19
     gn_res += gn19
     gc.collect()
     torch.cuda.empty_cache()
-    print(f'SDXL phase (step 19): {time.perf_counter() - t0:.1f} s',
-          flush=True)
 
     # Training: the kernels, then the full-width step, then the loops.
     t0 = time.perf_counter()
-    train_res = [check_train_kernels(s, skv, gen) for s, skv in TRAIN_SHAPES]
-    for r in train_res:
-        print('K3-K5', json.dumps(r))
-    for r in train_res:
-        if 'ms' not in r['k3']:
-            continue
-        for name in ('k3', 'k4', 'k5'):
-            print(f'{name.upper()} {tuple(r["shape"])}: {summary(r[name])}')
-        print(f'K4+K5 {tuple(r["shape"])}: {r["k4"]["ms"] + r["k5"]["ms"]:.4f}'
-              f' ms (kept {r["k4"]["kept_ms"] + r["k5"]["kept_ms"]:.4f}, SDPA '
-              f'backward {r["k4"]["library_ms"]:.4f}); forward+backward '
-              f'{r["fwd_bwd_ms"]:.4f} (SDPA {r["library_fwd_bwd_ms"]:.4f})')
-    bad = [(r['shape'], r['skv']) for r in train_res if not r['ok']]
-    if bad:
-        raise AssertionError(f'K3/K4/K5 disagree with their twins (or left '
-                             f'the Hopper path, K3 K1, or K4/K5 are not '
-                             f'deterministic) at {bad}')
+    train_res = check_train_shapes(TRAIN_SHAPES, gen, TRAIN_MAIN) + res20
     fp32_res = check_fp32_attention(gen)
     print(f'K3-K5 and fp32 checks: {time.perf_counter() - t0:.1f} s')
 
@@ -3495,7 +3922,8 @@ def main() -> int:
             unet, ds, training.TrainConfig(learning_rate=1e-4,
                                            remat='none'),
             rank=8, steps=LORA_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
-            log_every=1, on_step=on_step), LORA_STEPS, 'lora')
+            log_every=1, on_step=on_step), LORA_STEPS,
+        train_want(unet.config, 'lora', 'none', TRAIN_BATCH, 64, LORA_STEPS))
 
     # Loading from disk: a snapshot of these weights, removed after.
     t0 = time.perf_counter()
@@ -3505,11 +3933,19 @@ def main() -> int:
         print(f'loading phase: {time.perf_counter() - t0:.1f} s')
         # The surfaces: CLI, UI and serving on that snapshot and Runner.
         t0 = time.perf_counter()
-        surfaces = run_surfaces(disk.pop('runner'), root)
+        disk_runner = disk.pop('runner')
+        surfaces = run_surfaces(disk_runner, root)
         print(f'surfaces phase: {time.perf_counter() - t0:.1f} s')
+        # Step 20's textual inversion: on step 6's models, then the CLI on
+        # this snapshot, its embedding in this Runner.
+        t0 = time.perf_counter()
+        ti = run_ti_phase(text, unet, vae, root, disk_runner)
+        ti_s = time.perf_counter() - t0
+        print(f'textual inversion (step 20): {ti_s:.1f} s; step 20 in all '
+              f'{step20_s + ti_s:.1f} s', flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    del text, vision, runner
+    del text, vision, runner, disk_runner
     torch.manual_seed(SEED)
     with torch.device('cuda'):
         unet32 = UNet2DCondition(SD14_UNET)
@@ -3518,11 +3954,13 @@ def main() -> int:
             unet32, ds, training.TrainConfig(learning_rate=1e-5,
                                              remat='full'),
             steps=FULL_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
-            log_every=1, on_step=on_step), FULL_STEPS, 'full')
+            log_every=1, on_step=on_step), FULL_STEPS,
+        train_want(SD14_UNET, 'full', 'full', TRAIN_BATCH, 64, FULL_STEPS))
     launches = {k: gen_launches[k] + lora['launches'][k] +
                 full['launches'][k] + disk['launches'][k] +
                 surfaces['launches'][k] + sampling['launches'][k] +
-                conditioning['launches'][k] + sdxl['launches'][k]
+                conditioning['launches'][k] + sdxl['launches'][k] +
+                sdxl_train['launches'][k] + ti['launches'][k]
                 for k in gen_launches}
     del unet32, ds
 

@@ -33,10 +33,13 @@ generate's ``--pag``, ``--cfg-interval``, ``--guidance-rescale`` and
 models: ``--controlnet`` with ``--control-image``/``--controlnet-scale``,
 ``--ip-adapter`` (with ``--ip-encoder``) with ``--ip-image``/``--ip-scale``,
 and ``edit`` (InstructPix2Pix on an 8-channel snapshot); for SD-1.x
-``--ip-encoder-arch`` is accepted and unused, as in the JAX CLI. Every flag
-whose feature the port does not have yet (``train``'s textual inversion
-and ``--data-parallel``) raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 step, before any model loads (:func:`refuse_unported`). The JAX
+``--ip-encoder-arch`` is accepted and unused, as in the JAX CLI.
+``train --textual-inversion`` (with ``--init-token``, ``--num-vectors``,
+``--style-templates``) trains an embedding as the JAX CLI does; ``train``
+refuses ``--model-family sdxl`` with the JAX CLI's message. The one flag
+whose feature the port does not have yet (``train --data-parallel``)
+raises ``NotImplementedError`` naming its ROADMAP Queue 1 step, before any
+model loads (:func:`refuse_unported`). The JAX
 parser's ``--compile-cache``/``--no-compile-cache`` are left out: they set
 XLA's compilation cache (``utils/compile_cache.py``), which ROADMAP's "Do
 not port" list names.
@@ -63,13 +66,9 @@ SD2_MODEL_CONFIGS = dict(text=models.OPENCLIP_H_TEXT,
                          vision=models.CLIP_VIT_L14_VISION,
                          unet=models.SD21_UNET, vae=models.SD21_VAE)
 # train's unported flags, (dest, flag, the value that leaves the feature
-# off, ROADMAP Queue 1 step); its --v-prediction objective is ported.
-TRAIN_UNPORTED = (
-    ('textual_inversion', '--textual-inversion', '', 12),
-    ('init_token', '--init-token', '', 12),
-    ('num_vectors', '--num-vectors', 1, 12),
-    ('style_templates', '--style-templates', False, 12),
-)
+# off, ROADMAP Queue 1 step): none left beside --data-parallel, which
+# refuse_unported checks for every table.
+TRAIN_UNPORTED = ()
 
 
 def _not_ported(what: str, step: int) -> NotImplementedError:
@@ -468,6 +467,11 @@ def cmd_train(args) -> int:
     """Fine-tune on a folder of images: LoRA by default, ``--full`` for the
     whole UNet, DreamBooth prior preservation with ``--class-data``."""
     from flexdiffuse_tpu_torch import training
+    if getattr(args, 'model_family', 'sd1') == 'sdxl':
+        # As the JAX CLI, before anything loads (its parser, like this
+        # one, offers only sd1 and sd2; a namespace can still carry it).
+        raise SystemExit('train: SDXL fine-tuning is not wired into the CLI '
+                         'yet — use the training library API directly')
     device = _check(args, TRAIN_UNPORTED)
     encoder, unet, vae = _train_models(args, device)
     # SD-2.x trains against v, as the JAX CLI.
@@ -479,6 +483,20 @@ def cmd_train(args) -> int:
                                 remat=args.remat,
                                 grad_accum=args.grad_accum,
                                 ema_decay=args.ema_decay)
+    if args.textual_inversion:
+        out = args.out or 'embedding.safetensors'
+        paths = [p for p, _ in training.find_items(
+            args.data, default_caption='x')]
+        templates = (training.STYLE_TEMPLATES if args.style_templates
+                     else training.OBJECT_TEMPLATES)
+        training.train_textual_inversion(
+            encoder.text_model, encoder.tokenizer, unet, vae, paths,
+            args.textual_inversion, initializer_token=args.init_token,
+            num_vectors=args.num_vectors, templates=templates, cfg=tcfg,
+            steps=args.steps, batch_size=args.batch_size,
+            resolution=args.resolution, seed=args.seed or 0, save_path=out)
+        print(f'trained weights written to {out}')
+        return 0
     items = training.find_items(args.data, default_caption=args.caption)
     ds = training.encode_dataset(items, vae, encoder,
                                  resolution=args.resolution)
@@ -697,14 +715,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--full', action='store_true',
                    help='fine-tune the whole UNet instead of LoRA factors')
     p.add_argument('--textual-inversion', default='', metavar='PLACEHOLDER',
-                   help='train a textual-inversion embedding (not ported: '
-                        'step 12)')
+                   help='train a textual-inversion embedding for this '
+                        'placeholder token (e.g. "<my-concept>") instead '
+                        'of LoRA/full')
     p.add_argument('--init-token', default='',
-                   help='textual inversion (not ported: step 12)')
+                   help='textual inversion: single token whose embedding '
+                        'seeds the new vectors')
     p.add_argument('--num-vectors', type=int, default=1,
-                   help='textual inversion (not ported: step 12)')
+                   help='textual inversion: vectors per concept')
     p.add_argument('--style-templates', action='store_true',
-                   help='textual inversion (not ported: step 12)')
+                   help='textual inversion: use the style (painting) '
+                        'template set instead of the object one')
     p.add_argument('--remat', default='none',
                    choices=('none', 'dots', 'full'),
                    help='activation rematerialization (memory for compute)')

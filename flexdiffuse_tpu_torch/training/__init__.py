@@ -1,5 +1,7 @@
 """Training (port of ``flexdiffuse_tpu/training``): diffusion loss, full,
-LoRA and DreamBooth fine-tuning, EMA and checkpoint/resume. Quick use::
+LoRA, DreamBooth and textual-inversion fine-tuning, SDXL datasets
+(``encode_dataset_sdxl``, whose batches carry ``added_cond`` through the
+same steps), EMA and checkpoint/resume. Quick use::
 
     from flexdiffuse_tpu_torch import training
 
@@ -12,18 +14,25 @@ LoRA and DreamBooth fine-tuning, EMA and checkpoint/resume. Quick use::
     ...
     training.export_lora_safetensors(factors, 'my_lora.safetensors')
 
-Not ported yet: textual-inversion training, SDXL training
-(``encode_dataset_sdxl``) and the data/tensor-parallel mesh (ROADMAP Queue 1
-steps 11-13).
+    rows, losses = training.train_textual_inversion(        # new tokens
+        text_model, tokenizer, unet, vae, paths, '<concept>',
+        num_vectors=2, save_path='concept.safetensors')
+
+Not ported yet: the data/tensor-parallel mesh (``mesh=``, ROADMAP Queue 1
+step 13).
 """
 from flexdiffuse_tpu_torch.training.checkpoint import TrainCheckpointer
 from flexdiffuse_tpu_torch.training.data import (EncodedDataset,
                                                  encode_dataset,
+                                                 encode_dataset_sdxl,
                                                  encode_images, find_items,
                                                  load_pixels)
 from flexdiffuse_tpu_torch.training.dreambooth import (generate_class_images,
                                                        train_dreambooth)
 from flexdiffuse_tpu_torch.training.loop import train_full, train_lora
+from flexdiffuse_tpu_torch.training.textual_inversion import (
+    OBJECT_TEMPLATES, STYLE_TEMPLATES, make_ti_train_step,
+    train_textual_inversion)
 from flexdiffuse_tpu_torch.training.train import (TrainConfig, diffusion_loss,
                                                   ema_update,
                                                   export_lora_safetensors,
@@ -38,7 +47,9 @@ __all__ = [
     'init_lora', 'merge_lora_params', 'make_lora_train_step',
     'export_lora_safetensors', 'ema_update',
     'EncodedDataset', 'find_items', 'load_pixels', 'encode_dataset',
-    'train_lora', 'train_full', 'encode_images',
+    'train_lora', 'train_full', 'encode_images', 'encode_dataset_sdxl',
+    'make_ti_train_step', 'train_textual_inversion',
+    'OBJECT_TEMPLATES', 'STYLE_TEMPLATES',
     'train_dreambooth', 'generate_class_images',
     'TrainCheckpointer',
 ]

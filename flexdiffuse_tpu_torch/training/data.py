@@ -1,10 +1,13 @@
 """Training data: folder-of-images datasets and precomputed encodings on the
-device (port of ``flexdiffuse_tpu/training/data.py``, SD-1.x only).
+device (port of ``flexdiffuse_tpu/training/data.py``).
 
 All encoding happens up front: images are VAE-encoded (the posterior mean
 and log-variance kept, a fresh sample drawn per batch) and captions
 CLIP-encoded once, and the training loop gathers shuffled rows out of
-tensors resident on the VAE's device.
+tensors resident on the VAE's device. An SDXL dataset
+(:func:`encode_dataset_sdxl`) also carries each row's pooled text
+embedding and the micro-conditioning time ids, and its batches carry the
+SDXL UNet's ``added_cond``.
 
 Dataset layout (kohya/diffusers folder conventions):
 
@@ -13,15 +16,13 @@ Dataset layout (kohya/diffusers folder conventions):
 * ``<dir>/metadata.jsonl`` lines ``{"file_name": ..., "text": ...}``, OR
 * no captions at all → every image uses ``default_caption`` (DreamBooth
   single-concept style).
-
-``encode_dataset_sdxl`` waits for SDXL training (ROADMAP Queue 1 step 12).
 """
 from __future__ import annotations
 
 import json
 import logging
 import os
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,19 +88,32 @@ class EncodedDataset:
     """Precomputed VAE posteriors and text contexts on one device.
 
     ``mean``/``logvar``: ``[N, h, w, 4]`` fp32 (pre-scale); ``context``:
-    ``[N, 77, D]``. :meth:`batches` draws shuffled rows and samples the
+    ``[N, 77·k, D]``. :meth:`batches` draws shuffled rows and samples the
     posterior fresh each time, pre-scaled by ``LATENT_SCALE`` — ready for
     :func:`flexdiffuse_tpu_torch.training.diffusion_loss`.
+
+    SDXL: ``pooled`` ``[N, D]`` (the second encoder's pooled embedding per
+    row) and ``time_ids`` ``[1, 6]`` (the dataset-constant
+    micro-conditioning, ``models/sdxl.py`` ``time_ids``), both kept fp32 on
+    the dataset's device; then every sample carries a third element, the
+    ``added_cond`` the SDXL UNet takes.
     """
 
     def __init__(self, mean: Tensor, logvar: Tensor, context: Tensor,
-                 captions: Sequence[str]):
+                 captions: Sequence[str], pooled: Optional[Tensor] = None,
+                 time_ids: Optional[Tensor] = None):
         if not (mean.shape[0] == logvar.shape[0] == context.shape[0]):
             raise ValueError('row-count mismatch between latents and context')
+        if pooled is not None and pooled.shape[0] != mean.shape[0]:
+            raise ValueError('row-count mismatch on pooled embeds')
         self.mean = mean
         self.logvar = logvar.to(mean.device)
         self.context = context.to(mean.device)
         self.captions = list(captions)
+        self.pooled = (None if pooled is None else
+                       pooled.to(mean.device, torch.float32))
+        self.time_ids = (None if time_ids is None else
+                         time_ids.to(mean.device, torch.float32))
 
     def __len__(self) -> int:
         return int(self.mean.shape[0])
@@ -108,18 +122,26 @@ class EncodedDataset:
     def device(self) -> torch.device:
         return self.mean.device
 
-    def sample(self, idx: Tensor, noise: Tensor) -> Tuple[Tensor, Tensor]:
+    def sample(self, idx: Tensor, noise: Tensor) -> Tuple[Tensor, ...]:
         """Rows ``idx``: posterior samples ``(mean + exp(logvar/2)·noise)·
-        LATENT_SCALE`` with the unit ``noise`` given, and their contexts."""
+        LATENT_SCALE`` with the unit ``noise`` given, and their contexts;
+        for an SDXL dataset also ``{'text_embeds': [B, D], 'time_ids': [B,
+        6]}``, the time ids broadcast from the dataset's ``[1, 6]``."""
         idx = idx.to(self.device)
         lat = (self.mean[idx] + torch.exp(0.5 * self.logvar[idx]) *
                noise.to(self.device)) * LATENT_SCALE
-        return lat, self.context[idx]
+        if self.pooled is None:
+            return lat, self.context[idx]
+        added = {'text_embeds': self.pooled[idx],
+                 'time_ids': self.time_ids.expand(
+                     idx.shape[0], self.time_ids.shape[-1])}
+        return lat, self.context[idx], added
 
     def batches(self, batch_size: int, generator: torch.Generator,
-                skip: int = 0) -> Iterator[Tuple[Tensor, Tensor]]:
-        """Infinite shuffled ``(latents, context)`` batches (drop-last;
-        datasets smaller than ``batch_size`` sample with replacement).
+                skip: int = 0) -> Iterator[Tuple[Tensor, ...]]:
+        """Infinite shuffled ``(latents, context[, added_cond])`` batches
+        (drop-last; datasets smaller than ``batch_size`` sample with
+        replacement); the third element as :meth:`sample` gives it.
 
         Each epoch draws a permutation from ``generator`` (on the dataset's
         device), then each batch its posterior noise. ``skip`` fast-forwards
@@ -179,4 +201,31 @@ def encode_dataset(items: Sequence[Tuple[str, str]], vae, encoder,
     log.info('encoded %d images (%d unique captions) at %dx%d -> latents %s',
              len(items), len(uniq), resolution, resolution,
              tuple(ds.mean.shape))
+    return ds
+
+
+def encode_dataset_sdxl(items: Sequence[Tuple[str, str]], vae, encoder,
+                        resolution: int = 1024,
+                        encode_batch: int = 4) -> EncodedDataset:
+    """SDXL variant: ``encoder`` is a :class:`~flexdiffuse_tpu_torch.models.
+    sdxl.SDXLTextEncoder`; captions encode once (deduplicated) to the
+    dual-tower context and the pooled embedding, and the dataset carries the
+    micro-conditioning ids for its resolution (original = target = the
+    training resolution, no crop: the standard fine-tuning
+    conditioning)."""
+    from flexdiffuse_tpu_torch.models.sdxl import time_ids as _time_ids
+    mean, logvar = encode_images([p for p, _ in items], vae, resolution,
+                                 encode_batch)
+    captions = [c for _, c in items]
+    uniq = sorted(set(captions))
+    ctx_u, pooled_u = encoder.encode(uniq)
+    by_cap = {c: i for i, c in enumerate(uniq)}
+    rows = torch.tensor([by_cap[c] for c in captions], device=mean.device)
+    ds = EncodedDataset(
+        mean, logvar, torch.as_tensor(ctx_u).to(mean.device)[rows], captions,
+        pooled=torch.as_tensor(pooled_u).to(mean.device)[rows],
+        time_ids=_time_ids(original_size=(resolution, resolution),
+                           target_size=(resolution, resolution)))
+    log.info('encoded %d SDXL images (%d unique captions) at %dx%d',
+             len(items), len(uniq), resolution, resolution)
     return ds

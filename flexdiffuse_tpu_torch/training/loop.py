@@ -71,8 +71,9 @@ def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
     it = dataset.batches(batch_size, data_gen, skip=start)
     t0 = time.monotonic()
     for i in range(start, steps):
-        latents, context = next(it)
-        loss = step_fn(latents, context, generator=step_gen)
+        batch = next(it)
+        extra = batch[2] if len(batch) == 3 else None   # SDXL added_cond
+        loss = step_fn(batch[0], batch[1], extra, generator=step_gen)
         if ema is not None:
             _train.ema_update(ema, tree, ema_decay)
         if log_every and (i % log_every == 0 or i == steps - 1):

@@ -23,7 +23,11 @@ autocast off, in fp32, cast to the base dtype. On the CPU nothing is cast
 
 State lives in the modules and the optimizer, not in returned trees: a step
 updates the UNet's parameters (or the LoRA factors) in place and returns the
-loss. ``mesh`` (data/tensor parallelism) is ROADMAP Queue 1 step 13.
+loss. A step's optional ``extra`` is SDXL's ``added_cond``
+(``{'text_embeds', 'time_ids'}``, fp32), which reaches the UNet as
+``added_cond=``; the UNet computes the time ids' sinusoidal features in
+fp32 under autocast too (``models/unet.py`` ``embed_time``). ``mesh``
+(data/tensor parallelism) is ROADMAP Queue 1 step 13.
 """
 from __future__ import annotations
 
@@ -132,7 +136,10 @@ class ClippedAdamW:
             self.mini_step = 0
         norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         keep = norm < self.max_norm
-        for p, g in zip(self.params, grads):
+        for i, p in enumerate(self.params):
+            # Each unclipped gradient is released as its clipped one is
+            # made: at SDXL's width a second set is 10 GB of fp32.
+            g, grads[i] = grads[i], None
             p.grad = torch.where(keep, g, g / norm * self.max_norm).to(
                 p.dtype)
         self.adamw.step()
@@ -186,19 +193,19 @@ def _remat_apply(apply_fn: Callable, cfg: TrainConfig) -> Callable:
     rematerialization. Under 'full' and 'dots' the backward recomputes the
     forward, so K3 runs twice per flash attention and step."""
 
-    def scoped_apply(*args):
+    def scoped_apply(*args, **kwargs):
         with _attn.backend(cfg.attention_backend):
-            return apply_fn(*args)
+            return apply_fn(*args, **kwargs)
 
     if cfg.remat == 'none':
         return scoped_apply
     if cfg.remat == 'full':
-        return lambda *args: _ckpt.checkpoint(scoped_apply, *args,
-                                              use_reentrant=False)
+        return lambda *args, **kwargs: _ckpt.checkpoint(
+            scoped_apply, *args, use_reentrant=False, **kwargs)
     if cfg.remat == 'dots':
-        return lambda *args: _ckpt.checkpoint(scoped_apply, *args,
-                                              use_reentrant=False,
-                                              context_fn=_dots_context)
+        return lambda *args, **kwargs: _ckpt.checkpoint(
+            scoped_apply, *args, use_reentrant=False,
+            context_fn=_dots_context, **kwargs)
     raise ValueError(f'unknown remat mode {cfg.remat!r}')
 
 
@@ -225,13 +232,14 @@ def diffusion_loss(apply_fn: Callable, latents: Tensor, context: Tensor,
                    acp: Tensor, cfg: TrainConfig, *,
                    t: Optional[Tensor] = None, noise: Optional[Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   sample_weights: Optional[Tensor] = None) -> Tensor:
+                   sample_weights: Optional[Tensor] = None,
+                   **apply_kwargs) -> Tensor:
     """Mean denoising loss over a batch of clean (pre-scaled) latents.
 
-    ``apply_fn(noisy, t, context) -> prediction``. ``t`` ``[B]`` (int) and
-    ``noise`` (like ``latents``) may be passed in; whichever is missing is
-    drawn from ``generator``, ``t`` first. ``sample_weights`` ``[B]``
-    scales per-sample losses."""
+    ``apply_fn(noisy, t, context, **apply_kwargs) -> prediction``. ``t``
+    ``[B]`` (int) and ``noise`` (like ``latents``) may be passed in;
+    whichever is missing is drawn from ``generator``, ``t`` first.
+    ``sample_weights`` ``[B]`` scales per-sample losses."""
     b = latents.shape[0]
     dev = latents.device
     if t is None:
@@ -245,7 +253,8 @@ def diffusion_loss(apply_fn: Callable, latents: Tensor, context: Tensor,
     ap = acp.to(dev)[t][:, None, None, None]
     lat32 = latents.float()
     noisy = torch.sqrt(ap) * lat32 + torch.sqrt(1.0 - ap) * noise
-    pred = apply_fn(noisy.to(latents.dtype), t.float(), context).float()
+    pred = apply_fn(noisy.to(latents.dtype), t.float(), context,
+                    **apply_kwargs).float()
     if cfg.prediction_type == 'v_prediction':
         target = torch.sqrt(ap) * noise - torch.sqrt(1.0 - ap) * lat32
     elif cfg.prediction_type == 'epsilon':
@@ -284,10 +293,11 @@ def _device(module: nn.Module) -> torch.device:
 
 def make_train_step(unet: nn.Module, cfg: TrainConfig, mesh=None,
                     sample_weights=None):
-    """``(step, optimizer)``: ``step(latents, context, *, t=None,
-    noise=None, generator=None) -> loss`` runs forward, backward and one
-    optimizer update of every UNet parameter that requires grad, in place.
-    ``sample_weights`` ``[B]`` fixes per-row loss weights (DreamBooth)."""
+    """``(step, optimizer)``: ``step(latents, context, extra=None, *,
+    t=None, noise=None, generator=None) -> loss`` runs forward, backward
+    and one optimizer update of every UNet parameter that requires grad, in
+    place. ``extra``: SDXL's ``added_cond``. ``sample_weights`` ``[B]``
+    fixes per-row loss weights (DreamBooth)."""
     _no_mesh(mesh)
     dev = _device(unet)
     opt = make_optimizer([p for p in unet.parameters() if p.requires_grad],
@@ -296,12 +306,12 @@ def make_train_step(unet: nn.Module, cfg: TrainConfig, mesh=None,
     apply_fn = _remat_apply(unet, cfg)
     sw = _weights(sample_weights, dev)
 
-    def step(latents: Tensor, context: Tensor, *, t=None, noise=None,
-             generator=None) -> Tensor:
+    def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
+             noise=None, generator=None) -> Tensor:
         with compute_context(dev):
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
-                                  sample_weights=sw)
+                                  sample_weights=sw, added_cond=extra)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -382,15 +392,16 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
     acp = schedule_tables(cfg, dev)
     sw = _weights(sample_weights, dev)
 
-    def step(latents: Tensor, context: Tensor, *, t=None, noise=None,
-             generator=None) -> Tensor:
+    def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
+             noise=None, generator=None) -> Tensor:
         eff = merge_lora_params(unet, factors, scale)
         apply_fn = _remat_apply(
-            lambda *args: torch.func.functional_call(unet, eff, args), cfg)
+            lambda *args, **kwargs: torch.func.functional_call(
+                unet, eff, args, kwargs), cfg)
         with compute_context(dev):
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
-                                  sample_weights=sw)
+                                  sample_weights=sw, added_cond=extra)
         loss.backward()
         opt.step()
         return loss.detach()
@@ -434,7 +445,6 @@ def factor_tree(factors: Factors) -> Dict[str, Tensor]:
     """LoRA factors flattened to ``{'<module>/down': ..., ...}``."""
     return {f'{n}/{k}': f[k] for n, f in factors.items()
             for k in ('down', 'up')}
-
 
 
 def unflatten_factors(tree: Dict[str, Tensor]) -> Factors:

@@ -8,8 +8,10 @@
   ``gen``/``compose`` with equal keyword arguments.
 * Every flag whose feature is not ported raises ``NotImplementedError``
   naming its ROADMAP step, before any model loads; ``edit --pag-layers``
-  is refused first, as in the JAX CLI; without a card the model-running
-  commands raise unless given ``--device cpu``.
+  is refused first, as in the JAX CLI, and so is ``train`` with
+  ``model_family`` 'sdxl'; without a card the model-running commands
+  raise unless given ``--device cpu``. ``train``'s textual-inversion
+  flags reach ``train_textual_inversion`` as in the JAX CLI.
 * The scheduler and sampling flags (the tenth slice) reach the Runner as
   they do in the JAX CLI and app, with recording Runners in both packages
   (no model loads): the same scheduler, SchedulerConfig, model geometry
@@ -59,6 +61,7 @@ SUBCOMMANDS = ('convert', 'download', 'generate', 'edit', 'compose', 'train',
                'serve', 'serve-api')
 JAX_ONLY = {'compile_cache', 'no_compile_cache', 'fn'}
 PORT_ONLY = {'device', 'fn'}
+JAX_CMD_TRAIN = jcli.cmd_train   # the real one; jax_namespace patches it
 
 
 def jax_namespace(monkeypatch, argv):
@@ -226,11 +229,20 @@ def test_compose_calls_compose_alike(monkeypatch, tmp_path):
 # --- what the port refuses --------------------------------------------------
 
 UNPORTED = [
-    (['train', '--data', 'd', '--textual-inversion', '<x>'], 12),
-    (['train', '--data', 'd', '--init-token', 'cat'], 12),
-    (['train', '--data', 'd', '--num-vectors', '2'], 12),
-    (['train', '--data', 'd', '--style-templates'], 12),
     (['train', '--data', 'd', '--data-parallel', '2'], 13),
+]
+# train's textual-inversion flags (the thirteenth slice; they named step 12
+# before): each reaches train_textual_inversion as in the JAX CLI
+# (test_step12_flags_reach_textual_inversion_as_in_jax). DATA is a folder
+# of images.
+STEP12 = [
+    ['train', '--data', 'DATA', '--textual-inversion', '<x>'],
+    ['train', '--data', 'DATA', '--textual-inversion', '<x>',
+     '--init-token', 'cat'],
+    ['train', '--data', 'DATA', '--textual-inversion', '<x>',
+     '--num-vectors', '2'],
+    ['train', '--data', 'DATA', '--textual-inversion', '<x>',
+     '--style-templates'],
 ]
 # The scheduler and sampling flags of the tenth slice: each reaches the
 # Runner (or the training config) as in the JAX CLI
@@ -338,6 +350,33 @@ def test_serve_api_refuses_sdxl_at_start(no_models):
     API's)."""
     with pytest.raises(SystemExit, match='serve-api does not serve'):
         tcli.main(['serve-api', '--model-family', 'sdxl', '--device', 'cpu'])
+
+
+def test_train_refuses_sdxl_as_jax(no_models, monkeypatch):
+    """``train`` with ``model_family`` 'sdxl': both parsers refuse the
+    choice on the command line (exit 2); a namespace that carries it (the
+    parsed ``train --data d`` with ``model_family`` set, as a caller of
+    ``cmd_train`` hands it) stops the JAX CLI with its SystemExit before
+    loading anything, and the port with the same message, before any model
+    loads and before the device check."""
+    argv = ['train', '--data', 'd', '--model-family', 'sdxl']
+    for main in (lambda: jcli.main(['--no-compile-cache', *argv]),
+                 lambda: tcli.main([*argv, '--device', 'cpu'])):
+        with pytest.raises(SystemExit) as exc:
+            main()
+        assert exc.value.code == 2
+    jargs = jax_namespace(monkeypatch, ['train', '--data', 'd'])
+    jargs.model_family = 'sdxl'
+    with pytest.raises(SystemExit) as jexc:
+        JAX_CMD_TRAIN(jargs)
+    assert 'SDXL fine-tuning is not wired into the CLI' in str(jexc.value)
+    for extra in (['--device', 'cpu'], []):
+        targs = tcli.build_parser().parse_args(['train', '--data', 'd',
+                                                *extra])
+        targs.model_family = 'sdxl'
+        with pytest.raises(SystemExit) as texc:
+            tcli.cmd_train(targs)
+        assert str(texc.value) == str(jexc.value)
 
 
 def test_ui_app_refuses_without_the_card_and_unported_flags(no_models):
@@ -480,6 +519,83 @@ def test_step10_flags_reach_the_runner_as_in_jax(fake_runners, tmp_path,
 
 class _Stop(Exception):
     pass
+
+
+def ti_calls(monkeypatch, tmp_path, argv):
+    """The arguments the JAX CLI and the port hand
+    ``train_textual_inversion`` for ``argv`` (DATA: a folder of two
+    images), both callees replaced by recorders and no model loaded:
+    ``{'jax': {...}, 'port': {...}}``, the models as placeholders."""
+    from flexdiffuse_tpu.text.tokenizer import CLIPTokenizer
+    data = tmp_path / 'ti_data'
+    data.mkdir(exist_ok=True)
+    for i in range(2):
+        Image.fromarray(np.full((8, 8, 3), 40 * i, np.uint8)).save(
+            data / f'{i}.png')
+    argv = [str(data) if a == 'DATA' else a for a in argv]
+    seen = {}
+    monkeypatch.setattr('flexdiffuse_tpu.weights.load.load_clip',
+                        lambda *a, **k: ('TEXT', 'VISION'))
+    monkeypatch.setattr('flexdiffuse_tpu.weights.load.load_sd',
+                        lambda *a, **k: ('UNET', 'VAE'))
+    monkeypatch.setattr(CLIPTokenizer, 'from_dir',
+                        classmethod(lambda cls, d: 'TOKENIZER'))
+
+    def jax_ti(text_model, text_params, tokenizer, unet, unet_params, vae,
+               vae_params, paths, placeholder, **kw):
+        seen['jax'] = dict(models=(text_params, tokenizer, unet_params,
+                                   vae_params), paths=paths,
+                           placeholder=placeholder, **kw)
+
+    monkeypatch.setattr('flexdiffuse_tpu.training.train_textual_inversion',
+                        jax_ti)
+    assert jcli.main(['--no-compile-cache', *argv]) == 0
+    encoder = types.SimpleNamespace(text_model='TEXT', tokenizer='TOKENIZER')
+    monkeypatch.setattr(tcli, '_train_models',
+                        lambda args, device: (encoder, 'UNET', 'VAE'))
+
+    def port_ti(text_model, tokenizer, unet, vae, paths, placeholder, **kw):
+        seen['port'] = dict(models=(text_model, tokenizer, unet, vae),
+                            paths=paths, placeholder=placeholder, **kw)
+
+    monkeypatch.setattr(
+        'flexdiffuse_tpu_torch.training.train_textual_inversion', port_ti)
+    assert tcli.main([*argv, '--device', 'cpu']) == 0
+    return seen
+
+
+def assert_ti_calls_agree(seen) -> None:
+    """The port's ``train_textual_inversion`` arguments equal the JAX
+    CLI's: the same models, images, placeholder, initializer, vector
+    count, templates, TrainConfig, steps, batch, resolution and output, and
+    ``seed`` for JAX's ``key``."""
+    want, got = dict(seen['jax']), dict(seen['port'])
+    key, seed = want.pop('key'), got.pop('seed')
+    np.testing.assert_array_equal(np.asarray(key),
+                                  np.asarray(jax.random.PRNGKey(seed)))
+    assert dataclasses.asdict(got.pop('cfg')) == \
+        dataclasses.asdict(want.pop('cfg'))
+    assert got == want
+
+
+@pytest.mark.parametrize('argv', STEP12, ids=[' '.join(a[3:]) for a in STEP12])
+def test_step12_flags_reach_textual_inversion_as_in_jax(
+        no_models, monkeypatch, tmp_path, argv):
+    """Each textual-inversion flag that named ROADMAP step 12 before the
+    thirteenth slice reaches ``train_textual_inversion`` as in the JAX CLI:
+    every image captioned 'x', the embedding written to
+    ``embedding.safetensors`` by default, ``seed or 0``."""
+    seen = ti_calls(monkeypatch, tmp_path, argv)
+    assert_ti_calls_agree(seen)
+    got = seen['port']
+    assert got['save_path'] == 'embedding.safetensors'
+    assert got['seed'] == 0 and len(got['paths']) == 2
+    assert got['initializer_token'] == ('cat' if '--init-token' in argv
+                                        else '')
+    assert got['num_vectors'] == (2 if '--num-vectors' in argv else 1)
+    style = '--style-templates' in argv
+    assert got['templates'][0] == ('a painting in the style of {}' if style
+                                   else 'a photo of a {}')
 
 
 def _train_sd2_as_in_jax(monkeypatch, argv):

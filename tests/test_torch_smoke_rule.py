@@ -1,11 +1,17 @@
 """``chip_smoke.py``'s kernel rule on the CPU: an element whose only excess
 over "twice the twin's error + 1e-3·max|ref|" is at most one bf16 ulp of
 its reference element (a rounding flip next to a bf16 midpoint) passes and
-is counted; any larger excess fails.
+is counted; any larger excess fails. Also the launches a train step
+implies (``step_launches``, the module tree on the meta device with
+autograd on) for every training mode the script drives, and the parse of
+``tools/ptxas_report.py``.
 """
+import pytest
 import torch
 
 import chip_smoke
+from flexdiffuse_tpu_torch.models import SD14_UNET, SDXL_UNET
+from flexdiffuse_tpu_torch.tools import ptxas_report
 from tests.test_torch_attention import one_torch_thread  # noqa: F401
 
 
@@ -58,3 +64,52 @@ def test_errs_uses_the_rule():
     got[3] += bar + 0.5 * 2.0**-4
     r = chip_smoke._errs(got, ref, plain)
     assert r['ok'] and r['flipped'] == 1 and r['max_abs_err'] > r['tol']
+
+
+W = chip_smoke.want_launches
+STEP_CASES = [
+    # SD-1.4 at 512², batch 4 (steps 9, 11 and 12): the 10 flash-eligible
+    # self-attentions need a gradient (K3, K4, K5; K3 twice under remat
+    # 'full'); under LoRA K6 serves the 3 GroupNorms before the first
+    # adapted layer, under full fine-tuning none.
+    ((SD14_UNET, 'lora', 'none', 4, 64), W(k3=10, k4=10, k5=10, k6=3)),
+    ((SD14_UNET, 'full', 'full', 4, 64), W(k3=20, k4=10, k5=10)),
+    # Textual inversion: the first self-attention sees no trainable input
+    # (the context enters at its cross-attention), so it runs on K1.
+    ((SD14_UNET, 'ti', 'none', 4, 64), W(k1=1, k3=9, k4=9, k5=9, k6=3)),
+    # SDXL at 1024²: 70 self-attentions, no attention on the first level.
+    ((SDXL_UNET, 'lora', 'full', 2, 128), W(k3=140, k4=70, k5=70, k6=14)),
+    ((SDXL_UNET, 'full', 'full', 1, 128), W(k3=140, k4=70, k5=70)),
+]
+
+
+@pytest.mark.parametrize('args,want', STEP_CASES,
+                         ids=[f'{a[0].cross_attention_dim}-{a[1]}-{a[2]}'
+                              for a, _ in STEP_CASES])
+def test_step_launches(args, want):
+    assert chip_smoke.step_launches(*args) == want
+
+
+def test_ptxas_report_parses_the_verbose_output():
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1kILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kILi64EEvv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem, 400 \
+bytes cmem[0]
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized for the function '_Z1kILi64EEvv'
+ptxas warning : (C7515) Potential Performance Loss: wgmma.mma_async \
+ignored in the function '_Z1kILi64EEvv'
+ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'
+ptxas info    : Used 32 registers, used 0 barriers, 400 bytes cmem[0]
+"""
+    got = ptxas_report.parse(report)
+    assert got['_Z1kILi64EEvv'] == dict(
+        registers=168, smem_bytes=1024, stack_bytes=0, spill_stores=8,
+        spill_loads=4, warnings=['(C7512) Potential Performance Loss: '
+                                 'wgmma.mma_async instructions are '
+                                 'serialized',
+                                 '(C7515) Potential Performance Loss: '
+                                 'wgmma.mma_async ignored'])
+    assert got['_Z1jv'] == dict(registers=32, smem_bytes=0, warnings=[])
