@@ -299,10 +299,42 @@ inversion after step 13 (on step 12's snapshot and Runner):
     140, 70, 70, 0), plus the VAE encodes, every K3–K5 on the Hopper path;
     each generate run step 17's checks.
 
+The parallel modules (the fourteenth slice), step 21, after step 11's
+``train_full``, on step 6's models and step 10's dataset, with NCCL
+initialised at world 1 over a ``file://`` store (torn down after):
+
+21. (a) ``parallel.sweep`` at 512², 4 seeds, PNDM, 10 steps, CFG 8, over
+    a ``make_mesh()`` data mesh: each image within step 3's rule of the
+    batch-1 ``FlexPipeline`` run on its seed's noise (the rule's scale: the
+    kernels' against the plain backends' batch-1 run);
+    ``guidance_param_sweep`` with 4 settings (the last setting's image by
+    the rule against its batch-1 run) and ``compose_sweep`` with 2 seeds
+    and 2 entities (each image by the rule against the composition alone
+    at batch 1); K1/K6 launches exactly as the module tree gives them. (b) ``train_lora`` (rank 8, batch 4, 3 steps) with the mesh and
+    without: bit-equal losses and factors, exact launches. (c)
+    ``sp_pipeline`` at 1024², DDIM, 4 steps, CFG 8, against the plain
+    1024² pipeline on the same noise by the rule (its scale: that pipeline
+    on the plain backends); e2e seconds of both; launches exactly as a
+    meta pass under ``sp_context`` gives them (``sp_tree_launches``: K3 per
+    ring-eligible self-attention and round, K1 where the route sends the
+    levels below the threshold, K6 none); one SP UNet evaluation (batch
+    2) and one SP decode at 1024² against the plain modules without SP,
+    within UNET_REL_TOL. (d) ``ring_round`` over 1 (the SP run's round), 2,
+    4 and 8 K/V chunks of (2,8,16384,40) and (2,8,4096,80) in one process,
+    the rotation by hand, by K1's rule and against K1 on the whole
+    sequence;
+    K3 timed at every round shape and at SDXL's full fine-tuning shapes
+    (1,10,4096,64) and (1,20,1024,64), with SDPA's time, the plain twin's
+    where its scores fit, and the bound. (e) ``cli train --data-parallel
+    2`` in a subprocess exits non-zero with the missing-card message
+    before anything loads. One JSON line per part, each with the card's
+    name and power limit.
+
 Every kernel's launch count is set to 0 just before each main-path phase
-(steps 6, 11, 12, 13, 15, each run of 17, 18 and 19, and each training
-run, encode and generate run of 20) and read just after; launches made to
-check a kernel against its plain twin do not count. Any failed phase raises, so
+(steps 6, 11, 12, 13, 15, each run of 17, 18 and 19, each training run,
+encode and generate run of 20, and each sweep, training and SP run of 21)
+and read just after; launches made to check a kernel against its plain
+twin do not count. Any failed phase raises, so
 the script exits non-zero; without CUDA it exits non-zero at once and
 prints no result.
 """
@@ -3706,6 +3738,474 @@ def check_train_shapes(shapes, gen: torch.Generator, timed) -> list:
     return res
 
 
+# --- Step 21: the parallel modules (the fourteenth slice) ------------------
+
+STEP21_SEED = SEED + 21
+SWEEP_SEEDS, SWEEP_STEPS, SWEEP_SIZE = 4, 10, 512
+SP_SIZE, SP_STEPS = 1024, 4
+# The ring rounds at the SP run's self-attention shapes (1024²: 16384 and
+# 4096 tokens), cut into n K/V chunks in one process.
+STEP21_RING_SHAPES = [(2, 8, 16384, 40), (2, 8, 4096, 80)]
+STEP21_RING_N = (1, 2, 4, 8)
+# K3 at SDXL's full fine-tuning shapes (batch 1), untimed before.
+STEP21_K3_SHAPES = [(1, 10, 4096, 64), (1, 20, 1024, 64)]
+# Bytes a plain ring round may take for its fp32 scores (and their exp2):
+# larger rounds report no plain time.
+PLAIN_SCORE_BYTES = 8 * 2**30
+
+
+def step21_line(part: str, rec: dict) -> None:
+    print(f'step 21 {part}: ' + json.dumps(dict(rec, card=card_line()),
+                                            default=str), flush=True)
+
+
+def _images_rule(got: np.ndarray, ref: np.ndarray, kp: float) -> tuple:
+    """Step 3's rule on decoded [0, 1] images: ``ref`` the kernels' run
+    that ``got`` must match, ``kp`` the max|Δ| between the kernels' and the
+    plain backends' runs of it (the twin's error): ``(ok, max|Δ|, tol,
+    flipped)``."""
+    g, r = torch.from_numpy(got), torch.from_numpy(ref)
+    tol = 2.0 * kp + 1e-3 * float(r.abs().max())
+    ok, flipped = within_rule(g, r, tol)
+    return ok, float((g - r).abs().max()), tol, flipped
+
+
+def _run_plain(call):
+    """``call()`` with plain attention and the plain GroupNorm."""
+    with attn_mod.backend('plain'), gn.backend('plain'):
+        return call()
+
+
+def _log_want(log, vae_config) -> dict:
+    parts = [eval_launches(e) for e in log.evals] + [
+        vae_launches(vae_config, log.decodes, log.encodes)]
+    return _sum(p[0] for p in parts)
+
+
+def _main_run(label: str, pipe, call) -> tuple:
+    """A step-21 main-path run on ``pipe`` with the counts at 0: its
+    result, launches, the module tree's launches and e2e seconds."""
+    log = CallLog(pipe.unet, pipe.vae)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    finally:
+        log.remove()
+    e2e = time.perf_counter() - t0
+    got = counts()
+    if not all(bool(f) for f in log.finite):
+        raise AssertionError(f'step 21 {label}: non-finite ε or latents')
+    return out, got, log, e2e
+
+
+def run_dp_sweeps(unet, vae, gen: torch.Generator) -> dict:
+    """Step 21 (a): ``sweep`` (4 seeds), ``guidance_param_sweep`` (4
+    settings) and ``compose_sweep`` (2 seeds, 2 entities) at 512², PNDM,
+    10 steps, CFG 8, over a data mesh at world 1; every sweep image, the
+    last setting's and both composed images within the rule of a batch-1
+    run on the same noise; exact K1/K6 launches."""
+    from flexdiffuse_tpu_torch.config import GuidanceParams
+    from flexdiffuse_tpu_torch.parallel import (compose_sweep,
+                                                guidance_param_sweep,
+                                                make_mesh, seed_sweep_keys,
+                                                sweep)
+    from flexdiffuse_tpu_torch.pipeline import FlexPipeline, SimpleGuidance
+    from flexdiffuse_tpu_torch.pipeline.guides import (CompositeGuidance,
+                                                       entity_masks)
+    mesh = make_mesh(model_parallel=1)
+    pipe = FlexPipeline(unet, vae, scheduler='pndm')
+    d = unet.config.cross_attention_dim
+    emb, unc = (torch.randn((1, 77, d), generator=gen, device='cuda')
+                for _ in range(2))
+    seeds = seed_sweep_keys(STEP21_SEED, SWEEP_SEEDS).tolist()
+    size = (SWEEP_SIZE, SWEEP_SIZE)
+    kw = dict(steps=SWEEP_STEPS, init_size=size, mesh=mesh)
+    launches = collections.Counter()
+    out = {}
+    images, got, log, e2e = _main_run('sweep', pipe, lambda: sweep(
+        pipe, emb, unc, seeds, guidance_scale=8.0, **kw))
+    want = _log_want(log, vae.config)
+    launches.update(got)
+    # The references: each seed alone at batch 1 on its noise, and that
+    # run on the plain backends for the rule's scale.
+    f = pipe.vae_scale
+    guide = SimpleGuidance(embeddings=emb, uncond=unc, guidance_scale=8.0)
+
+    def alone(seed, guide=guide):
+        noise = torch.randn((1, SWEEP_SIZE // f, SWEEP_SIZE // f, 4),
+                            device='cuda', generator=torch.Generator(
+                                'cuda').manual_seed(seed))
+        return lambda: pipe(guide, steps=SWEEP_STEPS, init_size=size,
+                            noise=noise, output_type='np').images[0]
+
+    def twin_err(call):
+        return float(np.abs(call() - _run_plain(call)).max())
+    kp = twin_err(alone(seeds[0]))
+    rules = [_images_rule(images[i], alone(s)(), kp)
+             for i, s in enumerate(seeds)]
+    out['sweep'] = dict(images=list(images.shape), e2e_s=e2e,
+                        max_abs_vs_batch1=[r[1] for r in rules],
+                        tol=rules[0][2], flipped=sum(r[3] for r in rules),
+                        kernels_vs_plain=kp, launches=got, expected=want)
+    ok = all(r[0] for r in rules) and got == want and \
+        images.shape == (SWEEP_SEEDS, SWEEP_SIZE, SWEEP_SIZE, 3)
+    # Four guidance settings (one seed for every row), then composition.
+    base = torch.randn((77, d), generator=gen, device='cuda')
+    alt = torch.randn((257, d), generator=gen, device='cuda')
+    settings = [dataclasses.replace(GuidanceParams.ui_defaults(),
+                                    linear=(0.0, e))
+                for e in (0.0, 0.3, 0.6, 0.9)]
+    rows = guidance_param_sweep(base, alt, settings)
+    pimg, got, log, e2e = _main_run('guidance_param_sweep', pipe,
+                                    lambda: sweep(pipe, rows, unc,
+                                                  [seeds[0]] * 4, **kw))
+    want = _log_want(log, vae.config)
+    launches.update(got)
+    # The last setting alone at batch 1 on the same noise.
+    last = alone(seeds[0], SimpleGuidance(embeddings=rows[-1:], uncond=unc,
+                                          guidance_scale=8.0))
+    rule = _images_rule(pimg[-1], last(), twin_err(last))
+    out['guidance_param_sweep'] = dict(
+        images=list(pimg.shape), e2e_s=e2e, launches=got, expected=want,
+        setting_spread=float(np.abs(pimg[0] - pimg[-1]).max()),
+        max_abs_vs_batch1=rule[1], tol=rule[2], flipped=rule[3])
+    ok = ok and rule[0] and got == want and np.isfinite(pimg).all() and \
+        out['guidance_param_sweep']['setting_spread'] > 0
+    hw = SWEEP_SIZE // f
+    g = CompositeGuidance(
+        background=emb, entities=torch.randn((2, 77, d), generator=gen,
+                                             device='cuda'),
+        masks=entity_masks([((0, 0), (hw // 2, hw)),
+                            ((hw // 2, 0), (hw // 2, hw))],
+                           (hw, hw)).cuda(),
+        blends=torch.tensor([0.8, 0.6], device='cuda'), uncond=unc,
+        guidance_scale=8.0)
+    cimg, got, log, e2e = _main_run('compose_sweep', pipe,
+                                    lambda: compose_sweep(pipe, g, seeds[:2],
+                                                          **kw))
+    want = _log_want(log, vae.config)
+    launches.update(got)
+    # Each seed composed alone at batch 1 on its noise.
+    kp = twin_err(alone(seeds[0], g))
+    rules = [_images_rule(cimg[i], alone(s, g)(), kp)
+             for i, s in enumerate(seeds[:2])]
+    out['compose_sweep'] = dict(images=list(cimg.shape), e2e_s=e2e,
+                                launches=got, expected=want,
+                                unet_batches=sorted({e['batch']
+                                                     for e in log.evals}),
+                                max_abs_vs_batch1=[r[1] for r in rules],
+                                tol=rules[0][2],
+                                flipped=sum(r[3] for r in rules),
+                                kernels_vs_plain=kp)
+    ok = ok and all(r[0] for r in rules) and got == want and \
+        np.isfinite(cimg).all()
+    step21_line('(a) DP sweeps', out)
+    if not ok:
+        raise AssertionError('step 21 (a): a sweep, setting or composed '
+                             'image left the rule of its batch-1 run or the '
+                             'launches differ')
+    return dict(launches)
+
+
+def run_dp_training(unet, ds) -> dict:
+    """Step 21 (b): ``train_lora`` (rank 8, batch 4, 3 steps) with a data
+    mesh at world 1 and without: bit-equal losses and factors, exact
+    K3–K5 (and K1/K6) launches."""
+    from flexdiffuse_tpu_torch.parallel import make_mesh
+    want = train_want(unet.config, 'lora', 'none', TRAIN_BATCH, 64, 3)
+    res, trained = {}, {}
+    for label, mesh in (('train_lora', None),
+                        ('train_lora mesh', make_mesh(model_parallel=1))):
+        def train_fn(on_step, mesh=mesh, label=label):
+            factors, losses = training.train_lora(
+                unet, ds, training.TrainConfig(learning_rate=1e-4,
+                                               remat='none'),
+                rank=8, steps=3, batch_size=TRAIN_BATCH, seed=SEED,
+                mesh=mesh, log_every=1, on_step=on_step)
+            trained[label] = train_mod.factor_tree(factors)
+            return factors, losses
+        res[label] = run_training(f'step 21 (b) {label}', train_fn, 3, want)
+    a, b = (trained[k] for k in ('train_lora', 'train_lora mesh'))
+    same = res['train_lora']['losses'] == res['train_lora mesh']['losses'] \
+        and sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    step21_line('(b) DP training', dict(
+        bit_equal=same, losses=res['train_lora mesh']['losses'],
+        median_step_ms=res['train_lora mesh']['median_step_ms'],
+        median_step_ms_no_mesh=res['train_lora']['median_step_ms'],
+        launches=res['train_lora mesh']['launches']))
+    if not same:
+        raise AssertionError('step 21 (b): train_lora over a world-1 mesh '
+                             'is not bit-equal to the run without one')
+    total = collections.Counter(res['train_lora']['launches'])
+    total.update(res['train_lora mesh']['launches'])
+    return dict(total)
+
+
+def sp_tree_launches(mesh, evals, decodes, vae_config) -> tuple:
+    """The launches the SP run implies on the card, from a pass over the
+    module tree on the meta device under ``sp_context`` at world 1: every
+    ring round that ``attn_mod.route`` sends to the kernels for a CUDA
+    tensor (K3), every other attention it sends there (K1), every
+    GroupNorm that reaches ``group_norm`` (K6: none; under SP they take
+    ``row_shard.group_norm``). Returns ``(launches, ring round shapes)``."""
+    from flexdiffuse_tpu_torch.models import unet as unet_mod
+    from flexdiffuse_tpu_torch.ops import ring_attention as ring_mod
+    tally, rounds = collections.Counter(), collections.Counter()
+    real_round, real_route, real_gn = (ring_mod.ring_round, attn_mod.route,
+                                       unet_mod.group_norm)
+    inside = []
+
+    def ring_round(q, kb, vb, state, scale):
+        if real_route(q.shape, kb.shape, 'cuda', 'auto') == 'flash':
+            tally['k3'] += 1
+            tally[f'k3_{fa.plan(q.contiguous(), kb.contiguous()).path}'] += 1
+            rounds[tuple(q.shape), tuple(kb.shape)] += 1
+        inside.append(1)
+        try:
+            return real_round(q, kb, vb, state, scale)
+        finally:
+            inside.pop()
+
+    def route(q_shape, k_shape, device_type, backend):
+        if not inside and real_route(q_shape, k_shape, 'cuda',
+                                     backend) == 'flash':
+            tally['k1'] += 1
+            tally['k1_sm90'] += 1
+        return real_route(q_shape, k_shape, device_type, backend)
+
+    def group_norm(*args, **kw):
+        tally['k6'] += 1
+        return real_gn(*args, **kw)
+
+    meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+    ring_mod.ring_round, attn_mod.route = ring_round, route
+    unet_mod.group_norm = group_norm
+    try:
+        with attn_mod.sp_context(mesh, 'seq', 4096), torch.no_grad():
+            for e in evals:
+                unet = _meta_model(UNet2DCondition, e['config'],
+                                   e['settings'])
+                b = e['batch']
+                unet(meta(b, *e['hw'], e['channels']), meta(b),
+                     meta(b, *e['ctx']))
+            vae = _meta_model(AutoencoderKL, vae_config)
+            for b, c, h, w in decodes:
+                vae.decode(meta(b, h, w, c))
+    finally:
+        ring_mod.ring_round, attn_mod.route = real_round, real_route
+        unet_mod.group_norm = real_gn
+    return want_launches(k1=tally['k1'], k3=tally['k3'],
+                         k6=tally['k6']), rounds
+
+
+def check_sp_models(unet, vae, mesh, gen: torch.Generator) -> dict:
+    """Step 21 (c) model checks at 1024²: one UNet evaluation (batch 2, as
+    CFG gives it) and one decode under ``sp_context`` (K3's ring round, the
+    halo-row convs, the all-reduced GroupNorm) against the same modules
+    without SP on the plain backends: max|Δ|/max|ref| within
+    UNET_REL_TOL, as steps 18 and 19 hold their models."""
+    d = unet.config.cross_attention_dim
+    h = SP_SIZE // 2**(len(vae.config.block_channels) - 1)
+    lat = torch.randn((2, h, h, 4), generator=gen, device='cuda')
+    t = torch.tensor([500, 500], device='cuda')
+    ctx = torch.randn((2, 77, d), generator=gen, device='cuda')
+    z = lat[:1] / 0.18215
+
+    def both():
+        return unet(lat, t, ctx), vae.decode(z)
+    with torch.no_grad():
+        with attn_mod.sp_context(mesh, 'seq', 4096):
+            eps_sp, img_sp = both()
+        eps_p, img_p = _run_plain(both)
+    res = dict(unet_rel=_rel(eps_sp, eps_p), decode_rel=_rel(img_sp, img_p),
+               limit=UNET_REL_TOL)
+    step21_line('(c) SP model checks', res)
+    finite = bool(torch.isfinite(eps_sp).all() and
+                  torch.isfinite(img_sp).all())
+    if not (finite and res['unet_rel'] <= UNET_REL_TOL and
+            res['decode_rel'] <= UNET_REL_TOL):
+        raise AssertionError('step 21 (c): the SP UNet or decode disagrees '
+                             'with the plain modules')
+    return res
+
+
+def run_sp(unet, vae, gen: torch.Generator) -> dict:
+    """Step 21 (c): ``sp_pipeline`` at world 1 (NCCL), 1024², DDIM, 4
+    steps, CFG 8, against the plain 1024² pipeline on the same noise (the
+    rule's scale: that pipeline on the plain backends); exact launches:
+    K3 for every ring-eligible self-attention (one round at world 1), K1
+    where the route sends the levels below the threshold, no K6. Then
+    :func:`check_sp_models`."""
+    from flexdiffuse_tpu_torch.parallel import make_sp_mesh, sp_pipeline
+    from flexdiffuse_tpu_torch.pipeline import FlexPipeline, SimpleGuidance
+    mesh = make_sp_mesh()
+    d = unet.config.cross_attention_dim
+    emb, unc = (torch.randn((1, 77, d), generator=gen, device='cuda')
+                for _ in range(2))
+    guide = SimpleGuidance(embeddings=emb, uncond=unc, guidance_scale=8.0)
+    f = 2**(len(vae.config.block_channels) - 1)
+    noise = torch.randn((1, SP_SIZE // f, SP_SIZE // f, 4), generator=gen,
+                        device='cuda')
+    kw = dict(steps=SP_STEPS, init_size=(SP_SIZE, SP_SIZE), noise=noise,
+              output_type='np')
+    sp = sp_pipeline(unet, vae, mesh=mesh, scheduler='ddim')
+    plain = FlexPipeline(unet, vae, scheduler='ddim')
+    # Warm both: the 1024² shapes' first cuDNN plans stay out of the e2e.
+    plain(guide, **kw)
+    sp(guide, **kw)
+    img, got, log, e2e = _main_run('sp', sp, lambda: sp(guide, **kw).images)
+    want, rounds = sp_tree_launches(mesh, log.evals, log.decodes,
+                                    vae.config)
+    t0 = time.perf_counter()
+    ref = plain(guide, **kw).images
+    torch.cuda.synchronize()
+    e2e_plain = time.perf_counter() - t0
+    kp = float(np.abs(ref - _run_plain(lambda: plain(guide, **kw).images))
+               .max())
+    ok, err, tol, flipped = _images_rule(img, ref, kp)
+    step21_line('(c) SP', dict(
+        size=SP_SIZE, steps=SP_STEPS, images=list(img.shape), e2e_s=e2e,
+        plain_pipeline_e2e_s=e2e_plain, max_abs_vs_plain=err, tol=tol,
+        flipped=flipped, kernels_vs_plain=kp,
+        unet_evaluations=len(log.evals), decodes=len(log.decodes),
+        ring_rounds={f'{q}x{k}': n for (q, k), n in rounds.items()},
+        launches=got, expected=want))
+    if not ok or got != want or got['k6'] != 0:
+        raise AssertionError('step 21 (c): the SP images left the rule of '
+                             'the plain pipeline or the launches differ')
+    check_sp_models(unet, vae, mesh, gen)
+    return got
+
+
+def _k3_row(shape, skv: int, gen: torch.Generator, label: str) -> dict:
+    """K3 at q ``shape`` against k/v of ``skv`` rows: times of K3, SDPA
+    and (where its scores fit) the plain twin, and the bound."""
+    b, h, sq, d = shape
+    q = torch.randn(shape, generator=gen, device='cuda', dtype=BF16)
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device='cuda',
+                        dtype=BF16) for _ in range(2))
+    scale = d**-0.5
+    row = dict(label=label, shape=list(shape), skv=skv)
+    eligible = attn_mod.route(q.shape, k.shape, 'cuda', 'auto') == 'flash'
+    row['route'] = 'k3' if eligible else 'plain'
+    if eligible:
+        row['ms'] = time_ms(lambda: fb.flash_attention_lse(q, k, v, scale),
+                            graph=True)
+    row['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale), graph=True)
+    if 8 * b * h * sq * skv <= PLAIN_SCORE_BYTES:
+        row['plain_ms'] = time_ms(
+            lambda: fb.plain_attention_lse(q, k, v, scale), iters=5)
+    row['bound_ms'], row['bound_by'] = attention_bound('k3', b, h, sq, skv,
+                                                       d)
+    return row
+
+
+def check_ring_math(gen: torch.Generator) -> list:
+    """Step 21 (d): ``ring_round`` over n = 1, 2, 4, 8 K/V chunks of the
+    SP run's shapes in one process (the rotation by hand: rank r's round j
+    holds chunk (r − j) mod n; n = 1 is the SP run's own round), against
+    the fp32 plain attention by K1's rule and against K1 on the whole
+    sequence; K3 timed at every round shape, and at SDXL's full
+    fine-tuning shapes."""
+    from flexdiffuse_tpu_torch.ops.ring_attention import ring_round
+    rows = []
+    for shape in STEP21_RING_SHAPES:
+        b, h, s, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device='cuda',
+                               dtype=BF16) for _ in range(3))
+        scale = d**-0.5
+        whole = fa.flash_attention(q, k, v, scale)
+        refs, plain_err, max_ref = [], 0.0, 0.0
+        for hh in range(h):
+            sl = (slice(None), slice(hh, hh + 1))
+            ref = fa.plain_attention(q[sl].float(), k[sl].float(),
+                                     v[sl].float(), scale)
+            plain = fa.plain_attention(q[sl], k[sl], v[sl], scale)
+            plain_err = max(plain_err,
+                            (plain.float() - ref).abs().max().item())
+            max_ref = max(max_ref, ref.abs().max().item())
+            refs.append(ref)
+        tol = 2.0 * plain_err + 1e-3 * max_ref
+        for n in STEP21_RING_N:
+            c = s // n
+            out = torch.empty_like(q)
+            for r in range(n):
+                state = None
+                for j in range(n):
+                    blk = slice((r - j) % n * c, ((r - j) % n + 1) * c)
+                    state = ring_round(q[:, :, r * c:(r + 1) * c],
+                                       k[:, :, blk], v[:, :, blk], state,
+                                       scale)
+                out[:, :, r * c:(r + 1) * c] = state[0].to(q.dtype)
+            ok, flipped = True, 0
+            for hh, ref in enumerate(refs):
+                o, fl = within_rule(out[:, hh:hh + 1], ref, tol)
+                ok, flipped = ok and o, flipped + fl
+            err = max((out[:, hh:hh + 1].float() - ref).abs().max().item()
+                      for hh, ref in enumerate(refs))
+            row = _k3_row((b, h, c, d), c, gen, f'ring n={n}')
+            row.update(ring_shape=list(shape), n=n, max_abs_err=err,
+                       tol=tol, flipped=flipped, ok=ok,
+                       max_abs_vs_k1=float((out.float() - whole.float())
+                                           .abs().max()))
+            rows.append(row)
+        del refs, whole
+    rows += [_k3_row(sh, sh[2], gen, 'SDXL full fine-tune')
+             for sh in STEP21_K3_SHAPES]
+    for r in rows:
+        step21_line('(d) ring', r)
+    bad = [(r['ring_shape'], r['n']) for r in rows if not r.get('ok', True)]
+    if bad:
+        raise AssertionError(f'step 21 (d): the ring disagrees with the '
+                             f'plain attention at {bad}')
+    return rows
+
+
+def check_cli_refusal() -> None:
+    """Step 21 (e): ``cli train --data-parallel 2`` on a one-card machine
+    exits non-zero with the missing-card message before anything loads (no
+    model root exists to load)."""
+    proc = subprocess.run(
+        [sys.executable, '-m', 'flexdiffuse_tpu_torch.cli', 'train',
+         '--models', 'no-such-models', '--data', 'no-such-data',
+         '--data-parallel', '2'], capture_output=True, text=True,
+        timeout=300)
+    msg = proc.stderr.strip().splitlines()[-1] if proc.stderr else ''
+    step21_line('(e) CLI', dict(rc=proc.returncode, message=msg,
+                                cards=torch.cuda.device_count()))
+    if proc.returncode == 0 or 'CUDA cards' not in msg:
+        raise AssertionError(f'step 21 (e): train --data-parallel 2 gave rc '
+                             f'{proc.returncode}: {msg!r}')
+
+
+def run_parallel_phase(unet, vae, ds) -> dict:
+    """Step 21: NCCL at world 1 over a ``file://`` store, then (a)–(e); the
+    group torn down after."""
+    import torch.distributed as dist
+
+    from flexdiffuse_tpu_torch.parallel import launch
+    gen = torch.Generator('cuda').manual_seed(STEP21_SEED)
+    store = tempfile.mkdtemp(prefix='flexdiffuse_store_')
+    launch.init_rank(0, 1, os.path.join(store, 'store'), 'cuda',
+                     timeout=300)
+    try:
+        launches = collections.Counter(run_dp_sweeps(unet, vae, gen))
+        launches.update(run_dp_training(unet, ds))
+        launches.update(run_sp(unet, vae, gen))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    rows = check_ring_math(gen)
+    check_cli_refusal()
+    return dict(launches={k: launches[k] for k in want_launches()},
+                k3_rows=rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -3956,13 +4456,24 @@ def main() -> int:
             steps=FULL_STEPS, batch_size=TRAIN_BATCH, seed=SEED,
             log_every=1, on_step=on_step), FULL_STEPS,
         train_want(SD14_UNET, 'full', 'full', TRAIN_BATCH, 64, FULL_STEPS))
+    del unet32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The parallel modules (step 21): NCCL at world 1, the DP sweeps and
+    # training, SP at 1024², the ring's rounds, the CLI's refusal.
+    t0 = time.perf_counter()
+    parallel = run_parallel_phase(unet, vae, ds)
+    print(f'parallel phase (step 21): {time.perf_counter() - t0:.1f} s',
+          flush=True)
     launches = {k: gen_launches[k] + lora['launches'][k] +
                 full['launches'][k] + disk['launches'][k] +
                 surfaces['launches'][k] + sampling['launches'][k] +
                 conditioning['launches'][k] + sdxl['launches'][k] +
-                sdxl_train['launches'][k] + ti['launches'][k]
+                sdxl_train['launches'][k] + ti['launches'][k] +
+                parallel['launches'][k]
                 for k in gen_launches}
-    del unet32, ds
+    del ds
 
     # The flash-kernel experiment tools: T1–T6 against their twins, then
     # the tools themselves.
@@ -4014,7 +4525,8 @@ def main() -> int:
             max_abs_err=max(r[key]['max_abs_err'] for r in train_res),
             ms=m['ms'], plain_ms=m['plain_ms'], bound_ms=m['bound_ms'],
             bound_by=m['bound_by'], library_ms=m['library_ms'],
-            **extra(m, [(r['shape'], r[key]) for r in train_res], key)))
+            **extra(m, [(r['shape'], r[key]) for r in train_res], key),
+            **({'step21': parallel['k3_rows']} if key == 'k3' else {})))
     # K6 also carries its launches by path, the host µs per call, and the
     # times at every timed shape.
     gn_main = gn_res[0]

@@ -36,10 +36,12 @@ and ``edit`` (InstructPix2Pix on an 8-channel snapshot); for SD-1.x
 ``--ip-encoder-arch`` is accepted and unused, as in the JAX CLI.
 ``train --textual-inversion`` (with ``--init-token``, ``--num-vectors``,
 ``--style-templates``) trains an embedding as the JAX CLI does; ``train``
-refuses ``--model-family sdxl`` with the JAX CLI's message. The one flag
-whose feature the port does not have yet (``train --data-parallel``)
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 step, before any
-model loads (:func:`refuse_unported`). The JAX
+refuses ``--model-family sdxl`` with the JAX CLI's message. ``train
+--data-parallel N`` (N > 1) starts N ranks (``parallel/launch.py``: NCCL,
+one card each, or gloo with ``--device cpu``) that train data-parallel
+over a ``make_mesh(model_parallel=1)``; rank 0 writes the output. With
+fewer than N cards it raises before any model loads; textual inversion
+ignores the flag, as in the JAX CLI. The JAX
 parser's ``--compile-cache``/``--no-compile-cache`` are left out: they set
 XLA's compilation cache (``utils/compile_cache.py``), which ROADMAP's "Do
 not port" list names.
@@ -66,8 +68,7 @@ SD2_MODEL_CONFIGS = dict(text=models.OPENCLIP_H_TEXT,
                          vision=models.CLIP_VIT_L14_VISION,
                          unet=models.SD21_UNET, vae=models.SD21_VAE)
 # train's unported flags, (dest, flag, the value that leaves the feature
-# off, ROADMAP Queue 1 step): none left beside --data-parallel, which
-# refuse_unported checks for every table.
+# off, ROADMAP Queue 1 step): none left.
 TRAIN_UNPORTED = ()
 
 
@@ -77,18 +78,18 @@ def _not_ported(what: str, step: int) -> NotImplementedError:
 
 
 def refuse_unported(args, table=()) -> None:
-    """Raise for the first flag of ``args`` (of ``table`` and
-    ``--data-parallel``: ``train``'s) that asks for a feature the port does
-    not have yet, naming its ROADMAP step."""
+    """Raise for the first flag of ``args`` (of ``table``) that asks for a
+    feature the port does not have yet, naming its ROADMAP step."""
     for dest, flag, off, step in table:
         if getattr(args, dest, off) != off:
             raise _not_ported(flag, step)
-    if getattr(args, 'data_parallel', 1) > 1:
-        raise _not_ported('--data-parallel > 1', 13)
 
 
 def family_configs(args) -> dict:
-    """The model geometry of ``--model-family``."""
+    """The model geometry of ``--model-family`` (the parent's, carried in
+    ``args.family_configs``, in a data-parallel rank)."""
+    if getattr(args, 'family_configs', None) is not None:
+        return args.family_configs
     if getattr(args, 'model_family', 'sd1') == 'sd2':
         return SD2_MODEL_CONFIGS
     return MODEL_CONFIGS
@@ -466,13 +467,45 @@ def _train_models(args, device: torch.device):
 def cmd_train(args) -> int:
     """Fine-tune on a folder of images: LoRA by default, ``--full`` for the
     whole UNet, DreamBooth prior preservation with ``--class-data``."""
-    from flexdiffuse_tpu_torch import training
     if getattr(args, 'model_family', 'sd1') == 'sdxl':
         # As the JAX CLI, before anything loads (its parser, like this
         # one, offers only sd1 and sd2; a namespace can still carry it).
         raise SystemExit('train: SDXL fine-tuning is not wired into the CLI '
                          'yet — use the training library API directly')
     device = _check(args, TRAIN_UNPORTED)
+    if args.data_parallel > 1 and not args.textual_inversion:
+        from flexdiffuse_tpu_torch.parallel import launch
+        launch.check_cards(args.data_parallel, device.type)
+        ranks = argparse.Namespace(**vars(args),
+                                   family_configs=family_configs(args))
+        launch.spawn(_train_rank, args.data_parallel, device=device.type,
+                     args=(ranks,))
+        print(f'trained weights written to {_train_out(args)}')
+        return 0
+    return _train(args, device)
+
+
+def _train_out(args) -> str:
+    """``--out``, or the default output of the training mode."""
+    if args.textual_inversion:
+        return args.out or 'embedding.safetensors'
+    return args.out or ('finetuned_unet.msgpack' if args.full
+                        else 'lora.safetensors')
+
+
+def _train_rank(rank: int, world: int, args) -> None:
+    """One rank of ``train --data-parallel``: the models on its device,
+    data-parallel over every rank; rank 0 writes the output."""
+    from flexdiffuse_tpu_torch.parallel import make_mesh
+    device = torch.device('cuda', rank) if args.device.startswith('cuda') \
+        else torch.device('cpu')
+    _train(args, device, make_mesh(model_parallel=1), quiet=rank > 0)
+
+
+def _train(args, device: torch.device, mesh=None, quiet: bool = False
+           ) -> int:
+    """``train`` on ``device`` (over ``mesh`` when given)."""
+    from flexdiffuse_tpu_torch import training
     encoder, unet, vae = _train_models(args, device)
     # SD-2.x trains against v, as the JAX CLI.
     v_pred = args.v_prediction or args.model_family == 'sd2'
@@ -483,8 +516,8 @@ def cmd_train(args) -> int:
                                 remat=args.remat,
                                 grad_accum=args.grad_accum,
                                 ema_decay=args.ema_decay)
+    out = _train_out(args)
     if args.textual_inversion:
-        out = args.out or 'embedding.safetensors'
         paths = [p for p, _ in training.find_items(
             args.data, default_caption='x')]
         templates = (training.STYLE_TEMPLATES if args.style_templates
@@ -510,27 +543,24 @@ def cmd_train(args) -> int:
                                 default_caption=args.class_caption),
             vae, encoder, resolution=args.resolution)
         mode = 'full' if args.full else 'lora'
-        out = args.out or ('finetuned_unet.msgpack' if args.full
-                           else 'lora.safetensors')
         training.train_dreambooth(
             unet, ds, cds, cfg=tcfg, prior_weight=args.prior_weight,
             mode=mode, rank=args.rank, steps=args.steps,
-            batch_size=args.batch_size, seed=seed, save_path=out)
-        print(f'trained weights written to {out}')
-        return 0
-    ckpt_kw = dict(checkpoint_dir=args.checkpoint_dir,
-                   checkpoint_every=args.checkpoint_every)
-    if args.full:
-        out = args.out or 'finetuned_unet.msgpack'
+            batch_size=args.batch_size, seed=seed, mesh=mesh, save_path=out)
+    elif args.full:
         training.train_full(unet, ds, tcfg, steps=args.steps,
-                            batch_size=args.batch_size, seed=seed,
-                            save_path=out, **ckpt_kw)
+                            batch_size=args.batch_size, seed=seed, mesh=mesh,
+                            save_path=out,
+                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_every=args.checkpoint_every)
     else:
-        out = args.out or 'lora.safetensors'
         training.train_lora(unet, ds, tcfg, rank=args.rank,
                             steps=args.steps, batch_size=args.batch_size,
-                            seed=seed, save_path=out, **ckpt_kw)
-    print(f'trained weights written to {out}')
+                            seed=seed, mesh=mesh, save_path=out,
+                            checkpoint_dir=args.checkpoint_dir,
+                            checkpoint_every=args.checkpoint_every)
+    if not quiet:
+        print(f'trained weights written to {out}')
     return 0
 
 
@@ -748,8 +778,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--snr-gamma', type=float, default=0.0,
                    help='min-SNR loss weighting (0 = uniform)')
     p.add_argument('--data-parallel', type=int, default=1,
-                   help='shard batches over this many devices (> 1 not '
-                        'ported: step 13)')
+                   help='shard batches over this many devices (one rank '
+                        'each; with --device cpu, gloo ranks)')
     p.add_argument('--checkpoint-dir', default='',
                    help='checkpoint directory; if it already holds a '
                         'checkpoint, training resumes from it')

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
 from flexdiffuse_tpu_torch.models.unet import DownMid
+from flexdiffuse_tpu_torch.ops import row_shard
 
 # Conditioning-embedding channel ramp (diffusers
 # ControlNetConditioningEmbedding's default block_out_channels).
@@ -41,14 +42,16 @@ class ConditioningEmbedding(nn.Module):
     def __init__(self, out_channels: int,
                  channels: Tuple[int, ...] = COND_EMBED_CHANNELS) -> None:
         super().__init__()
-        self.conv_in = nn.Conv2d(3, channels[0], 3, padding=1)
+        self.conv_in = row_shard.Conv2d(3, channels[0], 3, padding=1)
         blocks = []
         for i in range(len(channels) - 1):
-            blocks.append(nn.Conv2d(channels[i], channels[i], 3, padding=1))
-            blocks.append(nn.Conv2d(channels[i], channels[i + 1], 3,
-                                    padding=1, stride=2))
+            blocks.append(row_shard.Conv2d(channels[i], channels[i], 3,
+                                           padding=1))
+            blocks.append(row_shard.Conv2d(channels[i], channels[i + 1], 3,
+                                           padding=1, stride=2))
         self.blocks = nn.ModuleList(blocks)
-        self.conv_out = nn.Conv2d(channels[-1], out_channels, 3, padding=1)
+        self.conv_out = row_shard.Conv2d(channels[-1], out_channels, 3,
+                                         padding=1)
 
     def forward(self, cond: torch.Tensor) -> torch.Tensor:
         h = F.silu(self.conv_in(cond))
@@ -76,7 +79,7 @@ class ControlNetModel(DownMid):
         self.config = cfg = dataclasses.replace(config, ip_adapter=False,
                                                 time_cond_proj_dim=0)
         ch0 = cfg.block_channels[0]
-        self.conv_in = nn.Conv2d(4, ch0, 3, padding=1)
+        self.conv_in = row_shard.Conv2d(4, ch0, 3, padding=1)
         temb_dim = self._build_time(cfg)
         self.controlnet_cond_embedding = ConditioningEmbedding(
             ch0, tuple(cond_channels))

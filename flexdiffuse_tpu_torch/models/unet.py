@@ -35,6 +35,13 @@ and ControlNet residuals (``control``). The down and mid path
 (:class:`DownMid`) is shared with the ControlNet's control branch
 (``models/controlnet.py``), blocks and names alike.
 
+Sequence parallelism (``ops/attention.py`` ``sp_context``): the
+activations are this rank's rows; the 3×3 convs are
+:class:`~flexdiffuse_tpu_torch.ops.row_shard.Conv2d` (halo rows from the
+neighbouring ranks) and every GroupNorm runs through
+:func:`~flexdiffuse_tpu_torch.ops.row_shard.group_norm` (statistics over
+the ranks, the plain path: no K6); FreeU's filter sees the whole map.
+
 Left out here: the channel-major interiors (ROADMAP "do not port").
 """
 from __future__ import annotations
@@ -47,6 +54,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
+from flexdiffuse_tpu_torch.ops import row_shard
 from flexdiffuse_tpu_torch.ops import tome as _tome
 from flexdiffuse_tpu_torch.ops.attention import attention
 from flexdiffuse_tpu_torch.ops.group_norm import group_norm
@@ -58,7 +66,8 @@ class GroupNorm32(nn.GroupNorm):
     result cast to ``dtype`` (fp32 unless the caller names the dtype of the
     layer it feeds). Through :func:`~flexdiffuse_tpu_torch.ops.group_norm.
     group_norm`: K6 on the card when no gradient is needed, else the plain
-    version."""
+    version; under sequence parallelism :func:`~flexdiffuse_tpu_torch.ops.
+    row_shard.group_norm` (statistics over the ranks, plain)."""
 
     def __init__(self, num_groups: int, num_channels: int,
                  eps: float = 1e-5, silu: bool = False) -> None:
@@ -67,7 +76,9 @@ class GroupNorm32(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return group_norm(x, self.num_groups, self.weight, self.bias,
+        norm = row_shard.group_norm if row_shard.sp_axis() is not None \
+            else group_norm
+        return norm(x, self.num_groups, self.weight, self.bias,
                           self.eps, silu=self.silu, dtype=dtype)
 
 
@@ -107,7 +118,10 @@ def fourier_filter(x: torch.Tensor, threshold: int,
     """FreeU's low-frequency skip attenuation on NCHW ``x``: a 2-D FFT over
     the spatial dims (2, 3), the ``threshold``-radius block around DC
     scaled by ``scale``, the inverse FFT's real part; in fp32 (cuFFT takes
-    no bf16) and cast back."""
+    no bf16) and cast back. Under sequence parallelism the filter runs on
+    the whole map, and each rank keeps its rows."""
+    local = x
+    x = row_shard.gather_rows(x, 2)
     _, _, hh, ww = x.shape
     xf = torch.fft.fftshift(torch.fft.fft2(x.float(), dim=(2, 3)),
                             dim=(2, 3))
@@ -118,7 +132,7 @@ def fourier_filter(x: torch.Tensor, threshold: int,
     xf = xf * mask.to(x.device)
     out = torch.fft.ifft2(torch.fft.ifftshift(xf, dim=(2, 3)),
                           dim=(2, 3)).real
-    return out.to(x.dtype)
+    return row_shard.local_rows(out, 2).to(local.dtype)
 
 
 def pag_selected(pag_layers, name: str) -> bool:
@@ -161,12 +175,14 @@ class ResnetBlock(nn.Module):
                  temb_dim: int = 0, eps: float = 1e-5) -> None:
         super().__init__()
         self.norm1 = GroupNorm32(norm_groups, in_channels, eps=eps, silu=True)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = row_shard.Conv2d(in_channels, out_channels, 3,
+                                      padding=1)
         if temb_dim:
             self.time_emb_proj = nn.Linear(temb_dim, out_channels)
         self.norm2 = GroupNorm32(norm_groups, out_channels, eps=eps,
                                  silu=True)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = row_shard.Conv2d(out_channels, out_channels, 3,
+                                      padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
@@ -333,7 +349,8 @@ class Transformer2D(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, channels: int) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = row_shard.Conv2d(channels, channels, 3, stride=2,
+                                     padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -342,7 +359,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, channels: int) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = row_shard.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode='nearest'))
@@ -506,7 +523,7 @@ class UNet2DCondition(DownMid):
         ch0 = cfg.block_channels[0]
         groups = cfg.norm_groups
         n = len(cfg.block_channels)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
+        self.conv_in = row_shard.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         temb_dim = self._build_time(cfg, cfg.time_cond_proj_dim)
         self._build_down_mid(cfg, temb_dim)
 
@@ -532,7 +549,7 @@ class UNet2DCondition(DownMid):
         self.up_blocks = nn.ModuleList(up)
 
         self.conv_norm_out = GroupNorm32(groups, ch0, eps=1e-5, silu=True)
-        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        self.conv_out = row_shard.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def with_settings(self, **settings) -> 'UNet2DCondition':
         """A shallow copy with other sampling settings (``freeu``, ``tome``,

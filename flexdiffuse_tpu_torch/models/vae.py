@@ -10,7 +10,10 @@ NHWC ``(mean, logvar)``; ``decode`` takes NHWC latents and returns NHWC
 pixels in fp32. Inside, everything runs NCHW; the transposes sit at those two
 entry points and around the mid-block attention. GroupNorm eps is 1e-6 here
 (the UNet's is 1e-5); every GroupNorm runs through K6 on the card, as in the
-UNet. The 0.18215 latent scale lives in the pipeline.
+UNet. The 0.18215 latent scale lives in the pipeline. Under sequence
+parallelism the 3×3 convs take halo rows and the GroupNorms reduce their
+statistics over the ranks, as in the UNet (``ops/row_shard.py``); the mid
+attention rides the ring or gathers K/V (``ops/attention.py``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import VAEConfig
 from flexdiffuse_tpu_torch.models.unet import GroupNorm32, ResnetBlock
+from flexdiffuse_tpu_torch.ops import row_shard
 from flexdiffuse_tpu_torch.ops.attention import attention
 
 
@@ -71,12 +75,15 @@ class _Resample(nn.Module):
     def __init__(self, ch: int, down: bool) -> None:
         super().__init__()
         self.down = down
-        self.conv = nn.Conv2d(ch, ch, 3, stride=2 if down else 1,
-                              padding=0 if down else 1)
+        self.conv = row_shard.Conv2d(ch, ch, 3, stride=2 if down else 1,
+                                     padding=0 if down else 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.down:
-            return self.conv(F.pad(x, (0, 1, 0, 1)))
+            # Under SP the bottom pad row is the conv's halo: the next
+            # rank's first row (zeros on the last rank).
+            sp = row_shard.sp_axis() is not None
+            return self.conv(F.pad(x, (0, 1) if sp else (0, 1, 0, 1)))
         return self.conv(F.interpolate(x, scale_factor=2.0, mode='nearest'))
 
 
@@ -95,8 +102,8 @@ class Encoder(nn.Module):
         cfg = config
         g = cfg.norm_groups
         n = len(cfg.block_channels)
-        self.conv_in = nn.Conv2d(cfg.in_channels, cfg.block_channels[0], 3,
-                                 padding=1)
+        self.conv_in = row_shard.Conv2d(cfg.in_channels,
+                                        cfg.block_channels[0], 3, padding=1)
         blocks = []
         in_ch = cfg.block_channels[0]
         for i, ch in enumerate(cfg.block_channels):
@@ -110,7 +117,8 @@ class Encoder(nn.Module):
         ch = cfg.block_channels[-1]
         self.mid_block = _MidBlock(ch, g)
         self.conv_norm_out = GroupNorm32(g, ch, eps=1e-6, silu=True)
-        self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = row_shard.Conv2d(ch, 2 * cfg.latent_channels, 3,
+                                         padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW pixels -> NCHW moments."""
@@ -121,7 +129,8 @@ class Encoder(nn.Module):
             if hasattr(blk, 'downsamplers'):
                 h = blk.downsamplers[0](h)
         h = self.mid_block(h)
-        return self.conv_out(self.conv_norm_out(h, self.conv_out.weight.dtype))
+        return self.conv_out(
+            self.conv_norm_out(h, self.conv_out.weight.dtype))
 
 
 class Decoder(nn.Module):
@@ -131,7 +140,7 @@ class Decoder(nn.Module):
         g = cfg.norm_groups
         n = len(cfg.block_channels)
         ch = cfg.block_channels[-1]
-        self.conv_in = nn.Conv2d(cfg.latent_channels, ch, 3, padding=1)
+        self.conv_in = row_shard.Conv2d(cfg.latent_channels, ch, 3, padding=1)
         self.mid_block = _MidBlock(ch, g)
         blocks = []
         in_ch = ch
@@ -145,7 +154,7 @@ class Decoder(nn.Module):
         self.up_blocks = nn.ModuleList(blocks)
         ch0 = cfg.block_channels[0]
         self.conv_norm_out = GroupNorm32(g, ch0, eps=1e-6, silu=True)
-        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        self.conv_out = row_shard.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """NCHW latents -> NCHW pixels (fp32)."""

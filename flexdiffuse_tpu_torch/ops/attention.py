@@ -17,6 +17,15 @@ calls take the kernels' Hopper path, fp32 calls their kept path
 (``fa.plan``). On CUDA tensors the kernels launch or raise; CPU tensors
 take the plain twins. There is no fallback from a kernel to a plain
 version.
+
+Sequence parallelism (:func:`sp_context`, ``flexdiffuse_tpu/ops/
+attention.py:56-78,108-120``): under the context the tensors are this
+rank's row shard of the token sequence. Self-attention (``sq == skv``)
+whose global length (local × the axis size) is at least ``min_seq`` rides
+:func:`~flexdiffuse_tpu_torch.ops.ring_attention.ring_attention` (K3 per
+round); shorter self-attention all-gathers K/V over the axis and takes
+:func:`route` with the local q rows; cross-attention (77 context tokens,
+replicated) stays local.
 """
 from __future__ import annotations
 
@@ -52,6 +61,31 @@ def backend(name: str):
         yield
     finally:
         _BACKEND.reset(token)
+
+
+# Sequence-parallel mode: a parallel.axis.MeshAxis, or None.
+_SP: contextvars.ContextVar = contextvars.ContextVar('attention_sp',
+                                                     default=None)
+
+
+@contextlib.contextmanager
+def sp_context(mesh, axis: str, min_seq: int = 4096):
+    """Scoped sequence-parallel attention over ``mesh`` (a torch
+    ``DeviceMesh``) axis ``axis``: the layers of ``models/`` read it too
+    (``ops/row_shard.py``: halo rows for the 3×3 convs, GroupNorm
+    statistics over the axis)."""
+    from flexdiffuse_tpu_torch.parallel.axis import MeshAxis
+    token = _SP.set(MeshAxis.of(mesh, axis, min_seq))
+    try:
+        yield
+    finally:
+        _SP.reset(token)
+
+
+def sp_axis():
+    """The active :class:`~flexdiffuse_tpu_torch.parallel.axis.MeshAxis`
+    (None outside :func:`sp_context`)."""
+    return _SP.get()
 
 
 def _eligible(sq: int, skv: int, d: int) -> bool:
@@ -105,6 +139,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         backend = _BACKEND.get()
     else:
         _validate(backend)
+    sp = _SP.get()
+    if sp is not None and q.shape[-2] == k.shape[-2]:
+        from flexdiffuse_tpu_torch.ops import ring_attention as _ring
+        if q.shape[-2] * sp.size >= sp.min_seq:
+            return _ring.ring_attention(q, k, v, sp.mesh, sp.axis, scale)
+        from flexdiffuse_tpu_torch.parallel.axis import gather
+        k, v = (gather(t, sp, -2) for t in (k, v))
     if route(q.shape, k.shape, q.device.type, backend) == 'flash':
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -42,9 +42,22 @@ evaluation on the same rows and ``t``, on the latent channels only, never
 PAG-perturbed, and in full under DeepCache's shallow evaluations too; an
 IP-Adapter's image tokens ride ``SimpleGuidance``; an 8-channel
 InstructPix2Pix UNet runs through ``InstructPix2PixGuidance``.
+
+Sequence parallelism (``sp_mesh=``, ``flexdiffuse_tpu/pipeline/flex.py:
+119-213``; :func:`~flexdiffuse_tpu_torch.parallel.sp.sp_pipeline`): every
+rank of the mesh axis runs the call with the same arguments and holds its
+block of latent (and pixel) rows. Each rank draws, or takes, the *full*
+noise and keeps its rows, so the result equals the single-device result
+given the same noise. The VAE, UNet and ControlNet run under
+:func:`~flexdiffuse_tpu_torch.ops.attention.sp_context` (the ring for
+long self-attention, halo rows for the 3×3 convs, GroupNorm statistics
+over the ranks); the decoded rows, and 'latent' outputs, are all-gathered,
+so every rank returns the full result. The tiled VAE is off under SP, and
+ToMe is refused, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -57,6 +70,8 @@ from flexdiffuse_tpu_torch import schedulers
 from flexdiffuse_tpu_torch.config import LATENT_SCALE
 from flexdiffuse_tpu_torch.models.unet import guidance_scale_embedding
 from flexdiffuse_tpu_torch.models.vae import sample_latents
+from flexdiffuse_tpu_torch.ops import attention as _attn
+from flexdiffuse_tpu_torch.ops.row_shard import gather_rows, local_rows
 from flexdiffuse_tpu_torch.ops.tiled_vae import tiled_apply
 from flexdiffuse_tpu_torch.pipeline.guides import (CompositeGuidance,
                                                    InstructPix2PixGuidance,
@@ -147,6 +162,9 @@ class FlexPipeline:
         controlnet: a :class:`~flexdiffuse_tpu_torch.models.controlnet.
             ControlNetModel` for ``control_image=`` (None: none).
         latent_scale: the VAE latents' scaling factor.
+        sp_mesh, sp_axis, sp_min_seq: sequence parallelism over ``sp_mesh``
+            (a torch ``DeviceMesh``) axis ``sp_axis``; self-attention over
+            at least ``sp_min_seq`` tokens rides the ring (None: off).
     """
 
     def __init__(self, unet, vae, scheduler: str = 'pndm',
@@ -154,7 +172,16 @@ class FlexPipeline:
                      schedulers.SchedulerConfig] = None,
                  vae_tile: int = 0, vae_tile_overlap: int = 8,
                  deepcache: int = 0, controlnet=None,
-                 latent_scale: float = LATENT_SCALE) -> None:
+                 latent_scale: float = LATENT_SCALE, sp_mesh=None,
+                 sp_axis: str = 'seq', sp_min_seq: int = 4096) -> None:
+        if sp_mesh is not None and getattr(unet, 'tome', None) is not None:
+            # The ToMe merge plan gathers tokens across the full sequence;
+            # under SP the sequence is row-sharded.
+            raise ValueError('ToMe (unet.tome) is incompatible with '
+                             'sequence parallelism — disable one')
+        self.sp_mesh = sp_mesh
+        self.sp_axis = sp_axis
+        self.sp_min_seq = int(sp_min_seq)
         self.unet = unet
         self.vae = vae
         self.controlnet = controlnet
@@ -187,18 +214,52 @@ class FlexPipeline:
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=self.device)
 
+    def _sp(self):
+        """The SP context of this pipeline (a no-op without ``sp_mesh``)."""
+        if self.sp_mesh is None:
+            return contextlib.nullcontext()
+        return _attn.sp_context(self.sp_mesh, self.sp_axis, self.sp_min_seq)
+
+    def _full_hw(self, x: torch.Tensor) -> Tuple[int, int]:
+        """The full (H, W) of an NHWC tensor that holds this rank's rows
+        under SP."""
+        sp = _attn.sp_axis()
+        return (x.shape[1] * (1 if sp is None else sp.size), x.shape[2])
+
     def _draw(self, given, shape, generator) -> torch.Tensor:
+        """Unit noise of ``shape`` (this rank's rows under SP: the full
+        tensor is drawn or taken, then its rows kept)."""
+        sp = _attn.sp_axis()
+        full = tuple(shape) if sp is None else \
+            (shape[0], shape[1] * sp.size) + tuple(shape[2:])
         if given is None:
-            return self._randn(shape, generator)
+            return local_rows(self._randn(full, generator), 1)
         given = torch.as_tensor(given).to(self.device, torch.float32)
-        if tuple(given.shape) != tuple(shape):
-            raise ValueError(f'noise shape {tuple(given.shape)} != '
-                             f'{tuple(shape)}')
-        return given
+        if tuple(given.shape) != full:
+            raise ValueError(f'noise shape {tuple(given.shape)} != {full}')
+        return local_rows(given, 1)
 
     def _tiling_active(self, h: int, w: int) -> bool:
-        """Latent dims ``h×w`` exceed one VAE tile."""
-        return self.vae_tile > 0 and (h > self.vae_tile or w > self.vae_tile)
+        """Latent dims ``h×w`` exceed one VAE tile (never under SP)."""
+        return self.vae_tile > 0 and self.sp_mesh is None and (
+            h > self.vae_tile or w > self.vae_tile)
+
+    def check_sp_split(self, height: int, width: int) -> None:
+        """Raise ``ValueError`` unless a ``height×width`` image splits
+        evenly over the SP ranks at every level: the VAE's pixel levels
+        and the UNet's latent levels, with even local rows into every
+        stride-2 conv. (GSPMD pads uneven splits; the port does not.)"""
+        sp = _attn.sp_axis()
+        if sp is None:
+            return
+        f = self.vae_scale
+        down = 2**(len(self.unet.config.block_channels) - 1)
+        if height % (sp.size * f) or (height // f) % (sp.size * down):
+            raise ValueError(
+                f'sequence parallelism: {height}x{width} pixels '
+                f'({height // f} latent rows) do not split over {sp.size} '
+                f'ranks at every level; the height must be a multiple of '
+                f'{sp.size * max(f, down * f)}')
 
     @torch.no_grad()
     def encode_pixels(self, pixels: torch.Tensor,
@@ -238,11 +299,21 @@ class FlexPipeline:
                                out_den=1)
         return decode(latents)
 
+    def _decode_full(self, latents: torch.Tensor) -> torch.Tensor:
+        """:meth:`_decode01` of full latents; under SP each rank decodes
+        its rows and the image rows are gathered."""
+        if self.sp_mesh is None:
+            return self._decode01(latents)
+        with self._sp():
+            self.check_sp_split(latents.shape[1] * self.vae_scale,
+                                latents.shape[2] * self.vae_scale)
+            return gather_rows(self._decode01(local_rows(latents, 1)), 1)
+
     @torch.no_grad()
     def decode_u8_device(self, latents: torch.Tensor) -> torch.Tensor:
         """VAE decode + uint8 quantize (round half up, as ``to_pil``), left
         on the device: ``[B, H, W, 3]`` uint8."""
-        return (self._decode01(latents) * 255.0 + 0.5).to(torch.uint8)
+        return (self._decode_full(latents) * 255.0 + 0.5).to(torch.uint8)
 
     def latents_to_images(self, latents: torch.Tensor) -> List[Image.Image]:
         return to_pil(self.decode_u8_device(latents).cpu().numpy())
@@ -251,13 +322,14 @@ class FlexPipeline:
     def latents_to_np(self, latents: torch.Tensor) -> np.ndarray:
         """VAE decode → float32 images ``[B, H, W, 3]`` in [0, 1] on the
         host (the JAX pipeline's ``output_type='np'``)."""
-        return self._decode01(latents).float().cpu().numpy()
+        return self._decode_full(latents).float().cpu().numpy()
 
     def _pixels(self, init_image) -> torch.Tensor:
+        """The init image on the device (this rank's rows under SP)."""
         if isinstance(init_image, Image.Image):
             init_image = preprocess(init_image)
-        return torch.as_tensor(np.asarray(init_image, np.float32),
-                               device=self.device)
+        return local_rows(torch.as_tensor(np.asarray(init_image, np.float32),
+                                          device=self.device), 1)
 
     def _check_features(self, guide) -> None:
         """The JAX pipeline's composition rules for DeepCache, the CFG
@@ -296,6 +368,17 @@ class FlexPipeline:
         return guide.replace(timestep_cond=guidance_scale_embedding(
             w.cpu(), tcp).to(self.device), cfg=False)
 
+    def _guide_rows(self, guide):
+        """The guide's latent-grid tensors cut to this rank's rows (SP)."""
+        spatial = {CompositeGuidance: 'masks',
+                   InstructPix2PixGuidance: 'image_latents',
+                   SimpleGuidance: 'extra_channels'}
+        name = spatial.get(type(guide))
+        value = getattr(guide, name, None) if name else None
+        if value is None:
+            return guide
+        return guide.replace(**{name: local_rows(value, 1)})
+
     def _model(self, control):
         """The noise function the guides call: the UNet, with the
         ControlNet's residuals when ``control`` is ``(cond [1 or N, H, W,
@@ -325,8 +408,11 @@ class FlexPipeline:
             return None
         f = self.vae_scale
         hw = (latents.shape[1] * f, latents.shape[2] * f)
-        return (resize_nhwc(prepare_control_image(control_image), hw).to(
-            self.device), float(scale))
+        sp = _attn.sp_axis()
+        if sp is not None:
+            hw = (hw[0] * sp.size, hw[1])
+        return (local_rows(resize_nhwc(prepare_control_image(control_image),
+                                       hw).to(self.device), 1), float(scale))
 
     def _predictor(self, guide, span: int, t_start: int, control=None):
         """``eps_at(i, xin, t)``: the guided ε at row ``i``, through the CFG
@@ -420,7 +506,23 @@ class FlexPipeline:
         ``[H, W, 3]``/``[1, H, W, 3]`` in [0, 1], resized to the
         generation's pixel size; ``controlnet_scale`` weighs its residuals.
         ``return_dict=False`` returns ``(images, False)`` (the JAX
-        pipeline's tuple: images and the NSFW flag)."""
+        pipeline's tuple: images and the NSFW flag).
+
+        Under SP (``sp_mesh``) every rank of the axis makes the same call
+        and gets the same full result (see the module doc)."""
+        with self._sp():
+            return self._call(
+                guide, steps, init_image, init_size, strength, eta,
+                generator, output_type, return_dict, debug, mask,
+                control_image, controlnet_scale, init_latents, noise,
+                posterior_noise, mask_posterior_noise, variance_noise,
+                inpaint_noise)
+
+    def _call(self, guide, steps, init_image, init_size, strength, eta,
+              generator, output_type, return_dict, debug, mask,
+              control_image, controlnet_scale, init_latents, noise,
+              posterior_noise, mask_posterior_noise, variance_noise,
+              inpaint_noise):
         if strength < 0 or strength > 1:
             raise ValueError('The value of strength should in [0.0, 1.0] '
                              f'but is {strength}')
@@ -435,6 +537,8 @@ class FlexPipeline:
                              'built without a controlnet')
         self._check_features(guide)
         guide = self._lcm_guide(guide)
+        if _attn.sp_axis() is not None:
+            guide = self._guide_rows(guide)
         dev = self.device
         batch_size = guide.batch_size
         schedule = self.schedule(steps)
@@ -451,17 +555,20 @@ class FlexPipeline:
                 raise ValueError('inpainting-checkpoint conditioning is '
                                  'supported for SimpleGuidance only')
             pixels = self._pixels(init_image)
-            hpix, wpix = pixels.shape[1:3]
-            pix_mask = prepare_latent_mask(mask, (hpix, wpix)).to(dev)
+            hpix, wpix = self._full_hw(pixels)
+            self.check_sp_split(hpix, wpix)
+            pix_mask = local_rows(prepare_latent_mask(
+                mask, (hpix, wpix)).to(dev), 1)
             masked_latents = self._encode(pixels * (1.0 - pix_mask),
                                           mask_posterior_noise, generator)
-            lat_mask = prepare_latent_mask(mask,
-                                           (hpix // f, wpix // f)).to(dev)
+            lat_mask = local_rows(prepare_latent_mask(
+                mask, (hpix // f, wpix // f)).to(dev), 1)
             extra = torch.cat([lat_mask, masked_latents.expand(
                 tuple(lat_mask.shape[:3]) + (masked_latents.shape[-1],))],
                 dim=-1)
             guide = guide.replace(extra_channels=extra)
-            want = (batch_size, hpix // f, wpix // f, self.latent_channels)
+            want = (batch_size,) + tuple(lat_mask.shape[1:3]) + (
+                self.latent_channels,)
             init_latents = None
             if strength < 1.0:
                 orig = self._encode(pixels, posterior_noise, generator)
@@ -488,11 +595,16 @@ class FlexPipeline:
             if init_latents is not None:
                 init_latents = torch.as_tensor(init_latents).to(
                     dev, torch.float32)
+                self.check_sp_split(init_latents.shape[1] * f,
+                                    init_latents.shape[2] * f)
+                init_latents = local_rows(init_latents, 1)
                 if init_latents.shape[0] != batch_size:
                     init_latents = torch.cat([init_latents] * batch_size)
             else:
-                init_latents = self._encode(self._pixels(init_image),
-                                            posterior_noise, generator)
+                pixels = self._pixels(init_image)
+                self.check_sp_split(*self._full_hw(pixels))
+                init_latents = self._encode(pixels, posterior_noise,
+                                            generator)
                 init_latents = torch.cat([init_latents] * batch_size)
             init_timestep, t_start = schedulers.init_timestep_info(
                 schedule, strength, steps)
@@ -502,12 +614,15 @@ class FlexPipeline:
                 self._draw(noise, init_latents.shape, generator),
                 init_timestep)
             if mask is not None:
-                latent_mask = prepare_latent_mask(
-                    mask, tuple(latents.shape[1:3])).to(dev)
+                latent_mask = local_rows(prepare_latent_mask(
+                    mask, self._full_hw(latents)).to(dev), 1)
         else:
             height, width = init_size
-            latents = self._draw(noise, (batch_size, height // f, width // f,
-                                         self.latent_channels), generator)
+            self.check_sp_split(height, width)
+            sp_n = 1 if _attn.sp_axis() is None else _attn.sp_axis().size
+            latents = self._draw(noise, (batch_size, height // f // sp_n,
+                                         width // f, self.latent_channels),
+                                 generator)
             if sigma_space:
                 latents = latents * schedule.sigmas[0]
             t_start = 0
@@ -540,7 +655,8 @@ class FlexPipeline:
                     i, i - t_start)
                 latents = latent_mask * latents + (1.0 - latent_mask) * anchor
             if debug:
-                recorded.append(latents)
+                recorded.append(gather_rows(latents, 1))
+        latents = gather_rows(latents, 1)
 
         if debug and output_type == 'pil':
             images = [im for lat in recorded

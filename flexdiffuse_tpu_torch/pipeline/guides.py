@@ -38,6 +38,9 @@ import dataclasses
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+
+from flexdiffuse_tpu_torch.ops import attention as _attn
 
 # noise_fn(latents [N,h,w,C], t [N], context [N,T,D]) -> eps [N,h,w,4]
 NoiseFn = Callable[..., torch.Tensor]
@@ -47,12 +50,29 @@ def rescale_cfg(eps_cfg: torch.Tensor, eps_cond: torch.Tensor,
                 phi) -> torch.Tensor:
     """CFG rescale (Lin et al. 2023, §3.4): scale the guided ε toward the
     cond ε's per-sample std (population std over every axis but the
-    batch) and lerp by ``phi``."""
+    batch) and lerp by ``phi``. Under sequence parallelism the std is that
+    of the whole map, its sums all-reduced over the ranks."""
     dims = tuple(range(1, eps_cfg.ndim))
-    std_c = torch.std(eps_cond, dim=dims, keepdim=True, correction=0)
-    std_g = torch.std(eps_cfg, dim=dims, keepdim=True, correction=0)
+    std_c, std_g = _std(eps_cond, dims), _std(eps_cfg, dims)
     rescaled = eps_cfg * (std_c / (std_g + 1e-8))
     return phi * rescaled + (1.0 - phi) * eps_cfg
+
+
+def _std(x: torch.Tensor, dims) -> torch.Tensor:
+    """Population std over ``dims`` (keepdim), over every rank's rows
+    under sequence parallelism."""
+    sp = _attn.sp_axis()
+    if sp is None or sp.size == 1:
+        return torch.std(x, dim=dims, keepdim=True, correction=0)
+
+    def total(t):
+        dist.all_reduce(t, group=sp.group)
+        return t
+
+    count = x[0].numel() * sp.size
+    mean = total(x.sum(dim=dims, keepdim=True)) / count
+    return torch.sqrt(total((x - mean).square().sum(dim=dims,
+                                                    keepdim=True)) / count)
 
 
 def _check_rescale_gate(guide) -> None:

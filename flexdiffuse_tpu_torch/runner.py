@@ -175,13 +175,14 @@ def attach_ip_adapter(pipe: FlexPipeline, path: str,
 
 def rebuild(pipe: FlexPipeline, unet=None, **changes) -> FlexPipeline:
     """A new pipeline around ``unet`` (default: ``pipe``'s) and ``pipe``'s
-    VAE, with ``pipe``'s scheduler, tiling, DeepCache, ControlNet and latent
-    scale unless ``changes`` say otherwise."""
+    VAE, with ``pipe``'s scheduler, tiling, DeepCache, ControlNet, latent
+    scale and sequence parallelism unless ``changes`` say otherwise."""
     kw = dict(scheduler=pipe.scheduler_kind,
               scheduler_config=pipe.scheduler_config,
               vae_tile=pipe.vae_tile, vae_tile_overlap=pipe.vae_tile_overlap,
               deepcache=pipe.deepcache, controlnet=pipe.controlnet,
-              latent_scale=pipe.latent_scale)
+              latent_scale=pipe.latent_scale, sp_mesh=pipe.sp_mesh,
+              sp_axis=pipe.sp_axis, sp_min_seq=pipe.sp_min_seq)
     kw.update(changes)
     return FlexPipeline(unet or pipe.unet, pipe.vae, **kw)
 

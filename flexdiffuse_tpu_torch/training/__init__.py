@@ -18,8 +18,11 @@ same steps), EMA and checkpoint/resume. Quick use::
         text_model, tokenizer, unet, vae, paths, '<concept>',
         num_vectors=2, save_path='concept.safetensors')
 
-Not ported yet: the data/tensor-parallel mesh (``mesh=``, ROADMAP Queue 1
-step 13).
+With ``mesh=`` (``parallel.make_mesh``, in every rank of a process group
+that ``parallel.launch`` started) the steps and loops train data-parallel:
+each rank takes its rows of every batch and the gradients are averaged
+over the data axis (``training/train.py``); rank 0 writes checkpoints and
+outputs, every rank restores them.
 """
 from flexdiffuse_tpu_torch.training.checkpoint import TrainCheckpointer
 from flexdiffuse_tpu_torch.training.data import (EncodedDataset,

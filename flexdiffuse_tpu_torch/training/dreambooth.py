@@ -25,7 +25,8 @@ import torch
 
 from flexdiffuse_tpu_torch.training import train as _train
 from flexdiffuse_tpu_torch.training.data import EncodedDataset
-from flexdiffuse_tpu_torch.training.loop import generators, save_full
+from flexdiffuse_tpu_torch.training.loop import (generators, save_full,
+                                                 writes)
 
 log = logging.getLogger(__name__)
 
@@ -73,7 +74,9 @@ def train_dreambooth(unet, instance_ds: EncodedDataset,
     make the mean loss ``(L_inst + w·L_prior) / 2``: the published objective
     up to the constant 2, which the learning rate absorbs. Generators:
     instance stream ``seed``, class stream ``seed + 1``, steps
-    ``seed + 2``, LoRA init ``seed + 3``.
+    ``seed + 2``, LoRA init ``seed + 3``. ``mesh``: data parallelism, as
+    in ``training.loop`` (the per-row weights are sharded with their
+    rows; rank 0 writes ``save_path``).
     """
     if mode not in ('lora', 'full'):
         raise ValueError(f'unknown mode {mode!r}')
@@ -111,8 +114,8 @@ def train_dreambooth(unet, instance_ds: EncodedDataset,
             if on_step is not None:
                 on_step(i, val)
     if save_path and mode == 'full':
-        save_full(unet, tree, save_path)
-    elif save_path:
+        save_full(unet, tree, save_path, mesh)
+    elif save_path and writes(mesh):
         n = _train.export_lora_safetensors(tree, save_path)
         log.info('wrote %d LoRA modules to %s', n, save_path)
     return tree, losses

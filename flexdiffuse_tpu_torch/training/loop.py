@@ -9,6 +9,13 @@ at a cadence, and return the trained tensors with the loss history.
 Randomness comes from ``torch.Generator``s on the dataset's device, seeded
 from ``seed``: the batch stream from ``seed``, the timesteps and noise of
 the steps from ``seed + 1`` and the LoRA ``down`` init from ``seed + 2``.
+
+``mesh`` (data parallelism; every rank runs the same call): every rank
+draws the same global batches and the step keeps its rows; rank 0 alone
+writes checkpoints and ``save_path``, every rank restores the checkpoint.
+Under tensor parallelism (a UNet that ``parallel.shard_params`` laid out)
+``save_path`` gathers the sharded tensors first; checkpoints there are not
+ported (each model rank would need its own shards' optimizer state).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from flexdiffuse_tpu_torch.training import train as _train
 from flexdiffuse_tpu_torch.training.checkpoint import TrainCheckpointer
@@ -34,11 +42,40 @@ def generators(seed: int, device, count: int) -> List[torch.Generator]:
             for i in range(count)]
 
 
+def writes(mesh) -> bool:
+    """Whether this process writes files: without a mesh, or as rank 0."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _model_parallel(mesh) -> bool:
+    from flexdiffuse_tpu_torch.parallel.axis import MeshAxis
+    from flexdiffuse_tpu_torch.parallel.mesh import MODEL_AXIS
+    return mesh is not None and MeshAxis.of(mesh, MODEL_AXIS).size > 1
+
+
+def full_tree(unet, tree: Dict[str, Tensor], mesh) -> Dict[str, Tensor]:
+    """``tree`` (tensors by parameter name) with every tensor of a
+    tensor-parallel parameter gathered whole (collective: every rank
+    calls it)."""
+    if not _model_parallel(mesh):
+        return tree
+    from flexdiffuse_tpu_torch.parallel.mesh import unshard
+    params = dict(unet.named_parameters())
+    out = {}
+    for name, t in tree.items():
+        p = params.get(name)
+        if p is not None and getattr(p, 'tp_sharded', False):
+            t = t.detach()
+            t.tp_sharded = True
+        out[name] = unshard(t, mesh)
+    return out
+
+
 def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
          steps: int, batch_size: int, seed: int, log_every: int,
          on_step: Optional[Callable[[int, float], None]],
-         ema_decay: float = 0.0, ckpt: Optional[TrainCheckpointer] = None
-         ) -> Tuple[Dict[str, Tensor], List[float]]:
+         ema_decay: float = 0.0, ckpt: Optional[TrainCheckpointer] = None,
+         mesh=None) -> Tuple[Dict[str, Tensor], List[float]]:
     """Run steps ``[start, steps)``; returns the trained tensors (their EMA
     when ``ema_decay > 0``) and the logged losses."""
     data_gen, step_gen = generators(seed, dataset.device, 2)
@@ -56,6 +93,10 @@ def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
             st['ema'] = ema
         return st
 
+    if ckpt is not None and _model_parallel(mesh):
+        raise NotImplementedError(
+            'training checkpoints under tensor parallelism (a model axis > '
+            '1) are not ported yet (ROADMAP Queue 1 step 13)')
     if ckpt is not None:
         restored = ckpt.restore_latest(state())
         if restored is not None:
@@ -84,7 +125,10 @@ def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
             if on_step is not None:
                 on_step(i, val)
         if ckpt is not None and ckpt.should_save(i, steps):
-            ckpt.save(i + 1, state(), losses)
+            if writes(mesh):
+                ckpt.save(i + 1, state(), losses)
+            if mesh is not None:
+                dist.barrier()   # no rank reads it before it is whole
     return (ema if ema is not None else tree), losses
 
 
@@ -119,20 +163,27 @@ def train_lora(unet, dataset: EncodedDataset,
     tree, losses = _run(step_fn, opt, _train.factor_tree(factors), dataset,
                         steps, batch_size, seed, log_every, on_step,
                         ema_decay=cfg.ema_decay,
-                        ckpt=_ckpt(checkpoint_dir, checkpoint_every))
+                        ckpt=_ckpt(checkpoint_dir, checkpoint_every),
+                        mesh=mesh)
     factors = _train.unflatten_factors(tree)
-    if save_path:
+    if save_path and writes(mesh):
         n = _train.export_lora_safetensors(factors, save_path)
         log.info('wrote %d LoRA modules to %s', n, save_path)
     return factors, losses
 
 
-def save_full(unet, tree: Dict[str, Tensor], path: str) -> None:
+def save_full(unet, tree: Dict[str, Tensor], path: str, mesh=None) -> None:
     """Write a full fine-tune as the JAX package's ``{'params': tree}`` in
     flax's msgpack format (the bytes ``flax.serialization.
     msgpack_serialize`` gives; ``weights/msgpack.py``): ``tree``'s tensors
-    over the rest of ``unet``'s state dict."""
-    sd = {**unet.state_dict(), **{n: t.detach() for n, t in tree.items()}}
+    over the rest of ``unet``'s parameters. With ``mesh`` every rank calls
+    it (tensor-parallel shards are gathered) and rank 0 writes."""
+    params = {n: p.detach() for n, p in unet.named_parameters()}
+    sd = {**unet.state_dict(),
+          **full_tree(unet, {**params, **tree}, mesh)}
+    if not writes(mesh):
+        return
+    sd = {n: t.detach() for n, t in sd.items()}
     _msgpack.save(_convert.state_dict_to_params(sd, unet.config), path)
     log.info('wrote trained params to %s', path)
 
@@ -156,7 +207,8 @@ def train_full(unet, dataset: EncodedDataset,
     tree, losses = _run(step_fn, opt, _train.trainable_tree(unet), dataset,
                         steps, batch_size, seed, log_every, on_step,
                         ema_decay=cfg.ema_decay,
-                        ckpt=_ckpt(checkpoint_dir, checkpoint_every))
+                        ckpt=_ckpt(checkpoint_dir, checkpoint_every),
+                        mesh=mesh)
     if save_path:
-        save_full(unet, tree, save_path)
+        save_full(unet, tree, save_path, mesh)
     return tree, losses

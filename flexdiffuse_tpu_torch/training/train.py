@@ -26,8 +26,20 @@ updates the UNet's parameters (or the LoRA factors) in place and returns the
 loss. A step's optional ``extra`` is SDXL's ``added_cond``
 (``{'text_embeds', 'time_ids'}``, fp32), which reaches the UNet as
 ``added_cond=``; the UNet computes the time ids' sinusoidal features in
-fp32 under autocast too (``models/unet.py`` ``embed_time``). ``mesh``
-(data/tensor parallelism) is ROADMAP Queue 1 step 13.
+fp32 under autocast too (``models/unet.py`` ``embed_time``).
+
+``mesh`` (a ``(data, model)`` mesh of ``parallel/mesh.py``; every rank
+calls the step with the same arguments): each rank draws the *global*
+batch's ``t`` and ``noise`` from the same generator, keeps its rows
+(``shard_batch``, the per-row ``sample_weights`` too), computes the loss
+on them and averages the gradients over the data group before the update:
+the global-mean-loss update that GSPMD makes in JAX, so the run equals
+world size 1 up to summation order. The returned loss is the mean over the
+data group. Under tensor parallelism (``parallel.shard_params`` applied to
+the UNet first) the sharded weights take their gradient through the
+output all-gather's backward, LoRA factors sum theirs over the model group
+(each rank's factors meet only its slice of the weights), and the clipping
+norm counts every shard once.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
@@ -81,13 +94,6 @@ class TrainConfig:
     attention_backend: str = 'auto'
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            'data/tensor-parallel training (mesh=) is not ported yet '
-            '(ROADMAP Queue 1 step 13)')
-
-
 class ClippedAdamW:
     """optax ``chain(clip_by_global_norm(max_grad_norm), adamw(...))``, as
     ``MultiSteps(every_k=grad_accum)`` when ``grad_accum > 1``.
@@ -100,8 +106,12 @@ class ClippedAdamW:
     update: decoupled decay on the pre-update weights, eps outside the root.
     """
 
-    def __init__(self, params: Iterable[Tensor], cfg: TrainConfig) -> None:
+    def __init__(self, params: Iterable[Tensor], cfg: TrainConfig,
+                 tp_group=None) -> None:
         self.params = list(params)
+        # Tensor parallelism: the squares of the sharded parameters'
+        # gradients are summed over the model group for the clipping norm.
+        self.tp_group = tp_group
         self.max_norm = float(cfg.max_grad_norm)
         self.every = int(cfg.grad_accum)
         self.adamw = torch.optim.AdamW(
@@ -134,7 +144,7 @@ class ClippedAdamW:
             for a in self.acc:
                 a.zero_()
             self.mini_step = 0
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = torch.sqrt(self._norm_sq(grads))
         keep = norm < self.max_norm
         for i, p in enumerate(self.params):
             # Each unclipped gradient is released as its clipped one is
@@ -145,6 +155,18 @@ class ClippedAdamW:
         self.adamw.step()
         self.zero_grad()
         return True
+
+    def _norm_sq(self, grads: List[Tensor]) -> Tensor:
+        """The squared global norm of ``grads``: with ``tp_group``, the
+        sharded parameters' part summed over the model group."""
+        sq = [g.float().square().sum() for g in grads]
+        if self.tp_group is None:
+            return sum(sq)
+        sharded = [getattr(p, 'tp_sharded', False) for p in self.params]
+        part = sum((s for s, sh in zip(sq, sharded) if sh),
+                   torch.zeros((), device=sq[0].device))
+        dist.all_reduce(part, group=self.tp_group)
+        return sum((s for s, sh in zip(sq, sharded) if not sh), part)
 
     def state_dict(self) -> dict:
         return {'adamw': self.adamw.state_dict(),
@@ -159,9 +181,9 @@ class ClippedAdamW:
                                                    self.params)] or None
 
 
-def make_optimizer(params: Iterable[Tensor],
-                   cfg: TrainConfig) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg)
+def make_optimizer(params: Iterable[Tensor], cfg: TrainConfig,
+                   tp_group=None) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, tp_group)
 
 
 # Matmuls without batch dims and convolutions: what remat='dots' keeps
@@ -228,6 +250,22 @@ def schedule_tables(cfg: TrainConfig, device=None) -> Tensor:
                            device=device)
 
 
+def draw_t_noise(latents: Tensor, cfg: TrainConfig, t: Optional[Tensor],
+                 noise: Optional[Tensor],
+                 generator: Optional[torch.Generator]):
+    """``(t [B], noise like latents)``: each that is None drawn from
+    ``generator``, ``t`` first."""
+    b = latents.shape[0]
+    dev = latents.device
+    if t is None:
+        t = torch.randint(0, cfg.num_train_timesteps, (b,), device=dev,
+                          generator=generator)
+    if noise is None:
+        noise = torch.randn(latents.shape, device=dev, dtype=torch.float32,
+                            generator=generator)
+    return t, noise
+
+
 def diffusion_loss(apply_fn: Callable, latents: Tensor, context: Tensor,
                    acp: Tensor, cfg: TrainConfig, *,
                    t: Optional[Tensor] = None, noise: Optional[Tensor] = None,
@@ -240,14 +278,8 @@ def diffusion_loss(apply_fn: Callable, latents: Tensor, context: Tensor,
     ``[B]`` (int) and ``noise`` (like ``latents``) may be passed in;
     whichever is missing is drawn from ``generator``, ``t`` first.
     ``sample_weights`` ``[B]`` scales per-sample losses."""
-    b = latents.shape[0]
     dev = latents.device
-    if t is None:
-        t = torch.randint(0, cfg.num_train_timesteps, (b,), device=dev,
-                          generator=generator)
-    if noise is None:
-        noise = torch.randn(latents.shape, device=dev, dtype=torch.float32,
-                            generator=generator)
+    t, noise = draw_t_noise(latents, cfg, t, noise, generator)
     t = t.to(dev)
     noise = noise.to(dev, torch.float32)
     ap = acp.to(dev)[t][:, None, None, None]
@@ -287,6 +319,56 @@ def _device(module: nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
+class _Parallel:
+    """A step's data and model axes (None without a mesh): row sharding of
+    the batch, the gradient all-reduces and the reported loss."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self.data = self.model = None
+        if mesh is not None:
+            from flexdiffuse_tpu_torch.parallel.axis import MeshAxis
+            from flexdiffuse_tpu_torch.parallel import mesh as _mesh
+            self.data = _mesh.batch_sharding(mesh)
+            self.model = MeshAxis.of(mesh, _mesh.MODEL_AXIS)
+
+    @property
+    def tp_group(self):
+        return self.model.group if self.model is not None and \
+            self.model.size > 1 else None
+
+    def rows(self, cfg, latents, context, extra, t, noise, generator, sw):
+        """This rank's rows of the step's inputs, ``t`` and ``noise`` drawn
+        for the global batch first."""
+        if self.mesh is None:
+            return latents, context, extra, t, noise, sw
+        from flexdiffuse_tpu_torch.parallel.mesh import shard_batch
+        t, noise = draw_t_noise(latents, cfg, t, noise, generator)
+        return shard_batch((latents, context, extra, t, noise, sw),
+                           self.mesh)
+
+    def sync(self, leaves: List[Tensor], model_sum: bool = False) -> None:
+        """Average the gradients of ``leaves`` over the data group (summed
+        over the model group first when ``model_sum``)."""
+        if self.mesh is None:
+            return
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            if model_sum and self.tp_group is not None:
+                dist.all_reduce(p.grad, group=self.tp_group)
+            dist.all_reduce(p.grad, group=self.data.group)
+            p.grad /= self.data.size
+
+    def loss(self, loss: Tensor) -> Tensor:
+        loss = loss.detach()
+        if self.mesh is None:
+            return loss
+        loss = loss.clone()
+        dist.all_reduce(loss, group=self.data.group)
+        return loss / self.data.size
+
+
 # ---------------------------------------------------------------------------
 # Full-model training
 
@@ -297,24 +379,28 @@ def make_train_step(unet: nn.Module, cfg: TrainConfig, mesh=None,
     t=None, noise=None, generator=None) -> loss`` runs forward, backward
     and one optimizer update of every UNet parameter that requires grad, in
     place. ``extra``: SDXL's ``added_cond``. ``sample_weights`` ``[B]``
-    fixes per-row loss weights (DreamBooth)."""
-    _no_mesh(mesh)
+    fixes per-row loss weights (DreamBooth). ``mesh``: see the module
+    doc."""
     dev = _device(unet)
-    opt = make_optimizer([p for p in unet.parameters() if p.requires_grad],
-                         cfg)
+    par = _Parallel(mesh)
+    leaves = [p for p in unet.parameters() if p.requires_grad]
+    opt = make_optimizer(leaves, cfg, par.tp_group)
     acp = schedule_tables(cfg, dev)
     apply_fn = _remat_apply(unet, cfg)
     sw = _weights(sample_weights, dev)
 
     def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
              noise=None, generator=None) -> Tensor:
+        latents, context, extra, t, noise, w = par.rows(
+            cfg, latents, context, extra, t, noise, generator, sw)
         with compute_context(dev):
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
-                                  sample_weights=sw, added_cond=extra)
+                                  sample_weights=w, added_cond=extra)
         loss.backward()
+        par.sync(leaves)
         opt.step()
-        return loss.detach()
+        return par.loss(loss)
 
     return step, opt
 
@@ -365,13 +451,18 @@ def merge_lora_params(unet: nn.Module, factors: Factors,
     """Effective weights ``{'<module>.weight': base.detach() +
     scale·(up@down)}`` for ``functional_call``, differentiable in the
     factors. torch Linear weights are ``[out, in]``, so there is no
-    transpose; the merge runs in fp32 and is cast to the base dtype."""
+    transpose; the merge runs in fp32 and is cast to the base dtype. A
+    tensor-parallel layer (``parallel.shard_params``) merges its rows of
+    ``up``."""
+    from flexdiffuse_tpu_torch.parallel.mesh import tp_slice
     mods = dict(unet.named_modules())
     out = {}
     with torch.autocast(_device(unet).type, enabled=False):
         for name, fac in factors.items():
             base = mods[name].weight.detach()
-            delta = (fac['up'].float() @ fac['down'].float()) * scale
+            rows = tp_slice(mods[name])
+            up = fac['up'] if rows is None else fac['up'][rows]
+            delta = (up.float() @ fac['down'].float()) * scale
             out[f'{name}.weight'] = (base.float() + delta).to(base.dtype)
     return out
 
@@ -382,7 +473,7 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
     """``(step, optimizer)`` updating only the LoRA ``factors`` (in place);
     the UNet's own parameters are frozen (``requires_grad_(False)``).
     ``step`` has :func:`make_train_step`'s signature."""
-    _no_mesh(mesh)
+    par = _Parallel(mesh)
     unet.requires_grad_(False)
     dev = _device(unet)
     leaves = [f[k] for f in factors.values() for k in ('down', 'up')]
@@ -394,6 +485,8 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
 
     def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
              noise=None, generator=None) -> Tensor:
+        latents, context, extra, t, noise, w = par.rows(
+            cfg, latents, context, extra, t, noise, generator, sw)
         eff = merge_lora_params(unet, factors, scale)
         apply_fn = _remat_apply(
             lambda *args, **kwargs: torch.func.functional_call(
@@ -401,10 +494,11 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
         with compute_context(dev):
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
-                                  sample_weights=sw, added_cond=extra)
+                                  sample_weights=w, added_cond=extra)
         loss.backward()
+        par.sync(leaves, model_sum=True)
         opt.step()
-        return loss.detach()
+        return par.loss(loss)
 
     return step, opt
 

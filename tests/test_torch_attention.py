@@ -81,6 +81,13 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.serving', 'flexdiffuse_tpu_torch.serving.api',
     'flexdiffuse_tpu_torch.serving.batcher',
     'flexdiffuse_tpu_torch.utils.profiling',
+    'flexdiffuse_tpu_torch.parallel', 'flexdiffuse_tpu_torch.parallel.mesh',
+    'flexdiffuse_tpu_torch.parallel.axis',
+    'flexdiffuse_tpu_torch.parallel.launch',
+    'flexdiffuse_tpu_torch.parallel.sp',
+    'flexdiffuse_tpu_torch.parallel.sweep',
+    'flexdiffuse_tpu_torch.ops.ring_attention',
+    'flexdiffuse_tpu_torch.ops.row_shard',
 ]
 
 

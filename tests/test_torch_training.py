@@ -7,6 +7,8 @@ handed the draws JAX makes from ``jax.random.split(key)``. All fp32.
 Tolerances: the loss 1e-5; gradients 1e-4 of each tensor's max|g|; params
 after one optimizer step 1e-5.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,10 +225,30 @@ def test_remat_matches_no_remat(jax_side, mode):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
+def _adamw_grads(opt) -> list:
+    """Record, at each AdamW step of ``opt``, the gradients it steps on
+    (after accumulation and clipping)."""
+    seen, real = [], opt.adamw.step
+
+    def step(*args, **kwargs):
+        seen.append([p.grad.clone() for p in opt.params])
+        return real(*args, **kwargs)
+    opt.adamw.step = step
+    return seen
+
+
 def test_grad_accum_matches_one_step_on_the_joined_batch(jax_side):
     """grad_accum=2 over two halves == one step on the joined batch (the
     loss is a mean over rows, so the mean of the halves' gradients is the
-    joined batch's); params stay unchanged after the first micro-step."""
+    joined batch's); params stay unchanged after the first micro-step.
+
+    The two runs sum in different orders, and AdamW's first step maps a
+    gradient g to lr·g/(|g| + 1e-8): at |g| near 1e-8 a rounding difference
+    δg moves the update by up to lr·δg/4e-8 (2.5e4·δg here). So the
+    joined batch is held where the comparison is well conditioned, on the
+    gradient AdamW receives (within 1e-6 of each tensor's max|g|; this
+    CPU reads ≤ 1e-8), and the update on that gradient is held against one
+    AdamW step from the initial weights (within 2e-6)."""
     lat, ctx = _batch(jax_side)
     rng = np.random.default_rng(4)
     lat = torch.cat([lat, torch.from_numpy(
@@ -234,21 +256,32 @@ def test_grad_accum_matches_one_step_on_the_joined_batch(jax_side):
     ctx = torch.cat([ctx, ctx.flip(0)])
     t = torch.tensor([10, 500, 900, 250])
     noise = torch.from_numpy(rng.normal(size=lat.shape).astype(np.float32))
-    ref = _port_unet(jax_side)
-    step, _ = tt.make_train_step(ref, tt.TrainConfig(learning_rate=1e-3))
+    cfg = tt.TrainConfig(learning_rate=1e-3)
+    step, ref_opt = tt.make_train_step(_port_unet(jax_side), cfg)
+    joined = _adamw_grads(ref_opt)
     step(lat, ctx, t=t, noise=noise)
 
     unet = _port_unet(jax_side)
     before = [p.detach().clone() for p in unet.parameters()]
     step, opt = tt.make_train_step(
-        unet, tt.TrainConfig(learning_rate=1e-3, grad_accum=2))
+        unet, dataclasses.replace(cfg, grad_accum=2))
+    accum = _adamw_grads(opt)
     step(lat[:2], ctx[:2], t=t[:2], noise=noise[:2])
     for a, b in zip(before, unet.parameters()):
         assert torch.equal(a, b)
-    assert opt.mini_step == 1
+    assert opt.mini_step == 1 and not accum
     step(lat[2:], ctx[2:], t=t[2:], noise=noise[2:])
-    for a, b in zip(ref.parameters(), unet.parameters()):
-        torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+    assert len(joined) == len(accum) == 1
+    for gj, ga in zip(joined[0], accum[0]):
+        torch.testing.assert_close(ga, gj, rtol=0,
+                                   atol=1e-6 * float(gj.abs().max()))
+    once = _port_unet(jax_side)
+    adamw = tt.make_optimizer(once.parameters(), cfg).adamw
+    for p, g in zip(once.parameters(), accum[0]):
+        p.grad = g
+    adamw.step()
+    for a, b in zip(once.parameters(), unet.parameters()):
+        torch.testing.assert_close(b, a, rtol=0, atol=2e-6)
 
 
 def test_ema_update_formula():
@@ -327,7 +360,26 @@ def test_flash_path_calls_per_step(monkeypatch, remat, k3):
     assert calls == {'k1': 0, 'k3': k3, 'k4': 3, 'k5': 3}
 
 
-def test_mesh_is_not_ported(jax_side):
-    with pytest.raises(NotImplementedError, match='step 13'):
-        tt.make_train_step(_port_unet(jax_side), tt.TrainConfig(),
-                           mesh=object())
+def test_world1_mesh_trains_bit_equal(jax_side, tmp_path):
+    """A data mesh over a one-rank gloo group trains bit-equal to no mesh:
+    the global draws, the rows of rank 0 (all of them), a gradient
+    all-reduce over one rank. The multi-rank cases are
+    ``tests/test_torch_parallel.py``'s."""
+    import torch.distributed as dist
+
+    from flexdiffuse_tpu_torch.parallel import launch, make_mesh
+    lat, ctx = _batch(jax_side)
+    runs = []
+    launch.init_rank(0, 1, str(tmp_path / 'store'), 'cpu', timeout=60)
+    try:
+        for mesh in (None, make_mesh()):
+            unet = _port_unet(jax_side)
+            step, _ = tt.make_train_step(unet, tt.TrainConfig(), mesh=mesh)
+            g = torch.Generator().manual_seed(5)
+            losses = [step(lat, ctx, generator=g) for _ in range(2)]
+            runs.append((losses, [p.detach() for p in unet.parameters()]))
+    finally:
+        dist.destroy_process_group()
+    (l0, p0), (l1, p1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
