@@ -330,19 +330,43 @@ initialised at world 1 over a ``file://`` store (torn down after):
     before anything loads. One JSON line per part, each with the card's
     name and power limit.
 
+The real-weight parity harness (the fifteenth slice), step 22, after
+step 20's textual inversion, on step 12's snapshot (seeded random SD-1.4
+and CLIP ViT-L/14 weights at published widths, read back from disk):
+
+22. Writes synthetic 512² guide and init images (``synthetic_image``, PNG
+    bytes) under the file names the harness's configs read. (a) Runs
+    ``flexdiffuse_tpu_torch.tools.validate_reference`` (``parse_args``,
+    ``build_runner``, ``run``: the card, bf16) with the reference protocol:
+    the five configs at 512², PNDM 30 steps, 4 samples, CFG 8, strength
+    0.6, seed 1337; asserts that no config is skipped, that every image is
+    finite and not constant, and that the K1 and K6 launches equal the
+    module tree's (``eval_launches``, ``vae_launches``; every K1 on the
+    Hopper path); prints the e2e seconds per config. (b) The numerics gate
+    on ``t2i_base`` at 1 sample and STEP22_GATE_STEPS (5) PNDM steps: the
+    card's bf16 final latents against a second Runner of the snapshot on
+    the CPU in fp32, both from the same CPU noise; asserts MSE ≤ 1e-2
+    (``BASELINE.json``'s gate) and prints MSE, relative MSE and max|Δ|.
+    Then one pipeline call's output answers ``['sample']``, ``['images']``
+    and ``.nsfw_content_detected`` as the reference's. (c) Runs
+    ``tools/experiments.py`` once on the snapshot (guide and init image,
+    1 sample, 4 steps) with its launches held the same way. One JSON line
+    per part, each with the card's name and power limit.
+
 Every kernel's launch count is set to 0 just before each main-path phase
 (steps 6, 11, 12, 13, 15, each run of 17, 18 and 19, each training run,
-encode and generate run of 20, and each sweep, training and SP run of 21)
-and read just after; launches made to check a kernel against its plain
-twin do not count. Any failed phase raises, so
-the script exits non-zero; without CUDA it exits non-zero at once and
-prints no result.
+encode and generate run of 20, each sweep, training and SP run of 21, and
+the harness and experiments runs of 22) and read just after; launches
+made to check a kernel against its plain twin do not count. Any failed
+phase raises, so the script exits non-zero; without CUDA it exits
+non-zero at once and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import base64
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -4206,6 +4230,153 @@ def run_parallel_phase(unet, vae, ds) -> dict:
                 k3_rows=rows)
 
 
+# Step 22: the real-weight parity harness on step 12's snapshot.
+STEP22_SEED = SEED + 22
+STEP22_GATE_STEPS = 5   # the numerics gate's PNDM steps (fixed, not tuned)
+STEP22_EXP_STEPS = 4    # experiments.py's run: 1 sample, 4 steps
+GATE_MSE = 1e-2         # BASELINE.json's gate on the final latents
+
+
+@contextlib.contextmanager
+def observe_gens():
+    """Every ``Runner.gen`` of the block, also of runners built inside it:
+    a list of (device type, the pipeline's :class:`CallLog`, VAE config,
+    images)."""
+    rec = []
+    real = Runner.gen
+
+    def gen(self, *args, **kw):
+        logs = _observe(self)
+        try:
+            images, grid = real(self, *args, **kw)
+        finally:
+            for log in logs:
+                log.remove()
+        rec.append((self.pipe.device.type, logs[0], self.pipe.vae.config,
+                    images))
+        return images, grid
+
+    Runner.gen = gen
+    try:
+        yield rec
+    finally:
+        Runner.gen = real
+
+
+def gens_launches(rec, label: str, image_side: int) -> dict:
+    """The launches the card's runs in ``rec`` (:func:`observe_gens`)
+    imply, from the module tree (:func:`eval_launches`,
+    :func:`vae_launches`), after checking finite ε and latents and finite,
+    non-constant ``image_side``² uint8 images in every run."""
+    parts = []
+    for device, log, vae_config, images in rec:
+        if not all(bool(f) for f in log.finite):
+            raise AssertionError(f'step 22 {label}: non-finite ε or latents')
+        for im in images:
+            a = np.asarray(im)
+            if a.shape != (image_side, image_side, 3) or \
+                    a.dtype != np.uint8 or not a.std() > 0:
+                raise AssertionError(f'step 22 {label}: image {a.shape} '
+                                     f'{a.dtype} std {a.std()}')
+        if device == 'cuda':
+            parts += [eval_launches(e)[0] for e in log.evals]
+            parts.append(vae_launches(vae_config, log.decodes,
+                                      log.encodes)[0])
+    return _sum(parts)
+
+
+def run_harness_phase(root: str, common=(), harness=(),
+                      image_side: int = 512, check: bool = True) -> dict:
+    """Step 22 (module docstring) on the snapshot under ``root``;
+    ``common`` is added to both tools' arguments and ``harness`` to the
+    harness's (a CPU rehearsal passes ``--device cpu`` and small sizes,
+    with ``check=False``: no launch counts there)."""
+    from flexdiffuse_tpu_torch.pipeline import SimpleGuidance
+    from flexdiffuse_tpu_torch.tools import experiments as tool_exp
+    from flexdiffuse_tpu_torch.tools import validate_reference as tool_vr
+    assets = os.path.join(root, 'experiments')
+    os.makedirs(assets, exist_ok=True)
+    for i, name in enumerate(tool_vr.ASSETS):
+        # PNG bytes under the reference's names (PIL reads by content).
+        synthetic_image(512, STEP22_SEED + i).save(
+            os.path.join(assets, name), format='PNG')
+    args = tool_vr.parse_args(
+        ['--models', root, '--experiments', assets, '--out',
+         os.path.join(root, 'validate'), '--gate-steps',
+         str(STEP22_GATE_STEPS), *common, *harness])
+    runner = tool_vr.build_runner(args)
+    cuda = runner.pipe.device.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with observe_gens() as rec:
+        report = tool_vr.run(args, runner)
+    harness_s = time.perf_counter() - t0
+    got = counts()
+    want = gens_launches(rec, '(a)', image_side)
+    cfgs = report['configs']
+    gate = cfgs['t2i_base']
+    res = dict(card=card_line() if cuda else 'cpu', harness_s=harness_s,
+               e2e_s={n: c.get('wall_s') for n, c in cfgs.items()},
+               images={n: c.get('images') for n, c in cfgs.items()},
+               gate_steps=STEP22_GATE_STEPS, **{k: gate[k] for k in (
+                   'latent_mse_vs_cpu_fp32', 'latent_rel_mse',
+                   'latent_max_abs', 'latent_mse_gate_1e-2')},
+               launches=got, expected=want)
+    print(f'step 22 (a)+(b) harness: {json.dumps(res)}', flush=True)
+    skipped = {n: c['skipped'] for n, c in cfgs.items() if 'skipped' in c}
+    if skipped:
+        raise AssertionError(f'step 22 (a): configs skipped: {skipped}')
+    if check and got != want:
+        raise AssertionError(f'step 22 (a): launches {got}, expected '
+                             f'{want}')
+    if not gate['latent_mse_vs_cpu_fp32'] <= GATE_MSE:
+        raise AssertionError(
+            f'step 22 (b): final-latent MSE {gate["latent_mse_vs_cpu_fp32"]}'
+            f' against CPU fp32 misses the {GATE_MSE} gate')
+    # The pipeline's output answers as the reference's does.
+    enc = runner.encoder
+    out = runner.pipe(SimpleGuidance(embeddings=enc.prompt(PROMPT),
+                                     uncond=enc.prompt(''),
+                                     guidance_scale=8.0),
+                      steps=2, init_size=(image_side, image_side),
+                      output_type='latent')
+    if not (out['sample'] is out.images and out['images'] is out.images
+            and out.nsfw_content_detected == [False]):
+        raise AssertionError('step 22: FlexPipelineOutput does not answer '
+                             "['sample'] / ['images'] / "
+                             '.nsfw_content_detected as the reference')
+    del runner, out
+    gc.collect()
+    launches = collections.Counter(got)
+    # (c) experiments.py on the same snapshot, its own Runner.
+    exp_out = os.path.join(root, 'experiments_out')
+    reset_counts()
+    t0 = time.perf_counter()
+    with observe_gens() as rec:
+        rc = tool_exp.main([
+            '--models', root, '--prompt', PROMPT, '--guide',
+            os.path.join(assets, 'deer_mod.webp'), '--init',
+            os.path.join(assets, 'deer_img2img_base.png'), '--steps',
+            str(STEP22_EXP_STEPS), '--samples', '1', '--out', exp_out,
+            *common])
+    exp = dict(card=res['card'], e2e_s=time.perf_counter() - t0,
+               launches=counts(), expected=gens_launches(rec, '(c)',
+                                                         image_side),
+               pngs=len([n for n in os.listdir(exp_out)
+                         if n.endswith('.png')]))
+    print(f'step 22 (c) experiments: {json.dumps(exp)}', flush=True)
+    if rc != 0 or exp['pngs'] != 1:
+        raise AssertionError(f'step 22 (c): rc {rc}, {exp["pngs"]} images')
+    if check and exp['launches'] != exp['expected']:
+        raise AssertionError(f'step 22 (c): launches {exp["launches"]}, '
+                             f'expected {exp["expected"]}')
+    launches.update(exp['launches'])
+    return dict(launches={k: launches[k] for k in want_launches()},
+                harness=res, experiments=exp)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -4443,6 +4614,11 @@ def main() -> int:
         ti_s = time.perf_counter() - t0
         print(f'textual inversion (step 20): {ti_s:.1f} s; step 20 in all '
               f'{step20_s + ti_s:.1f} s', flush=True)
+        # The parity harness (step 22) on this snapshot.
+        t0 = time.perf_counter()
+        harness = run_harness_phase(root)
+        print(f'parity harness (step 22): {time.perf_counter() - t0:.1f} s',
+              flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del text, vision, runner, disk_runner
@@ -4471,7 +4647,7 @@ def main() -> int:
                 surfaces['launches'][k] + sampling['launches'][k] +
                 conditioning['launches'][k] + sdxl['launches'][k] +
                 sdxl_train['launches'][k] + ti['launches'][k] +
-                parallel['launches'][k]
+                parallel['launches'][k] + harness['launches'][k]
                 for k in gen_launches}
     del ds
 

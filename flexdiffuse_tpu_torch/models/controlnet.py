@@ -53,11 +53,22 @@ class ConditioningEmbedding(nn.Module):
         self.conv_out = row_shard.Conv2d(channels[-1], out_channels, 3,
                                          padding=1)
 
-    def forward(self, cond: torch.Tensor) -> torch.Tensor:
-        h = F.silu(self.conv_in(cond))
-        for conv in self.blocks:
-            h = F.silu(conv(h))
-        return self.conv_out(h)
+    def forward(self, cond: torch.Tensor, plan) -> torch.Tensor:
+        """Whole ``cond`` → the features laid out for ``plan``'s level 0
+        (the latent grid; the ramp's k stride-2 steps run from level −k)."""
+        k = len(self.blocks) // 2
+        h = plan.move(cond, None, -k)
+        with plan.at(-k):
+            h = F.silu(self.conv_in(h))
+        for j in range(k):
+            depth = j - k
+            with plan.at(depth):
+                h = F.silu(self.blocks[2 * j](h))
+            with plan.at(depth + 1):
+                h = F.silu(self.blocks[2 * j + 1](
+                    plan.move(h, depth, depth + 1)))
+        with plan.at(0):
+            return self.conv_out(h)
 
 
 class ControlNetModel(DownMid):
@@ -104,14 +115,19 @@ class ControlNetModel(DownMid):
         dtype = self.conv_in.weight.dtype
         temb = self.embed_time(t, added_cond=added_cond)
         context = context.to(dtype)
+        # The UNet's plan for the same latent rows: the residuals are laid
+        # out level by level as its skips are.
+        plan = row_shard.Plan(latents.shape[1])
         # NHWC (public layout) -> NCHW; on the card the permuted views are
         # channels-last, and so is everything the convs make of them.
-        h = self.conv_in(latents.permute(0, 3, 1, 2).to(dtype))
+        h = plan.move(latents.permute(0, 3, 1, 2).to(dtype), None, 0)
+        with plan.at(0):
+            h = self.conv_in(h)
         h = h + self.controlnet_cond_embedding(
-            cond.permute(0, 3, 1, 2).to(h.device, dtype))
+            cond.permute(0, 3, 1, 2).to(h.device, dtype), plan)
         h, skips = self.run_down(h, temb, context,
-                                 len(self.config.block_channels))
-        h = self.run_mid(h, temb, context)
+                                 len(self.config.block_channels), plan=plan)
+        h = self.run_mid(h, temb, context, plan=plan)
         # The scale in the weights' dtype, as the JAX module casts it.
         scale = torch.as_tensor(scale, dtype=dtype, device=h.device)
         down = tuple(conv(s) * scale

@@ -35,12 +35,19 @@ and ControlNet residuals (``control``). The down and mid path
 (:class:`DownMid`) is shared with the ControlNet's control branch
 (``models/controlnet.py``), blocks and names alike.
 
-Sequence parallelism (``ops/attention.py`` ``sp_context``): the
-activations are this rank's rows; the 3×3 convs are
+Sequence parallelism (``ops/attention.py`` ``sp_context``): the forward
+takes and returns whole tensors and runs each level as its
+:class:`~flexdiffuse_tpu_torch.ops.row_shard.Plan` says (the ``plan``
+of :meth:`DownMid.run_down`, :meth:`DownMid.run_mid` and
+:meth:`UNet2DCondition.run_up`; levels by depth, 0 the latent grid). On a
+sharded level the activations are this rank's rows; the 3×3 convs are
 :class:`~flexdiffuse_tpu_torch.ops.row_shard.Conv2d` (halo rows from the
 neighbouring ranks) and every GroupNorm runs through
 :func:`~flexdiffuse_tpu_torch.ops.row_shard.group_norm` (statistics over
-the ranks, the plain path: no K6); FreeU's filter sees the whole map.
+the ranks, the plain path: no K6); FreeU's filter sees the whole map. A
+level that does not split runs whole, as without SP; a Downsample into it
+takes the gathered rows, and the Upsample out of it gives the next
+level its rows.
 
 Left out here: the channel-major interiors (ROADMAP "do not port").
 """
@@ -120,8 +127,10 @@ def fourier_filter(x: torch.Tensor, threshold: int,
     scaled by ``scale``, the inverse FFT's real part; in fp32 (cuFFT takes
     no bf16) and cast back. Under sequence parallelism the filter runs on
     the whole map, and each rank keeps its rows."""
-    local = x
-    x = row_shard.gather_rows(x, 2)
+    from flexdiffuse_tpu_torch.parallel.axis import gather, local
+    dtype, sp = x.dtype, row_shard.sp_axis()
+    if sp is not None:
+        x = gather(x, sp, 2)
     _, _, hh, ww = x.shape
     xf = torch.fft.fftshift(torch.fft.fft2(x.float(), dim=(2, 3)),
                             dim=(2, 3))
@@ -132,7 +141,9 @@ def fourier_filter(x: torch.Tensor, threshold: int,
     xf = xf * mask.to(x.device)
     out = torch.fft.ifft2(torch.fft.ifftshift(xf, dim=(2, 3)),
                           dim=(2, 3)).real
-    return row_shard.local_rows(out, 2).to(local.dtype)
+    if sp is not None:
+        out = local(out, sp, 2)
+    return out.to(dtype)
 
 
 def pag_selected(pag_layers, name: str) -> bool:
@@ -472,31 +483,35 @@ class DownMid(nn.Module):
         return attn(h, context, self.tome, self._pm(name, pag_mask), ip)
 
     def run_down(self, h, temb, context, levels: int, pag_mask=None,
-                 ip=None):
-        """The first ``levels`` encoder levels; returns ``(h, skips)``. The
-        downsample of level ``levels - 1`` is skipped (a DeepCache shallow
-        pass: its skip feeds a decoder level the cache replaces)."""
+                 ip=None, *, plan):
+        """The first ``levels`` encoder levels, each as ``plan`` lays it
+        out; returns ``(h, skips)``. The downsample of level ``levels - 1``
+        is skipped (a DeepCache shallow pass: its skip feeds a decoder
+        level the cache replaces)."""
         skips = [h]
         for i in range(levels):
             blk = self.down_blocks[i]
             attns = getattr(blk, 'attentions', None)
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
-                if attns is not None:
-                    h = self._attn(attns[j], f'down_{i}_attn_{j}', h,
-                                   context, pag_mask, ip)
-                skips.append(h)
+            with plan.at(i):
+                for j, res in enumerate(blk.resnets):
+                    h = res(h, temb)
+                    if attns is not None:
+                        h = self._attn(attns[j], f'down_{i}_attn_{j}', h,
+                                       context, pag_mask, ip)
+                    skips.append(h)
             if hasattr(blk, 'downsamplers') and i < levels - 1:
-                h = blk.downsamplers[0](h)
+                with plan.at(i + 1):
+                    h = blk.downsamplers[0](plan.move(h, i, i + 1))
                 skips.append(h)
         return h, skips
 
-    def run_mid(self, h, temb, context, pag_mask=None, ip=None):
+    def run_mid(self, h, temb, context, pag_mask=None, ip=None, *, plan):
         mb = self.mid_block
-        h = mb.resnets[0](h, temb)
-        h = self._attn(mb.attentions[0], 'mid_attn', h, context, pag_mask,
-                       ip)
-        return mb.resnets[1](h, temb)
+        with plan.at(len(self.down_blocks) - 1):
+            h = mb.resnets[0](h, temb)
+            h = self._attn(mb.attentions[0], 'mid_attn', h, context,
+                           pag_mask, ip)
+            return mb.resnets[1](h, temb)
 
 
 class UNet2DCondition(DownMid):
@@ -562,34 +577,40 @@ class UNet2DCondition(DownMid):
         return unet
 
     def run_up(self, h, skips, temb, context, start_i: int = 0,
-               capture_i=None, pag_mask=None, ip=None):
-        """The decoder from up level ``start_i``; also returns the hidden
-        state entering level ``capture_i`` (the DeepCache splice point)."""
+               capture_i=None, pag_mask=None, ip=None, *, plan):
+        """The decoder from up level ``start_i`` (depth ``n − 1 − i``),
+        each level as ``plan`` lays it out; also returns the hidden state
+        entering level ``capture_i`` (the DeepCache splice point)."""
         captured = None
-        for i in range(start_i, len(self.up_blocks)):
+        n = len(self.up_blocks)
+        for i in range(start_i, n):
             blk = self.up_blocks[i]
             if i == capture_i:
                 captured = h
             attns = getattr(blk, 'attentions', None)
-            for j, res in enumerate(blk.resnets):
-                skip = skips.pop()
-                if self.freeu is not None and i < 2:
-                    b, s = self.freeu[i], self.freeu[2 + i]
-                    half = h.shape[1] // 2
-                    h = torch.cat([h[:, :half] * b, h[:, half:]], dim=1)
-                    skip = fourier_filter(skip, 1, s)
-                    if self.conv_in.weight.is_cuda:
-                        # The channel slice and the FFT lose the
-                        # channels-last layout K6 takes.
-                        h, skip = (x.contiguous(
-                            memory_format=torch.channels_last)
-                            for x in (h, skip))
-                h = res(torch.cat([h, skip], dim=1), temb)
-                if attns is not None:
-                    h = self._attn(attns[j], f'up_{i}_attn_{j}', h, context,
-                                   pag_mask, ip)
+            depth = n - 1 - i
+            with plan.at(depth):
+                for j, res in enumerate(blk.resnets):
+                    skip = skips.pop()
+                    if self.freeu is not None and i < 2:
+                        b, s = self.freeu[i], self.freeu[2 + i]
+                        half = h.shape[1] // 2
+                        h = torch.cat([h[:, :half] * b, h[:, half:]], dim=1)
+                        skip = fourier_filter(skip, 1, s)
+                        if self.conv_in.weight.is_cuda:
+                            # The channel slice and the FFT lose the
+                            # channels-last layout K6 takes.
+                            h, skip = (x.contiguous(
+                                memory_format=torch.channels_last)
+                                for x in (h, skip))
+                    h = res(torch.cat([h, skip], dim=1), temb)
+                    if attns is not None:
+                        h = self._attn(attns[j], f'up_{i}_attn_{j}', h,
+                                       context, pag_mask, ip)
+                if hasattr(blk, 'upsamplers'):
+                    h = blk.upsamplers[0](h)
             if hasattr(blk, 'upsamplers'):
-                h = blk.upsamplers[0](h)
+                h = plan.move(h, depth, depth - 1)
         return h, captured
 
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
@@ -619,7 +640,12 @@ class UNet2DCondition(DownMid):
         added to the skip states and the mid output; under 'use' only the
         down residuals, zipped onto the shallow skips (the JAX zip: the
         first ones). ``ip_ctx`` ``[B, N, D]`` with ``ip_scale`` (an
-        ``ip_adapter`` config): the IP-Adapter image tokens."""
+        ``ip_adapter`` config): the IP-Adapter image tokens.
+
+        Under sequence parallelism ``latents`` and the returned ε are
+        whole; the DeepCache state and the ControlNet residuals are laid
+        out level by level as the plan of the same latent rows lays them
+        out (this rank's rows on a sharded level)."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         n = len(cfg.block_channels)
@@ -629,22 +655,28 @@ class UNet2DCondition(DownMid):
         temb = self.embed_time(t, timestep_cond, added_cond)
         context = context.to(dtype)
         ip = None if ip_ctx is None else (ip_ctx, ip_scale)
+        plan = row_shard.Plan(latents.shape[1])
         # NHWC (public layout) -> NCHW (conv layout).
-        h = self.conv_in(latents.permute(0, 3, 1, 2).to(dtype))
+        h = plan.move(latents.permute(0, 3, 1, 2).to(dtype), None, 0)
+        with plan.at(0):
+            h = self.conv_in(h)
 
         if cache_mode == 'use':
             if deep_cache is None:
                 raise ValueError("cache_mode='use' requires deep_cache")
-            _, skips = self.run_down(h, temb, context, depth, pag_mask, ip)
+            _, skips = self.run_down(h, temb, context, depth, pag_mask, ip,
+                                     plan=plan)
             if control is not None:
                 skips = [s + r.to(s.dtype)
                          for s, r in zip(skips, control[0])]
             h, _ = self.run_up(deep_cache.to(dtype), skips, temb, context,
-                               start_i=n - depth, pag_mask=pag_mask, ip=ip)
+                               start_i=n - depth, pag_mask=pag_mask, ip=ip,
+                               plan=plan)
             captured = deep_cache
         else:
-            h, skips = self.run_down(h, temb, context, n, pag_mask, ip)
-            h = self.run_mid(h, temb, context, pag_mask, ip)
+            h, skips = self.run_down(h, temb, context, n, pag_mask, ip,
+                                     plan=plan)
+            h = self.run_mid(h, temb, context, pag_mask, ip, plan=plan)
             if control is not None:
                 down_res, mid_res = control
                 if len(down_res) != len(skips):
@@ -657,10 +689,11 @@ class UNet2DCondition(DownMid):
             h, captured = self.run_up(
                 h, skips, temb, context,
                 capture_i=n - depth if cache_mode == 'save' else None,
-                pag_mask=pag_mask, ip=ip)
+                pag_mask=pag_mask, ip=ip, plan=plan)
 
-        eps = self.conv_out(self.conv_norm_out(h, dtype)).float()
-        eps = eps.permute(0, 2, 3, 1)                    # NCHW -> NHWC
+        with plan.at(0):
+            eps = self.conv_out(self.conv_norm_out(h, dtype)).float()
+        eps = plan.move(eps, 0, None).permute(0, 2, 3, 1)   # NCHW -> NHWC
         if cache_mode == 'off':
             return eps
         return eps, captured

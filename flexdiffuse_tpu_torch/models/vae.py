@@ -11,9 +11,13 @@ pixels in fp32. Inside, everything runs NCHW; the transposes sit at those two
 entry points and around the mid-block attention. GroupNorm eps is 1e-6 here
 (the UNet's is 1e-5); every GroupNorm runs through K6 on the card, as in the
 UNet. The 0.18215 latent scale lives in the pipeline. Under sequence
-parallelism the 3×3 convs take halo rows and the GroupNorms reduce their
-statistics over the ranks, as in the UNet (``ops/row_shard.py``); the mid
-attention rides the ring or gathers K/V (``ops/attention.py``).
+parallelism ``encode`` and ``decode`` take and return whole tensors, and
+the encoder and decoder run each level as their
+:class:`~flexdiffuse_tpu_torch.ops.row_shard.Plan` says (depth 0 the
+pixel rows): on a sharded level the 3×3 convs take halo rows and the
+GroupNorms reduce their statistics over the ranks, as in the UNet; the mid
+attention rides the ring or gathers K/V (``ops/attention.py``); a level
+that does not split runs whole.
 """
 from __future__ import annotations
 
@@ -122,15 +126,23 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW pixels -> NCHW moments."""
-        h = self.conv_in(x)
-        for blk in self.down_blocks:
-            for res in blk.resnets:
-                h = res(h)
+        plan = row_shard.Plan(x.shape[2])
+        h = plan.move(x, None, 0)
+        with plan.at(0):
+            h = self.conv_in(h)
+        for i, blk in enumerate(self.down_blocks):
+            with plan.at(i):
+                for res in blk.resnets:
+                    h = res(h)
             if hasattr(blk, 'downsamplers'):
-                h = blk.downsamplers[0](h)
-        h = self.mid_block(h)
-        return self.conv_out(
-            self.conv_norm_out(h, self.conv_out.weight.dtype))
+                with plan.at(i + 1):
+                    h = blk.downsamplers[0](plan.move(h, i, i + 1))
+        deep = len(self.down_blocks) - 1
+        with plan.at(deep):
+            h = self.mid_block(h)
+            h = self.conv_out(
+                self.conv_norm_out(h, self.conv_out.weight.dtype))
+        return plan.move(h, deep, None)
 
 
 class Decoder(nn.Module):
@@ -158,15 +170,24 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """NCHW latents -> NCHW pixels (fp32)."""
-        h = self.conv_in(z)
-        h = self.mid_block(h)
-        for blk in self.up_blocks:
-            for res in blk.resnets:
-                h = res(h)
+        deep = len(self.up_blocks) - 1
+        plan = row_shard.Plan(z.shape[2] << deep)
+        h = plan.move(z, None, deep)
+        with plan.at(deep):
+            h = self.mid_block(self.conv_in(h))
+        for i, blk in enumerate(self.up_blocks):
+            depth = deep - i
+            with plan.at(depth):
+                for res in blk.resnets:
+                    h = res(h)
+                if hasattr(blk, 'upsamplers'):
+                    h = blk.upsamplers[0](h)
             if hasattr(blk, 'upsamplers'):
-                h = blk.upsamplers[0](h)
-        h = self.conv_norm_out(h, self.conv_out.weight.dtype)
-        return self.conv_out(h).float()
+                h = plan.move(h, depth, depth - 1)
+        with plan.at(0):
+            h = self.conv_norm_out(h, self.conv_out.weight.dtype)
+            h = self.conv_out(h).float()
+        return plan.move(h, 0, None)
 
 
 class AutoencoderKL(nn.Module):

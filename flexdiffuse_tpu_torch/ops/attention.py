@@ -25,7 +25,11 @@ whose global length (local × the axis size) is at least ``min_seq`` rides
 :func:`~flexdiffuse_tpu_torch.ops.ring_attention.ring_attention` (K3 per
 round); shorter self-attention all-gathers K/V over the axis and takes
 :func:`route` with the local q rows; cross-attention (77 context tokens,
-replicated) stays local.
+replicated) stays local. JAX takes the ring only when the global length
+also splits evenly over the ranks (``sq % n == 0``); here that holds by
+construction: a level runs sharded only when its rows split evenly
+(``ops/row_shard.py`` ``Plan``), so every rank holds ``sq / n`` tokens,
+and a level that does not runs whole, outside the context.
 """
 from __future__ import annotations
 
@@ -75,7 +79,17 @@ def sp_context(mesh, axis: str, min_seq: int = 4096):
     (``ops/row_shard.py``: halo rows for the 3×3 convs, GroupNorm
     statistics over the axis)."""
     from flexdiffuse_tpu_torch.parallel.axis import MeshAxis
-    token = _SP.set(MeshAxis.of(mesh, axis, min_seq))
+    with sp_scope(MeshAxis.of(mesh, axis, min_seq)):
+        yield
+
+
+@contextlib.contextmanager
+def sp_scope(axis):
+    """Scoped SP axis: the layers inside see ``axis`` (a
+    :class:`~flexdiffuse_tpu_torch.parallel.axis.MeshAxis`), or no sequence
+    parallelism when it is None (a level that runs whole,
+    ``ops/row_shard.py`` ``Plan``)."""
+    token = _SP.set(axis)
     try:
         yield
     finally:

@@ -45,15 +45,16 @@ InstructPix2Pix UNet runs through ``InstructPix2PixGuidance``.
 
 Sequence parallelism (``sp_mesh=``, ``flexdiffuse_tpu/pipeline/flex.py:
 119-213``; :func:`~flexdiffuse_tpu_torch.parallel.sp.sp_pipeline`): every
-rank of the mesh axis runs the call with the same arguments and holds its
-block of latent (and pixel) rows. Each rank draws, or takes, the *full*
-noise and keeps its rows, so the result equals the single-device result
-given the same noise. The VAE, UNet and ControlNet run under
-:func:`~flexdiffuse_tpu_torch.ops.attention.sp_context` (the ring for
-long self-attention, halo rows for the 3×3 convs, GroupNorm statistics
-over the ranks); the decoded rows, and 'latent' outputs, are all-gathered,
-so every rank returns the full result. The tiled VAE is off under SP, and
-ToMe is refused, as in JAX.
+rank of the mesh axis runs the call with the same arguments, draws or
+takes the same full noise and holds the same whole latents, so the result
+equals the single-device result given the same noise, at any height. The
+VAE, UNet and ControlNet run under
+:func:`~flexdiffuse_tpu_torch.ops.attention.sp_context`: each takes and
+returns whole tensors and shards the rows of every level that splits
+evenly over the ranks (``ops/row_shard.py`` ``Plan``: the ring for long
+self-attention, halo rows for the 3×3 convs, GroupNorm statistics over the
+ranks), running the levels that do not split whole. The tiled VAE is off
+under SP, and ToMe is refused, as in JAX.
 """
 from __future__ import annotations
 
@@ -71,7 +72,6 @@ from flexdiffuse_tpu_torch.config import LATENT_SCALE
 from flexdiffuse_tpu_torch.models.unet import guidance_scale_embedding
 from flexdiffuse_tpu_torch.models.vae import sample_latents
 from flexdiffuse_tpu_torch.ops import attention as _attn
-from flexdiffuse_tpu_torch.ops.row_shard import gather_rows, local_rows
 from flexdiffuse_tpu_torch.ops.tiled_vae import tiled_apply
 from flexdiffuse_tpu_torch.pipeline.guides import (CompositeGuidance,
                                                    InstructPix2PixGuidance,
@@ -84,7 +84,20 @@ Guidance = Union[SimpleGuidance, CompositeGuidance, InstructPix2PixGuidance]
 
 @dataclasses.dataclass
 class FlexPipelineOutput:
+    """The JAX pipeline's output (``flexdiffuse_tpu/pipeline/flex.py:44-
+    58``): ``images`` and ``nsfw_content_detected``, ``[False]`` per image
+    (no safety checker runs). Subscripting answers ``'images'`` and
+    ``'sample'`` (the reference Runner's key) with ``images``, and
+    ``'nsfw_content_detected'``."""
     images: Union[List[Image.Image], np.ndarray, torch.Tensor]
+    nsfw_content_detected: List[bool]
+
+    def __getitem__(self, key):
+        if key in ('images', 'sample'):
+            return self.images
+        if key == 'nsfw_content_detected':
+            return self.nsfw_content_detected
+        raise KeyError(key)
 
 
 def resize_nhwc(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -220,46 +233,20 @@ class FlexPipeline:
             return contextlib.nullcontext()
         return _attn.sp_context(self.sp_mesh, self.sp_axis, self.sp_min_seq)
 
-    def _full_hw(self, x: torch.Tensor) -> Tuple[int, int]:
-        """The full (H, W) of an NHWC tensor that holds this rank's rows
-        under SP."""
-        sp = _attn.sp_axis()
-        return (x.shape[1] * (1 if sp is None else sp.size), x.shape[2])
-
     def _draw(self, given, shape, generator) -> torch.Tensor:
-        """Unit noise of ``shape`` (this rank's rows under SP: the full
-        tensor is drawn or taken, then its rows kept)."""
-        sp = _attn.sp_axis()
-        full = tuple(shape) if sp is None else \
-            (shape[0], shape[1] * sp.size) + tuple(shape[2:])
+        """Unit noise of ``shape``: ``given``, or drawn."""
         if given is None:
-            return local_rows(self._randn(full, generator), 1)
+            return self._randn(shape, generator)
         given = torch.as_tensor(given).to(self.device, torch.float32)
-        if tuple(given.shape) != full:
-            raise ValueError(f'noise shape {tuple(given.shape)} != {full}')
-        return local_rows(given, 1)
+        if tuple(given.shape) != tuple(shape):
+            raise ValueError(f'noise shape {tuple(given.shape)} != '
+                             f'{tuple(shape)}')
+        return given
 
     def _tiling_active(self, h: int, w: int) -> bool:
         """Latent dims ``h×w`` exceed one VAE tile (never under SP)."""
         return self.vae_tile > 0 and self.sp_mesh is None and (
             h > self.vae_tile or w > self.vae_tile)
-
-    def check_sp_split(self, height: int, width: int) -> None:
-        """Raise ``ValueError`` unless a ``height×width`` image splits
-        evenly over the SP ranks at every level: the VAE's pixel levels
-        and the UNet's latent levels, with even local rows into every
-        stride-2 conv. (GSPMD pads uneven splits; the port does not.)"""
-        sp = _attn.sp_axis()
-        if sp is None:
-            return
-        f = self.vae_scale
-        down = 2**(len(self.unet.config.block_channels) - 1)
-        if height % (sp.size * f) or (height // f) % (sp.size * down):
-            raise ValueError(
-                f'sequence parallelism: {height}x{width} pixels '
-                f'({height // f} latent rows) do not split over {sp.size} '
-                f'ranks at every level; the height must be a multiple of '
-                f'{sp.size * max(f, down * f)}')
 
     @torch.no_grad()
     def encode_pixels(self, pixels: torch.Tensor,
@@ -300,14 +287,9 @@ class FlexPipeline:
         return decode(latents)
 
     def _decode_full(self, latents: torch.Tensor) -> torch.Tensor:
-        """:meth:`_decode01` of full latents; under SP each rank decodes
-        its rows and the image rows are gathered."""
-        if self.sp_mesh is None:
-            return self._decode01(latents)
+        """:meth:`_decode01` (under SP, the decoder shards its levels)."""
         with self._sp():
-            self.check_sp_split(latents.shape[1] * self.vae_scale,
-                                latents.shape[2] * self.vae_scale)
-            return gather_rows(self._decode01(local_rows(latents, 1)), 1)
+            return self._decode01(latents)
 
     @torch.no_grad()
     def decode_u8_device(self, latents: torch.Tensor) -> torch.Tensor:
@@ -325,11 +307,11 @@ class FlexPipeline:
         return self._decode_full(latents).float().cpu().numpy()
 
     def _pixels(self, init_image) -> torch.Tensor:
-        """The init image on the device (this rank's rows under SP)."""
+        """The init image on the device."""
         if isinstance(init_image, Image.Image):
             init_image = preprocess(init_image)
-        return local_rows(torch.as_tensor(np.asarray(init_image, np.float32),
-                                          device=self.device), 1)
+        return torch.as_tensor(np.asarray(init_image, np.float32),
+                               device=self.device)
 
     def _check_features(self, guide) -> None:
         """The JAX pipeline's composition rules for DeepCache, the CFG
@@ -368,17 +350,6 @@ class FlexPipeline:
         return guide.replace(timestep_cond=guidance_scale_embedding(
             w.cpu(), tcp).to(self.device), cfg=False)
 
-    def _guide_rows(self, guide):
-        """The guide's latent-grid tensors cut to this rank's rows (SP)."""
-        spatial = {CompositeGuidance: 'masks',
-                   InstructPix2PixGuidance: 'image_latents',
-                   SimpleGuidance: 'extra_channels'}
-        name = spatial.get(type(guide))
-        value = getattr(guide, name, None) if name else None
-        if value is None:
-            return guide
-        return guide.replace(**{name: local_rows(value, 1)})
-
     def _model(self, control):
         """The noise function the guides call: the UNet, with the
         ControlNet's residuals when ``control`` is ``(cond [1 or N, H, W,
@@ -408,11 +379,8 @@ class FlexPipeline:
             return None
         f = self.vae_scale
         hw = (latents.shape[1] * f, latents.shape[2] * f)
-        sp = _attn.sp_axis()
-        if sp is not None:
-            hw = (hw[0] * sp.size, hw[1])
-        return (local_rows(resize_nhwc(prepare_control_image(control_image),
-                                       hw).to(self.device), 1), float(scale))
+        return (resize_nhwc(prepare_control_image(control_image),
+                            hw).to(self.device), float(scale))
 
     def _predictor(self, guide, span: int, t_start: int, control=None):
         """``eps_at(i, xin, t)``: the guided ε at row ``i``, through the CFG
@@ -537,8 +505,6 @@ class FlexPipeline:
                              'built without a controlnet')
         self._check_features(guide)
         guide = self._lcm_guide(guide)
-        if _attn.sp_axis() is not None:
-            guide = self._guide_rows(guide)
         dev = self.device
         batch_size = guide.batch_size
         schedule = self.schedule(steps)
@@ -555,14 +521,12 @@ class FlexPipeline:
                 raise ValueError('inpainting-checkpoint conditioning is '
                                  'supported for SimpleGuidance only')
             pixels = self._pixels(init_image)
-            hpix, wpix = self._full_hw(pixels)
-            self.check_sp_split(hpix, wpix)
-            pix_mask = local_rows(prepare_latent_mask(
-                mask, (hpix, wpix)).to(dev), 1)
+            hpix, wpix = pixels.shape[1:3]
+            pix_mask = prepare_latent_mask(mask, (hpix, wpix)).to(dev)
             masked_latents = self._encode(pixels * (1.0 - pix_mask),
                                           mask_posterior_noise, generator)
-            lat_mask = local_rows(prepare_latent_mask(
-                mask, (hpix // f, wpix // f)).to(dev), 1)
+            lat_mask = prepare_latent_mask(
+                mask, (hpix // f, wpix // f)).to(dev)
             extra = torch.cat([lat_mask, masked_latents.expand(
                 tuple(lat_mask.shape[:3]) + (masked_latents.shape[-1],))],
                 dim=-1)
@@ -595,14 +559,10 @@ class FlexPipeline:
             if init_latents is not None:
                 init_latents = torch.as_tensor(init_latents).to(
                     dev, torch.float32)
-                self.check_sp_split(init_latents.shape[1] * f,
-                                    init_latents.shape[2] * f)
-                init_latents = local_rows(init_latents, 1)
                 if init_latents.shape[0] != batch_size:
                     init_latents = torch.cat([init_latents] * batch_size)
             else:
                 pixels = self._pixels(init_image)
-                self.check_sp_split(*self._full_hw(pixels))
                 init_latents = self._encode(pixels, posterior_noise,
                                             generator)
                 init_latents = torch.cat([init_latents] * batch_size)
@@ -614,15 +574,12 @@ class FlexPipeline:
                 self._draw(noise, init_latents.shape, generator),
                 init_timestep)
             if mask is not None:
-                latent_mask = local_rows(prepare_latent_mask(
-                    mask, self._full_hw(latents)).to(dev), 1)
+                latent_mask = prepare_latent_mask(
+                    mask, tuple(latents.shape[1:3])).to(dev)
         else:
             height, width = init_size
-            self.check_sp_split(height, width)
-            sp_n = 1 if _attn.sp_axis() is None else _attn.sp_axis().size
-            latents = self._draw(noise, (batch_size, height // f // sp_n,
-                                         width // f, self.latent_channels),
-                                 generator)
+            latents = self._draw(noise, (batch_size, height // f, width // f,
+                                         self.latent_channels), generator)
             if sigma_space:
                 latents = latents * schedule.sigmas[0]
             t_start = 0
@@ -655,8 +612,7 @@ class FlexPipeline:
                     i, i - t_start)
                 latents = latent_mask * latents + (1.0 - latent_mask) * anchor
             if debug:
-                recorded.append(gather_rows(latents, 1))
-        latents = gather_rows(latents, 1)
+                recorded.append(latents)
 
         if debug and output_type == 'pil':
             images = [im for lat in recorded
@@ -672,4 +628,5 @@ class FlexPipeline:
             images = self.latents_to_images(latents)
         if not return_dict:
             return images, False
-        return FlexPipelineOutput(images=images)
+        return FlexPipelineOutput(images=images,
+                                  nsfw_content_detected=[False] * len(images))

@@ -20,7 +20,7 @@ from __future__ import annotations
 import logging
 import os
 import re
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -94,9 +94,11 @@ class TrainCheckpointer:
         return steps[-1] if steps else None
 
     def restore_latest(
-            self, template: dict) -> Optional[Tuple[dict, int, List[float]]]:
+            self, template: dict, localize: Optional[Callable] = None
+    ) -> Optional[Tuple[dict, int, List[float]]]:
         """Load the newest checkpoint, checked against ``template`` (the
-        current run's state).
+        current run's state) after ``localize`` (this rank's part of a
+        global state under tensor parallelism, ``loop._run``) when given.
 
         Returns ``(state, next_step, losses)``, or ``None`` when the
         directory holds no checkpoint yet. A checkpoint whose trained
@@ -109,6 +111,8 @@ class TrainCheckpointer:
         blob = torch.load(self._path(step), map_location='cpu',
                           weights_only=True)
         state = blob['state']
+        if localize is not None:
+            state = localize(state)
         if _structure(template) != _structure(state):
             raise RuntimeError(
                 f'checkpoint at {self.directory} step {step} does not match '

@@ -14,8 +14,13 @@ the steps from ``seed + 1`` and the LoRA ``down`` init from ``seed + 2``.
 draws the same global batches and the step keeps its rows; rank 0 alone
 writes checkpoints and ``save_path``, every rank restores the checkpoint.
 Under tensor parallelism (a UNet that ``parallel.shard_params`` laid out)
-``save_path`` gathers the sharded tensors first; checkpoints there are not
-ported (each model rank would need its own shards' optimizer state).
+``save_path`` and the checkpoints hold the global state, as the JAX
+package's orbax checkpoints hold global arrays: every tensor of a sharded
+parameter (the weight, its EMA, its AdamW moments and accumulated
+gradient) is gathered over the model group before rank 0 writes, and on
+restore every rank keeps its dim-0 slice by ``shard_params``' rule. A
+checkpoint therefore resumes under any model axis, or none. LoRA factors
+are replicated over the model group and need neither.
 """
 from __future__ import annotations
 
@@ -71,6 +76,27 @@ def full_tree(unet, tree: Dict[str, Tensor], mesh) -> Dict[str, Tensor]:
     return out
 
 
+def _tp_map(st: dict, names: set, idx: set, fn) -> dict:
+    """Checkpoint state ``st`` with ``fn`` applied to every tensor of a
+    tensor-parallel parameter: the trained tensors and their EMA named in
+    ``names``, the AdamW moments and accumulated gradients of the optimizer
+    parameters numbered in ``idx``."""
+    out = dict(st)
+    for key in ('tree', 'ema'):
+        if key in st:
+            out[key] = {n: fn(t) if n in names else t
+                        for n, t in st[key].items()}
+    opt = st['opt_state']
+    adamw = opt['adamw']
+    moments = {i: {k: fn(v) if i in idx and torch.is_tensor(v) and v.dim()
+                   else v for k, v in m.items()}
+               for i, m in adamw['state'].items()}
+    out['opt_state'] = dict(
+        opt, adamw=dict(adamw, state=moments),
+        acc=[fn(a) if i in idx else a for i, a in enumerate(opt['acc'])])
+    return out
+
+
 def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
          steps: int, batch_size: int, seed: int, log_every: int,
          on_step: Optional[Callable[[int, float], None]],
@@ -93,12 +119,24 @@ def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
             st['ema'] = ema
         return st
 
-    if ckpt is not None and _model_parallel(mesh):
-        raise NotImplementedError(
-            'training checkpoints under tensor parallelism (a model axis > '
-            '1) are not ported yet (ROADMAP Queue 1 step 13)')
+    # Tensor parallelism: checkpoints hold the global state (the module
+    # doc); these gather it for saving and cut this rank's part on restore.
+    to_file = from_file = None
+    if _model_parallel(mesh):
+        from flexdiffuse_tpu_torch.parallel.axis import MeshAxis, gather, \
+            local
+        from flexdiffuse_tpu_torch.parallel.mesh import MODEL_AXIS
+        tp = MeshAxis.of(mesh, MODEL_AXIS)
+        names = {n for n, t in tree.items() if getattr(t, 'tp_sharded',
+                                                       False)}
+        idx = {i for i, p in enumerate(opt.params)
+               if getattr(p, 'tp_sharded', False)}
+        to_file = lambda st: _tp_map(st, names, idx,
+                                     lambda t: gather(t.detach(), tp, 0))
+        from_file = lambda st: _tp_map(st, names, idx,
+                                       lambda t: local(t, tp, 0).clone())
     if ckpt is not None:
-        restored = ckpt.restore_latest(state())
+        restored = ckpt.restore_latest(state(), from_file)
         if restored is not None:
             saved, start, losses = restored
             with torch.no_grad():
@@ -125,8 +163,9 @@ def _run(step_fn, opt, tree: Dict[str, Tensor], dataset: EncodedDataset,
             if on_step is not None:
                 on_step(i, val)
         if ckpt is not None and ckpt.should_save(i, steps):
+            st = state() if to_file is None else to_file(state())
             if writes(mesh):
-                ckpt.save(i + 1, state(), losses)
+                ckpt.save(i + 1, st, losses)
             if mesh is not None:
                 dist.barrier()   # no rank reads it before it is whole
     return (ema if ema is not None else tree), losses

@@ -180,6 +180,30 @@ def test_pipeline_txt2img_matches_jax(pipes):
 
 
 @pytest.mark.parametrize('output_type', ['latent', 'np'])
+def test_pipeline_output_fields_match_jax(pipes, output_type):
+    """The output answers ``['sample']`` and ``['images']`` with its images
+    and carries ``nsfw_content_detected`` (``[False]`` per image), with
+    ``KeyError`` for any other key, as JAX's ``FlexPipelineOutput``
+    (``flexdiffuse_tpu/pipeline/flex.py:44-58``) on the same call."""
+    jpipe, tpipe = pipes
+    jguide, tguide = _guides(batch=2, seed=6)
+    noise = np.random.default_rng(7).normal(size=(2, 8, 8, 4)).astype(
+        np.float32)
+    jout = jpipe(jguide, steps=2, init_size=(16, 16),
+                 noise=jnp.asarray(noise), key=jax.random.PRNGKey(2),
+                 output_type=output_type)
+    tout = tpipe(tguide, steps=2, init_size=(16, 16),
+                 noise=torch.from_numpy(noise), output_type=output_type)
+    for out in (jout, tout):
+        assert out['sample'] is out.images and out['images'] is out.images
+        assert out['nsfw_content_detected'] is out.nsfw_content_detected
+        with pytest.raises(KeyError):
+            out['latents']
+    assert tout.nsfw_content_detected == jout.nsfw_content_detected \
+        == [False] * 2
+
+
+@pytest.mark.parametrize('output_type', ['latent', 'np'])
 def test_pipeline_return_dict_false_matches_jax(pipes, output_type):
     """``return_dict=False`` returns ``(images, False)``, as JAX's
     ``__call__`` (``flexdiffuse_tpu/pipeline/flex.py:796-797``), with the

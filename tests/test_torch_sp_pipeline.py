@@ -11,6 +11,12 @@ self-attention is 4096 tokens, the ring's threshold; each rank holds 32
 latent rows. DDIM, 2 steps, CFG 7. Tolerance 2e-4 on the decoded images,
 JAX's own (``test_sp_pipeline.py:67``). One spawn runs every case; the
 JAX references are computed in this process and the ranks import no JAX.
+
+An uneven split: 1056×1024 pixels give 66 latent rows, 33 per rank into
+the UNet's stride-2 Downsample, and 33 rows at level 1. JAX's SP pipeline
+runs there on 2 of its virtual devices (GSPMD pads); the port's row plan
+(``ops/row_shard.py`` ``Plan``) keeps level 0 and the VAE sharded and runs
+level 1 whole.
 """
 import os
 
@@ -28,6 +34,7 @@ SP_UNET = UNetConfig(block_channels=(16, 32), layers_per_block=1,
                      cross_attention_dim=16, norm_groups=4)
 T = 77
 ATOL = 2e-4
+UNEVEN = (1056, 1024)
 KW = dict(steps=2, output_type='np')
 
 
@@ -86,7 +93,9 @@ def _runs(make_pipe, draws):
                         noise=draws['noise'], **KW).images,
                i2i=pipe(_guide(a), init_image=a['init'], strength=0.7,
                         noise=draws['noise'],
-                        posterior_noise=draws['posterior'], **KW).images)
+                        posterior_noise=draws['posterior'], **KW).images,
+               uneven=pipe(_guide(a), init_size=UNEVEN,
+                           noise=draws['noise_uneven'], **KW).images)
     small = dict(init_size=(512, 512), noise=draws['noise'][:, :32, :32],
                  **KW)
     pipe = make_pipe(sp_min_seq=1024)
@@ -120,7 +129,6 @@ def _worker(rank, world, state_path, draws_path, out_dir):
     mesh = make_sp_mesh()
     make = lambda unet=unet, **kw: sp_pipeline(unet, vae, mesh=mesh,
                                                scheduler='ddim', **kw)
-    pipe = make()
     calls = []
     orig = R.ring_attention
 
@@ -133,16 +141,10 @@ def _worker(rank, world, state_path, draws_path, out_dir):
         out = _runs(make, draws)
     finally:
         R.ring_attention = orig
-    try:   # 66 latent rows: 33 per rank, odd under the Downsample
-        pipe(_guide(_arrays(0)), init_size=(1056, 1024), **KW)
-        uneven = ''
-    except ValueError as e:
-        uneven = str(e)
     if dist.get_rank() == 0:
         np.savez(os.path.join(out_dir, 'sp.npz'), **out,
                  ring_tokens=np.asarray([c[0] for c in calls]),
-                 ring_axes=np.asarray([c[1] for c in calls]),
-                 uneven=np.asarray(uneven))
+                 ring_axes=np.asarray([c[1] for c in calls]))
 
 
 @pytest.fixture(scope='module')
@@ -177,7 +179,10 @@ def runs(tmp_path_factory):
     _, k_enc, k_noise, _ = jax.random.split(key, 4)
     draws = dict(
         noise=np.array(jax.random.normal(k_noise, (1, 64, 64, 4))),
-        posterior=np.array(jax.random.normal(k_enc, (1, 64, 64, 4))))
+        posterior=np.array(jax.random.normal(k_enc, (1, 64, 64, 4))),
+        noise_uneven=np.array(jax.random.normal(
+            jax.random.PRNGKey(12), (1, UNEVEN[0] // 16, UNEVEN[1] // 16,
+                                     4))))
     np.savez(out / 'draws.npz', **draws)
     a = _arrays(0)
     jguide = jp.SimpleGuidance(embeddings=jnp.asarray(a['emb']),
@@ -189,6 +194,14 @@ def runs(tmp_path_factory):
                                key=jax.random.PRNGKey(3), **KW).images)
     jax_i2i = np.asarray(jpipe(jguide, init_image=jnp.asarray(a['init']),
                                strength=0.7, key=key, **KW).images)
+    # The uneven split on one device and on 2 of the virtual devices.
+    from flexdiffuse_tpu.parallel import make_sp_mesh, sp_pipeline
+    uneven = dict(init_size=UNEVEN, noise=jnp.asarray(draws['noise_uneven']),
+                  key=jax.random.PRNGKey(3), **KW)
+    jax_uneven = np.asarray(jpipe(jguide, **uneven).images)
+    jax_sp_uneven = np.asarray(sp_pipeline(
+        unet, up, vae, vp, mesh=make_sp_mesh(jax.devices()[:2]),
+        scheduler='ddim')(jguide, **uneven).images)
     unet_p, vae_p = _port_models(state)
     port = _runs(lambda unet=unet_p, **kw: FlexPipeline(
         unet, vae_p, scheduler='ddim', **kw), draws)
@@ -197,7 +210,8 @@ def runs(tmp_path_factory):
                  args=(state, str(out / 'draws.npz'), str(out)),
                  timeout=120, join_timeout=300)
     sp = dict(np.load(out / 'sp.npz'))
-    return dict(jax_txt=jax_txt, jax_i2i=jax_i2i, state=state,
+    return dict(jax_txt=jax_txt, jax_i2i=jax_i2i, jax_uneven=jax_uneven,
+                jax_sp_uneven=jax_sp_uneven, state=state,
                 **{f'port_{k}': v for k, v in port.items()}, **sp)
 
 
@@ -235,10 +249,45 @@ def test_sp_attention_actually_rides_the_ring(runs):
     assert set(runs['ring_axes'].tolist()) == {'seq'}
 
 
+def test_jax_sp_runs_the_uneven_split(runs):
+    """The evidence that the port's former refusal was a gap: JAX's SP
+    pipeline on 2 devices runs 1056×1024 (33 latent rows per device into
+    the Downsample, 33 rows at level 1) and matches its single-device run
+    at 2e-4."""
+    got = runs['jax_sp_uneven']
+    assert got.shape == (1, 1056, 1024, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, runs['jax_uneven'], rtol=0, atol=ATOL)
+
+
 def test_sp_uneven_split_raises(runs):
-    """1056 px → 66 latent rows: 33 per rank cannot enter the stride-2
-    Downsample; the pipeline raises before any work, naming the shape."""
-    assert '1056x1024' in str(runs['uneven'])
+    """The uneven split no longer raises: it runs and matches JAX. (The
+    name is kept from the refusal this test once held.) 1056×1024 on 2
+    ranks runs: the row plan keeps level 0 (33 rows each, riding the ring)
+    and the VAE sharded, gathers the rows into the Downsample and runs
+    level 1 whole. The images match the single-process port and JAX's
+    single-device and SP runs at 2e-4."""
+    got = runs['uneven']
+    assert got.shape == (1, 1056, 1024, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, runs['port_uneven'], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, runs['jax_uneven'], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, runs['jax_sp_uneven'], rtol=0,
+                               atol=ATOL)
+    assert 66 * 64 in set(runs['ring_tokens'].tolist())
+
+
+@pytest.mark.parametrize('model, sharded, whole', [
+    ('unet', [0, 1], [2, 3]), ('encoder', [0, 1, 2, 3], []),
+    ('decoder', [0, 1, 2, 3], [])])
+def test_sp_level_plan_sd14_1088_on_4_ranks(model, sharded, whole):
+    """SD-1.4 at 1088² on 4 ranks, traced through the modules on the meta
+    device: 136 latent rows give the UNet 34 and 17 rows per rank at
+    levels 0 and 1 (level 1's Downsample takes the gathered rows) and
+    levels 2–3 (34 and 17 rows) run whole; every VAE level splits (1088
+    pixel rows are 32 × 34)."""
+    from flexdiffuse_tpu_torch.tools import sp_plan
+    got = sp_plan.trace(model, 1088, 4)
+    assert got['sharded'] == sharded and got['whole'] == whole
+    assert 0.0 <= got['replicated_share'] < (0.5 if whole else 1e-3)
 
 
 def test_sp_refuses_tome(runs):
