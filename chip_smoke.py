@@ -353,10 +353,38 @@ and CLIP ViT-L/14 weights at published widths, read back from disk):
     1 sample, 4 steps) with its launches held the same way. One JSON line
     per part, each with the card's name and power limit.
 
+The wide kernel and the JAX package's tools (the sixteenth slice), step
+23, in three parts:
+
+23. (a) Right after K6's checks: the 'wide' kernel (``csrc/flash_wide.cu``,
+    K1/K2 at 128 < D <= 512) against plain attention by K1's rule, head by
+    head, with exactly one 'wide' launch per call, at WIDE_SHAPES (the VAE
+    mid-block at 512², 1024², batch 8 and 768², d = 200, Sq != Skv, a
+    ragged fp16 sequence with d % 8 != 0, fp32); timed against the plain
+    version and SDPA (naming the backend SDPA picks) at the marked shapes.
+    (b) After step 19, on its runner (its pipeline restored after):
+    ``bench_sdxl``, ``sdxl_deepcache_exp`` and ``sdxl_exp`` on the SDXL
+    base UNet at 1024², then OpenCLIP bigG's vision tower at its published
+    width (seeded) written with a seeded base IP-Adapter checkpoint, loaded
+    through ``SDXLRunner.load_ip_adapter(..., encoder='bigg')``, a
+    TOOL_STEPS-step DPM++ run from an ``ip_image`` with exact launches, the
+    encoder's seconds and its bf16-against-fp32 relative error. (c) After
+    step 22, on step 6's SD-1.4 models and Runner: every other ported tool
+    (``flexdiffuse_tpu_torch/tools/``: ``bench_vae``, ``bench_batch`` at
+    batch 1, 2, 4, 8, ``bench_train``, ``bench_serving``, ``bench_lcm``,
+    ``deepcache_exp``, ``bench_deepcache``, ``cfg_interval_exp``,
+    ``tome_exp`` at 512² and 1024², ``param_dtype_exp``,
+    ``bench_tokenizer``) once at 512² with TOOL_STEPS steps and TOOL_REPS
+    repeats, asserting finite outputs and the launches of the module tree
+    (``run_tool``: ``eval_launches``, ``vae_launches``, ``step_launches``,
+    plus the wide calls ``bench_vae`` makes; ``param_dtype_exp``'s K1 and
+    K6 in total). One JSON line per tool, each with the card.
+
 Every kernel's launch count is set to 0 just before each main-path phase
 (steps 6, 11, 12, 13, 15, each run of 17, 18 and 19, each training run,
-encode and generate run of 20, each sweep, training and SP run of 21, and
-the harness and experiments runs of 22) and read just after; launches
+encode and generate run of 20, each sweep, training and SP run of 21, the
+harness and experiments runs of 22, and each tool of 23) and read just
+after; launches
 made to check a kernel against its plain twin do not count. Any failed
 phase raises, so the script exits non-zero; without CUDA it exits
 non-zero at once and prints no result.
@@ -401,7 +429,8 @@ from flexdiffuse_tpu_torch.models import (CLIP_VIT_L14_TEXT,
                                           CLIPTextModel, CLIPVisionModel,
                                           UNet2DCondition)
 from flexdiffuse_tpu_torch.models import sdxl as sdxl_models
-from flexdiffuse_tpu_torch.models.configs import OPENCLIP_H_VISION
+from flexdiffuse_tpu_torch.models.configs import (OPENCLIP_BIGG_VISION,
+                                                  OPENCLIP_H_VISION)
 from flexdiffuse_tpu_torch.models.controlnet import (COND_EMBED_CHANNELS,
                                                      ControlNetModel)
 from flexdiffuse_tpu_torch.models.ip_adapter import (ImageProjection,
@@ -473,14 +502,15 @@ LORA_STEPS, FULL_STEPS = 10, 4
 
 
 def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
-                  k6: int = 0, k6_stream: int = 0) -> dict:
+                  k6: int = 0, k6_stream: int = 0, wide: int = 0) -> dict:
     """The launch counts a main-path run must show (``kernel_counts``):
     every K1, K3, K4 and K5 launch on the Hopper path ('sm90'), none on the
-    kept mma.sync kernels; K6's ``k6_stream`` on the stream path, the rest
-    resident."""
-    return dict(k1=k1, k3=k3, k4=k4, k5=k5, k6=k6, k1_sm90=k1, k1_mma=0,
-                k3_sm90=k3, k3_mma=0, k4_sm90=k4, k4_mma=0, k5_sm90=k5,
-                k5_mma=0, k6_resident=k6 - k6_stream, k6_stream=k6_stream)
+    kept mma.sync kernels, except ``wide`` of K1's on the wide kernel; K6's
+    ``k6_stream`` on the stream path, the rest resident."""
+    return dict(k1=k1 + wide, k3=k3, k4=k4, k5=k5, k6=k6, k1_sm90=k1,
+                k1_mma=0, k1_wide=wide, k3_sm90=k3, k3_mma=0, k4_sm90=k4,
+                k4_mma=0, k5_sm90=k5, k5_mma=0, k6_resident=k6 - k6_stream,
+                k6_stream=k6_stream)
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
@@ -3595,11 +3625,13 @@ def check_sdxl_controlnet(unet, gen: torch.Generator, text,
         off=lambda: with_cn(0.0), step=20)
 
 
-def write_ip_adapter(root: str, unet, encoder) -> dict:
+def write_ip_adapter(root: str, unet, encoder,
+                     name: str = 'ip-adapter_sdxl_vit-h.bin') -> dict:
     """A seeded base-projection SDXL IP-Adapter checkpoint
-    (``ip_adapter_checkpoint``, the ``_vit-h`` layout: ``encoder``'s
-    projection width to 4 tokens) and ``encoder`` as an image-encoder
-    snapshot under ``root``, after checking the free space."""
+    (``ip_adapter_checkpoint``: ``encoder``'s projection width to 4
+    tokens) as ``name`` and ``encoder`` as an image-encoder snapshot beside
+    it (``image_encoder`` + the checkpoint's stem) under ``root``, after
+    checking the free space."""
     ck = ip_adapter_checkpoint(unet, 'base', encoder.config.projection_dim,
                                STEP20_SEED)
     sd = encoder.state_dict()
@@ -3610,8 +3642,9 @@ def write_ip_adapter(root: str, unet, encoder) -> dict:
         raise RuntimeError(f'not enough free space under {root}: '
                            f'{free / 2**30:.1f} GiB for '
                            f'{1.1 * need / 2**30:.1f}')
-    paths = dict(adapter=os.path.join(root, 'ip-adapter_sdxl_vit-h.bin'),
-                 encoder=os.path.join(root, 'image_encoder'))
+    paths = dict(adapter=os.path.join(root, name),
+                 encoder=os.path.join(root, 'image_encoder_' +
+                                      os.path.splitext(name)[0]))
     os.makedirs(paths['encoder'])
     weights_safetensors.save_file(
         {k: v.to(SNAPSHOT_DTYPE) for k, v in sd.items()},
@@ -4377,6 +4410,321 @@ def run_harness_phase(root: str, common=(), harness=(),
                 harness=res, experiments=exp)
 
 
+# --- Step 23: the 'wide' kernel, the ported tools, the bigg IP-Adapter ----
+
+STEP23_SEED = SEED + 23
+# The wide kernel (K1/K2 at 128 < D <= 512): the SD VAE mid-block at 512²
+# and 1024², a decode of 8, a 768² decode, d = 200, Sq != Skv, a ragged
+# sequence with d % 8 != 0 in fp16, and fp32 (q shape, kv tokens, dtype,
+# timed).
+WIDE_MAIN = (1, 1, 4096, 512)
+WIDE_SHAPES = [(WIDE_MAIN, 4096, BF16, True),
+               ((1, 1, 16384, 512), 16384, BF16, True),
+               ((8, 1, 4096, 512), 4096, BF16, False),
+               ((1, 1, 9216, 512), 9216, BF16, False),
+               ((1, 2, 1024, 200), 1024, BF16, True),
+               ((1, 2, 1000, 384), 77, BF16, False),
+               ((2, 1, 333, 130), 517, torch.float16, False),
+               ((1, 1, 1024, 512), 2048, FP32, True)]
+# The tools' step and repeat counts at full width (the JSON lines of the
+# tools themselves use their defaults; these keep step 23 short).
+TOOL_STEPS, TOOL_REPS = 3, 1
+
+
+def sdpa_backend(q, k, v, scale: float) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    inputs (its dispatcher's own choice function)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, False,
+                                              scale=scale)).name
+
+
+def check_wide(shape, skv: int, dtype, gen: torch.Generator,
+               timed: bool) -> dict:
+    """The wide kernel against fp32 plain attention on the same inputs,
+    by K1's rule (:func:`within_rule`; the twin in the 16-bit type, bf16
+    for fp32 inputs, which the kernel rounds to bf16 as it stages them),
+    head by head; exactly one 'wide' launch. Timed against the plain
+    version and SDPA with ``timed``."""
+    b, h, sq, d = shape
+    q = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+    k, v = (torch.randn((b, h, skv, d), generator=gen, device='cuda',
+                        dtype=dtype) for _ in range(2))
+    scale = d**-0.5
+    before = dict(fa.flash_attention.path_launches)
+    out = fa.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    launched = {p: n - before[p]
+                for p, n in fa.flash_attention.path_launches.items()}
+    low = BF16 if dtype == FP32 else dtype
+    err = plain_err = max_ref = 0.0
+    ok, flipped = True, 0
+    for bb in range(b):
+        for hh in range(h):
+            sl = (slice(bb, bb + 1), slice(hh, hh + 1))
+            ref = fa.plain_attention(q[sl].float(), k[sl].float(),
+                                     v[sl].float(), scale)
+            plain = fa.plain_attention(q[sl].to(low), k[sl].to(low),
+                                       v[sl].to(low), scale)
+            err = max(err, (out[sl].float() - ref).abs().max().item())
+            plain_err = max(plain_err,
+                            (plain.float() - ref).abs().max().item())
+            max_ref = max(max_ref, ref.abs().max().item())
+            del plain
+    tol = 2.0 * plain_err + 1e-3 * max_ref
+    for bb in range(b):
+        for hh in range(h):
+            sl = (slice(bb, bb + 1), slice(hh, hh + 1))
+            ref = fa.plain_attention(q[sl].float(), k[sl].float(),
+                                     v[sl].float(), scale)
+            o, f = within_rule(out[sl], ref, tol)
+            ok, flipped = ok and o, flipped + f
+    how = fa.plan(q, k, v, out)
+    res = dict(shape=list(shape), skv=skv, dtype=str(dtype).split('.')[-1],
+               path=how.path, max_abs_err=err, plain_max_abs_err=plain_err,
+               max_abs_ref=max_ref, tol=tol, flipped=flipped,
+               finite=bool(torch.isfinite(out).all()),
+               ok=bool(ok and how.path == fa.WIDE and launched == dict(
+                   dict.fromkeys(launched, 0), wide=1)))
+    if timed:
+        res['ms'] = time_ms(lambda: fa.flash_attention(q, k, v, scale))
+        res['plain_ms'] = time_ms(
+            lambda: fa.plain_attention(q, k, v, scale), iters=5)
+        res['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        res['library_backend'] = sdpa_backend(q, k, v, scale)
+        res['bound_ms'], res['bound_by'] = attention_bound(
+            'k1', b, h, sq, skv, d, q.element_size())
+    return res
+
+
+def _flags(res) -> list:
+    """Every 'finite'/'chain_finite' flag and bit-identity in a tool's
+    result, at any depth."""
+    out = []
+    if isinstance(res, dict):
+        for k, v in res.items():
+            if k in ('finite', 'chain_finite', 'native_available'):
+                out.append(bool(v))
+            else:
+                out += _flags(v)
+    elif isinstance(res, list):
+        for v in res:
+            out += _flags(v)
+    return out
+
+
+def run_tool(label: str, call, nets=(), vae=None, extra=None,
+             keys=None, check: bool = True) -> dict:
+    """One ported tool's measuring function (``call()``) at full width with
+    every count at 0: its result (printed with the card), finite outputs
+    and finite ε and decoded latents, and exactly the launches the module
+    tree implies for the UNet evaluations and decodes recorded on ``nets``
+    and ``vae`` (:func:`eval_launches`, :func:`vae_launches`) plus
+    ``extra`` (launches the tool makes directly; a callable gets the
+    result); ``keys``: compare only these counts."""
+    logs = [CallLog(net, vae if i == 0 else None)
+            for i, net in enumerate(nets)]
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = call()
+    finally:
+        for log in logs:
+            log.remove()
+    seconds = time.perf_counter() - t0
+    got = counts()
+    parts = [eval_launches(e)[0] for log in logs for e in log.evals]
+    if vae is not None:
+        parts.append(vae_launches(vae.config, logs[0].decodes,
+                                  logs[0].encodes)[0])
+    extra = extra(res) if callable(extra) else extra
+    want = _sum(parts + [extra or {}])
+    evals = sum(len(log.evals) for log in logs)
+    print(f'step 23 {label}: ' + json.dumps(dict(
+        result=res, seconds=seconds, unet_evaluations=evals,
+        launches=got, expected=want, card=card_line()
+        if torch.cuda.is_available() else 'cpu')), flush=True)
+    if not all(_flags(res)) or not all(
+            bool(f) for log in logs for f in log.finite):
+        raise AssertionError(f'step 23 {label}: a non-finite output')
+    if keys is not None:
+        got, want = ({k: d[k] for k in keys} for d in (got, want))
+    if check and got != want:
+        raise AssertionError(f'step 23 {label}: launches {got}, expected '
+                             f'{want}')
+    return dict(label=label, seconds=seconds, launches=counts(), result=res)
+
+
+def _evals(n: int, batch: int = 2, side: int = 64, config=SD14_UNET) -> dict:
+    """The launches of ``n`` plain UNet evaluations (no settings)."""
+    one = eval_launches(dict(batch=batch, hw=(side, side), channels=4,
+                             ctx=(77, config.cross_attention_dim),
+                             mode='off', pag=False, tcond=False, cache=None,
+                             ip=None, added=None, config=config,
+                             settings=(None, None, None)))[0]
+    return {k: v * n for k, v in one.items()}
+
+
+def run_sd_tools(runner, unet, vae, check: bool = True,
+                 steps: int = TOOL_STEPS, reps: int = TOOL_REPS,
+                 device: str = 'cuda', side: int = 64,
+                 op_shape=(1, 1, 4096, 512), min_seq: int = 4096) -> list:
+    """Step 23 (b), SD-1.4: every ported tool of the SD-1.4 family once at
+    its published width (512², the UNet and VAE of step 6, ``runner`` over
+    them), with ``steps`` denoise steps and ``reps`` timed repeats
+    (``side``: the latent side, ``op_shape``: ``bench_vae``'s raw op,
+    ``min_seq``: ToMe's; smaller for a CPU rehearsal with tiny models)."""
+    from flexdiffuse_tpu_torch.tools import (bench_batch, bench_deepcache,
+                                             bench_lcm, bench_serving,
+                                             bench_tokenizer, bench_train,
+                                             bench_vae, cfg_interval_exp,
+                                             deepcache_exp, param_dtype_exp,
+                                             tome_exp)
+    dev = torch.device(device)
+    size = side * runner.pipe.vae_scale
+    out = [run_tool(
+        'bench_vae', lambda: bench_vae.measure(vae, dev, side, op_shape,
+                                               reps=reps, decode_reps=reps),
+        extra=lambda r: _sum([vae_launches(
+            vae.config, [(1, 4, side, side)] * (2 * (1 + reps)), [])[0],
+            dict(k1=r['flash_calls'], k1_wide=r['flash_calls'])]),
+        check=check)]
+    out += [run_tool(f'bench_batch batch {b}', lambda b=b: bench_batch.bench(
+        unet, b, dev, steps=steps, reps=reps, side=side), [unet],
+        check=check) for b in bench_batch.BATCHES]
+    lat = side
+    lora_steps = full_steps = 2
+    out.append(run_tool(
+        'bench_train', lambda: bench_train.measure(
+            unet, lambda: copy.deepcopy(unet).float().requires_grad_(True),
+            dev, lora_steps=lora_steps, full_steps=full_steps, side=side),
+        extra=lambda r: _sum([
+            {k: v * (lora_steps + 1) for k, v in step_launches(
+                unet.config, 'lora', 'dots', 4, lat).items()},
+            {k: v * (full_steps + 1) for k, v in step_launches(
+                unet.config, 'full', 'full', r['full_finetune']['batch'],
+                lat).items()}]), check=check))
+    out.append(run_tool(
+        'bench_serving', lambda: bench_serving.measure(
+            runner, requests_per_client=1, steps=steps,
+            size=max(size, 64)),
+        [runner.pipe.unet], runner.pipe.vae, check=check))
+    lcm = lcm_unet_of(unet)
+    out.append(run_tool('bench_lcm', lambda: bench_lcm.measure(
+        lcm, vae, dev, side=side, reps=reps, queued=2), [lcm], vae,
+        check=check))
+    out.append(run_tool('deepcache_exp', lambda: deepcache_exp.run(
+        unet, vae, (0, 2, 3), steps=steps, side=side, reps=reps), [unet],
+        check=check))
+    out.append(run_tool('bench_deepcache', lambda: bench_deepcache.measure(
+        unet, vae, steps=steps, side=side, reps=reps, rounds=1), [unet],
+        vae, check=check))
+    out.append(run_tool('cfg_interval_exp', lambda: cfg_interval_exp.measure(
+        unet, vae, steps=steps, side=side, reps=reps), [unet],
+        check=check))
+    for scale in (1, 2):
+        out.append(run_tool(
+            f'tome_exp {size * scale}²', lambda scale=scale: tome_exp.measure(
+                unet, vae, size * scale, (0.5,), steps=steps, reps=reps,
+                min_seq=min_seq, latent_side=side * scale),
+            [unet], check=check))
+    # Deep copies carry no hooks of this run: the launches are counted from
+    # the evaluations the chain makes. Its fp32-weight variants run under
+    # autocast, where K6's output dtype (and so its path) follows the
+    # weights: K1 and K6 are held in total.
+    pd_steps = 4
+    out.append(run_tool(
+        'param_dtype_exp', lambda: param_dtype_exp.measure(
+            copy.deepcopy(unet).float(), steps=pd_steps, side=side,
+            reps=reps),
+        extra=_evals(3 * (1 + reps) * pd_steps, side=side,
+                     config=unet.config), keys=('k1', 'k6'),
+        check=check))
+    out.append(run_tool('bench_tokenizer', bench_tokenizer.measure,
+                        check=check))
+    return out
+
+
+def run_sdxl_tools(runner, root: str, size: int = SDXL_SIZE,
+                   check: bool = True, steps: int = TOOL_STEPS,
+                   reps: int = TOOL_REPS, encoder=None,
+                   device: str = 'cuda') -> list:
+    """Step 23 (b) SDXL and the bigg IP-Adapter encoder, on step 19's
+    ``runner`` while its snapshots under ``root`` exist: ``bench_sdxl``,
+    ``sdxl_deepcache_exp`` and ``sdxl_exp`` on its base UNet at ``size``²;
+    then OpenCLIP bigG's vision tower (``encoder``; default seeded at its
+    published width) written as an image-encoder snapshot beside a seeded
+    base IP-Adapter checkpoint, loaded through
+    ``SDXLRunner.load_ip_adapter(..., encoder='bigg')``, a ``steps``-step
+    DPM++ run from an ``ip_image``, the encoder's seconds and its bf16
+    output's relative error to an fp32 copy. The runner's pipeline is
+    restored after."""
+    from flexdiffuse_tpu_torch.tools import (bench_sdxl, sdxl_deepcache_exp,
+                                             sdxl_exp)
+    from flexdiffuse_tpu_torch.utils.image import clip_preprocess
+    base = runner.pipe.unet
+    out = []
+    if device == 'cuda':
+        out += [run_tool('bench_sdxl', lambda: bench_sdxl.bench(
+            base, steps, size, reps), [base], check=check),
+            run_tool('sdxl_deepcache_exp', lambda: sdxl_deepcache_exp.run(
+                base, (0, 3), steps, size, reps), [base], check=check),
+            run_tool('sdxl_exp', lambda: sdxl_exp.measure(
+                base, steps, size, reps), [base], check=check)]
+    if encoder is None:
+        torch.manual_seed(STEP23_SEED)
+        with torch.device(device):
+            encoder = CLIPVisionModel(OPENCLIP_BIGG_VISION)
+        encoder = encoder.to(BF16).eval().requires_grad_(False)
+    ip = write_ip_adapter(root, base, encoder, 'ip-adapter_sdxl.bin')
+    del encoder
+    pipe0 = runner.pipe
+    t0 = time.perf_counter()
+    runner.load_ip_adapter(ip['adapter'], ip['encoder'], encoder='bigg')
+    load_s = time.perf_counter() - t0
+    state = runner._ip
+    image = synthetic_image(size, STEP23_SEED)
+    pixels = torch.as_tensor(clip_preprocess(
+        image, state.encoder.config.image_size), device=device)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        emb = state.encoder(pixels, output=state.input_kind)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc32 = copy.deepcopy(state.encoder).float()
+        ref = enc32(pixels.float(), output=state.input_kind)
+        del enc32
+    rel = _rel(emb, ref)
+    lat = size // runner.pipe.vae_scale
+    common = dict(prompt=PROMPT, steps=steps, guidance_scale=SDXL_CFG,
+                  samples=1, seed=STEP23_SEED, save=False,
+                  init_size=(size, size), refine_strength=0.0,
+                  ip_image=image, ip_scale=1.0)
+    try:
+        run = run_feature(f'IP-Adapter bigg at {size}² from ip_image',
+                          runner, common,
+                          [(2, lat, 'off', False)] * sdxl_rows(steps=steps),
+                          [(lat, 1)], size, check, step=23)
+    finally:
+        runner.pipe, runner._ip = pipe0, None
+    run.pop('by_shape')
+    enc_cfg = state.encoder.config
+    rec = dict(label='bigg IP-Adapter', hidden=enc_cfg.hidden_size,
+               layers=enc_cfg.num_layers, load_s=load_s,
+               encoder_s=enc_s, input_kind=state.input_kind,
+               embed_shape=list(emb.shape), rel_err_bf16_vs_fp32=rel,
+               finite=bool(torch.isfinite(emb).all()),
+               launches=run['launches'], run=run)
+    print('step 23 bigg IP-Adapter: ' + json.dumps(dict(
+        rec, card=card_line() if device == 'cuda' else 'cpu')), flush=True)
+    if not rec['finite']:
+        raise AssertionError('step 23: the bigg encoder gave non-finite '
+                             'embeddings')
+    return out + [rec]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
                                  'port on one CUDA card (see the module '
@@ -4416,7 +4764,7 @@ def main() -> int:
         return 0
 
     parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: fb.BUILD_PARTS,
-             gn.SOURCE: 1, fv.SOURCE: fv.BUILD_PARTS}
+             gn.SOURCE: 1, fv.SOURCE: fv.BUILD_PARTS, fa.WIDE_SOURCE: 1}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(parts)) as pool:
         build_secs = list(pool.map(fa.build, parts, parts.values()))
@@ -4450,6 +4798,20 @@ def main() -> int:
     if bad:
         raise AssertionError(f'K6 disagrees with the plain GroupNorm (or '
                              f'left its planned path) at {bad}')
+
+    # Step 23 (a): the wide kernel (K1/K2 at 128 < D <= 512).
+    t0 = time.perf_counter()
+    gen23 = torch.Generator('cuda').manual_seed(STEP23_SEED)
+    wide_res = [check_wide(shape, skv, dtype, gen23, timed)
+                for shape, skv, dtype, timed in WIDE_SHAPES]
+    for r in wide_res:
+        print('wide', json.dumps(r), flush=True)
+    bad = [r['shape'] for r in wide_res if not r['ok']]
+    if bad:
+        raise AssertionError(f'the wide kernel disagrees with plain '
+                             f'attention (or left the wide path) at {bad}')
+    print(f'step 23 (a) wide kernel: {time.perf_counter() - t0:.1f} s',
+          flush=True)
 
     text, vision, unet, vae = build_models('cuda', torch.bfloat16, SEED)
     runner = Runner.from_models(text, vision, unet, vae,
@@ -4554,6 +4916,12 @@ def main() -> int:
         sdxl = run_sdxl_phase(text, vision, root19)
         print(f'SDXL phase (step 19): {time.perf_counter() - t0:.1f} s',
               flush=True)
+        # Step 23 (b) SDXL and the bigg IP-Adapter encoder, on step 19's
+        # runner (its pipeline restored after).
+        t0 = time.perf_counter()
+        tools23 = run_sdxl_tools(sdxl['runner'], root19)
+        print(f'step 23 SDXL tools and bigg: {time.perf_counter() - t0:.1f}'
+              ' s', flush=True)
         # Step 20's SDXL part, on step 19's runner while its snapshots
         # (which SDXLRunner.apply_lora reads) exist: K3/K4/K5 at SDXL's
         # training shapes, then the runs.
@@ -4619,6 +4987,11 @@ def main() -> int:
         harness = run_harness_phase(root)
         print(f'parity harness (step 22): {time.perf_counter() - t0:.1f} s',
               flush=True)
+        # Step 23 (b): the ported SD-1.4 tools on step 6's models.
+        t0 = time.perf_counter()
+        tools23 += run_sd_tools(runner, unet, vae)
+        print(f'step 23 SD-1.4 tools: {time.perf_counter() - t0:.1f} s',
+              flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del text, vision, runner, disk_runner
@@ -4647,7 +5020,8 @@ def main() -> int:
                 surfaces['launches'][k] + sampling['launches'][k] +
                 conditioning['launches'][k] + sdxl['launches'][k] +
                 sdxl_train['launches'][k] + ti['launches'][k] +
-                parallel['launches'][k] + harness['launches'][k]
+                parallel['launches'][k] + harness['launches'][k] +
+                sum(t['launches'][k] for t in tools23)
                 for k in gen_launches}
     del ds
 
@@ -4682,12 +5056,27 @@ def main() -> int:
         name='flash_attention', route='cuda',
         source='flexdiffuse_tpu_torch/csrc/flash_attention.cu',
         replaces='flexdiffuse_tpu/ops/flash_attention.py:126',
-        launches=launches['k1'],
+        launches=launches['k1'] - launches['k1_wide'],
         max_abs_err=max(r['max_abs_err'] for r in results),
         ms=main_res['ms'], plain_ms=main_res['plain_ms'],
         bound_ms=main_res['bound_ms'], bound_by=main_res['bound_by'],
         library_ms=main_res['library_ms'],
         **extra(main_res, [(r['shape'], r) for r in results], 'k1'))]
+    wide_main = wide_res[0]
+    kernels.append(dict(
+        name='flash_attention_wide', route='cuda',
+        source='flexdiffuse_tpu_torch/csrc/flash_wide.cu',
+        replaces='flexdiffuse_tpu/ops/flash_attention.py:44 and :126',
+        launches=launches['k1_wide'],
+        max_abs_err=max(r['max_abs_err'] for r in wide_res),
+        ms=wide_main['ms'], plain_ms=wide_main['plain_ms'],
+        bound_ms=wide_main['bound_ms'], bound_by=wide_main['bound_by'],
+        library_ms=wide_main['library_ms'],
+        library_backend=wide_main['library_backend'],
+        by_shape=[dict(shape=r['shape'], skv=r['skv'], dtype=r['dtype'],
+                       **{key: r[key] for key in (
+                           'ms', 'plain_ms', 'library_ms', 'library_backend',
+                           'bound_ms')}) for r in wide_res if 'ms' in r]))
     for key, kname, src, line in (
             ('k3', 'flash_attention_lse', 'flash_attention.cu', 62),
             ('k4', 'flash_attention_dq', 'flash_backward.cu', 146),

@@ -12,6 +12,12 @@ main-path call) and 'mma' (the first port's mma.sync kernel, kept for
 everything else). fp32 tensors take 'mma', which rounds them to bf16 as it
 stages them: the operand precision at which the TPU multiplies fp32 at its
 default precision, where the reference's Pallas kernel takes fp32 too.
+Head widths 129–512 take a third path, 'wide' (``csrc/flash_wide.cu``, an
+mma.sync kernel whose warps split the head's columns among them; any
+dtype, shape and alignment); it replaces the same Pallas function at those
+widths, where JAX runs ``_flash_tt_kernel`` (K1) or
+``_flash_stream_kernel`` (K2).
+It has no lse instantiation: JAX trains wide heads through XLA.
 
 Every kernel source in ``csrc/`` is compiled at first use with ``nvcc``
 into a shared library with plain C entry points and bound with ``ctypes``
@@ -46,10 +52,12 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / 'csrc' / 'flash_attention.cu'
+WIDE_SOURCE = _PKG / 'csrc' / 'flash_wide.cu'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128        # K1/K3's kernels ('sm90', 'mma')
+MAX_WIDE_HEAD_DIM = 512   # the 'wide' kernel, above MAX_HEAD_DIM
 # The kernels' dtype codes, and the 16-bit ones: all that the Hopper path
 # (and the T1–T6 variants, ops/flash_variants.py) take.
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -169,7 +177,12 @@ SIGNATURES = {
 ENTRIES = {'sm90': ('flash_attention_fwd_sm90',
                     'flash_attention_fwd_lse_sm90'),
            'mma': ('flash_attention_fwd', 'flash_attention_fwd_lse')}
-PATHS = tuple(ENTRIES)
+PATHS = tuple(ENTRIES)   # K1's and K3's paths, up to MAX_HEAD_DIM
+# The wide kernel, in its own source, takes the kept kernel's arguments.
+WIDE = 'wide'
+WIDE_SIGNATURES = {
+    'flash_attention_fwd_wide': SIGNATURES['flash_attention_fwd']}
+FWD_PATHS = PATHS + (WIDE,)   # flash_attention's paths
 ROWS = 64         # q rows per warpgroup (sm90) and per block (mma)
 MMA_KV_TILE = 64  # the kept kernel's K/V tile
 # The Hopper path's tiles, as csrc/flash_attention.cu's ``Tiling`` chooses
@@ -177,15 +190,19 @@ MMA_KV_TILE = 64  # the kept kernel's K/V tile
 # tile), keyed by head_pad <= 64; SM90_STAGES K/V tiles in the ring.
 SM90_TILES = {True: (3, 64), False: (2, 128)}
 SM90_STAGES = 3
+# The wide kernel's tiles (csrc/flash_wide.cu): WIDE_ROWS q rows per block
+# of 8 warps (2 row groups × 4 quarters of 128 head columns), kv tile
+# WIDE_KV_TILE, two K/V stages.
+WIDE_ROWS = WIDE_KV_TILE = 32
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs. ``path`` 'sm90' or 'mma'; ``head_pad`` DP, the head
-    dim rounded up to 16 in shared memory; ``block_q`` q rows per block;
-    ``block_kv`` kv rows per streamed tile; ``stages`` K/V tiles in flight
-    (1: the kept kernel stages one at a time); ``grid`` (q tiles, B·H);
-    ``threads`` per block."""
+    """How one call runs. ``path`` 'sm90', 'mma' or 'wide'; ``head_pad``
+    DP, the head dim rounded up to 16 in shared memory; ``block_q`` q rows
+    per block; ``block_kv`` kv rows per streamed tile; ``stages`` K/V tiles
+    in flight (1: the kept kernel stages one at a time); ``grid`` (q
+    tiles, B·H); ``threads`` per block."""
     path: str
     head_pad: int
     block_q: int
@@ -200,14 +217,26 @@ def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
     """The path and tiling of a call on ``q`` ``[B, H, Sq, D]`` and ``k``
     ``[B, H, Skv, D]`` (checked by :func:`check`), from the dtype, the
     shape and the alignment of ``q``, ``k`` and ``tensors`` (v, the output)
-    alone. The Hopper path takes bf16 or fp16 and needs what TMA needs:
-    D % 8 == 0 (16-byte rows) and 16-byte aligned pointers; everything else,
-    fp32 included, takes the kept kernel. ``path`` forces one ('sm90'
-    raises where it cannot go)."""
-    if path not in (None, *PATHS):
-        raise ValueError(f'flash_attention: path {path!r} not in {PATHS}')
+    alone. Head widths above MAX_HEAD_DIM, up to MAX_WIDE_HEAD_DIM, take
+    'wide' (any dtype and alignment); wider raise. Up to MAX_HEAD_DIM the
+    Hopper path takes bf16 or fp16 and needs what TMA needs: D % 8 == 0
+    (16-byte rows) and 16-byte aligned pointers; everything else, fp32
+    included, takes the kept kernel. ``path`` forces one (a path raises
+    where it cannot go)."""
+    if path not in (None, *FWD_PATHS):
+        raise ValueError(f'flash_attention: path {path!r} not in '
+                         f'{FWD_PATHS}')
     b, h, sq, d = q.shape
     head_pad = -(-d // 16) * 16
+    if d > MAX_HEAD_DIM or path == WIDE:
+        if not MAX_HEAD_DIM < d <= MAX_WIDE_HEAD_DIM or path not in (None,
+                                                                      WIDE):
+            raise ValueError(f'flash_attention: head dim {d} on path '
+                             f'{path!r}: the wide path takes '
+                             f'{MAX_HEAD_DIM} < D <= {MAX_WIDE_HEAD_DIM}, '
+                             f'the others D <= {MAX_HEAD_DIM}')
+        return Plan(WIDE, head_pad, WIDE_ROWS, WIDE_KV_TILE, 2,
+                    (-(-sq // WIDE_ROWS), b * h), 256)
     tma = q.dtype in DTYPES16 and bool(vec_ok(q, k, *tensors))
     if path == 'sm90' and not tma:
         raise ValueError('flash_attention: the sm90 path takes bf16 or fp16, '
@@ -260,7 +289,26 @@ def raise_on_error(rc: int, name: str, q: torch.Tensor,
                            f'q {tuple(q.shape)}, k {tuple(k.shape)}')
 
 
-def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def launch_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, scale: float) -> None:
+    """Launch the wide kernel on the current stream; raises if the launch
+    is refused."""
+    lib = load(WIDE_SOURCE, WIDE_SIGNATURES)
+    entry = lib.flash_attention_fwd_wide
+    b, h, sq, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b * h, sq, k.shape[2], d, float(scale), DTYPES[q.dtype],
+                   vec_ok(q, k, v, out), stream)
+    raise_on_error(rc, entry.__name__, q, k)
+
+
+def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          max_head_dim: int = MAX_HEAD_DIM) -> None:
+    """Raises on what the kernels do not take: K1/K3's up to
+    ``max_head_dim`` = MAX_HEAD_DIM; :func:`flash_attention` passes
+    MAX_WIDE_HEAD_DIM."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError('flash_attention: q, k and v must all be CUDA '
                          'tensors (or all CPU tensors)')
@@ -277,9 +325,9 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f'flash_attention: q {tuple(q.shape)} and k '
                          f'{tuple(k.shape)} disagree on B, H or D')
-    if not 1 <= d <= MAX_HEAD_DIM:
+    if not 1 <= d <= max_head_dim:
         raise ValueError(f'flash_attention: head dim {d} not in '
-                         f'[1, {MAX_HEAD_DIM}]')
+                         f'[1, {max_head_dim}]')
     if sq < 1 or k.shape[2] < 1 or not 1 <= b * h <= 65535:
         raise ValueError(f'flash_attention: unsupported shape '
                          f'{tuple(q.shape)} x {tuple(k.shape)}')
@@ -291,19 +339,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, path: Optional[str] = None) -> torch.Tensor:
     """``[B, H, Sq, D] × [B, H, Skv, D] → [B, H, Sq, D]`` through the Hopper
     kernel, launched on the current stream on the path :func:`plan` picks
-    (``path``: forced, as :func:`plan` takes it, for comparisons). CPU tensors take :func:`plain_attention`; CUDA tensors
-    the kernel does not take raise. ``flash_attention.launches`` counts
-    kernel launches, ``flash_attention.path_launches`` them by path."""
+    (``path``: forced, as :func:`plan` takes it, for comparisons); head
+    widths 129–512 on the wide kernel. CPU tensors take
+    :func:`plain_attention`; CUDA tensors the kernels do not take raise.
+    ``flash_attention.launches`` counts kernel launches,
+    ``flash_attention.path_launches`` them by path."""
     if q.device.type == 'cpu' and k.device.type == 'cpu' \
             and v.device.type == 'cpu':
         return plain_attention(q, k, v, scale)
-    check(q, k, v)
+    check(q, k, v, MAX_WIDE_HEAD_DIM)
     out = torch.empty_like(q)
     how = plan(q, k, v, out, path=path)
-    launch(q, k, v, out, None, scale, how)
+    if how.path == WIDE:
+        launch_wide(q, k, v, out, scale)
+    else:
+        launch(q, k, v, out, None, scale, how)
     count_launch(flash_attention, how.path)
     return out
 
 
 flash_attention.launches = 0
-flash_attention.path_launches = dict.fromkeys(PATHS, 0)
+flash_attention.path_launches = dict.fromkeys(FWD_PATHS, 0)

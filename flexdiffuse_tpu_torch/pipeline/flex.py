@@ -593,7 +593,8 @@ class FlexPipeline:
         recorded = []
         for i in range(t_start, schedule.length):
             xin = schedulers.scale_model_input(schedule, latents, i)
-            eps = eps_at(i, xin, schedule.timesteps[i].to(dev))
+            eps = eps_at(i, xin,
+                         schedulers.timestep_at(schedule, i).to(dev))
             vnoise = None
             if step_noise:
                 vnoise = self._draw(None if variance_noise is None else

@@ -40,7 +40,8 @@ from flexdiffuse_tpu_torch.schedulers.base import (SIGMA_SPACE_KINDS,
                                                    ddim_like_add_noise,
                                                    init_timestep_info,
                                                    make_betas,
-                                                   spaced_timesteps)
+                                                   spaced_timesteps,
+                                                   timestep_at)
 
 _KINDS = {'ddim': _ddim, 'pndm': _pndm, 'lms': _lms,
           'euler': _euler, 'euler_a': _euler_a, 'dpmpp': _dpmpp,
@@ -170,7 +171,7 @@ def anchor_noise(schedule: Schedule, sample: torch.Tensor,
     if isinstance(schedule, (PRKSchedule, _lcm.LCMSchedule)):
         t_out = int(schedule.prev_tr[pos])
     else:
-        t = int(schedule.timesteps[pos])
+        t = int(timestep_at(schedule, pos))
         t_out = t if (schedule.kind == 'pndm' and counter == 1) else \
             t - schedule.ratio
     if t_out < 0:

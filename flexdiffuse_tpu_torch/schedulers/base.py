@@ -132,6 +132,13 @@ class Schedule:
     rows_per_step: int = 1
 
 
+def timestep_at(schedule: Schedule, i: int) -> torch.Tensor:
+    """``timesteps[i]`` with ``i`` clamped to the last entry, as JAX's
+    gather reads it: PNDM at one step has ``length`` 2 and one timestep,
+    and its second call reads that timestep again."""
+    return schedule.timesteps[min(i, schedule.timesteps.shape[0] - 1)]
+
+
 def f32(a) -> torch.Tensor:
     """A host table as an fp32 CPU tensor."""
     return torch.tensor(np.asarray(a, dtype=np.float64), dtype=torch.float32)

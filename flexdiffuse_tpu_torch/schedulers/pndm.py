@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from flexdiffuse_tpu_torch.schedulers.base import (Schedule, SchedulerConfig,
-                                                   alphas_cumprod)
+                                                   alphas_cumprod,
+                                                   timestep_at)
 
 # ε-combination weights over the history [newest, ..., oldest] per call
 # counter (clipped at 4).
@@ -190,7 +191,7 @@ def step(schedule: Schedule, state: State, eps: torch.Tensor, i: int,
     eps32 = eps.float()
     sample32 = sample.float()
 
-    t = int(schedule.timesteps[i])
+    t = int(timestep_at(schedule, i))
     is_c1 = counter == 1
     t_used = t + schedule.ratio if is_c1 else t
     prev_t = t if is_c1 else t - schedule.ratio

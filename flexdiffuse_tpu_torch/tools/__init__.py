@@ -1,7 +1,14 @@
-"""The JAX package's flash-kernel experiment tools, ported to the card.
+"""The JAX package's tools, ported to the card.
 
-Each module mirrors a script in the repository's ``tools/`` and runs the
-Hopper counterpart of its Pallas kernel (``ops/flash_variants.py``):
+The bench and A/B tools (``bench_vae``, ``bench_batch``, ``bench_train``,
+``bench_serving``, ``bench_lcm``, ``deepcache_exp``, ``bench_deepcache``,
+``cfg_interval_exp``, ``tome_exp``, ``bench_sdxl``, ``sdxl_deepcache_exp``,
+``sdxl_exp``, ``param_dtype_exp``, ``bench_tokenizer``; shared timing in
+:mod:`.bench_common`) each mirror the script of the same name and print
+its JSON keys. The parity harness is :mod:`.validate_reference` and
+:mod:`.experiments`. The flash-kernel experiment tools below each mirror a
+script in the repository's ``tools/`` and run the Hopper counterpart of
+its Pallas kernel (``ops/flash_variants.py``):
 
 * :mod:`.perf_experiment` — ``scan_time``, the 12-deep UNet chain every A/B
   below uses; baseline and conv-only UNet.

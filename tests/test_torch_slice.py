@@ -179,6 +179,29 @@ def test_pipeline_txt2img_matches_jax(pipes):
     _compare(jpipe, tpipe, jlat, tlat)
 
 
+def test_pipeline_pndm_one_step_matches_jax(pipes):
+    """PNDM at one step: ``length`` 2 over one timestep, which the second
+    call reads again (JAX's clamped gather). The golden PNDM loop's bound,
+    1e-4 at its max|x| of 15.8, scaled to these latents: the second call
+    transfers from the clamped t = 999, which multiplies the sample and
+    the UNets' ~1e-5 ε gap by √(ᾱ_1/ᾱ_999) ≈ 14.6, and max|x| is 67.5.
+    Observed 1.18e-4 (relative 1.75e-6; the golden loop's 2.8e-6)."""
+    jpipe, tpipe = pipes
+    jguide, tguide = _guides(batch=1, seed=3)
+    noise = np.random.default_rng(4).normal(size=(1, 8, 8, 4)).astype(
+        np.float32)
+    assert schedulers.make('pndm', 1).length == 2
+    jlat = jpipe(jguide, steps=1, init_size=(16, 16),
+                 noise=jnp.asarray(noise), key=jax.random.PRNGKey(5),
+                 output_type='latent').images
+    tlat = tpipe(tguide, steps=1, init_size=(16, 16),
+                 noise=torch.from_numpy(noise), output_type='latent').images
+    assert np.isfinite(tlat.numpy()).all()
+    np.testing.assert_allclose(tlat.numpy(), np.asarray(jlat), rtol=0,
+                               atol=1e-4 * np.abs(np.asarray(jlat)).max() /
+                               15.8)
+
+
 @pytest.mark.parametrize('output_type', ['latent', 'np'])
 def test_pipeline_output_fields_match_jax(pipes, output_type):
     """The output answers ``['sample']`` and ``['images']`` with its images
