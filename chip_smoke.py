@@ -356,12 +356,18 @@ and CLIP ViT-L/14 weights at published widths, read back from disk):
 The wide kernel and the JAX package's tools (the sixteenth slice), step
 23, in three parts:
 
-23. (a) Right after K6's checks: the 'wide' kernel (``csrc/flash_wide.cu``,
-    K1/K2 at 128 < D <= 512) against plain attention by K1's rule, head by
-    head, with exactly one 'wide' launch per call, at WIDE_SHAPES (the VAE
+23. (a) Right after K6's checks: the wide kernels (``csrc/flash_wide.cu``,
+    K1/K2 at D > 128) against plain attention by K1's rule, head by head,
+    with exactly one launch per call on the path ``fa.plan`` picks, which
+    must be 'wide_sm90' for bf16/fp16 with D % 8 == 0, D <= 512 and aligned
+    tensors and the kept 'wide' otherwise, at WIDE_SHAPES (the VAE
     mid-block at 512², 1024², batch 8 and 768², d = 200, Sq != Skv, a
-    ragged fp16 sequence with d % 8 != 0, fp32); timed against the plain
-    version and SDPA (naming the backend SDPA picks) at the marked shapes.
+    ragged fp16 sequence with d % 8 != 0, fp32, a misaligned q, and D =
+    640, 1024 and fp32 2048); where 'wide_sm90' runs, the kept kernel
+    forced on the same inputs by the same rule; timed (both paths,
+    interleaved) against the plain version and SDPA (naming the backend
+    SDPA picks) at the marked shapes, with the K/V each path streams from
+    L2 and the rate its time implies.
     (b) After step 19, on its runner (its pipeline restored after):
     ``bench_sdxl``, ``sdxl_deepcache_exp`` and ``sdxl_exp`` on the SDXL
     base UNet at 1024², then OpenCLIP bigG's vision tower at its published
@@ -502,15 +508,17 @@ LORA_STEPS, FULL_STEPS = 10, 4
 
 
 def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
-                  k6: int = 0, k6_stream: int = 0, wide: int = 0) -> dict:
+                  k6: int = 0, k6_stream: int = 0, wide: int = 0,
+                  wide_sm90: int = 0) -> dict:
     """The launch counts a main-path run must show (``kernel_counts``):
     every K1, K3, K4 and K5 launch on the Hopper path ('sm90'), none on the
-    kept mma.sync kernels, except ``wide`` of K1's on the wide kernel; K6's
-    ``k6_stream`` on the stream path, the rest resident."""
-    return dict(k1=k1 + wide, k3=k3, k4=k4, k5=k5, k6=k6, k1_sm90=k1,
-                k1_mma=0, k1_wide=wide, k3_sm90=k3, k3_mma=0, k4_sm90=k4,
-                k4_mma=0, k5_sm90=k5, k5_mma=0, k6_resident=k6 - k6_stream,
-                k6_stream=k6_stream)
+    kept mma.sync kernels, except ``wide_sm90`` of K1's on the Hopper wide
+    kernel and ``wide`` on the kept one; K6's ``k6_stream`` on the stream
+    path, the rest resident."""
+    return dict(k1=k1 + wide + wide_sm90, k3=k3, k4=k4, k5=k5, k6=k6,
+                k1_sm90=k1, k1_mma=0, k1_wide=wide, k1_wide_sm90=wide_sm90,
+                k3_sm90=k3, k3_mma=0, k4_sm90=k4, k4_mma=0, k5_sm90=k5,
+                k5_mma=0, k6_resident=k6 - k6_stream, k6_stream=k6_stream)
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
@@ -4413,19 +4421,24 @@ def run_harness_phase(root: str, common=(), harness=(),
 # --- Step 23: the 'wide' kernel, the ported tools, the bigg IP-Adapter ----
 
 STEP23_SEED = SEED + 23
-# The wide kernel (K1/K2 at 128 < D <= 512): the SD VAE mid-block at 512²
-# and 1024², a decode of 8, a 768² decode, d = 200, Sq != Skv, a ragged
-# sequence with d % 8 != 0 in fp16, and fp32 (q shape, kv tokens, dtype,
-# timed).
+# The wide kernels (K1/K2 at D > 128): the SD VAE mid-block at 512² and
+# 1024², a decode of 8, a 768² decode, d = 200, Sq != Skv, a ragged
+# sequence with d % 8 != 0 in fp16, fp32, a misaligned q (the kept kernel,
+# at a width 'wide_sm90' takes), and heads wider than 512 (q shape, kv
+# tokens, dtype, timed, q's offset in elements from an aligned base).
 WIDE_MAIN = (1, 1, 4096, 512)
-WIDE_SHAPES = [(WIDE_MAIN, 4096, BF16, True),
-               ((1, 1, 16384, 512), 16384, BF16, True),
-               ((8, 1, 4096, 512), 4096, BF16, False),
-               ((1, 1, 9216, 512), 9216, BF16, False),
-               ((1, 2, 1024, 200), 1024, BF16, True),
-               ((1, 2, 1000, 384), 77, BF16, False),
-               ((2, 1, 333, 130), 517, torch.float16, False),
-               ((1, 1, 1024, 512), 2048, FP32, True)]
+WIDE_SHAPES = [(WIDE_MAIN, 4096, BF16, True, 0),
+               ((1, 1, 16384, 512), 16384, BF16, True, 0),
+               ((8, 1, 4096, 512), 4096, BF16, False, 0),
+               ((1, 1, 9216, 512), 9216, BF16, False, 0),
+               ((1, 2, 1024, 200), 1024, BF16, True, 0),
+               ((1, 2, 1000, 384), 77, BF16, False, 0),
+               ((2, 1, 333, 130), 517, torch.float16, False, 0),
+               ((1, 1, 1024, 512), 2048, FP32, True, 0),
+               ((1, 2, 1000, 256), 1000, BF16, False, 1),
+               ((1, 1, 4096, 640), 4096, BF16, True, 0),
+               ((1, 2, 1024, 1024), 1024, BF16, True, 0),
+               ((1, 1, 512, 2048), 512, FP32, True, 0)]
 # The tools' step and repeat counts at full width (the JSON lines of the
 # tools themselves use their defaults; these keep step 23 short).
 TOOL_STEPS, TOOL_REPS = 3, 1
@@ -4439,15 +4452,29 @@ def sdpa_backend(q, k, v, scale: float) -> str:
                                               scale=scale)).name
 
 
-def check_wide(shape, skv: int, dtype, gen: torch.Generator,
-               timed: bool) -> dict:
-    """The wide kernel against fp32 plain attention on the same inputs,
+def wide_path(dtype, d: int, offset: int) -> str:
+    """The wide path ``fa.plan`` must pick: 'wide_sm90' for bf16/fp16 with
+    d % 8 == 0, d <= 512 and aligned tensors, the kept 'wide' for the rest."""
+    hopper = (dtype in fa.DTYPES16 and d % 8 == 0 and offset == 0
+              and d <= fa.MAX_WIDE_HEAD_DIM)
+    return fa.WIDE_SM90 if hopper else fa.WIDE
+
+
+def check_wide(shape, skv: int, dtype, gen: torch.Generator, timed: bool,
+               offset: int = 0) -> dict:
+    """The wide kernels against fp32 plain attention on the same inputs,
     by K1's rule (:func:`within_rule`; the twin in the 16-bit type, bf16
-    for fp32 inputs, which the kernel rounds to bf16 as it stages them),
-    head by head; exactly one 'wide' launch. Timed against the plain
-    version and SDPA with ``timed``."""
+    for fp32 inputs, which the kept kernel rounds to bf16 as it stages
+    them), head by head: exactly one launch on the path ``fa.plan`` picks,
+    which must be :func:`wide_path`'s; where that is 'wide_sm90', the kept
+    kernel forced on the same inputs, by the same rule. ``offset``: q starts
+    that many elements past an aligned base. Timed against the plain
+    version and SDPA with ``timed`` (both paths, interleaved, where the
+    Hopper one runs)."""
     b, h, sq, d = shape
-    q = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+    n = b * h * sq * d
+    q = torch.randn(n + offset, generator=gen, device='cuda',
+                    dtype=dtype)[offset:].view(shape)
     k, v = (torch.randn((b, h, skv, d), generator=gen, device='cuda',
                         dtype=dtype) for _ in range(2))
     scale = d**-0.5
@@ -4456,9 +4483,14 @@ def check_wide(shape, skv: int, dtype, gen: torch.Generator,
     torch.cuda.synchronize()
     launched = {p: n - before[p]
                 for p, n in fa.flash_attention.path_launches.items()}
+    want = wide_path(dtype, d, offset)
+    outs = {want: out}
+    if want == fa.WIDE_SM90:
+        outs[fa.WIDE] = fa.flash_attention(q, k, v, scale, path=fa.WIDE)
+        torch.cuda.synchronize()
     low = BF16 if dtype == FP32 else dtype
-    err = plain_err = max_ref = 0.0
-    ok, flipped = True, 0
+    err = dict.fromkeys(outs, 0.0)
+    plain_err = max_ref = 0.0
     for bb in range(b):
         for hh in range(h):
             sl = (slice(bb, bb + 1), slice(hh, hh + 1))
@@ -4466,36 +4498,60 @@ def check_wide(shape, skv: int, dtype, gen: torch.Generator,
                                      v[sl].float(), scale)
             plain = fa.plain_attention(q[sl].to(low), k[sl].to(low),
                                        v[sl].to(low), scale)
-            err = max(err, (out[sl].float() - ref).abs().max().item())
+            for p, o in outs.items():
+                err[p] = max(err[p], (o[sl].float() - ref).abs().max().item())
             plain_err = max(plain_err,
                             (plain.float() - ref).abs().max().item())
             max_ref = max(max_ref, ref.abs().max().item())
             del plain
     tol = 2.0 * plain_err + 1e-3 * max_ref
+    ok, flipped = dict.fromkeys(outs, True), dict.fromkeys(outs, 0)
     for bb in range(b):
         for hh in range(h):
             sl = (slice(bb, bb + 1), slice(hh, hh + 1))
             ref = fa.plain_attention(q[sl].float(), k[sl].float(),
                                      v[sl].float(), scale)
-            o, f = within_rule(out[sl], ref, tol)
-            ok, flipped = ok and o, flipped + f
+            for p, o in outs.items():
+                good, f = within_rule(o[sl], ref, tol)
+                ok[p], flipped[p] = ok[p] and good, flipped[p] + f
     how = fa.plan(q, k, v, out)
     res = dict(shape=list(shape), skv=skv, dtype=str(dtype).split('.')[-1],
-               path=how.path, max_abs_err=err, plain_max_abs_err=plain_err,
-               max_abs_ref=max_ref, tol=tol, flipped=flipped,
+               offset=offset, path=how.path, parts=how.parts,
+               max_abs_err=err[want], plain_max_abs_err=plain_err,
+               max_abs_ref=max_ref, tol=tol, flipped=flipped[want],
                finite=bool(torch.isfinite(out).all()),
-               ok=bool(ok and how.path == fa.WIDE and launched == dict(
-                   dict.fromkeys(launched, 0), wide=1)))
+               ok=bool(all(ok.values()) and how.path == want and
+                       launched == dict(dict.fromkeys(launched, 0),
+                                        **{want: 1})))
+    if want == fa.WIDE_SM90:
+        res.update(kept_max_abs_err=err[fa.WIDE],
+                   kept_flipped=flipped[fa.WIDE])
     if timed:
-        res['ms'] = time_ms(lambda: fa.flash_attention(q, k, v, scale))
+        # Kernels and SDPA replayed from a CUDA graph: a call at d = 200 is
+        # shorter than its host-side launch.
+        call = lambda path=None: fa.flash_attention(q, k, v, scale,
+                                                    path=path)
+        if want == fa.WIDE_SM90:
+            res['ms'], res['kept_ms'] = time_pair(call,
+                                                  lambda: call(fa.WIDE))
+        else:
+            res['ms'] = time_ms(call, graph=True)
         res['plain_ms'] = time_ms(
             lambda: fa.plain_attention(q, k, v, scale), iters=5)
         res['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
+            q, k, v, scale=scale), graph=True)
         res['library_backend'] = sdpa_backend(q, k, v, scale)
         res['bound_ms'], res['bound_by'] = attention_bound(
             'k1', b, h, sq, skv, d, q.element_size())
     return res
+
+
+def kv_stream_gib(shape, skv: int, rows: int, elem: int = 2) -> float:
+    """GiB of K and V that blocks of ``rows`` q rows stream from L2 in one
+    call (each block reads all of its head's K/V once; a kv split halves
+    each block's share, not the sum)."""
+    b, h, sq, d = shape
+    return -(-sq // rows) * b * h * 2 * skv * d * elem / 2**30
 
 
 def _flags(res) -> list:
@@ -4588,7 +4644,7 @@ def run_sd_tools(runner, unet, vae, check: bool = True,
                                                reps=reps, decode_reps=reps),
         extra=lambda r: _sum([vae_launches(
             vae.config, [(1, 4, side, side)] * (2 * (1 + reps)), [])[0],
-            dict(k1=r['flash_calls'], k1_wide=r['flash_calls'])]),
+            dict(k1=r['flash_calls'], k1_wide_sm90=r['flash_calls'])]),
         check=check)]
     out += [run_tool(f'bench_batch batch {b}', lambda b=b: bench_batch.bench(
         unet, b, dev, steps=steps, reps=reps, side=side), [unet],
@@ -4764,7 +4820,8 @@ def main() -> int:
         return 0
 
     parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: fb.BUILD_PARTS,
-             gn.SOURCE: 1, fv.SOURCE: fv.BUILD_PARTS, fa.WIDE_SOURCE: 1}
+             gn.SOURCE: 1, fv.SOURCE: fv.BUILD_PARTS,
+             fa.WIDE_SOURCE: fa.WIDE_PARTS}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(parts)) as pool:
         build_secs = list(pool.map(fa.build, parts, parts.values()))
@@ -4802,14 +4859,30 @@ def main() -> int:
     # Step 23 (a): the wide kernel (K1/K2 at 128 < D <= 512).
     t0 = time.perf_counter()
     gen23 = torch.Generator('cuda').manual_seed(STEP23_SEED)
-    wide_res = [check_wide(shape, skv, dtype, gen23, timed)
-                for shape, skv, dtype, timed in WIDE_SHAPES]
+    wide_res = [check_wide(shape, skv, dtype, gen23, timed, offset)
+                for shape, skv, dtype, timed, offset in WIDE_SHAPES]
     for r in wide_res:
         print('wide', json.dumps(r), flush=True)
+    for r in wide_res:
+        if 'ms' in r:
+            print(f'wide {tuple(r["shape"])} x {r["skv"]} {r["dtype"]} '
+                  f'{r["path"]} (parts {r["parts"]}): {r["ms"]:.4f} ms '
+                  f'(kept {r.get("kept_ms", r["ms"]):.4f}), bound '
+                  f'{r["bound_ms"]:.5f} ({r["bound_ms"] / r["ms"]:.1%}), '
+                  f'plain {r["plain_ms"]:.4f}, SDPA {r["library_ms"]:.4f} '
+                  f'({r["library_backend"]})', flush=True)
+    # The K/V each path streams from L2, and the rate its time implies.
+    for r in wide_res:
+        if 'kept_ms' in r:
+            for rows, ms in ((fa.ROWS, r['ms']), (fa.WIDE_ROWS, r['kept_ms'])):
+                gib = kv_stream_gib(r['shape'], r['skv'], rows)
+                print(f'wide {tuple(r["shape"])}: {rows}-row blocks stream '
+                      f'{gib:.3f} GiB of K/V from L2 in {ms:.4f} ms, '
+                      f'{gib * 2**30 / ms / 1e9:.3f} TB/s', flush=True)
     bad = [r['shape'] for r in wide_res if not r['ok']]
     if bad:
-        raise AssertionError(f'the wide kernel disagrees with plain '
-                             f'attention (or left the wide path) at {bad}')
+        raise AssertionError(f'a wide kernel disagrees with plain attention '
+                             f'(or left its planned path) at {bad}')
     print(f'step 23 (a) wide kernel: {time.perf_counter() - t0:.1f} s',
           flush=True)
 
@@ -5056,27 +5129,36 @@ def main() -> int:
         name='flash_attention', route='cuda',
         source='flexdiffuse_tpu_torch/csrc/flash_attention.cu',
         replaces='flexdiffuse_tpu/ops/flash_attention.py:126',
-        launches=launches['k1'] - launches['k1_wide'],
+        launches=launches['k1'] - launches['k1_wide'] -
+        launches['k1_wide_sm90'],
         max_abs_err=max(r['max_abs_err'] for r in results),
         ms=main_res['ms'], plain_ms=main_res['plain_ms'],
         bound_ms=main_res['bound_ms'], bound_by=main_res['bound_by'],
         library_ms=main_res['library_ms'],
         **extra(main_res, [(r['shape'], r) for r in results], 'k1'))]
+    # The wide kernels, one source with two paths (as K1's): 'wide_sm90',
+    # which the main path's wide calls take, and the kept 'wide' (fp32,
+    # misaligned, D % 8 != 0, D > 512), with its time forced at WIDE_MAIN.
     wide_main = wide_res[0]
     kernels.append(dict(
         name='flash_attention_wide', route='cuda',
         source='flexdiffuse_tpu_torch/csrc/flash_wide.cu',
         replaces='flexdiffuse_tpu/ops/flash_attention.py:44 and :126',
-        launches=launches['k1_wide'],
-        max_abs_err=max(r['max_abs_err'] for r in wide_res),
-        ms=wide_main['ms'], plain_ms=wide_main['plain_ms'],
+        launches=launches['k1_wide'] + launches['k1_wide_sm90'],
+        path_launches={p: launches[f'k1_{p}'] for p in fa.WIDE_PATHS},
+        max_abs_err=max(max(r['max_abs_err'], r.get('kept_max_abs_err', 0))
+                        for r in wide_res),
+        ms=wide_main['ms'], kept_ms=wide_main['kept_ms'],
+        plain_ms=wide_main['plain_ms'],
         bound_ms=wide_main['bound_ms'], bound_by=wide_main['bound_by'],
         library_ms=wide_main['library_ms'],
         library_backend=wide_main['library_backend'],
         by_shape=[dict(shape=r['shape'], skv=r['skv'], dtype=r['dtype'],
-                       **{key: r[key] for key in (
-                           'ms', 'plain_ms', 'library_ms', 'library_backend',
-                           'bound_ms')}) for r in wide_res if 'ms' in r]))
+                       path=r['path'], parts=r['parts'], **{
+                           key: r[key] for key in (
+                               'ms', 'kept_ms', 'plain_ms', 'library_ms',
+                               'library_backend', 'bound_ms') if key in r})
+                  for r in wide_res if 'ms' in r]))
     for key, kname, src, line in (
             ('k3', 'flash_attention_lse', 'flash_attention.cu', 62),
             ('k4', 'flash_attention_dq', 'flash_backward.cu', 146),

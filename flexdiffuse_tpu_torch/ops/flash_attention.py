@@ -12,12 +12,17 @@ main-path call) and 'mma' (the first port's mma.sync kernel, kept for
 everything else). fp32 tensors take 'mma', which rounds them to bf16 as it
 stages them: the operand precision at which the TPU multiplies fp32 at its
 default precision, where the reference's Pallas kernel takes fp32 too.
-Head widths 129–512 take a third path, 'wide' (``csrc/flash_wide.cu``, an
-mma.sync kernel whose warps split the head's columns among them; any
-dtype, shape and alignment); it replaces the same Pallas function at those
-widths, where JAX runs ``_flash_tt_kernel`` (K1) or
-``_flash_stream_kernel`` (K2).
-It has no lse instantiation: JAX trains wide heads through XLA.
+Head widths above 128 take the two paths of ``csrc/flash_wide.cu``, which
+replace the same Pallas function at those widths, where JAX runs
+``_flash_tt_kernel`` (K1) or ``_flash_stream_kernel`` (K2): 'wide_sm90'
+(TMA, wgmma, two warpgroups that split the head's columns; bf16 or fp16,
+128 < D <= 512, D % 8 == 0, 16-byte aligned tensors; a kv split over a
+cluster of two blocks where the q tiles fill at most half the card) and
+'wide' (the first design's mma.sync kernel, kept
+for everything else: fp32, D % 8 != 0, misaligned tensors, and every
+D > 512, where each block owns a 512-column chunk of the output and sums S
+over all of D). Neither has an lse instantiation: JAX trains wide heads
+through XLA.
 
 Every kernel source in ``csrc/`` is compiled at first use with ``nvcc``
 into a shared library with plain C entry points and bound with ``ctypes``
@@ -39,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -57,7 +63,7 @@ BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 MAX_HEAD_DIM = 128        # K1/K3's kernels ('sm90', 'mma')
-MAX_WIDE_HEAD_DIM = 512   # the 'wide' kernel, above MAX_HEAD_DIM
+MAX_WIDE_HEAD_DIM = 512   # 'wide_sm90''s widest ('wide' takes any D > 128)
 # The kernels' dtype codes, and the 16-bit ones: all that the Hopper path
 # (and the T1–T6 variants, ops/flash_variants.py) take.
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -79,6 +85,32 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
+
+
+def plain_split_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, scale: float,
+                          parts: int = 2) -> torch.Tensor:
+    """'wide_sm90''s kv split and merge in plain PyTorch: the kv range cut
+    as the kernel cuts it (⌈tiles/parts⌉ tiles of WIDE_SM90_KV rows each),
+    each part's unnormalised output ``o_i = Σ 2^((s − m_i)·c)·v``, raw row
+    max ``m_i`` and sum ``l_i`` in fp32 (``c = scale·log2 e``), then the
+    merge ``o = Σ o_i·a_i / Σ l_i·a_i`` with ``a_i = 2^((m_i − m)·c)``,
+    ``m = max m_i``. Cast to q's dtype."""
+    c = scale * math.log2(math.e)
+    tiles = -(-k.shape[2] // WIDE_SM90_KV)
+    step = -(-tiles // parts) * WIDE_SM90_KV
+    states = []
+    for start in range(0, k.shape[2], step):
+        s = torch.matmul(q.float(), k[:, :, start:start + step].float()
+                         .transpose(-1, -2))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp2((s - m) * c)
+        states.append((torch.matmul(p, v[:, :, start:start + step].float()),
+                       m, p.sum(dim=-1, keepdim=True)))
+    m = torch.stack([m_i for _, m_i, _ in states]).amax(dim=0)
+    o = sum(o_i * torch.exp2((m_i - m) * c) for o_i, m_i, _ in states)
+    l = sum(l_i * torch.exp2((m_i - m) * c) for _, m_i, l_i in states)
+    return (o / l).to(q.dtype)
 
 
 def _nvcc() -> str:
@@ -178,11 +210,18 @@ ENTRIES = {'sm90': ('flash_attention_fwd_sm90',
                     'flash_attention_fwd_lse_sm90'),
            'mma': ('flash_attention_fwd', 'flash_attention_fwd_lse')}
 PATHS = tuple(ENTRIES)   # K1's and K3's paths, up to MAX_HEAD_DIM
-# The wide kernel, in its own source, takes the kept kernel's arguments.
-WIDE = 'wide'
-WIDE_SIGNATURES = {
-    'flash_attention_fwd_wide': SIGNATURES['flash_attention_fwd']}
-FWD_PATHS = PATHS + (WIDE,)   # flash_attention's paths
+# The wide kernels, in their own source, take the kept kernel's arguments
+# ('wide_sm90' its kv split in place of `vec`). The source is compiled in
+# WIDE_PARTS parts at once: the kept kernel in part 0, the Hopper kernel's
+# bf16 and fp16 widths in parts 1 and 2.
+WIDE, WIDE_SM90 = 'wide', 'wide_sm90'
+WIDE_PATHS = (WIDE_SM90, WIDE)
+WIDE_ENTRIES = {WIDE: 'flash_attention_fwd_wide',
+                WIDE_SM90: 'flash_attention_fwd_wide_sm90'}
+WIDE_SIGNATURES = dict.fromkeys(WIDE_ENTRIES.values(),
+                                SIGNATURES['flash_attention_fwd'])
+WIDE_PARTS = 3
+FWD_PATHS = PATHS + WIDE_PATHS   # flash_attention's paths
 ROWS = 64         # q rows per warpgroup (sm90) and per block (mma)
 MMA_KV_TILE = 64  # the kept kernel's K/V tile
 # The Hopper path's tiles, as csrc/flash_attention.cu's ``Tiling`` chooses
@@ -190,19 +229,31 @@ MMA_KV_TILE = 64  # the kept kernel's K/V tile
 # tile), keyed by head_pad <= 64; SM90_STAGES K/V tiles in the ring.
 SM90_TILES = {True: (3, 64), False: (2, 128)}
 SM90_STAGES = 3
-# The wide kernel's tiles (csrc/flash_wide.cu): WIDE_ROWS q rows per block
-# of 8 warps (2 row groups × 4 quarters of 128 head columns), kv tile
-# WIDE_KV_TILE, two K/V stages.
+# The kept wide kernel's tiles (csrc/flash_wide.cu): WIDE_ROWS q rows per
+# block of 8 warps (2 row groups × 4 quarters of 128 head columns), kv tile
+# WIDE_KV_TILE, two K/V stages; above MAX_WIDE_HEAD_DIM one block per
+# WIDE_CHUNK output columns.
 WIDE_ROWS = WIDE_KV_TILE = 32
+WIDE_CHUNK = 512
+# The Hopper wide kernel's: ROWS q rows per block (two consumer
+# warpgroups, each half of the head padded to a multiple of 128), kv tiles
+# of WIDE_SM90_KV rows, K and V in a ring of at least two of each. Where
+# the blocks fill at most half of the card's SMS, the kv range is split in
+# two (a cluster of two blocks on the same q rows).
+WIDE_SM90_KV = 32
+SMS = 132   # an H100 SXM's streaming multiprocessors
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs. ``path`` 'sm90', 'mma' or 'wide'; ``head_pad``
-    DP, the head dim rounded up to 16 in shared memory; ``block_q`` q rows
-    per block; ``block_kv`` kv rows per streamed tile; ``stages`` K/V tiles
-    in flight (1: the kept kernel stages one at a time); ``grid`` (q
-    tiles, B·H); ``threads`` per block."""
+    """How one call runs. ``path`` one of FWD_PATHS; ``head_pad`` DP, the
+    head dim rounded up to 16 in shared memory (to 128 on 'wide_sm90');
+    ``block_q`` q rows per block; ``block_kv`` kv rows per streamed tile;
+    ``stages`` K/V tiles in flight (1: the kept kernel stages one at a
+    time); ``grid`` (q tiles, B·H); ``threads`` per block; ``parts`` the
+    grid's third dimension: on 'wide_sm90' the parts of the kv range (a
+    cluster of that many blocks, merged before the store), on 'wide' the
+    512-column chunks of the output above D = 512."""
     path: str
     head_pad: int
     block_q: int
@@ -210,6 +261,7 @@ class Plan:
     stages: int
     grid: Tuple[int, int]
     threads: int
+    parts: int = 1
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
@@ -217,27 +269,39 @@ def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
     """The path and tiling of a call on ``q`` ``[B, H, Sq, D]`` and ``k``
     ``[B, H, Skv, D]`` (checked by :func:`check`), from the dtype, the
     shape and the alignment of ``q``, ``k`` and ``tensors`` (v, the output)
-    alone. Head widths above MAX_HEAD_DIM, up to MAX_WIDE_HEAD_DIM, take
-    'wide' (any dtype and alignment); wider raise. Up to MAX_HEAD_DIM the
-    Hopper path takes bf16 or fp16 and needs what TMA needs: D % 8 == 0
-    (16-byte rows) and 16-byte aligned pointers; everything else, fp32
-    included, takes the kept kernel. ``path`` forces one (a path raises
-    where it cannot go)."""
+    alone. Up to MAX_HEAD_DIM the Hopper path 'sm90' takes bf16 or fp16
+    and needs what TMA needs: D % 8 == 0 (16-byte rows) and 16-byte aligned
+    pointers; everything else, fp32 included, takes the kept kernel 'mma'.
+    Above, 'wide_sm90' takes the same up to MAX_WIDE_HEAD_DIM, and the kept
+    'wide' everything else (any dtype, alignment and width). ``path``
+    forces one (a path raises where it cannot go)."""
     if path not in (None, *FWD_PATHS):
         raise ValueError(f'flash_attention: path {path!r} not in '
                          f'{FWD_PATHS}')
     b, h, sq, d = q.shape
     head_pad = -(-d // 16) * 16
-    if d > MAX_HEAD_DIM or path == WIDE:
-        if not MAX_HEAD_DIM < d <= MAX_WIDE_HEAD_DIM or path not in (None,
-                                                                      WIDE):
-            raise ValueError(f'flash_attention: head dim {d} on path '
-                             f'{path!r}: the wide path takes '
-                             f'{MAX_HEAD_DIM} < D <= {MAX_WIDE_HEAD_DIM}, '
-                             f'the others D <= {MAX_HEAD_DIM}')
-        return Plan(WIDE, head_pad, WIDE_ROWS, WIDE_KV_TILE, 2,
-                    (-(-sq // WIDE_ROWS), b * h), 256)
     tma = q.dtype in DTYPES16 and bool(vec_ok(q, k, *tensors))
+    if d > MAX_HEAD_DIM or path in WIDE_PATHS:
+        if d <= MAX_HEAD_DIM or path not in (None, *WIDE_PATHS):
+            raise ValueError(f'flash_attention: head dim {d} on path '
+                             f'{path!r}: the wide paths take D > '
+                             f'{MAX_HEAD_DIM}, the others D <= '
+                             f'{MAX_HEAD_DIM}')
+        hopper = tma and d <= MAX_WIDE_HEAD_DIM
+        if path == WIDE_SM90 and not hopper:
+            raise ValueError('flash_attention: the wide_sm90 path takes bf16 '
+                             f'or fp16, {MAX_HEAD_DIM} < D <= '
+                             f'{MAX_WIDE_HEAD_DIM}, D % 8 == 0 and 16-byte '
+                             'aligned tensors')
+        if path == WIDE or not hopper:
+            return Plan(WIDE, head_pad, WIDE_ROWS, WIDE_KV_TILE, 2,
+                        (-(-sq // WIDE_ROWS), b * h), 256,
+                        -(-d // WIDE_CHUNK))
+        tiles = -(-sq // ROWS)
+        split = 2 if (2 * tiles * b * h <= SMS and
+                      k.shape[2] > WIDE_SM90_KV) else 1
+        return Plan(WIDE_SM90, -(-d // 128) * 128, ROWS, WIDE_SM90_KV, 2,
+                    (tiles, b * h), 256, split)
     if path == 'sm90' and not tma:
         raise ValueError('flash_attention: the sm90 path takes bf16 or fp16, '
                          'D % 8 == 0 and 16-byte aligned tensors')
@@ -290,25 +354,26 @@ def raise_on_error(rc: int, name: str, q: torch.Tensor,
 
 
 def launch_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                out: torch.Tensor, scale: float) -> None:
-    """Launch the wide kernel on the current stream; raises if the launch
-    is refused."""
-    lib = load(WIDE_SOURCE, WIDE_SIGNATURES)
-    entry = lib.flash_attention_fwd_wide
+                out: torch.Tensor, scale: float, how: Plan) -> None:
+    """Launch a wide kernel on the current stream as ``how`` says; raises
+    if the launch is refused."""
+    lib = load(WIDE_SOURCE, WIDE_SIGNATURES, parts=WIDE_PARTS)
+    entry = getattr(lib, WIDE_ENTRIES[how.path])
+    last = how.parts if how.path == WIDE_SM90 else vec_ok(q, k, v, out)
     b, h, sq, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b * h, sq, k.shape[2], d, float(scale), DTYPES[q.dtype],
-                   vec_ok(q, k, v, out), stream)
+                   last, stream)
     raise_on_error(rc, entry.__name__, q, k)
 
 
 def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          max_head_dim: int = MAX_HEAD_DIM) -> None:
+          max_head_dim: Optional[int] = MAX_HEAD_DIM) -> None:
     """Raises on what the kernels do not take: K1/K3's up to
-    ``max_head_dim`` = MAX_HEAD_DIM; :func:`flash_attention` passes
-    MAX_WIDE_HEAD_DIM."""
+    ``max_head_dim`` = MAX_HEAD_DIM; :func:`flash_attention` passes None
+    (any width: the wide kernels take every D > MAX_HEAD_DIM)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError('flash_attention: q, k and v must all be CUDA '
                          'tensors (or all CPU tensors)')
@@ -325,7 +390,7 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f'flash_attention: q {tuple(q.shape)} and k '
                          f'{tuple(k.shape)} disagree on B, H or D')
-    if not 1 <= d <= max_head_dim:
+    if d < 1 or (max_head_dim is not None and d > max_head_dim):
         raise ValueError(f'flash_attention: head dim {d} not in '
                          f'[1, {max_head_dim}]')
     if sq < 1 or k.shape[2] < 1 or not 1 <= b * h <= 65535:
@@ -340,18 +405,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``[B, H, Sq, D] × [B, H, Skv, D] → [B, H, Sq, D]`` through the Hopper
     kernel, launched on the current stream on the path :func:`plan` picks
     (``path``: forced, as :func:`plan` takes it, for comparisons); head
-    widths 129–512 on the wide kernel. CPU tensors take
+    widths above 128 on the wide kernels. CPU tensors take
     :func:`plain_attention`; CUDA tensors the kernels do not take raise.
     ``flash_attention.launches`` counts kernel launches,
     ``flash_attention.path_launches`` them by path."""
     if q.device.type == 'cpu' and k.device.type == 'cpu' \
             and v.device.type == 'cpu':
         return plain_attention(q, k, v, scale)
-    check(q, k, v, MAX_WIDE_HEAD_DIM)
+    check(q, k, v, None)
     out = torch.empty_like(q)
     how = plan(q, k, v, out, path=path)
-    if how.path == WIDE:
-        launch_wide(q, k, v, out, scale)
+    if how.path in WIDE_PATHS:
+        launch_wide(q, k, v, out, scale, how)
     else:
         launch(q, k, v, out, None, scale, how)
     count_launch(flash_attention, how.path)

@@ -4,8 +4,8 @@ Port of ``tools/bench_vae.py``. The SD VAE decoder's mid-block attention is
 one 512-wide head over 4096 tokens (``models/vae.py``). The dispatcher
 keeps heads wider than 128 off the flash kernels, as JAX's does, so the
 decode runs it through the plain attention under either backend; a direct
-call of ``flash_attention`` takes the 'wide' kernel
-(``csrc/flash_wide.cu``), the counterpart of JAX's streaming kernel K2 at
+call of ``flash_attention`` takes the Hopper wide kernel ('wide_sm90',
+``csrc/flash_wide.cu``), the counterpart of JAX's streaming kernel K2 at
 this shape. Measured: the raw ``(1,1,4096,512)`` bf16 op, 20 chained calls
 through the wide kernel and through ``plain_attention`` (JAX's
 ``xla_attention``), the kernel's max error against fp32 attention, and the
