@@ -21,7 +21,8 @@ Kernels and inference (the first and third slices):
    parts), ``csrc/group_norm.cu`` (K6) and
    ``csrc/flash_variants.cu`` (T1–T6, ``flash_variants.BUILD_PARTS``
    parts), the parts of a source all started together, then linked; prints
-   the seconds of each and of the step.
+   the seconds of each and of the step. (``csrc/flash_variants_sm90.cu``,
+   T2 and T3's Hopper path, and ``csrc/flash_wide.cu`` build beside them.)
 3. Holds K1 against the fp32 plain attention on the same bf16 inputs at
    eight shapes (the last two the serving path's UNet batch 16, drawn from
    a generator of their own), each on the Hopper path (``fa.plan``: TMA,
@@ -150,11 +151,17 @@ The flash-kernel experiment tools (the fourth slice):
     (``csrc/flash_variants.cu``: T1 v0/vU/vG2/vG4, T2, T3, T4, T5
     ttv3/ttv4/no-fold, T6 v0/v1/v2) against its twin by step 3's rule at
     every shape the tools give it: the two main shapes, and (8,8,4096,40)
-    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). At the main
-    shapes prints each one's, its twin's, ``scaled_dot_product_attention``'s
-    (contiguous ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the
-    transposed views, which takes its slow path) and K1's times from this
-    run, and the bound.
+    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). T2 and T3 run on
+    both of their paths (T_PATHS): the Hopper one their plan picks
+    ('sm90', ``csrc/flash_variants_sm90.cu``; T2's twin there is the kv
+    split's, ``plain_split_exp``, where the plan splits) and the first
+    port's forced ('mma'), each call one launch on its path; on 'sm90' also
+    at (1,2,1024,d) for every d of the domain (T_WIDTH_SHAPES). At the main
+    shapes prints each one's (T2/T3 each path's, interleaved old, new, new,
+    old), its twin's, ``scaled_dot_product_attention``'s (contiguous
+    ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the transposed
+    views, which takes its slow path) and K1's times from this run, all
+    kernels replayed from CUDA graphs, and the bound.
 15. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
     would: ``flash_variants``, ``flash_opt``, ``flash_pipelined`` (with its
     UNet A/B, K1 against T3), ``flash_tt`` (exactness at four shapes, K1
@@ -162,7 +169,8 @@ The flash-kernel experiment tools (the fourth slice):
     against ttv3 and ttv4). Asserts finite exactness errors (the scripts
     print OK or FAIL by their own 0.04; step 14 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
-    launches of the kernel in use, none of the other, and 61 of K6.
+    launches of the kernel in use (T3's all on 'sm90'), none of the other,
+    and 61 of K6.
 16. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
     kernel's time, the host µs per call, the times by shape, step 17's
     shapes included, and fp32's), then, only if every phase passed,
@@ -468,6 +476,7 @@ from flexdiffuse_tpu_torch.weights import load as weights_load
 from flexdiffuse_tpu_torch.weights import lora as weights_lora
 from flexdiffuse_tpu_torch.weights import safetensors as weights_safetensors
 
+T_START = time.perf_counter()   # the whole run's seconds are printed
 SEED = 1337
 PROMPT = 'Deer colorful, fantasy, intricate, highly detailed'
 KERNEL_SHAPES = [(2, 8, 4096, 40), (4, 8, 4096, 40), (2, 8, 1024, 80),
@@ -1587,7 +1596,8 @@ K6_AB = dict(k6=K6_PER_UNET, k6_resident=K6_PER_UNET)
 AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k1_sm90=LAUNCHES_PER_UNET,
                           **K6_AB),
                'pipelined_attention': dict(
-                   pipelined_attention=LAUNCHES_PER_UNET, **K6_AB),
+                   pipelined_attention=LAUNCHES_PER_UNET,
+                   pipelined_attention_sm90=LAUNCHES_PER_UNET, **K6_AB),
                'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET, **K6_AB),
                'flash_ttv3': dict(flash_ttv3=LAUNCHES_PER_UNET, **K6_AB)}
 # Shapes beyond MAIN_SHAPES that the tools give a configuration:
@@ -1595,15 +1605,73 @@ AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k1_sm90=LAUNCHES_PER_UNET,
 T_EXTRA_SHAPES = [((8, 8, 4096, 40), ('T4', 'T5 ttv3', 'T5 ttv4',
                                        'T5 no-fold')),
                   ((2, 8, 1536, 40), ('T4',))]
+# The configurations with two paths: (wrapper, plan); and the shapes that
+# hold their Hopper path at every head width of the domain.
+T_PATHS = {'T2': (fv.attn_h, fv.plan_attn_h),
+           'T3': (fv.pipelined_attention, fv.plan_pipelined)}
+T_WIDTH_SHAPES = [(1, 2, 1024, d) for d in range(8, fv.MAX_HEAD_DIM + 1, 8)]
 
 
-def check_variants(shape, gen: torch.Generator, labels=None) -> dict:
+def _one_launch(fn, path: str, call) -> torch.Tensor:
+    """``call()``'s output, asserting that it launched ``fn``'s kernel
+    exactly once, on ``path``."""
+    before = dict(fn.path_launches)
+    out = call()
+    torch.cuda.synchronize()
+    want = dict(before, **{path: before[path] + 1})
+    if fn.path_launches != want:
+        raise AssertionError(f'{fn.__name__}: launches by path '
+                             f'{fn.path_launches}, expected {want}')
+    return out
+
+
+def check_paths(label: str, q, k, v, scale: float, ref, timed: bool,
+                kept: bool = True) -> dict:
+    """T2 or T3 (``label``) on its planned path and, with ``kept``, on the
+    first port's kernel forced, each by step 3's rule against its twin on
+    that path, each one launch on its path; with ``timed`` both paths'
+    times, interleaved (``time_pair``)."""
+    fn, plan = T_PATHS[label]
+    how = plan(q, k)
+    twin = (fv.plain_split_exp(q, k, v, scale, how.parts) if how.parts > 1
+            else fv.plain_exp(q, k, v, scale))
+    out = _one_launch(fn, how.path, lambda: fn(q, k, v, scale))
+    r = dict(_errs(out, ref, twin), path=how.path, parts=how.parts,
+             consumers=how.threads // 128 - 1)
+    r['ok'] = r['ok'] and how.path == fv.SM90
+    if kept:
+        out = _one_launch(fn, fv.MMA,
+                          lambda: fn(q, k, v, scale, path=fv.MMA))
+        r['kept'] = _errs(out, ref, fv.plain_exp(q, k, v, scale))
+        r['ok'] = r['ok'] and r['kept']['ok']
+    if timed:
+        r['ms'], r['kept_ms'] = time_pair(
+            lambda: fn(q, k, v, scale),
+            lambda: fn(q, k, v, scale, path=fv.MMA))
+        if fn is fv.attn_h and how.head_pad <= fv.HEADS_SPLIT_MAX_DP:
+            # T2's kv split in every part count the kernel takes here (the
+            # plan picks one), launched as the plan would be.
+            out = torch.empty_like(q)
+            tiles = k.shape[2] // fv.TILE
+            r['parts_ms'] = {
+                parts: time_ms(lambda p=parts: fv.launch(
+                    fn, q, k, v, out, scale,
+                    dataclasses.replace(how, parts=p)), graph=True)
+                for parts in (1, 2, 4)
+                if (parts - 1) * -(-tiles // parts) < tiles}
+    return r
+
+
+def check_variants(shape, gen: torch.Generator, labels=None,
+                   kept: bool = True) -> dict:
     """The T configurations in ``labels`` (all when None) against the fp32
-    reference by K1's rule, each twin supplying the plain error. With all
-    of them (the main shapes) also the times of each kernel and its twin,
-    of K1 and of ``scaled_dot_product_attention`` on contiguous
+    reference by K1's rule, each twin supplying the plain error; T2 and T3
+    on both paths (:func:`check_paths`; only on 'sm90' without ``kept``).
+    With all of them (the main shapes) also the times of each kernel and
+    its twin, of K1 and of ``scaled_dot_product_attention`` on contiguous
     ``[B,H,S,D]`` (``library_ms``) and on the transposed views of T4/T5's
-    ``[B,H,D,S]`` operands (``library_views_ms``), with the bound."""
+    ``[B,H,D,S]`` operands (``library_views_ms``), every kernel replayed
+    from a CUDA graph, with the bound."""
     b, h, s, d = shape
     q, k, v = (torch.randn(shape, generator=gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(3))
@@ -1614,27 +1682,42 @@ def check_variants(shape, gen: torch.Generator, labels=None) -> dict:
     res = dict(shape=list(shape), configs={})
     if timed:
         res.update(
-            k1_ms=time_ms(lambda: fa.flash_attention(q, k, v, scale)),
+            k1_ms=time_ms(lambda: fa.flash_attention(q, k, v, scale),
+                          graph=True),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=scale)),
+                q, k, v, scale=scale), graph=True),
             library_views_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                *(x.transpose(-1, -2) for x in (tq, tk, tv)), scale=scale)))
+                *(x.transpose(-1, -2) for x in (tq, tk, tv)), scale=scale),
+                graph=True))
         res['bound_ms'], res['bound_by'] = attention_bound('k1', b, h, s, s,
                                                            d)
     for label in labels or fv.CONFIGS:
         kernel, twin, bhds = fv.CONFIGS[label]
         args = (tq, tk, tv) if bhds else (q, k, v)
         back = (lambda x: x.transpose(-1, -2)) if bhds else (lambda x: x)
-        out = kernel(*args, scale)
-        torch.cuda.synchronize()
-        r = _errs(back(out), ref, back(twin(*args, scale)))
+        if label in T_PATHS:
+            r = check_paths(label, q, k, v, scale, ref, timed, kept)
+        else:
+            out = kernel(*args, scale)
+            torch.cuda.synchronize()
+            r = _errs(back(out), ref, back(twin(*args, scale)))
         line = (f'{label:10s} {tuple(shape)}: max|Δ| {r["max_abs_err"]:.3e} '
                 f'(twin {r["plain_max_abs_err"]:.3e}, limit {r["tol"]:.3e}, '
                 f'{r["flipped"]} rounding flips)')
+        if 'path' in r:
+            line += f' on {r["path"]} (parts {r["parts"]})'
+        if 'kept' in r:
+            line += (f'; kept mma max|Δ| {r["kept"]["max_abs_err"]:.3e} '
+                     f'(limit {r["kept"]["tol"]:.3e}, '
+                     f'{r["kept"]["flipped"]} flips)')
         if timed:
-            r['ms'] = time_ms(lambda: kernel(*args, scale))
+            if 'ms' not in r:
+                r['ms'] = time_ms(lambda: kernel(*args, scale), graph=True)
             r['plain_ms'] = time_ms(lambda: twin(*args, scale))
-            line += (f' {r["ms"]:.4f} ms, twin {r["plain_ms"]:.3f}, K1 '
+            line += (f' {r["ms"]:.4f} ms'
+                     + (f' (kept {r["kept_ms"]:.4f})' if 'kept_ms' in r
+                        else '') +
+                     f', twin {r["plain_ms"]:.3f}, K1 '
                      f'{res["k1_ms"]:.4f}, SDPA {res["library_ms"]:.4f}'
                      + (f' (on the views {res["library_views_ms"]:.4f})'
                         if bhds else '') +
@@ -1669,6 +1752,7 @@ def run_tools(gen: torch.Generator) -> dict:
     res['launches'] = {name: sum(fn.launches[key] for fn, key in parts)
                        for name, _, _, parts in T_ENTRIES}
     res['launches'].update(counts())
+    res['path_launches'] = fv.path_counts()
     errs = ([r['max_abs_err'] for r in res['flash_variants']] +
             [r['max_abs_err'] for r in res['flash_opt']] +
             [res['flash_pipelined']['max_abs_err']] +
@@ -4688,15 +4772,18 @@ def run_sd_tools(runner, unet, vae, check: bool = True,
     # Deep copies carry no hooks of this run: the launches are counted from
     # the evaluations the chain makes. Its fp32-weight variants run under
     # autocast, where K6's output dtype (and so its path) follows the
-    # weights: K1 and K6 are held in total.
+    # weights: K1 and K6 are held in total. The three variants' chains, the
+    # fp32 rerun and first_difference's two evaluations launch both; the
+    # two chains on the plain GroupNorm K1 only.
     pd_steps = 4
+    gn_evals = 3 * (1 + reps) * pd_steps + pd_steps + 2
+    pd_want = _evals(gn_evals + 2 * pd_steps, side=side, config=unet.config)
+    pd_want['k6'] = _evals(gn_evals, side=side, config=unet.config)['k6']
     out.append(run_tool(
         'param_dtype_exp', lambda: param_dtype_exp.measure(
             copy.deepcopy(unet).float(), steps=pd_steps, side=side,
             reps=reps),
-        extra=_evals(3 * (1 + reps) * pd_steps, side=side,
-                     config=unet.config), keys=('k1', 'k6'),
-        check=check))
+        extra=pd_want, keys=('k1', 'k6'), check=check))
     out.append(run_tool('bench_tokenizer', bench_tokenizer.measure,
                         check=check))
     return out
@@ -4821,7 +4908,8 @@ def main() -> int:
 
     parts = {fa.SOURCE: fa.BUILD_PARTS, fb.SOURCE: fb.BUILD_PARTS,
              gn.SOURCE: 1, fv.SOURCE: fv.BUILD_PARTS,
-             fa.WIDE_SOURCE: fa.WIDE_PARTS}
+             fa.WIDE_SOURCE: fa.WIDE_PARTS,
+             fv.SM90_SOURCE: fv.SM90_BUILD_PARTS}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(parts)) as pool:
         build_secs = list(pool.map(fa.build, parts, parts.values()))
@@ -5104,10 +5192,23 @@ def main() -> int:
     var_res = [check_variants(s, gen) for s in MAIN_SHAPES]
     var_res += [check_variants(s, gen, labels)
                 for s, labels in T_EXTRA_SHAPES]
+    var_res += [check_variants(s, gen, tuple(T_PATHS), kept=False)
+                for s in T_WIDTH_SHAPES]
     bad = [(r['shape'], label) for r in var_res
            for label, c in r['configs'].items() if not c['ok']]
     if bad:
-        raise AssertionError(f'T1–T6 disagree with their twins at {bad}')
+        raise AssertionError(f'T1–T6 disagree with their twins (or T2/T3 '
+                             f'left their planned path) at {bad}')
+    for label in T_PATHS:
+        for r in var_res[:len(MAIN_SHAPES)]:
+            c = r['configs'][label]
+            print(f'{label} {tuple(r["shape"])}: sm90 {c["ms"]:.4f} ms '
+                  f'({c["consumers"]} consumers, parts {c["parts"]}), kept '
+                  f'mma {c["kept_ms"]:.4f}, K1 {r["k1_ms"]:.4f}, SDPA '
+                  f'{r["library_ms"]:.4f}, bound {r["bound_ms"]:.5f} '
+                  f'({r["bound_ms"] / c["ms"]:.1%})'
+                  + (f'; by kv parts {json.dumps(c["parts_ms"])}'
+                     if 'parts_ms' in c else ''), flush=True)
     print(f'T1-T6 check: {time.perf_counter() - t0:.1f} s')
     tools = run_tools(gen)
 
@@ -5195,20 +5296,41 @@ def main() -> int:
     var_main = var_res[0]
     for entry, replaces, label, _ in T_ENTRIES:
         c = var_main['configs'][label]
+        # T2 and T3: the Hopper path's source, time and launches by path,
+        # beside the kept kernel's, at both main shapes.
+        paths = {}
+        if label in T_PATHS:
+            fn = T_PATHS[label][0]
+            paths = dict(
+                kept_source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
+                kept_ms=c['kept_ms'],
+                path_launches={p: tools['path_launches'][
+                    f'{fn.__name__}_{p}'] for p in fv.PATHS},
+                by_shape=[dict(shape=r['shape'], **{
+                    key: r['configs'][label][key] for key in (
+                        'ms', 'kept_ms', 'plain_ms', 'parts')},
+                    k1_ms=r['k1_ms'], library_ms=r['library_ms'],
+                    bound_ms=r['bound_ms'])
+                    for r in var_res[:len(MAIN_SHAPES)]])
         kernels.append(dict(
             name=entry, route='cuda',
-            source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
+            source='flexdiffuse_tpu_torch/csrc/' + (
+                'flash_variants_sm90.cu' if label in T_PATHS
+                else 'flash_variants.cu'),
             replaces=replaces, launches=tools['launches'][entry],
-            max_abs_err=max(r['configs'][label]['max_abs_err']
+            max_abs_err=max(max(r['configs'][label]['max_abs_err'],
+                                r['configs'][label].get('kept', {}).get(
+                                    'max_abs_err', 0.0))
                             for r in var_res if label in r['configs']),
             ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=var_main['bound_ms'],
             bound_by=var_main['bound_by'],
             library_ms=var_main['library_ms'],
             **({'library_views_ms': var_main['library_views_ms']}
-               if fv.CONFIGS[label][2] else {})))
+               if fv.CONFIGS[label][2] else {}), **paths))
     print(f'LoRA check max|Δg|/max|g| {lora_rel:.3e}; train_lora '
           f'{lora["median_step_ms"]:.1f} ms/step, train_full '
           f'{full["median_step_ms"]:.1f} ms/step')
+    print(f'chip_smoke: {time.perf_counter() - T_START:.1f} s in all')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_name,

@@ -1,0 +1,1127 @@
+// Attention variants T2 and T3 redesigned for Hopper (sm_90a): the second
+// path of ops/flash_variants.py::attn_h and ::pipelined_attention, beside
+// their first ports in flash_variants.cu (kept, and taken only when the
+// caller forces path='mma').
+//
+// Replaces the Pallas kernels of the JAX package's flash-kernel tools:
+//   T2 tools/flash_opt.py::make_kernel_h (:120)  every head of a q tile in
+//      one instance
+//   T3 tools/flash_pipelined.py::_pipelined_kernel (:22)  QKᵀ of kv tile j+1
+//      issued before the softmax of tile j
+// Both compute what their plain twin (ops/flash_variants.py::plain_exp) does:
+// q̃ = round16(q · round16(scale)) in q's dtype, s = q̃·kᵀ in fp32,
+// p = exp(s − m) with the running row max m, l = Σ p in fp32, P rounded to
+// the 16-bit type for P·V, and the output O/l. The exponential runs as one
+// FFMA by log2 e into ex2.approx (sm90.cuh). Domain: contiguous, 16-byte
+// aligned bf16/fp16 [B, H, S, D], Sq and Skv multiples of 64, d a multiple
+// of 8 up to 128; anything else returns cudaErrorInvalidValue.
+//
+// What bounds them on this card: as K1 (flash_attention.cu), one ex2 per
+// score on the 16-lane MUFU unit at SD's d = 40 (0.064 ms at
+// (2,8,4096,40)), above the tensor cores (0.043 ms) and the bytes; in
+// practice each consumer warpgroup's dependent chain per kv tile. Each
+// variant is a different answer to that chain.
+//
+// Shared by both (K1's building blocks, sm90.cuh): TMA loads of Q, K and V
+// through 3-D tensor maps [B·H, S, D] into tiles of 64 rows, stored with the
+// 128-byte swizzle at DP <= 64 and the 32-byte one above (DP = d rounded up
+// to 16); wgmma m64n64k16 for S = q̃·K_jᵀ (both K-major in shared memory)
+// and m64n{DP}k16 for O += P·V_j (P from registers, V MN-major); one
+// producer warpgroup whose thread(s) issue every TMA load and give their
+// registers to the consumers (setmaxnreg); consumer warpgroups of 64 q rows
+// that take turns to issue their wgmma (ping-pong, sm90::Turns). q̃ is made
+// where TMA put Q: each consumer scales its Q tile in place once per (q
+// tile, head), in the swizzled layout (the scaling is elementwise; the
+// zero-filled columns stay zero), then fence.proxy.async orders those
+// writes before the wgmma that read it. O·(1/l) is stored from registers.
+//
+// T3, score-ahead (pipelined_sm90_kernel): one block per (b·h, 128 q rows)
+// with two consumers that share one ring of 4 K/V stages. Per kv tile j
+// each consumer, in its turn, issues P_{j-1}·V_{j-1} and S_{j+1} =
+// q̃·K_{j+1}ᵀ into its second score set, then runs the softmax of S_j (in
+// the first set, complete since the last tile) while both products are on
+// the tensor cores, waits for them, rescales O and converts S_j to P_j. So
+// the score latency never sits on the chain (K1 issues S_j with
+// P_{j-1}·V_{j-1} and waits for S_j before its softmax). The two sets swap
+// roles each tile (the loop is unrolled by two). A stage is freed once
+// P_j·V_j is done, one tile after S_{j+2} needed the next one, hence 4
+// stages. What ptxas needs to keep the wgmma asynchronous: no register an
+// unfinished wgmma owns is written (the softmax writes only the completed
+// set; O and P change only after the wait) and no wgmma is issued under a
+// branch of its own (a conditional issue made it serialise them all,
+// C7514); and registers: with three consumers a thread gets 128, and two
+// score sets of 32 on top of O spilled, serialised the wgmma (C7512) and
+// ran slower, so there are two. At DP = 128 two still spill 40 bytes
+// (C7512).
+//
+// T2, heads in one instance (heads_sm90_kernel): one instance per (b,
+// 64-row q tile) owns every head of that q tile, as the TPU kernel does.
+// The parallelism inside it comes from the heads: C consumer warpgroups (3
+// up to DP = 64, 2 above) each run a different head's kv loop (heads c,
+// c + C, ...) with their own q̃, m, l and O in registers, in K1's schedule
+// (S_j issued with P_{j-1}·V_{j-1}, the softmax of S_j beside that
+// product). Each consumer has its own ring of 3 K/V stages and one or two
+// Q tiles, fed by its own producer warp, which runs straight across head
+// boundaries: the next head's Q and first tiles load while this head
+// finishes, so a head switch drains nothing. Consumers with fewer heads (H
+// not a multiple of C) take their remaining turns without issuing, so the
+// ping-pong's barriers stay balanced. What this costs against K1: K1's
+// consumers share each K/V tile, T2's each stream their own head's, three
+// times the tiles per block; the stamps (tools/variant_stamps.py) put a
+// consumer's time at d = 40 largely in waiting for its tile or for a turn
+// held by a consumer that waits for its tile.
+// Where the instances fill at most half of the card (B·Sq/64 <= 66), the
+// wrapper splits each instance's kv range over a cluster of `parts` CTAs
+// (2; the kernel also takes 4; ops/flash_variants.py::plan_attn_h; DP <=
+// 96, where the merge buffers fit beside the rings): the cluster is then
+// the instance. After each head, ranks 1.. leave their unnormalised O,
+// their row max m and quad-partial row sum l in their own shared memory
+// and, once their warpgroup has written it, arrive on rank 0's barrier
+// (one arrival each: 128 remote arrivals on one barrier serialise); rank 0
+// reads them through distributed shared memory, merges in rank order,
+// o = Σ o_r·e^(m_r − m), l likewise with m = max m_r, frees their buffers
+// (a remote arrive) and stores the head. ops/flash_variants.py::
+// plain_split_exp is the split's twin.
+
+#include <type_traits>
+#include <utility>
+
+#include "flash_common.cuh"
+#include "sm90.cuh"
+
+// The build: ops/flash_attention.build compiles this file BUILD_PARTS times
+// at once (-DBUILD_PART=p) and links the objects. The (kernel, dtype, width)
+// units are spread over the parts; part 0 also holds the launcher table and
+// the entry points. A compile without these macros holds everything.
+#ifndef BUILD_PARTS
+#define BUILD_PARTS 1
+#define BUILD_PART 0
+#endif
+
+namespace {
+
+constexpr int kRows = 64;      // q rows per consumer warpgroup (one wgmma M)
+constexpr int kKv = 64;        // kv rows per tile (one wgmma N of S)
+constexpr int kMaxWidths = 8;  // DP = 16, 32, ..., 128
+constexpr int kSmemLimit = 232448;   // bytes of shared memory a block may use
+
+// The swizzle span of a head width's tiles: 128 bytes (one slab of 64
+// columns) up to DP = 64, 32 bytes (slabs of 16 columns, none past DP)
+// above, as K1's.
+template <int DP>
+constexpr int kPitchOf = DP <= 64 ? 128 : 32;
+
+using sm90::Geometry;
+using sm90::Regs;
+using sm90::Turns;
+
+// T3's tiles (ops/flash_variants.py::PIPELINED_TILES says the same).
+template <int DP>
+struct PipelinedTiling {
+  static constexpr int kConsumers = 2;
+  static constexpr int kStages = 4;
+  using G = Geometry<kPitchOf<DP>, DP>;
+  static constexpr int kQ = G::bytes(kRows);
+  static constexpr int kTile = G::bytes(kKv);
+  static constexpr int kK = kConsumers * kQ;        // the K stages
+  static constexpr int kV = kK + kStages * kTile;   // the V stages
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kBytes <= kSmemLimit, "T3 shared memory");
+};
+
+// T2's tiles (ops/flash_variants.py::HEADS_TILES): per consumer a ring
+// of kStages K/V stages and kQBufs Q tiles (two where they fit), and where
+// the kv split is allowed (kSplit, up to DP = 96) a merge buffer of 128
+// threads x (DP / 8 + 1) float4s. A fourth stage, where it fits, left the
+// time unchanged: what holds a consumer's tile back is not the ring's depth
+// (PERF.md §6).
+template <int DP>
+struct HeadsTiling {
+  static constexpr int kConsumers = DP <= 64 ? 3 : 2;
+  static constexpr int kStages = 3;
+  static constexpr bool kSplit = DP <= 96;
+  using G = Geometry<kPitchOf<DP>, DP>;
+  static constexpr int kQ = G::bytes(kRows);
+  static constexpr int kTile = G::bytes(kKv);
+  static constexpr int kMergeF4 = DP / 8 + 1;   // o in float4s, then m, l
+  static constexpr int kPart = kSplit ? 128 * kMergeF4 * 16 : 0;
+  // Per consumer: the ring, its full and empty barriers, the merge buffer,
+  // part_full and part_free; then per Q tile its bytes, q_full and q_empty.
+  static constexpr int kFixed =
+      kConsumers * (2 * kStages * kTile + kPart + (2 * kStages + 2) * 8) +
+      1024;
+  static constexpr int kQBufs =
+      kFixed + kConsumers * 2 * (kQ + 16) <= kSmemLimit ? 2 : 1;
+  static constexpr int kBytes = kFixed + kConsumers * kQBufs * (kQ + 16);
+  static_assert(kBytes <= kSmemLimit, "T2 shared memory");
+  // Byte offsets of consumer c's pieces from the 1024-aligned base.
+  __host__ __device__ static constexpr int q_tile(int c, int b) {
+    return (c * kQBufs + b) * kQ;
+  }
+  __host__ __device__ static constexpr int k_tile(int c, int s) {
+    return kConsumers * kQBufs * kQ + (c * kStages + s) * kTile;
+  }
+  __host__ __device__ static constexpr int v_tile(int c, int s) {
+    return k_tile(kConsumers, 0) + (c * kStages + s) * kTile;
+  }
+  __host__ __device__ static constexpr int part(int c) {
+    return v_tile(kConsumers, 0) + c * kPart;
+  }
+  static constexpr int kBarsPerConsumer = 2 * kStages + 2 * kQBufs + 2;
+  __host__ __device__ static constexpr int bars(int c) {
+    return part(kConsumers) + c * kBarsPerConsumer * 8;
+  }
+};
+
+// ------------------------------------------------------------ device helpers
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
+  return __half22float2(*reinterpret_cast<__half2*>(&w));
+}
+
+// x rounded to T, as a float.
+template <typename T>
+__device__ __forceinline__ float round16(float x) {
+  return unpack2<T>(Ops<T>::pack(x, 0.f)).x;
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t scale2(uint32_t w, float c16) {
+  const float2 x = unpack2<T>(w);
+  return Ops<T>::pack(x.x * c16, x.y * c16);
+}
+
+// q̃ = round16(q · c16) in place over a tile of `bytes` bytes, by the 128
+// threads of one consumer (t = 0..127): the product of two 16-bit values is
+// exact in fp32 and rounds once, as the twin's 16-bit multiply. The fence
+// orders these writes before the wgmma (async proxy) that read them; the
+// caller then syncs the warpgroup.
+template <typename T>
+__device__ __forceinline__ void scale_q(unsigned char* tile, int bytes,
+                                        float c16, int t) {
+  uint4* p = reinterpret_cast<uint4*>(tile);
+  for (int i = t; i < bytes / 16; i += 128) {
+    uint4 w = p[i];
+    w.x = scale2<T>(w.x, c16);
+    w.y = scale2<T>(w.y, c16);
+    w.z = scale2<T>(w.z, c16);
+    w.w = scale2<T>(w.w, c16);
+    p[i] = w;
+  }
+  sm90::fence_proxy_async();
+}
+
+// An arrival on an mbarrier of another block of the cluster (its address
+// from sm90::map_rank), ordering before it at cluster scope this thread's
+// earlier memory accesses and those a barrier ordered before them.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile(
+      "fence.acq_rel.cluster;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// Clock stamps per phase, compiled in only with -DFV_STAMPS (one build
+// part; tools/variant_stamps.py): the cycles thread 0 of consumer 0 of
+// block (0, 0, 0) spends in each phase of its kv loop, summed over the
+// launches since the last read, per kernel (0 T2, 1 T3). Each stamp charges
+// the cycles since the one before to its phase.
+enum Phase : int {
+  kTurn,      // waiting for this consumer's turn to issue
+  kTile,      // waiting for a K/V tile (TMA)
+  kIssue,     // issuing the wgmma
+  kWaitS,     // waiting for S (T2)
+  kSoftmax,   // the online softmax of one tile
+  kWaitAll,   // waiting for the products in flight
+  kTail,      // rescaling O, converting S to P, freeing the stage
+  kOther,     // the rest: Q, the first tile, head switches, merges, stores
+  kPhases
+};
+#ifdef FV_STAMPS
+__device__ unsigned long long fv_stamps[2][kPhases];
+#endif
+struct Stamps {
+#ifdef FV_STAMPS
+  bool on;
+  long long t;
+  __device__ __forceinline__ explicit Stamps(int consumer) {
+    on = consumer == 0 && threadIdx.x % 128 == 0 && blockIdx.x == 0 &&
+         blockIdx.y == 0 && blockIdx.z == 0;
+    asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t));
+  }
+  __device__ __forceinline__ void operator()(int kernel, int phase) {
+    if (!on) return;
+    long long now;
+    asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(now));
+    fv_stamps[kernel][phase] += now - t;
+    t = now;
+  }
+#else
+  __device__ __forceinline__ explicit Stamps(int) {}
+  __device__ __forceinline__ void operator()(int, int) {}
+#endif
+};
+
+// A 16-byte load from another block's shared memory (its address from
+// sm90::map_rank). Not volatile, unlike sm90::ld_cluster, so that the
+// loads of one merge issue back to back instead of each waiting for the
+// last; the barrier wait before them orders them.
+__device__ __forceinline__ float4 ld_dsmem(uint32_t addr) {
+  float4 v;
+  asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(addr));
+  return v;
+}
+
+// sm90::mbar_wait with acquire at cluster scope: what other blocks of the
+// cluster wrote before their arrivals is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = sm90::smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// One consumer warpgroup's 64 q rows of one head: O, and for rows g and
+// g + 8 of the warp's 16 the running max of the raw scores and the
+// quad-partial row sum. Thread t of the warpgroup.
+template <typename T, int DP>
+struct Rows {
+  static constexpr int kPitch = kPitchOf<DP>;
+  using G = Geometry<kPitch, DP>;
+  float o[DP / 2];
+  float m_run[2];
+  float l_run[2];
+  int tq;
+
+  __device__ __forceinline__ explicit Rows(int t) : tq(t % 4) { reset(); }
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    m_run[0] = m_run[1] = -INFINITY;
+    l_run[0] = l_run[1] = 0.f;
+  }
+
+  // S = q̃·K_jᵀ, 64 x kKv, DP / 16 k-steps (not committed).
+  static __device__ __forceinline__ void issue_s(float (&sc)[kKv / 2],
+                                                 const unsigned char* s_q,
+                                                 const unsigned char* sk) {
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      sm90::Wgmma<T, kKv>::ss(sc, G::kmajor(s_q + G::kstep(ks, kRows)),
+                              G::kmajor(sk + G::kstep(ks, kKv)), ks > 0);
+    }
+  }
+
+  // O += P·V_j; the accumulator n-blocks 2kt, 2kt + 1 of S are the A
+  // fragment of k-step kt (not committed).
+  __device__ __forceinline__ void issue_pv(const uint32_t (&pa)[kKv / 16][4],
+                                           const unsigned char* sv) {
+#pragma unroll
+    for (int kt = 0; kt < kKv / 16; ++kt) {
+      sm90::WgmmaRs<T, DP>::rs(o, pa[kt],
+                               G::mnmajor(sv + kt * 16 * kPitch, kKv), 1);
+    }
+  }
+
+  // mx[r][i] = max(mx[r][i], mx[r][i + W]), then W / 2, ... 1 (K1's tree).
+  template <int W>
+  static __device__ __forceinline__ void fold_max(float (&mx)[2][kKv / 8]) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      mx[0][i] = fmaxf(mx[0][i], mx[0][i + W]);
+      mx[1][i] = fmaxf(mx[1][i], mx[1][i + W]);
+    }
+    if constexpr (W > 1) fold_max<W / 2>(mx);
+  }
+
+  // The online softmax of one tile in place (every column is valid: Skv is
+  // a multiple of the tile): updates m and l, leaves
+  // P = 2^(s·log2 e − m·log2 e) = e^(s − m) in sc and the factor O must be
+  // scaled by in alpha.
+  __device__ __forceinline__ void softmax(float (&sc)[kKv / 2],
+                                          float (&alpha)[2]) {
+    float mx[2][kKv / 8];
+#pragma unroll
+    for (int i = 0; i < kKv / 8; ++i) {
+      mx[0][i] = fmaxf(sc[4 * i], sc[4 * i + 1]);
+      mx[1][i] = fmaxf(sc[4 * i + 2], sc[4 * i + 3]);
+    }
+    fold_max<kKv / 16>(mx);
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = fmaxf(m_run[r], mx[r][0]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      // m is finite; on the first tile m_run is -inf and alpha 0. An
+      // unchanged max gives alpha 1 exactly.
+      mc[r] = __fmul_rn(m, kLog2e);
+      alpha[r] = sm90::ex2(__fmul_rn(m_run[r] - m, kLog2e));
+      m_run[r] = m;
+    }
+    float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < kKv / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            sm90::ex2(__fmaf_rn(sc[4 * i + e], kLog2e, -mc[e >> 1]));
+        sc[4 * i + e] = p;
+        rs[e >> 1][i & 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] = l_run[r] * alpha[r] + (rs[r][0] + rs[r][1]);
+    }
+  }
+
+  // O·alpha, skipped where every row of the warp kept its max (alpha is 1
+  // exactly then), as it mostly does after the first tiles.
+  __device__ __forceinline__ void rescale(const float (&alpha)[2]) {
+    if (!__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      o[4 * i] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+  }
+
+  static __device__ __forceinline__ void to_p(const float (&sc)[kKv / 2],
+                                              uint32_t (&pa)[kKv / 16][4]) {
+#pragma unroll
+    for (int kt = 0; kt < kKv / 16; ++kt) {
+      pa[kt][0] = Ops<T>::pack(sc[8 * kt], sc[8 * kt + 1]);
+      pa[kt][1] = Ops<T>::pack(sc[8 * kt + 2], sc[8 * kt + 3]);
+      pa[kt][2] = Ops<T>::pack(sc[8 * kt + 4], sc[8 * kt + 5]);
+      pa[kt][3] = Ops<T>::pack(sc[8 * kt + 6], sc[8 * kt + 7]);
+    }
+  }
+
+  // O·(1/l) into rows row0 .. row0 + 63 of one head's [S, d] output (rows
+  // >= sq dropped), two 16-bit columns a store.
+  __device__ __forceinline__ void store(T* out, int row0, int sq, int d,
+                                        int warp, int g) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / l;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + warp * 16 + g + 8 * r;
+      if (row >= sq) continue;
+      T* dst = out + (size_t)row * d;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        const int col = 8 * i + 2 * tq;
+        if (col < d) {   // d is a multiple of 8: col + 1 < d too
+          *reinterpret_cast<uint32_t*>(dst + col) = Ops<T>::pack(
+              o[4 * i + 2 * r] * inv[r], o[4 * i + 2 * r + 1] * inv[r]);
+        }
+      }
+    }
+  }
+};
+
+// ---------------------------------------------------------------- T3 kernel
+
+template <typename T, int DP>
+__global__ void __launch_bounds__((PipelinedTiling<DP>::kConsumers + 1) * 128,
+                                  1)
+    pipelined_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          T* __restrict__ out, int sq, int skv, int d,
+                          float scale) {
+  using L = PipelinedTiling<DP>;
+  using G = typename L::G;
+  constexpr int C = L::kConsumers, S = L::kStages, kPitch = kPitchOf<DP>;
+  static_assert(C == 2 || C == 3, "consumers");
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + S;
+
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kRows * C;
+  const int n = skv / kKv;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], C);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    sm90::regs_dec<Regs<C>::kProducer>();
+    if (threadIdx.x == 0) {
+      sm90::prefetch_map(&tm_q);
+      sm90::prefetch_map(&tm_k);
+      sm90::prefetch_map(&tm_v);
+      sm90::mbar_expect_tx(q_full, C * L::kQ);
+      for (int c = 0; c < C; ++c) {
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(smem + c * L::kQ + sl * kRows * kPitch, &tm_q,
+                            q_full, sl * G::kSlabCols, q0 + c * kRows, bh);
+        }
+      }
+      for (int j = 0; j < n; ++j) {
+        const int s = j % S;
+        if (j >= S) sm90::mbar_wait(&kv_empty[s], ((j / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(&kv_full[s], 2 * L::kTile);
+        unsigned char* sk = smem + L::kK + s * L::kTile;
+        unsigned char* sv = smem + L::kV + s * L::kTile;
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(sk + sl * kKv * kPitch, &tm_k, &kv_full[s],
+                            sl * G::kSlabCols, j * kKv, bh);
+        }
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(sv + sl * kKv * kPitch, &tm_v, &kv_full[s],
+                            sl * G::kSlabCols, j * kKv, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup cw: q rows q0 + 64·cw ... + 63.
+  sm90::regs_inc<Regs<C>::kConsumer>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int g = (t % 32) / 4;
+  unsigned char* s_q = smem + cw * L::kQ;
+  Rows<T, DP> st(t);
+  float sa[kKv / 2], sb[kKv / 2];
+  uint32_t pa[kKv / 16][4];
+  float alpha[2];
+  Stamps stamp(cw);
+  auto issue_s = [&](float (&acc)[kKv / 2], int j) {
+    stamp(1, kIssue);
+    sm90::mbar_wait(&kv_full[j % S], (j / S) & 1);
+    stamp(1, kTile);
+    sm90::wgmma_fence();
+    st.issue_s(acc, s_q, smem + L::kK + (j % S) * L::kTile);
+    sm90::wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {
+    sm90::fence_regs(st.o);
+    sm90::wgmma_fence();
+    st.issue_pv(pa, smem + L::kV + (j % S) * L::kTile);
+    sm90::wgmma_commit();
+  };
+  // P_j·V_j has completed (and S_j long before): the stage goes back.
+  auto release = [&](int j) {
+    if (t == 0) sm90::mbar_arrive(&kv_empty[j % S]);
+  };
+  // Every wgmma is issued and waited for in straight-line code (no wgmma
+  // under a branch of its own), so that ptxas can see which one a wait
+  // retires; a conditional issue made it serialise them all (C7514).
+  // Tile j (1 <= j < n - 1): in this consumer's turn P_{j-1}·V_{j-1} and
+  // S_{j+1} into `nxt`; the softmax of S_j (in `cur`, complete) while both
+  // are on the tensor cores; then O and P.
+  auto mid = [&](float (&cur)[kKv / 2], float (&nxt)[kKv / 2], int j) {
+    stamp(1, kOther);
+    Turns<C>::wait(cw);
+    stamp(1, kTurn);
+    issue_pv(j - 1);
+    issue_s(nxt, j + 1);
+    Turns<C>::pass(cw);
+    stamp(1, kIssue);
+    st.softmax(cur, alpha);
+    stamp(1, kSoftmax);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(nxt);
+    sm90::fence_regs(st.o);
+    sm90::fence_regs(pa);
+    stamp(1, kWaitAll);
+    release(j - 1);
+    st.rescale(alpha);
+    Rows<T, DP>::to_p(cur, pa);
+    stamp(1, kTail);
+  };
+  // The last tile, n - 1 >= 1: no score left to issue.
+  auto last = [&](float (&cur)[kKv / 2], int j) {
+    Turns<C>::wait(cw);
+    issue_pv(j - 1);
+    Turns<C>::pass(cw);
+    st.softmax(cur, alpha);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st.o);
+    sm90::fence_regs(pa);
+    release(j - 1);
+    st.rescale(alpha);
+    Rows<T, DP>::to_p(cur, pa);
+  };
+
+  if (cw == C - 1) sm90::named_arrive<4>(256);   // opens consumer 0's turn
+  sm90::mbar_wait(q_full, 0);
+  scale_q<T>(s_q, L::kQ, round16<T>(scale), t);
+  sm90::consumer_sync<C>(cw);
+  // Tile 0: S_0 (and S_1), the softmax of S_0 beside S_1.
+  Turns<C>::wait(cw);
+  if (n > 1) {
+    issue_s(sa, 0);
+    issue_s(sb, 1);
+    Turns<C>::pass(cw);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sa);
+    st.softmax(sa, alpha);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sb);
+    Rows<T, DP>::to_p(sa, pa);
+    // S_j lives in sa for even j, sb for odd j.
+    int j = 1;
+    for (; j + 2 < n; j += 2) {
+      mid(sb, sa, j);
+      mid(sa, sb, j + 1);
+    }
+    if (j + 2 == n) {
+      mid(sb, sa, j);
+      last(sa, j + 1);
+    } else {
+      last(sb, j);
+    }
+  } else {
+    issue_s(sa, 0);
+    Turns<C>::pass(cw);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sa);
+    st.softmax(sa, alpha);
+    Rows<T, DP>::to_p(sa, pa);
+  }
+  // The last product; the last consumer's arrival would open a turn no one
+  // takes.
+  Turns<C>::wait(cw);
+  issue_pv(n - 1);
+  if (cw != C - 1) Turns<C>::pass(cw);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(st.o);
+  sm90::fence_regs(pa);
+  release(n - 1);
+  st.store(out + (size_t)bh * sq * d, q0 + cw * kRows, sq, d, warp, g);
+  stamp(1, kOther);
+}
+
+// ---------------------------------------------------------------- T2 kernel
+
+template <typename T, int DP>
+__global__ void __launch_bounds__((HeadsTiling<DP>::kConsumers + 1) * 128, 1)
+    heads_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      T* __restrict__ out, int heads, int sq, int skv, int d,
+                      float scale, int parts) {
+  using L = HeadsTiling<DP>;
+  using G = typename L::G;
+  constexpr int C = L::kConsumers, S = L::kStages, QB = L::kQBufs,
+                kPitch = kPitchOf<DP>;
+  static_assert(C == 2 || C == 3, "consumers");
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  // Consumer c's barriers: full[S], empty[S], q_full[QB], q_empty[QB],
+  // part_full, part_free.
+  auto bars = [&](int c) {
+    return reinterpret_cast<uint64_t*>(smem + L::bars(c));
+  };
+
+  const int wg = threadIdx.x / 128;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  // The kv split: cluster rank blockIdx.z takes tiles [t0, t1).
+  const int rank = blockIdx.z;
+  const int n_all = skv / kKv;
+  const int per = (n_all + parts - 1) / parts;
+  const int t0 = rank * per;
+  const int n = min(n_all, t0 + per) - t0;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < C; ++c) {
+      uint64_t* bar = bars(c);
+      for (int i = 0; i < 2 * S + 2 * QB; ++i) sm90::mbar_init(&bar[i], 1);
+      sm90::mbar_init(&bar[2 * S + 2 * QB], max(parts - 1, 1));
+      sm90::mbar_init(&bar[2 * S + 2 * QB + 1], 1);
+    }
+    sm90::fence_barrier_init();
+  }
+  if (parts > 1) {
+    sm90::cluster_sync();
+  } else {
+    __syncthreads();
+  }
+
+  if (wg == 0) {
+    // Producer: lane 0 of warp c feeds consumer c, head after head.
+    sm90::regs_dec<Regs<C>::kProducer>();
+    const int c = threadIdx.x / 32;
+    if (c >= C || threadIdx.x % 32 != 0) return;
+    if (c == 0) {
+      sm90::prefetch_map(&tm_q);
+      sm90::prefetch_map(&tm_k);
+      sm90::prefetch_map(&tm_v);
+    }
+    uint64_t* full = bars(c);
+    uint64_t* empty = full + S;
+    uint64_t* q_full = empty + S;
+    uint64_t* q_empty = q_full + QB;
+    int ring = 0;   // tiles loaded into this ring so far
+    int r = 0;   // this consumer's heads so far
+    for (int h = c; h < heads; h += C, ++r) {
+      const int plane = b * heads + h;
+      const int qb = r % QB;
+      if (r >= QB) sm90::mbar_wait(&q_empty[qb], ((r / QB) & 1) ^ 1);
+      sm90::mbar_expect_tx(&q_full[qb], L::kQ);
+      unsigned char* s_q = smem + L::q_tile(c, qb);
+#pragma unroll
+      for (int sl = 0; sl < G::kSlabs; ++sl) {
+        sm90::tma_load_3d(s_q + sl * kRows * kPitch, &tm_q, &q_full[qb],
+                          sl * G::kSlabCols, q0, plane);
+      }
+      for (int j = t0; j < t0 + n; ++j, ++ring) {
+        const int s = ring % S;
+        if (ring >= S) sm90::mbar_wait(&empty[s], ((ring / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[s], 2 * L::kTile);
+        unsigned char* sk = smem + L::k_tile(c, s);
+        unsigned char* sv = smem + L::v_tile(c, s);
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(sk + sl * kKv * kPitch, &tm_k, &full[s],
+                            sl * G::kSlabCols, j * kKv, plane);
+        }
+#pragma unroll
+        for (int sl = 0; sl < G::kSlabs; ++sl) {
+          sm90::tma_load_3d(sv + sl * kKv * kPitch, &tm_v, &full[s],
+                            sl * G::kSlabCols, j * kKv, plane);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup c: heads c, c + C, ... of q rows q0 ... q0 + 63.
+  sm90::regs_inc<Regs<C>::kConsumer>();
+  const int c = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int g = (t % 32) / 4;
+  uint64_t* full = bars(c);
+  uint64_t* empty = full + S;
+  uint64_t* q_full = empty + S;
+  uint64_t* q_empty = q_full + QB;
+  uint64_t* part_full = q_empty + QB;
+  uint64_t* part_free = part_full + 1;
+  float4* part = reinterpret_cast<float4*>(smem + L::part(c));
+
+  Rows<T, DP> st(t);
+  float sc[kKv / 2];
+  uint32_t pa[kKv / 16][4];
+  float alpha[2];
+  // Every consumer takes the turns of the most heads any consumer has,
+  // n + 1 a head, so that the ping-pong's barrier phases all complete.
+  const int rounds = (heads + C - 1) / C * (n + 1);
+  int round = 0;
+  auto my_turn = [&] { Turns<C>::wait(c); };
+  auto next_turn = [&] {
+    ++round;
+    if (round < rounds || c != C - 1) Turns<C>::pass(c);
+  };
+  Stamps stamp(c);
+  // The ring's i-th tile (counted over every head of this consumer).
+  auto issue_s = [&](const unsigned char* s_q, int i) {
+    stamp(0, kIssue);
+    sm90::mbar_wait(&full[i % S], (i / S) & 1);
+    stamp(0, kTile);
+    sm90::wgmma_fence();
+    st.issue_s(sc, s_q, smem + L::k_tile(c, i % S));
+    sm90::wgmma_commit();
+  };
+  auto issue_pv = [&](int i) {
+    sm90::fence_regs(st.o);
+    sm90::wgmma_fence();
+    st.issue_pv(pa, smem + L::v_tile(c, i % S));
+    sm90::wgmma_commit();
+  };
+  // After P·V of the ring's i-th tile has completed: its stage goes back.
+  auto pv_done = [&](int i) {
+    sm90::fence_regs(st.o);
+    sm90::fence_regs(pa);
+    if (t == 0) sm90::mbar_arrive(&empty[i % S]);
+  };
+
+  if (c == C - 1) sm90::named_arrive<4>(256);   // opens consumer 0's turn
+  int ring = 0;   // the ring's tiles consumed so far
+  int r = 0;   // this consumer's heads so far
+  for (int h = c; h < heads; h += C, ++r) {
+    const int qb = r % QB;
+    unsigned char* s_q = smem + L::q_tile(c, qb);
+    sm90::mbar_wait(&q_full[qb], (r / QB) & 1);
+    scale_q<T>(s_q, L::kQ, round16<T>(scale), t);
+    sm90::consumer_sync<C>(c);
+    // Once S of the head's last tile has completed, its Q tile goes back.
+    auto q_done = [&] {
+      if (t == 0) sm90::mbar_arrive(&q_empty[qb]);
+    };
+    // K1's schedule: S_0, then per tile S_j and P_{j-1}·V_{j-1} together,
+    // the softmax of S_j while that product is on the tensor cores.
+    stamp(0, kOther);
+    my_turn();
+    stamp(0, kTurn);
+    issue_s(s_q, ring);
+    next_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    if (n == 1) q_done();
+    st.softmax(sc, alpha);
+    Rows<T, DP>::to_p(sc, pa);
+    for (int j = 1; j < n; ++j) {
+      stamp(0, kOther);
+      my_turn();
+      stamp(0, kTurn);
+      issue_s(s_q, ring + j);
+      issue_pv(ring + j - 1);
+      next_turn();
+      stamp(0, kIssue);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      stamp(0, kWaitS);
+      if (j == n - 1) q_done();
+      st.softmax(sc, alpha);
+      stamp(0, kSoftmax);
+      sm90::wgmma_wait<0>();
+      pv_done(ring + j - 1);
+      stamp(0, kWaitAll);
+      st.rescale(alpha);
+      Rows<T, DP>::to_p(sc, pa);
+      stamp(0, kTail);
+    }
+    my_turn();
+    issue_pv(ring + n - 1);
+    next_turn();
+    sm90::wgmma_wait<0>();
+    pv_done(ring + n - 1);
+    ring += n;
+
+    if (parts > 1 && rank > 0) {
+      // This part of the head: (o, m, l) into this block's merge buffer
+      // once rank 0 has read the last head's, then rank 0 is told.
+      if (r > 0) mbar_wait_cluster(part_free, (r - 1) & 1);
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        part[i * 128 + t] = make_float4(st.o[4 * i], st.o[4 * i + 1],
+                                        st.o[4 * i + 2], st.o[4 * i + 3]);
+      }
+      part[(DP / 8) * 128 + t] =
+          make_float4(st.m_run[0], st.m_run[1], st.l_run[0], st.l_run[1]);
+      // One arrival for the warpgroup (128 remote arrivals on one barrier
+      // serialise): the barrier orders every thread's writes before it.
+      sm90::consumer_sync<C>(c);
+      if (t == 0) mbar_arrive_cluster(sm90::map_rank(part_full, 0));
+    } else {
+      if (parts > 1) {
+        // Merge the other ranks' parts into this one's, in rank order.
+        mbar_wait_cluster(part_full, r & 1);
+        float4 ml[4];
+        float m[2] = {st.m_run[0], st.m_run[1]};
+#pragma unroll
+        for (int p = 1; p < 4; ++p) {
+          if (p < parts) {
+            ml[p] = ld_dsmem(sm90::map_rank(part + (DP / 8) * 128 + t, p));
+          }
+        }
+#pragma unroll
+        for (int p = 1; p < 4; ++p) {
+          if (p < parts) {
+            m[0] = fmaxf(m[0], ml[p].x);
+            m[1] = fmaxf(m[1], ml[p].y);
+          }
+        }
+        float a[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          a[rr] = sm90::ex2(__fmul_rn(st.m_run[rr] - m[rr], kLog2e));
+          st.l_run[rr] *= a[rr];
+        }
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          st.o[4 * i] *= a[0];
+          st.o[4 * i + 1] *= a[0];
+          st.o[4 * i + 2] *= a[1];
+          st.o[4 * i + 3] *= a[1];
+        }
+#pragma unroll
+        for (int p = 1; p < 4; ++p) {
+          if (p < parts) {
+            a[0] = sm90::ex2(__fmul_rn(ml[p].x - m[0], kLog2e));
+            a[1] = sm90::ex2(__fmul_rn(ml[p].y - m[1], kLog2e));
+            st.l_run[0] += ml[p].z * a[0];
+            st.l_run[1] += ml[p].w * a[1];
+            float4 x[DP / 8];
+#pragma unroll
+            for (int i = 0; i < DP / 8; ++i) {
+              x[i] = ld_dsmem(sm90::map_rank(part + i * 128 + t, p));
+            }
+#pragma unroll
+            for (int i = 0; i < DP / 8; ++i) {
+              st.o[4 * i] += x[i].x * a[0];
+              st.o[4 * i + 1] += x[i].y * a[0];
+              st.o[4 * i + 2] += x[i].z * a[1];
+              st.o[4 * i + 3] += x[i].w * a[1];
+            }
+          }
+        }
+        sm90::consumer_sync<C>(c);   // every thread has read the parts
+        if (t == 0) {
+#pragma unroll
+          for (int p = 1; p < 4; ++p) {
+            if (p < parts) mbar_arrive_cluster(sm90::map_rank(part_free, p));
+          }
+        }
+      }
+      st.store(out + (size_t)(b * heads + h) * sq * d, q0, sq, d, warp, g);
+    }
+    st.reset();
+  }
+  // Turns this consumer has no head for.
+  while (round < rounds) {
+    my_turn();
+    next_turn();
+  }
+  // A block leaves only once rank 0 has read its last part.
+  if (parts > 1 && rank > 0 && r > 0) {
+    mbar_wait_cluster(part_free, (r - 1) & 1);
+  }
+  stamp(0, kOther);
+}
+
+// ------------------------------------------------------------- the launches
+
+template <typename T, int DP>
+bool encode_maps(CUtensorMap* tm_q, CUtensorMap* tm_k, CUtensorMap* tm_v,
+                 const void* q, const void* k, const void* v, int planes,
+                 int sq, int skv, int d) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kPitch = kPitchOf<DP>;
+  constexpr int kBox = Geometry<kPitch, DP>::kSlabCols;
+  return sm90::encode_slab_map(tm_q, q, kBf16, planes, sq, d, kRows, kBox,
+                               kPitch) &&
+         sm90::encode_slab_map(tm_k, k, kBf16, planes, skv, d, kKv, kBox,
+                               kPitch) &&
+         sm90::encode_slab_map(tm_v, v, kBf16, planes, skv, d, kKv, kBox,
+                               kPitch);
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  }
+  return err;
+}
+
+template <typename T, int DP>
+int launch_pipelined(const void* q, const void* k, const void* v, void* o,
+                     int batch, int heads, int sq, int skv, int d,
+                     float scale, int parts, cudaStream_t stream) {
+  using L = PipelinedTiling<DP>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (parts != 1 || !encode_maps<T, DP>(&tm_q, &tm_k, &tm_v, q, k, v,
+                                         batch * heads, sq, skv, d)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = pipelined_sm90_kernel<T, DP>;
+  cudaError_t err = prepare(kernel, L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int block_q = kRows * L::kConsumers;
+  const dim3 grid((sq + block_q - 1) / block_q, batch * heads);
+  kernel<<<grid, (L::kConsumers + 1) * 128, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(o), sq, skv, d, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DP>
+int launch_heads(const void* q, const void* k, const void* v, void* o,
+                 int batch, int heads, int sq, int skv, int d, float scale,
+                 int parts, cudaStream_t stream) {
+  using L = HeadsTiling<DP>;
+  const int n_all = skv / kKv;
+  const int per = (n_all + parts - 1) / parts;
+  // parts 1, 2 or 4, each part at least one tile, a split only where the
+  // merge buffers fit.
+  if ((parts != 1 && parts != 2 && parts != 4) ||
+      (parts > 1 && !L::kSplit) || (parts - 1) * per >= n_all) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_maps<T, DP>(&tm_q, &tm_k, &tm_v, q, k, v, batch * heads, sq,
+                          skv, d)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = heads_sm90_kernel<T, DP>;
+  cudaError_t err = prepare(kernel, L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = parts;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sq / kRows, batch, parts);
+  cfg.blockDim = dim3((L::kConsumers + 1) * 128);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, static_cast<T*>(o),
+                           heads, sq, skv, d, scale, parts);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+using VariantLauncher = int (*)(const void*, const void*, const void*, void*,
+                                int, int, int, int, int, float, int,
+                                cudaStream_t);
+namespace flash_variants_sm90 {
+// [kernel: 0 T2, 1 T3][dtype][DP / 16 - 1], filled when the library loads.
+extern VariantLauncher launchers[2][2][kMaxWidths];
+#if BUILD_PART == 0
+VariantLauncher launchers[2][2][kMaxWidths] = {};
+#endif
+}  // namespace flash_variants_sm90
+
+namespace {
+
+// Unit u = (kernel·2 + dtype)·8 + width index, in part u % BUILD_PARTS.
+template <int K, int DT, int W>
+void enter_unit() {
+  constexpr int u = (K * 2 + DT) * kMaxWidths + W;
+  if constexpr (u % BUILD_PARTS == BUILD_PART) {
+    using T = std::conditional_t<DT == 0, __nv_bfloat16, __half>;
+    constexpr int dp = 16 * (W + 1);
+    flash_variants_sm90::launchers[K][DT][W] =
+        K == 0 ? &launch_heads<T, dp> : &launch_pipelined<T, dp>;
+  }
+}
+
+template <int... W>
+bool enter_units(std::integer_sequence<int, W...>) {
+  (enter_unit<0, 0, W>(), ...);
+  (enter_unit<0, 1, W>(), ...);
+  (enter_unit<1, 0, W>(), ...);
+  (enter_unit<1, 1, W>(), ...);
+  return true;
+}
+
+[[maybe_unused]] const bool kEntered =
+    enter_units(std::make_integer_sequence<int, kMaxWidths>{});
+
+}  // namespace
+
+#if BUILD_PART == 0
+namespace {
+
+int run(int kernel, const void* q, const void* k, const void* v, void* o,
+        int batch, int heads, int sq, int skv, int d, float scale, int dtype,
+        int parts, void* stream) {
+  const int rows = kernel == 0 ? batch : batch * heads;
+  if (dtype < 0 || dtype > 1 || batch < 1 || heads < 1 || rows > 65535 ||
+      batch * heads > 65535 || sq < kRows || skv < kKv || sq % kRows != 0 ||
+      skv % kKv != 0 || d < 8 || d > 128 || d % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const VariantLauncher launch =
+      flash_variants_sm90::launchers[kernel][dtype][(d + 15) / 16 - 1];
+  if (launch == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  return launch(q, k, v, o, batch, heads, sq, skv, d, scale, parts,
+                static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes): contiguous [B, H, S, D] q, k, v,
+// o, 16-byte aligned; dtype 0 = bf16, 1 = fp16. Each launches on `stream`
+// and returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a shape or option outside the domain).
+
+// T2: every head of a q tile in one instance; `parts` (1, 2 or 4) splits
+// the kv range over a cluster of that many blocks.
+extern "C" int flash_opt_attn_h_sm90(const void* q, const void* k,
+                                     const void* v, void* o, int batch,
+                                     int heads, int sq, int skv, int d,
+                                     float scale, int dtype, int parts,
+                                     void* stream) {
+  return run(0, q, k, v, o, batch, heads, sq, skv, d, scale, dtype, parts,
+             stream);
+}
+
+#ifdef FV_STAMPS
+// The stamps so far, [kernel][phase] cycles, into `out`; zeroes them.
+extern "C" int flash_variants_sm90_stamps(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, fv_stamps, sizeof(fv_stamps));
+  if (err == cudaSuccess) {
+    static const unsigned long long zeros[2][kPhases] = {};
+    err = cudaMemcpyToSymbol(fv_stamps, zeros, sizeof(zeros));
+  }
+  return (int)err;
+}
+#endif
+
+// T3: S of the next kv tile issued before this tile's softmax.
+extern "C" int flash_pipelined_attn_sm90(const void* q, const void* k,
+                                         const void* v, void* o, int batch,
+                                         int heads, int sq, int skv, int d,
+                                         float scale, int dtype,
+                                         void* stream) {
+  return run(1, q, k, v, o, batch, heads, sq, skv, d, scale, dtype, 1,
+             stream);
+}
+#endif  // BUILD_PART == 0

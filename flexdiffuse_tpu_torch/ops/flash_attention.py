@@ -253,7 +253,10 @@ class Plan:
     time); ``grid`` (q tiles, B·H); ``threads`` per block; ``parts`` the
     grid's third dimension: on 'wide_sm90' the parts of the kv range (a
     cluster of that many blocks, merged before the store), on 'wide' the
-    512-column chunks of the output above D = 512."""
+    512-column chunks of the output above D = 512. The attention variants
+    T2 and T3 (``ops/flash_variants.py``) plan their calls in it too, on
+    their paths ('sm90', 'mma'); T2's grid is (q tiles, B), its ``parts``
+    the split of each instance's kv range."""
     path: str
     head_pad: int
     block_q: int
@@ -314,10 +317,15 @@ def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
                 (-(-sq // block_q), b * h), 128 * (consumers + 1))
 
 
-def count_launch(fn, path: str) -> None:
+def count_launch(fn, path: str, config: Optional[str] = None) -> None:
     """One more launch of wrapper ``fn`` on ``path``: ``fn.launches`` counts
-    every launch, ``fn.path_launches[path]`` those of the path."""
-    fn.launches += 1
+    every launch (in its ``Counter`` under ``config`` where one is named, as
+    the attention variants count theirs), ``fn.path_launches[path]`` those
+    of the path."""
+    if config is None:
+        fn.launches += 1
+    else:
+        fn.launches[config] += 1
     fn.path_launches[path] += 1
 
 

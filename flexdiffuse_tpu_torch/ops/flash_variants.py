@@ -30,12 +30,23 @@ formed. Each wrapper counts its launches per configuration in
 no gradient. The library is built at first use, as K1's
 (``ops/flash_attention.build``/``load``), in :data:`BUILD_PARTS` compiles
 at once.
+
+T2 and T3 have a second path, their Hopper redesigns in
+``csrc/flash_variants_sm90.cu`` (TMA, wgmma, warp specialisation; its own
+library, :data:`SM90_SOURCE` in :data:`SM90_BUILD_PARTS` compiles), which
+:func:`plan_attn_h` and :func:`plan_pipelined` pick for every CUDA call of
+the domain ('sm90'); the first port's kernel runs only when the caller
+forces ``path='mma'``. Both count their launches by path in
+``path_launches`` (:func:`path_counts`). A refused launch raises: there is
+no fallback to the other path or to the twin. T2's plan splits the kv range
+of each instance over a cluster of blocks where the instances fill at most
+half of the card; :func:`plain_split_exp` is that split's twin.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -60,6 +71,26 @@ SIGNATURES = {
     'flash_ttv3_attn': _ARGS + (_I, _I, _P),
     'flash_variants_attn': _ARGS + (_I, _P),
 }
+
+# T2 and T3's Hopper redesigns: their own source and library, built in
+# SM90_BUILD_PARTS compiles at once; (..., dtype[, parts], stream).
+SM90_SOURCE = fa.SOURCE.parent / 'flash_variants_sm90.cu'
+SM90_BUILD_PARTS = 4
+SM90_SIGNATURES = {'flash_opt_attn_h_sm90': _ARGS + (_I, _P),
+                   'flash_pipelined_attn_sm90': _ARGS + (_P,)}
+SM90, MMA = 'sm90', 'mma'
+PATHS = (SM90, MMA)   # T2's and T3's paths
+# Their tiles on 'sm90', as the source's PipelinedTiling/HeadsTiling choose
+# them (change both together): (consumer warpgroups of 64 q rows, K/V
+# stages of TILE rows), T3's at every width, T2's keyed by the padded head
+# width DP <= 64. T2 splits an instance's kv range only up to
+# HEADS_SPLIT_MAX_DP (the merge buffers' room), into the first of
+# HEADS_PARTS that fits the card (the kernel also takes 4 parts, which ran
+# slower than 2 at (2,8,1024,80): PERF.md §6).
+PIPELINED_TILES = (2, 4)
+HEADS_TILES = {True: (3, 3), False: (2, 3)}
+HEADS_SPLIT_MAX_DP = 96
+HEADS_PARTS = (2,)
 
 # Softmax modes (the kernel's template argument of the same name).
 EXP, EXP2, EXP2_P16, EXP2_BF16 = 'exp', 'exp2', 'exp2_p16', 'exp2_bf16'
@@ -125,6 +156,33 @@ def plain_exp(q, k, v, scale: float):
     """The twin of T1 (every variant rounds as v0), T2, T3 and T6 v0:
     natural exp, fp32 l."""
     return plain_variant(q, k, v, scale, EXP)
+
+
+def plain_split_exp(q, k, v, scale: float, parts: int = 2):
+    """T2's kv split on 'sm90' in plain PyTorch: q̃ as :func:`plain_exp`;
+    the kv range cut as the kernel cuts it (⌈tiles/parts⌉ tiles of TILE rows
+    a part); each part's raw row max m_i, p = exp(s − m_i), l_i = Σ p and
+    o_i = round16(p)·v in fp32; then the merge in rank order,
+    o = Σ o_i·e^(m_i − m) / Σ l_i·e^(m_i − m) with m = max m_i, cast to
+    q's dtype."""
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
+    tiles = k.shape[2] // TILE
+    step = -(-tiles // parts) * TILE
+    states = []
+    for start in range(0, k.shape[2], step):
+        s = torch.matmul(qs, k[:, :, start:start + step].float()
+                         .transpose(-1, -2))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        states.append((torch.matmul(p.to(v.dtype).float(),
+                                    v[:, :, start:start + step].float()),
+                       m, p.sum(dim=-1, keepdim=True)))
+    m = torch.stack([m_i for _, m_i, _ in states]).amax(dim=0)
+    o = l = 0.0
+    for o_i, m_i, l_i in states:
+        a = torch.exp(m_i - m)
+        o, l = o + o_i * a, l + l_i * a
+    return (o / l).to(q.dtype)
 
 
 def plain_flash_tt2(q, k, v, scale: float):
@@ -196,10 +254,10 @@ def _check(name: str, q, k, v, bhds: bool, g: int = 1,
         raise ValueError(f'{name}: B·H = {b * h} > 65535')
 
 
-def _launch(entry: str, name: str, q, k, v, scale: float,
-            *options: int) -> torch.Tensor:
-    lib = fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS)
-    out = torch.empty_like(q)
+def _call(lib: ctypes.CDLL, entry: str, name: str, q, k, v, out,
+          scale: float, *options: int) -> None:
+    """Launch ``lib``'s ``entry`` into ``out`` on the current stream;
+    raises (naming ``name``) if the launch is refused."""
     b, h = q.shape[:2]
     bhds = entry in ('flash_tt2_attn', 'flash_ttv3_attn')
     d, sq, skv = ((q.shape[2], q.shape[3], k.shape[3]) if bhds else
@@ -211,6 +269,13 @@ def _launch(entry: str, name: str, q, k, v, scale: float,
                                  float(scale), fa.DTYPES[q.dtype], *options,
                                  stream)
     fa.raise_on_error(rc, name, q, k)
+
+
+def _launch(entry: str, name: str, q, k, v, scale: float,
+            *options: int) -> torch.Tensor:
+    out = torch.empty_like(q)
+    _call(fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS), entry, name, q, k,
+          v, out, scale, *options)
     return out
 
 
@@ -232,29 +297,112 @@ def attn_opt(variant: str, q, k, v, scale: float, g: int = 1):
     return out
 
 
-def attn_h(q, k, v, scale: float):
+def _path(name: str, path: Optional[str]) -> str:
+    if path not in (None, *PATHS):
+        raise ValueError(f'{name}: path {path!r} not in {PATHS}')
+    return path or SM90
+
+
+def plan_pipelined(q: torch.Tensor, k: torch.Tensor,
+                   path: Optional[str] = None) -> fa.Plan:
+    """T3's path and tiling (an ``ops.flash_attention.Plan``) for ``q``
+    ``[B, H, Sq, D]`` and ``k`` ``[B, H, Skv, D]`` of the domain
+    (:func:`_check`), from their shapes alone: 'sm90' (C consumer
+    warpgroups of 64 q rows sharing a ring of K/V stages, PIPELINED_TILES)
+    unless ``path`` forces the kept 'mma' (one 4-warp block per 64 q rows,
+    K/V double-buffered)."""
+    b, h, sq, d = q.shape
+    head_pad = -(-d // 16) * 16
+    if _path('pipelined_attention', path) == MMA:
+        return fa.Plan(MMA, head_pad, TILE, TILE, 2, (sq // TILE, b * h), 128)
+    consumers, stages = PIPELINED_TILES
+    block_q = TILE * consumers
+    return fa.Plan(SM90, head_pad, block_q, TILE, stages,
+                   (-(-sq // block_q), b * h), 128 * (consumers + 1))
+
+
+def heads_parts(instances: int, tiles: int, head_pad: int) -> int:
+    """How many blocks split each T2 instance's kv range on 'sm90': 1 where
+    the ``instances`` (B·Sq/64) fill more than half of the card or DP >
+    HEADS_SPLIT_MAX_DP; else the first of HEADS_PARTS whose blocks fit on
+    the card with every part at least one of the ``tiles`` kv tiles."""
+    if head_pad > HEADS_SPLIT_MAX_DP or 2 * instances > fa.SMS:
+        return 1
+    for parts in HEADS_PARTS:
+        per = -(-tiles // parts)
+        if instances * parts <= fa.SMS and (parts - 1) * per < tiles:
+            return parts
+    return 1
+
+
+def plan_attn_h(q: torch.Tensor, k: torch.Tensor,
+                path: Optional[str] = None) -> fa.Plan:
+    """T2's path and tiling, as :func:`plan_pipelined`'s: on 'sm90' one
+    instance per (b, 64 q rows), grid (q tiles, B), whose C consumer
+    warpgroups (HEADS_TILES) each take every C-th head, its kv range split
+    over ``parts`` = :func:`heads_parts` blocks; the kept 'mma' one 4-warp
+    block per (b, 64 q rows) walking the heads in turn."""
+    b, h, sq, d = q.shape
+    head_pad = -(-d // 16) * 16
+    if _path('flash_opt.attn_h', path) == MMA:
+        return fa.Plan(MMA, head_pad, TILE, TILE, 1, (sq // TILE, b), 128)
+    consumers, stages = HEADS_TILES[head_pad <= 64]
+    parts = heads_parts(b * (sq // TILE), k.shape[2] // TILE, head_pad)
+    return fa.Plan(SM90, head_pad, TILE, TILE, stages, (sq // TILE, b),
+                   128 * (consumers + 1), parts)
+
+
+# The entry points of T2 and T3 by path.
+ENTRIES = {'attn_h': {SM90: 'flash_opt_attn_h_sm90',
+                      MMA: 'flash_opt_attn_h'},
+           'pipelined_attention': {SM90: 'flash_pipelined_attn_sm90',
+                                   MMA: 'flash_pipelined_attn'}}
+
+
+def launch(fn: Callable, q, k, v, out, scale: float, how: fa.Plan) -> None:
+    """Launch ``fn``'s (attn_h's or pipelined_attention's) kernel on
+    ``how.path`` into ``out``, on the current stream; raises if the launch
+    is refused."""
+    entry = ENTRIES[fn.__name__][how.path]
+    if how.path == MMA:
+        lib = fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS)
+        options = ()
+    else:
+        lib = fa.load(SM90_SOURCE, SM90_SIGNATURES, parts=SM90_BUILD_PARTS)
+        options = (how.parts,) if fn is attn_h else ()
+    _call(lib, entry, entry, q, k, v, out, scale, *options)
+
+
+def _planned(fn: Callable, plan: Callable, config: str, q, k, v,
+             scale: float, path: Optional[str]) -> torch.Tensor:
+    name = 'flash_opt.attn_h' if fn.__name__ == 'attn_h' else fn.__name__
+    cpu = _on_cpu(q, k, v)
+    _check(name, q, k, v, False, cpu=cpu)
+    _path(name, path)
+    if cpu:
+        return plain_exp(q, k, v, scale)
+    how = plan(q, k, path=path)
+    out = torch.empty_like(q)
+    launch(fn, q, k, v, out, scale, how)
+    fa.count_launch(fn, how.path, config)
+    return out
+
+
+def attn_h(q, k, v, scale: float, path: Optional[str] = None):
     """T2 (``tools/flash_opt.py::attn_h``): all H heads of a 64-row q tile
-    in one block. ``[B, H, S, D]``."""
-    cpu = _on_cpu(q, k, v)
-    _check('flash_opt.attn_h', q, k, v, False, cpu=cpu)
-    if cpu:
-        return plain_exp(q, k, v, scale)
-    out = _launch('flash_opt_attn_h', 'flash_opt.attn_h', q, k, v, scale)
-    attn_h.launches['vH'] += 1
-    return out
+    in one instance. ``[B, H, S, D]``. On CUDA the path
+    :func:`plan_attn_h` picks ('sm90'; ``path='mma'`` forces the first
+    port's kernel)."""
+    return _planned(attn_h, plan_attn_h, 'vH', q, k, v, scale, path)
 
 
-def pipelined_attention(q, k, v, scale: float):
+def pipelined_attention(q, k, v, scale: float, path: Optional[str] = None):
     """T3 (``tools/flash_pipelined.py::pipelined_attention``): the next
-    tile's QKᵀ before this tile's softmax. ``[B, H, S, D]``."""
-    cpu = _on_cpu(q, k, v)
-    _check('pipelined_attention', q, k, v, False, cpu=cpu)
-    if cpu:
-        return plain_exp(q, k, v, scale)
-    out = _launch('flash_pipelined_attn', 'pipelined_attention', q, k, v,
-                  scale)
-    pipelined_attention.launches['pipelined'] += 1
-    return out
+    tile's QKᵀ before this tile's softmax. ``[B, H, S, D]``. On CUDA the
+    path :func:`plan_pipelined` picks ('sm90'; ``path='mma'`` forces the
+    first port's kernel)."""
+    return _planned(pipelined_attention, plan_pipelined, 'pipelined', q, k,
+                    v, scale, path)
 
 
 def flash_tt2(q, k, v, scale: float):
@@ -304,6 +452,7 @@ def attn_variants(variant: int, q, k, v, scale: float):
 
 WRAPPERS = (attn_opt, attn_h, pipelined_attention, flash_tt2, flash_ttv3,
             attn_variants)
+PATH_WRAPPERS = (attn_h, pipelined_attention)   # those with two paths
 
 
 def _bind(fn: Callable, *args, **kw) -> Callable:
@@ -336,9 +485,18 @@ def launch_counts() -> dict:
     return {fn.__name__: sum(fn.launches.values()) for fn in WRAPPERS}
 
 
+def path_counts() -> dict:
+    """T2's and T3's launches by path: ``attn_h_sm90``, ``attn_h_mma``,
+    ``pipelined_attention_sm90``, ``pipelined_attention_mma``."""
+    return {f'{fn.__name__}_{p}': n for fn in PATH_WRAPPERS
+            for p, n in fn.path_launches.items()}
+
+
 def reset_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = collections.Counter()
+    for fn in PATH_WRAPPERS:
+        fn.path_launches = dict.fromkeys(PATHS, 0)
 
 
 reset_counts()

@@ -7,10 +7,13 @@ Guidance in a Limited Interval"), optionally with DeepCache; steps/s are
 the median of 4 runs after a warm-up. Without ``--json`` it also checks
 the scale-1 exactness anchor: at guidance scale 1 (+1e-9) CFG equals
 cond-only, so an interval run (0.3, 1.0) must match the full-CFG run; the
-JAX script's bound is 5e-3 max|Δ| on bf16 latents.
+JAX script's bound is 5e-3 max|Δ| on bf16 latents. ``--dtype fp32`` builds
+the models in fp32 and turns TF32 off for cuBLAS and cuDNN (full fp32, the
+anchor's reference precision); the line records both TF32 settings, and
+the metric the dtype.
 
     python -m flexdiffuse_tpu_torch.tools.cfg_interval_exp
-        [--deepcache N] [--json] [--device cpu]
+        [--deepcache N] [--json] [--dtype bf16|fp32] [--device cpu]
 
 Prints one JSON line. On the CPU it runs the tiny models, 4 steps, as a
 check that the path runs.
@@ -20,7 +23,9 @@ from __future__ import annotations
 import dataclasses
 import statistics
 
-from flexdiffuse_tpu_torch.tools import parser, resolve_device
+import torch
+
+from flexdiffuse_tpu_torch.tools import BF16, parser, resolve_device
 from flexdiffuse_tpu_torch.tools.bench_common import (emit, finite, mse,
                                                       timed)
 from flexdiffuse_tpu_torch.tools.deepcache_exp import (STEPS, build_parts,
@@ -68,9 +73,11 @@ def measure(unet, vae, deepcache: int = 0, with_anchor: bool = True,
                                      reps)
     int_sps, int_lat = run_variant(parts, parts['guide'], (0.0, 0.6), steps,
                                    reps)
+    dtype = str(next(unet.parameters()).dtype).removeprefix('torch.')
     out = {
         'metric': (f'sd1.4 {side * 8}x{side * 8} CFG-interval(0,0.6) '
-                   f'denoise steps/sec/card (bf16, PLMS, {steps}-step loop)'),
+                   f'denoise steps/sec/card ({dtype}, PLMS, {steps}-step '
+                   'loop)'),
         'deepcache': deepcache,
         'exact_steps_per_sec': base_sps,
         'interval_steps_per_sec': int_sps,
@@ -89,11 +96,20 @@ def main() -> None:
     ap.add_argument('--deepcache', type=int, default=0)
     ap.add_argument('--json', action='store_true',
                     help='skip the scale-1 anchor, as the JAX script')
+    ap.add_argument('--dtype', default='bf16', choices=('bf16', 'fp32'),
+                    help="the models' dtype on the card; fp32 also turns "
+                    'TF32 off')
     args = ap.parse_args()
     device = resolve_device(args.device)
-    unet, vae = models(device)
+    dtype = BF16 if args.dtype == 'bf16' else torch.float32
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    unet, vae = models(device, dtype)
     kw = {} if device.type == 'cuda' else dict(steps=4, side=8, reps=1)
-    emit(measure(unet, vae, args.deepcache, not args.json, **kw), device)
+    res = measure(unet, vae, args.deepcache, not args.json, **kw)
+    emit(dict(res, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+              cudnn_allow_tf32=torch.backends.cudnn.allow_tf32), device)
 
 
 if __name__ == '__main__':

@@ -27,7 +27,7 @@ from flexdiffuse_tpu_torch.models import (SD14_UNET, SD14_VAE, AutoencoderKL,
                                           UNet2DCondition)
 from flexdiffuse_tpu_torch.models.configs import TINY_UNET, TINY_VAE
 from flexdiffuse_tpu_torch.pipeline import FlexPipeline
-from flexdiffuse_tpu_torch.tools import parser, resolve_device
+from flexdiffuse_tpu_torch.tools import BF16, parser, resolve_device
 from flexdiffuse_tpu_torch.tools.bench_common import (cfg_guide, emit,
                                                       finite, mse, seeded,
                                                       start_noise, timed)
@@ -93,12 +93,12 @@ def run(unet, vae, intervals: Sequence[int] = (0, 2, 3), batch: int = 1,
                 'loop, DeepCache intervals', rows=rows, drift=drift)
 
 
-def models(device: torch.device) -> tuple:
-    """Seeded SD-1.4 UNet and VAE on the card, tiny ones (fp32) on the
-    CPU."""
+def models(device: torch.device, dtype: torch.dtype = BF16) -> tuple:
+    """Seeded SD-1.4 UNet and VAE on the card (in ``dtype``), tiny ones
+    (fp32) on the CPU."""
     if device.type == 'cuda':
-        return (seeded(UNet2DCondition, SD14_UNET, device),
-                seeded(AutoencoderKL, SD14_VAE, device))
+        return (seeded(UNet2DCondition, SD14_UNET, device, dtype),
+                seeded(AutoencoderKL, SD14_VAE, device, dtype))
     return (seeded(UNet2DCondition, TINY_UNET, device, torch.float32),
             seeded(AutoencoderKL, TINY_VAE, device, torch.float32))
 

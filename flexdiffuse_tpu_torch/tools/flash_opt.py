@@ -1,14 +1,18 @@
 """T1 and T2: the flash kernel's schedule experiments, on the card.
 
 Port of ``tools/flash_opt.py``. Its variants give the TPU's scheduler
-independent work; their Hopper forms (``csrc/flash_variants.cu``):
+independent work; their Hopper forms (``csrc/flash_variants.cu``; vH on
+its Hopper path, ``csrc/flash_variants_sm90.cu``, unless ``attn_h`` is
+called with ``path='mma'``):
 
   v0   the plain kv loop (q scaled in its dtype, natural exp)
   vU   the next K/V tile's copy in flight while this one is computed (the
        TPU unrolled the kv loop so QK(j+1) could overlap softmax(j))
   vG   G ∈ {2, 4} independent 64-row q chains per block, sharing each
        staged K/V tile
-  vH   all H heads of a q tile in one block (T2)
+  vH   all H heads of a q tile in one instance (T2): consumer warpgroups
+       on different heads, the kv range split over a cluster of blocks
+       where the instances fill at most half of the card
 
 The JAX script sweeps TPU block sizes (256–2048 rows) per variant; those
 do not exist here: the Hopper tile is 64 K/V rows and 64·G q rows, and each

@@ -1,8 +1,11 @@
 """T3: the software-pipelined flash kernel, measured in the full UNet chain.
 
 Port of ``tools/flash_pipelined.py``: tile j+1's QKᵀ is issued before tile
-j's softmax and P·V (``csrc/flash_variants.cu``, kScoreAhead), so the
-tensor-core and CUDA-core work of neighbouring tiles are independent. The
+j's softmax and P·V, so the tensor-core and CUDA-core work of neighbouring
+tiles are independent. The kernel is T3's Hopper path
+(``csrc/flash_variants_sm90.cu``: TMA, wgmma, warp specialisation; the
+first port, ``csrc/flash_variants.cu`` kScoreAhead, runs with
+``pipelined_attention(..., path='mma')``). The
 kernel is checked against fp32 attention, then the SD-1.4 UNet chain
 (``perf_experiment.scan_time``) runs with K1 and with T3 swapped in for
 the kernel that ``ops/attention.py`` calls on eligible shapes.

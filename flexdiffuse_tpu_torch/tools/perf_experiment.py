@@ -87,10 +87,12 @@ def unet_chain(unet: UNet2DCondition, lat: torch.Tensor, ctx: torch.Tensor,
     res = dict(label=label, ms=None, per_eval=None)
     with torch.no_grad():
         if lat.device.type == 'cuda':
-            before = {**kernel_counts(), **fv.launch_counts()}
+            counts = lambda: {**kernel_counts(), **fv.launch_counts(),
+                              **fv.path_counts()}
+            before = counts()
             res['ms'], out = chain_ms(step, lat, depth)
             evals = 4 * depth    # the warm-up and three timed chains
-            after = {**kernel_counts(), **fv.launch_counts()}
+            after = counts()
             res['per_eval'] = {k: (n - before[k]) / evals
                                for k, n in after.items() if n != before[k]}
         else:

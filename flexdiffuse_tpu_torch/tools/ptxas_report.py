@@ -30,7 +30,8 @@ from flexdiffuse_tpu_torch.ops import group_norm as gn
 SOURCES = {'flash_attention': (fa.SOURCE, fa.BUILD_PARTS),
            'flash_backward': (fb.SOURCE, fb.BUILD_PARTS),
            'group_norm': (gn.SOURCE, 1),
-           'flash_variants': (fv.SOURCE, fv.BUILD_PARTS)}
+           'flash_variants': (fv.SOURCE, fv.BUILD_PARTS),
+           'flash_variants_sm90': (fv.SM90_SOURCE, fv.SM90_BUILD_PARTS)}
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PROPS = re.compile(r'Function properties for (\w+)')

@@ -50,6 +50,7 @@ PORT_MODULES = [
     'flexdiffuse_tpu_torch.tools.flash_tt',
     'flexdiffuse_tpu_torch.tools.flash_tt3',
     'flexdiffuse_tpu_torch.tools.gn_compare',
+    'flexdiffuse_tpu_torch.tools.variant_stamps',
     'flexdiffuse_tpu_torch.composition',
     'flexdiffuse_tpu_torch.composition.embeds',
     'flexdiffuse_tpu_torch.composition.schema',

@@ -225,6 +225,9 @@ def test_param_dtype_bit_identity_holds_in_both_packages(tiny):
     by = {r['variant']: r for r in port['variants']}
     assert by['bf16-mm']['max_abs_vs_fp32'] == 0.0
     assert port['bf16_mm_bit_identical']
+    assert port['plain_group_norm']['bf16_mm_bit_identical']
+    assert port['fp32_rerun_max_abs'] == 0.0
+    assert port['first_difference'] is None
 
 
 def test_bench_vae_decodes_are_finite_in_both_packages(tiny):

@@ -1,5 +1,6 @@
 """PyTorch port: the attention variants T1–T6 and the ported experiment
-tools, held against the JAX package's tool kernels on the CPU.
+tools, held against the JAX package's tool kernels on the CPU, and T2 and
+T3's path choosers.
 
 The JAX tools (``tools/flash_*.py``) call ``pl.pallas_call`` without
 ``interpret=``; here ``jax.experimental.pallas.pallas_call`` is patched to
@@ -201,3 +202,131 @@ def test_build_in_parts_compiles_each_part_then_links(tmp_path, monkeypatch):
     assert '-shared' in link.split() and link.count('.o') == 3
     assert fa.library_path(fv.SOURCE).read_text() == 'built\n'
     assert fa.build(fv.SOURCE, 3) == 0.0   # built already
+
+
+# T2 and T3's path choosers: every head width of the domain, both dtypes,
+# the main shapes, a serving batch, the tools' CPU shape and Sq != Skv.
+PLAN_SHAPES = [((2, 8, 4096), 4096), ((2, 8, 1024), 1024),
+               ((1, 2, 1024), 1024), ((16, 8, 4096), 4096),
+               ((1, 2, 256), 256), ((1, 1, 64), 192), ((3, 5, 128), 640)]
+PLANS = {'attn_h': fv.plan_attn_h, 'pipelined_attention': fv.plan_pipelined}
+
+
+def _meta(shape, skv, d, dtype):
+    return (torch.empty((*shape, d), dtype=dtype, device='meta'),
+            torch.empty((*shape[:2], skv, d), dtype=dtype, device='meta'))
+
+
+@pytest.mark.parametrize('d', range(8, fv.MAX_HEAD_DIM + 1, 8))
+@pytest.mark.parametrize('name', list(PLANS))
+def test_plan_takes_the_hopper_path_at_every_width(name, d):
+    """Every shape of the domain plans 'sm90', with the source's tiles
+    (PIPELINED_TILES, HEADS_TILES, 64-row kv tiles); 'mma' only when the
+    caller forces it, as the first port's grid."""
+    plan = PLANS[name]
+    dp = -(-d // 16) * 16
+    for dtype in fa.DTYPES16:
+        for shape, skv in PLAN_SHAPES:
+            q, k = _meta(shape, skv, d, dtype)
+            b, h, sq = shape
+            for path in (None, fv.SM90):
+                how = plan(q, k, path=path)
+                assert how.path == fv.SM90 and how.head_pad == dp
+                assert how.block_kv == fv.TILE
+                if name == 'attn_h':
+                    consumers, stages = fv.HEADS_TILES[dp <= 64]
+                    parts = fv.heads_parts(b * sq // 64, skv // 64, dp)
+                    assert how.grid == (sq // 64, b)
+                    assert how.parts == parts and how.block_q == 64
+                else:
+                    consumers, stages = fv.PIPELINED_TILES
+                    assert how.block_q == 64 * consumers and how.parts == 1
+                    assert how.grid == (-(-sq // how.block_q), b * h)
+                assert how.threads == 128 * (consumers + 1)
+                assert how.stages == stages
+            kept = plan(q, k, path=fv.MMA)
+            assert kept.path == fv.MMA and kept.threads == 128
+            assert kept.grid == (sq // 64, b if name == 'attn_h' else b * h)
+            assert kept.parts == 1
+
+
+@pytest.mark.parametrize('instances,tiles,dp,want', [
+    (32, 16, 80, 2),     # (2,8,1024,80): 32 instances fill a quarter
+    (16, 16, 48, 2),     # (1,2,1024,40)
+    (128, 64, 48, 1),    # (2,8,4096,40): the card is full
+    (66, 64, 48, 2),     # half of 132 SMs
+    (67, 64, 48, 1),     # more than half
+    (32, 16, 112, 1),    # no room for the merge buffers above DP 96
+    (32, 16, 96, 2),
+    (16, 2, 48, 2),      # one tile a part
+    (16, 1, 48, 1),      # one kv tile cannot be split
+])
+def test_heads_parts_split_only_where_the_card_is_half_empty(
+        instances, tiles, dp, want):
+    """T2's kv split: only where the instances fill at most half of the
+    card and DP <= HEADS_SPLIT_MAX_DP; the first of HEADS_PARTS whose
+    blocks fit the card with no empty part."""
+    parts = fv.heads_parts(instances, tiles, dp)
+    assert parts == want
+    per = -(-tiles // parts)
+    assert instances * parts <= fa.SMS and (parts - 1) * per < tiles
+
+
+@pytest.mark.parametrize('path', [None, fv.SM90, fv.MMA])
+@pytest.mark.parametrize('fn', [fv.attn_h, fv.pipelined_attention])
+def test_cpu_calls_count_no_launch_on_either_path(fn, path):
+    """On CPU tensors T2 and T3 return their twin whatever the path asked
+    for, and count no launch on either path."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, 2, 128, 40), generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    before = (fv.launch_counts(), fv.path_counts())
+    torch.testing.assert_close(fn(q, k, v, 0.15, path=path),
+                               fv.plain_exp(q, k, v, 0.15), rtol=0, atol=0)
+    assert (fv.launch_counts(), fv.path_counts()) == before
+
+
+@pytest.mark.parametrize('fn', [fv.attn_h, fv.pipelined_attention])
+def test_unknown_path_raises(fn):
+    x = torch.zeros((1, 1, 64, 40))
+    with pytest.raises(ValueError):
+        fn(x, x, x, 0.1, path='wide')
+    with pytest.raises(ValueError):
+        PLANS[fn.__name__](x, x, path='mma.sync')
+
+
+def test_split_twin_of_one_part_is_plain_exp():
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((1, 2, 128, 24), generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    torch.testing.assert_close(fv.plain_split_exp(q, k, v, 0.2, 1),
+                               fv.plain_exp(q, k, v, 0.2), rtol=0, atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_attn_h(shape, dtype):
+    jdt = DTYPES[dtype][0]
+    rng = np.random.default_rng(shape[-1])
+    arrs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    ref = np.asarray(flash_opt.attn_h(
+        *(jnp.asarray(a).astype(jdt) for a in arrs),
+        shape[-1]**-0.5).astype(jnp.float32))
+    return arrs, ref
+
+
+@pytest.mark.parametrize('dtype', list(DTYPES))
+@pytest.mark.parametrize('parts', [2, 4])
+def test_split_twin_matches_jax_tool_kernel(parts, dtype, interpret):
+    """T2's kv split and merge (``plain_split_exp``, the kernel's order)
+    against the JAX tool kernel ``tools/flash_opt.py::attn_h`` in interpret
+    mode at (1,2,1024,80), the main 1024-token head, with
+    ``test_twin_matches_jax_tool_kernel``'s tolerance: fp32 1e-5 of max|ref|
+    (the split only reorders fp32 sums: observed ≤ 5e-7), bf16 2⁻⁷ (P is
+    rounded relative to each part's max, as in every online kernel)."""
+    shape = (1, 2, 1024, 80)
+    arrs, ref = _jax_attn_h(shape, dtype)
+    tdt = DTYPES[dtype][1]
+    got = fv.plain_split_exp(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                             shape[-1]**-0.5, parts)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= _tolerance('T2', dtype) * np.abs(ref).max(), err

@@ -1,7 +1,8 @@
 """PyTorch port: the Hopper kernels (K1 forward flash attention, K3
 forward with lse, K4 dq and K5 dk/dv, each on the Hopper path and on the
 kept mma.sync kernel, fp32 on the kept one; K6 fused GroupNorm, the
-attention variants T1–T6) against their plain twins, on the card.
+attention variants T1–T6, T2 and T3 on both paths) against their plain
+twins, on the card.
 Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
@@ -777,3 +778,101 @@ def test_variant_kernels_reject_what_they_do_not_take(cuda_gen):
         with pytest.raises(ValueError):
             case()
     assert sum(fv.launch_counts().values()) == before
+
+
+# T2 and T3's Hopper path: the main shapes and every head width of the
+# domain, in both dtypes.
+T_SM90_SHAPES = T_SHAPES[:1] + [(2, 8, 4096, 40)] + [
+    (1, 2, 1024, d) for d in range(8, fv.MAX_HEAD_DIM + 1, 8)]
+T_PATHS = {'T2': (fv.attn_h, fv.plan_attn_h),
+           'T3': (fv.pipelined_attention, fv.plan_pipelined)}
+
+
+def _one_launch(fn, path, call):
+    before = dict(fn.path_launches)
+    out = call()
+    torch.cuda.synchronize()
+    assert fn.path_launches == dict(before, **{path: before[path] + 1})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize('shape', T_SM90_SHAPES)
+@pytest.mark.parametrize('label', list(T_PATHS))
+def test_variant_sm90_path_matches_twin(label, shape, dtype, cuda_gen):
+    """T2 or T3 on the path its plan picks ('sm90' everywhere in the
+    domain), one launch on it, by K1's rule against the twin of that path
+    (T2's kv split: ``plain_split_exp``)."""
+    fn, plan = T_PATHS[label]
+    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
+                           dtype=dtype) for _ in range(3))
+    scale = shape[-1]**-0.5
+    how = plan(q, k)
+    assert how.path == fv.SM90
+    out = _one_launch(fn, fv.SM90, lambda: fn(q, k, v, scale))
+    twin = (fv.plain_split_exp(q, k, v, scale, how.parts) if how.parts > 1
+            else fv.plain_exp(q, k, v, scale))
+    _rule(out, plain_attention(q.float(), k.float(), v.float(), scale), twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', T_SHAPES)
+@pytest.mark.parametrize('label', list(T_PATHS))
+def test_variant_kept_path_still_right(label, shape, cuda_gen):
+    """The first port's kernel, forced with ``path='mma'``: one launch on
+    'mma', by K1's rule."""
+    fn, _ = T_PATHS[label]
+    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
+                           dtype=torch.bfloat16) for _ in range(3))
+    scale = shape[-1]**-0.5
+    out = _one_launch(fn, fv.MMA, lambda: fn(q, k, v, scale, path=fv.MMA))
+    _rule(out, plain_attention(q.float(), k.float(), v.float(), scale),
+          fv.plain_exp(q, k, v, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('label', list(T_PATHS))
+def test_variant_paths_refuse_out_of_domain_inputs(label, cuda_gen):
+    """Inputs outside the domain raise on either path before any launch."""
+    fn, _ = T_PATHS[label]
+    q = torch.randn((1, 2, 128, 40), generator=cuda_gen, device='cuda',
+                    dtype=torch.bfloat16)
+    odd = torch.empty(q.numel() + 8, device='cuda', dtype=torch.bfloat16)[
+        4:q.numel() + 4].view(q.shape)   # 8 bytes off 16-byte alignment
+    cases = [(q.float(),) * 3, (q[:, :, :100],) * 3, (q[..., :36],) * 3,
+             (q.transpose(2, 3),) * 3, (odd, q, q), (q, q.cpu(), q)]
+    before = fv.path_counts()
+    for path in (None, fv.SM90, fv.MMA):
+        for args in cases:
+            with pytest.raises(ValueError):
+                fn(*args, 0.1, path=path)
+    with pytest.raises(ValueError):
+        fn(q, q, q, 0.1, path='wide')
+    assert fv.path_counts() == before
+
+
+@pytest.mark.cuda
+def test_variant_refused_launch_raises_without_fallback(cuda_gen):
+    """A launch the kernel refuses (T2's kv split in 3 parts; either
+    kernel on a sequence that is not a multiple of 64, past the wrapper's
+    check) raises, counts no launch and writes nothing: no other path
+    runs."""
+    q = torch.randn((1, 2, 1024, 80), generator=cuda_gen, device='cuda',
+                    dtype=torch.bfloat16)
+    bad = torch.randn((1, 2, 100, 80), generator=cuda_gen, device='cuda',
+                      dtype=torch.bfloat16)
+    how = fv.plan_attn_h(q, q)
+    assert how.parts > 1
+    cases = [(fv.attn_h, q, dataclasses.replace(how, parts=3)),
+             (fv.attn_h, bad, fv.plan_attn_h(bad, bad)),
+             (fv.pipelined_attention, bad, fv.plan_pipelined(bad, bad))]
+    before = fv.path_counts()
+    for fn, x, plan in cases:
+        out = torch.zeros_like(x)
+        with pytest.raises(RuntimeError):
+            fv.launch(fn, x, x, x, out, 0.1, plan)
+        torch.cuda.synchronize()
+        assert not out.any()
+    assert fv.path_counts() == before
+    _one_launch(fv.attn_h, fv.SM90, lambda: fv.attn_h(q, q, q, 0.1))
