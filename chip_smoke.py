@@ -151,14 +151,17 @@ The flash-kernel experiment tools (the fourth slice):
     (``csrc/flash_variants.cu``: T1 v0/vU/vG2/vG4, T2, T3, T4, T5
     ttv3/ttv4/no-fold, T6 v0/v1/v2) against its twin by step 3's rule at
     every shape the tools give it: the two main shapes, and (8,8,4096,40)
-    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). T2 and T3 run on
-    both of their paths (T_PATHS): the Hopper one their plan picks
-    ('sm90', ``csrc/flash_variants_sm90.cu``; T2's twin there is the kv
-    split's, ``plain_split_exp``, where the plan splits) and the first
-    port's forced ('mma'), each call one launch on its path; on 'sm90' also
-    at (1,2,1024,d) for every d of the domain (T_WIDTH_SHAPES). At the main
-    shapes prints each one's (T2/T3 each path's, interleaved old, new, new,
-    old), its twin's, ``scaled_dot_product_attention``'s (contiguous
+    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). T1 (v0, vU,
+    vG2, vG4), T2, T3 and T6 v1/v2 run on both of their paths (T_PATHS):
+    the Hopper one their plan picks ('sm90', ``csrc/flash_variants_sm90.cu``;
+    T2's twin there is the kv split's, ``plain_split_exp``, where the plan
+    splits) and the first port's forced ('mma'), each call one launch on
+    its path, and a launch the kernel refuses raises on either path with
+    nothing written and nothing counted; on 'sm90' also at (1,2,1024,d)
+    for every d of the domain (T_WIDTH_SHAPES); T6 v0 takes T1 v0's
+    'sm90' kernel. At the main shapes prints each one's (the T_PATHS
+    configurations each path's, interleaved old, new, new, old), its
+    twin's, ``scaled_dot_product_attention``'s (contiguous
     ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the transposed
     views, which takes its slow path) and K1's times from this run, all
     kernels replayed from CUDA graphs, and the bound.
@@ -1605,10 +1608,12 @@ AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k1_sm90=LAUNCHES_PER_UNET,
 T_EXTRA_SHAPES = [((8, 8, 4096, 40), ('T4', 'T5 ttv3', 'T5 ttv4',
                                        'T5 no-fold')),
                   ((2, 8, 1536, 40), ('T4',))]
-# The configurations with two paths: (wrapper, plan); and the shapes that
-# hold their Hopper path at every head width of the domain.
-T_PATHS = {'T2': (fv.attn_h, fv.plan_attn_h),
-           'T3': (fv.pipelined_attention, fv.plan_pipelined)}
+# The configurations with two paths: (call, plan, the wrapper that counts
+# their launches, the entry point's options), ``fv.PATH_CONFIGS``; and the
+# shapes that hold their Hopper path at every head width of the domain
+# (Sq = 1024, a multiple of vG4's 256 q rows).
+T_PATHS = {label: fv.PATH_CONFIGS[label] for label in (
+    'T1 v0', 'T1 vU', 'T1 vG2', 'T1 vG4', 'T2', 'T3', 'T6 v1', 'T6 v2')}
 T_WIDTH_SHAPES = [(1, 2, 1024, d) for d in range(8, fv.MAX_HEAD_DIM + 1, 8)]
 
 
@@ -1625,38 +1630,69 @@ def _one_launch(fn, path: str, call) -> torch.Tensor:
     return out
 
 
+def refused_without_fallback(label: str, d: int, gen) -> bool:
+    """A launch ``label``'s kernel refuses (Sq = 100, past the wrapper's
+    check), on either path, raises, writes nothing and counts no launch:
+    no other path or twin runs."""
+    _, plan, fn, options = T_PATHS[label]
+    bad = torch.randn((1, 2, 100, d), generator=gen, device='cuda',
+                      dtype=torch.bfloat16)
+    before = fv.path_counts()
+    ok = True
+    for path in fv.PATHS:
+        out = torch.zeros_like(bad)
+        try:
+            fv.launch(fn, bad, bad, bad, out, 0.1,
+                      plan(bad, bad, path=path), *options)
+            ok = False
+        except RuntimeError:
+            pass
+        torch.cuda.synchronize()
+        ok = ok and not out.any()
+    return ok and fv.path_counts() == before
+
+
 def check_paths(label: str, q, k, v, scale: float, ref, timed: bool,
                 kept: bool = True) -> dict:
-    """T2 or T3 (``label``) on its planned path and, with ``kept``, on the
-    first port's kernel forced, each by step 3's rule against its twin on
-    that path, each one launch on its path; with ``timed`` both paths'
-    times, interleaved (``time_pair``)."""
-    fn, plan = T_PATHS[label]
+    """A configuration with two paths (``label``: T1, T2, T3, T6 v1/v2) on
+    its planned path and, with ``kept``, on the first port's kernel forced,
+    each by step 3's rule against its twin on that path, each one launch on
+    its path, and a refused launch raising on either path; with ``timed``
+    both paths' times, interleaved (``time_pair``)."""
+    call, plan, fn, _ = T_PATHS[label]
     how = plan(q, k)
-    twin = (fv.plain_split_exp(q, k, v, scale, how.parts) if how.parts > 1
-            else fv.plain_exp(q, k, v, scale))
-    out = _one_launch(fn, how.path, lambda: fn(q, k, v, scale))
+    out = _one_launch(fn, how.path, lambda: call(q, k, v, scale))
+    twin = fv.planned_twin(label, q, k, v, scale)
+    # Consumer warpgroups: T2 and T3 have a producer warpgroup besides.
     r = dict(_errs(out, ref, twin), path=how.path, parts=how.parts,
-             consumers=how.threads // 128 - 1)
+             block_kv=how.block_kv,
+             consumers=how.threads // 128 - (fn in (fv.attn_h,
+                                                    fv.pipelined_attention)))
     r['ok'] = r['ok'] and how.path == fv.SM90
     if kept:
         out = _one_launch(fn, fv.MMA,
-                          lambda: fn(q, k, v, scale, path=fv.MMA))
-        r['kept'] = _errs(out, ref, fv.plain_exp(q, k, v, scale))
-        r['ok'] = r['ok'] and r['kept']['ok']
+                          lambda: call(q, k, v, scale, path=fv.MMA))
+        r['kept'] = _errs(out, ref, fv.CONFIGS[label][1](q, k, v, scale))
+        r['refused'] = refused_without_fallback(label, q.shape[3],
+                                                torch.Generator('cuda'))
+        r['ok'] = r['ok'] and r['kept']['ok'] and r['refused']
     if timed:
         r['ms'], r['kept_ms'] = time_pair(
-            lambda: fn(q, k, v, scale),
-            lambda: fn(q, k, v, scale, path=fv.MMA))
-        if fn is fv.attn_h and how.head_pad <= fv.HEADS_SPLIT_MAX_DP:
-            # T2's kv split in every part count the kernel takes here (the
-            # plan picks one), launched as the plan would be.
+            lambda: call(q, k, v, scale),
+            lambda: call(q, k, v, scale, path=fv.MMA))
+        splits = (how.head_pad <= fv.HEADS_SPLIT_MAX_DP if fn is fv.attn_h
+                  else fn is fv.attn_opt and fv.chains_split_fits(
+                      label.split()[1], how.head_pad))
+        if splits:
+            # T2's or T1's kv split in every part count the kernel takes
+            # here (the plan picks one), launched as the plan would be.
             out = torch.empty_like(q)
-            tiles = k.shape[2] // fv.TILE
+            tiles = k.shape[2] // how.block_kv
+            options = T_PATHS[label][3]
             r['parts_ms'] = {
                 parts: time_ms(lambda p=parts: fv.launch(
                     fn, q, k, v, out, scale,
-                    dataclasses.replace(how, parts=p)), graph=True)
+                    dataclasses.replace(how, parts=p), *options), graph=True)
                 for parts in (1, 2, 4)
                 if (parts - 1) * -(-tiles // parts) < tiles}
     return r
@@ -1700,7 +1736,9 @@ def check_variants(shape, gen: torch.Generator, labels=None,
         else:
             out = kernel(*args, scale)
             torch.cuda.synchronize()
-            r = _errs(back(out), ref, back(twin(*args, scale)))
+            r = _errs(back(out), ref, back(
+                twin(*args, scale) if bhds else
+                fv.planned_twin(label, q, k, v, scale)))
         line = (f'{label:10s} {tuple(shape)}: max|Δ| {r["max_abs_err"]:.3e} '
                 f'(twin {r["plain_max_abs_err"]:.3e}, limit {r["tol"]:.3e}, '
                 f'{r["flipped"]} rounding flips)')
@@ -1729,6 +1767,52 @@ def check_variants(shape, gen: torch.Generator, labels=None,
     return res
 
 
+def t_kernel_entries(var_res: list, tools: dict) -> list:
+    """The kernels line's T1–T6 entries (T_ENTRIES) from step 14's results
+    (``var_res``, the main shapes first) and step 15's launches
+    (``tools``)."""
+    var_main = var_res[0]
+    kernels = []
+    for entry, replaces, label, parts in T_ENTRIES:
+        c = var_main['configs'][label]
+        # T1, T2, T3 and T6: the Hopper path's source, time and launches
+        # by path, beside the kept kernel's, at both main shapes.
+        paths = {}
+        if label in T_PATHS:
+            by = tools['config_path_launches']
+            # vG's entry carries G = 4's times beside G = 2's.
+            names = [label] + (['T1 vG4'] if label == 'T1 vG2' else [])
+            paths = dict(
+                kept_source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
+                kept_ms=c['kept_ms'],
+                path_launches={p: sum(
+                    by.get(f'{fn.__name__} {key} {p}', 0)
+                    for fn, key in parts) for p in fv.PATHS},
+                by_shape=[dict(shape=r['shape'], **{
+                    key: r['configs'][name][key] for key in (
+                        'ms', 'kept_ms', 'plain_ms', 'parts', 'parts_ms')
+                    if key in r['configs'][name]},
+                    config=name, k1_ms=r['k1_ms'],
+                    library_ms=r['library_ms'], bound_ms=r['bound_ms'])
+                    for name in names for r in var_res[:len(MAIN_SHAPES)]])
+        kernels.append(dict(
+            name=entry, route='cuda',
+            source='flexdiffuse_tpu_torch/csrc/' + (
+                'flash_variants_sm90.cu' if label in T_PATHS
+                else 'flash_variants.cu'),
+            replaces=replaces, launches=tools['launches'][entry],
+            max_abs_err=max(max(r['configs'][label]['max_abs_err'],
+                                r['configs'][label].get('kept', {}).get(
+                                    'max_abs_err', 0.0))
+                            for r in var_res if label in r['configs']),
+            ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=var_main['bound_ms'],
+            bound_by=var_main['bound_by'],
+            library_ms=var_main['library_ms'],
+            **({'library_views_ms': var_main['library_views_ms']}
+               if fv.CONFIGS[label][2] else {}), **paths))
+    return kernels
+
+
 def _ab_ok(label: str, per_eval: dict, kernel: str) -> None:
     if per_eval != AB_LAUNCHES[kernel]:
         raise AssertionError(f'{label}: launches per UNet evaluation '
@@ -1753,6 +1837,7 @@ def run_tools(gen: torch.Generator) -> dict:
                        for name, _, _, parts in T_ENTRIES}
     res['launches'].update(counts())
     res['path_launches'] = fv.path_counts()
+    res['config_path_launches'] = fv.config_path_counts()
     errs = ([r['max_abs_err'] for r in res['flash_variants']] +
             [r['max_abs_err'] for r in res['flash_opt']] +
             [res['flash_pipelined']['max_abs_err']] +
@@ -5203,9 +5288,12 @@ def main() -> int:
         for r in var_res[:len(MAIN_SHAPES)]:
             c = r['configs'][label]
             print(f'{label} {tuple(r["shape"])}: sm90 {c["ms"]:.4f} ms '
-                  f'({c["consumers"]} consumers, parts {c["parts"]}), kept '
-                  f'mma {c["kept_ms"]:.4f}, K1 {r["k1_ms"]:.4f}, SDPA '
-                  f'{r["library_ms"]:.4f}, bound {r["bound_ms"]:.5f} '
+                  f'({c["consumers"]} consumers, kv tile {c["block_kv"]}, '
+                  f'parts {c["parts"]}), kept mma {c["kept_ms"]:.4f} '
+                  f'({c["kept_ms"] / c["ms"]:.2f}x), twin '
+                  f'{c["plain_ms"]:.3f}, K1 {r["k1_ms"]:.4f}, SDPA '
+                  f'{r["library_ms"]:.4f} ({c["ms"] / r["library_ms"]:.2f}'
+                  f'x), bound {r["bound_ms"]:.5f} '
                   f'({r["bound_ms"] / c["ms"]:.1%})'
                   + (f'; by kv parts {json.dumps(c["parts_ms"])}'
                      if 'parts_ms' in c else ''), flush=True)
@@ -5293,40 +5381,7 @@ def main() -> int:
             key: r[key] for key in ('ms', 'stream_ms', 'plain_ms',
                                     'library_ms', 'bound_ms', 'host_us')
             if key in r}) for r in gn_res if 'ms' in r]))
-    var_main = var_res[0]
-    for entry, replaces, label, _ in T_ENTRIES:
-        c = var_main['configs'][label]
-        # T2 and T3: the Hopper path's source, time and launches by path,
-        # beside the kept kernel's, at both main shapes.
-        paths = {}
-        if label in T_PATHS:
-            fn = T_PATHS[label][0]
-            paths = dict(
-                kept_source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
-                kept_ms=c['kept_ms'],
-                path_launches={p: tools['path_launches'][
-                    f'{fn.__name__}_{p}'] for p in fv.PATHS},
-                by_shape=[dict(shape=r['shape'], **{
-                    key: r['configs'][label][key] for key in (
-                        'ms', 'kept_ms', 'plain_ms', 'parts')},
-                    k1_ms=r['k1_ms'], library_ms=r['library_ms'],
-                    bound_ms=r['bound_ms'])
-                    for r in var_res[:len(MAIN_SHAPES)]])
-        kernels.append(dict(
-            name=entry, route='cuda',
-            source='flexdiffuse_tpu_torch/csrc/' + (
-                'flash_variants_sm90.cu' if label in T_PATHS
-                else 'flash_variants.cu'),
-            replaces=replaces, launches=tools['launches'][entry],
-            max_abs_err=max(max(r['configs'][label]['max_abs_err'],
-                                r['configs'][label].get('kept', {}).get(
-                                    'max_abs_err', 0.0))
-                            for r in var_res if label in r['configs']),
-            ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=var_main['bound_ms'],
-            bound_by=var_main['bound_by'],
-            library_ms=var_main['library_ms'],
-            **({'library_views_ms': var_main['library_views_ms']}
-               if fv.CONFIGS[label][2] else {}), **paths))
+    kernels += t_kernel_entries(var_res, tools)
     print(f'LoRA check max|Δg|/max|g| {lora_rel:.3e}; train_lora '
           f'{lora["median_step_ms"]:.1f} ms/step, train_full '
           f'{full["median_step_ms"]:.1f} ms/step')

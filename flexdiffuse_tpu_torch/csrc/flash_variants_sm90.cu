@@ -1,20 +1,29 @@
-// Attention variants T2 and T3 redesigned for Hopper (sm_90a): the second
-// path of ops/flash_variants.py::attn_h and ::pipelined_attention, beside
-// their first ports in flash_variants.cu (kept, and taken only when the
-// caller forces path='mma').
+// Attention variants T1, T2, T3 and T6 redesigned for Hopper (sm_90a): the
+// second path of ops/flash_variants.py::attn_opt, ::attn_h,
+// ::pipelined_attention and ::attn_variants, beside their first ports in
+// flash_variants.cu (kept, and taken only when the caller forces
+// path='mma').
 //
 // Replaces the Pallas kernels of the JAX package's flash-kernel tools:
+//   T1 tools/flash_opt.py::make_kernel (:56)  v0 one kv chain an instance,
+//      vU the kv loop unrolled, vG G ∈ {2, 4} q chains an instance
 //   T2 tools/flash_opt.py::make_kernel_h (:120)  every head of a q tile in
 //      one instance
 //   T3 tools/flash_pipelined.py::_pipelined_kernel (:22)  QKᵀ of kv tile j+1
 //      issued before the softmax of tile j
-// Both compute what their plain twin (ops/flash_variants.py::plain_exp) does:
-// q̃ = round16(q · round16(scale)) in q's dtype, s = q̃·kᵀ in fp32,
-// p = exp(s − m) with the running row max m, l = Σ p in fp32, P rounded to
-// the 16-bit type for P·V, and the output O/l. The exponential runs as one
-// FFMA by log2 e into ex2.approx (sm90.cuh). Domain: contiguous, 16-byte
-// aligned bf16/fp16 [B, H, S, D], Sq and Skv multiples of 64, d a multiple
-// of 8 up to 128; anything else returns cudaErrorInvalidValue.
+//   T6 tools/flash_variants.py::make_kernel (:26)  v0 exp (T1 v0's code),
+//      v1 exp2 with log2 e in q's scale, v2 exp2 with l from the 16-bit P
+// T1, T2, T3 and T6 v0 compute what their plain twin
+// (ops/flash_variants.py::plain_exp) does: q̃ = round16(q · round16(scale))
+// in q's dtype, s = q̃·kᵀ in fp32, p = exp(s − m) with the running row max
+// m, l = Σ p in fp32, P rounded to the 16-bit type for P·V, and the output
+// O/l. The exponential runs as one FFMA by log2 e into ex2.approx
+// (sm90.cuh). T6 v1 and v2 (plain_attn_variants) scale q by
+// round16(scale·log2 e) and take p = exp2(s − m), the same FFMA by 1; v2
+// sums l over round16(p), the very values the P·V wgmma reads. Domain:
+// contiguous, 16-byte aligned bf16/fp16 [B, H, S, D], Sq and Skv multiples
+// of 64 (Sq of 64·G for vG), d a multiple of 8 up to 128; anything else
+// returns cudaErrorInvalidValue.
 //
 // What bounds them on this card: as K1 (flash_attention.cu), one ex2 per
 // score on the 16-lane MUFU unit at SD's d = 40 (0.064 ms at
@@ -22,14 +31,15 @@
 // practice each consumer warpgroup's dependent chain per kv tile. Each
 // variant is a different answer to that chain.
 //
-// Shared by both (K1's building blocks, sm90.cuh): TMA loads of Q, K and V
-// through 3-D tensor maps [B·H, S, D] into tiles of 64 rows, stored with the
-// 128-byte swizzle at DP <= 64 and the 32-byte one above (DP = d rounded up
-// to 16); wgmma m64n64k16 for S = q̃·K_jᵀ (both K-major in shared memory)
-// and m64n{DP}k16 for O += P·V_j (P from registers, V MN-major); one
-// producer warpgroup whose thread(s) issue every TMA load and give their
-// registers to the consumers (setmaxnreg); consumer warpgroups of 64 q rows
-// that take turns to issue their wgmma (ping-pong, sm90::Turns). q̃ is made
+// Shared by all four (K1's building blocks, sm90.cuh): TMA loads of Q, K
+// and V through 3-D tensor maps [B·H, S, D] into tiles of 64 rows, stored
+// with the 128-byte swizzle at DP <= 64 and the 32-byte one above (DP = d
+// rounded up to 16); wgmma m64n64k16 for S = q̃·K_jᵀ (both K-major in
+// shared memory) and m64n{DP}k16 for O += P·V_j (P from registers, V
+// MN-major); one producer warpgroup whose thread(s) issue every TMA load
+// and give their registers to the consumers (setmaxnreg; T1/T6 have none,
+// below); consumer warpgroups of 64 q rows that take turns to issue their
+// wgmma (ping-pong, sm90::Turns; T1/T6's own ChainBars). q̃ is made
 // where TMA put Q: each consumer scales its Q tile in place once per (q
 // tile, head), in the swizzled layout (the scaling is elementwise; the
 // zero-filled columns stay zero), then fence.proxy.async orders those
@@ -82,6 +92,47 @@
 // o = Σ o_r·e^(m_r − m), l likewise with m = max m_r, frees their buffers
 // (a remote arrive) and stores the head. ops/flash_variants.py::
 // plain_split_exp is the split's twin.
+//
+// T1 and T6, chains (chains_sm90_kernel): one template for the six
+// configurations, which differ only in how many q chains share a K/V tile,
+// the base of the exponential (a runtime factor, with q's scale) and where
+// l is summed (kL16, T6 v2). Each block has G consumer warpgroups of 64 q
+// rows in K1's schedule (S_j issued with P_{j-1}·V_{j-1}, the softmax of
+// S_j beside that product, the consumers taking turns to issue when G > 1)
+// and no producer warpgroup or warp: warp 0 of the last consumer issues
+// the TMA loads, one box a lane, refilling a stage once every consumer has
+// released it (at once when it is the only one). ptxas allots a thread
+// 16384 / (32 · ⌈warps an SM / 4⌉) registers, rounded down to 8, whatever
+// setmaxnreg asks later: a 17th warp of producer cost every thread a
+// quarter of its registers (96 instead of 128), which spilled vG2 and vG4
+// at DP 48 and serialised their wgmma (C7512). The TPU variants' Hopper
+// forms (ChainsTiling):
+//   v0 (and T6 v0, v1, v2): one consumer, 128 threads; the independent
+//      chains of an SM come from resident blocks: 3 an SM up to DP = 64
+//      (3 K/V stages, 57 KB of shared memory and up to 168 registers a
+//      thread each), 2 above (2 stages).
+//   vU: v0's block with a ring of 4 stages (3 blocks an SM up to DP = 64,
+//      2 at DP 80 and 96, 1 above, by shared memory), the kv loop written
+//      out two tiles a turn of the loop.
+//   vG: G consumers sharing one ring of 3 stages, 256 (G = 2) or 512
+//      (G = 4) threads and 128 registers a thread (two vG2 blocks an SM up
+//      to DP = 64, one above; one vG4 block); vG4 takes 32-row kv tiles
+//      above DP = 96, where O, S and P at 64 rows would not fit.
+// What bounds them: the K/V stream, then the softmax. A single-chain
+// block streams every K/V tile for 64 q rows; the stamps put over half of
+// v0's time in waiting for its tile while the boxes were a 64-column slab
+// wide with d = 40 (the zero columns past d are filled by TMA, not read,
+// yet cost like data). So up to DP = 64 the boxes are d columns wide, the
+// slab's pitch and swizzle kept, and the columns past d zeroed once
+// (PERF.md §6). Sharing a K/V load between the blocks of a cluster (TMA
+// multicast to 2 or 4 q tiles of a head) ran slower at both main shapes
+// and was dropped. Where the blocks number at most the
+// card's SMs (vG2 and vG4 at the 1024-token head), the plans of T1 and T6
+// v0 split the kv range over a cluster of 2 blocks
+// (ops/flash_variants.py::chains_parts), merged as T2's split but once:
+// ranks 1.. leave (o, m, l) where Q and the ring were, rank 0 reads them
+// through distributed shared memory; the twin is plain_split_exp. The
+// exp2 variants (T6 v1, v2) are never split.
 
 #include <type_traits>
 #include <utility>
@@ -174,6 +225,46 @@ struct HeadsTiling {
   }
 };
 
+// T1's and T6's configurations on this path (chains_sm90_kernel's Cfg):
+// v0 also runs T6 v0 and v1, whose base is a runtime factor.
+enum Chains : int { kV0 = 0, kVU = 1, kVG2 = 2, kVG4 = 3, kV2 = 4, kCfgs };
+
+constexpr int kSmemPerSm = 233472;   // an SM's shared memory, bytes
+
+// T1's and T6's tiles (ops/flash_variants.py::CHAINS_TILES and
+// chains_tiling say the same): kChains consumer warpgroups of 64 q rows
+// sharing a ring of kStages K/V tiles of kN rows; kBlocks blocks an SM,
+// the fewer of what the registers (kByRegs, the __launch_bounds__ that
+// sets a thread's share) and the shared memory (with the 1 KB the card
+// reserves a block) allow.
+template <int DP, int Cfg>
+struct ChainsTiling {
+  static constexpr bool kNarrow = DP <= 64;
+  static constexpr int kChains = Cfg == kVG2 ? 2 : Cfg == kVG4 ? 4 : 1;
+  static constexpr bool kUnroll = Cfg == kVU;
+  static constexpr bool kL16 = Cfg == kV2;
+  static constexpr int kN = kChains == 4 && DP > 96 ? 32 : 64;
+  static constexpr int kStages =
+      kUnroll ? 4 : (kChains > 1 || kNarrow) ? 3 : 2;
+  static constexpr int kThreads = 128 * kChains;
+  using G = Geometry<kPitchOf<DP>, DP>;
+  static constexpr int kQ = G::bytes(kRows);
+  static constexpr int kTile = G::bytes(kN);
+  static constexpr int kK = kChains * kQ;            // the K stages
+  static constexpr int kV = kK + kStages * kTile;    // the V stages
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
+  // The kv split's merge buffer, (o, m, l) as float4s per thread, goes
+  // where Q and the ring were: where it fits, the split is allowed.
+  static constexpr int kMergeF4 = DP / 8 + 1;
+  static constexpr bool kSplit = kChains * 128 * kMergeF4 * 16 <= kBars;
+  static constexpr int kByRegs =
+      kChains == 1 ? (kNarrow ? 3 : 2) : (kChains == 2 && kNarrow) ? 2 : 1;
+  static constexpr int kBySmem = kSmemPerSm / (kBytes + 1024);
+  static constexpr int kBlocks = kByRegs < kBySmem ? kByRegs : kBySmem;
+  static_assert(kBlocks >= 1 && kBytes <= kSmemLimit, "chains tiles");
+};
+
 // ------------------------------------------------------------ device helpers
 
 template <typename T>
@@ -233,13 +324,13 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
 // Clock stamps per phase, compiled in only with -DFV_STAMPS (one build
 // part; tools/variant_stamps.py): the cycles thread 0 of consumer 0 of
 // block (0, 0, 0) spends in each phase of its kv loop, summed over the
-// launches since the last read, per kernel (0 T2, 1 T3). Each stamp charges
-// the cycles since the one before to its phase.
+// launches since the last read, per kernel (0 T2, 1 T3, 2 T1/T6). Each
+// stamp charges the cycles since the one before to its phase.
 enum Phase : int {
   kTurn,      // waiting for this consumer's turn to issue
   kTile,      // waiting for a K/V tile (TMA)
   kIssue,     // issuing the wgmma
-  kWaitS,     // waiting for S (T2)
+  kWaitS,     // waiting for S (T2, T1/T6)
   kSoftmax,   // the online softmax of one tile
   kWaitAll,   // waiting for the products in flight
   kTail,      // rescaling O, converting S to P, freeing the stage
@@ -247,7 +338,7 @@ enum Phase : int {
   kPhases
 };
 #ifdef FV_STAMPS
-__device__ unsigned long long fv_stamps[2][kPhases];
+__device__ unsigned long long fv_stamps[3][kPhases];
 #endif
 struct Stamps {
 #ifdef FV_STAMPS
@@ -306,8 +397,9 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
 
 // One consumer warpgroup's 64 q rows of one head: O, and for rows g and
 // g + 8 of the warp's 16 the running max of the raw scores and the
-// quad-partial row sum. Thread t of the warpgroup.
-template <typename T, int DP>
+// quad-partial row sum. Thread t of the warpgroup. Kv tiles of N rows;
+// kL16 sums l over the 16-bit P (T6 v2) instead of the fp32 p.
+template <typename T, int DP, int N = kKv, bool kL16 = false>
 struct Rows {
   static constexpr int kPitch = kPitchOf<DP>;
   using G = Geometry<kPitch, DP>;
@@ -325,31 +417,31 @@ struct Rows {
     l_run[0] = l_run[1] = 0.f;
   }
 
-  // S = q̃·K_jᵀ, 64 x kKv, DP / 16 k-steps (not committed).
-  static __device__ __forceinline__ void issue_s(float (&sc)[kKv / 2],
+  // S = q̃·K_jᵀ, 64 x N, DP / 16 k-steps (not committed).
+  static __device__ __forceinline__ void issue_s(float (&sc)[N / 2],
                                                  const unsigned char* s_q,
                                                  const unsigned char* sk) {
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks) {
-      sm90::Wgmma<T, kKv>::ss(sc, G::kmajor(s_q + G::kstep(ks, kRows)),
-                              G::kmajor(sk + G::kstep(ks, kKv)), ks > 0);
+      sm90::Wgmma<T, N>::ss(sc, G::kmajor(s_q + G::kstep(ks, kRows)),
+                              G::kmajor(sk + G::kstep(ks, N)), ks > 0);
     }
   }
 
   // O += P·V_j; the accumulator n-blocks 2kt, 2kt + 1 of S are the A
   // fragment of k-step kt (not committed).
-  __device__ __forceinline__ void issue_pv(const uint32_t (&pa)[kKv / 16][4],
+  __device__ __forceinline__ void issue_pv(const uint32_t (&pa)[N / 16][4],
                                            const unsigned char* sv) {
 #pragma unroll
-    for (int kt = 0; kt < kKv / 16; ++kt) {
+    for (int kt = 0; kt < N / 16; ++kt) {
       sm90::WgmmaRs<T, DP>::rs(o, pa[kt],
-                               G::mnmajor(sv + kt * 16 * kPitch, kKv), 1);
+                               G::mnmajor(sv + kt * 16 * kPitch, N), 1);
     }
   }
 
   // mx[r][i] = max(mx[r][i], mx[r][i + W]), then W / 2, ... 1 (K1's tree).
   template <int W>
-  static __device__ __forceinline__ void fold_max(float (&mx)[2][kKv / 8]) {
+  static __device__ __forceinline__ void fold_max(float (&mx)[2][N / 8]) {
 #pragma unroll
     for (int i = 0; i < W; ++i) {
       mx[0][i] = fmaxf(mx[0][i], mx[0][i + W]);
@@ -360,17 +452,18 @@ struct Rows {
 
   // The online softmax of one tile in place (every column is valid: Skv is
   // a multiple of the tile): updates m and l, leaves
-  // P = 2^(s·log2 e − m·log2 e) = e^(s − m) in sc and the factor O must be
-  // scaled by in alpha.
-  __device__ __forceinline__ void softmax(float (&sc)[kKv / 2],
-                                          float (&alpha)[2]) {
-    float mx[2][kKv / 8];
+  // P = 2^(s·c − m·c) in sc (c = log2 e: e^(s − m); c = 1: 2^(s − m))
+  // and the factor O must be scaled by in alpha.
+  __device__ __forceinline__ void softmax(float (&sc)[N / 2],
+                                          float (&alpha)[2],
+                                          float c = kLog2e) {
+    float mx[2][N / 8];
 #pragma unroll
-    for (int i = 0; i < kKv / 8; ++i) {
+    for (int i = 0; i < N / 8; ++i) {
       mx[0][i] = fmaxf(sc[4 * i], sc[4 * i + 1]);
       mx[1][i] = fmaxf(sc[4 * i + 2], sc[4 * i + 3]);
     }
-    fold_max<kKv / 16>(mx);
+    fold_max<N / 16>(mx);
     float mc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -379,19 +472,19 @@ struct Rows {
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
       // m is finite; on the first tile m_run is -inf and alpha 0. An
       // unchanged max gives alpha 1 exactly.
-      mc[r] = __fmul_rn(m, kLog2e);
-      alpha[r] = sm90::ex2(__fmul_rn(m_run[r] - m, kLog2e));
+      mc[r] = __fmul_rn(m, c);
+      alpha[r] = sm90::ex2(__fmul_rn(m_run[r] - m, c));
       m_run[r] = m;
     }
     float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-    for (int i = 0; i < kKv / 8; ++i) {
+    for (int i = 0; i < N / 8; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p =
-            sm90::ex2(__fmaf_rn(sc[4 * i + e], kLog2e, -mc[e >> 1]));
+            sm90::ex2(__fmaf_rn(sc[4 * i + e], c, -mc[e >> 1]));
         sc[4 * i + e] = p;
-        rs[e >> 1][i & 1] += p;
+        rs[e >> 1][i & 1] += kL16 ? round16<T>(p) : p;
       }
     }
 #pragma unroll
@@ -413,10 +506,10 @@ struct Rows {
     }
   }
 
-  static __device__ __forceinline__ void to_p(const float (&sc)[kKv / 2],
-                                              uint32_t (&pa)[kKv / 16][4]) {
+  static __device__ __forceinline__ void to_p(const float (&sc)[N / 2],
+                                              uint32_t (&pa)[N / 16][4]) {
 #pragma unroll
-    for (int kt = 0; kt < kKv / 16; ++kt) {
+    for (int kt = 0; kt < N / 16; ++kt) {
       pa[kt][0] = Ops<T>::pack(sc[8 * kt], sc[8 * kt + 1]);
       pa[kt][1] = Ops<T>::pack(sc[8 * kt + 2], sc[8 * kt + 3]);
       pa[kt][2] = Ops<T>::pack(sc[8 * kt + 4], sc[8 * kt + 5]);
@@ -938,20 +1031,310 @@ __global__ void __launch_bounds__((HeadsTiling<DP>::kConsumers + 1) * 128, 1)
   stamp(0, kOther);
 }
 
+// -------------------------------------------------------------- T1/T6 kernel
+
+// Named barrier kId + i (i < kCount; immediates, as sm90::named_barrier's)
+// among `threads` threads: synced on, or arrived on without waiting.
+template <int kId, int kCount>
+__device__ __forceinline__ void sync_nth(int i, int threads) {
+  if (i == 0) {
+    sm90::named_barrier<kId>(threads);
+  } else if constexpr (kCount > 1) {
+    sync_nth<kId + 1, kCount - 1>(i - 1, threads);
+  }
+}
+template <int kId, int kCount>
+__device__ __forceinline__ void arrive_nth(int i, int threads) {
+  if (i == 0) {
+    sm90::named_arrive<kId>(threads);
+  } else if constexpr (kCount > 1) {
+    arrive_nth<kId + 1, kCount - 1>(i - 1, threads);
+  }
+}
+
+// The barriers of C chains (1, 2 or 4 consumers): consumer cw's own 128
+// threads sync on 1 + cw; its turn to issue (sm90::Turns' ping-pong, for C
+// consumers) is barrier 1 + C + cw, which it waits on and the consumer
+// before it arrives on.
+template <int C>
+struct ChainBars {
+  static __device__ __forceinline__ void sync(int cw) {
+    sync_nth<1, C>(cw, 128);
+  }
+  static __device__ __forceinline__ void wait_turn(int cw) {
+    sync_nth<1 + C, C>(cw, 256);
+  }
+  static __device__ __forceinline__ void pass_turn(int cw) {
+    arrive_nth<1 + C, C>(cw + 1 == C ? 0 : cw + 1, 256);
+  }
+};
+
+template <typename T, int DP, int Cfg>
+__global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
+                                  ChainsTiling<DP, Cfg>::kBlocks)
+    chains_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       T* __restrict__ out, int sq, int skv, int d,
+                       float qscale, float c, int parts, int q_bytes,
+                       int kv_bytes) {
+  using L = ChainsTiling<DP, Cfg>;
+  using G = typename L::G;
+  using R = Rows<T, DP, L::kN, L::kL16>;
+  constexpr int C = L::kChains, S = L::kStages, N = L::kN,
+                kPitch = kPitchOf<DP>;
+  static_assert(C == 1 || C == 2 || C == 4, "chains");
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + S;
+
+  const int cw = threadIdx.x / 128;   // consumer warpgroup
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = (t % 32) / 4;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kRows * C;
+  // The kv split: cluster rank blockIdx.z takes tiles [t0, t0 + n).
+  const int rank = blockIdx.z;
+  const int n_all = skv / N;
+  const int per = (n_all + parts - 1) / parts;
+  const int t0 = rank * per;
+  const int n = min(n_all, t0 + per) - t0;
+  // The producer warp: warp 0 of the last consumer, which in each round
+  // issues its wgmma last. Its lanes issue the boxes of a K/V tile at once.
+  const bool producer = cw == C - 1 && warp == 0;
+
+  // Tile j of this block's range into its stage: one lane expects the
+  // bytes, lanes 0 .. 2·slabs − 1 load one K or V box each.
+  auto load = [&](int j) {
+    const int s = j % S;
+    if (lane == 0) sm90::mbar_expect_tx(&kv_full[s], 2 * kv_bytes);
+    if (lane < 2 * G::kSlabs) {
+      const int sl = lane % G::kSlabs;
+      const bool is_v = lane >= G::kSlabs;
+      sm90::tma_load_3d(smem + (is_v ? L::kV : L::kK) + s * L::kTile +
+                            sl * N * kPitch,
+                        is_v ? &tm_v : &tm_k, &kv_full[s],
+                        sl * G::kSlabCols, (t0 + j) * N, bh);
+    }
+  };
+
+  if (producer && lane == 0) {
+    sm90::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&kv_full[s], 1);
+      sm90::mbar_init(&kv_empty[s], C);
+    }
+    sm90::fence_barrier_init();
+  }
+  if (kv_bytes < L::kTile) {
+    // Boxes of d columns leave the tiles' last columns to DP unwritten:
+    // zeros once, which the wgmma read (and TMA never overwrites).
+    for (int i = threadIdx.x; i < L::kBars / 16; i += L::kThreads) {
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+    }
+    sm90::fence_proxy_async();
+  }
+  __syncthreads();
+  if (producer) {
+    if (lane == 0) {
+      sm90::prefetch_map(&tm_q);
+      sm90::prefetch_map(&tm_k);
+      sm90::prefetch_map(&tm_v);
+      sm90::mbar_expect_tx(q_full, C * q_bytes);
+    }
+    if (lane < C * G::kSlabs) {
+      const int w = lane / G::kSlabs, sl = lane % G::kSlabs;
+      sm90::tma_load_3d(smem + w * L::kQ + sl * kRows * kPitch, &tm_q,
+                        q_full, sl * G::kSlabCols, q0 + w * kRows, bh);
+    }
+    for (int j = 0; j < S && j < n; ++j) load(j);
+  }
+  __syncwarp();
+
+  unsigned char* s_q = smem + cw * L::kQ;
+  R st(t);
+  float sc[N / 2];
+  uint32_t pa[N / 16][4];
+  float alpha[2];
+  Stamps stamp(cw);
+  auto my_turn = [&] {
+    if constexpr (C > 1) ChainBars<C>::wait_turn(cw);
+  };
+  // The last consumer's last arrival would open a turn no one takes.
+  auto next_turn = [&](bool last) {
+    if constexpr (C > 1) {
+      if (!last || cw != C - 1) ChainBars<C>::pass_turn(cw);
+    }
+  };
+  auto issue_s = [&](int j) {
+    sm90::mbar_wait(&kv_full[j % S], (j / S) & 1);
+    stamp(2, kTile);
+    sm90::wgmma_fence();
+    R::issue_s(sc, s_q, smem + L::kK + (j % S) * L::kTile);
+    sm90::wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {
+    sm90::fence_regs(st.o);
+    sm90::wgmma_fence();
+    st.issue_pv(pa, smem + L::kV + (j % S) * L::kTile);
+    sm90::wgmma_commit();
+  };
+  // After P_j·V_j has completed: the stage goes back, and the producer
+  // warp refills it with tile j + S once every consumer has released it
+  // (at once with one consumer: its own release is the last).
+  auto pv_done = [&](int j) {
+    sm90::fence_regs(st.o);
+    sm90::fence_regs(pa);
+    if constexpr (C > 1) {
+      if (t == 0) sm90::mbar_arrive(&kv_empty[j % S]);
+    }
+    if (producer && j + S < n) {
+      if constexpr (C > 1) {
+        if (lane == 0) sm90::mbar_wait(&kv_empty[j % S], (j / S) & 1);
+        __syncwarp();
+      }
+      load(j + S);
+    }
+    __syncwarp();
+  };
+  // Kv tile j >= 1: S_j and P_{j-1}·V_{j-1} issued together in this
+  // consumer's turn, the softmax of S_j while P_{j-1}·V_{j-1} is on the
+  // tensor cores, O rescaled once that product is done. Each wgmma is
+  // issued and waited for in this straight-line code.
+  auto tile = [&](int j) {
+    stamp(2, kOther);
+    my_turn();
+    stamp(2, kTurn);
+    issue_s(j);
+    issue_pv(j - 1);
+    next_turn(false);
+    stamp(2, kIssue);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sc);
+    stamp(2, kWaitS);
+    st.softmax(sc, alpha, c);
+    stamp(2, kSoftmax);
+    sm90::wgmma_wait<0>();
+    pv_done(j - 1);
+    stamp(2, kWaitAll);
+    st.rescale(alpha);
+    R::to_p(sc, pa);
+    stamp(2, kTail);
+  };
+
+  if constexpr (C > 1) {
+    if (cw == C - 1) arrive_nth<1 + C, C>(0, 256);   // consumer 0's turn
+  }
+  stamp(2, kOther);
+  sm90::mbar_wait(q_full, 0);
+  scale_q<T>(s_q, L::kQ, round16<T>(qscale), t);
+  ChainBars<C>::sync(cw);
+  my_turn();
+  issue_s(0);
+  next_turn(false);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  st.softmax(sc, alpha, c);
+  R::to_p(sc, pa);
+  if constexpr (L::kUnroll) {
+    // vU: two tiles a turn of the loop, so the compiler sees both.
+    int j = 1;
+    for (; j + 1 < n; j += 2) {
+      tile(j);
+      tile(j + 1);
+    }
+    if (j < n) tile(j);
+  } else {
+    for (int j = 1; j < n; ++j) tile(j);
+  }
+  stamp(2, kOther);
+  my_turn();
+  issue_pv(n - 1);
+  next_turn(true);
+  sm90::wgmma_wait<0>();
+  pv_done(n - 1);
+
+  T* dst = out + (size_t)bh * sq * d;
+  if (parts > 1) {
+    // The split's merge, as T2's: once every consumer of the block is done
+    // with its tiles, ranks 1.. leave (o, m, l) where Q and the ring were,
+    // a float4 per thread and index, and rank 0 reads them through
+    // distributed shared memory and merges them in rank order.
+    float4* part = reinterpret_cast<float4*>(smem) + cw * 128 * L::kMergeF4;
+    __syncthreads();
+    if (rank > 0) {
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        part[i * 128 + t] = make_float4(st.o[4 * i], st.o[4 * i + 1],
+                                        st.o[4 * i + 2], st.o[4 * i + 3]);
+      }
+      part[(DP / 8) * 128 + t] =
+          make_float4(st.m_run[0], st.m_run[1], st.l_run[0], st.l_run[1]);
+    }
+    sm90::cluster_sync();
+    if (rank == 0) {
+      float m[2] = {st.m_run[0], st.m_run[1]};
+      for (int p = 1; p < parts; ++p) {
+        const float4 ml = ld_dsmem(sm90::map_rank(part + (DP / 8) * 128 + t,
+                                                  p));
+        m[0] = fmaxf(m[0], ml.x);
+        m[1] = fmaxf(m[1], ml.y);
+      }
+      float a[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        a[r] = sm90::ex2(__fmul_rn(st.m_run[r] - m[r], c));
+        st.l_run[r] *= a[r];
+      }
+      st.rescale(a);
+      for (int p = 1; p < parts; ++p) {
+        const float4 ml = ld_dsmem(sm90::map_rank(part + (DP / 8) * 128 + t,
+                                                  p));
+        a[0] = sm90::ex2(__fmul_rn(ml.x - m[0], c));
+        a[1] = sm90::ex2(__fmul_rn(ml.y - m[1], c));
+        st.l_run[0] += ml.z * a[0];
+        st.l_run[1] += ml.w * a[1];
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          const float4 x = ld_dsmem(sm90::map_rank(part + i * 128 + t, p));
+          st.o[4 * i] += x.x * a[0];
+          st.o[4 * i + 1] += x.y * a[0];
+          st.o[4 * i + 2] += x.z * a[1];
+          st.o[4 * i + 3] += x.w * a[1];
+        }
+      }
+      st.store(dst, q0 + cw * kRows, sq, d, warp, g);
+    }
+    sm90::cluster_sync();   // no block leaves before rank 0 has read it
+  } else {
+    st.store(dst, q0 + cw * kRows, sq, d, warp, g);
+  }
+  stamp(2, kOther);
+}
+
 // ------------------------------------------------------------- the launches
 
-template <typename T, int DP>
+// Q's map in 64-row boxes, K's and V's in N-row ones, each box `box`
+// columns (a slab's by default).
+template <typename T, int DP, int N = kKv>
 bool encode_maps(CUtensorMap* tm_q, CUtensorMap* tm_k, CUtensorMap* tm_v,
                  const void* q, const void* k, const void* v, int planes,
-                 int sq, int skv, int d) {
+                 int sq, int skv, int d,
+                 int box = Geometry<kPitchOf<DP>, DP>::kSlabCols) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kPitch = kPitchOf<DP>;
-  constexpr int kBox = Geometry<kPitch, DP>::kSlabCols;
-  return sm90::encode_slab_map(tm_q, q, kBf16, planes, sq, d, kRows, kBox,
+  return sm90::encode_slab_map(tm_q, q, kBf16, planes, sq, d, kRows, box,
                                kPitch) &&
-         sm90::encode_slab_map(tm_k, k, kBf16, planes, skv, d, kKv, kBox,
+         sm90::encode_slab_map(tm_k, k, kBf16, planes, skv, d, N, box,
                                kPitch) &&
-         sm90::encode_slab_map(tm_v, v, kBf16, planes, skv, d, kKv, kBox,
+         sm90::encode_slab_map(tm_v, v, kBf16, planes, skv, d, N, box,
                                kPitch);
 }
 
@@ -1025,44 +1408,115 @@ int launch_heads(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// T1/T6 configuration Cfg: q scaled by round16(qscale), p = 2^(s·c − m·c);
+// the kv range split over a cluster of `parts` (1, 2 or 4) blocks.
+template <typename T, int DP, int Cfg>
+int launch_chains(const void* q, const void* k, const void* v, void* o,
+                  int batch, int heads, int sq, int skv, int d, float qscale,
+                  float c, int parts, cudaStream_t stream) {
+  using L = ChainsTiling<DP, Cfg>;
+  using G = typename L::G;
+  const int block_q = kRows * L::kChains;
+  // Up to DP = 64 (one slab) the boxes are d columns wide, so that no
+  // zero column past d crosses from L2 to the SM; the slab's pitch and
+  // swizzle stay, and the kernel zeroes the columns the boxes leave.
+  const int box = L::kNarrow ? d : G::kSlabCols;
+  const int q_bytes = G::kSlabs * kRows * box * 2;
+  const int kv_bytes = G::kSlabs * L::kN * box * 2;
+  const int n_all = skv / L::kN;
+  const int per = (n_all + parts - 1) / parts;
+  CUtensorMap tm_q, tm_k, tm_v;
+  // parts 1, 2 or 4, each part at least one tile, a split only where the
+  // merge buffers fit.
+  if (sq % block_q != 0 || (parts != 1 && parts != 2 && parts != 4) ||
+      (parts > 1 && !L::kSplit) || (parts - 1) * per >= n_all ||
+      !encode_maps<T, DP, L::kN>(&tm_q, &tm_k, &tm_v, q, k, v, batch * heads,
+                                 sq, skv, d, box)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = chains_sm90_kernel<T, DP, Cfg>;
+  cudaError_t err = prepare(kernel, L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = parts;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sq / block_q, batch * heads, parts);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, static_cast<T*>(o),
+                           sq, skv, d, qscale, c, parts, q_bytes, kv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 using VariantLauncher = int (*)(const void*, const void*, const void*, void*,
                                 int, int, int, int, int, float, int,
                                 cudaStream_t);
+using ChainLauncher = int (*)(const void*, const void*, const void*, void*,
+                              int, int, int, int, int, float, float, int,
+                              cudaStream_t);
 namespace flash_variants_sm90 {
-// [kernel: 0 T2, 1 T3][dtype][DP / 16 - 1], filled when the library loads.
+// [kernel: 0 T2, 1 T3][dtype][DP / 16 - 1] and [Chains][dtype][DP / 16 - 1],
+// filled when the library loads.
 extern VariantLauncher launchers[2][2][kMaxWidths];
+extern ChainLauncher chain_launchers[kCfgs][2][kMaxWidths];
 #if BUILD_PART == 0
 VariantLauncher launchers[2][2][kMaxWidths] = {};
+ChainLauncher chain_launchers[kCfgs][2][kMaxWidths] = {};
 #endif
 }  // namespace flash_variants_sm90
 
 namespace {
 
-// Unit u = (kernel·2 + dtype)·8 + width index, in part u % BUILD_PARTS.
+// Unit u = (kernel·2 + dtype)·8 + width index, in part u % BUILD_PARTS;
+// T2 and T3 are kernels 0 and 1, T1/T6 configuration Cfg kernel 2 + Cfg.
+// The stamped build (one part) holds only bf16 at the main shapes' widths,
+// DP = 48 and 80.
+#ifdef FV_STAMPS
+template <int DT, int W>
+constexpr bool kStamped = DT == 0 && (W == 2 || W == 4);
+#else
+template <int DT, int W>
+constexpr bool kStamped = true;
+#endif
 template <int K, int DT, int W>
 void enter_unit() {
   constexpr int u = (K * 2 + DT) * kMaxWidths + W;
-  if constexpr (u % BUILD_PARTS == BUILD_PART) {
+  if constexpr (u % BUILD_PARTS == BUILD_PART && kStamped<DT, W>) {
     using T = std::conditional_t<DT == 0, __nv_bfloat16, __half>;
     constexpr int dp = 16 * (W + 1);
-    flash_variants_sm90::launchers[K][DT][W] =
-        K == 0 ? &launch_heads<T, dp> : &launch_pipelined<T, dp>;
+    if constexpr (K < 2) {
+      flash_variants_sm90::launchers[K][DT][W] =
+          K == 0 ? &launch_heads<T, dp> : &launch_pipelined<T, dp>;
+    } else {
+      flash_variants_sm90::chain_launchers[K - 2][DT][W] =
+          &launch_chains<T, dp, K - 2>;
+    }
   }
 }
 
-template <int... W>
-bool enter_units(std::integer_sequence<int, W...>) {
-  (enter_unit<0, 0, W>(), ...);
-  (enter_unit<0, 1, W>(), ...);
-  (enter_unit<1, 0, W>(), ...);
-  (enter_unit<1, 1, W>(), ...);
+template <int K, int... W>
+void enter_kernel(std::integer_sequence<int, W...>) {
+  (enter_unit<K, 0, W>(), ...);
+  (enter_unit<K, 1, W>(), ...);
+}
+
+template <int... K>
+bool enter_units(std::integer_sequence<int, K...>) {
+  (enter_kernel<K>(std::make_integer_sequence<int, kMaxWidths>{}), ...);
   return true;
 }
 
 [[maybe_unused]] const bool kEntered =
-    enter_units(std::make_integer_sequence<int, kMaxWidths>{});
+    enter_units(std::make_integer_sequence<int, 2 + kCfgs>{});
 
 }  // namespace
 
@@ -1082,6 +1536,26 @@ int run(int kernel, const void* q, const void* k, const void* v, void* o,
       flash_variants_sm90::launchers[kernel][dtype][(d + 15) / 16 - 1];
   if (launch == nullptr) return (int)cudaErrorInvalidDeviceFunction;
   return launch(q, k, v, o, batch, heads, sq, skv, d, scale, parts,
+                static_cast<cudaStream_t>(stream));
+}
+
+// T1/T6 configuration `cfg` with natural exp (q scaled by `scale`) or exp2
+// (by scale·log2 e, in double as the kept kernels round it).
+int run_chains(int cfg, bool base2, const void* q, const void* k,
+               const void* v, void* o, int batch, int heads, int sq, int skv,
+               int d, float scale, int dtype, int parts, void* stream) {
+  if (dtype < 0 || dtype > 1 || batch < 1 || heads < 1 ||
+      batch * heads > 65535 || sq < kRows || skv < kKv || sq % kRows != 0 ||
+      skv % kKv != 0 || d < 8 || d > 128 || d % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ChainLauncher launch =
+      flash_variants_sm90::chain_launchers[cfg][dtype][(d + 15) / 16 - 1];
+  if (launch == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  const float qscale =
+      base2 ? (float)((double)scale * 1.4426950408889634) : scale;
+  return launch(q, k, v, o, batch, heads, sq, skv, d, qscale,
+                base2 ? 1.f : kLog2e, parts,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -1108,7 +1582,7 @@ extern "C" int flash_opt_attn_h_sm90(const void* q, const void* k,
 extern "C" int flash_variants_sm90_stamps(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, fv_stamps, sizeof(fv_stamps));
   if (err == cudaSuccess) {
-    static const unsigned long long zeros[2][kPhases] = {};
+    static const unsigned long long zeros[3][kPhases] = {};
     err = cudaMemcpyToSymbol(fv_stamps, zeros, sizeof(zeros));
   }
   return (int)err;
@@ -1123,5 +1597,30 @@ extern "C" int flash_pipelined_attn_sm90(const void* q, const void* k,
                                          void* stream) {
   return run(1, q, k, v, o, batch, heads, sq, skv, d, scale, dtype, 1,
              stream);
+}
+
+// T1: `variant` 0 = v0, 1 = vU, 2 = vG with G = 2, 3 = vG with G = 4;
+// `parts` (1, 2 or 4) splits the kv range over a cluster of that many
+// blocks.
+extern "C" int flash_opt_attn_sm90(const void* q, const void* k,
+                                   const void* v, void* o, int batch,
+                                   int heads, int sq, int skv, int d,
+                                   float scale, int dtype, int variant,
+                                   int parts, void* stream) {
+  if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+  return run_chains(variant, false, q, k, v, o, batch, heads, sq, skv, d,
+                    scale, dtype, parts, stream);
+}
+
+// T6: `variant` 0 = exp (T1 v0's instantiation), 1 = exp2, 2 = exp2 with
+// the row sum of the 16-bit P; `parts` as T1's.
+extern "C" int flash_variants_attn_sm90(const void* q, const void* k,
+                                        const void* v, void* o, int batch,
+                                        int heads, int sq, int skv, int d,
+                                        float scale, int dtype, int variant,
+                                        int parts, void* stream) {
+  if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+  return run_chains(variant == 2 ? kV2 : kV0, variant > 0, q, k, v, o, batch,
+                    heads, sq, skv, d, scale, dtype, parts, stream);
 }
 #endif  // BUILD_PART == 0

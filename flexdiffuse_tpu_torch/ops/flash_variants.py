@@ -31,16 +31,17 @@ no gradient. The library is built at first use, as K1's
 (``ops/flash_attention.build``/``load``), in :data:`BUILD_PARTS` compiles
 at once.
 
-T2 and T3 have a second path, their Hopper redesigns in
+T1, T2, T3 and T6 have a second path, their Hopper redesigns in
 ``csrc/flash_variants_sm90.cu`` (TMA, wgmma, warp specialisation; its own
 library, :data:`SM90_SOURCE` in :data:`SM90_BUILD_PARTS` compiles), which
-:func:`plan_attn_h` and :func:`plan_pipelined` pick for every CUDA call of
-the domain ('sm90'); the first port's kernel runs only when the caller
-forces ``path='mma'``. Both count their launches by path in
-``path_launches`` (:func:`path_counts`). A refused launch raises: there is
-no fallback to the other path or to the twin. T2's plan splits the kv range
-of each instance over a cluster of blocks where the instances fill at most
-half of the card; :func:`plain_split_exp` is that split's twin.
+:func:`plan_attn_opt`, :func:`plan_attn_h`, :func:`plan_pipelined` and
+:func:`plan_attn_variants` pick for every CUDA call of the domain ('sm90');
+the first port's kernel runs only when the caller forces ``path='mma'``.
+They count their launches by path in ``path_launches``
+(:func:`path_counts`). A refused launch raises: there is no fallback to
+the other path or to the twin. T2's plan splits the kv range of each
+instance over a cluster of blocks where the instances fill at most half of
+the card; :func:`plain_split_exp` is that split's twin.
 """
 from __future__ import annotations
 
@@ -72,14 +73,17 @@ SIGNATURES = {
     'flash_variants_attn': _ARGS + (_I, _P),
 }
 
-# T2 and T3's Hopper redesigns: their own source and library, built in
-# SM90_BUILD_PARTS compiles at once; (..., dtype[, parts], stream).
+# T1, T2, T3 and T6's Hopper redesigns: their own source and library,
+# built in SM90_BUILD_PARTS compiles at once; (..., dtype[, parts or
+# variant], stream).
 SM90_SOURCE = fa.SOURCE.parent / 'flash_variants_sm90.cu'
-SM90_BUILD_PARTS = 4
+SM90_BUILD_PARTS = 12
 SM90_SIGNATURES = {'flash_opt_attn_h_sm90': _ARGS + (_I, _P),
-                   'flash_pipelined_attn_sm90': _ARGS + (_P,)}
+                   'flash_pipelined_attn_sm90': _ARGS + (_P,),
+                   'flash_opt_attn_sm90': _ARGS + (_I, _I, _P),
+                   'flash_variants_attn_sm90': _ARGS + (_I, _I, _P)}
 SM90, MMA = 'sm90', 'mma'
-PATHS = (SM90, MMA)   # T2's and T3's paths
+PATHS = (SM90, MMA)   # the paths of T1, T2, T3 and T6
 # Their tiles on 'sm90', as the source's PipelinedTiling/HeadsTiling choose
 # them (change both together): (consumer warpgroups of 64 q rows, K/V
 # stages of TILE rows), T3's at every width, T2's keyed by the padded head
@@ -91,6 +95,27 @@ PIPELINED_TILES = (2, 4)
 HEADS_TILES = {True: (3, 3), False: (2, 3)}
 HEADS_SPLIT_MAX_DP = 96
 HEADS_PARTS = (2,)
+# T1's and T6's tiles on 'sm90', as the source's ChainsTiling chooses them
+# (change both together), by the kernel's configuration and DP <= 64: (q
+# chains of 64 rows, K/V stages, blocks an SM that the registers allow;
+# the shared memory may allow fewer, chains_blocks). The kv tile is 64
+# rows, 32 for four chains above DP = CHAINS_KV32_ABOVE. T6 v0 and v1 run
+# v0's instantiation, v2 its own with v0's tiles. Where the blocks number
+# at most the card's SMs, the plans of T1 and T6 v0 split the kv range over
+# a cluster of the first of CHAINS_PARTS blocks with a tile for each part,
+# where the merge buffers fit (chains_split_fits): measured, 2 parts won
+# for vG4 and vG2 at (2,8,1024,80) (64 and 128 blocks) and lost or tied
+# at every main-shape grid above 132 blocks but v0's and vU's at
+# (2,8,4096,40) (PERF.md §6).
+CHAINS_TILES = {
+    ('v0', True): (1, 3, 3), ('v0', False): (1, 2, 2),
+    ('vU', True): (1, 4, 3), ('vU', False): (1, 4, 2),
+    ('vG2', True): (2, 3, 2), ('vG2', False): (2, 3, 1),
+    ('vG4', True): (4, 3, 1), ('vG4', False): (4, 3, 1),
+}
+CHAINS_KV32_ABOVE = 96
+CHAINS_PARTS = (2,)
+SMEM_PER_SM = 233472   # an H100 SM's shared memory, bytes
 
 # Softmax modes (the kernel's template argument of the same name).
 EXP, EXP2, EXP2_P16, EXP2_BF16 = 'exp', 'exp2', 'exp2_p16', 'exp2_bf16'
@@ -279,24 +304,6 @@ def _launch(entry: str, name: str, q, k, v, scale: float,
     return out
 
 
-def attn_opt(variant: str, q, k, v, scale: float, g: int = 1):
-    """T1 (``tools/flash_opt.py::attn``): ``variant`` 'v0' (the plain kv
-    loop), 'vU' (next K/V tile loaded during this one) or 'vG' (``g`` ∈
-    {2, 4} independent 64-row q chains per block). ``[B, H, S, D]``."""
-    g = g if variant == 'vG' else 1
-    if (variant, g) not in T1_CODES:
-        raise ValueError(f'attn: unknown variant {variant!r} (vG takes g '
-                         f'in (2, 4), got {g})')
-    cpu = _on_cpu(q, k, v)
-    _check('flash_opt.attn', q, k, v, False, g=g, cpu=cpu)
-    if cpu:
-        return plain_exp(q, k, v, scale)
-    out = _launch('flash_opt_attn', 'flash_opt.attn', q, k, v, scale,
-                  T1_CODES[(variant, g)])
-    attn_opt.launches[variant if variant != 'vG' else f'vG{g}'] += 1
-    return out
-
-
 def _path(name: str, path: Optional[str]) -> str:
     if path not in (None, *PATHS):
         raise ValueError(f'{name}: path {path!r} not in {PATHS}')
@@ -352,25 +359,138 @@ def plan_attn_h(q: torch.Tensor, k: torch.Tensor,
                    128 * (consumers + 1), parts)
 
 
-# The entry points of T2 and T3 by path.
-ENTRIES = {'attn_h': {SM90: 'flash_opt_attn_h_sm90',
+def chains_tiling(config: str, head_pad: int) -> tuple:
+    """An 'sm90' T1/T6 configuration's (q chains, K/V stages, kv rows a
+    tile, blocks an SM by registers) at DP ``head_pad``, as ChainsTiling."""
+    chains, stages, blocks = CHAINS_TILES[config.replace('v2', 'v0'),
+                                          head_pad <= 64]
+    kv = TILE // 2 if chains == 4 and head_pad > CHAINS_KV32_ABOVE else TILE
+    return chains, stages, kv, blocks
+
+
+def _chains_smem(config: str, head_pad: int) -> tuple:
+    """(bytes before the barriers, all bytes) of one 'sm90' T1/T6 block's
+    shared memory, as ChainsTiling counts them: the chains' Q tiles, the K
+    and V stages; then the barriers and 1 KB of alignment slack."""
+    chains, stages, kv, _ = chains_tiling(config, head_pad)
+    pitch = 128 if head_pad <= 64 else 32
+    tile = lambda rows: -(-head_pad // (pitch // 2)) * rows * pitch
+    bars = chains * tile(TILE) + 2 * stages * tile(kv)
+    return bars, bars + (2 * stages + 1) * 8 + 1024
+
+
+def chains_bytes(config: str, head_pad: int) -> int:
+    """Shared memory of one 'sm90' T1/T6 block (ChainsTiling::kBytes)."""
+    return _chains_smem(config, head_pad)[1]
+
+
+def chains_blocks(config: str, head_pad: int) -> int:
+    """'sm90' T1/T6 blocks an SM holds: the fewer of what the registers
+    allow (CHAINS_TILES) and what the shared memory allows, 1 KB reserved a
+    block."""
+    by_regs = chains_tiling(config, head_pad)[3]
+    return min(by_regs,
+               SMEM_PER_SM // (chains_bytes(config, head_pad) + 1024))
+
+
+def chains_split_fits(config: str, head_pad: int) -> bool:
+    """Whether the kv split's merge buffers (a float4 per thread for every
+    8 columns of O, and one for m and l) fit where Q and the ring were
+    (ChainsTiling::kSplit)."""
+    chains = chains_tiling(config, head_pad)[0]
+    return (chains * 128 * (head_pad // 8 + 1) * 16 <=
+            _chains_smem(config, head_pad)[0])
+
+
+def chains_parts(config: str, blocks: int, tiles: int,
+                 head_pad: int) -> int:
+    """How many blocks split each 'sm90' T1 (or T6 v0) block's kv range of
+    ``tiles`` tiles: 1 where the ``blocks`` outnumber the card's SMs or the
+    merge buffers do not fit; else the first of CHAINS_PARTS with every
+    part at least one tile."""
+    if blocks > fa.SMS or not chains_split_fits(config, head_pad):
+        return 1
+    for parts in CHAINS_PARTS:
+        if (parts - 1) * -(-tiles // parts) < tiles:
+            return parts
+    return 1
+
+
+def _plan_chains(name: str, config: str, q, k, g: int, stages_kept: int,
+                 path: Optional[str], split: bool) -> fa.Plan:
+    b, h, sq, d = q.shape
+    head_pad = -(-d // 16) * 16
+    if _path(name, path) == MMA:
+        return fa.Plan(MMA, head_pad, TILE * g, TILE, stages_kept,
+                       (sq // (TILE * g), b * h), 128 * g)
+    chains, stages, kv, _ = chains_tiling(config, head_pad)
+    grid = (sq // (TILE * chains), b * h)
+    parts = (chains_parts(config, grid[0] * grid[1], k.shape[2] // kv,
+                          head_pad) if split else 1)
+    return fa.Plan(SM90, head_pad, TILE * chains, kv, stages, grid,
+                   128 * chains, parts)
+
+
+def plan_attn_opt(q: torch.Tensor, k: torch.Tensor, variant: str,
+                  g: int = 1, path: Optional[str] = None) -> fa.Plan:
+    """T1's path and tiling for ``variant`` ('v0', 'vU', 'vG' with ``g``
+    2 or 4) on ``q`` ``[B, H, Sq, D]`` and ``k`` of the domain, from their
+    shapes alone: 'sm90' (G = g consumer warpgroups of 64 q rows sharing a
+    ring of K/V stages, CHAINS_TILES; the kv range split over ``parts`` =
+    :func:`chains_parts` blocks) unless ``path`` forces the kept 'mma'
+    (4·G warps of 16 q rows a block, one K/V tile staged at a time; vU
+    two)."""
+    g = g if variant == 'vG' else 1
+    config = f'vG{g}' if variant == 'vG' else variant
+    return _plan_chains('flash_opt.attn', config, q, k, g,
+                        2 if variant == 'vU' else 1, path, split=True)
+
+
+def plan_attn_variants(q: torch.Tensor, k: torch.Tensor, variant: int,
+                       path: Optional[str] = None) -> fa.Plan:
+    """T6's path and tiling for ``variant`` 0, 1 or 2, as
+    :func:`plan_attn_opt`'s v0 (on 'sm90' one consumer warpgroup a block),
+    the kv split for v0 only (natural exp, as T1's; the exp2 variants keep
+    their one pass); the kept 'mma' one 4-warp block per 64 q rows."""
+    return _plan_chains('flash_variants.attn', 'v2' if variant == 2 else
+                        'v0', q, k, 1, 1, path, split=variant == 0)
+
+
+# The entry points of T1, T2, T3 and T6 by path.
+ENTRIES = {'attn_opt': {SM90: 'flash_opt_attn_sm90', MMA: 'flash_opt_attn'},
+           'attn_h': {SM90: 'flash_opt_attn_h_sm90',
                       MMA: 'flash_opt_attn_h'},
            'pipelined_attention': {SM90: 'flash_pipelined_attn_sm90',
-                                   MMA: 'flash_pipelined_attn'}}
+                                   MMA: 'flash_pipelined_attn'},
+           'attn_variants': {SM90: 'flash_variants_attn_sm90',
+                             MMA: 'flash_variants_attn'}}
 
 
-def launch(fn: Callable, q, k, v, out, scale: float, how: fa.Plan) -> None:
-    """Launch ``fn``'s (attn_h's or pipelined_attention's) kernel on
-    ``how.path`` into ``out``, on the current stream; raises if the launch
-    is refused."""
+def launch(fn: Callable, q, k, v, out, scale: float, how: fa.Plan,
+           *options: int) -> None:
+    """Launch ``fn``'s (attn_opt's, attn_h's, pipelined_attention's or
+    attn_variants') kernel on ``how.path`` into ``out``, on the current
+    stream, with the entry point's ``options`` (T1's and T6's variant
+    code; the kv split's parts on 'sm90' come from ``how``); raises if the
+    launch is refused."""
     entry = ENTRIES[fn.__name__][how.path]
     if how.path == MMA:
         lib = fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS)
-        options = ()
     else:
         lib = fa.load(SM90_SOURCE, SM90_SIGNATURES, parts=SM90_BUILD_PARTS)
-        options = (how.parts,) if fn is attn_h else ()
+        if fn is attn_h:
+            options = (how.parts,)
+        elif fn in (attn_opt, attn_variants):
+            options = (*options, how.parts)
     _call(lib, entry, entry, q, k, v, out, scale, *options)
+
+
+def _count(fn: Callable, path: str, config: str) -> None:
+    """One more launch of ``fn`` (a wrapper with two paths) on ``path``,
+    counted in ``launches`` under ``config``, in ``path_launches`` and in
+    ``config_path_launches``."""
+    fa.count_launch(fn, path, config)
+    fn.config_path_launches[config, path] += 1
 
 
 def _planned(fn: Callable, plan: Callable, config: str, q, k, v,
@@ -384,7 +504,30 @@ def _planned(fn: Callable, plan: Callable, config: str, q, k, v,
     how = plan(q, k, path=path)
     out = torch.empty_like(q)
     launch(fn, q, k, v, out, scale, how)
-    fa.count_launch(fn, how.path, config)
+    _count(fn, how.path, config)
+    return out
+
+
+def attn_opt(variant: str, q, k, v, scale: float, g: int = 1,
+             path: Optional[str] = None):
+    """T1 (``tools/flash_opt.py::attn``): ``variant`` 'v0' (the plain kv
+    loop), 'vU' (the loop unrolled over a deeper ring) or 'vG' (``g`` ∈
+    {2, 4} independent 64-row q chains per block sharing each K/V tile).
+    ``[B, H, S, D]``. On CUDA the path :func:`plan_attn_opt` picks
+    ('sm90'; ``path='mma'`` forces the first port's kernel)."""
+    g = g if variant == 'vG' else 1
+    if (variant, g) not in T1_CODES:
+        raise ValueError(f'attn: unknown variant {variant!r} (vG takes g '
+                         f'in (2, 4), got {g})')
+    cpu = _on_cpu(q, k, v)
+    _check('flash_opt.attn', q, k, v, False, g=g, cpu=cpu)
+    _path('flash_opt.attn', path)
+    if cpu:
+        return plain_exp(q, k, v, scale)
+    how = plan_attn_opt(q, k, variant, g, path=path)
+    out = torch.empty_like(q)
+    launch(attn_opt, q, k, v, out, scale, how, T1_CODES[(variant, g)])
+    _count(attn_opt, how.path, f'vG{g}' if variant == 'vG' else variant)
     return out
 
 
@@ -403,6 +546,26 @@ def pipelined_attention(q, k, v, scale: float, path: Optional[str] = None):
     first port's kernel)."""
     return _planned(pipelined_attention, plan_pipelined, 'pipelined', q, k,
                     v, scale, path)
+
+
+def attn_variants(variant: int, q, k, v, scale: float,
+                  path: Optional[str] = None):
+    """T6 (``tools/flash_variants.py::attn``): ``variant`` 0 (exp; T1
+    v0's code on either path), 1 (exp2), 2 (exp2, l from the 16-bit P).
+    ``[B, H, S, D]``. On CUDA the path :func:`plan_attn_variants` picks
+    ('sm90'; ``path='mma'`` forces the first port's kernel)."""
+    if variant not in T6_MODES:
+        raise ValueError(f'attn: unknown variant {variant!r}')
+    cpu = _on_cpu(q, k, v)
+    _check('flash_variants.attn', q, k, v, False, cpu=cpu)
+    _path('flash_variants.attn', path)
+    if cpu:
+        return plain_attn_variants(variant, q, k, v, scale)
+    how = plan_attn_variants(q, k, variant, path=path)
+    out = torch.empty_like(q)
+    launch(attn_variants, q, k, v, out, scale, how, variant)
+    _count(attn_variants, how.path, f'v{variant}')
+    return out
 
 
 def flash_tt2(q, k, v, scale: float):
@@ -434,29 +597,14 @@ def flash_ttv3(q, k, v, scale: float, bf16_p: bool = False,
     return out
 
 
-def attn_variants(variant: int, q, k, v, scale: float):
-    """T6 (``tools/flash_variants.py::attn``): ``variant`` 0 (exp; on
-    Hopper the same code as T1 v0), 1 (exp2), 2 (exp2, l from the 16-bit
-    P). ``[B, H, S, D]``."""
-    if variant not in T6_MODES:
-        raise ValueError(f'attn: unknown variant {variant!r}')
-    cpu = _on_cpu(q, k, v)
-    _check('flash_variants.attn', q, k, v, False, cpu=cpu)
-    if cpu:
-        return plain_attn_variants(variant, q, k, v, scale)
-    out = _launch('flash_variants_attn', 'flash_variants.attn', q, k, v,
-                  scale, variant)
-    attn_variants.launches[f'v{variant}'] += 1
-    return out
-
-
 WRAPPERS = (attn_opt, attn_h, pipelined_attention, flash_tt2, flash_ttv3,
             attn_variants)
-PATH_WRAPPERS = (attn_h, pipelined_attention)   # those with two paths
+PATH_WRAPPERS = (attn_opt, attn_h, pipelined_attention,
+                 attn_variants)   # those with two paths
 
 
 def _bind(fn: Callable, *args, **kw) -> Callable:
-    return lambda q, k, v, s: fn(*args, q, k, v, s, **kw)
+    return lambda q, k, v, s, **more: fn(*args, q, k, v, s, **kw, **more)
 
 
 # Every configuration the tools run: label → (kernel call, twin call,
@@ -480,16 +628,65 @@ CONFIGS = {
 }
 
 
+def _plan_of(plan: Callable, **kw) -> Callable:
+    return lambda q, k, path=None: plan(q, k, path=path, **kw)
+
+
+# The configurations with two paths: label → (call (q, k, v, scale,
+# path=None), plan (q, k, path=None), the wrapper that counts its launches,
+# the entry point's options for :func:`launch`).
+PATH_CONFIGS = {
+    'T1 v0': (CONFIGS['T1 v0'][0], _plan_of(plan_attn_opt, variant='v0'),
+              attn_opt, (T1_CODES['v0', 1],)),
+    'T1 vU': (CONFIGS['T1 vU'][0], _plan_of(plan_attn_opt, variant='vU'),
+              attn_opt, (T1_CODES['vU', 1],)),
+    'T1 vG2': (CONFIGS['T1 vG2'][0],
+               _plan_of(plan_attn_opt, variant='vG', g=2), attn_opt,
+               (T1_CODES['vG', 2],)),
+    'T1 vG4': (CONFIGS['T1 vG4'][0],
+               _plan_of(plan_attn_opt, variant='vG', g=4), attn_opt,
+               (T1_CODES['vG', 4],)),
+    'T2': (attn_h, plan_attn_h, attn_h, ()),
+    'T3': (pipelined_attention, plan_pipelined, pipelined_attention, ()),
+    'T6 v1': (CONFIGS['T6 v1'][0], _plan_of(plan_attn_variants, variant=1),
+              attn_variants, (1,)),
+    'T6 v2': (CONFIGS['T6 v2'][0], _plan_of(plan_attn_variants, variant=2),
+              attn_variants, (2,)),
+}
+
+
+def planned_twin(label: str, q, k, v, scale: float) -> torch.Tensor:
+    """The twin of configuration ``label``'s planned call on CUDA tensors:
+    the kv split's (:func:`plain_split_exp`) where the plan splits, else
+    the configuration's own (``CONFIGS``)."""
+    if label in PATH_CONFIGS:
+        how = PATH_CONFIGS[label][1](q, k)
+        if how.parts > 1:
+            return plain_split_exp(q, k, v, scale, how.parts)
+    elif label == 'T6 v0':
+        how = plan_attn_variants(q, k, 0)
+        if how.parts > 1:
+            return plain_split_exp(q, k, v, scale, how.parts)
+    return CONFIGS[label][1](q, k, v, scale)
+
+
 def launch_counts() -> dict:
     """Each wrapper's launches, by name, its configurations summed."""
     return {fn.__name__: sum(fn.launches.values()) for fn in WRAPPERS}
 
 
 def path_counts() -> dict:
-    """T2's and T3's launches by path: ``attn_h_sm90``, ``attn_h_mma``,
-    ``pipelined_attention_sm90``, ``pipelined_attention_mma``."""
+    """The launches by path of the wrappers with two: ``attn_opt_sm90``,
+    ``attn_opt_mma``, ``attn_h_sm90``, ... ``attn_variants_mma``."""
     return {f'{fn.__name__}_{p}': n for fn in PATH_WRAPPERS
             for p, n in fn.path_launches.items()}
+
+
+def config_path_counts() -> dict:
+    """Their launches by configuration and path, ``'attn_opt v0 sm90'``
+    and so on (each wrapper's ``config_path_launches``)."""
+    return {f'{fn.__name__} {config} {p}': n for fn in PATH_WRAPPERS
+            for (config, p), n in fn.config_path_launches.items()}
 
 
 def reset_counts() -> None:
@@ -497,6 +694,7 @@ def reset_counts() -> None:
         fn.launches = collections.Counter()
     for fn in PATH_WRAPPERS:
         fn.path_launches = dict.fromkeys(PATHS, 0)
+        fn.config_path_launches = collections.Counter()
 
 
 reset_counts()

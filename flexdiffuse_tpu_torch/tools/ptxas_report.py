@@ -7,9 +7,13 @@ Compiles the source's build parts at once, as ``ops.flash_attention.build``
 does, with ``-Xptxas -v`` added, and prints one JSON line per entry
 function whose demangled name matches ``--match``: its registers per
 thread, shared memory, stack frame, spill stores and loads, and the ptxas
-diagnostics naming it (such as C7512, wgmma serialised for registers),
-then a line of counts; ``--raw`` also writes ptxas's whole report. Writes
-nothing into the build directory. Needs ``nvcc`` (no card).
+diagnostics naming it (such as C7512, wgmma serialised for registers;
+C7513/C7514, serialised for a register written or a wgmma issued under a
+branch), then a line of counts, with how many shown kernels spill and how
+many have a wgmma diagnostic (``spilled``, ``serialised``); ``--raw`` also
+writes ptxas's whole report. Writes nothing into the build directory.
+Needs ``nvcc`` (no card). T1's and T6's Hopper kernels:
+``--source flash_variants_sm90 --match chains``.
 """
 from __future__ import annotations
 
@@ -126,14 +130,17 @@ def main(argv=None) -> int:
             f.write(report)
     kernels = parse(report)
     names = demangle(kernels)
-    shown = 0
+    shown = spilled = serialised = 0
     for mangled, info in sorted(kernels.items(), key=lambda kv: names[kv[0]]):
         if not re.search(args.match, names[mangled]):
             continue
         shown += 1
+        spilled += bool(info.get('spill_stores') or info.get('spill_loads'))
+        serialised += any(w.startswith('(C751') for w in info['warnings'])
         print(json.dumps(dict(kernel=names[mangled], **info)))
     print(json.dumps(dict(source=source.name, parts=parts,
-                          kernels=len(kernels), shown=shown)))
+                          kernels=len(kernels), shown=shown, spilled=spilled,
+                          serialised=serialised)))
     return 0
 
 

@@ -1,17 +1,20 @@
-"""Where T2's and T3's Hopper kernels spend a consumer's time: clock stamps
-per phase.
+"""Where the Hopper kernels of T1, T2, T3 and T6 spend a consumer's time:
+clock stamps per phase.
 
     python -m flexdiffuse_tpu_torch.tools.variant_stamps [--calls N]
 
 Compiles ``csrc/flash_variants_sm90.cu`` once more with ``-DFV_STAMPS`` (one
-part, in a temporary directory: the library the port loads is not
-touched), runs T2 (``flash_opt_attn_h_sm90``, with the kv split its plan
-picks) and T3 (``flash_pipelined_attn_sm90``) ``--calls`` times on seeded
-bf16 inputs at the two main shapes, and prints one JSON line per kernel and
-shape: the cycles that thread 0 of consumer 0 of block (0, 0, 0) spent in
-each phase of the source's ``Phase`` per call and per kv tile of its loop,
-and each phase's share. The stamps' own ``clock64`` reads slow the kernel a
-little; compare phases, not totals. Needs the card and ``nvcc``.
+part holding bf16 at the main shapes' widths only, in a temporary
+directory: the library the port loads is not touched), runs T2
+(``flash_opt_attn_h_sm90``, with the kv split its plan picks), T3
+(``flash_pipelined_attn_sm90``) and T1's v0, vU, vG2 and vG4
+(``flash_opt_attn_sm90``; T6 runs v0's schedule) ``--calls`` times on
+seeded bf16 inputs at the two main shapes, and prints one JSON line per
+kernel and shape: the cycles that thread 0 of consumer 0 of block (0, 0, 0)
+spent in each phase of the source's ``Phase`` per call and per kv tile of
+its loop, and each phase's share. The stamps' own ``clock64`` reads slow
+the kernel a little; compare phases, not totals. Needs the card and
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ from flexdiffuse_tpu_torch.ops import flash_variants as fv
 PHASES = ('turn', 'tile', 'issue', 'wait_s', 'softmax', 'wait_all', 'tail',
           'other')
 SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80)]
-KERNELS = {'T2': ('flash_opt_attn_h_sm90', fv.plan_attn_h),
-           'T3': ('flash_pipelined_attn_sm90', fv.plan_pipelined)}
+# Each configuration's row of the stamps: 0 T2, 1 T3, 2 T1/T6.
+KERNELS = {'T2': 0, 'T3': 1, 'T1 v0': 2, 'T1 vU': 2, 'T1 vG2': 2,
+           'T1 vG4': 2}
 
 
 def build(tmp: str) -> ctypes.CDLL:
@@ -52,9 +56,9 @@ def build(tmp: str) -> ctypes.CDLL:
 def tiles_per_call(kernel: str, how: fv.Plan, shape) -> int:
     """The kv tiles consumer 0 of block (0, 0, 0) walks in one call."""
     b, h, s, d = shape
-    tiles = s // fv.TILE
-    if kernel == 'T3':
-        return tiles
+    tiles = s // how.block_kv
+    if kernel != 'T2':
+        return -(-tiles // how.parts)
     consumers = how.threads // 128 - 1
     return -(-h // consumers) * -(-tiles // how.parts)
 
@@ -64,11 +68,15 @@ def stamps(lib: ctypes.CDLL, kernel: str, shape, calls: int,
     q, k, v = (torch.randn(shape, generator=gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(3))
     out = torch.empty_like(q)
-    entry, plan = KERNELS[kernel]
+    _, plan, fn, options = fv.PATH_CONFIGS[kernel]
+    entry = fv.ENTRIES[fn.__name__][fv.SM90]
     how = plan(q, k)
     b, h, s, d = shape
-    options = (how.parts,) if kernel == 'T2' else ()
-    raw = (ctypes.c_ulonglong * (2 * len(PHASES)))()
+    if kernel == 'T2':
+        options = (how.parts,)
+    elif kernel != 'T3':
+        options = (*options, how.parts)
+    raw = (ctypes.c_ulonglong * (3 * len(PHASES)))()
     for i in range(calls + 1):   # the first call warms up
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -81,12 +89,11 @@ def stamps(lib: ctypes.CDLL, kernel: str, shape, calls: int,
                               k)
     torch.cuda.synchronize()
     fa.raise_on_error(lib.flash_variants_sm90_stamps(raw), entry, q, k)
-    row = list(raw)[(0 if kernel == 'T2' else 1) * len(PHASES):][
-        :len(PHASES)]
+    row = list(raw)[KERNELS[kernel] * len(PHASES):][:len(PHASES)]
     total = sum(row)
     tiles = tiles_per_call(kernel, how, shape)
     return dict(kernel=kernel, shape=list(shape), parts=how.parts,
-                tiles_per_call=tiles,
+                block_kv=how.block_kv, tiles_per_call=tiles,
                 cycles_per_call=total / calls,
                 cycles_per_tile={p: c / calls / tiles
                                  for p, c in zip(PHASES, row)},

@@ -1,6 +1,6 @@
 """PyTorch port: the attention variants T1–T6 and the ported experiment
-tools, held against the JAX package's tool kernels on the CPU, and T2 and
-T3's path choosers.
+tools, held against the JAX package's tool kernels on the CPU, and the
+path choosers of T1, T2, T3 and T6.
 
 The JAX tools (``tools/flash_*.py``) call ``pl.pallas_call`` without
 ``interpret=``; here ``jax.experimental.pallas.pallas_call`` is patched to
@@ -134,6 +134,19 @@ def test_wrappers_reject_shapes_outside_the_domain():
             call()
 
 
+@pytest.mark.parametrize('path', [None, fv.MMA])
+@pytest.mark.parametrize('tool', [port_variants, port_flash_opt])
+def test_tools_take_a_path_on_cpu(tool, path):
+    """flash_variants' and flash_opt's ``path`` (and ``--path``): each
+    row runs through its twin on the CPU, labelled so, within the JAX
+    scripts' 0.04, with the tile its plan on that path gives."""
+    rows = tool.run(torch.Generator().manual_seed(0), device='cpu',
+                    path=path)
+    assert rows and all(r['max_abs_err'] < 0.04 and r['path'] == 'twin'
+                        for r in rows)
+    tool.main(['--device', 'cpu'] + (['--path', path] if path else []))
+
+
 @pytest.mark.parametrize('tool', [port_variants, port_flash_opt,
                                   port_pipelined])
 def test_tool_exactness_on_cpu(tool):
@@ -204,12 +217,27 @@ def test_build_in_parts_compiles_each_part_then_links(tmp_path, monkeypatch):
     assert fa.build(fv.SOURCE, 3) == 0.0   # built already
 
 
-# T2 and T3's path choosers: every head width of the domain, both dtypes,
-# the main shapes, a serving batch, the tools' CPU shape and Sq != Skv.
+# The path choosers of T1, T2, T3 and T6: every head width of the domain,
+# both dtypes, the main shapes, a serving batch, the tools' CPU shape and
+# Sq != Skv (T1's and T6's plans take those whose Sq is a multiple of
+# 64·G).
 PLAN_SHAPES = [((2, 8, 4096), 4096), ((2, 8, 1024), 1024),
                ((1, 2, 1024), 1024), ((16, 8, 4096), 4096),
-               ((1, 2, 256), 256), ((1, 1, 64), 192), ((3, 5, 128), 640)]
+               ((1, 2, 256), 256), ((1, 1, 64), 192), ((3, 5, 128), 640),
+               ((1, 3, 512), 320)]
 PLANS = {'attn_h': fv.plan_attn_h, 'pipelined_attention': fv.plan_pipelined}
+# T1's and T6's plans: name → (plan, the kernel's configuration, q chains
+# G, the kept kernel's stages).
+CHAIN_PLANS = {
+    'attn_opt v0': (fv.PATH_CONFIGS['T1 v0'][1], 'v0', 1, 1),
+    'attn_opt vU': (fv.PATH_CONFIGS['T1 vU'][1], 'vU', 1, 2),
+    'attn_opt vG2': (fv.PATH_CONFIGS['T1 vG2'][1], 'vG2', 2, 1),
+    'attn_opt vG4': (fv.PATH_CONFIGS['T1 vG4'][1], 'vG4', 4, 1),
+    'attn_variants v0': (lambda q, k, path=None: fv.plan_attn_variants(
+        q, k, 0, path=path), 'v0', 1, 1),
+    'attn_variants v1': (fv.PATH_CONFIGS['T6 v1'][1], 'v0', 1, 1),
+    'attn_variants v2': (fv.PATH_CONFIGS['T6 v2'][1], 'v2', 1, 1),
+}
 
 
 def _meta(shape, skv, d, dtype):
@@ -218,20 +246,42 @@ def _meta(shape, skv, d, dtype):
 
 
 @pytest.mark.parametrize('d', range(8, fv.MAX_HEAD_DIM + 1, 8))
-@pytest.mark.parametrize('name', list(PLANS))
+@pytest.mark.parametrize('name', list(PLANS) + list(CHAIN_PLANS))
 def test_plan_takes_the_hopper_path_at_every_width(name, d):
     """Every shape of the domain plans 'sm90', with the source's tiles
-    (PIPELINED_TILES, HEADS_TILES, 64-row kv tiles); 'mma' only when the
-    caller forces it, as the first port's grid."""
-    plan = PLANS[name]
+    (PIPELINED_TILES, HEADS_TILES, CHAINS_TILES: G chains of 64 q rows,
+    vG4's kv tile 32 above DP 96, 64-row kv tiles elsewhere, T1's and T6
+    v0's kv split where their blocks number at most the card's SMs);
+    'mma' only when the caller forces it, as the first port's grid."""
+    if name in CHAIN_PLANS:
+        plan, config, g, kept_stages = CHAIN_PLANS[name]
+    else:
+        plan, g = PLANS[name], 1
+        kept_stages = 1 if name == 'attn_h' else 2
     dp = -(-d // 16) * 16
     for dtype in fa.DTYPES16:
         for shape, skv in PLAN_SHAPES:
             q, k = _meta(shape, skv, d, dtype)
             b, h, sq = shape
+            if sq % (64 * g):
+                continue
             for path in (None, fv.SM90):
                 how = plan(q, k, path=path)
                 assert how.path == fv.SM90 and how.head_pad == dp
+                if name in CHAIN_PLANS:
+                    chains, stages, kv, _ = fv.chains_tiling(config, dp)
+                    assert chains == g and how.block_q == 64 * g
+                    assert how.block_kv == kv == (
+                        32 if g == 4 and dp > 96 else fv.TILE)
+                    assert how.grid == (sq // (64 * g), b * h)
+                    assert how.threads == 128 * g
+                    assert how.stages == stages
+                    split = name.startswith('attn_opt') or name.endswith(
+                        'v0')
+                    assert how.parts == (fv.chains_parts(
+                        config, sq // (64 * g) * b * h, skv // kv, dp)
+                        if split else 1)
+                    continue
                 assert how.block_kv == fv.TILE
                 if name == 'attn_h':
                     consumers, stages = fv.HEADS_TILES[dp <= 64]
@@ -245,9 +295,54 @@ def test_plan_takes_the_hopper_path_at_every_width(name, d):
                 assert how.threads == 128 * (consumers + 1)
                 assert how.stages == stages
             kept = plan(q, k, path=fv.MMA)
-            assert kept.path == fv.MMA and kept.threads == 128
-            assert kept.grid == (sq // 64, b if name == 'attn_h' else b * h)
+            assert kept.path == fv.MMA and kept.threads == 128 * g
+            assert kept.block_q == 64 * g and kept.stages == kept_stages
+            assert kept.grid == (sq // (64 * g),
+                                 b if name == 'attn_h' else b * h)
             assert kept.parts == 1
+
+
+# ChainsTiling's shared memory and blocks an SM, as the source computes
+# them (the source's comment states v0's 57 KB and 3 blocks up to DP 64,
+# 2 above; vU's 3, then 2 at DP 80 and 96, then 1).
+@pytest.mark.parametrize('config,dp,nbytes,blocks,split', [
+    ('v0', 48, 58424, 3, True), ('v0', 64, 58424, 3, True),
+    ('v2', 64, 58424, 3, True), ('v0', 80, 52264, 2, True),
+    ('v0', 128, 82984, 2, True),
+    ('vU', 64, 74824, 3, True), ('vU', 80, 93256, 2, True),
+    ('vU', 96, 111688, 2, True), ('vU', 112, 130120, 1, True),
+    ('vU', 128, 148552, 1, True),
+    ('vG2', 48, 66616, 2, True), ('vG2', 80, 83000, 1, True),
+    ('vG2', 128, 132152, 1, True),
+    ('vG4', 48, 83000, 1, True), ('vG4', 80, 103480, 1, True),
+    ('vG4', 96, 123960, 1, True), ('vG4', 112, 101432, 1, False),
+    ('vG4', 128, 115768, 1, False),
+])
+def test_chains_blocks_an_sm(config, dp, nbytes, blocks, split):
+    """ChainsTiling's shared memory, blocks an SM and whether the split's
+    merge buffers fit where Q and the ring were."""
+    assert fv.chains_bytes(config, dp) == nbytes
+    assert fv.chains_blocks(config, dp) == blocks
+    assert fv.chains_split_fits(config, dp) == split
+    assert nbytes <= 232448   # a block's most
+
+
+@pytest.mark.parametrize('config,blocks,tiles,dp,want', [
+    ('vG4', 64, 16, 80, 2),     # (2,8,1024,80): 64 blocks
+    ('vG2', 128, 16, 80, 2),    # the same shape's vG2
+    ('v0', 256, 16, 80, 1),     # and v0: more blocks than SMs
+    ('vG4', 256, 64, 48, 1),    # (2,8,4096,40)
+    ('v0', 32, 16, 48, 2),      # (1,2,1024,40)
+    ('vG2', 132, 64, 48, 2),    # one block an SM
+    ('vG2', 133, 64, 48, 1),
+    ('vG4', 8, 32, 128, 1),     # no room for the merge buffers
+    ('v0', 8, 1, 48, 1),        # one kv tile cannot be split
+])
+def test_chains_parts_split_only_where_the_card_has_room(
+        config, blocks, tiles, dp, want):
+    """T1's kv split: only where the blocks number at most the card's SMs
+    and the merge buffers fit; 2 parts, each at least one tile."""
+    assert fv.chains_parts(config, blocks, tiles, dp) == want
 
 
 @pytest.mark.parametrize('instances,tiles,dp,want', [
@@ -273,26 +368,58 @@ def test_heads_parts_split_only_where_the_card_is_half_empty(
 
 
 @pytest.mark.parametrize('path', [None, fv.SM90, fv.MMA])
-@pytest.mark.parametrize('fn', [fv.attn_h, fv.pipelined_attention])
-def test_cpu_calls_count_no_launch_on_either_path(fn, path):
-    """On CPU tensors T2 and T3 return their twin whatever the path asked
-    for, and count no launch on either path."""
+@pytest.mark.parametrize('label', list(fv.PATH_CONFIGS))
+def test_cpu_calls_count_no_launch_on_either_path(label, path):
+    """On CPU tensors T1, T2, T3 and T6 return their twin whatever the
+    path asked for, and count no launch on either path."""
+    fn = fv.PATH_CONFIGS[label][0]
+    twin = fv.CONFIGS[label][1]
     gen = torch.Generator().manual_seed(5)
-    q, k, v = (torch.randn((1, 2, 128, 40), generator=gen).to(torch.bfloat16)
+    q, k, v = (torch.randn((1, 2, 256, 40), generator=gen).to(torch.bfloat16)
                for _ in range(3))
     before = (fv.launch_counts(), fv.path_counts())
     torch.testing.assert_close(fn(q, k, v, 0.15, path=path),
-                               fv.plain_exp(q, k, v, 0.15), rtol=0, atol=0)
+                               twin(q, k, v, 0.15), rtol=0, atol=0)
     assert (fv.launch_counts(), fv.path_counts()) == before
 
 
-@pytest.mark.parametrize('fn', [fv.attn_h, fv.pipelined_attention])
-def test_unknown_path_raises(fn):
-    x = torch.zeros((1, 1, 64, 40))
+def test_path_wrappers_count_by_path():
+    """Every wrapper with two paths counts its launches by path, and
+    ``path_counts`` names them all."""
+    assert set(fv.path_counts()) == {
+        f'{fn.__name__}_{p}' for fn in (fv.attn_opt, fv.attn_h,
+                                        fv.pipelined_attention,
+                                        fv.attn_variants)
+        for p in fv.PATHS}
+    assert {fn for _, _, fn, _ in fv.PATH_CONFIGS.values()} == set(
+        fv.PATH_WRAPPERS)
+    assert fv.config_path_counts() == {}
+
+
+@pytest.mark.parametrize('label', list(fv.PATH_CONFIGS))
+def test_launch_options_name_the_configuration(label):
+    """Each configuration's entry-point options: T1's variant code, T6's
+    variant, none for T2 and T3 (whose parts come from the plan)."""
+    options = fv.PATH_CONFIGS[label][3]
+    if label.startswith('T1'):
+        variant = label.split()[1]
+        key = ('vG', int(variant[2])) if variant.startswith('vG') else (
+            variant, 1)
+        assert options == (fv.T1_CODES[key],)
+    elif label.startswith('T6'):
+        assert options == (int(label[-1]),)
+    else:
+        assert options == ()
+
+
+@pytest.mark.parametrize('label', list(fv.PATH_CONFIGS))
+def test_unknown_path_raises(label):
+    fn, plan, _, _ = fv.PATH_CONFIGS[label]
+    x = torch.zeros((1, 1, 256, 40))
     with pytest.raises(ValueError):
         fn(x, x, x, 0.1, path='wide')
     with pytest.raises(ValueError):
-        PLANS[fn.__name__](x, x, path='mma.sync')
+        plan(x, x, path='mma.sync')
 
 
 def test_split_twin_of_one_part_is_plain_exp():
@@ -312,6 +439,36 @@ def _jax_attn_h(shape, dtype):
         *(jnp.asarray(a).astype(jdt) for a in arrs),
         shape[-1]**-0.5).astype(jnp.float32))
     return arrs, ref
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_attn_vg4(shape, dtype):
+    jdt = DTYPES[dtype][0]
+    rng = np.random.default_rng(shape[-1] + 1)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    ref = np.asarray(JAX_CALLS['T1 vG4'](
+        *(jnp.asarray(a).astype(jdt) for a in arrs),
+        shape[-1]**-0.5).astype(jnp.float32))
+    return arrs, ref
+
+
+@pytest.mark.parametrize('dtype', list(DTYPES))
+def test_t1_split_twin_matches_jax_tool_kernel(dtype, interpret):
+    """T1's kv split on 'sm90' (vG4 at the 1024-token head takes 2 parts),
+    its twin ``plain_split_exp``, against the JAX tool kernel
+    ``tools/flash_opt.py::attn`` ('vG', g = 4) in interpret mode at
+    (1,2,1024,80), with ``test_twin_matches_jax_tool_kernel``'s
+    tolerance."""
+    shape = (1, 2, 1024, 80)
+    q = torch.empty(shape, dtype=torch.bfloat16, device='meta')
+    parts = fv.plan_attn_opt(q, q, 'vG', 4).parts
+    assert parts == 2
+    arrs, ref = _jax_attn_vg4(shape, dtype)
+    tdt = DTYPES[dtype][1]
+    got = fv.plain_split_exp(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                             shape[-1]**-0.5, parts)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= _tolerance('T1 vG4', dtype) * np.abs(ref).max(), err
 
 
 @pytest.mark.parametrize('dtype', list(DTYPES))

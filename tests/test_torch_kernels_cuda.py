@@ -750,7 +750,8 @@ def test_variant_kernel_matches_twin(label, shape, cuda_gen):
     assert sum(fv.launch_counts().values()) == before + 1
     assert out.shape == t(q).shape and out.is_contiguous()
     ref = plain_attention(q.float(), k.float(), v.float(), scale)
-    _rule(t(out), ref, t(twin(t(q), t(k), t(v), scale)))
+    _rule(t(out), ref, t(twin(t(q), t(k), t(v), scale)) if bhds else
+          fv.planned_twin(label, q, k, v, scale))
 
 
 @pytest.mark.cuda
@@ -780,12 +781,14 @@ def test_variant_kernels_reject_what_they_do_not_take(cuda_gen):
     assert sum(fv.launch_counts().values()) == before
 
 
-# T2 and T3's Hopper path: the main shapes and every head width of the
-# domain, in both dtypes.
+# The Hopper path of T1 (v0, vU, vG2, vG4), T2, T3 and T6 (v1, v2): the
+# main shapes and every head width of the domain, in both dtypes (Sq a
+# multiple of vG4's 256 q rows). Each label's (call, plan, counting
+# wrapper, entry-point options).
 T_SM90_SHAPES = T_SHAPES[:1] + [(2, 8, 4096, 40)] + [
     (1, 2, 1024, d) for d in range(8, fv.MAX_HEAD_DIM + 1, 8)]
-T_PATHS = {'T2': (fv.attn_h, fv.plan_attn_h),
-           'T3': (fv.pipelined_attention, fv.plan_pipelined)}
+T_PATHS = {label: fv.PATH_CONFIGS[label] for label in (
+    'T1 v0', 'T1 vU', 'T1 vG2', 'T1 vG4', 'T2', 'T3', 'T6 v1', 'T6 v2')}
 
 
 def _one_launch(fn, path, call):
@@ -801,18 +804,18 @@ def _one_launch(fn, path, call):
 @pytest.mark.parametrize('shape', T_SM90_SHAPES)
 @pytest.mark.parametrize('label', list(T_PATHS))
 def test_variant_sm90_path_matches_twin(label, shape, dtype, cuda_gen):
-    """T2 or T3 on the path its plan picks ('sm90' everywhere in the
-    domain), one launch on it, by K1's rule against the twin of that path
-    (T2's kv split: ``plain_split_exp``)."""
-    fn, plan = T_PATHS[label]
+    """A configuration with two paths on the one its plan picks ('sm90'
+    everywhere in the domain), one launch on it, by K1's rule against the
+    twin of that path (the kv split's, ``plain_split_exp``, where T1's or
+    T2's plan splits)."""
+    call, plan, fn, _ = T_PATHS[label]
     q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
                            dtype=dtype) for _ in range(3))
     scale = shape[-1]**-0.5
     how = plan(q, k)
     assert how.path == fv.SM90
-    out = _one_launch(fn, fv.SM90, lambda: fn(q, k, v, scale))
-    twin = (fv.plain_split_exp(q, k, v, scale, how.parts) if how.parts > 1
-            else fv.plain_exp(q, k, v, scale))
+    out = _one_launch(fn, fv.SM90, lambda: call(q, k, v, scale))
+    twin = fv.planned_twin(label, q, k, v, scale)
     _rule(out, plain_attention(q.float(), k.float(), v.float(), scale), twin)
 
 
@@ -822,20 +825,20 @@ def test_variant_sm90_path_matches_twin(label, shape, dtype, cuda_gen):
 def test_variant_kept_path_still_right(label, shape, cuda_gen):
     """The first port's kernel, forced with ``path='mma'``: one launch on
     'mma', by K1's rule."""
-    fn, _ = T_PATHS[label]
+    call, _, fn, _ = T_PATHS[label]
     q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(3))
     scale = shape[-1]**-0.5
-    out = _one_launch(fn, fv.MMA, lambda: fn(q, k, v, scale, path=fv.MMA))
+    out = _one_launch(fn, fv.MMA, lambda: call(q, k, v, scale, path=fv.MMA))
     _rule(out, plain_attention(q.float(), k.float(), v.float(), scale),
-          fv.plain_exp(q, k, v, scale))
+          fv.CONFIGS[label][1](q, k, v, scale))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('label', list(T_PATHS))
 def test_variant_paths_refuse_out_of_domain_inputs(label, cuda_gen):
     """Inputs outside the domain raise on either path before any launch."""
-    fn, _ = T_PATHS[label]
+    fn = T_PATHS[label][0]
     q = torch.randn((1, 2, 128, 40), generator=cuda_gen, device='cuda',
                     dtype=torch.bfloat16)
     odd = torch.empty(q.numel() + 8, device='cuda', dtype=torch.bfloat16)[
@@ -876,3 +879,28 @@ def test_variant_refused_launch_raises_without_fallback(cuda_gen):
         assert not out.any()
     assert fv.path_counts() == before
     _one_launch(fv.attn_h, fv.SM90, lambda: fv.attn_h(q, q, q, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path', fv.PATHS)
+@pytest.mark.parametrize('label', list(T_PATHS))
+def test_variant_refused_launch_raises_on_either_path(label, path, cuda_gen):
+    """Each configuration's kernel, on either path, refuses Sq = 100 past
+    the wrapper's check (and T1's and T6's on 'sm90' a kv split in 3
+    parts): the launch raises, counts no launch and writes nothing."""
+    call, plan, fn, options = T_PATHS[label]
+    bad = torch.randn((1, 2, 100, 40), generator=cuda_gen, device='cuda',
+                      dtype=torch.bfloat16)
+    q = torch.randn((1, 2, 768, 40), generator=cuda_gen, device='cuda',
+                    dtype=torch.bfloat16)
+    cases = [(bad, plan(bad, bad, path=path))]
+    if path == fv.SM90 and fn in (fv.attn_opt, fv.attn_variants):
+        cases.append((q, dataclasses.replace(plan(q, q), parts=3)))
+    before = fv.path_counts()
+    for x, how in cases:
+        out = torch.zeros_like(x)
+        with pytest.raises(RuntimeError):
+            fv.launch(fn, x, x, x, out, 0.1, how, *options)
+        torch.cuda.synchronize()
+        assert not out.any()
+    assert fv.path_counts() == before
