@@ -151,20 +151,21 @@ The flash-kernel experiment tools (the fourth slice):
     (``csrc/flash_variants.cu``: T1 v0/vU/vG2/vG4, T2, T3, T4, T5
     ttv3/ttv4/no-fold, T6 v0/v1/v2) against its twin by step 3's rule at
     every shape the tools give it: the two main shapes, and (8,8,4096,40)
-    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). T1 (v0, vU,
-    vG2, vG4), T2, T3 and T6 v1/v2 run on both of their paths (T_PATHS):
-    the Hopper one their plan picks ('sm90', ``csrc/flash_variants_sm90.cu``;
-    T2's twin there is the kv split's, ``plain_split_exp``, where the plan
-    splits) and the first port's forced ('mma'), each call one launch on
-    its path, and a launch the kernel refuses raises on either path with
-    nothing written and nothing counted; on 'sm90' also at (1,2,1024,d)
-    for every d of the domain (T_WIDTH_SHAPES); T6 v0 takes T1 v0's
-    'sm90' kernel. At the main shapes prints each one's (the T_PATHS
-    configurations each path's, interleaved old, new, new, old), its
-    twin's, ``scaled_dot_product_attention``'s (contiguous
-    ``[B,H,S,D]``; for the ``[B,H,D,S]`` T4/T5 also on the transposed
-    views, which takes its slow path) and K1's times from this run, all
-    kernels replayed from CUDA graphs, and the bound.
+    for T4 and T5, (2,8,1536,40) for T4 (T_EXTRA_SHAPES). Every
+    configuration but T6 v0 (T1 v0's kernels) runs on both of its paths
+    (T_PATHS): the Hopper one its plan picks ('sm90',
+    ``csrc/flash_variants_sm90.cu``; T1's, T2's and T4's twin there is the
+    kv split's, ``plain_split_exp``, where the plan splits) and the first
+    port's forced ('mma'), each call one launch on its path, and a launch
+    the kernel refuses raises on either path with nothing written and
+    nothing counted; on 'sm90' also at (1,2,1024,d) for every d of its
+    domain (T_WIDTH_SHAPES; the fold's d <= 120). At the main shapes
+    prints each one's (the T_PATHS configurations each path's,
+    interleaved old, new, new, old), its twin's,
+    ``scaled_dot_product_attention``'s (contiguous ``[B,H,S,D]``; for the
+    ``[B,H,D,S]`` T4/T5 also on the transposed views, which takes its
+    slow path) and K1's times from this run, all kernels replayed from
+    CUDA graphs, and the bound.
 15. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
     would: ``flash_variants``, ``flash_opt``, ``flash_pipelined`` (with its
     UNet A/B, K1 against T3), ``flash_tt`` (exactness at four shapes, K1
@@ -172,8 +173,8 @@ The flash-kernel experiment tools (the fourth slice):
     against ttv3 and ttv4). Asserts finite exactness errors (the scripts
     print OK or FAIL by their own 0.04; step 14 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
-    launches of the kernel in use (T3's all on 'sm90'), none of the other,
-    and 61 of K6.
+    launches of the kernel in use (T3's, T4's and T5's all on 'sm90'),
+    none of the other, and 61 of K6.
 16. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
     kernel's time, the host µs per call, the times by shape, step 17's
     shapes included, and fp32's), then, only if every phase passed,
@@ -1601,20 +1602,43 @@ AB_LAUNCHES = {'k1': dict(k1=LAUNCHES_PER_UNET, k1_sm90=LAUNCHES_PER_UNET,
                'pipelined_attention': dict(
                    pipelined_attention=LAUNCHES_PER_UNET,
                    pipelined_attention_sm90=LAUNCHES_PER_UNET, **K6_AB),
-               'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET, **K6_AB),
-               'flash_ttv3': dict(flash_ttv3=LAUNCHES_PER_UNET, **K6_AB)}
+               'flash_tt2': dict(flash_tt2=LAUNCHES_PER_UNET,
+                                 flash_tt2_sm90=LAUNCHES_PER_UNET, **K6_AB),
+               'flash_ttv3': dict(flash_ttv3=LAUNCHES_PER_UNET,
+                                  flash_ttv3_sm90=LAUNCHES_PER_UNET,
+                                  **K6_AB)}
 # Shapes beyond MAIN_SHAPES that the tools give a configuration:
 # flash_tt's check_exact and micro (T4), flash_tt3's main (T5).
 T_EXTRA_SHAPES = [((8, 8, 4096, 40), ('T4', 'T5 ttv3', 'T5 ttv4',
                                        'T5 no-fold')),
                   ((2, 8, 1536, 40), ('T4',))]
-# The configurations with two paths: (call, plan, the wrapper that counts
-# their launches, the entry point's options), ``fv.PATH_CONFIGS``; and the
-# shapes that hold their Hopper path at every head width of the domain
-# (Sq = 1024, a multiple of vG4's 256 q rows).
-T_PATHS = {label: fv.PATH_CONFIGS[label] for label in (
-    'T1 v0', 'T1 vU', 'T1 vG2', 'T1 vG4', 'T2', 'T3', 'T6 v1', 'T6 v2')}
+# The configurations with two paths (all but T6 v0, which runs T1 v0's
+# kernels): (call, plan, the wrapper that counts their launches, the entry
+# point's options), ``fv.PATH_CONFIGS``; and the shapes that hold their
+# Hopper path at every head width of each domain (Sq = 1024, a multiple of
+# vG4's 256 q rows; T5's fold takes d <= 120).
+T_PATHS = fv.PATH_CONFIGS
 T_WIDTH_SHAPES = [(1, 2, 1024, d) for d in range(8, fv.MAX_HEAD_DIM + 1, 8)]
+
+
+def width_labels(d: int) -> tuple:
+    """The T_PATHS configurations whose domain holds head width ``d``."""
+    return tuple(label for label in T_PATHS
+                 if d <= fv.MAX_FOLD_HEAD_DIM or label not in (
+                     'T5 ttv3', 'T5 ttv4'))
+
+
+def _layout(label: str, *tensors) -> tuple:
+    """``tensors`` (``[B,H,S,D]``) as configuration ``label`` takes them:
+    T4/T5 transposed and contiguous, the rest as they are."""
+    if fv.CONFIGS[label][2]:
+        return tuple(x.transpose(-1, -2).contiguous() for x in tensors)
+    return tensors
+
+
+def _bhsd(label: str, x: torch.Tensor) -> torch.Tensor:
+    """A configuration's output as ``[B,H,S,D]`` (a view)."""
+    return x.transpose(-1, -2) if fv.CONFIGS[label][2] else x
 
 
 def _one_launch(fn, path: str, call) -> torch.Tensor:
@@ -1635,8 +1659,8 @@ def refused_without_fallback(label: str, d: int, gen) -> bool:
     check), on either path, raises, writes nothing and counts no launch:
     no other path or twin runs."""
     _, plan, fn, options = T_PATHS[label]
-    bad = torch.randn((1, 2, 100, d), generator=gen, device='cuda',
-                      dtype=torch.bfloat16)
+    (bad,) = _layout(label, torch.randn((1, 2, 100, d), generator=gen,
+                                        device='cuda', dtype=torch.bfloat16))
     before = fv.path_counts()
     ok = True
     for path in fv.PATHS:
@@ -1652,46 +1676,62 @@ def refused_without_fallback(label: str, d: int, gen) -> bool:
     return ok and fv.path_counts() == before
 
 
+def _splits(label: str, how) -> bool:
+    """Whether configuration ``label``'s kernel takes a kv split at the
+    plan ``how``'s tiles (T2 up to HEADS_SPLIT_MAX_DP, T1 and T4 where the
+    chains' merge buffers fit)."""
+    fn = T_PATHS[label][2]
+    if fn is fv.attn_h:
+        return how.head_pad <= fv.HEADS_SPLIT_MAX_DP
+    if fn is fv.attn_opt:
+        return fv.chains_split_fits(label.split()[1], how.head_pad)
+    if fn is fv.flash_tt2:
+        return fv.chains_split_fits(fv.TT_CONFIGS[how.block_q // fv.TILE],
+                                    how.head_pad, bhds=True)
+    return False
+
+
 def check_paths(label: str, q, k, v, scale: float, ref, timed: bool,
                 kept: bool = True) -> dict:
-    """A configuration with two paths (``label``: T1, T2, T3, T6 v1/v2) on
-    its planned path and, with ``kept``, on the first port's kernel forced,
-    each by step 3's rule against its twin on that path, each one launch on
-    its path, and a refused launch raising on either path; with ``timed``
-    both paths' times, interleaved (``time_pair``)."""
+    """A configuration with two paths (``label``: any of T_PATHS; ``q``,
+    ``k``, ``v`` ``[B,H,S,D]``, transposed here for T4/T5) on its planned
+    path and, with ``kept``, on the first port's kernel forced, each by
+    step 3's rule against its twin on that path, each one launch on its
+    path, and a refused launch raising on either path; with ``timed`` both
+    paths' times, interleaved (``time_pair``)."""
     call, plan, fn, _ = T_PATHS[label]
-    how = plan(q, k)
-    out = _one_launch(fn, how.path, lambda: call(q, k, v, scale))
-    twin = fv.planned_twin(label, q, k, v, scale)
+    args = _layout(label, q, k, v)
+    how = plan(*args[:2])
+    out = _one_launch(fn, how.path, lambda: call(*args, scale))
+    twin = fv.planned_twin(label, *args, scale)
     # Consumer warpgroups: T2 and T3 have a producer warpgroup besides.
-    r = dict(_errs(out, ref, twin), path=how.path, parts=how.parts,
-             block_kv=how.block_kv,
+    r = dict(_errs(_bhsd(label, out), ref, _bhsd(label, twin)),
+             path=how.path, parts=how.parts, block_kv=how.block_kv,
              consumers=how.threads // 128 - (fn in (fv.attn_h,
                                                     fv.pipelined_attention)))
     r['ok'] = r['ok'] and how.path == fv.SM90
     if kept:
         out = _one_launch(fn, fv.MMA,
-                          lambda: call(q, k, v, scale, path=fv.MMA))
-        r['kept'] = _errs(out, ref, fv.CONFIGS[label][1](q, k, v, scale))
+                          lambda: call(*args, scale, path=fv.MMA))
+        r['kept'] = _errs(_bhsd(label, out), ref, _bhsd(
+            label, fv.CONFIGS[label][1](*args, scale)))
         r['refused'] = refused_without_fallback(label, q.shape[3],
                                                 torch.Generator('cuda'))
         r['ok'] = r['ok'] and r['kept']['ok'] and r['refused']
     if timed:
         r['ms'], r['kept_ms'] = time_pair(
-            lambda: call(q, k, v, scale),
-            lambda: call(q, k, v, scale, path=fv.MMA))
-        splits = (how.head_pad <= fv.HEADS_SPLIT_MAX_DP if fn is fv.attn_h
-                  else fn is fv.attn_opt and fv.chains_split_fits(
-                      label.split()[1], how.head_pad))
-        if splits:
-            # T2's or T1's kv split in every part count the kernel takes
-            # here (the plan picks one), launched as the plan would be.
-            out = torch.empty_like(q)
+            lambda: call(*args, scale),
+            lambda: call(*args, scale, path=fv.MMA))
+        if _splits(label, how):
+            # T2's, T1's or T4's kv split in every part count the kernel
+            # takes here (the plan picks one), launched as the plan would
+            # be.
+            out = torch.empty_like(args[0])
             tiles = k.shape[2] // how.block_kv
             options = T_PATHS[label][3]
             r['parts_ms'] = {
                 parts: time_ms(lambda p=parts: fv.launch(
-                    fn, q, k, v, out, scale,
+                    fn, *args, out, scale,
                     dataclasses.replace(how, parts=p), *options), graph=True)
                 for parts in (1, 2, 4)
                 if (parts - 1) * -(-tiles // parts) < tiles}
@@ -1730,15 +1770,13 @@ def check_variants(shape, gen: torch.Generator, labels=None,
     for label in labels or fv.CONFIGS:
         kernel, twin, bhds = fv.CONFIGS[label]
         args = (tq, tk, tv) if bhds else (q, k, v)
-        back = (lambda x: x.transpose(-1, -2)) if bhds else (lambda x: x)
         if label in T_PATHS:
             r = check_paths(label, q, k, v, scale, ref, timed, kept)
         else:
             out = kernel(*args, scale)
             torch.cuda.synchronize()
-            r = _errs(back(out), ref, back(
-                twin(*args, scale) if bhds else
-                fv.planned_twin(label, q, k, v, scale)))
+            r = _errs(_bhsd(label, out), ref, _bhsd(
+                label, fv.planned_twin(label, *args, scale)))
         line = (f'{label:10s} {tuple(shape)}: max|Δ| {r["max_abs_err"]:.3e} '
                 f'(twin {r["plain_max_abs_err"]:.3e}, limit {r["tol"]:.3e}, '
                 f'{r["flipped"]} rounding flips)')
@@ -1775,31 +1813,29 @@ def t_kernel_entries(var_res: list, tools: dict) -> list:
     kernels = []
     for entry, replaces, label, parts in T_ENTRIES:
         c = var_main['configs'][label]
-        # T1, T2, T3 and T6: the Hopper path's source, time and launches
-        # by path, beside the kept kernel's, at both main shapes.
-        paths = {}
-        if label in T_PATHS:
-            by = tools['config_path_launches']
-            # vG's entry carries G = 4's times beside G = 2's.
-            names = [label] + (['T1 vG4'] if label == 'T1 vG2' else [])
-            paths = dict(
-                kept_source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
-                kept_ms=c['kept_ms'],
-                path_launches={p: sum(
-                    by.get(f'{fn.__name__} {key} {p}', 0)
-                    for fn, key in parts) for p in fv.PATHS},
-                by_shape=[dict(shape=r['shape'], **{
-                    key: r['configs'][name][key] for key in (
-                        'ms', 'kept_ms', 'plain_ms', 'parts', 'parts_ms')
-                    if key in r['configs'][name]},
-                    config=name, k1_ms=r['k1_ms'],
-                    library_ms=r['library_ms'], bound_ms=r['bound_ms'])
-                    for name in names for r in var_res[:len(MAIN_SHAPES)]])
+        # The Hopper path's source, time and launches by path, beside the
+        # kept kernel's, at both main shapes.
+        by = tools['config_path_launches']
+        # vG's entry carries G = 4's times beside G = 2's.
+        names = [label] + (['T1 vG4'] if label == 'T1 vG2' else [])
+        paths = dict(
+            kept_source='flexdiffuse_tpu_torch/csrc/flash_variants.cu',
+            kept_ms=c['kept_ms'],
+            path_launches={p: sum(
+                by.get(f'{fn.__name__} {key} {p}', 0)
+                for fn, key in parts) for p in fv.PATHS},
+            by_shape=[dict(shape=r['shape'], **{
+                key: r['configs'][name][key] for key in (
+                    'ms', 'kept_ms', 'plain_ms', 'parts', 'parts_ms')
+                if key in r['configs'][name]},
+                config=name, k1_ms=r['k1_ms'],
+                library_ms=r['library_ms'], bound_ms=r['bound_ms'],
+                **({'library_views_ms': r['library_views_ms']}
+                   if fv.CONFIGS[name][2] else {}))
+                for name in names for r in var_res[:len(MAIN_SHAPES)]])
         kernels.append(dict(
             name=entry, route='cuda',
-            source='flexdiffuse_tpu_torch/csrc/' + (
-                'flash_variants_sm90.cu' if label in T_PATHS
-                else 'flash_variants.cu'),
+            source='flexdiffuse_tpu_torch/csrc/flash_variants_sm90.cu',
             replaces=replaces, launches=tools['launches'][entry],
             max_abs_err=max(max(r['configs'][label]['max_abs_err'],
                                 r['configs'][label].get('kept', {}).get(
@@ -5277,7 +5313,7 @@ def main() -> int:
     var_res = [check_variants(s, gen) for s in MAIN_SHAPES]
     var_res += [check_variants(s, gen, labels)
                 for s, labels in T_EXTRA_SHAPES]
-    var_res += [check_variants(s, gen, tuple(T_PATHS), kept=False)
+    var_res += [check_variants(s, gen, width_labels(s[3]), kept=False)
                 for s in T_WIDTH_SHAPES]
     bad = [(r['shape'], label) for r in var_res
            for label, c in r['configs'].items() if not c['ok']]
@@ -5293,7 +5329,11 @@ def main() -> int:
                   f'({c["kept_ms"] / c["ms"]:.2f}x), twin '
                   f'{c["plain_ms"]:.3f}, K1 {r["k1_ms"]:.4f}, SDPA '
                   f'{r["library_ms"]:.4f} ({c["ms"] / r["library_ms"]:.2f}'
-                  f'x), bound {r["bound_ms"]:.5f} '
+                  f'x)' + (f', SDPA on the views '
+                           f'{r["library_views_ms"]:.4f} '
+                           f'({c["ms"] / r["library_views_ms"]:.3f}x)'
+                           if fv.CONFIGS[label][2] else '') +
+                  f', bound {r["bound_ms"]:.5f} '
                   f'({r["bound_ms"] / c["ms"]:.1%})'
                   + (f'; by kv parts {json.dumps(c["parts_ms"])}'
                      if 'parts_ms' in c else ''), flush=True)

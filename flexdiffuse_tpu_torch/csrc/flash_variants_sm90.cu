@@ -1,7 +1,7 @@
-// Attention variants T1, T2, T3 and T6 redesigned for Hopper (sm_90a): the
-// second path of ops/flash_variants.py::attn_opt, ::attn_h,
-// ::pipelined_attention and ::attn_variants, beside their first ports in
-// flash_variants.cu (kept, and taken only when the caller forces
+// Attention variants T1–T6 redesigned for Hopper (sm_90a): the second path
+// of ops/flash_variants.py::attn_opt, ::attn_h, ::pipelined_attention,
+// ::flash_tt2, ::flash_ttv3 and ::attn_variants, beside their first ports
+// in flash_variants.cu (kept, and taken only when the caller forces
 // path='mma').
 //
 // Replaces the Pallas kernels of the JAX package's flash-kernel tools:
@@ -11,6 +11,10 @@
 //      one instance
 //   T3 tools/flash_pipelined.py::_pipelined_kernel (:22)  QKᵀ of kv tile j+1
 //      issued before the softmax of tile j
+//   T4 tools/flash_tt.py::_flash_tt2_kernel (:87)  [B, H, D, S] operands
+//   T5 tools/flash_tt3.py::_ttv3_kernel (:41)  [B, H, D, S], exp2, the row
+//      sum folded into P·V (ttv3), with exp2 on bf16 pairs (ttv4), or
+//      summed a tile at a time and rounded (no-fold)
 //   T6 tools/flash_variants.py::make_kernel (:26)  v0 exp (T1 v0's code),
 //      v1 exp2 with log2 e in q's scale, v2 exp2 with l from the 16-bit P
 // T1, T2, T3 and T6 v0 compute what their plain twin
@@ -133,6 +137,29 @@
 // ranks 1.. leave (o, m, l) where Q and the ring were, rank 0 reads them
 // through distributed shared memory; the twin is plain_split_exp. The
 // exp2 variants (T6 v1, v2) are never split.
+//
+// T4 and T5, the same kernel over [B, H, D, S] (its Form: TtExp, TtFold,
+// TtFoldBf16, TtTile). The TPU kernels share each K/V block among 512 q
+// rows, so vG4's four chains are also the faithful form; where Sq is not a
+// multiple of 256, or DP > 96 (O, S and P of a 64-column tile would not
+// fit 128 registers), the plan takes vG2's or v0's tiles
+// (ops/flash_variants.py::tt_chains). The layout changes only the
+// operands and the store: each tile is d rows of 64 columns, exactly one
+// 128-byte swizzle span a row, loaded by one TMA box of 64 columns by d
+// rows (no column past the data), the rows d..DP-1 zeroed once; S = q̃ᵀ·K_j
+// takes both operands MN-major (wgmma with both transpose bits), O +=
+// P·V_jᵀ takes V_j K-major (the RS form with kTransB = 0); O·(1/l) is
+// staged transposed in the consumer's Q tile and stored by one TMA box.
+// The rounding points are the kept twins': T4 exp, fp32 l (and T1's kv
+// split, twin plain_split_exp over the transposed views); T5 exp2 with
+// log2 e in q's scale, l = Σ round16(p) from a row of ones in V (ttv3, N =
+// round16(d + 1): 48 at d = 40, 96 at d = 80; the ones are V's last padded
+// row, DP - 1, not row d as in the kept kernel, so that l is a register
+// known at compile time), ttv4 exp2 of the argument rounded to bf16, two
+// a PTX instruction (ex2.approx.ftz.bf16x2, which ptxas issues as two
+// MUFU.EX2.BF16), no-fold each 64-column tile's row sum rounded to the
+// 16-bit type. T5 is never split. Domain: T1's over [B, H, D, S], d <= 120
+// with the fold.
 
 #include <type_traits>
 #include <utility>
@@ -225,45 +252,111 @@ struct HeadsTiling {
   }
 };
 
-// T1's and T6's configurations on this path (chains_sm90_kernel's Cfg):
-// v0 also runs T6 v0 and v1, whose base is a runtime factor.
-enum Chains : int { kV0 = 0, kVU = 1, kVG2 = 2, kVG4 = 3, kV2 = 4, kCfgs };
+// The chains kernel's tilings (chains_sm90_kernel's Cfg): v0 one chain a
+// block, vU v0 with a deeper ring, vG2 and vG4 two and four chains.
+enum Chains : int { kV0 = 0, kVU = 1, kVG2 = 2, kVG4 = 3 };
+
+// How the row sum l is formed (the twins' rounding points,
+// ops/flash_variants.py::plain_variant).
+enum RowSum : int {
+  kSumP,      // Σ p in fp32 (T1, T2, T3, T4, T6 v0 and v1)
+  kSumP16,    // Σ round16(p), the values P·V reads (T6 v2)
+  kSumFold,   // P·V's last column, V's last row all ones (T5 ttv3, ttv4)
+  kSumTile,   // each 64-column tile's Σ round16(p), rounded, then summed
+              // (T5 no-fold)
+};
+
+// The chains kernel's form (its second template argument beside the
+// tiling): [S, D] operands (T1, T6) or [D, S] ones (T4, T5), the row sum,
+// and whether exp2 runs on bf16 argument pairs (T5 ttv4).
+template <bool kDS_, int kSum_, bool kBf16Exp_ = false>
+struct Form {
+  static constexpr bool kDS = kDS_;
+  static constexpr int kSum = kSum_;
+  static constexpr bool kBf16Exp = kBf16Exp_;
+};
+// Named types, so that the kernels' names say their form
+// (tools/ptxas_report.py --match 'chains.*Tt' shows T4's and T5's).
+struct Bhsd : Form<false, kSumP> {};               // T1, T6 v0 and v1
+struct Bhsd16 : Form<false, kSumP16> {};           // T6 v2
+struct TtExp : Form<true, kSumP> {};               // T4
+struct TtFold : Form<true, kSumFold> {};           // T5 ttv3
+struct TtFoldBf16 : Form<true, kSumFold, true> {}; // T5 ttv4
+struct TtTile : Form<true, kSumTile> {};           // T5 no-fold
 
 constexpr int kSmemPerSm = 233472;   // an SM's shared memory, bytes
 
-// T1's and T6's tiles (ops/flash_variants.py::CHAINS_TILES and
-// chains_tiling say the same): kChains consumer warpgroups of 64 q rows
-// sharing a ring of kStages K/V tiles of kN rows; kBlocks blocks an SM,
-// the fewer of what the registers (kByRegs, the __launch_bounds__ that
+// T1's, T4's, T5's and T6's tiles (ops/flash_variants.py::CHAINS_TILES
+// and chains_tiling say the same): kChains consumer warpgroups of 64 q
+// rows sharing a ring of kStages K/V tiles of kN rows; kBlocks blocks an
+// SM, the fewer of what the registers (kByRegs, the __launch_bounds__ that
 // sets a thread's share) and the shared memory (with the 1 KB the card
-// reserves a block) allow.
-template <int DP, int Cfg>
+// reserves a block) allow. Over [D, S] a tile is DP rows of 64 columns,
+// 128 bytes each (one swizzle span): the kv tile stays 64 columns, so vG4
+// takes [D, S] operands only up to DP 96 (kOffered), where O, S and P fit
+// its 128 registers.
+template <int DP, int Cfg, typename F>
 struct ChainsTiling {
+  static constexpr bool kDS = F::kDS;
   static constexpr bool kNarrow = DP <= 64;
   static constexpr int kChains = Cfg == kVG2 ? 2 : Cfg == kVG4 ? 4 : 1;
+  static constexpr bool kOffered = !(kDS && kChains == 4 && DP > 96);
   static constexpr bool kUnroll = Cfg == kVU;
-  static constexpr bool kL16 = Cfg == kV2;
-  static constexpr int kN = kChains == 4 && DP > 96 ? 32 : 64;
+  static constexpr int kN = !kDS && kChains == 4 && DP > 96 ? 32 : 64;
   static constexpr int kStages =
       kUnroll ? 4 : (kChains > 1 || kNarrow) ? 3 : 2;
   static constexpr int kThreads = 128 * kChains;
   using G = Geometry<kPitchOf<DP>, DP>;
-  static constexpr int kQ = G::bytes(kRows);
-  static constexpr int kTile = G::bytes(kN);
+  static constexpr int kQ = kDS ? DP * 128 : G::bytes(kRows);
+  static constexpr int kTile = kDS ? DP * 2 * kN : G::bytes(kN);
   static constexpr int kK = kChains * kQ;            // the K stages
   static constexpr int kV = kK + kStages * kTile;    // the V stages
   static constexpr int kBars = kV + kStages * kTile;
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
   // The kv split's merge buffer, (o, m, l) as float4s per thread, goes
-  // where Q and the ring were: where it fits, the split is allowed.
+  // where Q and the ring were: where it fits, the split is allowed (not
+  // for T5, which is never split).
   static constexpr int kMergeF4 = DP / 8 + 1;
-  static constexpr bool kSplit = kChains * 128 * kMergeF4 * 16 <= kBars;
+  static constexpr bool kSplit = (!kDS || F::kSum == kSumP) &&
+                                 kChains * 128 * kMergeF4 * 16 <= kBars;
   static constexpr int kByRegs =
       kChains == 1 ? (kNarrow ? 3 : 2) : (kChains == 2 && kNarrow) ? 2 : 1;
   static constexpr int kBySmem = kSmemPerSm / (kBytes + 1024);
   static constexpr int kBlocks = kByRegs < kBySmem ? kByRegs : kBySmem;
   static_assert(kBlocks >= 1 && kBytes <= kSmemLimit, "chains tiles");
 };
+
+// The chains kernels the library holds, by kind: 0-3 T1 v0 (also T6 v0
+// and v1), vU, vG2, vG4; 4 T6 v2; then T4, T5 ttv3, ttv4 and no-fold, each
+// at v0's, vG2's and vG4's tiles (kinds 5 + 3·form + 0, 1, 2).
+template <int Kind>
+struct ChainKind;
+#define CHAIN_KIND(kind, cfg, form)          \
+  template <>                                \
+  struct ChainKind<kind> {                   \
+    static constexpr int kCfg = cfg;         \
+    using F = form;                          \
+  }
+CHAIN_KIND(0, kV0, Bhsd);
+CHAIN_KIND(1, kVU, Bhsd);
+CHAIN_KIND(2, kVG2, Bhsd);
+CHAIN_KIND(3, kVG4, Bhsd);
+CHAIN_KIND(4, kV0, Bhsd16);
+CHAIN_KIND(5, kV0, TtExp);
+CHAIN_KIND(6, kVG2, TtExp);
+CHAIN_KIND(7, kVG4, TtExp);
+CHAIN_KIND(8, kV0, TtFold);
+CHAIN_KIND(9, kVG2, TtFold);
+CHAIN_KIND(10, kVG4, TtFold);
+CHAIN_KIND(11, kV0, TtFoldBf16);
+CHAIN_KIND(12, kVG2, TtFoldBf16);
+CHAIN_KIND(13, kVG4, TtFoldBf16);
+CHAIN_KIND(14, kV0, TtTile);
+CHAIN_KIND(15, kVG2, TtTile);
+CHAIN_KIND(16, kVG4, TtTile);
+#undef CHAIN_KIND
+constexpr int kChainKinds = 17;
+constexpr int kTtKinds = 5;   // the first T4/T5 kind
 
 // ------------------------------------------------------------ device helpers
 
@@ -395,14 +488,30 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
   }
 }
 
+// exp2 of two fp32 arguments rounded to bf16, in one instruction (sm_90),
+// the two bf16 results packed.
+__device__ __forceinline__ uint32_t ex2_bf16x2(float x0, float x1) {
+  __nv_bfloat162 in = __floats2bfloat162_rn(x0, x1);
+  uint32_t out;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n"
+      : "=r"(out)
+      : "r"(*reinterpret_cast<uint32_t*>(&in)));
+  return out;
+}
+
 // One consumer warpgroup's 64 q rows of one head: O, and for rows g and
 // g + 8 of the warp's 16 the running max of the raw scores and the
-// quad-partial row sum. Thread t of the warpgroup. Kv tiles of N rows;
-// kL16 sums l over the 16-bit P (T6 v2) instead of the fp32 p.
-template <typename T, int DP, int N = kKv, bool kL16 = false>
+// quad-partial row sum (the whole row's with kSumTile). Thread t of the
+// warpgroup. Kv tiles of N rows; the form F says how the operands lie and
+// how l is formed (kSumFold keeps l in O's last column).
+template <typename T, int DP, int N = kKv, typename F = Bhsd>
 struct Rows {
   static constexpr int kPitch = kPitchOf<DP>;
+  static constexpr int kSum = F::kSum;
   using G = Geometry<kPitch, DP>;
+  // A [D, S] tile: DP rows of 64 columns, one 128-byte swizzle span each.
+  using Gt = Geometry<128, kKv>;
+  static_assert(!F::kDS || N == kKv, "[D, S] tiles are 64 columns wide");
   float o[DP / 2];
   float m_run[2];
   float l_run[2];
@@ -417,25 +526,39 @@ struct Rows {
     l_run[0] = l_run[1] = 0.f;
   }
 
-  // S = q̃·K_jᵀ, 64 x N, DP / 16 k-steps (not committed).
+  // S = q̃·K_jᵀ, 64 x N, DP / 16 k-steps (not committed). Over [D, S]
+  // q̃ and K_j are stored [d][64] (k rows, m or n columns): both operands
+  // MN-major, a k-step 16 rows of 128 bytes.
   static __device__ __forceinline__ void issue_s(float (&sc)[N / 2],
                                                  const unsigned char* s_q,
                                                  const unsigned char* sk) {
 #pragma unroll
     for (int ks = 0; ks < DP / 16; ++ks) {
-      sm90::Wgmma<T, N>::ss(sc, G::kmajor(s_q + G::kstep(ks, kRows)),
+      if constexpr (F::kDS) {
+        sm90::Wgmma<T, N, 1>::ss(sc, Gt::mnmajor(s_q + ks * 16 * 128, DP),
+                                 Gt::mnmajor(sk + ks * 16 * 128, DP),
+                                 ks > 0);
+      } else {
+        sm90::Wgmma<T, N>::ss(sc, G::kmajor(s_q + G::kstep(ks, kRows)),
                               G::kmajor(sk + G::kstep(ks, N)), ks > 0);
+      }
     }
   }
 
   // O += P·V_j; the accumulator n-blocks 2kt, 2kt + 1 of S are the A
-  // fragment of k-step kt (not committed).
+  // fragment of k-step kt (not committed). Over [D, S] V_j is stored
+  // [d][64 kv]: B K-major, a k-step 32 bytes along each row.
   __device__ __forceinline__ void issue_pv(const uint32_t (&pa)[N / 16][4],
                                            const unsigned char* sv) {
 #pragma unroll
     for (int kt = 0; kt < N / 16; ++kt) {
-      sm90::WgmmaRs<T, DP>::rs(o, pa[kt],
-                               G::mnmajor(sv + kt * 16 * kPitch, N), 1);
+      if constexpr (F::kDS) {
+        sm90::WgmmaRs<T, DP, 0>::rs(o, pa[kt],
+                                    Gt::kmajor(sv + Gt::kstep(kt, DP)), 1);
+      } else {
+        sm90::WgmmaRs<T, DP>::rs(o, pa[kt],
+                                 G::mnmajor(sv + kt * 16 * kPitch, N), 1);
+      }
     }
   }
 
@@ -452,7 +575,8 @@ struct Rows {
 
   // The online softmax of one tile in place (every column is valid: Skv is
   // a multiple of the tile): updates m and l, leaves
-  // P = 2^(s·c − m·c) in sc (c = log2 e: e^(s − m); c = 1: 2^(s − m))
+  // P = 2^(s·c − m·c) in sc (c = log2 e: e^(s − m); c = 1: 2^(s − m);
+  // with F::kBf16Exp the argument rounded to bf16 and a bf16 result)
   // and the factor O must be scaled by in alpha.
   __device__ __forceinline__ void softmax(float (&sc)[N / 2],
                                           float (&alpha)[2],
@@ -479,17 +603,43 @@ struct Rows {
     float rs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
     for (int i = 0; i < N / 8; ++i) {
+      if constexpr (F::kBf16Exp) {
+        // Columns 2tq, 2tq + 1 of a row: one ex2 for the pair. The fold
+        // sums P·V's 16-bit P, so no row sum here.
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p =
-            sm90::ex2(__fmaf_rn(sc[4 * i + e], c, -mc[e >> 1]));
-        sc[4 * i + e] = p;
-        rs[e >> 1][i & 1] += kL16 ? round16<T>(p) : p;
+        for (int r = 0; r < 2; ++r) {
+          const float2 p = unpack2<__nv_bfloat16>(
+              ex2_bf16x2(__fmaf_rn(sc[4 * i + 2 * r], c, -mc[r]),
+                         __fmaf_rn(sc[4 * i + 2 * r + 1], c, -mc[r])));
+          sc[4 * i + 2 * r] = p.x;
+          sc[4 * i + 2 * r + 1] = p.y;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              sm90::ex2(__fmaf_rn(sc[4 * i + e], c, -mc[e >> 1]));
+          sc[4 * i + e] = p;
+          if constexpr (kSum == kSumP) {
+            rs[e >> 1][i & 1] += p;
+          } else if constexpr (kSum != kSumFold) {
+            rs[e >> 1][i & 1] += round16<T>(p);
+          }
+        }
       }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l_run[r] = l_run[r] * alpha[r] + (rs[r][0] + rs[r][1]);
+      if constexpr (kSum == kSumTile) {
+        // The tile's whole row sum, rounded as the TPU kernel rounds the
+        // sum of its 16-bit block (flash_tt3.py:68-69).
+        float s = rs[r][0] + rs[r][1];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        l_run[r] = l_run[r] * alpha[r] + round16<T>(s);
+      } else if constexpr (kSum != kSumFold) {
+        l_run[r] = l_run[r] * alpha[r] + (rs[r][0] + rs[r][1]);
+      }
     }
   }
 
@@ -517,18 +667,36 @@ struct Rows {
     }
   }
 
+  // 1/l of rows g and g + 8: the quad's partial sums added, or the whole
+  // row's (kSumTile), or O's last column DP - 1, held by the quad's last
+  // thread (kSumFold: a register known at compile time; picking column d
+  // at run time put O on the stack and serialised the wgmma, C7514).
+  __device__ __forceinline__ void inv_l(float (&inv)[2], int d) const {
+    if constexpr (kSum == kSumFold) {
+      const int last = (threadIdx.x % 32) | 3;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        inv[r] = 1.f / __shfl_sync(0xffffffffu, o[DP / 2 - 3 + 2 * r], last);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_run[r];
+        if constexpr (kSum != kSumTile) {
+          l += __shfl_xor_sync(0xffffffffu, l, 1);
+          l += __shfl_xor_sync(0xffffffffu, l, 2);
+        }
+        inv[r] = 1.f / l;
+      }
+    }
+  }
+
   // O·(1/l) into rows row0 .. row0 + 63 of one head's [S, d] output (rows
   // >= sq dropped), two 16-bit columns a store.
   __device__ __forceinline__ void store(T* out, int row0, int sq, int d,
                                         int warp, int g) {
     float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_run[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      inv[r] = 1.f / l;
-    }
+    inv_l(inv, d);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + warp * 16 + g + 8 * r;
@@ -541,6 +709,25 @@ struct Rows {
           *reinterpret_cast<uint32_t*>(dst + col) = Ops<T>::pack(
               o[4 * i + 2 * r] * inv[r], o[4 * i + 2 * r + 1] * inv[r]);
         }
+      }
+    }
+  }
+
+  // O·(1/l) transposed into `tile`, [DP][64 q] as a [D, S] box lies
+  // (Gt's swizzle), for a TMA store of its first d rows; the caller
+  // fences and syncs the warpgroup before the store.
+  __device__ __forceinline__ void stage_ds(unsigned char* tile, int d,
+                                           int warp, int g) {
+    float inv[2];
+    inv_l(inv, d);
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        *reinterpret_cast<T*>(
+            tile + Gt::offset(8 * i + 2 * tq + (e & 1),
+                              warp * 16 + g + 8 * (e >> 1), DP)) =
+            Ops<T>::cast(o[4 * i + e] * inv[e >> 1]);
       }
     }
   }
@@ -1069,21 +1256,23 @@ struct ChainBars {
   }
 };
 
-template <typename T, int DP, int Cfg>
-__global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
-                                  ChainsTiling<DP, Cfg>::kBlocks)
+template <typename T, int DP, int Cfg, typename F>
+__global__ void __launch_bounds__(ChainsTiling<DP, Cfg, F>::kThreads,
+                                  ChainsTiling<DP, Cfg, F>::kBlocks)
     chains_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o,
                        T* __restrict__ out, int sq, int skv, int d,
                        float qscale, float c, int parts, int q_bytes,
                        int kv_bytes) {
-  using L = ChainsTiling<DP, Cfg>;
+  using L = ChainsTiling<DP, Cfg, F>;
   using G = typename L::G;
-  using R = Rows<T, DP, L::kN, L::kL16>;
+  using R = Rows<T, DP, L::kN, F>;
   constexpr int C = L::kChains, S = L::kStages, N = L::kN,
                 kPitch = kPitchOf<DP>;
   static_assert(C == 1 || C == 2 || C == 4, "chains");
+  static_assert(L::kOffered, "chains tiling not offered for this form");
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -1110,11 +1299,18 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
   const bool producer = cw == C - 1 && warp == 0;
 
   // Tile j of this block's range into its stage: one lane expects the
-  // bytes, lanes 0 .. 2·slabs − 1 load one K or V box each.
+  // bytes, lanes 0 .. 2·slabs − 1 load one K or V box each (over [D, S]
+  // lanes 0 and 1: one box of 64 columns by d rows each).
   auto load = [&](int j) {
     const int s = j % S;
     if (lane == 0) sm90::mbar_expect_tx(&kv_full[s], 2 * kv_bytes);
-    if (lane < 2 * G::kSlabs) {
+    if constexpr (F::kDS) {
+      if (lane < 2) {
+        sm90::tma_load_3d(smem + (lane ? L::kV : L::kK) + s * L::kTile,
+                          lane ? &tm_v : &tm_k, &kv_full[s], (t0 + j) * N, 0,
+                          bh);
+      }
+    } else if (lane < 2 * G::kSlabs) {
       const int sl = lane % G::kSlabs;
       const bool is_v = lane >= G::kSlabs;
       sm90::tma_load_3d(smem + (is_v ? L::kV : L::kK) + s * L::kTile +
@@ -1134,10 +1330,20 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
     sm90::fence_barrier_init();
   }
   if (kv_bytes < L::kTile) {
-    // Boxes of d columns leave the tiles' last columns to DP unwritten:
-    // zeros once, which the wgmma read (and TMA never overwrites).
+    // Boxes of d columns (over [D, S] d rows) leave the tiles' last
+    // columns (rows) to DP unwritten: zeros once, which the wgmma read
+    // (and TMA never overwrites). With the fold (DP > d), V's last row
+    // DP - 1 in every stage is then all ones, so column DP - 1 of P·V is
+    // Σ round16(p).
     for (int i = threadIdx.x; i < L::kBars / 16; i += L::kThreads) {
-      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+      uint32_t w = 0;
+      if constexpr (F::kSum == kSumFold) {
+        const int at = i * 16 - L::kV;   // into the V stages
+        if (at >= 0 && at % L::kTile / 128 == DP - 1) {
+          w = Ops<T>::pack(1.f, 1.f);
+        }
+      }
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(w, w, w, w);
     }
     sm90::fence_proxy_async();
   }
@@ -1149,7 +1355,12 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
       sm90::prefetch_map(&tm_v);
       sm90::mbar_expect_tx(q_full, C * q_bytes);
     }
-    if (lane < C * G::kSlabs) {
+    if constexpr (F::kDS) {
+      if (lane < C) {
+        sm90::tma_load_3d(smem + lane * L::kQ, &tm_q, q_full,
+                          q0 + lane * kRows, 0, bh);
+      }
+    } else if (lane < C * G::kSlabs) {
       const int w = lane / G::kSlabs, sl = lane % G::kSlabs;
       sm90::tma_load_3d(smem + w * L::kQ + sl * kRows * kPitch, &tm_q,
                         q_full, sl * G::kSlabCols, q0 + w * kRows, bh);
@@ -1262,6 +1473,24 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
   pv_done(n - 1);
 
   T* dst = out + (size_t)bh * sq * d;
+  // The rows of this consumer into the output: over [S, D] from registers;
+  // over [D, S] staged transposed in its own Q tile (no wgmma reads it
+  // any more) and stored by one TMA box of 64 columns by d rows, so no
+  // padded row (the fold's ones among them) is written.
+  auto store = [&] {
+    if constexpr (F::kDS) {
+      unsigned char* box = smem + cw * L::kQ;
+      st.stage_ds(box, d, warp, g);
+      sm90::fence_proxy_async();
+      ChainBars<C>::sync(cw);
+      if (t == 0) {
+        sm90::tma_store_3d(&tm_o, box, q0 + cw * kRows, 0, bh);
+        sm90::tma_store_commit_and_wait();
+      }
+    } else {
+      st.store(dst, q0 + cw * kRows, sq, d, warp, g);
+    }
+  };
   if (parts > 1) {
     // The split's merge, as T2's: once every consumer of the block is done
     // with its tiles, ranks 1.. leave (o, m, l) where Q and the ring were,
@@ -1310,11 +1539,11 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg>::kThreads,
           st.o[4 * i + 3] += x.w * a[1];
         }
       }
-      st.store(dst, q0 + cw * kRows, sq, d, warp, g);
+      store();
     }
     sm90::cluster_sync();   // no block leaves before rank 0 has read it
   } else {
-    st.store(dst, q0 + cw * kRows, sq, d, warp, g);
+    store();
   }
   stamp(2, kOther);
 }
@@ -1408,33 +1637,55 @@ int launch_heads(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// T1/T6 configuration Cfg: q scaled by round16(qscale), p = 2^(s·c − m·c);
-// the kv range split over a cluster of `parts` (1, 2 or 4) blocks.
-template <typename T, int DP, int Cfg>
+// [D, S] maps over [B·H, d, S] for Q, K, V and O, each box 64 columns
+// (one 128-byte swizzle span) by d rows.
+inline bool encode_ds_maps(CUtensorMap* tm_q, CUtensorMap* tm_k,
+                           CUtensorMap* tm_v, CUtensorMap* tm_o,
+                           const void* q, const void* k, const void* v,
+                           const void* o, bool bf16, int planes, int sq,
+                           int skv, int d) {
+  return sm90::encode_slab_map(tm_q, q, bf16, planes, d, sq, d, kKv, 128) &&
+         sm90::encode_slab_map(tm_k, k, bf16, planes, d, skv, d, kKv, 128) &&
+         sm90::encode_slab_map(tm_v, v, bf16, planes, d, skv, d, kKv, 128) &&
+         sm90::encode_slab_map(tm_o, o, bf16, planes, d, sq, d, kKv, 128);
+}
+
+// Chains kernel kind Kind (ChainKind): q scaled by round16(qscale), p =
+// 2^(s·c − m·c); the kv range split over a cluster of `parts` (1, 2 or 4)
+// blocks. T1/T6 take [B, H, S, D] tensors, T4/T5 [B, H, D, S] ones.
+template <typename T, int DP, int Kind>
 int launch_chains(const void* q, const void* k, const void* v, void* o,
                   int batch, int heads, int sq, int skv, int d, float qscale,
                   float c, int parts, cudaStream_t stream) {
-  using L = ChainsTiling<DP, Cfg>;
+  using F = typename ChainKind<Kind>::F;
+  using L = ChainsTiling<DP, ChainKind<Kind>::kCfg, F>;
   using G = typename L::G;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int block_q = kRows * L::kChains;
-  // Up to DP = 64 (one slab) the boxes are d columns wide, so that no
-  // zero column past d crosses from L2 to the SM; the slab's pitch and
-  // swizzle stay, and the kernel zeroes the columns the boxes leave.
+  // Up to DP = 64 (one slab) the [S, D] boxes are d columns wide, so that
+  // no zero column past d crosses from L2 to the SM; the slab's pitch and
+  // swizzle stay, and the kernel zeroes the columns the boxes leave. The
+  // [D, S] boxes are d rows: the kernel zeroes the rows to DP.
   const int box = L::kNarrow ? d : G::kSlabCols;
-  const int q_bytes = G::kSlabs * kRows * box * 2;
-  const int kv_bytes = G::kSlabs * L::kN * box * 2;
+  const int q_bytes = L::kDS ? d * 128 : G::kSlabs * kRows * box * 2;
+  const int kv_bytes = L::kDS ? d * 2 * L::kN : G::kSlabs * L::kN * box * 2;
   const int n_all = skv / L::kN;
   const int per = (n_all + parts - 1) / parts;
-  CUtensorMap tm_q, tm_k, tm_v;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
   // parts 1, 2 or 4, each part at least one tile, a split only where the
   // merge buffers fit.
   if (sq % block_q != 0 || (parts != 1 && parts != 2 && parts != 4) ||
-      (parts > 1 && !L::kSplit) || (parts - 1) * per >= n_all ||
-      !encode_maps<T, DP, L::kN>(&tm_q, &tm_k, &tm_v, q, k, v, batch * heads,
-                                 sq, skv, d, box)) {
+      (parts > 1 && !L::kSplit) || (parts - 1) * per >= n_all) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = chains_sm90_kernel<T, DP, Cfg>;
+  if (L::kDS ? !encode_ds_maps(&tm_q, &tm_k, &tm_v, &tm_o, q, k, v, o, kBf16,
+                               batch * heads, sq, skv, d)
+             : !encode_maps<T, DP, L::kN>(&tm_q, &tm_k, &tm_v, q, k, v,
+                                          batch * heads, sq, skv, d, box)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!L::kDS) tm_o = tm_q;   // unused over [S, D]
+  auto kernel = chains_sm90_kernel<T, DP, ChainKind<Kind>::kCfg, F>;
   cudaError_t err = prepare(kernel, L::kBytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
@@ -1449,10 +1700,105 @@ int launch_chains(const void* q, const void* k, const void* v, void* o,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = parts > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, static_cast<T*>(o),
-                           sq, skv, d, qscale, c, parts, q_bytes, kv_bytes);
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, tm_o,
+                           static_cast<T*>(o), sq, skv, d, qscale, c, parts,
+                           q_bytes, kv_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The [D, S] products alone, the unit check of sm90.cuh's MN-major SS and
+// K-major RS wgmma forms: one warpgroup loads q, k and v of one [d, 64]
+// plane as T4/T5 load them (rows d..DP-1 zero), takes S = qᵀ·k (64 x 64)
+// by Rows::issue_s and O = round16(S)·vᵀ (64 x DP) by Rows::issue_pv, and
+// writes both in fp32, row-major.
+template <typename T, int DP>
+__global__ void __launch_bounds__(128)
+    ds_probe_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    float* __restrict__ s_out, float* __restrict__ o_out,
+                    int d) {
+  using R = Rows<T, DP, kKv, TtExp>;
+  constexpr int kTile = DP * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 3 * kTile);
+  const int t = threadIdx.x, warp = t / 32, g = (t % 32) / 4, tq = t % 4;
+  for (int i = t; i < 3 * kTile / 16; i += 128) {
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  }
+  sm90::fence_proxy_async();
+  if (t == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (t == 0) {
+    sm90::mbar_expect_tx(bar, 3 * d * 128);
+    sm90::tma_load_3d(smem, &tm_q, bar, 0, 0, 0);
+    sm90::tma_load_3d(smem + kTile, &tm_k, bar, 0, 0, 0);
+    sm90::tma_load_3d(smem + 2 * kTile, &tm_v, bar, 0, 0, 0);
+  }
+  sm90::mbar_wait(bar, 0);
+  R st(t);
+  float sc[kKv / 2];
+  uint32_t pa[kKv / 16][4];
+  sm90::wgmma_fence();
+  R::issue_s(sc, smem, smem + kTile);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+#pragma unroll
+  for (int i = 0; i < kKv / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s_out[(warp * 16 + g + 8 * (e >> 1)) * kKv + 8 * i + 2 * tq + (e & 1)] =
+          sc[4 * i + e];
+    }
+  }
+  R::to_p(sc, pa);
+  sm90::fence_regs(st.o);
+  sm90::wgmma_fence();
+  st.issue_pv(pa, smem + 2 * kTile);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(st.o);
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o_out[(warp * 16 + g + 8 * (e >> 1)) * DP + 8 * i + 2 * tq + (e & 1)] =
+          st.o[4 * i + e];
+    }
+  }
+}
+
+template <typename T, int DP>
+int launch_probe(const void* q, const void* k, const void* v, float* s,
+                 float* o, int d, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!sm90::encode_slab_map(&tm_q, q, kBf16, 1, d, kKv, d, kKv, 128) ||
+      !sm90::encode_slab_map(&tm_k, k, kBf16, 1, d, kKv, d, kKv, 128) ||
+      !sm90::encode_slab_map(&tm_v, v, kBf16, 1, d, kKv, d, kKv, 128)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int kBytes = 3 * DP * 128 + 8 + 1024;
+  auto kernel = ds_probe_kernel<T, DP>;
+  cudaError_t err = prepare(kernel, kBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, 128, kBytes, stream>>>(tm_q, tm_k, tm_v, s, o, d);
+  return (int)cudaGetLastError();
+}
+
+using ProbeLauncher = int (*)(const void*, const void*, const void*, float*,
+                              float*, int, cudaStream_t);
+template <typename T, int... W>
+ProbeLauncher probe_launcher(int w, std::integer_sequence<int, W...>) {
+  constexpr ProbeLauncher kTable[] = {&launch_probe<T, 16 * (W + 1)>...};
+  return kTable[w];
 }
 
 }  // namespace
@@ -1464,25 +1810,25 @@ using ChainLauncher = int (*)(const void*, const void*, const void*, void*,
                               int, int, int, int, int, float, float, int,
                               cudaStream_t);
 namespace flash_variants_sm90 {
-// [kernel: 0 T2, 1 T3][dtype][DP / 16 - 1] and [Chains][dtype][DP / 16 - 1],
-// filled when the library loads.
+// [kernel: 0 T2, 1 T3][dtype][DP / 16 - 1] and [ChainKind][dtype][DP / 16 -
+// 1], filled when the library loads (null where a kind is not offered).
 extern VariantLauncher launchers[2][2][kMaxWidths];
-extern ChainLauncher chain_launchers[kCfgs][2][kMaxWidths];
+extern ChainLauncher chain_launchers[kChainKinds][2][kMaxWidths];
 #if BUILD_PART == 0
 VariantLauncher launchers[2][2][kMaxWidths] = {};
-ChainLauncher chain_launchers[kCfgs][2][kMaxWidths] = {};
+ChainLauncher chain_launchers[kChainKinds][2][kMaxWidths] = {};
 #endif
 }  // namespace flash_variants_sm90
 
 namespace {
 
 // Unit u = (kernel·2 + dtype)·8 + width index, in part u % BUILD_PARTS;
-// T2 and T3 are kernels 0 and 1, T1/T6 configuration Cfg kernel 2 + Cfg.
+// T2 and T3 are kernels 0 and 1, chains kind K kernel 2 + K.
 // The stamped build (one part) holds only bf16 at the main shapes' widths,
-// DP = 48 and 80.
+// DP = 48 and 80, and 96 (the fold's at d = 80).
 #ifdef FV_STAMPS
 template <int DT, int W>
-constexpr bool kStamped = DT == 0 && (W == 2 || W == 4);
+constexpr bool kStamped = DT == 0 && (W == 2 || W == 4 || W == 5);
 #else
 template <int DT, int W>
 constexpr bool kStamped = true;
@@ -1496,7 +1842,9 @@ void enter_unit() {
     if constexpr (K < 2) {
       flash_variants_sm90::launchers[K][DT][W] =
           K == 0 ? &launch_heads<T, dp> : &launch_pipelined<T, dp>;
-    } else {
+    } else if constexpr (ChainsTiling<dp, ChainKind<K - 2>::kCfg,
+                                      typename ChainKind<K - 2>::F>::
+                             kOffered) {
       flash_variants_sm90::chain_launchers[K - 2][DT][W] =
           &launch_chains<T, dp, K - 2>;
     }
@@ -1516,7 +1864,7 @@ bool enter_units(std::integer_sequence<int, K...>) {
 }
 
 [[maybe_unused]] const bool kEntered =
-    enter_units(std::make_integer_sequence<int, 2 + kCfgs>{});
+    enter_units(std::make_integer_sequence<int, 2 + kChainKinds>{});
 
 }  // namespace
 
@@ -1539,18 +1887,20 @@ int run(int kernel, const void* q, const void* k, const void* v, void* o,
                 static_cast<cudaStream_t>(stream));
 }
 
-// T1/T6 configuration `cfg` with natural exp (q scaled by `scale`) or exp2
-// (by scale·log2 e, in double as the kept kernels round it).
-int run_chains(int cfg, bool base2, const void* q, const void* k,
+// Chains kernel kind `kind` with natural exp (q scaled by `scale`) or exp2
+// (by scale·log2 e, in double as the kept kernels round it); with `fold`
+// the head is padded to round16(d + 1), d <= 120.
+int run_chains(int kind, bool base2, const void* q, const void* k,
                const void* v, void* o, int batch, int heads, int sq, int skv,
-               int d, float scale, int dtype, int parts, void* stream) {
+               int d, float scale, int dtype, int parts, bool fold,
+               void* stream) {
   if (dtype < 0 || dtype > 1 || batch < 1 || heads < 1 ||
       batch * heads > 65535 || sq < kRows || skv < kKv || sq % kRows != 0 ||
-      skv % kKv != 0 || d < 8 || d > 128 || d % 8 != 0) {
+      skv % kKv != 0 || d < 8 || d > (fold ? 120 : 128) || d % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const ChainLauncher launch =
-      flash_variants_sm90::chain_launchers[cfg][dtype][(d + 15) / 16 - 1];
+  const ChainLauncher launch = flash_variants_sm90::chain_launchers
+      [kind][dtype][((fold ? d + 1 : d) + 15) / 16 - 1];
   if (launch == nullptr) return (int)cudaErrorInvalidDeviceFunction;
   const float qscale =
       base2 ? (float)((double)scale * 1.4426950408889634) : scale;
@@ -1559,12 +1909,18 @@ int run_chains(int cfg, bool base2, const void* q, const void* k,
                 static_cast<cudaStream_t>(stream));
 }
 
+// T4/T5's tiling index of `chains` q chains a block (v0's, vG2's, vG4's);
+// -1 for another count.
+int tt_tiling(int chains) {
+  return chains == 1 ? 0 : chains == 2 ? 1 : chains == 4 ? 2 : -1;
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes): contiguous [B, H, S, D] q, k, v,
-// o, 16-byte aligned; dtype 0 = bf16, 1 = fp16. Each launches on `stream`
-// and returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for a shape or option outside the domain).
+// o (T4/T5: [B, H, D, S]), 16-byte aligned; dtype 0 = bf16, 1 = fp16. Each
+// launches on `stream` and returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or option outside the domain).
 
 // T2: every head of a q tile in one instance; `parts` (1, 2 or 4) splits
 // the kv range over a cluster of that many blocks.
@@ -1575,6 +1931,22 @@ extern "C" int flash_opt_attn_h_sm90(const void* q, const void* k,
                                      void* stream) {
   return run(0, q, k, v, o, batch, heads, sq, skv, d, scale, dtype, parts,
              stream);
+}
+
+// The [D, S] products of one [d, 64] plane (ds_probe_kernel): `s` [64, 64]
+// and `o` [64, round16(d)] fp32.
+extern "C" int flash_variants_sm90_probe(const void* q, const void* k,
+                                         const void* v, void* s, void* o,
+                                         int d, int dtype, void* stream) {
+  if (dtype < 0 || dtype > 1 || d < 8 || d > 128 || d % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto widths = std::make_integer_sequence<int, kMaxWidths>{};
+  const ProbeLauncher launch =
+      dtype == 0 ? probe_launcher<__nv_bfloat16>((d + 15) / 16 - 1, widths)
+                 : probe_launcher<__half>((d + 15) / 16 - 1, widths);
+  return launch(q, k, v, static_cast<float*>(s), static_cast<float*>(o), d,
+                static_cast<cudaStream_t>(stream));
 }
 
 #ifdef FV_STAMPS
@@ -1609,7 +1981,7 @@ extern "C" int flash_opt_attn_sm90(const void* q, const void* k,
                                    int parts, void* stream) {
   if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
   return run_chains(variant, false, q, k, v, o, batch, heads, sq, skv, d,
-                    scale, dtype, parts, stream);
+                    scale, dtype, parts, false, stream);
 }
 
 // T6: `variant` 0 = exp (T1 v0's instantiation), 1 = exp2, 2 = exp2 with
@@ -1620,7 +1992,36 @@ extern "C" int flash_variants_attn_sm90(const void* q, const void* k,
                                         float scale, int dtype, int variant,
                                         int parts, void* stream) {
   if (variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
-  return run_chains(variant == 2 ? kV2 : kV0, variant > 0, q, k, v, o, batch,
-                    heads, sq, skv, d, scale, dtype, parts, stream);
+  return run_chains(variant == 2 ? 4 : 0, variant > 0, q, k, v, o, batch,
+                    heads, sq, skv, d, scale, dtype, parts, false, stream);
+}
+
+// T4: [B, H, D, S], natural exp, fp32 l; `chains` (1, 2 or 4) q chains of
+// 64 rows a block; `parts` splits the kv range as T1's.
+extern "C" int flash_tt2_attn_sm90(const void* q, const void* k,
+                                   const void* v, void* o, int batch,
+                                   int heads, int sq, int skv, int d,
+                                   float scale, int dtype, int chains,
+                                   int parts, void* stream) {
+  const int tiling = tt_tiling(chains);
+  if (tiling < 0) return (int)cudaErrorInvalidValue;
+  return run_chains(kTtKinds + tiling, false, q, k, v, o, batch, heads, sq,
+                    skv, d, scale, dtype, parts, false, stream);
+}
+
+// T5: [B, H, D, S], exp2; `sum_fold` the row sum from P·V (ttv3), with
+// `bf16_p` exp2 on bf16 arguments (ttv4); neither, the per-tile rounded
+// row sum (no-fold). `chains` as T4's; never split.
+extern "C" int flash_ttv3_attn_sm90(const void* q, const void* k,
+                                    const void* v, void* o, int batch,
+                                    int heads, int sq, int skv, int d,
+                                    float scale, int dtype, int bf16_p,
+                                    int sum_fold, int chains, void* stream) {
+  const int tiling = tt_tiling(chains);
+  if (tiling < 0 || (bf16_p && !sum_fold)) return (int)cudaErrorInvalidValue;
+  const int form = sum_fold ? (bf16_p ? 2 : 1) : 3;
+  return run_chains(kTtKinds + 3 * form + tiling, true, q, k, v, o, batch,
+                    heads, sq, skv, d, scale, dtype, 1, sum_fold != 0,
+                    stream);
 }
 #endif  // BUILD_PART == 0

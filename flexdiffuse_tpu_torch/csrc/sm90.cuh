@@ -5,8 +5,9 @@
 // the single-instruction exp2, the cluster barrier and reads of another
 // block's shared memory, and the slab layout of a tile (Geometry) with the
 // register split between producer and consumer warpgroups (Regs). Used by
-// csrc/flash_attention.cu (K1/K3), csrc/flash_backward.cu (K4/K5) and
-// csrc/flash_wide.cu (the 'wide_sm90' path).
+// csrc/flash_attention.cu (K1/K3), csrc/flash_backward.cu (K4/K5),
+// csrc/flash_wide.cu (the 'wide_sm90' path) and csrc/flash_variants_sm90.cu
+// (T1–T6).
 //
 // Tiles are stored as TMA writes them with the 32- or 128-byte swizzle:
 // slabs of `rows` rows of P = 32 or 128 bytes (16 or 64 columns), row r at
@@ -58,7 +59,10 @@ inline EncodeTiled encode_tiled() {
 // byte swizzle (32 or 128; box_cols·2 must not exceed it). Reads outside
 // the tensor fill zeros; writes outside it are dropped. Three dimensions,
 // so a box never crosses into the next plane. Returns false if the encoding
-// is refused (cols % 8 != 0, a misaligned base, ...).
+// is refused (cols % 8 != 0, a misaligned base, ...). The rows and columns
+// are the tensor's own: over [B·H, S, D] a box is rows of S, d columns
+// wide; over [B·H, D, S] (T4/T5's operands) rows = d, cols = S, and a box
+// of 64 columns by d rows is d rows of one 128-byte swizzle span each.
 inline bool encode_slab_map(CUtensorMap* map, const void* base, bool bf16,
                             int planes, int rows, int cols, int box_rows,
                             int box_cols, int swizzle) {
@@ -320,48 +324,53 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // Accumulator register 4i + e of a thread in warp w, lane 4g + t, holds
 // row 16w + g + 8·(e / 2), column 8i + 2t + e % 2. An A fragment in
 // registers is the mma.sync m16n8k16 A fragment of the warp's 16 rows.
-template <typename T, int N>
+// Wgmma::ss takes A and B from shared memory, both K-major (kTrans = 0)
+// or both MN-major (kTrans = 1: A stored [k][m], B [k][n], as the
+// [D, S] operands of T4/T5 are); WgmmaRs::rs takes A from registers and B
+// MN-major (kTransB = 1, as V_j in P·V_j over [S, D]) or K-major
+// (kTransB = 0: B stored [n][k], as V_j over [D, S]).
+template <typename T, int N, int kTrans = 0>
 struct Wgmma;
-template <typename T, int N>
+template <typename T, int N, int kTransB = 1>
 struct WgmmaRs;
 
-template <>
-struct Wgmma<__nv_bfloat16, 32> {
-  // D[64x32] (+)= A[64x16] (smem, K-major) · B[16x32] (smem, K-major).
+template <int kTrans>
+struct Wgmma<__nv_bfloat16, 32, kTrans> {
+  // D[64x32] (+)= A[64x16] (smem) · B[16x32] (smem).
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        "%16, %17, p, 1, 1, %19, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTrans));
   }
 };
 
-template <>
-struct Wgmma<__half, 32> {
-  // D[64x32] (+)= A[64x16] (smem, K-major) · B[16x32] (smem, K-major).
+template <int kTrans>
+struct Wgmma<__half, 32, kTrans> {
+  // D[64x32] (+)= A[64x16] (smem) · B[16x32] (smem).
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        "%16, %17, p, 1, 1, %19, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTrans));
   }
 };
 
-template <>
-struct Wgmma<__nv_bfloat16, 64> {
-  // D[64x64] (+)= A[64x16] (smem, K-major) · B[16x64] (smem, K-major).
+template <int kTrans>
+struct Wgmma<__nv_bfloat16, 64, kTrans> {
+  // D[64x64] (+)= A[64x16] (smem) · B[16x64] (smem).
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -369,20 +378,20 @@ struct Wgmma<__nv_bfloat16, 64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTrans));
   }
 };
 
-template <>
-struct Wgmma<__half, 64> {
-  // D[64x64] (+)= A[64x16] (smem, K-major) · B[16x64] (smem, K-major).
+template <int kTrans>
+struct Wgmma<__half, 64, kTrans> {
+  // D[64x64] (+)= A[64x16] (smem) · B[16x64] (smem).
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -390,20 +399,20 @@ struct Wgmma<__half, 64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTrans));
   }
 };
 
-template <>
-struct Wgmma<__nv_bfloat16, 128> {
-  // D[64x128] (+)= A[64x16] (smem, K-major) · B[16x128] (smem, K-major).
+template <int kTrans>
+struct Wgmma<__nv_bfloat16, 128, kTrans> {
+  // D[64x128] (+)= A[64x16] (smem) · B[16x128] (smem).
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -413,7 +422,7 @@ struct Wgmma<__nv_bfloat16, 128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -425,13 +434,13 @@ struct Wgmma<__nv_bfloat16, 128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTrans));
   }
 };
 
-template <>
-struct Wgmma<__half, 128> {
-  // D[64x128] (+)= A[64x16] (smem, K-major) · B[16x128] (smem, K-major).
+template <int kTrans>
+struct Wgmma<__half, 128, kTrans> {
+  // D[64x128] (+)= A[64x16] (smem) · B[16x128] (smem).
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -441,7 +450,7 @@ struct Wgmma<__half, 128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -453,13 +462,13 @@ struct Wgmma<__half, 128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTrans));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 16> {
-  // D[64x16] (+)= A[64x16] (registers) · B[16x16] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 16, kTransB> {
+  // D[64x16] (+)= A[64x16] (registers) · B[16x16] (smem).
   static __device__ __forceinline__ void rs(float (&d)[8],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -467,17 +476,17 @@ struct WgmmaRs<__nv_bfloat16, 16> {
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 16> {
-  // D[64x16] (+)= A[64x16] (registers) · B[16x16] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 16, kTransB> {
+  // D[64x16] (+)= A[64x16] (registers) · B[16x16] (smem).
   static __device__ __forceinline__ void rs(float (&d)[8],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -485,17 +494,17 @@ struct WgmmaRs<__half, 16> {
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 32> {
-  // D[64x32] (+)= A[64x16] (registers) · B[16x32] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 32, kTransB> {
+  // D[64x32] (+)= A[64x16] (registers) · B[16x32] (smem).
   static __device__ __forceinline__ void rs(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -503,18 +512,18 @@ struct WgmmaRs<__nv_bfloat16, 32> {
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 32> {
-  // D[64x32] (+)= A[64x16] (registers) · B[16x32] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 32, kTransB> {
+  // D[64x32] (+)= A[64x16] (registers) · B[16x32] (smem).
   static __device__ __forceinline__ void rs(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -522,18 +531,18 @@ struct WgmmaRs<__half, 32> {
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 48> {
-  // D[64x48] (+)= A[64x16] (registers) · B[16x48] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 48, kTransB> {
+  // D[64x48] (+)= A[64x16] (registers) · B[16x48] (smem).
   static __device__ __forceinline__ void rs(float (&d)[24],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -542,19 +551,19 @@ struct WgmmaRs<__nv_bfloat16, 48> {
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23}, "
-        "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 48> {
-  // D[64x48] (+)= A[64x16] (registers) · B[16x48] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 48, kTransB> {
+  // D[64x48] (+)= A[64x16] (registers) · B[16x48] (smem).
   static __device__ __forceinline__ void rs(float (&d)[24],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -563,19 +572,19 @@ struct WgmmaRs<__half, 48> {
         "wgmma.mma_async.sync.aligned.m64n48k16.f32.f16.f16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23}, "
-        "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        "{%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 64> {
-  // D[64x64] (+)= A[64x16] (registers) · B[16x64] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 64, kTransB> {
+  // D[64x64] (+)= A[64x16] (registers) · B[16x64] (smem).
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -584,7 +593,7 @@ struct WgmmaRs<__nv_bfloat16, 64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -592,13 +601,13 @@ struct WgmmaRs<__nv_bfloat16, 64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 64> {
-  // D[64x64] (+)= A[64x16] (registers) · B[16x64] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 64, kTransB> {
+  // D[64x64] (+)= A[64x16] (registers) · B[16x64] (smem).
   static __device__ __forceinline__ void rs(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -607,7 +616,7 @@ struct WgmmaRs<__half, 64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -615,13 +624,13 @@ struct WgmmaRs<__half, 64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 80> {
-  // D[64x80] (+)= A[64x16] (registers) · B[16x80] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 80, kTransB> {
+  // D[64x80] (+)= A[64x16] (registers) · B[16x80] (smem).
   static __device__ __forceinline__ void rs(float (&d)[40],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -631,7 +640,7 @@ struct WgmmaRs<__nv_bfloat16, 80> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -640,13 +649,13 @@ struct WgmmaRs<__nv_bfloat16, 80> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 80> {
-  // D[64x80] (+)= A[64x16] (registers) · B[16x80] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 80, kTransB> {
+  // D[64x80] (+)= A[64x16] (registers) · B[16x80] (smem).
   static __device__ __forceinline__ void rs(float (&d)[40],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -656,7 +665,7 @@ struct WgmmaRs<__half, 80> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39}, "
-        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -665,13 +674,13 @@ struct WgmmaRs<__half, 80> {
           "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 96> {
-  // D[64x96] (+)= A[64x16] (registers) · B[16x96] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 96, kTransB> {
+  // D[64x96] (+)= A[64x16] (registers) · B[16x96] (smem).
   static __device__ __forceinline__ void rs(float (&d)[48],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -681,7 +690,7 @@ struct WgmmaRs<__nv_bfloat16, 96> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -691,13 +700,13 @@ struct WgmmaRs<__nv_bfloat16, 96> {
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 96> {
-  // D[64x96] (+)= A[64x16] (registers) · B[16x96] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 96, kTransB> {
+  // D[64x96] (+)= A[64x16] (registers) · B[16x96] (smem).
   static __device__ __forceinline__ void rs(float (&d)[48],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -707,7 +716,7 @@ struct WgmmaRs<__half, 96> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -717,13 +726,13 @@ struct WgmmaRs<__half, 96> {
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
           "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 112> {
-  // D[64x112] (+)= A[64x16] (registers) · B[16x112] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 112, kTransB> {
+  // D[64x112] (+)= A[64x16] (registers) · B[16x112] (smem).
   static __device__ __forceinline__ void rs(float (&d)[56],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -734,7 +743,7 @@ struct WgmmaRs<__nv_bfloat16, 112> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55}, "
-        "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        "{%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -746,13 +755,13 @@ struct WgmmaRs<__nv_bfloat16, 112> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 112> {
-  // D[64x112] (+)= A[64x16] (registers) · B[16x112] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 112, kTransB> {
+  // D[64x112] (+)= A[64x16] (registers) · B[16x112] (smem).
   static __device__ __forceinline__ void rs(float (&d)[56],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -763,7 +772,7 @@ struct WgmmaRs<__half, 112> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55}, "
-        "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        "{%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -775,13 +784,13 @@ struct WgmmaRs<__half, 112> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 128> {
-  // D[64x128] (+)= A[64x16] (registers) · B[16x128] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 128, kTransB> {
+  // D[64x128] (+)= A[64x16] (registers) · B[16x128] (smem).
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -792,7 +801,7 @@ struct WgmmaRs<__nv_bfloat16, 128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -805,13 +814,13 @@ struct WgmmaRs<__nv_bfloat16, 128> {
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 128> {
-  // D[64x128] (+)= A[64x16] (registers) · B[16x128] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 128, kTransB> {
+  // D[64x128] (+)= A[64x16] (registers) · B[16x128] (smem).
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -822,7 +831,7 @@ struct WgmmaRs<__half, 128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -835,13 +844,13 @@ struct WgmmaRs<__half, 128> {
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 192> {
-  // D[64x192] (+)= A[64x16] (registers) · B[16x192] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 192, kTransB> {
+  // D[64x192] (+)= A[64x16] (registers) · B[16x192] (smem).
   static __device__ __forceinline__ void rs(float (&d)[96],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -854,7 +863,7 @@ struct WgmmaRs<__nv_bfloat16, 192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -872,13 +881,13 @@ struct WgmmaRs<__nv_bfloat16, 192> {
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 192> {
-  // D[64x192] (+)= A[64x16] (registers) · B[16x192] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 192, kTransB> {
+  // D[64x192] (+)= A[64x16] (registers) · B[16x192] (smem).
   static __device__ __forceinline__ void rs(float (&d)[96],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -891,7 +900,7 @@ struct WgmmaRs<__half, 192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -909,13 +918,13 @@ struct WgmmaRs<__half, 192> {
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
           "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__nv_bfloat16, 256> {
-  // D[64x256] (+)= A[64x16] (registers) · B[16x256] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__nv_bfloat16, 256, kTransB> {
+  // D[64x256] (+)= A[64x16] (registers) · B[16x256] (smem).
   static __device__ __forceinline__ void rs(float (&d)[128],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -930,7 +939,7 @@ struct WgmmaRs<__nv_bfloat16, 256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -954,13 +963,13 @@ struct WgmmaRs<__nv_bfloat16, 256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
-template <>
-struct WgmmaRs<__half, 256> {
-  // D[64x256] (+)= A[64x16] (registers) · B[16x256] (smem, MN-major).
+template <int kTransB>
+struct WgmmaRs<__half, 256, kTransB> {
+  // D[64x256] (+)= A[64x16] (registers) · B[16x256] (smem).
   static __device__ __forceinline__ void rs(float (&d)[128],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d) {
@@ -975,7 +984,7 @@ struct WgmmaRs<__half, 256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -999,7 +1008,7 @@ struct WgmmaRs<__half, 256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+          "r"(scale_d), "n"(kTransB));
   }
 };
 
@@ -1031,9 +1040,9 @@ struct Geometry {
   static __device__ __forceinline__ uint64_t kmajor(const void* tile) {
     return desc(tile, 16, 8 * kPitch, kLayout);
   }
-  // An MN-major operand (a B whose rows are the k of the product, such as
-  // V_j in P·V_j): slabs kSlabCols columns apart, 8-row groups 8 rows apart;
-  // one k-step is 16 rows.
+  // An MN-major operand (one whose rows are the k of the product: V_j in
+  // P·V_j over [S, D]; q̃ and K_j in q̃ᵀ·K_j over [D, S]): slabs kSlabCols
+  // columns apart, 8-row groups 8 rows apart; one k-step is 16 rows.
   static __device__ __forceinline__ uint64_t mnmajor(const void* tile,
                                                      int rows) {
     return desc(tile, rows * kPitch, 8 * kPitch, kLayout);

@@ -254,10 +254,10 @@ class Plan:
     grid's third dimension: on 'wide_sm90' the parts of the kv range (a
     cluster of that many blocks, merged before the store), on 'wide' the
     512-column chunks of the output above D = 512. The attention variants
-    T1, T2, T3 and T6 (``ops/flash_variants.py``) plan their calls in it
-    too, on their paths ('sm90', 'mma'); T2's grid is (q tiles, B), its
-    ``parts`` the split of each instance's kv range (T1's on 'sm90'
-    too)."""
+    T1–T6 (``ops/flash_variants.py``) plan their calls in it too, on their
+    paths ('sm90', 'mma'); T2's grid is (q tiles, B), its ``parts`` the
+    split of each instance's kv range (T1's and T4's on 'sm90' too);
+    ``bhds`` says that the call's tensors are ``[B, H, D, S]`` (T4, T5)."""
     path: str
     head_pad: int
     block_q: int
@@ -266,6 +266,7 @@ class Plan:
     grid: Tuple[int, int]
     threads: int
     parts: int = 1
+    bhds: bool = False
 
 
 def plan(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,

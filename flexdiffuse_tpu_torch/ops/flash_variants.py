@@ -31,17 +31,19 @@ no gradient. The library is built at first use, as K1's
 (``ops/flash_attention.build``/``load``), in :data:`BUILD_PARTS` compiles
 at once.
 
-T1, T2, T3 and T6 have a second path, their Hopper redesigns in
+Every variant has a second path, its Hopper redesign in
 ``csrc/flash_variants_sm90.cu`` (TMA, wgmma, warp specialisation; its own
 library, :data:`SM90_SOURCE` in :data:`SM90_BUILD_PARTS` compiles), which
-:func:`plan_attn_opt`, :func:`plan_attn_h`, :func:`plan_pipelined` and
-:func:`plan_attn_variants` pick for every CUDA call of the domain ('sm90');
-the first port's kernel runs only when the caller forces ``path='mma'``.
-They count their launches by path in ``path_launches``
-(:func:`path_counts`). A refused launch raises: there is no fallback to
-the other path or to the twin. T2's plan splits the kv range of each
-instance over a cluster of blocks where the instances fill at most half of
-the card; :func:`plain_split_exp` is that split's twin.
+:func:`plan_attn_opt`, :func:`plan_attn_h`, :func:`plan_pipelined`,
+:func:`plan_tt2`, :func:`plan_ttv3` and :func:`plan_attn_variants` pick
+for every CUDA call of the domain ('sm90'); the first port's kernel runs
+only when the caller forces ``path='mma'``. They count their launches by
+path in ``path_launches`` (:func:`path_counts`). A refused launch raises:
+there is no fallback to the other path or to the twin. The plans of T1,
+T2, T4 and T6 v0 split the kv range over a cluster of blocks where the
+card has room; :func:`plain_split_exp` is that split's twin. A plan says
+the layout of its call (``Plan.bhds``), and the launch passes D and S to
+the kernel by it.
 """
 from __future__ import annotations
 
@@ -73,17 +75,21 @@ SIGNATURES = {
     'flash_variants_attn': _ARGS + (_I, _P),
 }
 
-# T1, T2, T3 and T6's Hopper redesigns: their own source and library,
-# built in SM90_BUILD_PARTS compiles at once; (..., dtype[, parts or
-# variant], stream).
+# The Hopper redesigns: their own source and library, built in
+# SM90_BUILD_PARTS compiles at once; (..., dtype[, variant or T5's
+# bf16_p and sum_fold][, q chains][, parts], stream). The probe takes
+# (q, k, v, s, o, d, dtype, stream).
 SM90_SOURCE = fa.SOURCE.parent / 'flash_variants_sm90.cu'
-SM90_BUILD_PARTS = 12
+SM90_BUILD_PARTS = 16
 SM90_SIGNATURES = {'flash_opt_attn_h_sm90': _ARGS + (_I, _P),
                    'flash_pipelined_attn_sm90': _ARGS + (_P,),
                    'flash_opt_attn_sm90': _ARGS + (_I, _I, _P),
-                   'flash_variants_attn_sm90': _ARGS + (_I, _I, _P)}
+                   'flash_variants_attn_sm90': _ARGS + (_I, _I, _P),
+                   'flash_tt2_attn_sm90': _ARGS + (_I, _I, _P),
+                   'flash_ttv3_attn_sm90': _ARGS + (_I, _I, _I, _P),
+                   'flash_variants_sm90_probe': (_P,) * 5 + (_I, _I, _P)}
 SM90, MMA = 'sm90', 'mma'
-PATHS = (SM90, MMA)   # the paths of T1, T2, T3 and T6
+PATHS = (SM90, MMA)   # the paths of every variant
 # Their tiles on 'sm90', as the source's PipelinedTiling/HeadsTiling choose
 # them (change both together): (consumer warpgroups of 64 q rows, K/V
 # stages of TILE rows), T3's at every width, T2's keyed by the padded head
@@ -114,6 +120,11 @@ CHAINS_TILES = {
     ('vG4', True): (4, 3, 1), ('vG4', False): (4, 3, 1),
 }
 CHAINS_KV32_ABOVE = 96
+# T4's and T5's q chains on 'sm90' (tt_chains): vG4's four where Sq is a
+# multiple of 256 and DP <= CHAINS_KV32_ABOVE (their [D, S] kv tile stays
+# 64 columns, so above it vG4's registers would not hold O, S and P), else
+# vG2's two where Sq is a multiple of 128, else v0's one.
+TT_CONFIGS = {4: 'vG4', 2: 'vG2', 1: 'v0'}
 CHAINS_PARTS = (2,)
 SMEM_PER_SM = 233472   # an H100 SM's shared memory, bytes
 
@@ -280,11 +291,11 @@ def _check(name: str, q, k, v, bhds: bool, g: int = 1,
 
 
 def _call(lib: ctypes.CDLL, entry: str, name: str, q, k, v, out,
-          scale: float, *options: int) -> None:
-    """Launch ``lib``'s ``entry`` into ``out`` on the current stream;
-    raises (naming ``name``) if the launch is refused."""
+          scale: float, bhds: bool, *options: int) -> None:
+    """Launch ``lib``'s ``entry`` into ``out`` on the current stream, with
+    q, k, v and ``out`` ``[B, H, D, S]`` where ``bhds``, else ``[B, H, S,
+    D]``; raises (naming ``name``) if the launch is refused."""
     b, h = q.shape[:2]
-    bhds = entry in ('flash_tt2_attn', 'flash_ttv3_attn')
     d, sq, skv = ((q.shape[2], q.shape[3], k.shape[3]) if bhds else
                   (q.shape[3], q.shape[2], k.shape[2]))
     with torch.cuda.device(q.device):
@@ -294,14 +305,6 @@ def _call(lib: ctypes.CDLL, entry: str, name: str, q, k, v, out,
                                  float(scale), fa.DTYPES[q.dtype], *options,
                                  stream)
     fa.raise_on_error(rc, name, q, k)
-
-
-def _launch(entry: str, name: str, q, k, v, scale: float,
-            *options: int) -> torch.Tensor:
-    out = torch.empty_like(q)
-    _call(fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS), entry, name, q, k,
-          v, out, scale, *options)
-    return out
 
 
 def _path(name: str, path: Optional[str]) -> str:
@@ -359,56 +362,60 @@ def plan_attn_h(q: torch.Tensor, k: torch.Tensor,
                    128 * (consumers + 1), parts)
 
 
-def chains_tiling(config: str, head_pad: int) -> tuple:
-    """An 'sm90' T1/T6 configuration's (q chains, K/V stages, kv rows a
-    tile, blocks an SM by registers) at DP ``head_pad``, as ChainsTiling."""
+def chains_tiling(config: str, head_pad: int, bhds: bool = False) -> tuple:
+    """An 'sm90' chains configuration's (q chains, K/V stages, kv rows a
+    tile, blocks an SM by registers) at DP ``head_pad``, as ChainsTiling;
+    ``bhds`` for T4/T5's [D, S] operands, whose kv tile is 64 columns."""
     chains, stages, blocks = CHAINS_TILES[config.replace('v2', 'v0'),
                                           head_pad <= 64]
-    kv = TILE // 2 if chains == 4 and head_pad > CHAINS_KV32_ABOVE else TILE
+    kv = (TILE // 2 if not bhds and chains == 4 and
+          head_pad > CHAINS_KV32_ABOVE else TILE)
     return chains, stages, kv, blocks
 
 
-def _chains_smem(config: str, head_pad: int) -> tuple:
-    """(bytes before the barriers, all bytes) of one 'sm90' T1/T6 block's
+def _chains_smem(config: str, head_pad: int, bhds: bool = False) -> tuple:
+    """(bytes before the barriers, all bytes) of one 'sm90' chains block's
     shared memory, as ChainsTiling counts them: the chains' Q tiles, the K
-    and V stages; then the barriers and 1 KB of alignment slack."""
-    chains, stages, kv, _ = chains_tiling(config, head_pad)
+    and V stages (over [D, S] each DP rows of 128 bytes); then the barriers
+    and 1 KB of alignment slack."""
+    chains, stages, kv, _ = chains_tiling(config, head_pad, bhds)
     pitch = 128 if head_pad <= 64 else 32
-    tile = lambda rows: -(-head_pad // (pitch // 2)) * rows * pitch
+    tile = ((lambda rows: head_pad * rows * 2) if bhds else
+            (lambda rows: -(-head_pad // (pitch // 2)) * rows * pitch))
     bars = chains * tile(TILE) + 2 * stages * tile(kv)
     return bars, bars + (2 * stages + 1) * 8 + 1024
 
 
-def chains_bytes(config: str, head_pad: int) -> int:
-    """Shared memory of one 'sm90' T1/T6 block (ChainsTiling::kBytes)."""
-    return _chains_smem(config, head_pad)[1]
+def chains_bytes(config: str, head_pad: int, bhds: bool = False) -> int:
+    """Shared memory of one 'sm90' chains block (ChainsTiling::kBytes)."""
+    return _chains_smem(config, head_pad, bhds)[1]
 
 
-def chains_blocks(config: str, head_pad: int) -> int:
-    """'sm90' T1/T6 blocks an SM holds: the fewer of what the registers
+def chains_blocks(config: str, head_pad: int, bhds: bool = False) -> int:
+    """'sm90' chains blocks an SM holds: the fewer of what the registers
     allow (CHAINS_TILES) and what the shared memory allows, 1 KB reserved a
     block."""
-    by_regs = chains_tiling(config, head_pad)[3]
+    by_regs = chains_tiling(config, head_pad, bhds)[3]
     return min(by_regs,
-               SMEM_PER_SM // (chains_bytes(config, head_pad) + 1024))
+               SMEM_PER_SM // (chains_bytes(config, head_pad, bhds) + 1024))
 
 
-def chains_split_fits(config: str, head_pad: int) -> bool:
+def chains_split_fits(config: str, head_pad: int, bhds: bool = False) -> bool:
     """Whether the kv split's merge buffers (a float4 per thread for every
     8 columns of O, and one for m and l) fit where Q and the ring were
     (ChainsTiling::kSplit)."""
-    chains = chains_tiling(config, head_pad)[0]
+    chains = chains_tiling(config, head_pad, bhds)[0]
     return (chains * 128 * (head_pad // 8 + 1) * 16 <=
-            _chains_smem(config, head_pad)[0])
+            _chains_smem(config, head_pad, bhds)[0])
 
 
 def chains_parts(config: str, blocks: int, tiles: int,
-                 head_pad: int) -> int:
-    """How many blocks split each 'sm90' T1 (or T6 v0) block's kv range of
-    ``tiles`` tiles: 1 where the ``blocks`` outnumber the card's SMs or the
-    merge buffers do not fit; else the first of CHAINS_PARTS with every
-    part at least one tile."""
-    if blocks > fa.SMS or not chains_split_fits(config, head_pad):
+                 head_pad: int, bhds: bool = False) -> int:
+    """How many blocks split each 'sm90' T1, T4 (or T6 v0) block's kv
+    range of ``tiles`` tiles: 1 where the ``blocks`` outnumber the card's
+    SMs or the merge buffers do not fit; else the first of CHAINS_PARTS
+    with every part at least one tile."""
+    if blocks > fa.SMS or not chains_split_fits(config, head_pad, bhds):
         return 1
     for parts in CHAINS_PARTS:
         if (parts - 1) * -(-tiles // parts) < tiles:
@@ -456,33 +463,96 @@ def plan_attn_variants(q: torch.Tensor, k: torch.Tensor, variant: int,
                         'v0', q, k, 1, 1, path, split=variant == 0)
 
 
-# The entry points of T1, T2, T3 and T6 by path.
+def tt_chains(sq: int, head_pad: int) -> int:
+    """T4's and T5's q chains a block on 'sm90' (TT_CONFIGS): 4 where ``sq``
+    is a multiple of 256 and DP <= CHAINS_KV32_ABOVE, else 2 where it is a
+    multiple of 128, else 1."""
+    if sq % (4 * TILE) == 0 and head_pad <= CHAINS_KV32_ABOVE:
+        return 4
+    return 2 if sq % (2 * TILE) == 0 else 1
+
+
+def _plan_tt(name: str, q, k, head_pad: int, path: Optional[str],
+             split: bool) -> fa.Plan:
+    b, h, _, sq = q.shape
+    if _path(name, path) == MMA:
+        return fa.Plan(MMA, head_pad, TILE, TILE, 1, (sq // TILE, b * h),
+                       128, bhds=True)
+    chains = tt_chains(sq, head_pad)
+    config = TT_CONFIGS[chains]
+    _, stages, kv, _ = chains_tiling(config, head_pad, bhds=True)
+    grid = (sq // (TILE * chains), b * h)
+    parts = (chains_parts(config, grid[0] * grid[1], k.shape[3] // kv,
+                          head_pad, bhds=True) if split else 1)
+    return fa.Plan(SM90, head_pad, TILE * chains, kv, stages, grid,
+                   128 * chains, parts, bhds=True)
+
+
+def plan_tt2(q: torch.Tensor, k: torch.Tensor,
+             path: Optional[str] = None) -> fa.Plan:
+    """T4's path and tiling for ``q`` ``[B, H, D, Sq]`` and ``k`` ``[B, H,
+    D, Skv]`` of the domain, from their shapes alone: 'sm90' (the chains
+    kernel over [D, S], :func:`tt_chains` consumer warpgroups of 64 q rows
+    sharing a ring of K/V stages, the kv split of :func:`chains_parts`
+    where the card has room) unless ``path`` forces the kept 'mma' (one
+    4-warp block per 64 q rows)."""
+    return _plan_tt('flash_tt2', q, k, -(-q.shape[2] // 16) * 16, path,
+                    split=True)
+
+
+def plan_ttv3(q: torch.Tensor, k: torch.Tensor, bf16_p: bool = False,
+              sum_fold: bool = True,
+              path: Optional[str] = None) -> fa.Plan:
+    """T5's path and tiling, as :func:`plan_tt2`'s but never split; with
+    the fold (``sum_fold``) the head is padded to round16(d + 1), V's last
+    padded row holding ones. ``bf16_p`` does not change the tiling."""
+    d = q.shape[2] + (1 if sum_fold else 0)
+    return _plan_tt('flash_ttv3', q, k, -(-d // 16) * 16, path,
+                    split=False)
+
+
+# The entry points of each variant by path.
 ENTRIES = {'attn_opt': {SM90: 'flash_opt_attn_sm90', MMA: 'flash_opt_attn'},
            'attn_h': {SM90: 'flash_opt_attn_h_sm90',
                       MMA: 'flash_opt_attn_h'},
            'pipelined_attention': {SM90: 'flash_pipelined_attn_sm90',
                                    MMA: 'flash_pipelined_attn'},
+           'flash_tt2': {SM90: 'flash_tt2_attn_sm90', MMA: 'flash_tt2_attn'},
+           'flash_ttv3': {SM90: 'flash_ttv3_attn_sm90',
+                          MMA: 'flash_ttv3_attn'},
            'attn_variants': {SM90: 'flash_variants_attn_sm90',
                              MMA: 'flash_variants_attn'}}
 
 
+def entry_options(fn: Callable, how: fa.Plan, *options: int) -> tuple:
+    """The options after the dtype of wrapper ``fn``'s entry point on
+    ``how.path``: ``options`` (T1's and T6's variant code, T5's bf16_p and
+    sum_fold) and, on 'sm90', the q chains and the kv split's parts that
+    ``how`` gives (T2 takes only its parts)."""
+    if how.path == MMA:
+        return options
+    if fn is attn_h:
+        return (how.parts,)
+    if fn in (attn_opt, attn_variants):
+        return (*options, how.parts)
+    if fn is flash_tt2:
+        return (how.block_q // TILE, how.parts)
+    if fn is flash_ttv3:
+        return (*options, how.block_q // TILE)
+    return options
+
+
 def launch(fn: Callable, q, k, v, out, scale: float, how: fa.Plan,
            *options: int) -> None:
-    """Launch ``fn``'s (attn_opt's, attn_h's, pipelined_attention's or
-    attn_variants') kernel on ``how.path`` into ``out``, on the current
-    stream, with the entry point's ``options`` (T1's and T6's variant
-    code; the kv split's parts on 'sm90' come from ``how``); raises if the
-    launch is refused."""
+    """Launch wrapper ``fn``'s kernel on ``how.path`` into ``out``, on the
+    current stream, with :func:`entry_options` (the layout of q, k, v and
+    ``out`` from ``how.bhds``); raises if the launch is refused."""
     entry = ENTRIES[fn.__name__][how.path]
-    if how.path == MMA:
-        lib = fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS)
-    else:
-        lib = fa.load(SM90_SOURCE, SM90_SIGNATURES, parts=SM90_BUILD_PARTS)
-        if fn is attn_h:
-            options = (how.parts,)
-        elif fn in (attn_opt, attn_variants):
-            options = (*options, how.parts)
-    _call(lib, entry, entry, q, k, v, out, scale, *options)
+    lib = (fa.load(SOURCE, SIGNATURES, parts=BUILD_PARTS) if how.path == MMA
+           else fa.load(SM90_SOURCE, SM90_SIGNATURES,
+                        parts=SM90_BUILD_PARTS))
+    _call(lib, entry, entry, q, k, v, out, scale, how.bhds,
+          *entry_options(fn, how, *options))
 
 
 def _count(fn: Callable, path: str, config: str) -> None:
@@ -568,39 +638,47 @@ def attn_variants(variant: int, q, k, v, scale: float,
     return out
 
 
-def flash_tt2(q, k, v, scale: float):
-    """T4 (``tools/flash_tt.py::flash_tt2``): ``[B, H, D, S]`` in and out."""
+def flash_tt2(q, k, v, scale: float, path: Optional[str] = None):
+    """T4 (``tools/flash_tt.py::flash_tt2``): ``[B, H, D, S]`` in and out.
+    On CUDA the path :func:`plan_tt2` picks ('sm90'; ``path='mma'`` forces
+    the first port's kernel)."""
     cpu = _on_cpu(q, k, v)
     _check('flash_tt2', q, k, v, True, cpu=cpu)
+    _path('flash_tt2', path)
     if cpu:
         return plain_flash_tt2(q, k, v, scale)
-    out = _launch('flash_tt2_attn', 'flash_tt2', q, k, v, scale)
-    flash_tt2.launches['tt2'] += 1
+    how = plan_tt2(q, k, path=path)
+    out = torch.empty_like(q)
+    launch(flash_tt2, q, k, v, out, scale, how)
+    _count(flash_tt2, how.path, 'tt2')
     return out
 
 
 def flash_ttv3(q, k, v, scale: float, bf16_p: bool = False,
-               sum_fold: bool = True):
+               sum_fold: bool = True, path: Optional[str] = None):
     """T5 (``tools/flash_tt3.py::flash_ttv3``): ``[B, H, D, S]``, exp2;
     ``sum_fold`` takes the row sum from P·V (ttv3), ``bf16_p`` with it
     evaluates exp2 on bf16 arguments (ttv4); neither is the no-fold
-    setting."""
+    setting. On CUDA the path :func:`plan_ttv3` picks ('sm90';
+    ``path='mma'`` forces the first port's kernel)."""
     if bf16_p and not sum_fold:
         raise ValueError('flash_ttv3: bf16_p needs sum_fold')
     cpu = _on_cpu(q, k, v)
     _check('flash_ttv3', q, k, v, True, fold=sum_fold, cpu=cpu)
+    _path('flash_ttv3', path)
     if cpu:
         return plain_flash_ttv3(q, k, v, scale, bf16_p, sum_fold)
-    out = _launch('flash_ttv3_attn', 'flash_ttv3', q, k, v, scale,
-                  int(bf16_p), int(sum_fold))
-    flash_ttv3.launches[T5_SETTINGS[(bool(bf16_p), bool(sum_fold))]] += 1
+    how = plan_ttv3(q, k, bf16_p, sum_fold, path=path)
+    out = torch.empty_like(q)
+    launch(flash_ttv3, q, k, v, out, scale, how, int(bf16_p), int(sum_fold))
+    _count(flash_ttv3, how.path,
+           T5_SETTINGS[(bool(bf16_p), bool(sum_fold))])
     return out
 
 
+# Every wrapper, each with two paths.
 WRAPPERS = (attn_opt, attn_h, pipelined_attention, flash_tt2, flash_ttv3,
             attn_variants)
-PATH_WRAPPERS = (attn_opt, attn_h, pipelined_attention,
-                 attn_variants)   # those with two paths
 
 
 def _bind(fn: Callable, *args, **kw) -> Callable:
@@ -632,9 +710,10 @@ def _plan_of(plan: Callable, **kw) -> Callable:
     return lambda q, k, path=None: plan(q, k, path=path, **kw)
 
 
-# The configurations with two paths: label → (call (q, k, v, scale,
-# path=None), plan (q, k, path=None), the wrapper that counts its launches,
-# the entry point's options for :func:`launch`).
+# The configurations with two paths (all but T6 v0, which runs T1 v0's
+# kernels): label → (call (q, k, v, scale, path=None), plan (q, k,
+# path=None), the wrapper that counts its launches, the entry point's
+# options for :func:`launch`), each on the configuration's own layout.
 PATH_CONFIGS = {
     'T1 v0': (CONFIGS['T1 v0'][0], _plan_of(plan_attn_opt, variant='v0'),
               attn_opt, (T1_CODES['v0', 1],)),
@@ -648,6 +727,12 @@ PATH_CONFIGS = {
                (T1_CODES['vG', 4],)),
     'T2': (attn_h, plan_attn_h, attn_h, ()),
     'T3': (pipelined_attention, plan_pipelined, pipelined_attention, ()),
+    'T4': (flash_tt2, plan_tt2, flash_tt2, ()),
+    'T5 ttv3': (flash_ttv3, plan_ttv3, flash_ttv3, (0, 1)),
+    'T5 ttv4': (CONFIGS['T5 ttv4'][0], _plan_of(plan_ttv3, bf16_p=True),
+                flash_ttv3, (1, 1)),
+    'T5 no-fold': (CONFIGS['T5 no-fold'][0],
+                   _plan_of(plan_ttv3, sum_fold=False), flash_ttv3, (0, 0)),
     'T6 v1': (CONFIGS['T6 v1'][0], _plan_of(plan_attn_variants, variant=1),
               attn_variants, (1,)),
     'T6 v2': (CONFIGS['T6 v2'][0], _plan_of(plan_attn_variants, variant=2),
@@ -656,18 +741,42 @@ PATH_CONFIGS = {
 
 
 def planned_twin(label: str, q, k, v, scale: float) -> torch.Tensor:
-    """The twin of configuration ``label``'s planned call on CUDA tensors:
-    the kv split's (:func:`plain_split_exp`) where the plan splits, else
-    the configuration's own (``CONFIGS``)."""
-    if label in PATH_CONFIGS:
-        how = PATH_CONFIGS[label][1](q, k)
-        if how.parts > 1:
-            return plain_split_exp(q, k, v, scale, how.parts)
-    elif label == 'T6 v0':
-        how = plan_attn_variants(q, k, 0)
-        if how.parts > 1:
-            return plain_split_exp(q, k, v, scale, how.parts)
+    """The twin of configuration ``label``'s planned call on CUDA tensors
+    (of its own layout): the kv split's (:func:`plain_split_exp`, over the
+    transposed views for T4) where the plan splits, else the
+    configuration's own (``CONFIGS``)."""
+    how = (PATH_CONFIGS[label][1](q, k) if label in PATH_CONFIGS else
+           plan_attn_variants(q, k, 0) if label == 'T6 v0' else None)
+    if how is not None and how.parts > 1:
+        if how.bhds:
+            return _bhds(plain_split_exp, q, k, v, scale, how.parts)
+        return plain_split_exp(q, k, v, scale, how.parts)
     return CONFIGS[label][1](q, k, v, scale)
+
+
+def ds_products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The T4/T5 kernels' two products alone, on one ``[d, 64]`` plane of
+    each of q, k and v (CUDA, bf16 or fp16, contiguous): ``(s, o)`` in
+    fp32, s = qᵀ·k ``[64, 64]`` by the MN-major SS wgmma and o =
+    round16(s)·vᵀ ``[64, round16(d)]`` by the K-major RS wgmma, loaded and
+    stored as the kernels hold them (``flash_variants_sm90_probe``). The
+    unit check of those forms against ``torch.matmul``."""
+    d = q.shape[0]
+    if (q.shape != (d, TILE) or k.shape != q.shape or v.shape != q.shape
+            or not q.is_cuda or q.dtype not in fa.DTYPES16):
+        raise ValueError('ds_products takes three CUDA [d, 64] bf16/fp16 '
+                         f'planes, got {tuple(q.shape)} {q.dtype}')
+    s = torch.empty((TILE, TILE), device=q.device)
+    o = torch.empty((TILE, -(-d // 16) * 16), device=q.device)
+    lib = fa.load(SM90_SOURCE, SM90_SIGNATURES, parts=SM90_BUILD_PARTS)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    with torch.cuda.device(q.device):
+        rc = lib.flash_variants_sm90_probe(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), d, fa.DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    fa.raise_on_error(rc, 'flash_variants_sm90_probe', q, k)
+    return s, o
 
 
 def launch_counts() -> dict:
@@ -676,23 +785,22 @@ def launch_counts() -> dict:
 
 
 def path_counts() -> dict:
-    """The launches by path of the wrappers with two: ``attn_opt_sm90``,
+    """The launches by path of each wrapper: ``attn_opt_sm90``,
     ``attn_opt_mma``, ``attn_h_sm90``, ... ``attn_variants_mma``."""
-    return {f'{fn.__name__}_{p}': n for fn in PATH_WRAPPERS
+    return {f'{fn.__name__}_{p}': n for fn in WRAPPERS
             for p, n in fn.path_launches.items()}
 
 
 def config_path_counts() -> dict:
     """Their launches by configuration and path, ``'attn_opt v0 sm90'``
     and so on (each wrapper's ``config_path_launches``)."""
-    return {f'{fn.__name__} {config} {p}': n for fn in PATH_WRAPPERS
+    return {f'{fn.__name__} {config} {p}': n for fn in WRAPPERS
             for (config, p), n in fn.config_path_launches.items()}
 
 
 def reset_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = collections.Counter()
-    for fn in PATH_WRAPPERS:
         fn.path_launches = dict.fromkeys(PATHS, 0)
         fn.config_path_launches = collections.Counter()
 

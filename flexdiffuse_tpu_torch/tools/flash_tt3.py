@@ -1,6 +1,8 @@
 """T5: fewer CUDA-core passes per score on the [B,H,D,S] flash kernel.
 
-Port of ``tools/flash_tt3.py``. Variants (``csrc/flash_variants.cu``):
+Port of ``tools/flash_tt3.py``. Variants (on the path the plan picks,
+'sm90', ``csrc/flash_variants_sm90.cu``, or the one ``--path`` names;
+'mma' is the first port's kernel in ``csrc/flash_variants.cu``):
 
   tt       K1, the product kernel (on ``[B,H,S,D]`` in the port)
   ttv3     exp2 with log2(e) folded into q's 16-bit scale, and the row sum
@@ -13,12 +15,14 @@ Port of ``tools/flash_tt3.py``. Variants (``csrc/flash_variants.cu``):
            is measured too)
 
 ``main`` checks each against fp32 attention and times 12-deep chains at
-three shapes; ``step_ab`` runs the SD-1.4 UNet chain with random
+three shapes (without ``--path`` also each T5 setting on the kept kernel,
+``kept_ms``); ``step_ab`` runs the SD-1.4 UNet chain with random
 normal·0.02 bf16 weights through K1 and through ttv3 and ttv4 swapped in
 for the kernel ``ops/attention.py`` calls, and reports each one's max|Δ|
 to K1's output.
 
     python -m flexdiffuse_tpu_torch.tools.flash_tt3 [step] [--device cpu]
+        [--path sm90|mma]
 
 On the CPU only the exactness check runs, at a small shape.
 """
@@ -30,7 +34,8 @@ from typing import Optional
 import torch
 
 from flexdiffuse_tpu_torch.ops.flash_attention import flash_attention
-from flexdiffuse_tpu_torch.ops.flash_variants import flash_ttv3
+from flexdiffuse_tpu_torch.ops.flash_variants import (MMA, PATHS, flash_ttv3,
+                                                      plan_ttv3)
 from flexdiffuse_tpu_torch.tools import (TILE_NOTE, chain_ms, generator,
                                          max_err, parser, qkv, reference,
                                          resolve_device, tflops)
@@ -52,15 +57,19 @@ VARIANTS = {
 }
 
 
-def _call(label: str):
-    """The variant as a ``[B,H,S,D]`` attention call."""
+def _call(label: str, path: Optional[str] = None):
+    """The variant (T5 on ``path``) as a ``[B,H,S,D]`` attention call."""
     kw = VARIANTS[label]
     if kw is None:
         return flash_attention
-    return lambda q, k, v, s: _t(flash_ttv3(_t(q), _t(k), _t(v), s, **kw))
+    return lambda q, k, v, s: _t(flash_ttv3(_t(q), _t(k), _t(v), s,
+                                            path=path, **kw))
 
 
-def main_run(generator: torch.Generator) -> list:
+def main_run(generator: torch.Generator, path: Optional[str] = None) -> list:
+    """Each variant against fp32 attention and, on the card, chain-timed:
+    T5 on ``path`` (None: the planned path, and the kept kernel beside it
+    as ``kept_ms``)."""
     cpu = generator.device.type == 'cpu'
     rows = []
     for shape in CPU_SHAPES if cpu else SHAPES:
@@ -73,20 +82,30 @@ def main_run(generator: torch.Generator) -> list:
             if kw is None:
                 fn, args, x0 = flash_attention, (k, v), q
             else:
-                fn = lambda q_, k_, v_, s_, _kw=kw: flash_ttv3(
-                    q_, k_, v_, s_, **_kw)
+                fn = lambda q_, k_, v_, s_, _kw=kw, path=path: flash_ttv3(
+                    q_, k_, v_, s_, path=path, **_kw)
                 args, x0 = (kt, vt), qt
             got = fn(x0, *args, scale)
             err = max_err(got if kw is None else _t(got), ref)
             row = dict(variant=label, shape=list(shape), max_abs_err=err)
+            tile = TILE_NOTE
+            if kw is not None and not cpu:
+                how = plan_ttv3(qt, kt, **kw, path=path)
+                row['path'] = how.path
+                tile = f'{how.path} {how.block_q}q x {how.block_kv}kv tile'
             line = f'err {err:.4f} {"OK" if err < 0.04 else "FAIL"}'
             if not cpu:
-                row['ms'], _ = chain_ms(
-                    lambda c, _fn=fn, _a=args, _x=x0:
-                        0.999 * _fn(c, *_a, scale) + 0.001 * _x, x0, STEPS)
+                chain = lambda f: chain_ms(
+                    lambda c: 0.999 * f(c, *args, scale) + 0.001 * x0, x0,
+                    STEPS)[0]
+                row['ms'] = chain(fn)
                 line = (f'{row["ms"]:6.3f} ms/call '
                         f'{tflops(shape, row["ms"]):6.1f} TFLOP/s ' + line)
-            print(f'  {label:7s}: {line} ({TILE_NOTE})', flush=True)
+                if kw is not None and path is None:
+                    row['kept_ms'] = chain(lambda *a, _fn=fn: _fn(
+                        *a, path=MMA))
+                    line += f' (kept mma {row["kept_ms"]:6.3f} ms)'
+            print(f'  {label:7s}: {line} ({tile})', flush=True)
             rows.append(row)
     return rows
 
@@ -94,9 +113,10 @@ def main_run(generator: torch.Generator) -> list:
 STEP_VARIANTS = ('tt', 'ttv3', 'ttv4')
 
 
-def step_ab(generator: torch.Generator) -> dict:
+def step_ab(generator: torch.Generator, path: Optional[str] = None) -> dict:
     """One SD-1.4 UNet with random normal·0.02 weights (bf16), its chain
-    through each variant on the same inputs; max|Δ| against the first."""
+    through each variant (T5 on ``path``) on the same inputs; max|Δ|
+    against the first."""
     unet = pe.build_unet(pe.SD14_UNET, generator.device)
     with torch.no_grad():
         for p in unet.parameters():
@@ -105,7 +125,7 @@ def step_ab(generator: torch.Generator) -> dict:
     lat, ctx = pe.chain_inputs(unet, 2, 64, generator)
     res, ref = {}, None
     for label in STEP_VARIANTS:
-        with kernel_swapped(_call(label)):
+        with kernel_swapped(_call(label, path)):
             r = pe.unet_chain(unet, lat, ctx, f'{label} UNet chain')
         ref = r['out'] if ref is None else ref
         r['max_abs_diff_vs_first'] = (r.pop('out') - ref).abs().max().item()
@@ -117,20 +137,23 @@ def step_ab(generator: torch.Generator) -> dict:
 
 
 def run(generator: torch.Generator, device: Optional[str] = None,
-        step: bool = False) -> dict:
+        step: bool = False, path: Optional[str] = None) -> dict:
     dev = resolve_device(device)
     if step and dev.type != 'cpu':
-        return dict(step=step_ab(generator))
-    return dict(main=main_run(generator))
+        return dict(step=step_ab(generator, path))
+    return dict(main=main_run(generator, path))
 
 
 def main(argv=None) -> None:
     ap = parser(__doc__)
     ap.add_argument('which', nargs='?', default='main',
                     choices=('main', 'step'))
+    ap.add_argument('--path', default=None, choices=PATHS,
+                    help='run T5 on one path only (default: the planned '
+                    'one, and the kept kernel beside it in main)')
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    run(generator(dev), args.device, args.which == 'step')
+    run(generator(dev), args.device, args.which == 'step', args.path)
 
 
 if __name__ == '__main__':

@@ -1,7 +1,8 @@
 """What ptxas makes of each kernel of one of the port's CUDA sources.
 
     python -m flexdiffuse_tpu_torch.tools.ptxas_report \
-        [--source flash_backward] [--match REGEX] [--raw PATH]
+        [--source flash_backward] [--match REGEX] [--raw PATH] \
+        [--sass REGEX]
 
 Compiles the source's build parts at once, as ``ops.flash_attention.build``
 does, with ``-Xptxas -v`` added, and prints one JSON line per entry
@@ -11,13 +12,18 @@ diagnostics naming it (such as C7512, wgmma serialised for registers;
 C7513/C7514, serialised for a register written or a wgmma issued under a
 branch), then a line of counts, with how many shown kernels spill and how
 many have a wgmma diagnostic (``spilled``, ``serialised``); ``--raw`` also
-writes ptxas's whole report. Writes nothing into the build directory.
-Needs ``nvcc`` (no card). T1's and T6's Hopper kernels:
-``--source flash_variants_sm90 --match chains``.
+writes ptxas's whole report; ``--sass`` counts, in each shown kernel's
+SASS (``cuobjdump -sass`` of the compiled objects), the instructions
+matching a regular expression, by opcode (``--sass 'MUFU[.][A-Z0-9_.]+'``:
+the exponentials). Writes nothing into the build directory. Needs
+``nvcc`` (no card). T1's and T6's Hopper kernels: ``--source
+flash_variants_sm90 --match chains``; T4's and T5's ``--match
+'chains.*Tt'``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -49,24 +55,50 @@ _SMEM = re.compile(r'(\d+) bytes smem')
 _WARN = re.compile(r"(\(C\d+\).*?) (?:for|in) the function '(\w+)'")
 
 
-def compile_verbose(source, parts: int) -> str:
-    """ptxas's report for every part of ``source``, in part order."""
+_FUNCTION = re.compile(r'\n\s*Function : (\w+)')
+
+
+def count_sass(sass: str, pattern: str) -> dict:
+    """``{mangled name: {opcode: count}}`` of the instructions matching
+    ``pattern`` in each function of ``cuobjdump -sass``'s output."""
+    pieces = _FUNCTION.split(sass)
+    return {name: dict(collections.Counter(re.findall(pattern, body)))
+            for name, body in zip(pieces[1::2], pieces[2::2])}
+
+
+def sass_counts(obj: str, pattern: str) -> dict:
+    """:func:`count_sass` of object ``obj``'s SASS."""
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.path.dirname(fa._nvcc()), 'cuobjdump')
+    return count_sass(subprocess.run([tool, '-sass', obj],
+                                     capture_output=True, text=True,
+                                     check=True).stdout, pattern)
+
+
+def compile_verbose(source, parts: int, sass: str = '') -> tuple:
+    """ptxas's report for every part of ``source``, in part order, and
+    with ``sass`` each function's :func:`sass_counts` of it."""
     nvcc = fa._nvcc()
     flags = [f for f in fa.NVCC_FLAGS if f != '-shared']
     with tempfile.TemporaryDirectory() as tmp:
-        def one(p: int) -> str:
+        def one(p: int) -> tuple:
             defs = ([f'-DBUILD_PART={p}', f'-DBUILD_PARTS={parts}']
                     if parts > 1 else [])
+            obj = os.path.join(tmp, f'part{p}.o')
             proc = subprocess.run(
-                [nvcc, *flags, '-Xptxas', '-v', '-c', *defs, '-o',
-                 os.path.join(tmp, f'part{p}.o'), str(source)],
-                capture_output=True, text=True)
+                [nvcc, *flags, '-Xptxas', '-v', '-c', *defs, '-o', obj,
+                 str(source)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f'nvcc failed on {source.name} part {p}:'
                                    f'\n{proc.stderr}')
-            return proc.stdout + proc.stderr
+            return (proc.stdout + proc.stderr,
+                    sass_counts(obj, sass) if sass else {})
         with ThreadPoolExecutor(parts) as pool:
-            return ''.join(pool.map(one, range(parts)))
+            done = list(pool.map(one, range(parts)))
+    counts = {}
+    for _, c in done:
+        counts.update(c)
+    return ''.join(r for r, _ in done), counts
 
 
 def demangle(names) -> dict:
@@ -122,9 +154,12 @@ def main(argv=None) -> int:
                     help='regular expression on the demangled name')
     ap.add_argument('--raw', default='',
                     help='also write ptxas\'s whole report to this file')
+    ap.add_argument('--sass', default='',
+                    help='count the SASS instructions matching this regular '
+                    'expression in each shown kernel, by opcode')
     args = ap.parse_args(argv)
     source, parts = SOURCES[args.source]
-    report = compile_verbose(source, parts)
+    report, counts = compile_verbose(source, parts, args.sass)
     if args.raw:
         with open(args.raw, 'w') as f:
             f.write(report)
@@ -137,7 +172,8 @@ def main(argv=None) -> int:
         shown += 1
         spilled += bool(info.get('spill_stores') or info.get('spill_loads'))
         serialised += any(w.startswith('(C751') for w in info['warnings'])
-        print(json.dumps(dict(kernel=names[mangled], **info)))
+        extra = {'sass': counts.get(mangled, {})} if args.sass else {}
+        print(json.dumps(dict(kernel=names[mangled], **info, **extra)))
     print(json.dumps(dict(source=source.name, parts=parts,
                           kernels=len(kernels), shown=shown, spilled=spilled,
                           serialised=serialised)))

@@ -1,5 +1,5 @@
-"""Where the Hopper kernels of T1, T2, T3 and T6 spend a consumer's time:
-clock stamps per phase.
+"""Where the Hopper kernels of T1–T6 spend a consumer's time: clock stamps
+per phase.
 
     python -m flexdiffuse_tpu_torch.tools.variant_stamps [--calls N]
 
@@ -7,10 +7,13 @@ Compiles ``csrc/flash_variants_sm90.cu`` once more with ``-DFV_STAMPS`` (one
 part holding bf16 at the main shapes' widths only, in a temporary
 directory: the library the port loads is not touched), runs T2
 (``flash_opt_attn_h_sm90``, with the kv split its plan picks), T3
-(``flash_pipelined_attn_sm90``) and T1's v0, vU, vG2 and vG4
-(``flash_opt_attn_sm90``; T6 runs v0's schedule) ``--calls`` times on
-seeded bf16 inputs at the two main shapes, and prints one JSON line per
-kernel and shape: the cycles that thread 0 of consumer 0 of block (0, 0, 0)
+(``flash_pipelined_attn_sm90``), T1's v0, vU, vG2 and vG4
+(``flash_opt_attn_sm90``; T6 runs v0's schedule), T4
+(``flash_tt2_attn_sm90``) and T5's ttv3, ttv4 and no-fold
+(``flash_ttv3_attn_sm90``, on ``[B, H, D, S]`` operands), each with the
+tiles and split its plan picks, ``--calls`` times on seeded bf16 inputs at
+the two main shapes, and prints one JSON line per kernel and shape: the
+cycles that thread 0 of consumer 0 of block (0, 0, 0)
 spent in each phase of the source's ``Phase`` per call and per kv tile of
 its loop, and each phase's share. The stamps' own ``clock64`` reads slow
 the kernel a little; compare phases, not totals. Needs the card and
@@ -33,9 +36,11 @@ from flexdiffuse_tpu_torch.ops import flash_variants as fv
 PHASES = ('turn', 'tile', 'issue', 'wait_s', 'softmax', 'wait_all', 'tail',
           'other')
 SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80)]
-# Each configuration's row of the stamps: 0 T2, 1 T3, 2 T1/T6.
+# Each configuration's row of the stamps: 0 T2, 1 T3, 2 the chains kernel
+# (T1, T4, T5, T6).
 KERNELS = {'T2': 0, 'T3': 1, 'T1 v0': 2, 'T1 vU': 2, 'T1 vG2': 2,
-           'T1 vG4': 2}
+           'T1 vG4': 2, 'T4': 2, 'T5 ttv3': 2, 'T5 ttv4': 2,
+           'T5 no-fold': 2}
 
 
 def build(tmp: str) -> ctypes.CDLL:
@@ -65,17 +70,16 @@ def tiles_per_call(kernel: str, how: fv.Plan, shape) -> int:
 
 def stamps(lib: ctypes.CDLL, kernel: str, shape, calls: int,
            gen: torch.Generator) -> dict:
-    q, k, v = (torch.randn(shape, generator=gen, device='cuda',
-                           dtype=torch.bfloat16) for _ in range(3))
+    b, h, s, d = shape
+    bhds = fv.CONFIGS[kernel][2]
+    q, k, v = (torch.randn((b, h, d, s) if bhds else shape, generator=gen,
+                           device='cuda', dtype=torch.bfloat16)
+               for _ in range(3))
     out = torch.empty_like(q)
     _, plan, fn, options = fv.PATH_CONFIGS[kernel]
     entry = fv.ENTRIES[fn.__name__][fv.SM90]
     how = plan(q, k)
-    b, h, s, d = shape
-    if kernel == 'T2':
-        options = (how.parts,)
-    elif kernel != 'T3':
-        options = (*options, how.parts)
+    options = fv.entry_options(fn, how, *options)
     raw = (ctypes.c_ulonglong * (3 * len(PHASES)))()
     for i in range(calls + 1):   # the first call warms up
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,6 +1,6 @@
 """PyTorch port: the attention variants T1–T6 and the ported experiment
 tools, held against the JAX package's tool kernels on the CPU, and the
-path choosers of T1, T2, T3 and T6.
+path choosers of T1–T6.
 
 The JAX tools (``tools/flash_*.py``) call ``pl.pallas_call`` without
 ``interpret=``; here ``jax.experimental.pallas.pallas_call`` is patched to
@@ -167,6 +167,21 @@ def test_flash_tt_tools_exactness_on_cpu():
     assert all(r['max_abs_err'] < 0.04 for r in rows)
 
 
+@pytest.mark.parametrize('path', [None, fv.MMA])
+def test_tt_tools_take_a_path_on_cpu(path):
+    """flash_tt's and flash_tt3's ``path`` (and ``--path``): on the CPU
+    each T4/T5 row runs through its twin whatever the path, within the JAX
+    scripts' 0.04."""
+    gen = torch.Generator().manual_seed(0)
+    rows = port_flash_tt.run(gen, device='cpu', path=path)['exact']
+    rows += port_flash_tt3.run(gen, device='cpu', path=path)['main']
+    assert len(rows) == 4 + 8
+    assert all(r['max_abs_err'] < 0.04 for r in rows)
+    more = ['--path', path] if path else []
+    port_flash_tt.main(['exact', '--device', 'cpu'] + more)
+    port_flash_tt3.main(['--device', 'cpu'] + more)
+
+
 def test_perf_experiment_chain_on_cpu():
     """perf_experiment's chains on the tiny UNet (CPU: untimed, finite)."""
     res = port_perf.run(torch.Generator().manual_seed(0), device='cpu')
@@ -217,10 +232,10 @@ def test_build_in_parts_compiles_each_part_then_links(tmp_path, monkeypatch):
     assert fa.build(fv.SOURCE, 3) == 0.0   # built already
 
 
-# The path choosers of T1, T2, T3 and T6: every head width of the domain,
-# both dtypes, the main shapes, a serving batch, the tools' CPU shape and
-# Sq != Skv (T1's and T6's plans take those whose Sq is a multiple of
-# 64·G).
+# The path choosers of T1–T6: every head width of the domain, both dtypes,
+# the main shapes, a serving batch, the tools' CPU shape and Sq != Skv
+# (T1's and T6's plans take those whose Sq is a multiple of 64·G; T4's and
+# T5's the same shapes over [B, H, D, S], their chains following Sq).
 PLAN_SHAPES = [((2, 8, 4096), 4096), ((2, 8, 1024), 1024),
                ((1, 2, 1024), 1024), ((16, 8, 4096), 4096),
                ((1, 2, 256), 256), ((1, 1, 64), 192), ((3, 5, 128), 640),
@@ -238,21 +253,70 @@ CHAIN_PLANS = {
     'attn_variants v1': (fv.PATH_CONFIGS['T6 v1'][1], 'v0', 1, 1),
     'attn_variants v2': (fv.PATH_CONFIGS['T6 v2'][1], 'v2', 1, 1),
 }
+# T4's and T5's plans, over [B, H, D, S]: name → (configuration, the fold).
+TT_PLANS = {'flash_tt2': ('T4', False), 'flash_ttv3 ttv3': ('T5 ttv3', True),
+            'flash_ttv3 ttv4': ('T5 ttv4', True),
+            'flash_ttv3 no-fold': ('T5 no-fold', False)}
 
 
-def _meta(shape, skv, d, dtype):
+def _meta(shape, skv, d, dtype, bhds=False):
+    if bhds:
+        return (torch.empty((*shape[:2], d, shape[2]), dtype=dtype,
+                            device='meta'),
+                torch.empty((*shape[:2], d, skv), dtype=dtype, device='meta'))
     return (torch.empty((*shape, d), dtype=dtype, device='meta'),
             torch.empty((*shape[:2], skv, d), dtype=dtype, device='meta'))
 
 
+def _tt_plan_holds(name, d):
+    """T4's or T5's plan at width d, every PLAN_SHAPES shape: 'sm90' with
+    tt_chains' chains of 64 q rows over 64-column kv tiles, the chains'
+    stages, the kv split for T4 alone; 'mma' only when forced, one 4-warp
+    block per 64 q rows; the plan's layout [B, H, D, S]."""
+    label, fold = TT_PLANS[name]
+    plan = fv.PATH_CONFIGS[label][1]
+    if d > (fv.MAX_FOLD_HEAD_DIM if fold else fv.MAX_HEAD_DIM):
+        return
+    dp = -(-(d + fold) // 16) * 16
+    for dtype in fa.DTYPES16:
+        for shape, skv in PLAN_SHAPES:
+            q, k = _meta(shape, skv, d, dtype, bhds=True)
+            b, h, sq = shape
+            for path in (None, fv.SM90):
+                how = plan(q, k, path=path)
+                chains = fv.tt_chains(sq, dp)
+                assert chains == (4 if sq % 256 == 0 and dp <= 96 else
+                                  2 if sq % 128 == 0 else 1)
+                config = fv.TT_CONFIGS[chains]
+                assert how.path == fv.SM90 and how.bhds
+                assert how.head_pad == dp and how.block_q == 64 * chains
+                assert how.block_kv == fv.TILE
+                assert how.grid == (sq // (64 * chains), b * h)
+                assert how.threads == 128 * chains
+                assert how.stages == fv.chains_tiling(config, dp, True)[1]
+                assert how.parts == (fv.chains_parts(
+                    config, how.grid[0] * how.grid[1], skv // 64, dp, True)
+                    if label == 'T4' else 1)
+            kept = plan(q, k, path=fv.MMA)
+            assert kept.path == fv.MMA and kept.bhds
+            assert (kept.block_q, kept.threads, kept.stages, kept.parts) == (
+                64, 128, 1, 1)
+            assert kept.grid == (sq // 64, b * h)
+
+
 @pytest.mark.parametrize('d', range(8, fv.MAX_HEAD_DIM + 1, 8))
-@pytest.mark.parametrize('name', list(PLANS) + list(CHAIN_PLANS))
+@pytest.mark.parametrize('name', list(PLANS) + list(CHAIN_PLANS) +
+                         list(TT_PLANS))
 def test_plan_takes_the_hopper_path_at_every_width(name, d):
     """Every shape of the domain plans 'sm90', with the source's tiles
     (PIPELINED_TILES, HEADS_TILES, CHAINS_TILES: G chains of 64 q rows,
     vG4's kv tile 32 above DP 96, 64-row kv tiles elsewhere, T1's and T6
-    v0's kv split where their blocks number at most the card's SMs);
+    v0's kv split where their blocks number at most the card's SMs; T4 at
+    d 8–128 and T5 at d 8–120, no-fold to 128, as :func:`_tt_plan_holds`);
     'mma' only when the caller forces it, as the first port's grid."""
+    if name in TT_PLANS:
+        _tt_plan_holds(name, d)
+        return
     if name in CHAIN_PLANS:
         plan, config, g, kept_stages = CHAIN_PLANS[name]
     else:
@@ -327,6 +391,52 @@ def test_chains_blocks_an_sm(config, dp, nbytes, blocks, split):
     assert nbytes <= 232448   # a block's most
 
 
+# T4/T5's tiles over [D, S]: a tile is DP rows of 128 bytes, the kv tile
+# 64 columns at every chain count.
+@pytest.mark.parametrize('config,dp,nbytes,blocks,split', [
+    ('vG4', 48, 62520, 1, True), ('vG4', 96, 123960, 1, True),
+    ('vG2', 48, 50232, 2, True), ('vG2', 128, 132152, 1, True),
+    ('v0', 48, 44088, 3, True), ('v0', 128, 82984, 2, True),
+])
+def test_tt_chains_blocks_an_sm(config, dp, nbytes, blocks, split):
+    """ChainsTiling's shared memory, blocks an SM and merge room for the
+    [D, S] forms."""
+    assert fv.chains_tiling(config, dp, bhds=True)[2] == fv.TILE
+    assert fv.chains_bytes(config, dp, bhds=True) == nbytes
+    assert fv.chains_blocks(config, dp, bhds=True) == blocks
+    assert fv.chains_split_fits(config, dp, bhds=True) == split
+
+
+@pytest.mark.parametrize('sq,dp,want', [
+    (4096, 48, 4), (1536, 48, 4), (1024, 96, 4),   # 256-row multiples
+    (1024, 112, 2), (1024, 128, 2),   # vG4 stops at DP 96
+    (640, 48, 2), (128, 80, 2),       # 128-row multiples
+    (192, 48, 1), (64, 128, 1), (320, 96, 1),      # 64-row multiples
+])
+def test_tt_chains_follow_sq(sq, dp, want):
+    """T4's and T5's q chains a block: 4 where Sq is a multiple of 256 and
+    DP <= 96, else 2 where it is a multiple of 128, else 1."""
+    assert fv.tt_chains(sq, dp) == want
+    assert fv.TT_CONFIGS[want] == {4: 'vG4', 2: 'vG2', 1: 'v0'}[want]
+
+
+@pytest.mark.parametrize('shape,want', [
+    ((2, 8, 80, 1024), 2),    # 64 blocks of four chains
+    ((2, 8, 40, 4096), 1),    # 256 blocks: more than the SMs
+    ((1, 2, 40, 1024), 2),
+    ((2, 8, 40, 1536), 2),    # 96 blocks
+    ((8, 8, 40, 4096), 1),
+    ((1, 1, 40, 64), 1),      # one kv tile cannot be split
+])
+def test_tt2_split_only_where_the_card_has_room(shape, want):
+    """T4's kv split follows T1's rule (chains_parts over its blocks); T5
+    is never split."""
+    q = torch.empty(shape, dtype=torch.bfloat16, device='meta')
+    assert fv.plan_tt2(q, q).parts == want
+    for label in ('T5 ttv3', 'T5 ttv4', 'T5 no-fold'):
+        assert fv.PATH_CONFIGS[label][1](q, q).parts == 1
+
+
 @pytest.mark.parametrize('config,blocks,tiles,dp,want', [
     ('vG4', 64, 16, 80, 2),     # (2,8,1024,80): 64 blocks
     ('vG2', 128, 16, 80, 2),    # the same shape's vG2
@@ -370,12 +480,13 @@ def test_heads_parts_split_only_where_the_card_is_half_empty(
 @pytest.mark.parametrize('path', [None, fv.SM90, fv.MMA])
 @pytest.mark.parametrize('label', list(fv.PATH_CONFIGS))
 def test_cpu_calls_count_no_launch_on_either_path(label, path):
-    """On CPU tensors T1, T2, T3 and T6 return their twin whatever the
-    path asked for, and count no launch on either path."""
+    """On CPU tensors every configuration with two paths returns its twin
+    whatever the path asked for, and counts no launch on either path."""
     fn = fv.PATH_CONFIGS[label][0]
-    twin = fv.CONFIGS[label][1]
+    _, twin, bhds = fv.CONFIGS[label]
     gen = torch.Generator().manual_seed(5)
-    q, k, v = (torch.randn((1, 2, 256, 40), generator=gen).to(torch.bfloat16)
+    shape = (1, 2, 40, 256) if bhds else (1, 2, 256, 40)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
                for _ in range(3))
     before = (fv.launch_counts(), fv.path_counts())
     torch.testing.assert_close(fn(q, k, v, 0.15, path=path),
@@ -384,24 +495,30 @@ def test_cpu_calls_count_no_launch_on_either_path(label, path):
 
 
 def test_path_wrappers_count_by_path():
-    """Every wrapper with two paths counts its launches by path, and
+    """Every wrapper has two paths and counts its launches by path, and
     ``path_counts`` names them all."""
     assert set(fv.path_counts()) == {
         f'{fn.__name__}_{p}' for fn in (fv.attn_opt, fv.attn_h,
                                         fv.pipelined_attention,
+                                        fv.flash_tt2, fv.flash_ttv3,
                                         fv.attn_variants)
         for p in fv.PATHS}
     assert {fn for _, _, fn, _ in fv.PATH_CONFIGS.values()} == set(
-        fv.PATH_WRAPPERS)
+        fv.WRAPPERS)
     assert fv.config_path_counts() == {}
 
 
 @pytest.mark.parametrize('label', list(fv.PATH_CONFIGS))
 def test_launch_options_name_the_configuration(label):
     """Each configuration's entry-point options: T1's variant code, T6's
-    variant, none for T2 and T3 (whose parts come from the plan)."""
+    variant, T5's (bf16_p, sum_fold), none for T2, T3 and T4 (whose chains
+    and parts come from the plan)."""
     options = fv.PATH_CONFIGS[label][3]
-    if label.startswith('T1'):
+    if label.startswith('T5'):
+        (setting,) = [key for key, name in fv.T5_SETTINGS.items()
+                      if name == label.split()[1]]
+        assert options == tuple(int(x) for x in setting)
+    elif label.startswith('T1'):
         variant = label.split()[1]
         key = ('vG', int(variant[2])) if variant.startswith('vG') else (
             variant, 1)
@@ -415,7 +532,8 @@ def test_launch_options_name_the_configuration(label):
 @pytest.mark.parametrize('label', list(fv.PATH_CONFIGS))
 def test_unknown_path_raises(label):
     fn, plan, _, _ = fv.PATH_CONFIGS[label]
-    x = torch.zeros((1, 1, 256, 40))
+    x = torch.zeros((1, 1, 40, 256) if fv.CONFIGS[label][2] else
+                    (1, 1, 256, 40))
     with pytest.raises(ValueError):
         fn(x, x, x, 0.1, path='wide')
     with pytest.raises(ValueError):
@@ -469,6 +587,32 @@ def test_t1_split_twin_matches_jax_tool_kernel(dtype, interpret):
                              shape[-1]**-0.5, parts)
     err = np.abs(got.float().numpy() - ref).max()
     assert err <= _tolerance('T1 vG4', dtype) * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize('dtype', list(DTYPES))
+def test_t4_split_twin_matches_jax_tool_kernel(dtype, interpret):
+    """T4's kv split on 'sm90' (four chains at the 1024-token head take 2
+    parts), its twin ``plain_split_exp`` over the transposed views
+    (``planned_twin``), against the JAX tool kernel
+    ``tools/flash_tt.py::flash_tt2`` in interpret mode at (1,2,1024,80),
+    with ``test_twin_matches_jax_tool_kernel``'s tolerance."""
+    shape = (1, 2, 1024, 80)
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(shape[-1] + 2)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    scale = shape[-1]**-0.5
+    ref = np.asarray(JAX_CALLS['T4'](
+        *(jnp.asarray(a).astype(jdt) for a in arrs), scale).astype(
+            jnp.float32))
+    q, k, v = (torch.from_numpy(a).to(tdt).transpose(-1, -2).contiguous()
+               for a in arrs)
+    assert fv.plan_tt2(q, k).parts == 2
+    got = fv.planned_twin('T4', q, k, v, scale).transpose(-1, -2)
+    torch.testing.assert_close(
+        got, fv._bhds(fv.plain_split_exp, q, k, v, scale, 2).transpose(
+            -1, -2), rtol=0, atol=0)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= _tolerance('T4', dtype) * np.abs(ref).max(), err
 
 
 @pytest.mark.parametrize('dtype', list(DTYPES))

@@ -1,8 +1,8 @@
 """PyTorch port: the Hopper kernels (K1 forward flash attention, K3
 forward with lse, K4 dq and K5 dk/dv, each on the Hopper path and on the
 kept mma.sync kernel, fp32 on the kept one; K6 fused GroupNorm, the
-attention variants T1–T6, T2 and T3 on both paths) against their plain
-twins, on the card.
+attention variants T1–T6 on both paths, and the [D, S] wgmma forms of
+T4/T5 alone) against their plain twins, on the card.
 Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
@@ -738,7 +738,7 @@ def test_variant_kernel_matches_twin(label, shape, cuda_gen):
     """Each T configuration against the fp32 reference, within twice its
     16-bit twin's max|Δ| plus 1e-3·max|ref| (K1's rule); T4/T5 take and
     return [B, H, D, S]."""
-    kernel, twin, bhds = fv.CONFIGS[label]
+    kernel, _, bhds = fv.CONFIGS[label]
     q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
                            dtype=torch.bfloat16) for _ in range(3))
     scale = shape[-1]**-0.5
@@ -750,8 +750,7 @@ def test_variant_kernel_matches_twin(label, shape, cuda_gen):
     assert sum(fv.launch_counts().values()) == before + 1
     assert out.shape == t(q).shape and out.is_contiguous()
     ref = plain_attention(q.float(), k.float(), v.float(), scale)
-    _rule(t(out), ref, t(twin(t(q), t(k), t(v), scale)) if bhds else
-          fv.planned_twin(label, q, k, v, scale))
+    _rule(t(out), ref, t(fv.planned_twin(label, t(q), t(k), t(v), scale)))
 
 
 @pytest.mark.cuda
@@ -781,14 +780,35 @@ def test_variant_kernels_reject_what_they_do_not_take(cuda_gen):
     assert sum(fv.launch_counts().values()) == before
 
 
-# The Hopper path of T1 (v0, vU, vG2, vG4), T2, T3 and T6 (v1, v2): the
-# main shapes and every head width of the domain, in both dtypes (Sq a
-# multiple of vG4's 256 q rows). Each label's (call, plan, counting
-# wrapper, entry-point options).
+# The Hopper path of T1 (v0, vU, vG2, vG4), T2, T3, T4, T5 (ttv3, ttv4,
+# no-fold) and T6 (v1, v2): the main shapes and every head width of each
+# domain (the fold's d <= 120), in both dtypes (Sq a multiple of vG4's 256
+# q rows). Each label's (call, plan, counting wrapper, entry-point
+# options); T4/T5 take [B, H, D, S] (:func:`_operands`).
 T_SM90_SHAPES = T_SHAPES[:1] + [(2, 8, 4096, 40)] + [
     (1, 2, 1024, d) for d in range(8, fv.MAX_HEAD_DIM + 1, 8)]
-T_PATHS = {label: fv.PATH_CONFIGS[label] for label in (
-    'T1 v0', 'T1 vU', 'T1 vG2', 'T1 vG4', 'T2', 'T3', 'T6 v1', 'T6 v2')}
+T_PATHS = fv.PATH_CONFIGS
+FOLDS = ('T5 ttv3', 'T5 ttv4')
+
+
+def _in_domain(label, shape):
+    return label not in FOLDS or shape[3] <= fv.MAX_FOLD_HEAD_DIM
+
+
+def _operands(label, shape, dtype, gen):
+    """Seeded q, k, v ``[B, H, S, D]`` and the configuration's own
+    operands of them (transposed, contiguous, for T4/T5)."""
+    q, k, v = (torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+               for _ in range(3))
+    if fv.CONFIGS[label][2]:
+        return (q, k, v), tuple(x.transpose(-1, -2).contiguous()
+                                for x in (q, k, v))
+    return (q, k, v), (q, k, v)
+
+
+def _back(label, x):
+    """A configuration's output as ``[B, H, S, D]``."""
+    return x.transpose(-1, -2) if fv.CONFIGS[label][2] else x
 
 
 def _one_launch(fn, path, call):
@@ -801,22 +821,24 @@ def _one_launch(fn, path, call):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize('shape', T_SM90_SHAPES)
-@pytest.mark.parametrize('label', list(T_PATHS))
+@pytest.mark.parametrize('label,shape', [
+    (label, shape) for label in T_PATHS for shape in T_SM90_SHAPES
+    if _in_domain(label, shape)])
 def test_variant_sm90_path_matches_twin(label, shape, dtype, cuda_gen):
     """A configuration with two paths on the one its plan picks ('sm90'
     everywhere in the domain), one launch on it, by K1's rule against the
-    twin of that path (the kv split's, ``plain_split_exp``, where T1's or
-    T2's plan splits)."""
+    twin of that path (the kv split's, ``plain_split_exp``, where T1's,
+    T2's or T4's plan splits)."""
     call, plan, fn, _ = T_PATHS[label]
-    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
-                           dtype=dtype) for _ in range(3))
+    (q, k, v), args = _operands(label, shape, dtype, cuda_gen)
     scale = shape[-1]**-0.5
-    how = plan(q, k)
+    how = plan(*args[:2])
     assert how.path == fv.SM90
-    out = _one_launch(fn, fv.SM90, lambda: call(q, k, v, scale))
-    twin = fv.planned_twin(label, q, k, v, scale)
-    _rule(out, plain_attention(q.float(), k.float(), v.float(), scale), twin)
+    out = _one_launch(fn, fv.SM90, lambda: call(*args, scale))
+    twin = fv.planned_twin(label, *args, scale)
+    _rule(_back(label, out),
+          plain_attention(q.float(), k.float(), v.float(), scale),
+          _back(label, twin))
 
 
 @pytest.mark.cuda
@@ -826,12 +848,12 @@ def test_variant_kept_path_still_right(label, shape, cuda_gen):
     """The first port's kernel, forced with ``path='mma'``: one launch on
     'mma', by K1's rule."""
     call, _, fn, _ = T_PATHS[label]
-    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
-                           dtype=torch.bfloat16) for _ in range(3))
+    (q, k, v), args = _operands(label, shape, torch.bfloat16, cuda_gen)
     scale = shape[-1]**-0.5
-    out = _one_launch(fn, fv.MMA, lambda: call(q, k, v, scale, path=fv.MMA))
-    _rule(out, plain_attention(q.float(), k.float(), v.float(), scale),
-          fv.CONFIGS[label][1](q, k, v, scale))
+    out = _one_launch(fn, fv.MMA, lambda: call(*args, scale, path=fv.MMA))
+    _rule(_back(label, out),
+          plain_attention(q.float(), k.float(), v.float(), scale),
+          _back(label, fv.CONFIGS[label][1](*args, scale)))
 
 
 @pytest.mark.cuda
@@ -839,11 +861,14 @@ def test_variant_kept_path_still_right(label, shape, cuda_gen):
 def test_variant_paths_refuse_out_of_domain_inputs(label, cuda_gen):
     """Inputs outside the domain raise on either path before any launch."""
     fn = T_PATHS[label][0]
-    q = torch.randn((1, 2, 128, 40), generator=cuda_gen, device='cuda',
-                    dtype=torch.bfloat16)
+    bhds = fv.CONFIGS[label][2]
+    q = torch.randn((1, 2, 40, 128) if bhds else (1, 2, 128, 40),
+                    generator=cuda_gen, device='cuda', dtype=torch.bfloat16)
     odd = torch.empty(q.numel() + 8, device='cuda', dtype=torch.bfloat16)[
         4:q.numel() + 4].view(q.shape)   # 8 bytes off 16-byte alignment
-    cases = [(q.float(),) * 3, (q[:, :, :100],) * 3, (q[..., :36],) * 3,
+    short = q[..., :100] if bhds else q[:, :, :100]   # S % 64
+    narrow = q[:, :, :36] if bhds else q[..., :36]    # d % 8
+    cases = [(q.float(),) * 3, (short,) * 3, (narrow,) * 3,
              (q.transpose(2, 3),) * 3, (odd, q, q), (q, q.cpu(), q)]
     before = fv.path_counts()
     for path in (None, fv.SM90, fv.MMA):
@@ -886,16 +911,22 @@ def test_variant_refused_launch_raises_without_fallback(cuda_gen):
 @pytest.mark.parametrize('label', list(T_PATHS))
 def test_variant_refused_launch_raises_on_either_path(label, path, cuda_gen):
     """Each configuration's kernel, on either path, refuses Sq = 100 past
-    the wrapper's check (and T1's and T6's on 'sm90' a kv split in 3
-    parts): the launch raises, counts no launch and writes nothing."""
+    the wrapper's check (and on 'sm90' T1's, T4's and T6's a kv split in 3
+    parts, T4's and T5's 3 q chains a block): the launch raises, counts
+    no launch and writes nothing."""
     call, plan, fn, options = T_PATHS[label]
-    bad = torch.randn((1, 2, 100, 40), generator=cuda_gen, device='cuda',
+    bhds = fv.CONFIGS[label][2]
+    bad = torch.randn((1, 2, 40, 100) if bhds else (1, 2, 100, 40),
+                      generator=cuda_gen, device='cuda',
                       dtype=torch.bfloat16)
-    q = torch.randn((1, 2, 768, 40), generator=cuda_gen, device='cuda',
-                    dtype=torch.bfloat16)
+    q = torch.randn((1, 2, 40, 768) if bhds else (1, 2, 768, 40),
+                    generator=cuda_gen, device='cuda', dtype=torch.bfloat16)
     cases = [(bad, plan(bad, bad, path=path))]
-    if path == fv.SM90 and fn in (fv.attn_opt, fv.attn_variants):
+    if path == fv.SM90 and fn in (fv.attn_opt, fv.attn_variants,
+                                  fv.flash_tt2):
         cases.append((q, dataclasses.replace(plan(q, q), parts=3)))
+    if path == fv.SM90 and bhds:
+        cases.append((q, dataclasses.replace(plan(q, q), block_q=192)))
     before = fv.path_counts()
     for x, how in cases:
         out = torch.zeros_like(x)
@@ -904,3 +935,24 @@ def test_variant_refused_launch_raises_on_either_path(label, path, cuda_gen):
         torch.cuda.synchronize()
         assert not out.any()
     assert fv.path_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_ds_wgmma_forms_match_matmul(dtype, cuda_gen):
+    """T4/T5's two products alone (``fv.ds_products``) at every head width:
+    S = qᵀ·k by the SS wgmma with both operands MN-major, and O =
+    round16(S)·vᵀ by the RS wgmma with V K-major, against ``torch.matmul``
+    in fp32 on the same 16-bit inputs (and the kernel's own S rounded):
+    exact products, so within 1e-5 of max|ref| (the fp32 sums' order);
+    O's padded columns past d are 0."""
+    for d in range(8, fv.MAX_HEAD_DIM + 1, 8):
+        q, k, v = (torch.randn((d, 64), generator=cuda_gen, device='cuda',
+                               dtype=dtype) for _ in range(3))
+        s, o = fv.ds_products(q, k, v)
+        torch.cuda.synchronize()
+        s_ref = torch.matmul(q.float().T, k.float())
+        o_ref = torch.matmul(s.to(dtype).float(), v.float().T)
+        assert (s - s_ref).abs().max() <= 1e-5 * s_ref.abs().max(), d
+        assert (o[:, :d] - o_ref).abs().max() <= 1e-5 * o_ref.abs().max(), d
+        assert not o[:, d:].any(), d

@@ -113,3 +113,19 @@ ptxas info    : Used 32 registers, used 0 barriers, 400 bytes cmem[0]
                                  '(C7515) Potential Performance Loss: '
                                  'wgmma.mma_async ignored'])
     assert got['_Z1jv'] == dict(registers=32, smem_bytes=0, warnings=[])
+
+
+def test_ptxas_report_counts_sass_opcodes_per_function():
+    """``--sass``'s counter: each function of ``cuobjdump -sass``'s output,
+    the matching instructions by opcode (two MUFU.EX2.BF16 for one bf16
+    pair, as ptxas issues ``ex2.approx.ftz.bf16x2``)."""
+    sass = (
+        '\n\tcode for sm_90a\n\t\tFunction : _Z1fv\n'
+        '        /*0010*/   MUFU.EX2.BF16 R5, R24 ;\n'
+        '        /*0020*/   MUFU.EX2.BF16 R6, R24.H1 ;\n'
+        '        /*0030*/   MUFU.EX2 R7, R8 ;\n'
+        '\t\tFunction : _Z1gv\n'
+        '        /*0010*/   FFMA R1, R2, R3, R4 ;\n')
+    got = ptxas_report.count_sass(sass, r'MUFU[.][A-Z0-9_.]+')
+    assert got == {'_Z1fv': {'MUFU.EX2.BF16': 2, 'MUFU.EX2': 1},
+                   '_Z1gv': {}}
