@@ -6,9 +6,10 @@
     python3 chip_smoke.py --profile-gen 5 [--family sdxl] [--profile-out DIR]
 
 The second and third forms skip the smoke test and profile train steps
-(``profile_training``) or UNet evaluations at 512² with K6 and with the
-plain GroupNorm, or with ``--family sdxl`` SDXL base evaluations at 1024²
-(``profile_generate``), instead. The first:
+(``profile_training``) or UNet evaluations at 512² with K6, with the
+plain GroupNorm and in the channel-major orientation, or with ``--family
+sdxl`` SDXL base evaluations at 1024² (``profile_generate``), instead.
+The first:
 
 Kernels and inference (the first and third slices):
 
@@ -168,8 +169,9 @@ The flash-kernel experiment tools (the fourth slice):
     CUDA graphs, and the bound.
 15. Runs the ported tools (``flexdiffuse_tpu_torch/tools/``) as a user
     would: ``flash_variants``, ``flash_opt``, ``flash_pipelined`` (with its
-    UNet A/B, K1 against T3), ``flash_tt`` (exactness at four shapes, K1
-    against T4, the UNet A/B), ``flash_tt3`` (its main and ``step_ab``, K1
+    UNet A/B, K1 against T3), ``flash_tt`` (exactness of K1, of K1's
+    transposed entry ``flash_attention_tt`` and of T4 at four shapes, K1
+    against both in chains, the UNet A/B), ``flash_tt3`` (its main and ``step_ab``, K1
     against ttv3 and ttv4). Asserts finite exactness errors (the scripts
     print OK or FAIL by their own 0.04; step 14 holds the kernels to
     step 3's rule) and, per UNet evaluation of each A/B, exactly 10
@@ -177,7 +179,8 @@ The flash-kernel experiment tools (the fourth slice):
     none of the other, and 61 of K6.
 16. Prints one JSON line about the kernels (K1 and K3–K5 also with the kept
     kernel's time, the host µs per call, the times by shape, step 17's
-    shapes included, and fp32's), then, only if every phase passed,
+    shapes included, and fp32's; K1's transposed and channel-major entries
+    from step 24), then, only if every phase passed,
     ``{"ok": true, "device": {...}}`` as the last line.
 
 The sampling features (the tenth slice), run after step 7:
@@ -391,18 +394,41 @@ The wide kernel and the JAX package's tools (the sixteenth slice), step
     (``flexdiffuse_tpu_torch/tools/``: ``bench_vae``, ``bench_batch`` at
     batch 1, 2, 4, 8, ``bench_train``, ``bench_serving``, ``bench_lcm``,
     ``deepcache_exp``, ``bench_deepcache``, ``cfg_interval_exp``,
-    ``tome_exp`` at 512² and 1024², ``param_dtype_exp``,
-    ``bench_tokenizer``) once at 512² with TOOL_STEPS steps and TOOL_REPS
+    ``cmajor_exp`` (both orientations of the UNet), ``tome_exp`` at 512²
+    and 1024², ``param_dtype_exp``, ``bench_tokenizer``) once at 512² with
+    TOOL_STEPS steps and TOOL_REPS
     repeats, asserting finite outputs and the launches of the module tree
     (``run_tool``: ``eval_launches``, ``vae_launches``, ``step_launches``,
     plus the wide calls ``bench_vae`` makes; ``param_dtype_exp``'s K1 and
     K6 in total). One JSON line per tool, each with the card.
 
+The channel-major interior (the twenty-first slice), step 24, right
+after step 7, on step 6's models:
+
+24. Holds K1's transposed and channel-major entries
+    (``fa.flash_attention_tt`` over ``[B,H,D,S]``, ``fa.flash_attention_cm``
+    over ``[H,D,B,S]``: T4's chains kernel over ``[D, S]`` in
+    ``csrc/flash_variants_sm90.cu`` with K1's arithmetic, the kept
+    mma.sync kernel for fp32) against fp32 plain attention by step 3's
+    rule with no flipped element, at CM_SHAPES in bf16 on the Hopper path
+    and at CM_FP32_SHAPE in fp32 on the kept one, timed (both paths
+    interleaved, the twin, K1 and SDPA on contiguous copies, SDPA on the
+    permuted views, the bound); checks that an fp32 launch forced onto
+    the Hopper path raises with nothing counted; checks the module tree's
+    launches per CFG evaluation with ``channel_major`` on and off
+    (CM_TREE: SD-1.4 at 512², a DeepCache 'use' evaluation, SDXL base at
+    1024²); then ``Runner.gen`` at 512² (PNDM, 25 steps, CFG 8, a guide
+    image) with the UNet's channel-major copy and with the UNet itself,
+    each with exactly the module tree's launches (10 of the cm entry and
+    no K1 per channel-major evaluation), and the channel-major image
+    against the standard one by step 21's image rule (its scale: the
+    standard run against the plain backends').
+
 Every kernel's launch count is set to 0 just before each main-path phase
 (steps 6, 11, 12, 13, 15, each run of 17, 18 and 19, each training run,
 encode and generate run of 20, each sweep, training and SP run of 21, the
-harness and experiments runs of 22, and each tool of 23) and read just
-after; launches
+harness and experiments runs of 22, each tool of 23 and each run of 24)
+and read just after; launches
 made to check a kernel against its plain twin do not count. Any failed
 phase raises, so the script exits non-zero; without CUDA it exits
 non-zero at once and prints no result.
@@ -522,16 +548,19 @@ LORA_STEPS, FULL_STEPS = 10, 4
 
 def want_launches(k1: int = 0, k3: int = 0, k4: int = 0, k5: int = 0,
                   k6: int = 0, k6_stream: int = 0, wide: int = 0,
-                  wide_sm90: int = 0) -> dict:
+                  wide_sm90: int = 0, cm: int = 0) -> dict:
     """The launch counts a main-path run must show (``kernel_counts``):
     every K1, K3, K4 and K5 launch on the Hopper path ('sm90'), none on the
     kept mma.sync kernels, except ``wide_sm90`` of K1's on the Hopper wide
     kernel and ``wide`` on the kept one; K6's ``k6_stream`` on the stream
-    path, the rest resident."""
+    path, the rest resident; ``cm`` launches of K1's channel-major entry,
+    on its Hopper path, and none of the transposed one."""
     return dict(k1=k1 + wide + wide_sm90, k3=k3, k4=k4, k5=k5, k6=k6,
-                k1_sm90=k1, k1_mma=0, k1_wide=wide, k1_wide_sm90=wide_sm90,
-                k3_sm90=k3, k3_mma=0, k4_sm90=k4, k4_mma=0, k5_sm90=k5,
-                k5_mma=0, k6_resident=k6 - k6_stream, k6_stream=k6_stream)
+                tt=0, cm=cm, k1_sm90=k1, k1_mma=0, k1_wide=wide,
+                k1_wide_sm90=wide_sm90, k3_sm90=k3, k3_mma=0, k4_sm90=k4,
+                k4_mma=0, k5_sm90=k5, k5_mma=0, k6_resident=k6 - k6_stream,
+                k6_stream=k6_stream, tt_sm90=0, tt_mma=0, cm_sm90=cm,
+                cm_mma=0)
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
@@ -1251,6 +1280,7 @@ def run_training(label: str, train_fn, steps: int, want: dict,
 
 # Kernel name fragment → group, first match wins.
 GROUPS = [('flash_fwd_sm90_kernel', 'flash forward (K1/K3)'),
+          ('chains_sm90_kernel', 'flash forward over [D, S] (K1 tt/cm)'),
           ('flash_fwd_kernel', 'flash forward, kept mma.sync (K1/K3)'),
           ('flash_bwd_dq_sm90', 'flash dq (K4)'),
           ('flash_bwd_dkv_sm90', 'flash dk/dv (K5)'),
@@ -1526,13 +1556,17 @@ def _with_eta(runner, eta: float):
 def profile_generate(steps: int, out: str, family: str = 'sd1') -> None:
     """``--profile-gen``: where a 512² UNet evaluation's time goes (CFG
     batch 2, bf16, seeded random SD-1.4 weights), through K1 and K6, then
-    through K1 with the plain GroupNorm, each by ``profile_steps``. With
+    through K1 with the plain GroupNorm, then in the channel-major
+    orientation (the same weights: K1's cm entry and K6), each by
+    ``profile_steps``. With
     ``family`` 'sdxl': the SDXL base UNet at 1024² (CFG batch 2, seeded
     random weights, random context and ``added_cond``), through K1 and
     K6."""
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE),
-                      (fa.BUILD_PARTS, fb.BUILD_PARTS, 1)))
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(fa.build, (fa.SOURCE, fb.SOURCE, gn.SOURCE,
+                                 fv.SM90_SOURCE),
+                      (fa.BUILD_PARTS, fb.BUILD_PARTS, 1,
+                       fv.SM90_BUILD_PARTS)))
     if family == 'sdxl':
         torch.manual_seed(STEP19_SEED)
         with torch.device('cuda'):
@@ -1567,6 +1601,13 @@ def profile_generate(steps: int, out: str, family: str = 'sd1') -> None:
     profile_steps('unet_k6', step, steps, out)
     with gn.backend('plain'):
         profile_steps('unet_plain_gn', step, steps, out)
+    cm = unet.with_settings(channel_major=True)
+
+    def cm_step():
+        with torch.no_grad():
+            cm(lat, t, ctx)
+
+    profile_steps('unet_cm_k6', cm_step, steps, out)
 
 
 # T1–T6 in the kernels line: (name, TPU kernel, the configuration whose
@@ -2563,7 +2604,7 @@ class CallLog:
             added=None if added is None else tuple(
                 tuple(added[k].shape) for k in ('text_embeds', 'time_ids')),
             config=module.config,
-            settings=(module.freeu, module.tome, module.pag_layers)))
+            settings=tuple(module.settings().values())))
 
     def _post(self, module, args, out):
         eps = out[0] if isinstance(out, tuple) else out
@@ -2579,15 +2620,16 @@ _META_COUNTS: dict = {}
 
 
 def _meta_model(cls, config, settings=None):
-    """``cls(config)`` on the meta device in bf16 (with the UNet's sampling
-    settings): the module tree, no weights."""
+    """``cls(config)`` on the meta device in bf16 (with the UNet's
+    settings, ``UNet2DCondition.SETTINGS`` in order): the module tree, no
+    weights."""
     key = (cls, config, settings)
     if key not in _META_MODELS:
         with torch.device('meta'):
             model = cls(config).to(BF16).eval()
         if settings is not None:
-            model = model.with_settings(freeu=settings[0], tome=settings[1],
-                                        pag_layers=settings[2])
+            model = model.with_settings(**dict(zip(
+                UNet2DCondition.SETTINGS, settings)))
         _META_MODELS[key] = model
     return _META_MODELS[key]
 
@@ -2598,14 +2640,18 @@ def tree_launches(run, grad: bool = False) -> tuple:
     sends to the kernels (``attn_mod.route`` for a CUDA tensor under
     'auto'; K1 on the path ``fa.plan`` picks, or, with ``grad`` (autograd
     on) when q, k or v needs a gradient, one K3 in the forward and one K4
-    and one K5 in the backward) and every GroupNorm that needs no gradient
-    (K6, on the path ``gn.plan_group_norm`` picks, aligned). Returns
-    ``(launches, by_shape)``, ``by_shape`` a Counter of (kernel, shape)."""
+    and one K5 in the backward), every channel-major attention call
+    (``attention_cm``: the same rule on ``[H, D, B, S]``; K1's channel-major
+    entry on the path ``fa.plan_ds`` picks, or K3–K5 under a gradient) and
+    every GroupNorm that needs no gradient (K6, on the path
+    ``gn.plan_group_norm`` picks, aligned). Returns ``(launches,
+    by_shape)``, ``by_shape`` a Counter of (kernel, shape)."""
     from flexdiffuse_tpu_torch.models import unet as unet_mod
     from flexdiffuse_tpu_torch.models import vae as vae_mod
     tally = collections.Counter()
     by_shape = collections.Counter()
     real_attn, real_gn = unet_mod.attention, unet_mod.group_norm
+    real_cm = unet_mod.attention_cm
 
     def attention(q, k, v, scale=None, backend=None):
         if attn_mod.route(q.shape, k.shape, 'cuda', 'auto') == 'flash':
@@ -2617,6 +2663,22 @@ def tree_launches(run, grad: bool = False) -> tuple:
                 += 1
             by_shape[name.upper(), tuple(q.shape)] += 1
         return real_attn(q, k, v, scale, backend)
+
+    def attention_cm(q, k, v, scale=None, backend=None):
+        d = q.shape[1]
+        if attn_mod.route((q.shape[-1], d), (k.shape[-1], d), 'cuda',
+                          'auto') == 'flash':
+            if torch.is_grad_enabled() and (
+                    q.requires_grad or k.requires_grad or v.requires_grad):
+                std = lambda t: t.permute(2, 0, 3, 1).contiguous()
+                tally['k3'] += 1
+                tally[f'k3_{fa.plan(std(q), std(k)).path}'] += 1
+                by_shape['K3', tuple(std(q).shape)] += 1
+            else:
+                tally['cm'] += 1
+                tally[f'cm_{fa.plan_ds(q, k, layout="cm").path}'] += 1
+                by_shape['CM', tuple(q.shape)] += 1
+        return real_cm(q, k, v, scale, backend)
 
     def group_norm(x, groups, weight, bias, eps, silu=False, dtype=None):
         if torch.is_grad_enabled() and (x.requires_grad or
@@ -2631,18 +2693,20 @@ def tree_launches(run, grad: bool = False) -> tuple:
         return real_gn(x, groups, weight, bias, eps, silu, dtype)
 
     unet_mod.attention = vae_mod.attention = attention
+    unet_mod.attention_cm = attention_cm
     unet_mod.group_norm = group_norm
     try:
         with torch.set_grad_enabled(grad):
             run()
     finally:
         unet_mod.attention = vae_mod.attention = real_attn
+        unet_mod.attention_cm = real_cm
         unet_mod.group_norm = real_gn
     return want_launches(k1=tally['k1'], k3=tally['k3'], k4=tally['k3'],
                          k5=tally['k3'], k6=tally['k6'],
-                         k6_stream=tally['k6_stream']) | {
+                         k6_stream=tally['k6_stream'], cm=tally['cm']) | {
         k: tally[k] for k in ('k1_sm90', 'k1_mma', 'k3_sm90', 'k3_mma',
-                              'k6_resident')}, by_shape
+                              'k6_resident', 'cm_sm90', 'cm_mma')}, by_shape
 
 
 def step_launches(config, mode: str, remat: str, batch: int,
@@ -4823,7 +4887,8 @@ def _evals(n: int, batch: int = 2, side: int = 64, config=SD14_UNET) -> dict:
                              ctx=(77, config.cross_attention_dim),
                              mode='off', pag=False, tcond=False, cache=None,
                              ip=None, added=None, config=config,
-                             settings=(None, None, None)))[0]
+                             settings=(None,) * len(
+                                 UNet2DCondition.SETTINGS)))[0]
     return {k: v * n for k, v in one.items()}
 
 
@@ -4840,8 +4905,8 @@ def run_sd_tools(runner, unet, vae, check: bool = True,
                                              bench_lcm, bench_serving,
                                              bench_tokenizer, bench_train,
                                              bench_vae, cfg_interval_exp,
-                                             deepcache_exp, param_dtype_exp,
-                                             tome_exp)
+                                             cmajor_exp, deepcache_exp,
+                                             param_dtype_exp, tome_exp)
     dev = torch.device(device)
     size = side * runner.pipe.vae_scale
     out = [run_tool(
@@ -4884,6 +4949,8 @@ def run_sd_tools(runner, unet, vae, check: bool = True,
     out.append(run_tool('cfg_interval_exp', lambda: cfg_interval_exp.measure(
         unet, vae, steps=steps, side=side, reps=reps), [unet],
         check=check))
+    out.append(run_tool('cmajor_exp', lambda: cmajor_exp.run(
+        unet, steps=steps, side=side, reps=reps), [unet], check=check))
     for scale in (1, 2):
         out.append(run_tool(
             f'tome_exp {size * scale}²', lambda scale=scale: tome_exp.measure(
@@ -4988,6 +5055,204 @@ def run_sdxl_tools(runner, root: str, size: int = SDXL_SIZE,
                              'embeddings')
     return out + [rec]
 
+# The channel-major interior (the twenty-first slice), step 24.
+STEP24_SEED = SEED + 24
+# K1's [D, S] entries, held and timed at the main shapes and SDXL's 64-wide
+# heads in bf16 on their Hopper path, and in fp32 on the kept path.
+CM_SHAPES = [(2, 8, 4096, 40), (2, 8, 1024, 80), (2, 10, 4096, 64)]
+CM_FP32_SHAPE = (1, 8, 4096, 40)
+# [B, H, S, D] to each entry's layout and back.
+TO_DS = {'tt': lambda x: x.transpose(-1, -2).contiguous(),
+         'cm': lambda x: x.permute(1, 3, 0, 2).contiguous()}
+FROM_DS = {'tt': lambda x: x.transpose(-1, -2),
+           'cm': lambda x: x.permute(2, 0, 3, 1)}
+DS_ENTRIES = {'tt': fa.flash_attention_tt, 'cm': fa.flash_attention_cm}
+DS_TWINS = {'tt': fa.plain_attention_tt, 'cm': fa.plain_attention_cm}
+# One CFG evaluation's K1, channel-major and K6 launches by the module tree
+# (cm_tree_launches), by (family, channel_major, DeepCache mode): SD-1.4 at
+# 512² sends its 10 self-attentions (4096 and 1024 tokens, both at least
+# cm_min_seq 1024) to the cm entry, 5 under 'use'; SDXL base at 1024²
+# (cm_min_seq 4096) the 10 at 4096 tokens, and the 60 at 1024 to K1. The
+# flag left at None keeps every count as before.
+CM_TREE = {('sd14', True, 'off'): dict(cm=10, k1=0, k6=61),
+           ('sd14', True, 'use'): dict(cm=5, k1=0, k6=16),
+           ('sd14', None, 'off'): dict(cm=0, k1=10, k6=61),
+           ('sdxl', True, 'off'): dict(cm=10, k1=60, k6=46),
+           ('sdxl', None, 'off'): dict(cm=0, k1=70, k6=46)}
+CM_PER_UNET = 10
+
+
+def cm_tree_launches(family: str, channel_major, mode: str = 'off') -> dict:
+    """:func:`tree_launches` of one CFG evaluation (batch 2) of the SD-1.4
+    UNet at 512² or the SDXL base at 1024² (with ``added_cond``) built
+    with ``channel_major``, on the meta device; ``mode`` 'use' a DeepCache
+    shallow evaluation on the cache a 'save' one leaves."""
+    config, side = (SD14_UNET, 64) if family == 'sd14' else (SDXL_UNET, 128)
+    settings = dict.fromkeys(UNet2DCondition.SETTINGS)
+    settings['channel_major'] = channel_major
+    unet = _meta_model(UNet2DCondition, config, tuple(settings.values()))
+    meta = lambda *shape: torch.empty(shape, device='meta', dtype=BF16)
+    args = (meta(2, side, side, 4), meta(2),
+            meta(2, 77, config.cross_attention_dim))
+    kw = {}
+    if config.addition_embed:
+        kw['added_cond'] = {'text_embeds': meta(2, config.addition_pooled_dim),
+                            'time_ids': meta(2, config.num_time_ids)}
+    if mode == 'use':
+        with torch.no_grad():
+            _, cache = unet(*args, cache_mode='save', **kw)
+        kw.update(cache_mode='use', deep_cache=cache)
+    return tree_launches(lambda: unet(*args, **kw))[0]
+
+
+def check_ds_kernel(layout: str, shape, dtype: torch.dtype,
+                    gen: torch.Generator, timed: bool) -> dict:
+    """K1's transposed ('tt', ``[B,H,D,S]``) or channel-major ('cm',
+    ``[H,D,B,S]``) entry against the fp32 plain attention on the same
+    inputs by :func:`within_rule`, with no flipped element, on the path
+    ``fa.plan_ds`` picks ('sm90' for 16-bit inputs, 'mma' for fp32); the
+    plain version on the 16-bit inputs (fp32 ones rounded to bf16, as the
+    kept kernel stages them). Timed: the planned path and the kept kernel
+    forced (interleaved), the twin on the same ``[D, S]`` operands, K1 and
+    SDPA on contiguous ``[B,H,S,D]`` copies and SDPA on the permuted views
+    of the ``[D, S]`` operands, all but the twin replayed from a CUDA
+    graph; the bound is K1's (the same work)."""
+    b, h, s, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+               for _ in range(3))
+    scale = d**-0.5
+    fn, twin = DS_ENTRIES[layout], DS_TWINS[layout]
+    args = [TO_DS[layout](x) for x in (q, k, v)]
+    out = fn(*args, scale)
+    torch.cuda.synchronize()
+    p16 = dtype if dtype in fa.DTYPES16 else BF16
+    ref = fa.plain_attention(q.float(), k.float(), v.float(), scale)
+    plain = fa.plain_attention(q.to(p16), k.to(p16), v.to(p16), scale)
+    got = FROM_DS[layout](out)
+    err = (got.float() - ref).abs().max().item()
+    plain_err = (plain.float() - ref).abs().max().item()
+    tol = 2.0 * plain_err + 1e-3 * ref.abs().max().item()
+    ok, flipped = within_rule(got, ref, tol)
+    del ref, plain, got
+    how = fa.plan_ds(*args, out, layout=layout)
+    want = 'sm90' if dtype in fa.DTYPES16 else 'mma'
+    res = dict(layout=layout, shape=list(shape), dtype=str(dtype)[6:],
+               path=how.path, block_q=how.block_q, parts=how.parts,
+               max_abs_err=err, plain_max_abs_err=plain_err, tol=tol,
+               flipped=flipped,
+               ok=ok and flipped == 0 and how.path == want)
+    if timed:
+        call = lambda path=None: fn(*args, scale, path=path)
+        if how.path == 'sm90':
+            res['ms'], res['kept_ms'] = time_pair(call, lambda: call('mma'))
+        else:
+            res['ms'] = time_ms(call, graph=True)
+        res['plain_ms'] = time_ms(lambda: twin(*args, scale))
+        res['k1_ms'] = time_ms(lambda: fa.flash_attention(q, k, v, scale),
+                               graph=True)
+        res['library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), graph=True)
+        views = [FROM_DS[layout](x) for x in args]
+        res['library_views_ms'] = time_ms(
+            lambda: F.scaled_dot_product_attention(*views, scale=scale),
+            graph=True)
+        res['bound_ms'], res['bound_by'] = attention_bound(
+            'k1', b, h, s, s, d, q.element_size())
+    return res
+
+
+def _cm_run(label: str, runner, kw: dict, evals: list) -> tuple:
+    """One step-24 ``runner.gen(**kw)`` with the counts at 0, held by
+    :func:`verify_run` (the module tree's launches); its record and its
+    image as floats in [0, 1]."""
+    logs = _observe(runner)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        images, _ = runner.gen(**kw)
+    finally:
+        for log in logs:
+            log.remove()
+    rec = verify_run(label, logs, images, time.perf_counter() - t0,
+                     runner.pipe.vae.config, evals, [(64, 1)], 512, step=24)
+    return rec, np.asarray(images[0], np.float32) / 255.0
+
+
+def run_cm_phase(text, vision, unet, vae) -> dict:
+    """Step 24 (module docstring): the [D, S] entries against their twins,
+    a refused launch, the module tree's counts, then the channel-major
+    512² txt2img against the standard one on the same noise."""
+    gen = torch.Generator('cuda').manual_seed(STEP24_SEED)
+    res = [check_ds_kernel(layout, shape, BF16, gen, True)
+           for shape in CM_SHAPES for layout in ('tt', 'cm')]
+    res += [check_ds_kernel(layout, CM_FP32_SHAPE, torch.float32, gen,
+                            True) for layout in ('tt', 'cm')]
+    for r in res:
+        print('step 24', json.dumps(r), flush=True)
+    for r in res:
+        print(f'step 24 {r["layout"]} {tuple(r["shape"])} {r["dtype"]} on '
+              f'{r["path"]} ({r["block_q"]} q rows, parts {r["parts"]}): '
+              f'{r["ms"]:.4f} ms'
+              + (f' (kept {r["kept_ms"]:.4f})' if 'kept_ms' in r else '') +
+              f', twin {r["plain_ms"]:.3f}, K1 {r["k1_ms"]:.4f}, SDPA '
+              f'{r["library_ms"]:.4f} (on the views '
+              f'{r["library_views_ms"]:.4f}), bound {r["bound_ms"]:.5f} '
+              f'({r["bound_by"]}); max|Δ| {r["max_abs_err"]:.3e} of '
+              f'{r["tol"]:.3e}', flush=True)
+    bad = [(r['layout'], r['shape'], r['dtype']) for r in res if not r['ok']]
+    if bad:
+        raise AssertionError(f'step 24: K1 over [D, S] disagrees with plain '
+                             f'attention (or flipped, or left its planned '
+                             f'path) at {bad}')
+    x = torch.randn((8, 40, 2, 1024), generator=gen, device='cuda')
+    before = counts()
+    try:
+        fa.flash_attention_cm(x, x, x, 0.1, path='sm90')
+        raise AssertionError('step 24: an fp32 launch forced onto sm90 ran')
+    except ValueError:
+        pass
+    if counts() != before:
+        raise AssertionError('step 24: a refused launch was counted')
+    tree = {key: {k: cm_tree_launches(*key)[k] for k in ('cm', 'k1', 'k6')}
+            for key in CM_TREE}
+    print(f'step 24 module-tree launches per CFG evaluation: {tree}',
+          flush=True)
+    if tree != CM_TREE:
+        raise AssertionError(f'step 24: the module tree implies {tree}, '
+                             f'not CM_TREE')
+    tok = FakeTokenizer(CLIP_VIT_L14_TEXT.vocab_size)
+    common = dict(prompt=PROMPT, guide=synthetic_image(512, SEED), steps=25,
+                  guidance_scale=8, samples=1, seed=SEED, save=False,
+                  init_size=(512, 512))
+    length = schedulers.make('pndm', 25).length
+    evals = [(2, 64, 'off', False)] * length
+    std_runner = Runner.from_models(text, vision, unet, vae, tok)
+    cm_runner = Runner.from_models(
+        text, vision, unet.with_settings(channel_major=True), vae, tok)
+    cm, cm_img = _cm_run('channel-major txt2img', cm_runner, common, evals)
+    std, std_img = _cm_run('standard txt2img', std_runner, common, evals)
+    per_eval = {k: cm['launches'][k] / length for k in ('cm', 'k1')}
+    if per_eval != dict(cm=CM_PER_UNET, k1=0):
+        raise AssertionError(f'step 24: per channel-major evaluation '
+                             f'{per_eval}')
+    images, _ = _run_plain(lambda: std_runner.gen(**common))
+    plain_img = np.asarray(images[0], np.float32) / 255.0
+    kp = float(np.abs(std_img - plain_img).max())
+    ok, dmax, tol, flipped = _images_rule(cm_img, std_img, kp)
+    line = dict(cm_e2e_s=cm['e2e_s'], standard_e2e_s=std['e2e_s'],
+                max_abs_vs_standard=dmax, tol=tol, flipped=flipped,
+                standard_vs_plain=kp, card=card_line())
+    print(f'step 24 channel-major image against the standard one: '
+          f'{json.dumps(line)}', flush=True)
+    if not ok:
+        raise AssertionError(f'step 24: the channel-major image differs '
+                             f'from the standard one by {dmax} > {tol}')
+    return dict(kernels=res, launches={k: cm['launches'][k] +
+                                       std['launches'][k]
+                                       for k in cm['launches']})
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description='Smoke test of the PyTorch '
@@ -4998,7 +5263,8 @@ def main() -> int:
                     'STEPS full fine-tuning steps')
     ap.add_argument('--profile-gen', type=int, default=0, metavar='STEPS',
                     help='instead of the smoke test, profile STEPS 512² UNet '
-                    'evaluations with K6 and with the plain GroupNorm')
+                    'evaluations with K6, with the plain GroupNorm and in '
+                    'the channel-major orientation')
     ap.add_argument('--family', default='sd1', choices=('sd1', 'sdxl'),
                     help='--profile-gen: SD-1.4 at 512² or the SDXL base '
                     'at 1024²')
@@ -5102,6 +5368,12 @@ def main() -> int:
     runs = run_generate_phases(text, vision, unet, vae)
     gen_launches = {k: sum(r['launches'][k] for r in runs)
                     for k in runs[0]['launches']}
+
+    # The channel-major interior (step 24).
+    t0 = time.perf_counter()
+    cm_phase = run_cm_phase(text, vision, unet, vae)
+    print(f'channel-major phase (step 24): {time.perf_counter() - t0:.1f} s',
+          flush=True)
 
     # The sampling features (step 17): K1 and K6 at their new shapes, then
     # every run.
@@ -5303,6 +5575,7 @@ def main() -> int:
                 conditioning['launches'][k] + sdxl['launches'][k] +
                 sdxl_train['launches'][k] + ti['launches'][k] +
                 parallel['launches'][k] + harness['launches'][k] +
+                cm_phase['launches'][k] +
                 sum(t['launches'][k] for t in tools23)
                 for k in gen_launches}
     del ds
@@ -5422,6 +5695,34 @@ def main() -> int:
                                     'library_ms', 'bound_ms', 'host_us')
             if key in r}) for r in gn_res if 'ms' in r]))
     kernels += t_kernel_entries(var_res, tools)
+    # K1's [D, S] entries: the channel-major one on the main path (step 24's
+    # runs, step 23's cmajor_exp), the transposed one in step 15's flash_tt;
+    # the times at (2,8,4096,40), and at every timed shape by_shape.
+    ds_launches = dict(tt={k: tools['launches'][k]
+                           for k in ('tt', 'tt_sm90', 'tt_mma')},
+                       cm={k: launches[k] for k in ('cm', 'cm_sm90',
+                                                    'cm_mma')})
+    for layout, line in (('tt', 202), ('cm', 260)):
+        rows = [r for r in cm_phase['kernels'] if r['layout'] == layout]
+        main_ds, got = rows[0], ds_launches[layout]
+        if not got[layout]:
+            raise AssertionError(f'flash_attention_{layout} was launched no '
+                                 f'time on the main path')
+        kernels.append(dict(
+            name=f'flash_attention_{layout}', route='cuda',
+            source='flexdiffuse_tpu_torch/csrc/flash_variants_sm90.cu',
+            kept_source='flexdiffuse_tpu_torch/csrc/flash_attention.cu',
+            replaces=f'flexdiffuse_tpu/ops/flash_attention.py:{line}',
+            launches=got[layout],
+            path_launches={p: got[f'{layout}_{p}'] for p in fa.PATHS},
+            max_abs_err=max(r['max_abs_err'] for r in rows),
+            **{key: main_ds[key] for key in (
+                'ms', 'kept_ms', 'plain_ms', 'bound_ms', 'bound_by',
+                'library_ms', 'library_views_ms', 'k1_ms')},
+            by_shape=[{key: r[key] for key in (
+                'shape', 'dtype', 'path', 'parts', 'ms', 'kept_ms',
+                'plain_ms', 'k1_ms', 'library_ms', 'library_views_ms',
+                'bound_ms') if key in r} for r in rows]))
     print(f'LoRA check max|Δg|/max|g| {lora_rel:.3e}; train_lora '
           f'{lora["median_step_ms"]:.1f} ms/step, train_full '
           f'{full["median_step_ms"]:.1f} ms/step')

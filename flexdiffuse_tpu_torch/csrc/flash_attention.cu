@@ -71,7 +71,12 @@
 // are staged, and P to bf16 before P·V: the operand precision at which the
 // TPU's matrix unit multiplies fp32 at default precision, which is what the
 // reference's Pallas kernel computes there. Scores, softmax, accumulators,
-// lse and the fp32 output stay fp32.
+// lse and the fp32 output stay fp32. Instantiated with kDS it is also the
+// kept path of K1's transposed and channel-major entries
+// (ops/flash_attention.py::flash_attention_tt and ::flash_attention_cm,
+// entry flash_attention_fwd_ds; their Hopper path is T4's [D, S] kernel in
+// flash_variants_sm90.cu): the same arithmetic, its tiles staged from and
+// its output stored to [D, S] planes of one or B runs of S columns.
 
 #include <type_traits>
 #include <utility>
@@ -92,15 +97,45 @@
 #if BUILD_PART == 0
 namespace {
 
+// Rows [r0, r0 + 64) of a [D, S] operand (element (s, c) at src[c·ld + s])
+// into a tile laid out as load_tile's, rows >= `rows` and columns >= d
+// zero. Consecutive threads read consecutive s; fp32 is rounded to T.
+template <typename T, int DP, typename TI>
+__device__ __forceinline__ void load_tile_ds(T* dst, const TI* src, int r0,
+                                             int rows, int d, size_t ld) {
+  constexpr int kStride = DP + kPad;
+  for (int i = threadIdx.x; i < kBlockN * DP; i += kThreads) {
+    const int r = i % kBlockN;
+    const int c = i / kBlockN;
+    const int gr = r0 + r;
+    T x = Ops<T>::cast(0.f);
+    if (gr < rows && c < d) {
+      if constexpr (std::is_same_v<TI, float>) {
+        x = Ops<T>::cast(src[(size_t)c * ld + gr]);
+      } else {
+        x = src[(size_t)c * ld + gr];
+      }
+    }
+    dst[r * kStride + c] = x;
+  }
+}
+
 // T: the 16-bit type of the shared tiles and the products; TI: the type of
-// q, k, v and o (T, or float).
-template <typename T, int DP, bool kLse, typename TI>
+// q, k, v and o (T, or float). kDS: q, k, v and o are [D, S] planes (the
+// transposed and channel-major entries, ops/flash_attention.py::
+// flash_attention_tt and ::flash_attention_cm), each plane `batches` runs
+// of sq q (o) columns and of skv K/V columns; a block's 64 q rows lie in
+// one run (sq % 64 == 0 where batches > 1) and read that run's K/V. The
+// arithmetic is the [S, D] kernel's; only the staging and the store walk
+// the other layout.
+template <typename T, int DP, bool kLse, typename TI, bool kDS>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                      const TI* __restrict__ v, TI* __restrict__ o,
                      float* __restrict__ lse, int sq, int skv, int d,
-                     float scale_log2, int vec) {
+                     float scale_log2, int vec, int batches) {
   static_assert(DP % 16 == 0 && DP <= 128, "head dim tile");
+  static_assert(!(kDS && kLse), "no lse over [D, S]");
   static_assert(kBlockM == kBlockN, "load_tile stages 64-row tiles");
   constexpr int kStride = DP + kPad;
   constexpr int kKSteps = DP / 16;       // k-steps of Q·Kᵀ over d
@@ -118,14 +153,29 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2;   // fragment row within 8
   const int tq = lane & 3;   // thread within quad
   const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
+  const int run = kDS ? blockIdx.x * kBlockM / sq : 0;
+  const int q0 = blockIdx.x * kBlockM - run * sq;
 
-  const TI* qb = q + bh * sq * d;
-  const TI* kb = k + bh * skv * d;
-  const TI* vb = v + bh * skv * d;
-  TI* ob = o + bh * sq * d;
+  // Over [D, S] a plane is d rows of ld columns, and this block's run
+  // starts at column run·sq (q, o) or run·skv (k, v).
+  const size_t ldq = (size_t)batches * sq, ldk = (size_t)batches * skv;
+  const TI* qb = q + bh * ldq * d + (kDS ? (size_t)run * sq : 0);
+  const TI* kb = k + bh * ldk * d + (kDS ? (size_t)run * skv : 0);
+  const TI* vb = v + bh * ldk * d + (kDS ? (size_t)run * skv : 0);
+  TI* ob = o + bh * ldq * d + (kDS ? (size_t)run * sq : 0);
+  auto stage = [&](T* dst, const TI* src, int r0, int rows, size_t ld) {
+    if constexpr (kDS) {
+      load_tile_ds<T, DP>(dst, src, r0, rows, d, ld);
+    } else {
+      load_tile<T, DP>(dst, src, r0, rows, d, vec != 0);
+    }
+  };
+  // Element (row, col) of this run's output.
+  auto at = [&](int row, int col) -> size_t {
+    return kDS ? (size_t)col * ldq + row : (size_t)row * d + col;
+  };
 
-  load_tile<T, DP>(sQ, qb, q0, sq, d, vec != 0);
+  stage(sQ, qb, q0, sq, ldq);
   __syncthreads();
 
   // A fragments of this warp's 16 q rows, held for the whole kv loop.
@@ -154,8 +204,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, DP>(sK, kb, k0, skv, d, vec != 0);
-    load_tile<T, DP>(sV, vb, k0, skv, d, vec != 0);
+    stage(sK, kb, k0, skv, ldk);
+    stage(sV, vb, k0, skv, ldk);
     __syncthreads();
 
     // S = Q·Kᵀ for 16 x 64 scores per warp.
@@ -252,42 +302,43 @@ __global__ void __launch_bounds__(kThreads)
   for (int dt = 0; dt < kDTiles; ++dt) {
     const int col = dt * 8 + tq * 2;
     if (row0 < sq) {
-      if (col < d) ob[(size_t)row0 * d + col] = to_out<T, TI>(oacc[dt][0] * inv[0]);
-      if (col + 1 < d) ob[(size_t)row0 * d + col + 1] = to_out<T, TI>(oacc[dt][1] * inv[0]);
+      if (col < d) ob[at(row0, col)] = to_out<T, TI>(oacc[dt][0] * inv[0]);
+      if (col + 1 < d) ob[at(row0, col + 1)] = to_out<T, TI>(oacc[dt][1] * inv[0]);
     }
     if (row1 < sq) {
-      if (col < d) ob[(size_t)row1 * d + col] = to_out<T, TI>(oacc[dt][2] * inv[1]);
-      if (col + 1 < d) ob[(size_t)row1 * d + col + 1] = to_out<T, TI>(oacc[dt][3] * inv[1]);
+      if (col < d) ob[at(row1, col)] = to_out<T, TI>(oacc[dt][2] * inv[1]);
+      if (col + 1 < d) ob[at(row1, col + 1)] = to_out<T, TI>(oacc[dt][3] * inv[1]);
     }
   }
 }
 
-template <typename T, int DP, bool kLse, typename TI>
+template <typename T, int DP, bool kLse, typename TI, bool kDS>
 int launch_dp(const void* q, const void* k, const void* v, void* o,
               float* lse, int batch_heads, int sq, int skv, int d,
-              float scale, int vec, cudaStream_t stream) {
+              float scale, int vec, int batches, cudaStream_t stream) {
   const int smem = (kBlockM + 2 * kBlockN) * (DP + kPad) * (int)sizeof(T);
   // Above 48 KB (DP = 128) dynamic shared memory needs the opt-in.
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP, kLse, TI>,
+      flash_fwd_kernel<T, DP, kLse, TI, kDS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch_heads);
-  flash_fwd_kernel<T, DP, kLse, TI><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((batches * sq + kBlockM - 1) / kBlockM, batch_heads);
+  flash_fwd_kernel<T, DP, kLse, TI, kDS><<<grid, kThreads, smem, stream>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<TI*>(o), lse, sq, skv, d,
-      scale * kLog2e, vec);
+      scale * kLog2e, vec, batches);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kLse, typename TI>
+template <typename T, bool kLse, typename TI, bool kDS>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch_heads, int sq, int skv, int d, float scale, int vec,
-           cudaStream_t stream) {
+           int batches, cudaStream_t stream) {
 #define FLASH_CASE(n) \
   case n / 16: \
-    return launch_dp<T, n, kLse, TI>(q, k, v, o, lse, batch_heads, sq, skv, \
-                                     d, scale, vec, stream);
+    return launch_dp<T, n, kLse, TI, kDS>(q, k, v, o, lse, batch_heads, sq, \
+                                          skv, d, scale, vec, batches, \
+                                          stream);
   switch ((d + 15) / 16) {
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64)
     FLASH_CASE(80) FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128)
@@ -296,26 +347,30 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 #undef FLASH_CASE
 }
 
-template <bool kLse>
+// kDS: [D, S] planes of `batches` runs each (batches > 1 needs sq % 64 ==
+// 0, so that no q tile straddles two runs).
+template <bool kLse, bool kDS = false>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* lse, int batch_heads, int sq, int skv, int d,
-             float scale, int dtype, int vec, void* stream) {
+             float scale, int dtype, int vec, void* stream,
+             int batches = 1) {
   if (batch_heads < 1 || batch_heads > 65535 || sq < 1 || skv < 1 || d < 1 ||
-      d > 128) {
+      d > 128 || batches < 1 || (batches > 1 && (!kDS || sq % kBlockM))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<__nv_bfloat16, kLse, __nv_bfloat16>(
-        q, k, v, o, lse, batch_heads, sq, skv, d, scale, vec, s);
+    return launch<__nv_bfloat16, kLse, __nv_bfloat16, kDS>(
+        q, k, v, o, lse, batch_heads, sq, skv, d, scale, vec, batches, s);
   }
   if (dtype == 1) {
-    return launch<__half, kLse, __half>(q, k, v, o, lse, batch_heads, sq,
-                                        skv, d, scale, vec, s);
+    return launch<__half, kLse, __half, kDS>(q, k, v, o, lse, batch_heads,
+                                             sq, skv, d, scale, vec, batches,
+                                             s);
   }
   if (dtype == 2) {
-    return launch<__nv_bfloat16, kLse, float>(q, k, v, o, lse, batch_heads,
-                                              sq, skv, d, scale, vec, s);
+    return launch<__nv_bfloat16, kLse, float, kDS>(
+        q, k, v, o, lse, batch_heads, sq, skv, d, scale, vec, batches, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -804,6 +859,21 @@ extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
                                         void* stream) {
   return dispatch_sm90<false>(q, k, v, o, nullptr, batch_heads, sq, skv, d,
                               scale, dtype, stream);
+}
+
+// The kept kernel over [D, S] planes (the fp32 path, and every call the
+// Hopper [D, S] kernel of flash_variants_sm90.cu does not take, of
+// ops/flash_attention.py::flash_attention_tt and ::flash_attention_cm):
+// `planes` planes of d rows, each `batches` runs of sq q (o) columns and
+// skv K/V columns ([B, H, D, S]: B·H planes of one run; [H, D, B, S]: H
+// planes of B runs, sq % 64 == 0 where B > 1). dtype as
+// flash_attention_fwd's.
+extern "C" int flash_attention_fwd_ds(const void* q, const void* k,
+                                      const void* v, void* o, int planes,
+                                      int batches, int sq, int skv, int d,
+                                      float scale, int dtype, void* stream) {
+  return dispatch<false, true>(q, k, v, o, nullptr, planes, sq, skv, d,
+                               scale, dtype, 0, stream, batches);
 }
 
 extern "C" int flash_attention_fwd_lse_sm90(const void* q, const void* k,

@@ -160,6 +160,21 @@
 // MUFU.EX2.BF16), no-fold each 64-column tile's row sum rounded to the
 // 16-bit type. T5 is never split. Domain: T1's over [B, H, D, S], d <= 120
 // with the fold.
+//
+// K1 over [D, S] (flash_attention_ds_sm90): the Hopper path of
+// ops/flash_attention.py::flash_attention_tt and ::flash_attention_cm,
+// which replace the JAX package's flexdiffuse_tpu/ops/flash_attention.py::
+// flash_attention_tt (:202) and ::flash_attention_cm (:260), both running
+// _flash_tt_kernel (:126) under their own grids. It is T4's kernel (TtExp,
+// its tilings and kv split) with K1's arithmetic: q unscaled and p = 2^(s·c
+// − m·c), c = scale·log2 e in fp32. A plane's columns are runs of sq q (o)
+// and skv K/V columns: [B, H, D, S] is B·H planes of one run, [H, D, B, S]
+// (the channel-major UNet's layout) H planes of B runs, the trailing (B,
+// S) one axis of the tensor maps; a q tile (never across runs: sq is a
+// multiple of its 64·chains rows) reads its run's K/V, kv0 = run·skv
+// columns on, as the TPU kernel's index map picks the batch's K/V block.
+// So both layouts are the same instantiations, and the head split of the
+// channel-major interior reaches the kernel with no copy. Bound as T4.
 
 #include <type_traits>
 #include <utility>
@@ -1288,6 +1303,10 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg, F>::kThreads,
   const int g = (t % 32) / 4;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kRows * C;
+  // Over [D, S] a plane's columns are runs of sq q (o) and skv K/V columns
+  // (one run for T4/T5, B for the channel-major K1, flash_attention_ds_sm90):
+  // this block's q tile lies in run q0 / sq and reads that run's K/V.
+  const int kv0 = F::kDS ? q0 / sq * skv : 0;
   // The kv split: cluster rank blockIdx.z takes tiles [t0, t0 + n).
   const int rank = blockIdx.z;
   const int n_all = skv / N;
@@ -1307,8 +1326,8 @@ __global__ void __launch_bounds__(ChainsTiling<DP, Cfg, F>::kThreads,
     if constexpr (F::kDS) {
       if (lane < 2) {
         sm90::tma_load_3d(smem + (lane ? L::kV : L::kK) + s * L::kTile,
-                          lane ? &tm_v : &tm_k, &kv_full[s], (t0 + j) * N, 0,
-                          bh);
+                          lane ? &tm_v : &tm_k, &kv_full[s],
+                          kv0 + (t0 + j) * N, 0, bh);
       }
     } else if (lane < 2 * G::kSlabs) {
       const int sl = lane % G::kSlabs;
@@ -1652,11 +1671,13 @@ inline bool encode_ds_maps(CUtensorMap* tm_q, CUtensorMap* tm_k,
 
 // Chains kernel kind Kind (ChainKind): q scaled by round16(qscale), p =
 // 2^(s·c − m·c); the kv range split over a cluster of `parts` (1, 2 or 4)
-// blocks. T1/T6 take [B, H, S, D] tensors, T4/T5 [B, H, D, S] ones.
+// blocks. T1/T6 take [B, H, S, D] tensors, T4/T5 [B, H, D, S] ones; a
+// [D, S] kind also takes `batches` runs of sq (skv) columns a plane
+// ([H, D, B, S]: batch·heads = H planes of B runs).
 template <typename T, int DP, int Kind>
 int launch_chains(const void* q, const void* k, const void* v, void* o,
                   int batch, int heads, int sq, int skv, int d, float qscale,
-                  float c, int parts, cudaStream_t stream) {
+                  float c, int parts, int batches, cudaStream_t stream) {
   using F = typename ChainKind<Kind>::F;
   using L = ChainsTiling<DP, ChainKind<Kind>::kCfg, F>;
   using G = typename L::G;
@@ -1675,11 +1696,12 @@ int launch_chains(const void* q, const void* k, const void* v, void* o,
   // parts 1, 2 or 4, each part at least one tile, a split only where the
   // merge buffers fit.
   if (sq % block_q != 0 || (parts != 1 && parts != 2 && parts != 4) ||
-      (parts > 1 && !L::kSplit) || (parts - 1) * per >= n_all) {
+      (parts > 1 && !L::kSplit) || (parts - 1) * per >= n_all ||
+      batches < 1 || (batches > 1 && !L::kDS)) {
     return (int)cudaErrorInvalidValue;
   }
   if (L::kDS ? !encode_ds_maps(&tm_q, &tm_k, &tm_v, &tm_o, q, k, v, o, kBf16,
-                               batch * heads, sq, skv, d)
+                               batch * heads, batches * sq, batches * skv, d)
              : !encode_maps<T, DP, L::kN>(&tm_q, &tm_k, &tm_v, q, k, v,
                                           batch * heads, sq, skv, d, box)) {
     return (int)cudaErrorInvalidValue;
@@ -1694,7 +1716,7 @@ int launch_chains(const void* q, const void* k, const void* v, void* o,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = parts;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(sq / block_q, batch * heads, parts);
+  cfg.gridDim = dim3(batches * sq / block_q, batch * heads, parts);
   cfg.blockDim = dim3(L::kThreads);
   cfg.dynamicSmemBytes = L::kBytes;
   cfg.stream = stream;
@@ -1807,7 +1829,7 @@ using VariantLauncher = int (*)(const void*, const void*, const void*, void*,
                                 int, int, int, int, int, float, int,
                                 cudaStream_t);
 using ChainLauncher = int (*)(const void*, const void*, const void*, void*,
-                              int, int, int, int, int, float, float, int,
+                              int, int, int, int, int, float, float, int, int,
                               cudaStream_t);
 namespace flash_variants_sm90 {
 // [kernel: 0 T2, 1 T3][dtype][DP / 16 - 1] and [ChainKind][dtype][DP / 16 -
@@ -1905,7 +1927,7 @@ int run_chains(int kind, bool base2, const void* q, const void* k,
   const float qscale =
       base2 ? (float)((double)scale * 1.4426950408889634) : scale;
   return launch(q, k, v, o, batch, heads, sq, skv, d, qscale,
-                base2 ? 1.f : kLog2e, parts,
+                base2 ? 1.f : kLog2e, parts, 1,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -2023,5 +2045,30 @@ extern "C" int flash_ttv3_attn_sm90(const void* q, const void* k,
   return run_chains(kTtKinds + 3 * form + tiling, true, q, k, v, o, batch,
                     heads, sq, skv, d, scale, dtype, 1, sum_fold != 0,
                     stream);
+}
+
+// K1 over [D, S] planes (ops/flash_attention.py::flash_attention_tt and
+// ::flash_attention_cm, the Hopper path): T4's kernel (its `chains` tiling,
+// `parts` as T4's) with K1's arithmetic: q unscaled (round16(1) = 1) and
+// p = 2^(s·c − m·c), c = scale·log2 e in fp32, as K1's Hopper path forms
+// it. `planes` planes of d rows, each `batches` runs of sq q (o) columns
+// and of skv K/V columns: [B, H, D, S] is B·H planes of one run, [H, D, B,
+// S] H planes of B runs; a q tile reads its own run's K/V.
+extern "C" int flash_attention_ds_sm90(const void* q, const void* k,
+                                       const void* v, void* o, int planes,
+                                       int batches, int sq, int skv, int d,
+                                       float scale, int dtype, int chains,
+                                       int parts, void* stream) {
+  const int tiling = tt_tiling(chains);
+  if (tiling < 0 || dtype < 0 || dtype > 1 || planes < 1 ||
+      planes > 65535 || batches < 1 || sq < kRows || skv < kKv ||
+      sq % kRows != 0 || skv % kKv != 0 || d < 8 || d > 128 || d % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ChainLauncher launch = flash_variants_sm90::chain_launchers
+      [kTtKinds + tiling][dtype][(d + 15) / 16 - 1];
+  if (launch == nullptr) return (int)cudaErrorInvalidDeviceFunction;
+  return launch(q, k, v, o, planes, 1, sq, skv, d, 1.f, scale * kLog2e,
+                parts, batches, static_cast<cudaStream_t>(stream));
 }
 #endif  // BUILD_PART == 0

@@ -18,7 +18,7 @@ a diffusers snapshot loads by
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -81,12 +81,17 @@ class ControlNetModel(DownMid):
     ``latents`` are the 4 latent channels (the pipeline strips a 9- or
     8-channel UNet's extras); ``cond`` is the control image NHWC in [0, 1]
     at pixel resolution (``2^(len(cond_channels)-1)`` times the latent
-    grid: 8 for SD)."""
+    grid: 8 for SD). ``channel_major`` and ``approx_gelu``: as the UNet's
+    (``models/unet.py``; None: the standard orientation, the exact
+    gelu)."""
 
     def __init__(self, config: UNetConfig,
-                 cond_channels: Tuple[int, ...] = COND_EMBED_CHANNELS
-                 ) -> None:
+                 cond_channels: Tuple[int, ...] = COND_EMBED_CHANNELS,
+                 channel_major: Optional[bool] = None,
+                 approx_gelu: Optional[bool] = None) -> None:
         super().__init__()
+        self.channel_major = channel_major
+        self.approx_gelu = approx_gelu
         self.config = cfg = dataclasses.replace(config, ip_adapter=False,
                                                 time_cond_proj_dim=0)
         ch0 = cfg.block_channels[0]

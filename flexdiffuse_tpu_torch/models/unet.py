@@ -1,5 +1,5 @@
 """SD v1.x conditional UNet as ``nn.Module``s (port of
-``flexdiffuse_tpu/models/unet.py``, standard orientation only).
+``flexdiffuse_tpu/models/unet.py``).
 
 Parameter names are diffusers' ``UNet2DConditionModel`` names — the ones
 ``flexdiffuse_tpu/weights/convert.py::convert_unet`` reads — so a diffusers
@@ -49,12 +49,29 @@ level that does not split runs whole, as without SP; a Downsample into it
 takes the gathered rows, and the Upsample out of it gives the next
 level its rows.
 
-Left out here: the channel-major interiors (ROADMAP "do not port").
+The channel-major interiors (``channel_major=True``; JAX's ``DenseCM``,
+``Conv1x1CM``, ``LayerNormCM`` and the cm branches of its transformer
+modules): a ``Transformer2D`` over at least ``_cm_threshold(config.
+cm_min_seq)`` tokens keeps its activations ``[C, B·S]`` from ``proj_in``
+to ``proj_out``, so the head split ``[H, D, B, S]`` is a view and the
+self-attention reaches :func:`~flexdiffuse_tpu_torch.ops.attention.
+attention_cm` (``fa.flash_attention_cm`` on the card) with no copy of its
+operands. It is a second forward over the same ``nn.Linear``,
+``nn.Conv2d`` and ``nn.LayerNorm`` parameters (:func:`linear_cm`,
+:func:`conv1x1_to_cm`, :func:`conv1x1_from_cm`, :func:`layer_norm_cm`),
+so the state dict is the standard one. As in the JAX package the default
+(``None``) is the standard orientation off a TPU, so here always
+(:func:`resolve_channel_major`); ``approx_gelu`` (the GEGLU's tanh gelu)
+likewise (:func:`resolve_approx_gelu`). Under sequence parallelism the
+pipeline runs the standard orientation whatever the flag says
+(``pipeline/flex.py``).
 """
 from __future__ import annotations
 
 import copy
 import math
+import os
+from typing import Optional
 
 import torch
 from torch import nn
@@ -63,8 +80,88 @@ import torch.nn.functional as F
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
 from flexdiffuse_tpu_torch.ops import row_shard
 from flexdiffuse_tpu_torch.ops import tome as _tome
-from flexdiffuse_tpu_torch.ops.attention import attention
+from flexdiffuse_tpu_torch.ops.attention import attention, attention_cm
 from flexdiffuse_tpu_torch.ops.group_norm import group_norm
+
+
+# Channel-major interiors engage only on levels of at least
+# ``UNetConfig.cm_min_seq`` tokens (SD-1.x 1024, SDXL 4096); the
+# ``CM_MIN_SEQ`` environment variable overrides it (the JAX package's A/B
+# knob, tools/cmajor_exp.py).
+CM_MIN_SEQ = 1024
+
+
+def _cm_threshold(configured: int) -> int:
+    env = os.environ.get('CM_MIN_SEQ')
+    return int(env) if env else configured
+
+
+def resolve_channel_major(flag) -> bool:
+    """``None`` → False: the JAX package turns the channel-major interiors
+    on by default only on a TPU (``resolve_channel_major``); an explicit
+    flag is taken as given."""
+    return False if flag is None else bool(flag)
+
+
+def resolve_approx_gelu(flag, dtype: torch.dtype) -> bool:
+    """``None`` → False: the JAX package takes the tanh gelu by default
+    only for bf16 on a TPU (``resolve_approx_gelu``); an explicit flag is
+    taken as given, whatever ``dtype``."""
+    return False if flag is None else bool(flag)
+
+
+def linear_cm(x: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor = None) -> torch.Tensor:
+    """An ``nn.Linear``'s ``weight`` ``[out, in]`` and ``bias`` over
+    channel-major ``x`` ``[in, N]``: ``weight·x + bias[:, None]``, ``[out,
+    N]`` (JAX's ``DenseCM``)."""
+    if bias is None:
+        return torch.mm(weight, x)
+    return torch.addmm(bias[:, None], weight, x)
+
+
+def conv1x1_to_cm(rows: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A 1×1 ``conv`` as the channel-major entry (JAX's ``Conv1x1CM
+    (to_cm=True)``): rows ``[B·S, C_in]`` → ``[C_out, B·S]``, one product
+    over the rows' transpose."""
+    w = conv.weight.reshape(conv.out_channels, -1)
+    return torch.addmm(conv.bias[:, None], w, rows.t())
+
+
+def conv1x1_from_cm(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A 1×1 ``conv`` as the channel-major exit (JAX's ``Conv1x1CM
+    (to_cm=False)``): ``[C_in, B·S]`` → rows ``[B·S, C_out]``."""
+    w = conv.weight.reshape(conv.out_channels, -1)
+    return torch.addmm(conv.bias, x.t(), w.t())
+
+
+def layer_norm_cm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the C rows of channel-major ``x`` ``[C, N]`` with an
+    ``nn.LayerNorm``'s ``weight`` and ``bias`` (JAX's ``LayerNormCM``):
+    one-pass fp32 sums ``s1 = Σx`` and ``s2 = Σx²`` (x² in x's dtype, as the
+    JAX module squares before its fp32 dot), ``var = max(s2/c − mean², 0)``,
+    the normalised value cast to x's dtype, then the affine in it.
+    ``LNCM=xla`` takes the JAX package's other branch (flax's LayerNorm
+    over axis 0): a two-pass fp32 reduction over dim 0, the affine in fp32,
+    then the cast."""
+    if os.environ.get('LNCM') == 'xla':
+        x32 = x.float()
+        mean = x32.mean(0, keepdim=True)
+        var = (x32 - mean).square().mean(0, keepdim=True)
+        y = ((x32 - mean) * torch.rsqrt(var + eps) * weight.float()[:, None]
+             + bias.float()[:, None])
+        return y.to(x.dtype)
+    c = x.shape[0]
+    mean = x.float().sum(0, keepdim=True) / c
+    var = torch.clamp((x * x).float().sum(0, keepdim=True) / c - mean * mean,
+                      min=0.0)
+    y = (x.float() - mean) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * weight[:, None] + bias[:, None]
+
+
+def _ln_cm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return layer_norm_cm(x, norm.weight, norm.bias, norm.eps)
 
 
 class GroupNorm32(nn.GroupNorm):
@@ -267,16 +364,70 @@ class CrossAttention(nn.Module):
                               out)
         return self.to_out[0](out)
 
+    def forward_cm(self, x: torch.Tensor, context: torch.Tensor, b: int,
+                   pag_mask: torch.Tensor = None, ip=None) -> torch.Tensor:
+        """The channel-major forward (JAX's ``_call_cm``): ``x`` ``[C,
+        B·S]`` → ``[C, B·S]``; ``context`` stays ``[B, Skv, C_ctx]`` and is
+        turned once. The head split ``[H, D, B, S]`` is a view, which
+        :func:`~flexdiffuse_tpu_torch.ops.attention.attention_cm` takes as
+        it lies. ``pag_mask`` and ``ip`` as :meth:`forward`'s (the PAG row
+        selector repeated over each row's columns)."""
+        d = self.to_q.weight.shape[0]
+        h = self.num_heads
+        hd = d // h
+
+        def cols(t):   # [B, N, C] -> [C, B·N]
+            return t.to(x.device, x.dtype).permute(2, 0, 1).reshape(
+                t.shape[2], -1)
+
+        src = x if context is None else cols(context)
+        q = linear_cm(x, self.to_q.weight)
+        k = linear_cm(src, self.to_k.weight)
+        v = linear_cm(src, self.to_v.weight)
+        sq, skv = q.shape[1] // b, k.shape[1] // b
+        split = lambda t, s: t.reshape(h, hd, b, s)
+        qh = split(q, sq)
+        out = attention_cm(qh, split(k, skv), split(v, skv), scale=hd**-0.5)
+        if (ip is not None and context is not None
+                and hasattr(self, 'to_k_ip')):
+            ip_ctx, ip_scale = ip
+            src_ip = cols(ip_ctx)
+            n = ip_ctx.shape[1]
+            out_ip = attention_cm(
+                qh, split(linear_cm(src_ip, self.to_k_ip.weight), n),
+                split(linear_cm(src_ip, self.to_v_ip.weight), n),
+                scale=hd**-0.5)
+            out = out + torch.as_tensor(ip_scale, dtype=out.dtype,
+                                        device=out.device) * out_ip
+        out = out.reshape(d, b * sq)
+        if pag_mask is not None and context is None:
+            m = pag_mask.to(out.device).repeat_interleave(sq)
+            out = torch.where(m[None, :] > 0, v, out)
+        return linear_cm(out, self.to_out[0].weight, self.to_out[0].bias)
+
+
+def _gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
+    return F.gelu(x, approximate='tanh' if approx else 'none')
+
 
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int) -> None:
         super().__init__()
         self.proj = nn.Linear(dim, inner * 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # diffusers GEGLU: first half times exact-erf gelu of the second.
+    def forward(self, x: torch.Tensor,
+                approx_gelu: bool = False) -> torch.Tensor:
+        # diffusers GEGLU: first half times gelu of the second (exact erf,
+        # or tanh with ``approx_gelu``).
         val, gate = self.proj(x).chunk(2, dim=-1)
-        return val * F.gelu(gate)
+        return val * _gelu(gate, approx_gelu)
+
+    def forward_cm(self, x: torch.Tensor,
+                   approx_gelu: bool = False) -> torch.Tensor:
+        """Over channel-major ``x`` ``[C, N]``: the halves are row blocks."""
+        val, gate = linear_cm(x, self.proj.weight, self.proj.bias).chunk(
+            2, dim=0)
+        return val * _gelu(gate, approx_gelu)
 
 
 class FeedForwardGEGLU(nn.Module):
@@ -289,8 +440,15 @@ class FeedForwardGEGLU(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(),
                                   nn.Linear(inner, dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+    def forward(self, x: torch.Tensor,
+                approx_gelu: bool = False) -> torch.Tensor:
+        return self.net[2](self.net[0](x, approx_gelu))
+
+    def forward_cm(self, x: torch.Tensor,
+                   approx_gelu: bool = False) -> torch.Tensor:
+        out = self.net[2]
+        return linear_cm(self.net[0].forward_cm(x, approx_gelu), out.weight,
+                         out.bias)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -306,7 +464,8 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 tome_plan: _tome.TomePlan = None,
-                pag_mask: torch.Tensor = None, ip=None) -> torch.Tensor:
+                pag_mask: torch.Tensor = None, ip=None,
+                approx_gelu: bool = False) -> torch.Tensor:
         """With ``tome_plan`` the self-attention runs on the merged rows and
         its output is copied back; cross-attention and the MLP stay full
         length."""
@@ -317,17 +476,39 @@ class BasicTransformerBlock(nn.Module):
             x = x + _tome.unmerge(self.attn1(xa, pag_mask=pag_mask),
                                   tome_plan)
         x = x + self.attn2(self.norm2(x), context, ip=ip)
-        return x + self.ff(self.norm3(x))
+        return x + self.ff(self.norm3(x), approx_gelu)
+
+    def forward_cm(self, x: torch.Tensor, context: torch.Tensor, b: int,
+                   tome_plan: _tome.TomePlan = None,
+                   pag_mask: torch.Tensor = None, ip=None,
+                   approx_gelu: bool = False) -> torch.Tensor:
+        """:meth:`forward` over channel-major ``x`` ``[C, B·S]`` (the
+        LayerNorms by :func:`layer_norm_cm`, ToMe by ``merge_cm`` /
+        ``unmerge_cm``)."""
+        if tome_plan is None:
+            x = x + self.attn1.forward_cm(_ln_cm(self.norm1, x), None, b,
+                                          pag_mask)
+        else:
+            xa = _tome.merge_cm(_ln_cm(self.norm1, x), tome_plan, b)
+            x = x + _tome.unmerge_cm(
+                self.attn1.forward_cm(xa, None, b, pag_mask), tome_plan, b)
+        x = x + self.attn2.forward_cm(_ln_cm(self.norm2, x), context, b,
+                                      ip=ip)
+        return x + self.ff.forward_cm(_ln_cm(self.norm3, x), approx_gelu)
 
 
 class Transformer2D(nn.Module):
     """GN → proj_in (1×1) → transformer blocks over ``[B, H·W, C]`` →
-    proj_out (1×1) → + residual. NCHW in and out."""
+    proj_out (1×1) → + residual. NCHW in and out. With ``channel_major``
+    on a level of at least ``_cm_threshold(cm_min_seq)`` tokens the blocks
+    run over ``[C, B·S]`` instead (:meth:`_forward_cm`)."""
 
     def __init__(self, channels: int, num_heads: int, depth: int,
                  norm_groups: int, context_dim: int,
-                 ip_adapter: bool = False) -> None:
+                 ip_adapter: bool = False,
+                 cm_min_seq: int = CM_MIN_SEQ) -> None:
         super().__init__()
+        self.cm_min_seq = cm_min_seq
         self.norm = GroupNorm32(norm_groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
@@ -336,25 +517,54 @@ class Transformer2D(nn.Module):
             for _ in range(depth))
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor,
-                tome=None, pag_mask: torch.Tensor = None,
-                ip=None) -> torch.Tensor:
+    @staticmethod
+    def _tome_plan(tome, hh: int, ww: int, metric):
         """``tome``: ``(ratio, min_seq)``; a grid of at least ``min_seq``
         tokens merges before every self-attention, one plan shared by the
-        blocks (built from the hidden state after ``proj_in``)."""
+        blocks, built from ``metric()`` (the hidden state after
+        ``proj_in``, ``[B, S, C]``)."""
+        if tome is None:
+            return None
+        ratio, min_seq = tome
+        r = _tome.resolve_r(hh, ww, float(ratio))
+        if hh * ww < max(int(min_seq), 2) or r <= 0:
+            return None
+        return _tome.merge_plan(metric(), (hh, ww), r)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                tome=None, pag_mask: torch.Tensor = None,
+                ip=None, channel_major: bool = False,
+                approx_gelu: bool = False) -> torch.Tensor:
         b, c, hh, ww = x.shape
+        if channel_major and hh * ww >= _cm_threshold(self.cm_min_seq):
+            return self._forward_cm(x, context, tome, pag_mask, ip,
+                                    approx_gelu)
         h = self.proj_in(self.norm(x, self.proj_in.weight.dtype))
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
-        plan = None
-        if tome is not None:
-            ratio, min_seq = tome
-            r = _tome.resolve_r(hh, ww, float(ratio))
-            if hh * ww >= max(int(min_seq), 2) and r > 0:
-                plan = _tome.merge_plan(h, (hh, ww), r)
+        plan = self._tome_plan(tome, hh, ww, lambda: h)
         for block in self.transformer_blocks:
-            h = block(h, context, plan, pag_mask, ip)
+            h = block(h, context, plan, pag_mask, ip, approx_gelu)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.proj_out(h) + x
+
+    def _forward_cm(self, x: torch.Tensor, context: torch.Tensor, tome,
+                    pag_mask: torch.Tensor, ip,
+                    approx_gelu: bool) -> torch.Tensor:
+        """The channel-major interior (JAX's cm branch of
+        ``Transformer2D``): the normalised map's rows ``[B·S, C]`` (a view
+        of the channels-last activations) into ``[C, B·S]`` at ``proj_in``,
+        every block there, back to rows at ``proj_out``."""
+        b, c, hh, ww = x.shape
+        rows = self.norm(x, self.proj_in.weight.dtype).permute(
+            0, 2, 3, 1).reshape(b * hh * ww, c)
+        h = conv1x1_to_cm(rows, self.proj_in)
+        plan = self._tome_plan(tome, hh, ww,
+                               lambda: _tome.metric_from_cm(h, b))
+        for block in self.transformer_blocks:
+            h = block.forward_cm(h, context, b, plan, pag_mask, ip,
+                                 approx_gelu)
+        h = conv1x1_from_cm(h, self.proj_out)
+        return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
 
 
 class Downsample(nn.Module):
@@ -394,7 +604,8 @@ class _Level(nn.Module):
 
 def _transformer(cfg: UNetConfig, ch: int, depth: int) -> Transformer2D:
     return Transformer2D(ch, cfg.heads_for(ch), depth, cfg.norm_groups,
-                         cfg.cross_attention_dim, cfg.ip_adapter)
+                         cfg.cross_attention_dim, cfg.ip_adapter,
+                         cfg.cm_min_seq)
 
 
 class DownMid(nn.Module):
@@ -403,10 +614,14 @@ class DownMid(nn.Module):
     control branch (``models/controlnet.py``), as the JAX package shares
     ``run_down_mid``: one definition, one set of names. The sampling
     settings ``tome`` and ``pag_layers`` are read by :meth:`_attn` (None
-    on the control branch, which the JAX package never perturbs)."""
+    on the control branch, which the JAX package never perturbs), and so
+    are the orientation settings ``channel_major`` and ``approx_gelu``
+    (None: :func:`resolve_channel_major`, :func:`resolve_approx_gelu`)."""
 
     tome = None
     pag_layers = None
+    channel_major = None
+    approx_gelu = None
 
     def _build_time(self, cfg: UNetConfig, cond_dim: int = 0) -> int:
         """``time_embedding`` (with the LCM projection when ``cond_dim``)
@@ -480,7 +695,9 @@ class DownMid(nn.Module):
         return pag_mask if pag_selected(self.pag_layers, name) else None
 
     def _attn(self, attn, name: str, h, context, pag_mask, ip=None):
-        return attn(h, context, self.tome, self._pm(name, pag_mask), ip)
+        return attn(h, context, self.tome, self._pm(name, pag_mask), ip,
+                    resolve_channel_major(self.channel_major),
+                    resolve_approx_gelu(self.approx_gelu, h.dtype))
 
     def run_down(self, h, temb, context, levels: int, pag_mask=None,
                  ip=None, *, plan):
@@ -517,6 +734,11 @@ class DownMid(nn.Module):
 class UNet2DCondition(DownMid):
     """``(latents [B,H,W,C], t [B], context [B,T,D]) -> eps [B,H,W,4]``.
 
+    ``channel_major`` and ``approx_gelu`` (None: the standard orientation
+    and the exact gelu, :func:`resolve_channel_major`): the transformer
+    interiors' orientation and the GEGLU's gelu, plain attributes as the
+    sampling settings are.
+
     Sampling settings (None: off), read at every call:
 
     - ``freeu`` ``(b1, b2, s1, s2)``: amplify the first half of the
@@ -529,12 +751,19 @@ class UNet2DCondition(DownMid):
       rows that ``pag_mask`` selects.
     """
 
-    def __init__(self, config: UNetConfig) -> None:
+    # Every setting with_settings takes.
+    SETTINGS = ('freeu', 'tome', 'pag_layers', 'channel_major', 'approx_gelu')
+
+    def __init__(self, config: UNetConfig,
+                 channel_major: Optional[bool] = None,
+                 approx_gelu: Optional[bool] = None) -> None:
         super().__init__()
         self.config = cfg = config
         self.freeu = None
         self.tome = None
         self.pag_layers = None
+        self.channel_major = channel_major
+        self.approx_gelu = approx_gelu
         ch0 = cfg.block_channels[0]
         groups = cfg.norm_groups
         n = len(cfg.block_channels)
@@ -566,12 +795,16 @@ class UNet2DCondition(DownMid):
         self.conv_norm_out = GroupNorm32(groups, ch0, eps=1e-5, silu=True)
         self.conv_out = row_shard.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
+    def settings(self) -> dict:
+        """Every setting of :data:`SETTINGS`, by name."""
+        return {name: getattr(self, name) for name in self.SETTINGS}
+
     def with_settings(self, **settings) -> 'UNet2DCondition':
-        """A shallow copy with other sampling settings (``freeu``, ``tome``,
-        ``pag_layers``): it shares this module's submodules and weights."""
+        """A shallow copy with other settings (of :data:`SETTINGS`): it
+        shares this module's submodules and weights."""
         unet = copy.copy(self)
         for name, value in settings.items():
-            if name not in ('freeu', 'tome', 'pag_layers'):
+            if name not in self.SETTINGS:
                 raise TypeError(f'unknown UNet setting {name!r}')
             setattr(unet, name, value)
         return unet

@@ -30,6 +30,15 @@ also splits evenly over the ranks (``sq % n == 0``); here that holds by
 construction: a level runs sharded only when its rows split evenly
 (``ops/row_shard.py`` ``Plan``), so every rank holds ``sq / n`` tokens,
 and a level that does not runs whole, outside the context.
+
+Channel-major operands (:func:`attention_cm`, ``flexdiffuse_tpu/ops/
+attention.py:153-201``): ``[H, D, B, S]``, the layout of the channel-major
+transformer interiors (``models/unet.py``), by the same rule applied to
+``S`` and ``D``: eligible CUDA calls go to ``fa.flash_attention_cm`` or,
+under a gradient, to :class:`FlashAttentionCmFn`; the rest to
+``plain_attention_cm``. Under :func:`sp_context` the operands are permuted
+to the standard layout and take :func:`attention`, where the ring's rules
+live.
 """
 from __future__ import annotations
 
@@ -40,8 +49,11 @@ from typing import Optional, Sequence
 import torch
 
 from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
-                                                       plain_attention)
-from flexdiffuse_tpu_torch.ops.flash_backward import FlashAttentionFn
+                                                       flash_attention_cm,
+                                                       plain_attention,
+                                                       plain_attention_cm)
+from flexdiffuse_tpu_torch.ops.flash_backward import (FlashAttentionCmFn,
+                                                      FlashAttentionFn)
 
 FLASH_MIN_SEQ = 1024
 
@@ -139,6 +151,10 @@ def route(q_shape: Sequence[int], k_shape: Sequence[int], device_type: str,
     return 'flash'
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None,
               backend: Optional[str] = None) -> torch.Tensor:
@@ -162,8 +178,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = (gather(t, sp, -2) for t in (k, v))
     if route(q.shape, k.shape, q.device.type, backend) == 'flash':
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if _needs_grad(q, k, v):
             return FlashAttentionFn.apply(q, k, v, scale)
         return flash_attention(q, k, v, scale)
     return plain_attention(q, k, v, scale)
+
+
+def attention_cm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: Optional[float] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """Multi-head attention over channel-major operands, ``[H, D, B, Sq] ×
+    [H, D, B, Skv] → [H, D, B, Sq]``. :func:`route` on ``(Sq, D)`` and
+    ``(Skv, D)`` decides, as for :func:`attention`; ``backend`` overrides
+    the context-local setting for this call."""
+    if scale is None:
+        scale = q.shape[1]**-0.5
+    if _SP.get() is not None:
+        # SP pipelines run the standard orientation (pipeline/flex.py);
+        # a channel-major call here takes the standard path's rules.
+        std = attention(q.permute(2, 0, 3, 1), k.permute(2, 0, 3, 1),
+                        v.permute(2, 0, 3, 1), scale, backend)
+        return std.permute(1, 3, 0, 2)
+    if backend is None:
+        backend = _BACKEND.get()
+    else:
+        _validate(backend)
+    d = q.shape[1]
+    if route((q.shape[-1], d), (k.shape[-1], d), q.device.type,
+             backend) == 'flash':
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _needs_grad(q, k, v):
+            return FlashAttentionCmFn.apply(q, k, v, scale)
+        return flash_attention_cm(q, k, v, scale)
+    return plain_attention_cm(q, k, v, scale)

@@ -38,6 +38,23 @@ anything the kernel does not take; only a CPU tensor takes
 :func:`plain_attention`, the same math in plain PyTorch. Its output carries
 no gradient: ``ops/attention.py`` routes calls that need one to
 ``ops/flash_backward.FlashAttentionFn``.
+
+The transposed and channel-major entries, :func:`flash_attention_tt` over
+``[B, H, D, S]`` and :func:`flash_attention_cm` over ``[H, D, B, S]``
+(the JAX package's ``flash_attention_tt`` :202 and
+``flash_attention_cm`` :260, which run ``_flash_tt_kernel`` under their
+own grids), are K1 over ``[D, S]`` planes: a plane of d rows holds one run
+of S columns (tt: B·H planes) or B runs (cm: H planes, the trailing
+``(B, S)`` flattened), and a q tile reads its own run's K/V. Both layouts
+are one kernel with two stride sets, on two paths that :func:`plan_ds`
+picks before the launch: 'sm90', T4's Hopper chains kernel over ``[D, S]``
+(``csrc/flash_variants_sm90.cu``, entry ``flash_attention_ds_sm90``: TMA
+boxes of 64 columns by d rows, wgmma with both operands MN-major for S and
+V K-major for P·V, the output staged transposed and stored by TMA) with
+K1's arithmetic (q unscaled, ``p = 2^(s·c − m·c)``, ``c = scale·log2 e``);
+and 'mma', K1's kept mma.sync kernel staging the ``[D, S]`` tiles
+(``flash_attention_fwd_ds``; fp32, d % 8 != 0, misaligned tensors). Their
+plain twins are :func:`plain_attention_tt` and :func:`plain_attention_cm`.
 """
 from __future__ import annotations
 
@@ -85,6 +102,26 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
+
+
+def plain_attention_tt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """:func:`plain_attention` over transposed operands, ``[B, H, D, Sq] ×
+    [B, H, D, Skv] → [B, H, D, Sq]``: fp32 logits and softmax, the
+    probabilities cast to q's dtype, then P·V."""
+    logits = torch.einsum('bhdq,bhdk->bhqk', q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum('bhqk,bhdk->bhdq', probs, v)
+
+
+def plain_attention_cm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """:func:`plain_attention` over channel-major operands, ``[H, D, B, Sq]
+    × [H, D, B, Skv] → [H, D, B, Sq]``; mirrors ``xla_attention_cm``
+    (flexdiffuse_tpu/ops/attention.py:153)."""
+    logits = torch.einsum('hdbq,hdbk->hbqk', q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum('hbqk,hdbk->hdbq', probs, v)
 
 
 def plain_split_attention(q: torch.Tensor, k: torch.Tensor,
@@ -204,6 +241,9 @@ SIGNATURES = {
                                  _P),
     'flash_attention_fwd_lse_sm90': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                      _I, _P),
+    # (q, k, v, o, planes, batches, sq, skv, d, scale, dtype, stream)
+    'flash_attention_fwd_ds': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                               _P),
 }
 # The entry point of each path: (without lse, with lse).
 ENTRIES = {'sm90': ('flash_attention_fwd_sm90',
@@ -435,3 +475,158 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.path_launches = dict.fromkeys(FWD_PATHS, 0)
+
+
+# The transposed ('tt', [B, H, D, S]) and channel-major ('cm', [H, D, B,
+# S]) entries: their layouts and twins. Both sequences must be multiples of
+# DS_SEQ_MULTIPLE (attention_cm's rule; a q tile then never straddles two
+# runs of a channel-major plane).
+LAYOUTS = {'tt': '[B,H,D,S]', 'cm': '[H,D,B,S]'}
+DS_SEQ_MULTIPLE = 128
+
+
+def ds_geometry(q: torch.Tensor, k: torch.Tensor, layout: str) -> tuple:
+    """``(planes, batches, d, sq, skv)`` of a call in ``layout``: tt's
+    B·H planes of one run of S columns, cm's H planes of B runs."""
+    if layout == 'tt':
+        b, h, d, sq = q.shape
+        return b * h, 1, d, sq, k.shape[3]
+    h, d, b, sq = q.shape
+    return h, b, d, sq, k.shape[3]
+
+
+def check_ds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             layout: str) -> None:
+    """Raises on what the [D, S] kernels do not take: CUDA tensors of one
+    device and dtype (bf16, fp16, fp32), q ``[B, H, D, Sq]`` (tt) or ``[H,
+    D, B, Sq]`` (cm), k and v of q's leading dims with Skv columns, D <=
+    MAX_HEAD_DIM, both sequences multiples of DS_SEQ_MULTIPLE, contiguous."""
+    name = f'flash_attention_{layout}'
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f'{name}: q, k and v must all be CUDA tensors (or '
+                         'all CPU tensors)')
+    if not (q.device == k.device == v.device):
+        raise ValueError(f'{name}: q, k, v on different devices')
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f'{name} takes bf16, fp16 or fp32 q/k/v of one '
+                         f'dtype, got {q.dtype}/{k.dtype}/{v.dtype}')
+    if (q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or
+            q.shape[:3] != k.shape[:3]):
+        raise ValueError(f'{name} takes q {LAYOUTS[layout]} and k, v of its '
+                         f'leading dims, got {tuple(q.shape)}, '
+                         f'{tuple(k.shape)}, {tuple(v.shape)}')
+    planes, _, d, sq, skv = ds_geometry(q, k, layout)
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f'{name}: head dim {d} not in [1, {MAX_HEAD_DIM}]')
+    if sq % DS_SEQ_MULTIPLE or skv % DS_SEQ_MULTIPLE or not sq or not skv:
+        raise ValueError(f'{name}: sequences ({sq}, {skv}) must be positive '
+                         f'multiples of {DS_SEQ_MULTIPLE}')
+    if planes > 65535:
+        raise ValueError(f'{name}: {planes} planes, at most 65535')
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f'{name} takes contiguous q, k, v')
+
+
+def plan_ds(q: torch.Tensor, k: torch.Tensor, *tensors: torch.Tensor,
+            layout: str, path: Optional[str] = None) -> Plan:
+    """The path and tiling of a :func:`flash_attention_tt` (``layout``
+    'tt') or :func:`flash_attention_cm` ('cm') call, from the dtype, the
+    shape and the alignment of q, k and ``tensors`` (v, the output) alone:
+    'sm90' (T4's chains kernel over [D, S]: ``flash_variants.tt_chains``
+    consumer warpgroups of 64 q rows sharing a ring of K/V tiles of 64
+    columns, the kv split of ``flash_variants.chains_parts`` where the card
+    has room) for bf16 or fp16, D % 8 == 0 and 16-byte aligned tensors;
+    the kept 'mma' (one 4-warp block per 64 q rows) for everything else.
+    ``path`` forces one (a path raises where it cannot go). The grid is
+    (q tiles over every run, planes)."""
+    from flexdiffuse_tpu_torch.ops import flash_variants as fv
+    if path not in (None, *PATHS):
+        raise ValueError(f'flash_attention_{layout}: path {path!r} not in '
+                         f'{PATHS}')
+    planes, batches, d, sq, skv = ds_geometry(q, k, layout)
+    head_pad = -(-d // 16) * 16
+    hopper = (q.dtype in DTYPES16 and d % 8 == 0 and
+              all(t.data_ptr() % 16 == 0 for t in (q, k, *tensors)))
+    if path == 'sm90' and not hopper:
+        raise ValueError(f'flash_attention_{layout}: the sm90 path takes '
+                         'bf16 or fp16, D % 8 == 0 and 16-byte aligned '
+                         'tensors')
+    if path == 'mma' or not hopper:
+        return Plan('mma', head_pad, ROWS, MMA_KV_TILE, 1,
+                    (batches * sq // ROWS, planes), 128, bhds=True)
+    chains = fv.tt_chains(sq, head_pad)
+    config = fv.TT_CONFIGS[chains]
+    _, stages, kv, _ = fv.chains_tiling(config, head_pad, bhds=True)
+    grid = (batches * sq // (ROWS * chains), planes)
+    parts = fv.chains_parts(config, grid[0] * grid[1], skv // kv, head_pad,
+                            bhds=True)
+    return Plan('sm90', head_pad, ROWS * chains, kv, stages, grid,
+                128 * chains, parts, bhds=True)
+
+
+def launch_ds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, scale: float, how: Plan,
+              layout: str) -> None:
+    """Launch the [D, S] kernel of ``how.path`` on the current stream;
+    raises if the launch is refused."""
+    from flexdiffuse_tpu_torch.ops import flash_variants as fv
+    planes, batches, d, sq, skv = ds_geometry(q, k, layout)
+    if how.path == 'sm90':
+        lib = load(fv.SM90_SOURCE, fv.SM90_SIGNATURES,
+                   parts=fv.SM90_BUILD_PARTS)
+        entry = lib.flash_attention_ds_sm90
+        options = (how.block_q // ROWS, how.parts)
+    else:
+        entry = load(SOURCE, SIGNATURES, parts=BUILD_PARTS)\
+            .flash_attention_fwd_ds
+        options = ()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   planes, batches, sq, skv, d, float(scale),
+                   DTYPES[q.dtype], *options, stream)
+    raise_on_error(rc, entry.__name__, q, k)
+
+
+def _flash_ds(fn, layout: str, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, scale: float,
+              path: Optional[str]) -> torch.Tensor:
+    if q.device.type == 'cpu' and k.device.type == 'cpu' \
+            and v.device.type == 'cpu':
+        twin = plain_attention_tt if layout == 'tt' else plain_attention_cm
+        return twin(q, k, v, scale)
+    check_ds(q, k, v, layout)
+    out = torch.empty_like(q)
+    how = plan_ds(q, k, v, out, layout=layout, path=path)
+    launch_ds(q, k, v, out, scale, how, layout)
+    count_launch(fn, how.path)
+    return out
+
+
+def flash_attention_tt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float,
+                       path: Optional[str] = None) -> torch.Tensor:
+    """``[B, H, D, Sq] × [B, H, D, Skv] → [B, H, D, Sq]`` (the JAX
+    package's ``flash_attention_tt``, flash_attention.py:202) through the
+    [D, S] kernel on the path :func:`plan_ds` picks (``path``: forced).
+    CPU tensors take :func:`plain_attention_tt`; CUDA tensors the kernels
+    do not take (:func:`check_ds`) raise. Counts its launches in
+    ``launches`` and ``path_launches``, as :func:`flash_attention`."""
+    return _flash_ds(flash_attention_tt, 'tt', q, k, v, scale, path)
+
+
+def flash_attention_cm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float,
+                       path: Optional[str] = None) -> torch.Tensor:
+    """``[H, D, B, Sq] × [H, D, B, Skv] → [H, D, B, Sq]`` (the JAX
+    package's ``flash_attention_cm``, flash_attention.py:260: the layout
+    the channel-major transformer interiors keep, models/unet.py) through
+    the [D, S] kernel, each q tile reading its batch's K/V; otherwise as
+    :func:`flash_attention_tt`, with :func:`plain_attention_cm` on CPU
+    tensors."""
+    return _flash_ds(flash_attention_cm, 'cm', q, k, v, scale, path)
+
+
+for _fn in (flash_attention_tt, flash_attention_cm):
+    _fn.launches = 0
+    _fn.path_launches = dict.fromkeys(PATHS, 0)

@@ -18,6 +18,13 @@ twins (port of ``flexdiffuse_tpu/ops/flash_backward.py``).
 * ``D = Σ_d dO∘O`` is one plain torch reduction, as the JAX package
   computes it in XLA outside its kernels (:229-231).
 
+:class:`FlashAttentionCmFn` is the channel-major counterpart
+(``flash_attention_cm_diff``, :398-430): under a gradient it permutes
+``[H, D, B, S]`` to ``[B, H, S, D]``, runs K3 forward and K4/K5 backward
+there and permutes the gradients back, as JAX's ``_cm_fwd``/``_cm_bwd``
+transpose only under differentiation; inference runs
+``fa.flash_attention_cm`` (``ops/attention.py`` ``attention_cm``).
+
 :class:`FlashAttentionFn` runs K3 forward and K4/K5 backward on CUDA
 tensors (launch or raise, never a fallback) and the plain twins
 (:func:`plain_attention_lse`, :func:`plain_attention_dq`,
@@ -279,3 +286,38 @@ class FlashAttentionFn(torch.autograd.Function):
         dq = flash_attention_dq(q, k, v, dout, lse, dvec, ctx.scale)
         dk, dv = flash_attention_dkv(q, k, v, dout, lse, dvec, ctx.scale)
         return dq, dk, dv, None
+
+
+def _to_bhsd(t: torch.Tensor) -> torch.Tensor:
+    """``[H, D, B, S]`` → contiguous ``[B, H, S, D]``."""
+    return t.permute(2, 0, 3, 1).contiguous()
+
+
+def _to_hdbs(t: torch.Tensor) -> torch.Tensor:
+    """``[B, H, S, D]`` → contiguous ``[H, D, B, S]``."""
+    return t.permute(1, 3, 0, 2).contiguous()
+
+
+class FlashAttentionCmFn(torch.autograd.Function):
+    """``[H, D, B, S]`` flash attention with a gradient (the port of
+    ``flash_attention_cm_diff``): the operands permuted to ``[B, H, S,
+    D]``, K3 forward saving them with ``o`` and ``lse``, K4 and K5 in the
+    backward, the output and the gradients permuted back. CPU tensors run
+    the plain twins. ``FlashAttentionCmFn.apply(q, k, v, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        q, k, v = (_to_bhsd(t) for t in (q, k, v))
+        o, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return _to_hdbs(o)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dout = _to_bhsd(dout.to(q.dtype))
+        dvec = attention_delta(dout, o)
+        dq = flash_attention_dq(q, k, v, dout, lse, dvec, ctx.scale)
+        dk, dv = flash_attention_dkv(q, k, v, dout, lse, dvec, ctx.scale)
+        return _to_hdbs(dq), _to_hdbs(dk), _to_hdbs(dv), None

@@ -87,7 +87,11 @@ SM90_SIGNATURES = {'flash_opt_attn_h_sm90': _ARGS + (_I, _P),
                    'flash_variants_attn_sm90': _ARGS + (_I, _I, _P),
                    'flash_tt2_attn_sm90': _ARGS + (_I, _I, _P),
                    'flash_ttv3_attn_sm90': _ARGS + (_I, _I, _I, _P),
-                   'flash_variants_sm90_probe': (_P,) * 5 + (_I, _I, _P)}
+                   'flash_variants_sm90_probe': (_P,) * 5 + (_I, _I, _P),
+                   # K1 over [D, S] (fa.flash_attention_tt/_cm): (q, k, v,
+                   # o, planes, batches, sq, skv, d, scale, dtype, chains,
+                   # parts, stream)
+                   'flash_attention_ds_sm90': _ARGS + (_I, _I, _P)}
 SM90, MMA = 'sm90', 'mma'
 PATHS = (SM90, MMA)   # the paths of every variant
 # Their tiles on 'sm90', as the source's PipelinedTiling/HeadsTiling choose

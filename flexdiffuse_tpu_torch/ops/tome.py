@@ -1,6 +1,8 @@
 """Token merging (ToMe, Bolya & Hoffman 2023) for the UNet's self-attention;
-port of ``flexdiffuse_tpu/ops/tome.py``, the ``[B, S, C]`` row layout only
-(the channel-major variants are on ROADMAP's "do not port" list).
+port of ``flexdiffuse_tpu/ops/tome.py``: the ``[B, S, C]`` row layout
+(:func:`merge`, :func:`unmerge`) and the channel-major ``[C, B·S]`` one
+(:func:`merge_cm`, :func:`unmerge_cm`, :func:`metric_from_cm`: token
+gathers become column gathers; the plan is the same).
 
 Before a self-attention, ``r`` of the spatial tokens merge into their most
 similar neighbours (bipartite soft matching), attention runs on the reduced
@@ -129,3 +131,61 @@ def unmerge(y: torch.Tensor, plan: TomePlan) -> torch.Tensor:
     out.scatter_(1, torch.gather(src, 1, plan.merged_pos)[..., None].expand(
         -1, -1, c), y_for_merged)
     return out
+
+
+# Channel-major ([C, B·S], b-major columns) variants.
+
+def _flat_cols(token_ids: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """Token ids ``[B, S']`` (or ``[S']``, every row's) → flat column ids
+    into the ``B·S`` axis."""
+    if token_ids.ndim == 1:
+        token_ids = token_ids[None].expand(b, -1)
+    off = torch.arange(b, device=token_ids.device)[:, None] * s
+    return (token_ids + off).reshape(-1)
+
+
+def merge_cm(x: torch.Tensor, plan: TomePlan, b: int) -> torch.Tensor:
+    """``[C, B·S] → [C, B·(Sd+Sk)]``: :func:`merge` over columns, each row's
+    merged tokens ``[dst..., kept...]`` contiguous."""
+    s = plan.grid_hw[0] * plan.grid_hw[1]
+    src = plan.src_idx[None].expand(b, -1)
+    kept = torch.gather(src, 1, plan.kept_pos)
+    x_dst = x[:, _flat_cols(plan.dst_idx, b, s)]
+    x_merged = x[:, _flat_cols(torch.gather(src, 1, plan.merged_pos), b, s)]
+    x_kept = x[:, _flat_cols(kept, b, s)]
+    sd = plan.dst_idx.shape[0]
+    dst_cols = _flat_cols(plan.assign, b, sd)
+    acc = torch.zeros_like(x_dst).index_add_(1, dst_cols, x_merged)
+    cnt = torch.zeros(x_dst.shape[1], dtype=x.dtype,
+                      device=x.device).index_add_(
+        0, dst_cols, torch.ones(dst_cols.shape, dtype=x.dtype,
+                                device=x.device))
+    x_dst = (x_dst + acc) / (1.0 + cnt)[None]
+    c, sk = x.shape[0], kept.shape[1]
+    return torch.cat([x_dst.reshape(c, b, sd), x_kept.reshape(c, b, sk)],
+                     dim=2).reshape(c, b * (sd + sk))
+
+
+def unmerge_cm(y: torch.Tensor, plan: TomePlan, b: int) -> torch.Tensor:
+    """``[C, B·(Sd+Sk)] → [C, B·S]``: :func:`unmerge` over columns."""
+    c = y.shape[0]
+    sd = plan.dst_idx.shape[0]
+    sk = plan.kept_pos.shape[1]
+    s = plan.grid_hw[0] * plan.grid_hw[1]
+    y3 = y.reshape(c, b, sd + sk)
+    y_dst = y3[:, :, :sd].reshape(c, b * sd)
+    src = plan.src_idx[None].expand(b, -1)
+    out = torch.zeros((c, b * s), dtype=y.dtype, device=y.device)
+    out[:, _flat_cols(plan.dst_idx, b, s)] = y_dst
+    out[:, _flat_cols(torch.gather(src, 1, plan.kept_pos), b, s)] = \
+        y3[:, :, sd:].reshape(c, b * sk)
+    out[:, _flat_cols(torch.gather(src, 1, plan.merged_pos), b, s)] = \
+        y_dst[:, _flat_cols(plan.assign, b, sd)]
+    return out
+
+
+def metric_from_cm(x: torch.Tensor, b: int) -> torch.Tensor:
+    """``[C, B·S] → [B, S, C]`` fp32, the metric :func:`merge_plan` takes
+    (a copy of the metric only; the activations stay channel-major)."""
+    c, bs = x.shape
+    return x.reshape(c, b, bs // b).permute(1, 2, 0).float()

@@ -54,11 +54,13 @@ returns whole tensors and shards the rows of every level that splits
 evenly over the ranks (``ops/row_shard.py`` ``Plan``: the ring for long
 self-attention, halo rows for the 3×3 convs, GroupNorm statistics over the
 ranks), running the levels that do not split whole. The tiled VAE is off
-under SP, and ToMe is refused, as in JAX.
+under SP, ToMe is refused, and a channel-major UNet or ControlNet runs in
+the standard orientation (a shallow copy), as in JAX.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -158,6 +160,18 @@ def upscale_latents(latents: torch.Tensor, scale: float,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def _standard(model):
+    """``model`` (a UNet, a ControlNet or None) in the standard
+    orientation: itself, or a shallow copy that shares its weights with
+    ``channel_major`` False (``pipeline/flex.py:134-142`` of the JAX
+    package)."""
+    if not getattr(model, 'channel_major', None):
+        return model
+    model = copy.copy(model)
+    model.channel_major = False
+    return model
+
+
 class FlexPipeline:
     """Holds the UNet and VAE modules and runs the denoise loop.
 
@@ -192,6 +206,11 @@ class FlexPipeline:
             # under SP the sequence is row-sharded.
             raise ValueError('ToMe (unet.tome) is incompatible with '
                              'sequence parallelism — disable one')
+        if sp_mesh is not None:
+            # SP shards the standard orientation's rows (ops/row_shard.py);
+            # the channel-major interior is a one-card layout, so both
+            # models run standard whatever their flag says.
+            unet, controlnet = (_standard(m) for m in (unet, controlnet))
         self.sp_mesh = sp_mesh
         self.sp_axis = sp_axis
         self.sp_min_seq = int(sp_min_seq)

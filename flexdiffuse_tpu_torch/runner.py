@@ -159,7 +159,7 @@ def attach_ip_adapter(pipe: FlexPipeline, path: str,
     cfg = dataclasses.replace(old.config, ip_adapter=True, ip_tokens=tokens)
     unet = load.instantiate(UNet2DCondition, cfg, _ipa.merge_ip_weights(
         old.state_dict(), layers), w.device, w.dtype).with_settings(
-            freeu=old.freeu, tome=old.tome, pag_layers=old.pag_layers)
+            **old.settings())
     encoder = None
     if image_encoder_dir:
         enc_sd = convert.normalize(load.load_state_dict(image_encoder_dir),

@@ -2,8 +2,9 @@
 
 The bench and A/B tools (``bench_vae``, ``bench_batch``, ``bench_train``,
 ``bench_serving``, ``bench_lcm``, ``deepcache_exp``, ``bench_deepcache``,
-``cfg_interval_exp``, ``tome_exp``, ``bench_sdxl``, ``sdxl_deepcache_exp``,
-``sdxl_exp``, ``param_dtype_exp``, ``bench_tokenizer``; shared timing in
+``cfg_interval_exp``, ``cmajor_exp``, ``tome_exp``, ``bench_sdxl``,
+``sdxl_deepcache_exp``, ``sdxl_exp``, ``param_dtype_exp``,
+``bench_tokenizer``; shared timing in
 :mod:`.bench_common`) each mirror the script of the same name and print
 its JSON keys. The parity harness is :mod:`.validate_reference` and
 :mod:`.experiments`. The flash-kernel experiment tools below each mirror a

@@ -8,13 +8,12 @@ one ``--path`` names ('mma': the first port's kernel in
 ``csrc/flash_variants.cu``); without ``--path``, ``micro`` times the kept
 kernel beside it (``tt2_kept_ms``).
 
-* ``check_exact``: K1 and T4 against fp32 attention at the script's four
-  shapes (OK below 0.04 absolute, the script's threshold).
-* ``micro`` / ``micro2``: 12-deep chains of K1 and T4 (``micro2`` checks
-  T4's exactness first). The JAX script's K1 took ``[B,H,D,S]`` and it
-  compared it with the older ``[B,H,S,D]`` layout; the port's K1 takes
-  ``[B,H,S,D]``, so here the comparison turns around: K1 on ``[B,H,S,D]``
-  against T4 on ``[B,H,D,S]``.
+* ``check_exact``: K1, K1's transposed entry (``fa.flash_attention_tt``,
+  the script's own subject) and T4 against fp32 attention at the script's
+  four shapes (OK below 0.04 absolute, the script's threshold).
+* ``micro`` / ``micro2``: 12-deep chains of K1 on ``[B,H,S,D]``, of
+  ``flash_attention_tt`` (the script's 'tt') and of T4 on ``[B,H,D,S]``
+  (``micro2`` checks T4's exactness first).
 * ``step``: the SD-1.4 UNet chain (``perf_experiment.scan_time``), ``base``
   (K1) and ``tt`` (T4 through :func:`_attention_tt_bhsd`). The script's
   GroupNorm variants (``gn``, ``gn-nb``, ``gn-stats``, ``tt+gn``) need
@@ -35,7 +34,9 @@ import torch
 import flexdiffuse_tpu_torch.models.unet as unet_mod
 from flexdiffuse_tpu_torch.ops.attention import flash_eligible
 from flexdiffuse_tpu_torch.ops.flash_attention import (flash_attention,
-                                                       plain_attention)
+                                                       flash_attention_tt,
+                                                       plain_attention,
+                                                       plan_ds)
 from flexdiffuse_tpu_torch.ops.flash_variants import (MMA, PATHS, flash_tt2,
                                                       plan_tt2)
 from flexdiffuse_tpu_torch.tools import (TILE_NOTE, chain_ms, generator,
@@ -58,8 +59,8 @@ def _tt2(path: Optional[str]):
 
 def check_exact(generator: torch.Generator,
                 path: Optional[str] = None) -> list:
-    """K1 on [B,H,S,D] and T4 on [B,H,D,S] (on ``path``) against fp32
-    attention."""
+    """K1 on [B,H,S,D], K1's transposed entry and T4 (on ``path``) on
+    [B,H,D,S] against fp32 attention."""
     cpu = generator.device.type == 'cpu'
     rows = []
     for shape in CPU_SHAPES if cpu else EXACT_SHAPES:
@@ -68,6 +69,8 @@ def check_exact(generator: torch.Generator,
         ref = reference(q, k, v, scale)
         for label, got in (
                 ('flash (K1)', flash_attention(q, k, v, scale)),
+                ('tt (K1)', _t(flash_attention_tt(_t(q), _t(k), _t(v),
+                                                  scale))),
                 ('tt2 (T4)', _t(_tt2(path)(_t(q), _t(k), _t(v), scale)))):
             err = max_err(got, ref)
             print(f'{label} exactness {shape}: max abs err {err:.4f} '
@@ -95,8 +98,9 @@ def _tile(q, k, path: Optional[str]) -> str:
 
 def micro(generator: torch.Generator, exact: bool = False,
           path: Optional[str] = None) -> list:
-    """K1 on [B,H,S,D] against T4 on [B,H,D,S] (on ``path``; with None the
-    planned path and the kept kernel beside it), chain-timed."""
+    """K1 on [B,H,S,D] against K1's transposed entry and T4 on [B,H,D,S]
+    (T4 on ``path``; with None the planned path and the kept kernel beside
+    it), chain-timed."""
     rows = []
     for shape in MICRO_SHAPES:
         q, k, v = qkv(shape, generator)
@@ -111,6 +115,10 @@ def micro(generator: torch.Generator, exact: bool = False,
         print(f'shape {shape}:')
         row['flash_ms'] = _bench(flash_attention, q, k, v, 'flash (K1)',
                                  shape)
+        how = plan_ds(qt, kt, layout='tt')
+        row['tt_ms'] = _bench(flash_attention_tt, qt, kt, vt, 'tt (K1)',
+                              shape, f'{how.path} {how.block_q}q x '
+                              f'{how.block_kv}kv tile')
         row['tt2_ms'] = _bench(_tt2(path), qt, kt, vt, 'tt2 (T4)', shape,
                                _tile(qt, kt, path))
         if path is None:

@@ -39,17 +39,20 @@ CPU_STEPS = 2
 
 # The kernels a UNet evaluation or a train step can launch, by id; each
 # counts its launches in ``.launches``. K1 and K3–K5 also count them by path
-# (``.path_launches``: 'sm90', the Hopper path, and 'mma', the kept one).
+# (``.path_launches``: 'sm90', the Hopper path, and 'mma', the kept one),
+# and so do K1's transposed and channel-major entries ('tt', 'cm'; the
+# channel-major interiors launch 'cm').
 KERNELS = {'k1': fa.flash_attention, 'k3': fb.flash_attention_lse,
            'k4': fb.flash_attention_dq, 'k5': fb.flash_attention_dkv,
-           'k6': gn.fused_group_norm}
-BY_PATH = ('k1', 'k3', 'k4', 'k5', 'k6')
+           'k6': gn.fused_group_norm, 'tt': fa.flash_attention_tt,
+           'cm': fa.flash_attention_cm}
+BY_PATH = ('k1', 'k3', 'k4', 'k5', 'k6', 'tt', 'cm')
 
 
 def kernel_counts() -> dict:
-    """Launches so far of K1, K3–K5 and K6, by id, and by path
-    (``k1_sm90``, ``k1_mma``, ``k3_sm90``, ..., ``k5_mma``, ``k6_resident``,
-    ``k6_stream``)."""
+    """Launches so far of K1, K3–K5, K6 and K1's [D, S] entries, by id, and
+    by path (``k1_sm90``, ``k1_mma``, ``k3_sm90``, ..., ``k5_mma``,
+    ``k6_resident``, ``k6_stream``, ``tt_sm90``, ..., ``cm_mma``)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     for name in BY_PATH:
         for path, n in KERNELS[name].path_launches.items():

@@ -59,6 +59,8 @@ KEYS = {
                          'interval_steps_per_sec', 'speedup', 'finite',
                          'anchor_max_abs'],
     'tome_exp': ['metric', 'exact_steps_per_sec', 'tome'],
+    'cmajor_exp': ['metric', 'rows', 'single_forward_max_abs_diff',
+                   'loop_max_abs_diff', 'steps_per_sec_change'],
     'bench_sdxl': ['metric', 'value', 'unit', 'seconds_per_image_25step',
                    'deepcache.interval', 'deepcache.steps_per_sec',
                    'deepcache.seconds_per_image_25step',

@@ -126,11 +126,15 @@ def test_cpu_wrappers_count_no_launch_on_any_path():
     dvec = fb.attention_delta(dout, o)
     fb.flash_attention_dq(q, k, v, dout, lse, dvec, 0.1)
     fb.flash_attention_dkv(q, k, v, dout, lse, dvec, 0.1)
+    q, k, v = (x.transpose(-1, -2).contiguous() for x in (q, k, v))
+    fa.flash_attention_tt(q, k, v, 0.1)
+    fa.flash_attention_cm(*(x.permute(1, 2, 0, 3) for x in (q, k, v)), 0.1)
     counts = perf_experiment.kernel_counts()
-    assert counts == dict(k1=0, k3=0, k4=0, k5=0, k6=0, k1_sm90=0, k1_mma=0,
-                          k1_wide_sm90=0, k1_wide=0, k3_sm90=0, k3_mma=0,
-                          k4_sm90=0, k4_mma=0, k5_sm90=0, k5_mma=0,
-                          k6_resident=0, k6_stream=0)
+    assert counts == dict(k1=0, k3=0, k4=0, k5=0, k6=0, tt=0, cm=0,
+                          k1_sm90=0, k1_mma=0, k1_wide_sm90=0, k1_wide=0,
+                          k3_sm90=0, k3_mma=0, k4_sm90=0, k4_mma=0,
+                          k5_sm90=0, k5_mma=0, k6_resident=0, k6_stream=0,
+                          tt_sm90=0, tt_mma=0, cm_sm90=0, cm_mma=0)
 
 
 BWD_KINDS = ['dq', 'dkv']

@@ -158,12 +158,12 @@ def test_tool_exactness_on_cpu(tool):
 
 
 def test_flash_tt_tools_exactness_on_cpu():
-    """flash_tt's check_exact (K1 and T4) and flash_tt3's main (K1, ttv3,
-    ttv4, no-fold) at their CPU shapes."""
+    """flash_tt's check_exact (K1, K1's transposed entry and T4) and
+    flash_tt3's main (K1, ttv3, ttv4, no-fold) at their CPU shapes."""
     gen = torch.Generator().manual_seed(0)
     rows = port_flash_tt.run(gen, device='cpu')['exact']
     rows += port_flash_tt3.run(gen, device='cpu')['main']
-    assert len(rows) == 4 + 8
+    assert len(rows) == 6 + 8
     assert all(r['max_abs_err'] < 0.04 for r in rows)
 
 
@@ -175,7 +175,7 @@ def test_tt_tools_take_a_path_on_cpu(path):
     gen = torch.Generator().manual_seed(0)
     rows = port_flash_tt.run(gen, device='cpu', path=path)['exact']
     rows += port_flash_tt3.run(gen, device='cpu', path=path)['main']
-    assert len(rows) == 4 + 8
+    assert len(rows) == 6 + 8
     assert all(r['max_abs_err'] < 0.04 for r in rows)
     more = ['--path', path] if path else []
     port_flash_tt.main(['exact', '--device', 'cpu'] + more)

@@ -1,12 +1,14 @@
 """PyTorch port: the Hopper kernels (K1 forward flash attention, K3
 forward with lse, K4 dq and K5 dk/dv, each on the Hopper path and on the
 kept mma.sync kernel, fp32 on the kept one; K6 fused GroupNorm, the
-attention variants T1–T6 on both paths, and the [D, S] wgmma forms of
-T4/T5 alone) against their plain twins, on the card.
+attention variants T1–T6 on both paths, the [D, S] wgmma forms of
+T4/T5 alone, and K1's transposed and channel-major entries on both paths)
+against their plain twins, on the card.
 Marked ``cuda``: each test skips without a CUDA device. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest``
 (this file imports no JAX).
 """
+import copy
 import dataclasses
 
 import pytest
@@ -192,13 +194,17 @@ def test_kernel_rejects_what_it_does_not_take(cuda_gen):
     with pytest.raises(ValueError):           # mixed dtypes
         flash_attention(q, q.to(torch.bfloat16), q, 0.1)
     qh = q.to(torch.bfloat16)
-    with pytest.raises(ValueError):           # head wider than 128
-        wide = torch.zeros((1, 1, 128, 160), device='cuda',
-                           dtype=torch.bfloat16)
-        flash_attention(wide, wide, wide, 0.1)
+    wide = torch.zeros((1, 1, 128, 160), device='cuda', dtype=torch.bfloat16)
+    before = perf_experiment.kernel_counts()
+    with pytest.raises(ValueError):           # 'sm90' forced above D 128
+        flash_attention(wide, wide, wide, 0.1, path='sm90')
+    with pytest.raises(ValueError):           # 'wide_sm90' forced on fp32
+        flash_attention(wide.float(), wide.float(), wide.float(), 0.1,
+                        path='wide_sm90')
     with pytest.raises(ValueError):           # not contiguous
         t = qh.transpose(2, 3)
         flash_attention(t, t, t, 0.1)
+    assert perf_experiment.kernel_counts() == before
 
 
 @pytest.mark.cuda
@@ -956,3 +962,150 @@ def test_ds_wgmma_forms_match_matmul(dtype, cuda_gen):
         assert (s - s_ref).abs().max() <= 1e-5 * s_ref.abs().max(), d
         assert (o[:, :d] - o_ref).abs().max() <= 1e-5 * o_ref.abs().max(), d
         assert not o[:, d:].any(), d
+
+
+# K1's transposed and channel-major entries: (layout, [B, H, S, D] shape,
+# dtype, path forced or None). The main shapes and SDXL's 64-wide heads on
+# both paths, fp16, fp32 and d = 33 on the kept one (as planned), the widest
+# head.
+DS_CASES = [(layout, shape, dtype, path)
+            for layout in ('tt', 'cm')
+            for shape, dtype, path in (
+                ((2, 8, 4096, 40), torch.bfloat16, None),
+                ((2, 8, 1024, 80), torch.bfloat16, None),
+                ((2, 10, 4096, 64), torch.bfloat16, None),
+                ((2, 8, 1024, 80), torch.bfloat16, 'mma'),
+                ((2, 4, 1024, 40), torch.float16, None),
+                ((1, 8, 1024, 40), torch.float32, None),
+                ((2, 2, 1024, 33), torch.bfloat16, None),
+                ((3, 2, 1280, 128), torch.bfloat16, None))]
+TO_DS = {'tt': lambda x: x.transpose(-1, -2).contiguous(),
+         'cm': lambda x: x.permute(1, 3, 0, 2).contiguous()}
+FROM_DS = {'tt': lambda x: x.transpose(-1, -2),
+           'cm': lambda x: x.permute(2, 0, 3, 1)}
+
+
+def _ds_fn(layout):
+    return fa.flash_attention_tt if layout == 'tt' else fa.flash_attention_cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout,shape,dtype,path', DS_CASES)
+def test_ds_entries_match_plain(layout, shape, dtype, path, cuda_gen):
+    """``flash_attention_tt`` / ``flash_attention_cm`` against fp32 plain
+    attention on the same inputs by the kernel rule (the plain version on
+    16-bit inputs; fp32 ones rounded to bf16, as the kept kernel stages
+    them), with exactly one launch on the path ``fa.plan_ds`` picks:
+    'sm90' for 16-bit tensors with d % 8 == 0, 'mma' otherwise."""
+    q, k, v = (torch.randn(shape, generator=cuda_gen, device='cuda',
+                           dtype=dtype) for _ in range(3))
+    fn, scale = _ds_fn(layout), shape[3]**-0.5
+    args = [TO_DS[layout](x) for x in (q, k, v)]
+    how = fa.plan_ds(*args, layout=layout, path=path)
+    want = path or ('sm90' if dtype != torch.float32 and shape[3] % 8 == 0
+                    else 'mma')
+    assert how.path == want
+    before = perf_experiment.kernel_counts()
+    out = fn(*args, scale, path=path)
+    torch.cuda.synchronize()
+    assert _moved(before) == {layout: 1, f'{layout}_{want}': 1}
+    ref = plain_attention(q.float(), k.float(), v.float(), scale)
+    p16 = q.dtype if q.dtype != torch.float32 else torch.bfloat16
+    plain = plain_attention(q.to(p16), k.to(p16), v.to(p16), scale)
+    assert out.shape == args[0].shape and out.dtype == dtype
+    _rule(FROM_DS[layout](out), ref, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path', ['sm90', 'mma'])
+def test_cm_batches_do_not_mix(path, cuda_gen):
+    """Each q tile of a channel-major call reads its own batch's K/V:
+    zeroing batch 1's V leaves batch 0's output bit-equal and batch 1's
+    zero, on both paths; two launches are bit-equal."""
+    q, k, v = (torch.randn((2, 40, 2, 1024), generator=cuda_gen,
+                           device='cuda', dtype=torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_attention_cm(q, k, v, 0.3, path=path)
+    assert torch.equal(out, fa.flash_attention_cm(q, k, v, 0.3, path=path))
+    v2 = v.clone()
+    v2[:, :, 1] = 0
+    out2 = fa.flash_attention_cm(q, k, v2, 0.3, path=path)
+    assert torch.equal(out[:, :, 0], out2[:, :, 0])
+    assert not out2[:, :, 1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['tt', 'cm'])
+def test_ds_entries_refuse_what_they_do_not_take(layout, cuda_gen):
+    """A layout or a forced path the kernels do not take raises ValueError
+    before any launch: no quiet fall to the twin."""
+    fn = _ds_fn(layout)
+    x = torch.randn((2, 2, 40, 1024) if layout == 'tt' else (2, 40, 2, 1024),
+                    generator=cuda_gen, device='cuda', dtype=torch.bfloat16)
+    bad = [(x.float(), 'sm90'),                  # fp32 forced onto 'sm90'
+           (x[..., :1000].contiguous(), None),   # S % 128 != 0
+           (x.transpose(0, 1), None),            # not contiguous
+           (x.double(), None)]                   # fp64
+    wide = torch.zeros((1, 1, 136, 128) if layout == 'tt' else
+                       (1, 136, 1, 128), device='cuda',
+                       dtype=torch.bfloat16)
+    bad.append((wide, None))                     # D > 128
+    before = perf_experiment.kernel_counts()
+    for t, path in bad:
+        with pytest.raises(ValueError):
+            fn(t, t, t, 0.1, path=path)
+    assert perf_experiment.kernel_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(2, 8, 1024, 80), (1, 2, 4096, 40)])
+def test_attention_cm_runs_the_kernels(shape, cuda_gen):
+    """``attention_cm`` on channel-major CUDA tensors: without a gradient
+    one 'cm' launch; with one ``FlashAttentionCmFn`` (K3 forward, K4/K5
+    backward, no 'cm') and plain autograd's gradients by the kernel rule;
+    cross-attention over 77 tokens runs plain."""
+    from flexdiffuse_tpu_torch.ops.attention import attention_cm
+    q, k, v, w = (TO_DS['cm'](x) for x in _inputs(shape, shape[2],
+                                                  torch.bfloat16, cuda_gen))
+    before = perf_experiment.kernel_counts()
+    with torch.no_grad():
+        attention_cm(q, k, v)
+        attention_cm(q, k[..., :77].contiguous(), v[..., :77].contiguous())
+    assert _moved(before) == dict(cm=1, cm_sm90=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = perf_experiment.kernel_counts()
+    grads = torch.autograd.grad(
+        (attention_cm(*leaves).float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert _moved(before) == dict(k3=1, k3_sm90=1, k4=1, k4_sm90=1, k5=1,
+                                  k5_sm90=1)
+
+    def plain_grads(dtype):
+        ts = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        o = attention_cm(*ts, backend='plain')
+        return torch.autograd.grad((o.float() * w.float()).sum(), ts)
+
+    for got, ref, plain in zip(grads, plain_grads(torch.float32),
+                               plain_grads(torch.bfloat16)):
+        _rule(got, ref, plain)
+
+
+@pytest.mark.cuda
+def test_channel_major_self_attention_layer(cuda_gen):
+    """An SD-1.x self-attention (320 channels, 8 heads of 40) at 4096
+    tokens in the channel-major orientation: one 'cm' launch, no K1, and
+    the layer's standard forward with plain attention by the kernel rule
+    (the plain version: the layer in bf16 with plain attention)."""
+    torch.manual_seed(0)
+    layer = CrossAttention(320, 8).cuda().to(torch.bfloat16)
+    layer.requires_grad_(False)
+    x = torch.randn((2, 4096, 320), generator=cuda_gen, device='cuda',
+                    dtype=torch.bfloat16)
+    before = perf_experiment.kernel_counts()
+    y = layer.forward_cm(x.permute(2, 0, 1).reshape(320, -1), None, 2)
+    torch.cuda.synchronize()
+    assert _moved(before) == dict(cm=1, cm_sm90=1)
+    with attention_backend('plain'):
+        plain = layer(x)
+        ref = copy.deepcopy(layer).float()(x.float())
+    _rule(y.reshape(320, 2, 4096).permute(1, 2, 0), ref, plain)

@@ -129,3 +129,16 @@ def test_ptxas_report_counts_sass_opcodes_per_function():
     got = ptxas_report.count_sass(sass, r'MUFU[.][A-Z0-9_.]+')
     assert got == {'_Z1fv': {'MUFU.EX2.BF16': 2, 'MUFU.EX2': 1},
                    '_Z1gv': {}}
+
+
+@pytest.mark.parametrize('key', sorted(chip_smoke.CM_TREE, key=str),
+                         ids=lambda k: '-'.join(map(str, k)))
+def test_cm_tree_launches(key):
+    """The module tree's launches per CFG evaluation with channel_major on
+    and off, as chip_smoke.py step 24 asserts them on the card: SD-1.4 at
+    512² sends all 10 self-attentions to the cm entry (5 under DeepCache
+    'use'), SDXL base at 1024² its 10 at 4096 tokens (cm_min_seq 4096) and
+    60 at 1024 to K1; off, K1 takes them all."""
+    got = chip_smoke.cm_tree_launches(*key)
+    assert {k: got[k] for k in ('cm', 'k1', 'k6')} == chip_smoke.CM_TREE[key]
+    assert got['cm_sm90'] == got['cm'] and got['cm_mma'] == 0

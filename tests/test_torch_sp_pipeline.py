@@ -72,12 +72,13 @@ def _port_models(state_path):
     return unet, vae
 
 
-def _controlnet():
+def _controlnet(channel_major=None):
     """A ControlNet of SP_UNET's geometry, seeded torch init; its ramp has
     four stride-2 convs, 1024 px → the 64² latents."""
     from flexdiffuse_tpu_torch.models.controlnet import ControlNetModel
     torch.manual_seed(3)
-    return ControlNetModel(SP_UNET, (8, 8, 8, 8, 16)).eval()
+    return ControlNetModel(SP_UNET, (8, 8, 8, 8, 16),
+                           channel_major=channel_major).eval()
 
 
 def _runs(make_pipe, draws):
@@ -112,9 +113,17 @@ def _runs(make_pipe, draws):
         freeu=(1.5, 1.6, 0.9, 0.2)), sp_min_seq=1024)
     out['freeu'] = freeu(_guide(a), **small).images
     control = make_pipe(controlnet=_controlnet(), sp_min_seq=1024)
-    out['control'] = control(_guide(a), control_image=a['init'][0, :512,
-                                                                :512] * 0.5
-                             + 0.5, **small).images
+    control_image = a['init'][0, :512, :512] * 0.5 + 0.5
+    out['control'] = control(_guide(a), control_image=control_image,
+                             **small).images
+    # Channel-major models (level 0 has 1024 tokens): the SP pipeline runs
+    # them standard, the single-process one channel-major.
+    cm = make_pipe(unet=pipe.unet.with_settings(channel_major=True),
+                   controlnet=_controlnet(channel_major=True),
+                   sp_min_seq=1024)
+    out['cm'] = cm(_guide(a), control_image=control_image, **small).images
+    out['cm_orientation'] = np.asarray([cm.unet.channel_major,
+                                        cm.controlnet.channel_major])
     return out
 
 
@@ -231,13 +240,24 @@ def test_sp_1024_matches_single_process_and_jax(runs, mode):
                                rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize('mode', ['rescale', 'compose', 'freeu', 'control'])
+@pytest.mark.parametrize('mode', ['rescale', 'compose', 'freeu', 'control',
+                                  'cm'])
 def test_sp_features_match_single_process(runs, mode):
-    """CFG rescale 0.7, a 2-entity composition, FreeU and a ControlNet on
-    2 ranks at 512², within 2e-4 of the single-process pipeline."""
+    """CFG rescale 0.7, a 2-entity composition, FreeU, a ControlNet and a
+    channel-major UNet with a channel-major ControlNet on 2 ranks at 512²,
+    within 2e-4 of the single-process pipeline."""
     got = runs[mode]
     assert got.shape == (1, 512, 512, 3) and np.isfinite(got).all()
     np.testing.assert_allclose(got, runs[f'port_{mode}'], rtol=0, atol=ATOL)
+
+
+def test_sp_runs_the_standard_orientation(runs):
+    """Under SP the channel-major UNet and ControlNet run standard (the
+    pipeline's shallow copies), as JAX's ``FlexPipeline`` forces
+    ``channel_major=False`` under ``sp_mesh``; without SP they stay
+    channel-major."""
+    assert runs['cm_orientation'].tolist() == [False, False]
+    assert runs['port_cm_orientation'].tolist() == [True, True]
 
 
 def test_sp_attention_actually_rides_the_ring(runs):
