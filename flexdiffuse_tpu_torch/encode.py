@@ -23,6 +23,7 @@ import torch
 
 from flexdiffuse_tpu_torch.text.emphasis import tokenize_weighted
 from flexdiffuse_tpu_torch.utils.image import clip_preprocess
+from flexdiffuse_tpu_torch.utils.profiling import spanned
 
 log = logging.getLogger(__name__)
 
@@ -52,6 +53,7 @@ class CLIPEncoder:
         ids = torch.from_numpy(ids.astype(np.int64)).to(dev)
         return self.text_model(ids, output=self._output)
 
+    @spanned('fd.encode')
     def prompt(self, prompt: Union[str, List[str]]) -> torch.Tensor:
         return self._encode(self.tokenizer(prompt))
 
@@ -65,6 +67,7 @@ class CLIPEncoder:
             rows[r, 1:1 + len(ch)] = ch
         return rows
 
+    @spanned('fd.encode')
     def prompt_chunked(self, prompt: str, max_chunks: int = 8
                        ) -> torch.Tensor:
         """Long-prompt encoding (A1111): content tokens beyond the
@@ -86,6 +89,7 @@ class CLIPEncoder:
         enc = self._encode(self._rows(chunks))            # [k, 77, D]
         return enc.reshape(1, -1, enc.shape[-1])
 
+    @spanned('fd.encode')
     def prompt_weighted(self, prompt: str, max_chunks: int = 8
                         ) -> torch.Tensor:
         """Emphasis-weighted encoding (A1111 ``(word:1.3)`` syntax,

@@ -82,6 +82,7 @@ from flexdiffuse_tpu_torch.ops import row_shard
 from flexdiffuse_tpu_torch.ops import tome as _tome
 from flexdiffuse_tpu_torch.ops.attention import attention, attention_cm
 from flexdiffuse_tpu_torch.ops.group_norm import group_norm
+from flexdiffuse_tpu_torch.utils.profiling import spanned
 
 
 # Channel-major interiors engage only on levels of at least
@@ -846,6 +847,7 @@ class UNet2DCondition(DownMid):
                 h = plan.move(h, depth, depth - 1)
         return h, captured
 
+    @spanned('fd.unet')
     def forward(self, latents: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor, timestep_cond: torch.Tensor = None,
                 deep_cache: torch.Tensor = None, cache_mode: str = 'off',

@@ -73,6 +73,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from flexdiffuse_tpu_torch.utils.profiling import span
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / 'csrc' / 'flash_attention.cu'
 WIDE_SOURCE = _PKG / 'csrc' / 'flash_wide.cu'
@@ -458,18 +460,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     widths above 128 on the wide kernels. CPU tensors take
     :func:`plain_attention`; CUDA tensors the kernels do not take raise.
     ``flash_attention.launches`` counts kernel launches,
-    ``flash_attention.path_launches`` them by path."""
+    ``flash_attention.path_launches`` them by path. A launch's host work
+    (checks, allocation, plan, the call) is the profiler span ``fd.k1``, as
+    in :func:`flash_attention_tt` and :func:`flash_attention_cm`."""
     if q.device.type == 'cpu' and k.device.type == 'cpu' \
             and v.device.type == 'cpu':
         return plain_attention(q, k, v, scale)
-    check(q, k, v, None)
-    out = torch.empty_like(q)
-    how = plan(q, k, v, out, path=path)
-    if how.path in WIDE_PATHS:
-        launch_wide(q, k, v, out, scale, how)
-    else:
-        launch(q, k, v, out, None, scale, how)
-    count_launch(flash_attention, how.path)
+    with span('fd.k1'):
+        check(q, k, v, None)
+        out = torch.empty_like(q)
+        how = plan(q, k, v, out, path=path)
+        if how.path in WIDE_PATHS:
+            launch_wide(q, k, v, out, scale, how)
+        else:
+            launch(q, k, v, out, None, scale, how)
+        count_launch(flash_attention, how.path)
     return out
 
 
@@ -595,11 +600,12 @@ def _flash_ds(fn, layout: str, q: torch.Tensor, k: torch.Tensor,
             and v.device.type == 'cpu':
         twin = plain_attention_tt if layout == 'tt' else plain_attention_cm
         return twin(q, k, v, scale)
-    check_ds(q, k, v, layout)
-    out = torch.empty_like(q)
-    how = plan_ds(q, k, v, out, layout=layout, path=path)
-    launch_ds(q, k, v, out, scale, how, layout)
-    count_launch(fn, how.path)
+    with span('fd.k1'):
+        check_ds(q, k, v, layout)
+        out = torch.empty_like(q)
+        how = plan_ds(q, k, v, out, layout=layout, path=path)
+        launch_ds(q, k, v, out, scale, how, layout)
+        count_launch(fn, how.path)
     return out
 
 

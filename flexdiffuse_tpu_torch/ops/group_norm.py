@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
+from flexdiffuse_tpu_torch.utils.profiling import span
 
 SOURCE = fa.SOURCE.parent / 'group_norm.cu'
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -307,16 +308,18 @@ def fused_group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor,
     launched on the current stream on the path :func:`plan_group_norm`
     picks (``path``: forced, for comparisons); the result is
     channels-last, as x must be. CPU tensors take :func:`plain_group_norm`;
-    CUDA tensors the kernel does not take raise."""
+    CUDA tensors the kernel does not take raise. A launch's host work is
+    the profiler span ``fd.k6``."""
     dtype = x.dtype if dtype is None else dtype
     if x.device.type == 'cpu':
         return plain_group_norm(x, num_groups, weight, bias, eps, silu, dtype)
-    _check(x, num_groups, weight, bias, dtype)
-    y = torch.empty_like(x, dtype=dtype)
-    how = plan_group_norm(x.shape, num_groups, x.dtype, dtype,
-                          (x.data_ptr() | y.data_ptr()) % 16 == 0, path)
-    launch(x, num_groups, weight, bias, y, eps, silu, how)
-    fa.count_launch(fused_group_norm, how.path)
+    with span('fd.k6'):
+        _check(x, num_groups, weight, bias, dtype)
+        y = torch.empty_like(x, dtype=dtype)
+        how = plan_group_norm(x.shape, num_groups, x.dtype, dtype,
+                              (x.data_ptr() | y.data_ptr()) % 16 == 0, path)
+        launch(x, num_groups, weight, bias, y, eps, silu, how)
+        fa.count_launch(fused_group_norm, how.path)
     return y
 
 

@@ -80,6 +80,7 @@ from flexdiffuse_tpu_torch.pipeline.guides import (CompositeGuidance,
                                                    SimpleGuidance)
 from flexdiffuse_tpu_torch.schedulers.pndm import PRKSchedule
 from flexdiffuse_tpu_torch.utils.image import preprocess, to_pil
+from flexdiffuse_tpu_torch.utils.profiling import span, spanned
 
 Guidance = Union[SimpleGuidance, CompositeGuidance, InstructPix2PixGuidance]
 
@@ -311,13 +312,18 @@ class FlexPipeline:
             return self._decode01(latents)
 
     @torch.no_grad()
+    @spanned('fd.decode')
     def decode_u8_device(self, latents: torch.Tensor) -> torch.Tensor:
         """VAE decode + uint8 quantize (round half up, as ``to_pil``), left
         on the device: ``[B, H, W, 3]`` uint8."""
         return (self._decode_full(latents) * 255.0 + 0.5).to(torch.uint8)
 
     def latents_to_images(self, latents: torch.Tensor) -> List[Image.Image]:
-        return to_pil(self.decode_u8_device(latents).cpu().numpy())
+        u8 = self.decode_u8_device(latents)
+        with span('fd.to_host'):
+            u8 = u8.cpu().numpy()
+        with span('fd.to_pil'):
+            return to_pil(u8)
 
     @torch.no_grad()
     def latents_to_np(self, latents: torch.Tensor) -> np.ndarray:
@@ -604,35 +610,39 @@ class FlexPipeline:
             t_start = 0
 
         state = schedulers.init_state(schedule, latents.shape, latents.dtype)
-        span = max(schedule.length - 1 - t_start, 1)
+        steps_left = max(schedule.length - 1 - t_start, 1)
         eps_at = self._predictor(
-            guide, span, t_start,
+            guide, steps_left, t_start,
             self._control(control_image, controlnet_scale, latents))
         step_noise = schedulers.takes_noise(schedule, eta)
         recorded = []
-        for i in range(t_start, schedule.length):
-            xin = schedulers.scale_model_input(schedule, latents, i)
-            eps = eps_at(i, xin,
-                         schedulers.timestep_at(schedule, i).to(dev))
-            vnoise = None
-            if step_noise:
-                vnoise = self._draw(None if variance_noise is None else
-                                    variance_noise[i], latents.shape,
-                                    generator)
-            state, latents = schedulers.step(schedule, state, eps, i,
-                                             i - t_start, latents, eta,
-                                             vnoise)
-            if latent_mask is not None:
-                # Re-anchor the kept region to the init latents noised to
-                # this step's output level.
-                anchor = schedulers.anchor_noise(
-                    schedule, init_latents,
-                    self._draw(None if inpaint_noise is None else
-                               inpaint_noise[i], latents.shape, generator),
-                    i, i - t_start)
-                latents = latent_mask * latents + (1.0 - latent_mask) * anchor
-            if debug:
-                recorded.append(latents)
+        with span('fd.denoise'):
+            for i in range(t_start, schedule.length):
+                xin = schedulers.scale_model_input(schedule, latents, i)
+                eps = eps_at(i, xin,
+                             schedulers.timestep_at(schedule, i).to(dev))
+                vnoise = None
+                if step_noise:
+                    vnoise = self._draw(None if variance_noise is None else
+                                        variance_noise[i], latents.shape,
+                                        generator)
+                with span('fd.scheduler'):
+                    state, latents = schedulers.step(schedule, state, eps, i,
+                                                     i - t_start, latents,
+                                                     eta, vnoise)
+                if latent_mask is not None:
+                    # Re-anchor the kept region to the init latents noised
+                    # to this step's output level.
+                    anchor = schedulers.anchor_noise(
+                        schedule, init_latents,
+                        self._draw(None if inpaint_noise is None else
+                                   inpaint_noise[i], latents.shape,
+                                   generator),
+                        i, i - t_start)
+                    latents = latent_mask * latents + \
+                        (1.0 - latent_mask) * anchor
+                if debug:
+                    recorded.append(latents)
 
         if debug and output_type == 'pil':
             images = [im for lat in recorded

@@ -31,8 +31,10 @@ pipeline; the tiling applies at once.
 
 ``Runner.timer`` (``utils/profiling.PhaseTimer``) accumulates the host
 seconds of ``gen``'s two phases, ``'embeds'`` (the prompt and guide
-embeddings) and ``'generate'`` (denoise, decode and saving), as the JAX
-Runner's.
+embeddings, as the host enqueues them) and ``'generate'`` (denoise, decode
+and saving, up to the images on the host), as the JAX Runner's. In a
+``torch.profiler`` trace ``gen`` is the span ``fd.gen`` and its phases
+``fd.embeds`` and ``fd.generate`` (``utils/profiling.span``).
 
 Seeds are clamped as in the JAX Runner and seed a ``torch.Generator`` on the
 UNet's device; it draws every batch's noise in turn. A torch generator and a
@@ -74,7 +76,7 @@ from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
 from flexdiffuse_tpu_torch.text.tokenizer import CLIPTokenizer
 from flexdiffuse_tpu_torch.utils.image import (clip_preprocess, image_grid,
                                                preprocess)
-from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer
+from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer, span, spanned
 from flexdiffuse_tpu_torch.weights import convert, load
 from flexdiffuse_tpu_torch.weights import lora as _lora
 from flexdiffuse_tpu_torch.weights import textual_inversion as _ti
@@ -226,14 +228,17 @@ def run_batches(batches: int, sample, output_dir: str, fp: str,
         log.info('batch %d/%d: %d image(s) in %.2fs', b + 1, batches,
                  len(images), time.time() - stime)
         if save:
-            for i, img in enumerate(images):
-                img.save(f'{output_dir}/{ms_time:>013d}_{i:>02d}_{fp}.png',
-                         format='png')
+            with span('fd.save'):
+                for i, img in enumerate(images):
+                    img.save(f'{output_dir}/{ms_time:>013d}_{i:>02d}_{fp}'
+                             '.png', format='png')
         all_images.extend(images)
-    grid = image_grid(all_images)
+    with span('fd.grid'):
+        grid = image_grid(all_images)
     if save:
         ms_time = int(time.time() * 1000)
-        grid.save(f'{grid_dir}/{ms_time:>013d}_{fp}.png', format='png')
+        with span('fd.save'):
+            grid.save(f'{grid_dir}/{ms_time:>013d}_{fp}.png', format='png')
     return all_images, grid
 
 
@@ -515,6 +520,7 @@ class Runner:
                              **control).images
         return run_batches(batches, sample, self.output_dir, fp, save)
 
+    @spanned('fd.gen')
     def gen(self,
             prompt: Union[str, List[str]] = '',
             init_image: Optional[Image.Image] = None,
@@ -616,8 +622,6 @@ class Runner:
                 embeds = self.guide.embeds(prompt=prompt, guide=guide,
                                            mapping_concepts=mapping_concepts,
                                            params=params)
-            if embeds.device.type == 'cuda':
-                torch.cuda.synchronize(embeds.device)
         if long_prompt or weighted:
             uncond = self._windowed_uncond(negative_prompt, embeds, enc_fn)
         else:

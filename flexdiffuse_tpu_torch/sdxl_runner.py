@@ -46,7 +46,7 @@ from flexdiffuse_tpu_torch.runner import (attach_ip_adapter, ip_fields,
                                           rebuild, run_batches,
                                           seed_generator)
 from flexdiffuse_tpu_torch.utils.image import clip_preprocess
-from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer
+from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer, spanned
 from flexdiffuse_tpu_torch.weights import convert, load
 from flexdiffuse_tpu_torch.weights import lora as _lora
 
@@ -219,6 +219,7 @@ class SDXLRunner:
     _UNSUPPORTED = ('mask', 'control_image', 'mapping_concepts',
                     'long_prompt', 'weighted')
 
+    @spanned('fd.gen')
     def gen(self,
             prompt: Union[str, List[str]] = '',
             negative_prompt: str = '',

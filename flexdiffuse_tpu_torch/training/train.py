@@ -28,6 +28,11 @@ loss. A step's optional ``extra`` is SDXL's ``added_cond``
 ``added_cond=``; the UNet computes the time ids' sinusoidal features in
 fp32 under autocast too (``models/unet.py`` ``embed_time``).
 
+In a ``torch.profiler`` trace a step is the span ``fd.train_step`` holding
+``fd.lora_merge`` (LoRA), ``fd.forward`` (the loss), ``fd.backward`` and
+``fd.optimizer`` (the gradient sync, clipping and AdamW), in that order
+(``utils/profiling.span``).
+
 ``mesh`` (a ``(data, model)`` mesh of ``parallel/mesh.py``; every rank
 calls the step with the same arguments): each rank draws the *global*
 batch's ``t`` and ``noise`` from the same generator, keeps its rows
@@ -55,6 +60,7 @@ from torch.utils import checkpoint as _ckpt
 
 from flexdiffuse_tpu_torch import schedulers
 from flexdiffuse_tpu_torch.ops import attention as _attn
+from flexdiffuse_tpu_torch.utils.profiling import span, spanned
 from flexdiffuse_tpu_torch.weights.safetensors import save_safetensors
 
 Tensor = torch.Tensor
@@ -266,6 +272,7 @@ def draw_t_noise(latents: Tensor, cfg: TrainConfig, t: Optional[Tensor],
     return t, noise
 
 
+@spanned('fd.forward')
 def diffusion_loss(apply_fn: Callable, latents: Tensor, context: Tensor,
                    acp: Tensor, cfg: TrainConfig, *,
                    t: Optional[Tensor] = None, noise: Optional[Tensor] = None,
@@ -389,6 +396,7 @@ def make_train_step(unet: nn.Module, cfg: TrainConfig, mesh=None,
     apply_fn = _remat_apply(unet, cfg)
     sw = _weights(sample_weights, dev)
 
+    @spanned('fd.train_step')
     def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
              noise=None, generator=None) -> Tensor:
         latents, context, extra, t, noise, w = par.rows(
@@ -397,9 +405,11 @@ def make_train_step(unet: nn.Module, cfg: TrainConfig, mesh=None,
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
                                   sample_weights=w, added_cond=extra)
-        loss.backward()
-        par.sync(leaves)
-        opt.step()
+        with span('fd.backward'):
+            loss.backward()
+        with span('fd.optimizer'):
+            par.sync(leaves)
+            opt.step()
         return par.loss(loss)
 
     return step, opt
@@ -446,6 +456,7 @@ def init_lora(unet: nn.Module, rank: int = 8,
     return factors
 
 
+@spanned('fd.lora_merge')
 def merge_lora_params(unet: nn.Module, factors: Factors,
                       scale: float = 1.0) -> Dict[str, Tensor]:
     """Effective weights ``{'<module>.weight': base.detach() +
@@ -483,6 +494,7 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
     acp = schedule_tables(cfg, dev)
     sw = _weights(sample_weights, dev)
 
+    @spanned('fd.train_step')
     def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
              noise=None, generator=None) -> Tensor:
         latents, context, extra, t, noise, w = par.rows(
@@ -495,9 +507,11 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
                                   sample_weights=w, added_cond=extra)
-        loss.backward()
-        par.sync(leaves, model_sum=True)
-        opt.step()
+        with span('fd.backward'):
+            loss.backward()
+        with span('fd.optimizer'):
+            par.sync(leaves, model_sum=True)
+            opt.step()
         return par.loss(loss)
 
     return step, opt
