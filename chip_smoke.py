@@ -890,6 +890,7 @@ class UNetProbe:
     finiteness flags of ε."""
 
     def __init__(self, unet) -> None:
+        self.unet = unet
         self.calls = 0
         self.first = self.last = None
         self.finite = []
@@ -1467,7 +1468,9 @@ def run_generate(label: str, call, probe: 'UNetProbe', latent_finite: list,
     """Drive one generate entry point with the launch counts at 0; check
     the images, finite ε and latents, and the exact launches: K1 10 and K6
     61 per UNet evaluation, K6 30 per VAE decode (``decodes`` None: one per
-    evaluation, as debug mode decodes every step) and 22 per encode."""
+    evaluation, as debug mode decodes every step) and 22 per encode. The
+    UNet's calls replay CUDA graphs after their first two (the counters
+    count a replay's launches); ``graph_stats`` is the running count."""
     probe.reset()
     latent_finite.clear()
     torch.cuda.synchronize()
@@ -1480,9 +1483,11 @@ def run_generate(label: str, call, probe: 'UNetProbe', latent_finite: list,
     calls = probe.calls
     decodes = calls if decodes is None else decodes
     arrs = [np.asarray(im) for im in out]
+    graphs = probe.unet.graph_stats
     res = dict(label=label, unet_evaluations=calls, denoise_s=denoise,
                unet_evals_per_s=calls / denoise, e2e_s=e2e, images=len(arrs),
-               launches=got)
+               launches=got,
+               graph_stats=dict(graphs, eager=dict(graphs['eager'])))
     print(f'{label}: {json.dumps(res)}')
     if len(arrs) != images or any(a.shape != (512, 512, 3) or
                                   a.dtype != np.uint8 for a in arrs):

@@ -78,6 +78,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from flexdiffuse_tpu_torch.models.configs import UNetConfig
+from flexdiffuse_tpu_torch.models.unet_graph import GraphCache
 from flexdiffuse_tpu_torch.ops import row_shard
 from flexdiffuse_tpu_torch.ops import tome as _tome
 from flexdiffuse_tpu_torch.ops.attention import attention, attention_cm
@@ -765,6 +766,7 @@ class UNet2DCondition(DownMid):
         self.pag_layers = None
         self.channel_major = channel_major
         self.approx_gelu = approx_gelu
+        self._graphs = GraphCache()
         ch0 = cfg.block_channels[0]
         groups = cfg.norm_groups
         n = len(cfg.block_channels)
@@ -880,7 +882,41 @@ class UNet2DCondition(DownMid):
         Under sequence parallelism ``latents`` and the returned ε are
         whole; the DeepCache state and the ControlNet residuals are laid
         out level by level as the plan of the same latent rows lays them
-        out (this rank's rows on a sharded level)."""
+        out (this rank's rows on a sharded level).
+
+        A CUDA call with no gradient and every optional argument at its
+        default is replayed from a CUDA graph of this forward
+        (``models/unet_graph.py``); :attr:`graph_stats` counts captures,
+        replays and the calls that ran eager, by reason."""
+        argument = next((name for name, on in (
+            ('cache_mode', cache_mode != 'off' or deep_cache is not None),
+            ('pag', pag_mask is not None), ('control', control is not None),
+            ('ip', ip_ctx is not None),
+            ('timestep_cond', timestep_cond is not None),
+            ('added_cond', added_cond is not None)) if on), None)
+        why = self._graphs.reason(self, latents, t, context, argument)
+        if why is None:
+            return self._graphs.run(self, self._forward, latents, t, context)
+        self._graphs.eager(why)
+        return self._forward(latents, t, context, timestep_cond, deep_cache,
+                             cache_mode, pag_mask, control, ip_ctx, ip_scale,
+                             added_cond)
+
+    @property
+    def graph_stats(self) -> dict:
+        """``captures``, ``replays`` and ``eager`` (a ``Counter`` of the
+        calls that ran the eager body, by reason) of the CUDA graphs of
+        this module's calls (``models/unet_graph.py``), shared with its
+        :meth:`with_settings` copies."""
+        return self._graphs.stats
+
+    def _forward(self, latents: torch.Tensor, t: torch.Tensor,
+                 context: torch.Tensor, timestep_cond: torch.Tensor = None,
+                 deep_cache: torch.Tensor = None, cache_mode: str = 'off',
+                 pag_mask: torch.Tensor = None, control=None,
+                 ip_ctx: torch.Tensor = None, ip_scale=1.0,
+                 added_cond: dict = None):
+        """The eager body of :meth:`forward`."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         n = len(cfg.block_channels)
