@@ -30,6 +30,7 @@ from flexdiffuse_tpu_torch.models.configs import (CLIP_VIT_L14_TEXT,
                                                   OPENCLIP_BIGG_TEXT,
                                                   SDXL_REFINER_UNET,
                                                   SDXL_UNET, SDXL_VAE)
+from flexdiffuse_tpu_torch.utils.profiling import spanned
 
 SDXL_LATENT_SCALE = 0.13025
 # SDXL's second tokenizer pads with '!' (id 0), not EOS.
@@ -40,7 +41,9 @@ Prompt = Union[str, List[str]]
 
 class SDXLTextEncoder:
     """Dual-encoder prompt encoding on the encoders' device: ``encode() ->
-    (ctx [B, 77, 2048], pooled [B, 1280])``."""
+    (ctx [B, 77, 2048], pooled [B, 1280])``. Each encode is an
+    ``fd.encode`` span, as :class:`~flexdiffuse_tpu_torch.encode.
+    CLIPEncoder`'s are."""
 
     def __init__(self, enc1: CLIPTextModel, enc2: CLIPTextModel,
                  tokenizer) -> None:
@@ -53,6 +56,7 @@ class SDXLTextEncoder:
         return torch.as_tensor(self.tokenizer(prompt, pad_id=pad_id),
                                dtype=torch.long, device=device)
 
+    @spanned('fd.encode')
     @torch.no_grad()
     def encode(self, prompt: Prompt) -> Tuple[torch.Tensor, torch.Tensor]:
         h1 = self.enc1(self._ids(prompt), output='penultimate')
@@ -64,6 +68,7 @@ class SDXLTextEncoder:
         """The context only (the CLIPEncoder contract)."""
         return self.encode(prompt)[0]
 
+    @spanned('fd.encode')
     @torch.no_grad()
     def encode_l(self, prompt: Prompt) -> torch.Tensor:
         """Encoder-1 (CLIP-L) penultimate states only ``[B, 77, 768]``: the
@@ -71,6 +76,7 @@ class SDXLTextEncoder:
         embedding)."""
         return self.enc1(self._ids(prompt), output='penultimate')
 
+    @spanned('fd.encode')
     @torch.no_grad()
     def encode_refiner(self, prompt: Prompt
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -885,18 +885,29 @@ class UNet2DCondition(DownMid):
         out (this rank's rows on a sharded level).
 
         A CUDA call with no gradient and every optional argument at its
-        default is replayed from a CUDA graph of this forward
-        (``models/unet_graph.py``); :attr:`graph_stats` counts captures,
-        replays and the calls that ran eager, by reason."""
+        default but ``added_cond`` is replayed from a CUDA graph of this
+        forward (``models/unet_graph.py``); :attr:`graph_stats` counts
+        captures, replays and the calls that ran eager, by reason."""
         argument = next((name for name, on in (
             ('cache_mode', cache_mode != 'off' or deep_cache is not None),
             ('pag', pag_mask is not None), ('control', control is not None),
             ('ip', ip_ctx is not None),
             ('timestep_cond', timestep_cond is not None),
-            ('added_cond', added_cond is not None)) if on), None)
+            ('added_cond', added_cond is not None and not (
+                set(added_cond) == {'text_embeds', 'time_ids'} and all(
+                    map(torch.is_tensor, added_cond.values()))))) if on),
+            None)
         why = self._graphs.reason(self, latents, t, context, argument)
-        if why is None:
+        if why is None and added_cond is None:
             return self._graphs.run(self, self._forward, latents, t, context)
+        if why is None:
+            # The graph's inputs are tensors on the card; the eager body
+            # moves the ids there itself.
+            dev = latents.device
+            return self._graphs.run(
+                self, self._forward_added, latents, t, context,
+                added_cond['text_embeds'].to(dev),
+                added_cond['time_ids'].to(dev))
         self._graphs.eager(why)
         return self._forward(latents, t, context, timestep_cond, deep_cache,
                              cache_mode, pag_mask, control, ip_ctx, ip_scale,
@@ -909,6 +920,14 @@ class UNet2DCondition(DownMid):
         this module's calls (``models/unet_graph.py``), shared with its
         :meth:`with_settings` copies."""
         return self._graphs.stats
+
+    def _forward_added(self, latents: torch.Tensor, t: torch.Tensor,
+                       context: torch.Tensor, text_embeds: torch.Tensor,
+                       time_ids: torch.Tensor) -> torch.Tensor:
+        """The eager body with SDXL's ``added_cond`` as two more inputs,
+        as :meth:`GraphCache.run` takes them."""
+        return self._forward(latents, t, context, added_cond={
+            'text_embeds': text_embeds, 'time_ids': time_ids})
 
     def _forward(self, latents: torch.Tensor, t: torch.Tensor,
                  context: torch.Tensor, timestep_cond: torch.Tensor = None,

@@ -9,9 +9,10 @@ one host call; the kernels, and their order, are the eager body's.
 :meth:`UNet2DCondition.forward` asks :meth:`GraphCache.reason` whether a
 call may be replayed, from what the call carries: a CUDA call with no
 gradient, no autocast, no stream capturing already, no sequence-parallel
-axis or process group, every optional argument at its default and no ToMe
-or FreeU. Any other call runs the eager body and is counted under its
-reason in ``stats['eager']``.
+axis or process group, every optional argument at its default but SDXL's
+``added_cond`` (its two tensors become two more inputs) and no ToMe or
+FreeU. Any other call runs the eager body and is counted under its reason
+in ``stats['eager']``.
 
 An eligible call goes to :meth:`GraphCache.run`, keyed by its signature:
 the inputs' shapes, dtypes and strides, the device, and the dispatcher
@@ -238,11 +239,11 @@ class GraphCache:
         self._weights = _Weights(module)
         return w is not None
 
-    def run(self, module: nn.Module, body: Callable, latents: torch.Tensor,
-            t: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        """An eligible call (:meth:`reason` None): ``body(latents, t,
-        context)`` eager, captured or replayed."""
-        inputs = (latents, t, context)
+    def run(self, module: nn.Module, body: Callable,
+            *inputs: torch.Tensor) -> torch.Tensor:
+        """An eligible call (:meth:`reason` None): ``body(*inputs)`` eager,
+        captured or replayed (``inputs``: the latents, ``t``, the context
+        and, for SDXL, the pooled embedding and the time ids)."""
         if self._weights_changed(module):
             self.eager('weights')
             self._entries[self._key(module, inputs)] = _Entry()

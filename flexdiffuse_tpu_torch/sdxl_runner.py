@@ -31,12 +31,11 @@ from PIL import Image
 from flexdiffuse_tpu_torch.config import GuidanceParams
 from flexdiffuse_tpu_torch.guidance.tween import Tweener
 from flexdiffuse_tpu_torch.models.clip import CLIPVisionModel
-from flexdiffuse_tpu_torch.models.configs import (CLIP_VIT_L14_TEXT,
-                                                  CLIP_VIT_L14_VISION,
+from flexdiffuse_tpu_torch.models.configs import (CLIP_VIT_L14_VISION,
                                                   OPENCLIP_BIGG_VISION,
-                                                  OPENCLIP_H_VISION,
-                                                  SDXL_UNET)
-from flexdiffuse_tpu_torch.models.sdxl import (SDXL_LATENT_SCALE, load_sdxl,
+                                                  OPENCLIP_H_VISION)
+from flexdiffuse_tpu_torch.models.sdxl import (SDXL_LATENT_SCALE,
+                                               SDXLTextEncoder, load_sdxl,
                                                load_sdxl_refiner,
                                                sdxl_guidance,
                                                sdxl_refiner_guidance,
@@ -45,6 +44,7 @@ from flexdiffuse_tpu_torch.pipeline import FlexPipeline
 from flexdiffuse_tpu_torch.runner import (attach_ip_adapter, ip_fields,
                                           rebuild, run_batches,
                                           seed_generator)
+from flexdiffuse_tpu_torch.schedulers import SchedulerConfig
 from flexdiffuse_tpu_torch.utils.image import clip_preprocess
 from flexdiffuse_tpu_torch.utils.profiling import PhaseTimer, spanned
 from flexdiffuse_tpu_torch.weights import convert, load
@@ -54,7 +54,9 @@ IP_ENCODERS = {'vit-h': OPENCLIP_H_VISION, 'bigg': OPENCLIP_BIGG_VISION}
 
 
 class SDXLRunner:
-    """SDXL base (and optional refiner) from HF snapshots on disk."""
+    """SDXL base (and optional refiner): from HF snapshots on disk
+    (``SDXLRunner(model_root=...)``) or from built modules
+    (:meth:`from_models`)."""
 
     def __init__(self, model_root: str, clip_root: Optional[str] = None,
                  scheduler: str = 'dpmpp',
@@ -72,43 +74,74 @@ class SDXLRunner:
                     'SDXLRunner runs on the CUDA card by default and none is '
                     "available; pass device='cpu' to run on the CPU")
             device = 'cuda'
-        unet, vae, self.text = load_sdxl(model_root, device=device,
-                                         dtype=dtype, **load_kwargs)
-        # The width of the encoder-1 (CLIP-L) slice of the context: the
-        # half that guides tween.
-        self._l_dim = load_kwargs.get('te1_config',
-                                      CLIP_VIT_L14_TEXT).hidden_size
-        self._unet_config = load_kwargs.get('unet_config', SDXL_UNET)
-        self.pipe = FlexPipeline(unet, vae, scheduler=scheduler,
-                                 latent_scale=SDXL_LATENT_SCALE)
+        unet, vae, text = load_sdxl(model_root, device=device, dtype=dtype,
+                                    **load_kwargs)
         # The refiner (ensemble-of-experts second stage): its own UNet in a
         # pipeline sharing the base VAE; bigG-only conditioning.
-        self.refiner_pipe = None
+        r_unet = None
         if refiner_root:
             rkw = {} if refiner_config is None else {
                 'unet_config': refiner_config}
             r_unet = load_sdxl_refiner(refiner_root, device=device,
                                        dtype=dtype, **rkw)
-            self.refiner_pipe = FlexPipeline(r_unet, vae, scheduler=scheduler,
-                                             latent_scale=SDXL_LATENT_SCALE)
-        self.vision = None
+        vision = None
         if clip_root:
             _, vision_sd = load.load_clip(clip_root)
-            self.vision = load.instantiate(
-                CLIPVisionModel, CLIP_VIT_L14_VISION,
-                vision_sd, device, dtype)
-        self.output_dir = output_dir
-        self._generator = torch.Generator(self.pipe.device)
-        self._ip = None
-        self.timer = PhaseTimer()
+            vision = load.instantiate(CLIPVisionModel, CLIP_VIT_L14_VISION,
+                                      vision_sd, device, dtype)
+        self._init(unet, vae, text, vision, scheduler, None, output_dir,
+                   r_unet)
         # The stored weights apply_lora merges from (mapped safetensors
-        # files only), and the weights a LoRA has changed.
+        # files only).
         files = {t: load.weights_file(os.path.join(model_root, sub))
                  for t, sub in (('unet', 'unet'), ('te', 'text_encoder'),
                                 ('te2', 'text_encoder_2'))}
         self._snapshots = {t: f for t, f in files.items()
                            if f.endswith('.safetensors')}
-        self._merged: set = set()
+
+    @classmethod
+    def from_models(cls, unet, vae, text_encoder: SDXLTextEncoder,
+                    vision_model=None, scheduler: str = 'dpmpp',
+                    scheduler_config: Optional[SchedulerConfig] = None,
+                    output_dir: str = './outputs',
+                    refiner_unet=None) -> 'SDXLRunner':
+        """Build from modules that already hold their weights (on the
+        device, in the dtype they should run in): the base UNet, the VAE,
+        an :class:`SDXLTextEncoder` over the two text towers, optionally
+        the CLIP ViT-L/14 vision tower (image guides) and the refiner's
+        UNet. ``scheduler``: a kind of :mod:`~flexdiffuse_tpu_torch.
+        schedulers`; ``scheduler_config`` its training schedule and
+        switches. ``apply_lora`` then merges from the loaded weights (there
+        is no snapshot to read the stored ones from)."""
+        self = cls.__new__(cls)
+        self._init(unet, vae, text_encoder, vision_model, scheduler,
+                   scheduler_config, output_dir, refiner_unet)
+        self._snapshots = {}
+        return self
+
+    def _init(self, unet, vae, text: SDXLTextEncoder, vision_model,
+              scheduler: str, scheduler_config: Optional[SchedulerConfig],
+              output_dir: str, refiner_unet=None) -> None:
+        self.text = text
+        # The width of the encoder-1 (CLIP-L) slice of the context: the
+        # half that guides tween.
+        self._l_dim = text.enc1.config.hidden_size
+        self._unet_config = unet.config
+        self.pipe = FlexPipeline(unet, vae, scheduler=scheduler,
+                                 scheduler_config=scheduler_config,
+                                 latent_scale=SDXL_LATENT_SCALE)
+        self.refiner_pipe = None
+        if refiner_unet is not None:
+            self.refiner_pipe = FlexPipeline(
+                refiner_unet, vae, scheduler=scheduler,
+                scheduler_config=scheduler_config,
+                latent_scale=SDXL_LATENT_SCALE)
+        self.vision = vision_model
+        self.output_dir = output_dir
+        self._generator = torch.Generator(self.pipe.device)
+        self._ip = None
+        self.timer = PhaseTimer()
+        self._merged: set = set()   # parameters a LoRA has changed
 
     # ------------------------------------------------------------------
     def enable_deepcache(self, interval: int = 2) -> None:

@@ -80,6 +80,7 @@ REASONS = {
     'ip': lambda u: (u, {'ip_ctx': torch.zeros(2, 4, 32)}, None),
     'timestep_cond': lambda u: (u, {'timestep_cond': torch.zeros(2, 8)},
                                 None),
+    # An added_cond that is not SDXL's two tensors.
     'added_cond': lambda u: (u, {'added_cond': {}}, None),
     'tome': lambda u: (u.with_settings(tome=(0.5, 16)), {}, None),
     'freeu': lambda u: (u.with_settings(freeu=(1.5, 1.6, 0.9, 0.2)), {},
@@ -257,6 +258,48 @@ def test_copies_of_the_module_start_with_no_graphs(unet):
 
 
 # --------------------------------------------------------------------------
+S = tm.TINY_SDXL_UNET
+
+
+def _added_inputs(pooled_seed, device='cpu'):
+    """A tiny SDXL call: latents, ``t``, the context and ``added_cond`` as
+    the pipeline gives it (the pooled rows on the device, the ids a host
+    row expanded to the batch)."""
+    g = torch.Generator(device).manual_seed(1)
+    pooled = torch.Generator(device).manual_seed(pooled_seed)
+    ids = torch.tensor([[64.0, 64.0, 0.0, 0.0, 64.0, 64.0]])
+    return ((torch.randn((2, 8, 8, S.in_channels), generator=g,
+                         device=device),
+             torch.tensor(500.0, device=device).expand(2),
+             torch.randn((2, 7, S.cross_attention_dim), generator=g,
+                         device=device)),
+            {'text_embeds': torch.randn((2, S.addition_pooled_dim),
+                                        generator=pooled, device=device),
+             'time_ids': ids.expand(2, 6)})
+
+
+def test_sdxl_added_cond_calls_are_captured_and_replayed(monkeypatch):
+    """SDXL's calls go to the cache with the pooled embedding and the ids
+    as two more inputs: a replay reads them from its static buffers, so a
+    call with another pooled embedding replays to that call's ε."""
+    torch.manual_seed(0)
+    unet = tm.UNet2DCondition(S).eval()
+    unet._graphs = _fake_cache()
+    # On the CPU every call is eager by 'device'; the rest of reason()
+    # stands.
+    monkeypatch.setattr(unet._graphs, 'reason',
+                        lambda module, *a, argument=None: argument)
+    a, b = _added_inputs(2), _added_inputs(3)
+    with torch.no_grad():
+        want = [unet._forward(*x, added_cond=c) for x, c in (a, b)]
+        got = [unet(*x, added_cond=c) for x, c in (a, b, a, b)]
+    assert unet.graph_stats == {'captures': 1, 'replays': 2,
+                                'eager': {'first': 1}}
+    assert not torch.equal(want[0], want[1])
+    for g, w in zip(got, want + want):
+        assert torch.equal(g, w)
+
+
 # On the card.
 
 
@@ -369,3 +412,22 @@ def test_cuda_autocast_and_an_outer_capture_stay_eager(cuda):
     assert unet.graph_stats == {'captures': 0, 'replays': 0,
                                 'eager': {'autocast': 1, 'first': 1,
                                           'capturing': 1}}
+
+
+@pytest.mark.cuda
+def test_cuda_sdxl_replay_matches_the_eager_call(cuda):
+    torch.manual_seed(0)
+    unet = tm.UNet2DCondition(S).to('cuda', torch.bfloat16).eval() \
+        .requires_grad_(False)
+    a, b = _added_inputs(2, 'cuda'), _added_inputs(3, 'cuda')
+    # The pipeline's ids are a host row.
+    for _, c in (a, b):
+        c['time_ids'] = c['time_ids'].cpu()
+    with torch.no_grad():
+        got = [unet(*x, added_cond=c) for x, c in (a, b, a, b)]
+        want = [unet._forward(*x, added_cond=c) for x, c in (a, b)]
+    torch.cuda.synchronize()
+    assert unet.graph_stats == {'captures': 1, 'replays': 2,
+                                'eager': {'first': 1}}
+    for g, w in zip(got, want + want):
+        assert torch.equal(g, w)
