@@ -28,6 +28,11 @@ log = logging.getLogger(__name__)
 
 _NAME = re.compile(r'^step_(\d+)\.pt$')
 
+# AdamW's group keys that say how it runs, not what it computes: a state
+# written on the CPU resumes on the card and back (``ClippedAdamW``'s
+# ``load_state_dict`` keeps the running optimizer's).
+_NOT_CHECKED = ('params', 'capturable', 'foreach', 'fused', 'differentiable')
+
 
 def _structure(state: dict) -> dict:
     """What must match between a checkpoint and the current run: the names,
@@ -39,7 +44,7 @@ def _structure(state: dict) -> dict:
             out[key] = {n: (tuple(t.shape), str(t.dtype))
                         for n, t in state[key].items()}
     opt = state['opt_state']
-    out['opt'] = ([{k: v for k, v in g.items() if k != 'params'}
+    out['opt'] = ([{k: v for k, v in g.items() if k not in _NOT_CHECKED}
                    for g in opt['adamw']['param_groups']],
                   opt['every'], opt['max_norm'])
     return out

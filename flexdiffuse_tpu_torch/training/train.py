@@ -31,7 +31,13 @@ fp32 under autocast too (``models/unet.py`` ``embed_time``).
 In a ``torch.profiler`` trace a step is the span ``fd.train_step`` holding
 ``fd.lora_merge`` (LoRA), ``fd.forward`` (the loss), ``fd.backward`` and
 ``fd.optimizer`` (the gradient sync, clipping and AdamW), in that order
-(``utils/profiling.span``).
+(``utils/profiling.span``); a LoRA step replayed from a CUDA graph holds
+``fd.train_replay`` instead.
+
+A LoRA step on one card without accumulation replays from a CUDA graph of
+its whole body once it has run eager once (``training/step_graph.py``);
+``step.graph_stats`` counts its captures, replays and eager calls by
+reason. Full fine-tuning (:func:`make_train_step`) runs eager.
 
 ``mesh`` (a ``(data, model)`` mesh of ``parallel/mesh.py``; every rank
 calls the step with the same arguments): each rank draws the *global*
@@ -60,6 +66,7 @@ from torch.utils import checkpoint as _ckpt
 
 from flexdiffuse_tpu_torch import schedulers
 from flexdiffuse_tpu_torch.ops import attention as _attn
+from flexdiffuse_tpu_torch.training import step_graph as _step_graph
 from flexdiffuse_tpu_torch.utils.profiling import span, spanned
 from flexdiffuse_tpu_torch.weights.safetensors import save_safetensors
 
@@ -110,19 +117,25 @@ class ClippedAdamW:
     keeps optax's running mean ``acc += (g − acc) / (n + 1)`` and applies it
     on the k-th call. ``torch.optim.AdamW`` computes optax's ``adamw``
     update: decoupled decay on the pre-update weights, eps outside the root.
+    ``capturable``: AdamW keeps its step count on the card and computes
+    the bias correction there, with no host sync, so that a CUDA graph may
+    hold the update (``training/step_graph.py``); every LoRA step on CUDA
+    takes it. :meth:`load_state_dict` keeps it, whatever optimizer wrote
+    the state.
     """
 
     def __init__(self, params: Iterable[Tensor], cfg: TrainConfig,
-                 tp_group=None) -> None:
+                 tp_group=None, capturable: bool = False) -> None:
         self.params = list(params)
         # Tensor parallelism: the squares of the sharded parameters'
         # gradients are summed over the model group for the clipping norm.
         self.tp_group = tp_group
         self.max_norm = float(cfg.max_grad_norm)
         self.every = int(cfg.grad_accum)
+        self.capturable = bool(capturable)
         self.adamw = torch.optim.AdamW(
             self.params, lr=cfg.learning_rate, betas=(cfg.b1, cfg.b2),
-            eps=1e-8, weight_decay=cfg.weight_decay)
+            eps=1e-8, weight_decay=cfg.weight_decay, capturable=capturable)
         self.mini_step = 0
         self.acc: Optional[List[Tensor]] = None
 
@@ -182,14 +195,23 @@ class ClippedAdamW:
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state['adamw'])
+        # The state's groups carry the flags of the optimizer that wrote
+        # it (on the CPU or the card); this one keeps its own, and its step
+        # counts where it reads them: on the card when capturable.
+        for group in self.adamw.param_groups:
+            group['capturable'] = self.capturable
+        for p, st in self.adamw.state.items():
+            if 'step' in st:
+                st['step'] = st['step'].to(
+                    p.device if self.capturable else 'cpu')
         self.mini_step = int(state['mini_step'])
         self.acc = [a.to(p.device) for a, p in zip(state['acc'],
                                                    self.params)] or None
 
 
 def make_optimizer(params: Iterable[Tensor], cfg: TrainConfig,
-                   tp_group=None) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg, tp_group)
+                   tp_group=None, capturable: bool = False) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, tp_group, capturable)
 
 
 # Matmuls without batch dims and convolutions: what remat='dots' keeps
@@ -209,17 +231,24 @@ def _dots_context():
     return _ckpt.create_selective_checkpoint_contexts(_dots_policy)
 
 
-def compute_context(device: torch.device):
-    """bf16 autocast on CUDA; nothing on the CPU."""
+def compute_context(device: torch.device, cache: bool = True):
+    """bf16 autocast on CUDA; nothing on the CPU. ``cache=False`` keeps no
+    casts of grad-requiring leaves across ops, as a CUDA graph capture
+    asks."""
     if device.type == 'cuda':
-        return torch.autocast('cuda', dtype=torch.bfloat16)
+        return torch.autocast('cuda', dtype=torch.bfloat16,
+                              cache_enabled=cache)
     return contextlib.nullcontext()
 
 
-def _remat_apply(apply_fn: Callable, cfg: TrainConfig) -> Callable:
+def _remat_apply(apply_fn: Callable, cfg: TrainConfig,
+                 preserve_rng_state: bool = True) -> Callable:
     """Training-path apply: the attention backend scope plus the configured
     rematerialization. Under 'full' and 'dots' the backward recomputes the
-    forward, so K3 runs twice per flash attention and step."""
+    forward, so K3 runs twice per flash attention and step.
+    ``preserve_rng_state=False``: the recompute does not restore the RNG
+    states of the forward, which a CUDA graph capture cannot read; exact
+    where the region draws nothing."""
 
     def scoped_apply(*args, **kwargs):
         with _attn.backend(cfg.attention_backend):
@@ -229,10 +258,12 @@ def _remat_apply(apply_fn: Callable, cfg: TrainConfig) -> Callable:
         return scoped_apply
     if cfg.remat == 'full':
         return lambda *args, **kwargs: _ckpt.checkpoint(
-            scoped_apply, *args, use_reentrant=False, **kwargs)
+            scoped_apply, *args, use_reentrant=False,
+            preserve_rng_state=preserve_rng_state, **kwargs)
     if cfg.remat == 'dots':
         return lambda *args, **kwargs: _ckpt.checkpoint(
             scoped_apply, *args, use_reentrant=False,
+            preserve_rng_state=preserve_rng_state,
             context_fn=_dots_context, **kwargs)
     raise ValueError(f'unknown remat mode {cfg.remat!r}')
 
@@ -483,27 +514,33 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
                          sample_weights=None):
     """``(step, optimizer)`` updating only the LoRA ``factors`` (in place);
     the UNet's own parameters are frozen (``requires_grad_(False)``).
-    ``step`` has :func:`make_train_step`'s signature."""
+    ``step`` has :func:`make_train_step`'s signature. On one card without
+    accumulation its calls replay from CUDA graphs of the whole step
+    (``training/step_graph.py``); ``step.graph_stats`` counts them."""
     par = _Parallel(mesh)
     unet.requires_grad_(False)
     dev = _device(unet)
     leaves = [f[k] for f in factors.values() for k in ('down', 'up')]
     for leaf in leaves:
         leaf.requires_grad_(True)
-    opt = make_optimizer(leaves, cfg)
+    # Every step is built as a graphed one is (capturable AdamW on CUDA, no
+    # autocast cache, no RNG state across remat's recompute): one
+    # arithmetic, so a world-1 mesh or a step kept eager equals a replayed
+    # one bit for bit.
+    opt = make_optimizer(leaves, cfg, capturable=dev.type == 'cuda')
     acp = schedule_tables(cfg, dev)
     sw = _weights(sample_weights, dev)
+    graphs = _step_graph.StepGraph(unet, factors, opt, mesh=mesh,
+                                   grad_accum=cfg.grad_accum,
+                                   sample_weights=sw)
 
-    @spanned('fd.train_step')
-    def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
-             noise=None, generator=None) -> Tensor:
-        latents, context, extra, t, noise, w = par.rows(
-            cfg, latents, context, extra, t, noise, generator, sw)
+    def body(latents: Tensor, context: Tensor, extra, t, noise, w,
+             generator) -> Tensor:
         eff = merge_lora_params(unet, factors, scale)
         apply_fn = _remat_apply(
             lambda *args, **kwargs: torch.func.functional_call(
-                unet, eff, args, kwargs), cfg)
-        with compute_context(dev):
+                unet, eff, args, kwargs), cfg, preserve_rng_state=False)
+        with compute_context(dev, cache=False):
             loss = diffusion_loss(apply_fn, latents, context, acp, cfg, t=t,
                                   noise=noise, generator=generator,
                                   sample_weights=w, added_cond=extra)
@@ -514,6 +551,29 @@ def make_lora_train_step(unet: nn.Module, factors: Factors,
             opt.step()
         return par.loss(loss)
 
+    @spanned('fd.train_step')
+    def step(latents: Tensor, context: Tensor, extra=None, *, t=None,
+             noise=None, generator=None) -> Tensor:
+        latents, context, extra, t, noise, w = par.rows(
+            cfg, latents, context, extra, t, noise, generator, sw)
+        # The step's tensors by name, SDXL's added_cond as 'extra.<key>'.
+        inputs = {'latents': latents, 'context': context, 't': t,
+                  'noise': noise, **{f'extra.{k}': v
+                                     for k, v in (extra or {}).items()}}
+        inputs = {k: v for k, v in inputs.items() if v is not None}
+        why = graphs.reason(inputs)
+        if why is not None:
+            graphs.eager(why)
+            return body(latents, context, extra, t, noise, w, generator)
+
+        def graphed_body(**xs: Tensor) -> Tensor:
+            added = None if extra is None else {
+                k: xs.get(f'extra.{k}') for k in extra}
+            return body(xs['latents'], xs['context'], added, xs.get('t'),
+                        xs.get('noise'), w, generator)
+        return graphs.run(graphed_body, inputs, generator)
+
+    step.graph_stats = graphs.stats
     return step, opt
 
 

@@ -18,6 +18,7 @@ from flexdiffuse_tpu_torch import training as tt
 from flexdiffuse_tpu_torch.models import unet_graph as ug
 from flexdiffuse_tpu_torch.ops import attention as attention_ops
 from flexdiffuse_tpu_torch.ops import flash_attention as fa
+from flexdiffuse_tpu_torch.ops import flash_variants as fv
 from flexdiffuse_tpu_torch.ops import group_norm as gn
 from flexdiffuse_tpu_torch.pipeline.flex import FlexPipeline
 from flexdiffuse_tpu_torch.pipeline.guides import SimpleGuidance
@@ -42,7 +43,7 @@ class FakeGraph:
         self.replays += 1
 
 
-def fake_capture(body, inputs, static, pool):
+def fake_capture(body, inputs, static, pool, generators=()):
     out = body(*inputs)
     static_out = body(*static)
     return out, FakeGraph(body, static, static_out), static_out
@@ -244,6 +245,50 @@ def test_replay_credits_the_capture_launches():
                                              ('sm90', 'sm90', 'resident'))]
         assert moved == [(1, 1), (9, 9), (61, 61)], i
     assert (cache.stats['captures'], cache.stats['replays']) == (1, 2)
+
+
+@pytest.mark.parametrize('fn,config', [
+    (fv.pipelined_attention, 'T3'), (fv.flash_ttv3, 'ttv4'),
+    (fv.attn_opt, 'vG4')], ids=['T3', 'T5', 'T1'])
+def test_replay_credits_the_variant_launches(fn, config):
+    """The attention variants the tools swap in for K1 count their
+    launches by configuration and path: every call, eager, captured or
+    replayed, moves each of those counters by the body's 10."""
+    unet = tm.UNet2DCondition(C).eval()
+
+    def body(lat, t, ctx):
+        for _ in range(10):
+            fv._count(fn, 'sm90', config)
+        return lat * 2
+    cache = _fake_cache()
+    x = _inputs()
+    for i in range(4):
+        before = (fn.launches[config], fn.path_launches['sm90'],
+                  fn.config_path_launches[config, 'sm90'])
+        with torch.no_grad():
+            cache.run(unet, body, *x)
+        after = (fn.launches[config], fn.path_launches['sm90'],
+                 fn.config_path_launches[config, 'sm90'])
+        assert [b - a for a, b in zip(before, after)] == [10] * 3, i
+    assert (cache.stats['captures'], cache.stats['replays']) == (1, 2)
+
+
+def test_a_swapped_attention_kernel_starts_a_new_entry(unet, monkeypatch):
+    """The tools rebind ``ops.attention.flash_attention`` to A/B a kernel
+    on one UNet: the graphs of the kernel bound before are not replayed
+    for it."""
+    cache = _fake_cache()
+    x = _inputs()
+    for _ in range(3):
+        _run(cache, unet, x)
+    assert cache.stats == {'captures': 1, 'replays': 1,
+                           'eager': {'first': 1}}
+    monkeypatch.setattr(attention_ops, 'flash_attention',
+                        lambda q, k, v, s: fa.flash_attention(q, k, v, s))
+    _run(cache, unet, x)
+    assert cache.stats['eager'] == {'first': 2}
+    _run(cache, unet, x)
+    assert cache.stats['captures'] == 2
 
 
 def test_copies_of_the_module_start_with_no_graphs(unet):
